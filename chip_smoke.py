@@ -2,20 +2,30 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-It prints the card's name and power limit, builds the port's CUDA kernel from
-the sources in the checkout, holds it against its plain PyTorch version at
-every layer shape of the flagship RadarScenes DetNet, serves a few batches of
-5 x 2816-point synthetic frames through the port's Predictor, checks that
-every conv layer launched the kernel and that the outputs match the same
-model on the plain path, and prints the kernel's times beside its bound. The
-last line is one JSON object with "ok" and the device; any failed phase
-exits non-zero.
+It prints the card's name and power limit and builds the port's three CUDA
+kernels from the sources in the checkout (dense forward, dense backward,
+segment-sum landing; one nvcc each, in parallel). It holds each kernel
+against its plain PyTorch version at every layer shape of the flagship
+RadarScenes DetNet, and checks that two backward runs give the same bits.
+It serves a few batches of 5 x 2816-point synthetic frames through the
+port's Predictor and trains the same DetNet for a few steps through the
+port's Trainer (the flagship configuration, deterministic algorithms on),
+checks that every conv layer launched the kernels, that both paths match
+the same model on the plain path and that a second training run gives the
+same losses, and prints the kernels' times beside their bounds. The last
+line is one JSON object with "ok" and the device; any failed phase exits
+non-zero.
 """
 
 import json
+import os
 import sys
 
-import torch
+# cuBLAS reads its workspace setting when it creates its first handle; the
+# training phase runs with torch's deterministic algorithms, which need it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 
 def main() -> int:

@@ -5,9 +5,13 @@ beside the package: `<checkout>/build/radargnn_tpu_torch/`.
 
 from __future__ import annotations
 
+import ctypes
+import glob
 import os
 import subprocess
-from typing import List, Tuple
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Sequence, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 
@@ -22,16 +26,19 @@ def source_path(*parts: str) -> str:
     return os.path.join(_PKG_DIR, *parts)
 
 
-def compile_shared(cmd: List[str], src: str, name: str) -> Tuple[str, str]:
+def compile_shared(cmd: List[str], src: str, name: str,
+                   deps: Sequence[str] = ()) -> Tuple[str, str]:
     """Compiles `src` with `cmd + [src, "-o", out]` into `build_dir()/name`
-    unless an up-to-date library is there; returns (path, compiler output).
+    unless a library newer than `src` and its `deps` (headers) is there;
+    returns (path, compiler output).
 
     The compiler writes to a per-process file that is then renamed into
     place, so concurrent builds (test workers) never load a half-written
     library. Raises RuntimeError with the compiler's output when the build
     fails."""
     out = os.path.join(build_dir(), name)
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+    newest = max(os.path.getmtime(f) for f in (src, *deps))
+    if os.path.exists(out) and os.path.getmtime(out) >= newest:
         return out, ""
     tmp = f"{out}.{os.getpid()}.tmp"
     proc = subprocess.run(cmd + [src, "-o", tmp], capture_output=True,
@@ -54,4 +61,30 @@ def nvcc_shared(src_name: str) -> Tuple[str, str]:
     return compile_shared(
         [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
          "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"],
-        source_path("csrc", src_name), f"lib{stem}.so")
+        source_path("csrc", src_name), f"lib{stem}.so",
+        deps=glob.glob(source_path("csrc", "*.cuh")))
+
+
+def nvcc_all(src_names: Sequence[str]) -> Dict[str, Tuple[str, str]]:
+    """Builds several kernel sources at once, one nvcc process each, all
+    started together; returns {source: (path, compiler output)}."""
+    with ThreadPoolExecutor(max_workers=len(src_names)) as pool:
+        results = list(pool.map(nvcc_shared, src_names))
+    return dict(zip(src_names, results))
+
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS_LOCK = threading.Lock()
+
+
+def load_library(src_name: str,
+                 bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """Builds `csrc/<src_name>` (nvcc_shared) and loads it with ctypes once
+    per process; `bind` declares its functions' argtypes and restypes."""
+    with _LIBS_LOCK:
+        if src_name not in _LIBS:
+            path, _ = nvcc_shared(src_name)
+            lib = ctypes.CDLL(path)
+            bind(lib)
+            _LIBS[src_name] = lib
+        return _LIBS[src_name]

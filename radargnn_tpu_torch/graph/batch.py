@@ -16,6 +16,14 @@ statistics. Index arrays stay int32, as in the JAX package.
 The port builds the plain layout and the dense fixed-degree tiling of kNN
 graphs (`csr_tiling={"mode": "dense", ...}`); the windowed/CSR tilings and
 halo partitioning raise until their slice lands (ROADMAP.md).
+
+With a dense tiling the batch also carries its sender landing
+(`sender_landing`, an `ops.segment_sum.SenderLanding` in the flat global
+layout): every valid slot and overflow row grouped by sender, built once
+per batch on the host. The dense backward lands d_x through it in one
+deterministic segment sum, for all conv layers. `win_part_mask`, which the
+TPU backward needs to combine its window parts, is then unused by the
+port; it is kept so the batch stays array-for-array the JAX package's.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from radargnn_tpu_torch.ops.dense_tiles import (
     check_overflow_sorted, morton_order, prepare_dense_knn_tiles,
     window_part_mask,
 )
+from radargnn_tpu_torch.ops.segment_sum import SenderLanding, sender_landing
 
 _NOT_PORTED_TILING = (
     "only the dense tiling ({'mode': 'dense', ...}) is ported; the windowed "
@@ -42,7 +51,8 @@ class FlatTiling(NamedTuple):
 
     `win` = (senders_local, tile_win, part_mask, ovf_senders, ovf_receivers,
     ovf_edge_feat) and `dense` = (r_tile, k), as in the JAX package; the
-    forward reads every field but part_mask, which the backward needs."""
+    port reads every field of `win` but part_mask. `landing` is the
+    batch's sender landing for the backward (module docstring)."""
 
     senders: torch.Tensor
     receivers: torch.Tensor
@@ -52,6 +62,7 @@ class FlatTiling(NamedTuple):
     node_block: int
     edge_tile: int
     dense: tuple
+    landing: Optional[SenderLanding] = None
 
 
 @dataclasses.dataclass
@@ -85,6 +96,8 @@ class GraphBatch:
 
     # (node_block, edge_tile, None, ("dense", r_tile, k)) for a dense tiling
     tile_geometry: Optional[tuple] = None
+    # the dense backward's d_x landing (flat global layout), with a tiling
+    sender_landing: Optional[SenderLanding] = None
     # number of valid edges, known on the host (for edges/s reporting)
     host_valid_edges: int = 0
 
@@ -95,8 +108,12 @@ class GraphBatch:
     def to(self, device: DeviceLike) -> "GraphBatch":
         """A copy of the batch with every tensor on `device`."""
         device = torch.device(device)
+        landing = self.sender_landing
+        if landing is not None:
+            landing = SenderLanding(*(t.to(device) for t in landing))
         return dataclasses.replace(
-            self, **{k: v.to(device) for k, v in self.tensors().items()})
+            self, sender_landing=landing,
+            **{k: v.to(device) for k, v in self.tensors().items()})
 
     @property
     def device(self) -> torch.device:
@@ -170,7 +187,8 @@ class GraphBatch:
         ovf_e = self.ovf_edge_feat.reshape(-1, self.ovf_edge_feat.shape[-1])
         win = (sloc, t_win, pmask, ovf_s, ovf_r, ovf_e)
         return FlatTiling(senders, recv, blocks, edge_feat, win,
-                          node_block, edge_tile, (r_tile, k))
+                          node_block, edge_tile, (r_tile, k),
+                          self.sender_landing)
 
 
 @dataclasses.dataclass
@@ -343,14 +361,33 @@ def stack_samples(samples: List[GraphSample], max_nodes: int, bg_index: int,
                          sort_edges_by_receiver, csr_tiling)
               for s in samples]
     arrays = {k: np.stack([p[k] for p in padded]) for k in padded[0]}
-    geometry = None
+    geometry = landing = None
     if csr_tiling is not None:
         # edge_tile = r_tile*k slots; trailing ("dense", r_tile, k) marker
         # read by flat_tiling
         r_tile, kk = csr_tiling["r_tile"], csr_tiling["k"]
-        geometry = (csr_tiling["node_block"], r_tile * kk, None,
-                    ("dense", r_tile, kk))
+        node_block = csr_tiling["node_block"]
+        geometry = (node_block, r_tile * kk, None, ("dense", r_tile, kk))
+        landing = SenderLanding(*(
+            torch.from_numpy(a).to(device) for a in _flat_sender_landing(
+                arrays, max_nodes, node_block, r_tile * kk)))
     return GraphBatch(
         **{k: torch.from_numpy(v).to(device) for k, v in arrays.items()},
-        tile_geometry=geometry,
+        tile_geometry=geometry, sender_landing=landing,
         host_valid_edges=int(sum(s.num_edges for s in samples)))
+
+
+def _flat_sender_landing(arrays: dict, max_nodes: int, node_block: int,
+                         slots_per_tile: int):
+    """The sender landing of stacked dense-tiled arrays, in the global
+    layout `GraphBatch.flat_tiling` gives them (graph g's nodes and blocks
+    offset by g)."""
+    g = arrays["tile_win"].shape[0]
+    graph = np.arange(g, dtype=np.int64)[:, None]
+    tile_win = arrays["tile_win"] + graph * (max_nodes // node_block)
+    ovf_valid = arrays["ovf_receivers"] >= 0
+    return sender_landing(
+        arrays["win_senders_local"].reshape(-1), tile_win.reshape(-1),
+        (arrays["ovf_senders"] + graph * max_nodes).reshape(-1),
+        ovf_valid.reshape(-1), slots_per_tile=slots_per_tile,
+        node_block=node_block, num_nodes=g * max_nodes)

@@ -40,6 +40,10 @@ class DetNet(nn.Module):
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         cfg = self.config = config
+        if getattr(cfg, "fused_bf16_max", False):
+            raise NotImplementedError(
+                "fused_bf16_max (bf16-equality max routing) is not ported; "
+                "the dense kernels route strictly (ROADMAP.md item B2)")
         dtype = getattr(cfg, "compute_dtype", "float32")
         bn = cfg.batch_norm_in_mlps
 

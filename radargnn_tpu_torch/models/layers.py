@@ -68,12 +68,14 @@ def fused_csr_tiling(model_config, k=None):
 
 
 def _fused_hoisted_max(x, w_s, w_e, offset, tiling) -> torch.Tensor:
-    """Hoisted max aggregation over the batch's dense tiling."""
+    """Hoisted max aggregation over the batch's dense tiling (its backward
+    lands d_x through the batch's sender landing)."""
     r_tile, k = tiling.dense
     sloc, t_win, _, ovf_s, ovf_r, ovf_e = tiling.win
     return dense_aggregate(x, w_s, tiling.edge_feat, w_e, offset, ovf_e,
                            t_win, sloc, ovf_s, ovf_r, r_tile=r_tile, k=k,
-                           node_block=tiling.node_block)
+                           node_block=tiling.node_block,
+                           landing=tiling.landing)
 
 
 def _check_hoisted(pre_layers: int, aggr: str) -> None:

@@ -8,8 +8,9 @@ Port of `radargnn_tpu/models/mlp.py`. The layer stack of the reference's
     hidden=[h1,h2,...] : Linear(in,h1) · ([BN]·ReLU·Linear)* · [BN]·ReLU·Linear(.,out)
 
 BatchNorm is *masked*: statistics come from valid (un-padded) rows only.
-Training mode normalizes with batch statistics and, when grad is enabled,
-updates the running estimates with torch momentum (running <- (1-m)·running
+Training mode normalizes with batch statistics and, unless its
+`update_running_stats` flag is off (`running_stats_frozen`), updates the
+running estimates with torch momentum (running <- (1-m)·running
 + m·batch, unbiased variance in the running estimate, biased in the
 normalization), eps 1e-5.
 
@@ -19,8 +20,9 @@ Parameters follow torch's layout (`weight` [out, in]); the weight bridge
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -71,13 +73,18 @@ class TorchLinear(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm1d over the leading (node/edge) axis with a validity mask."""
+    """BatchNorm1d over the leading (node/edge) axis with a validity mask.
+
+    In training mode a forward moves the running estimates while
+    `update_running_stats` is set (the default): the train step and the
+    validation step do, with or without grad; serving turns it off."""
 
     def __init__(self, features: int, momentum: float = 0.1,
                  eps: float = 1e-5):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.update_running_stats = True
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -95,10 +102,7 @@ class MaskedBatchNorm(nn.Module):
                 n = m.sum().clamp(min=1.0)
                 mean = (x * m).sum(0) / n
                 var = ((x - mean).square() * m).sum(0) / n
-            # the running estimates move only in a training step: serving
-            # with batch statistics (Predictor, under no_grad) leaves them,
-            # as the JAX Predictor drops the updated batch_stats
-            if torch.is_grad_enabled():
+            if self.update_running_stats:
                 with torch.no_grad():
                     unbiased = var * n / (n - 1.0).clamp(min=1.0)
                     self.running_mean.mul_(1 - self.momentum).add_(
@@ -109,6 +113,22 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
             + self.bias
+
+
+@contextlib.contextmanager
+def running_stats_frozen(model: nn.Module) -> Iterator[None]:
+    """Within the block no MaskedBatchNorm of `model` moves its running
+    estimates (serving with batch statistics, as the JAX Predictor drops
+    the updated batch_stats); each flag is restored after."""
+    norms = [m for m in model.modules() if isinstance(m, MaskedBatchNorm)]
+    saved = [m.update_running_stats for m in norms]
+    for m in norms:
+        m.update_running_stats = False
+    try:
+        yield
+    finally:
+        for m, flag in zip(norms, saved):
+            m.update_running_stats = flag
 
 
 class MLP(nn.Module):

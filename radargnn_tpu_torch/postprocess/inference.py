@@ -6,7 +6,8 @@ the device, only the per-graph unpadding happens on the host.
 Faithful quirk: the reference never switches the model to eval mode, so
 BatchNorm uses batch statistics during inference (`use_batch_stats=True`,
 the default). Like the JAX Predictor, which drops the updated batch_stats,
-this one leaves the model's running statistics as they were.
+this one leaves the model's running statistics as they were
+(`models.mlp.running_stats_frozen`).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from radargnn_tpu_torch.graph.batch import GraphBatch
+from radargnn_tpu_torch.models.mlp import running_stats_frozen
 
 
 class Predictor:
@@ -32,14 +34,14 @@ class Predictor:
 
     @torch.no_grad()
     def forward(self, batch: GraphBatch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Class probabilities [G·N, C] and boxes [G·N, B] for one batch.
-        Under no_grad, batch statistics leave the running ones untouched
-        (models.mlp.MaskedBatchNorm)."""
+        """Class probabilities [G·N, C] and boxes [G·N, B] for one batch;
+        the running statistics stay untouched."""
         model = self.model
         was_training = model.training
         model.train(self.use_batch_stats)
         try:
-            cls, bb = model.forward_batch(batch)
+            with running_stats_frozen(model):
+                cls, bb = model.forward_batch(batch)
         finally:
             model.train(was_training)
         return torch.softmax(cls, dim=1), bb

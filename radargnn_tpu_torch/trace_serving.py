@@ -19,7 +19,7 @@ import argparse
 import json
 import time
 from collections import defaultdict
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -37,6 +37,38 @@ def _busy_us(intervals: List[tuple]) -> float:
         busy += e - max(s, end)
         end = e
     return busy
+
+
+def device_profile(fn: Callable[[], None], trace_file: Optional[str] = None
+                   ) -> Tuple[list, float]:
+    """Runs `fn` under torch.profiler; returns the card's kernel events and
+    their busy time (the union of their intervals, µs). `trace_file` also
+    gets the Chrome trace."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+    # the card's kernels; not the spans user annotations (such as
+    # Optimizer.step) leave on the device timeline
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if trace_file:
+        prof.export_chrome_trace(trace_file)
+    return kernels, _busy_us([(e.time_range.start, e.time_range.end)
+                              for e in kernels])
+
+
+def by_name(kernels: list, per: int, top: int) -> List[Dict]:
+    """Device µs and calls by kernel name, per `per` (request or step),
+    largest first."""
+    acc: Dict[str, List[float]] = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        acc[e.name][0] += e.time_range.elapsed_us()
+        acc[e.name][1] += 1
+    ranked = sorted(acc.items(), key=lambda kv: -kv[1][0])
+    return [{"name": name[:120], "us": t / per, "calls": n / per}
+            for name, (t, n) in ranked[:top]]
 
 
 def trace(requests: int = 5, points: int = 2816, graphs: int = 5,
@@ -62,20 +94,9 @@ def trace(requests: int = 5, points: int = 2816, graphs: int = 5,
     # the profiler slows the host side down, so the idle share is taken
     # against the same requests served without it
     plain_wall = serve()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        wall = serve()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name: Dict[str, List[float]] = defaultdict(lambda: [0.0, 0])
-    for e in kernels:
-        by_name[e.name][0] += e.time_range.elapsed_us()
-        by_name[e.name][1] += 1
-    busy = _busy_us([(e.time_range.start, e.time_range.end)
-                     for e in kernels])
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    result = {
+    wall: List[float] = []
+    kernels, busy = device_profile(lambda: wall.extend(serve()), trace_file)
+    return {
         "card": card_description(),
         "requests": requests, "graphs": graphs, "points": points,
         "wall_us_per_request": plain_wall,
@@ -85,13 +106,8 @@ def trace(requests: int = 5, points: int = 2816, graphs: int = 5,
         "edges_per_s": (sum(b.host_valid_edges for b in loader[1:])
                         / (sum(plain_wall) * 1e-6)),
         "kernel_launches_per_request": len(kernels) / requests,
-        "device_us_per_request_by_kernel": [
-            {"name": name[:120], "us": t / requests, "calls": n / requests}
-            for name, (t, n) in ranked[:top]],
+        "device_us_per_request_by_kernel": by_name(kernels, requests, top),
     }
-    if trace_file:
-        prof.export_chrome_trace(trace_file)
-    return result
 
 
 def main(argv=None) -> int:

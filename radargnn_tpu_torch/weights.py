@@ -14,6 +14,10 @@ maps to a state_dict key by joining with dots and renaming the leaf:
 
 The hoisted pre-MLP kernel [2d+de, 2d+de] keeps its rows w_r | w_s | w_e;
 the layers slice the transposed weight the same way.
+
+The optimizer state crosses too (`optimizer_state_to_jax` /
+`optimizer_state_from_jax`), so a run resumes from a checkpoint that either
+package's trainer wrote.
 """
 
 from __future__ import annotations
@@ -79,3 +83,68 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             node = node.setdefault(m, {})
         node[name] = arr
     return out
+
+
+# ---------------------------------------------------------------------------
+# optimizer state: torch Adam <-> the JAX trainer's optax state
+# ---------------------------------------------------------------------------
+
+def _named_params(optimizer: torch.optim.Optimizer, model: torch.nn.Module):
+    """(name, parameter) in the optimizer's order (one parameter group)."""
+    if len(optimizer.param_groups) != 1:
+        raise ValueError("the optimizer must have one parameter group")
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [(names[id(p)], p) for p in optimizer.param_groups[0]["params"]]
+
+
+def optimizer_state_to_jax(optimizer: torch.optim.Optimizer,
+                           model: torch.nn.Module) -> Dict:
+    """A torch Adam's state as the JAX trainer's optax state dict
+    (`serialization.to_state_dict` of `inject_hyperparams(chain(
+    add_decayed_weights, scale_by_adam, scale_by_learning_rate))`):
+    step <-> count, exp_avg <-> mu, exp_avg_sq <-> nu (flax parameter
+    trees), and the lr and weight decay as hyper-parameters."""
+    group = optimizer.param_groups[0]
+    mu, nu, step = {}, {}, 0
+    for name, p in _named_params(optimizer, model):
+        state = optimizer.state.get(p, {})
+        mu[name] = state.get("exp_avg", torch.zeros_like(p))
+        nu[name] = state.get("exp_avg_sq", torch.zeros_like(p))
+        if "step" in state:
+            step = int(state["step"])
+    count = np.asarray(step, np.int32)
+    return {
+        "count": count,
+        "hyperparams": {
+            "learning_rate": np.asarray(group["lr"], np.float32),
+            "weight_decay": np.asarray(group["weight_decay"], np.float32)},
+        "hyperparams_states": {},
+        "inner_state": {
+            "0": {},
+            "1": {"count": count,
+                  "mu": to_jax_variables(mu)["params"],
+                  "nu": to_jax_variables(nu)["params"]},
+            "2": {}},
+    }
+
+
+def optimizer_state_from_jax(opt_state: Mapping,
+                             optimizer: torch.optim.Optimizer,
+                             model: torch.nn.Module) -> None:
+    """Loads an optax state dict of that layout (as `checkpoint.
+    load_train_state` reads it) into the torch Adam `optimizer` of
+    `model`: moments, step count, lr and weight decay."""
+    adam = opt_state["inner_state"]["1"]
+    step = float(np.asarray(adam["count"]))
+    mu = from_jax_variables({"params": adam["mu"]})
+    nu = from_jax_variables({"params": adam["nu"]})
+    sd = optimizer.state_dict()
+    sd["state"] = {
+        i: {"step": torch.tensor(step), "exp_avg": mu[name],
+            "exp_avg_sq": nu[name]}
+        for i, (name, _) in enumerate(_named_params(optimizer, model))}
+    hyper = opt_state["hyperparams"]
+    sd["param_groups"][0]["lr"] = float(np.asarray(hyper["learning_rate"]))
+    sd["param_groups"][0]["weight_decay"] = float(
+        np.asarray(hyper["weight_decay"]))
+    optimizer.load_state_dict(sd)

@@ -1,13 +1,17 @@
-"""The port's dense max aggregation (radargnn_tpu_torch.ops.dense_aggregate)
-and segment max against the JAX package.
+"""The port's dense max aggregation (radargnn_tpu_torch.ops.dense_aggregate),
+its gradients, the d_x landing (ops.segment_sum) and segment max against the
+JAX package.
 
-On the CPU the wrapper takes the kernel's plain PyTorch version; the JAX side
-runs its Pallas kernel in interpret mode, set up as tests/test_pallas.py's
-dense (v4) tests set it up. Both compute in float32 there, so they agree to
-float32 summation order (rtol/atol 1e-4, the tolerance of the JAX package's
-own kernel-vs-XLA test). The CUDA kernel itself runs only on the card
-(tests/test_torch_gpu.py)."""
+On the CPU the wrappers take the kernels' plain PyTorch versions; the JAX
+side runs its Pallas kernels in interpret mode, set up as
+tests/test_pallas.py's dense (v4) tests set it up. Both compute in float32
+there, so they agree to float32 summation order (rtol/atol 1e-4, the
+tolerance of the JAX package's own kernel-vs-XLA test), gradients
+included: the port lands d_x by sender in another order than the JAX
+package's window parts, which float32 absorbs well inside 1e-4 here. The
+CUDA kernels themselves run only on the card (tests/test_torch_gpu.py)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +22,9 @@ from radargnn_tpu.ops import segment as jseg
 from radargnn_tpu_torch.ops import dense_aggregate as da
 from radargnn_tpu_torch.ops import dense_tiles as tdt
 from radargnn_tpu_torch.ops import segment as tseg
+from radargnn_tpu_torch.ops import segment_sum as ss
+
+_DIFF = ("x", "w_s", "e_t", "w_e", "offset", "e_ovf")
 
 RTOL = ATOL = 1e-4
 
@@ -65,6 +72,50 @@ def _dense_setup(seed=7, K=7, variable_degree=True):
     return geo, arrays
 
 
+def _landing(geo, a):
+    """The sender landing of the setup's slot layout and overflow list."""
+    order, row_ptr = ss.sender_landing(
+        a["sloc"], a["tile_win"], a["ovf_s"], a["ovf_r"] >= 0,
+        slots_per_tile=geo["r_tile"] * geo["K"],
+        node_block=geo["node_block"], num_nodes=geo["n"])
+    return ss.SenderLanding(torch.from_numpy(order),
+                            torch.from_numpy(row_ptr))
+
+
+def _cut_widths(a, widths):
+    """The setup with d_in, d_e cut to `widths` (not multiples of 8, which
+    the entry point zero-pads for the kernels)."""
+    if widths is None:
+        return a
+    d, de = widths
+    return dict(a, x=a["x"][:, :d], w_s=a["w_s"][:d], w_e=a["w_e"][:de],
+                e_t=a["e_t"][:, :de], e_ovf=a["e_ovf"][:, :de])
+
+
+def _jax_grads(geo, a):
+    """jax.grad of (fused(...)**2).sum() in the six differentiable args."""
+    fused = jpk.make_fused_dense_aggregate(
+        geo["n"], geo["K"], geo["r_tile"], geo["node_block"], geo["wb"])
+    consts = tuple(map(jnp.asarray, (a["tile_win"], a["sloc"], a["pmask"],
+                                     a["ovf_s"], a["ovf_r"])))
+    grads = jax.grad(lambda *ar: (fused(*ar, *consts) ** 2).sum(),
+                     argnums=tuple(range(6)))(
+        *(jnp.asarray(a[nm]) for nm in _DIFF))
+    return [np.asarray(gr) for gr in grads]
+
+
+def _port_grads(geo, a):
+    """torch.autograd.grad of the same loss through the port's Function."""
+    args = list(_port_args(a))
+    for i in range(6):
+        args[i] = args[i].clone().requires_grad_(True)
+    out = da.dense_aggregate(*args, r_tile=geo["r_tile"], k=geo["K"],
+                             node_block=geo["node_block"],
+                             landing=_landing(geo, a))
+    return [gr.numpy() for gr in
+            torch.autograd.grad((out ** 2).sum(), args[:6])]
+
+
 def _port_args(a):
     t = {k: torch.from_numpy(np.ascontiguousarray(a[k])) for k in
          ("x", "w_s", "e_t", "w_e", "offset", "e_ovf", "tile_win", "sloc",
@@ -99,10 +150,7 @@ def test_dense_aggregate_matches_jax_interpret(variable_degree, widths):
     multiples of 8, which the entry point zero-pads for the kernel."""
     geo, a = _dense_setup(variable_degree=variable_degree)
     assert (a["ovf_idx"] >= 0).sum() > 10, "test should exercise overflow"
-    if widths is not None:
-        d, de = widths
-        a = dict(a, x=a["x"][:, :d], w_s=a["w_s"][:d], w_e=a["w_e"][:de],
-                 e_t=a["e_t"][:, :de], e_ovf=a["e_ovf"][:, :de])
+    a = _cut_widths(a, widths)
     fused = jpk.make_fused_dense_aggregate(
         geo["n"], geo["K"], geo["r_tile"], geo["node_block"], geo["wb"])
     want = np.asarray(fused(
@@ -159,16 +207,162 @@ def test_dense_fwd_plain_masks_dummy_slots_by_sender():
     torch.testing.assert_close(again, base, rtol=0, atol=0)
 
 
-def test_dense_aggregate_refuses_grad():
+@pytest.mark.parametrize("variable_degree", [True, False])
+@pytest.mark.parametrize("widths", [None, (21, 5)])
+def test_dense_aggregate_gradients_match_jax(variable_degree, widths):
+    """The six gradients of (out**2).sum() (x, w_s, e_t, w_e, offset,
+    e_ovf), through the port's autograd Function and through the JAX
+    package's custom VJP (interpret mode), with the overflow path."""
+    geo, a = _dense_setup(variable_degree=variable_degree)
+    a = _cut_widths(a, widths)
+    launches = (da.dense_fwd_cuda.launches, da.dense_bwd_cuda.launches,
+                ss.segment_sum_csr_cuda.launches)
+    got = _port_grads(geo, a)
+    assert launches == (da.dense_fwd_cuda.launches,
+                        da.dense_bwd_cuda.launches,
+                        ss.segment_sum_csr_cuda.launches)   # CPU: none
+    for name, u, v in zip(_DIFF, got, _jax_grads(geo, a)):
+        assert u.dtype == np.float32 and u.shape == v.shape, name
+        np.testing.assert_allclose(u, v, rtol=RTOL, atol=ATOL, err_msg=name)
+    assert np.abs(got[5]).max() > 0, "the overflow path should take g"
+
+
+def test_dense_aggregate_gives_tied_slots_the_full_g():
+    """Two slots of one receiver with the same sender and the same edge
+    features tie exactly. Both packages give each of them the full g (the
+    TPU kernel's rule), not g/2 (the unfused path's segment max): each tied
+    slot's d_e equals what the slot takes when its twin is emptied."""
+    geo, a = _dense_setup(variable_degree=False)
+    te, r_tile = geo["r_tile"] * geo["K"], geo["r_tile"]
+    sloc = a["sloc"]
+    slot0 = next(i for i in range(te) if sloc[i] >= 0 and sloc[i + r_tile] >= 0)
+    slot1 = slot0 + r_tile                    # the receiver's next slot
+    tied = dict(a, sloc=sloc.copy(), e_t=a["e_t"].copy())
+    tied["sloc"][slot1] = sloc[slot0]
+    tied["e_t"][slot1] = tied["e_t"][slot0] = 3.0 * a["e_t"][slot0]
+    alone = dict(tied, sloc=tied["sloc"].copy())
+    alone["sloc"][slot1] = -1
+    pm = jpk.window_part_mask(a["tile_win"], -(-geo["n"] // geo["node_block"]),
+                              geo["wb"])
+    tied["pmask"] = alone["pmask"] = pm
+    for grads in (_port_grads(geo, tied), _jax_grads(geo, tied)):
+        d_e = grads[2]
+        assert np.abs(d_e[slot0]).max() > 0, "the tied pair should win"
+        np.testing.assert_array_equal(d_e[slot0], d_e[slot1])
+    for fn in (_port_grads, _jax_grads):
+        np.testing.assert_allclose(fn(geo, tied)[2][slot0],
+                                   fn(geo, alone)[2][slot0],
+                                   rtol=RTOL, atol=ATOL)
+
+
+def test_dense_aggregate_needs_the_landing_for_grad():
     geo, a = _dense_setup()
     args = list(_port_args(a))
     args[1] = args[1].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="B2"):
-        da.dense_aggregate(*args, r_tile=geo["r_tile"], k=geo["K"],
-                           node_block=geo["node_block"])
-    with torch.no_grad():
-        da.dense_aggregate(*args, r_tile=geo["r_tile"], k=geo["K"],
-                           node_block=geo["node_block"])
+    kw = dict(r_tile=geo["r_tile"], k=geo["K"], node_block=geo["node_block"])
+    with pytest.raises(ValueError, match="landing"):
+        da.dense_aggregate(*args, **kw)
+    with torch.no_grad():       # serving needs no landing
+        da.dense_aggregate(*args, **kw)
+
+
+def test_dense_bwd_plain_matches_the_function_s_slot_part():
+    """dense_bwd_plain alone, on the slot layout without overflow: d_e per
+    slot is d_op @ W_e^T, and it vanishes on empty slots."""
+    geo, a = _dense_setup()
+    x, w_s, e_t, w_e, offset, e_ovf, t_win, sloc, ovf_s, ovf_r = \
+        _port_args(a)
+    kw = dict(r_tile=geo["r_tile"], k=geo["K"], node_block=geo["node_block"])
+    inner_o = torch.full_like(offset, da._NEG)
+    _, inner = da.dense_fwd(x, w_s, e_t, w_e, sloc, t_win, inner_o, offset,
+                            emit_inner=True, **kw)
+    has = inner > da._NEG / 2
+    g = torch.from_numpy(np.random.default_rng(1).normal(
+        size=inner.shape).astype(np.float32))
+    d_xg, d_e, dw_s, dw_e = da.dense_bwd(
+        x, w_s, e_t, w_e, sloc, t_win, torch.where(has, inner, 0.0),
+        torch.where(has, g, 0.0), **kw)
+    assert d_xg.shape == (e_t.shape[0], x.shape[1])
+    assert dw_s.shape == w_s.shape and dw_e.shape == w_e.shape
+    empty = sloc < 0
+    assert empty.any()
+    assert (d_e[empty] == 0).all() and (d_xg[empty] == 0).all()
+    # every receiver with a slot routes its g to at least one slot
+    routed = (d_e.reshape(-1, geo["K"], geo["r_tile"], d_e.shape[1]) != 0
+              ).any(dim=(1, 3)).reshape(-1)
+    assert routed[has.any(dim=1)].float().mean() > 0.9
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_segment_sum_csr_plain_matches_jax(dtype):
+    """The landing's plain version against `pallas_segment_sum_csr`
+    (interpret mode) and its jnp reference, on the same segment-sorted
+    rows: padding slots, empty segments."""
+    rng = np.random.default_rng(17)
+    n, e, d = 96, 700, 24
+    node_block, edge_tile = 32, 32
+    data = rng.normal(size=(e, d)).astype(np.float32)
+    if dtype == "bfloat16":
+        data = np.asarray(jnp.asarray(data, jnp.bfloat16).astype(jnp.float32))
+    seg = rng.integers(0, n - 6, e).astype(np.int32)       # 6 empty segments
+    mask = rng.random(e) < 0.85
+    perm, tile_blocks, padded_seg = jpk.prepare_csr_tiles(
+        seg, mask, n, node_block, edge_tile)
+    jdata = jnp.asarray(data[perm])
+    if dtype == "bfloat16":
+        jdata = jdata.astype(jnp.bfloat16)
+    want = np.asarray(jpk.pallas_segment_sum_csr(
+        jdata, jnp.asarray(padded_seg), jnp.asarray(tile_blocks),
+        num_nodes=n, node_block=node_block, edge_tile=edge_tile))
+    want_ref = np.asarray(jpk.pallas_segment_sum_csr_reference(
+        jdata, jnp.asarray(padded_seg), n))
+    # the port's landing: the same rows, listed by segment (padding -1
+    # rows skipped), one source
+    rows = np.flatnonzero(padded_seg >= 0)
+    order = rows[np.argsort(padded_seg[rows], kind="stable")]
+    row_ptr = np.concatenate([[0], np.cumsum(np.bincount(padded_seg[rows],
+                                                         minlength=n))])
+    a = torch.from_numpy(data[perm])
+    if dtype == "bfloat16":
+        a = a.bfloat16()
+    got = ss.segment_sum_csr(a, torch.from_numpy(order.astype(np.int32)),
+                             torch.from_numpy(row_ptr.astype(np.int32)))
+    assert got.dtype == torch.float32 and got.shape == (n, d)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), want_ref, rtol=RTOL, atol=ATOL)
+    assert (got.numpy()[n - 6:] == 0).all()
+
+
+def test_segment_sum_csr_two_sources_number_rows_in_turn():
+    rng = np.random.default_rng(2)
+    a = torch.from_numpy(rng.normal(size=(5, 8)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(3, 8)).astype(np.float32))
+    order = torch.tensor([6, 0, 2, 7, 5], dtype=torch.int32)
+    row_ptr = torch.tensor([0, 2, 2, 5], dtype=torch.int32)
+    got = ss.segment_sum_csr(a, order, row_ptr, b)
+    torch.testing.assert_close(got[0], b[1] + a[0])
+    torch.testing.assert_close(got[1], torch.zeros(8))
+    torch.testing.assert_close(got[2], a[2] + b[2] + b[0])
+
+
+@pytest.mark.parametrize("variable_degree", [True, False])
+def test_sender_landing_groups_every_valid_row_by_sender(variable_degree):
+    geo, a = _dense_setup(variable_degree=variable_degree)
+    order, row_ptr = (t.numpy() for t in _landing(geo, a))
+    te = geo["r_tile"] * geo["K"]
+    slot_send = np.where(a["sloc"] >= 0, np.repeat(
+        a["tile_win"] * geo["node_block"], te) + a["sloc"], -1)
+    send = np.concatenate([slot_send, np.where(a["ovf_r"] >= 0, a["ovf_s"],
+                                               -1)])
+    valid = np.flatnonzero(send >= 0)
+    assert sorted(order.tolist()) == valid.tolist()
+    assert row_ptr[0] == 0 and row_ptr[-1] == len(order)
+    for n in range(geo["n"]):
+        rows = order[row_ptr[n]:row_ptr[n + 1]]
+        assert (send[rows] == n).all() and (np.diff(rows) > 0).all()
+    # the landing's slot senders are the edges' senders
+    real = a["sloc"] >= 0
+    np.testing.assert_array_equal(slot_send[real], a["send"][a["perm"][real]])
 
 
 def test_dense_fwd_cuda_refuses_cpu_tensors():
@@ -183,6 +377,20 @@ def test_dense_fwd_cuda_refuses_cpu_tensors():
                           w_e.bfloat16(), sloc, t_win, inner_o, offset,
                           r_tile=geo["r_tile"], k=geo["K"],
                           node_block=geo["node_block"])
+
+
+def test_backward_wrappers_refuse_cpu_tensors():
+    """The backward kernels' and the landing's wrappers too."""
+    geo, a = _dense_setup()
+    x, w_s, e_t, w_e, offset, e_ovf, t_win, sloc, ovf_s, ovf_r = \
+        _port_args(a)
+    kw = dict(r_tile=geo["r_tile"], k=geo["K"], node_block=geo["node_block"])
+    bf = [t.bfloat16() for t in (x, w_s, e_t, w_e)]
+    with pytest.raises(ValueError, match="CUDA"):
+        da.dense_bwd_cuda(*bf, sloc, t_win, offset, offset, **kw)
+    order, row_ptr = _landing(geo, a)
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.segment_sum_csr_cuda(bf[0], order, row_ptr)
 
 
 def test_gather_dtype_follows_the_device():

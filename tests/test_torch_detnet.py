@@ -24,7 +24,7 @@ from radargnn_tpu_torch.data.synthetic import make_samples as t_make_samples
 from radargnn_tpu_torch.graph.batch import stack_samples as t_stack
 from radargnn_tpu_torch.models.detnet import DetNet
 from radargnn_tpu_torch.models.layers import fused_csr_tiling
-from radargnn_tpu_torch.models.mlp import MaskedBatchNorm
+from radargnn_tpu_torch.models.mlp import MaskedBatchNorm, running_stats_frozen
 from radargnn_tpu_torch.ops import dense_aggregate as da
 from radargnn_tpu_torch.postprocess.inference import Predictor
 
@@ -141,18 +141,27 @@ def test_predictor_keeps_running_stats_and_launches_nothing_on_cpu():
 
 
 def test_masked_batchnorm_updates_running_stats_only_with_grad():
-    """A grad-enabled training forward moves the running estimates as
-    torch's BatchNorm1d does (all rows valid); a no-grad one, as the
-    Predictor serves, normalizes the same and leaves them."""
+    """A training forward moves the running estimates as torch's
+    BatchNorm1d does (all rows valid), with grad or without it (the
+    validation step runs under no_grad and keeps them, the reference's
+    quirk); only its flag, which `running_stats_frozen` clears for serving,
+    stops them. Frozen, it normalizes the same."""
     x = torch.from_numpy(np.random.default_rng(0).normal(size=(40, 6))).float()
     bn, ref = MaskedBatchNorm(6), torch.nn.BatchNorm1d(6)
     want = ref(x)
     torch.testing.assert_close(bn(x, torch.ones(40, dtype=torch.bool)), want)
     torch.testing.assert_close(bn.running_mean, ref.running_mean)
     torch.testing.assert_close(bn.running_var, ref.running_var)
-    mean, var = bn.running_mean.clone(), bn.running_var.clone()
     with torch.no_grad():
+        want = ref(x)
         torch.testing.assert_close(bn(x), want)
+    torch.testing.assert_close(bn.running_mean, ref.running_mean)
+    torch.testing.assert_close(bn.running_var, ref.running_var)
+    mean, var = bn.running_mean.clone(), bn.running_var.clone()
+    with running_stats_frozen(bn):
+        assert not bn.update_running_stats
+        torch.testing.assert_close(bn(x), want)
+    assert bn.update_running_stats
     assert torch.equal(bn.running_mean, mean)
     assert torch.equal(bn.running_var, var)
 
@@ -207,6 +216,9 @@ def test_unported_configurations_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused_csr_tiling(tcfg.GNNArchitectureConfig(
             **dict(kw, use_fused_aggregation=True, fused_tiling="windowed")))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DetNet(tcfg.GNNArchitectureConfig(**dict(kw, fused_bf16_max=True)),
+               device="cpu")
     assert fused_csr_tiling(tcfg.GNNArchitectureConfig(**kw), k=K) is None
     spec = fused_csr_tiling(tcfg.GNNArchitectureConfig(
         **dict(kw, use_fused_aggregation=True, fused_tiling="auto")), k=K)

@@ -9,6 +9,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -71,32 +72,69 @@ def test_every_submodule_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20   # every module of the slice
+    assert int(proc.stdout.strip()) >= 37   # every module of both slices
 
 
 def test_smoke_rehearses_on_cpu():
     """The on-card smoke, at a tiny size on the CPU: the flagship config,
-    three requests, the kernel-vs-plain check at the model's layer shapes,
-    and the kernels line with every key the chip run reports. Nothing is
-    timed and nothing launches here."""
+    the three kernels' checks against their plain versions at the model's
+    layer shapes, three requests, four train steps on the kernel path, again
+    and on the plain path (here all plain), and the kernels line with every
+    key the chip run reports, each entry pointing at the TPU kernel it
+    replaces. Nothing is timed and nothing launches here."""
     lines = []
+    before = torch.are_deterministic_algorithms_enabled()
     summary = smoke.run("cpu", points=200, graphs=2, batches=3, reps=1,
                         out=lines.append)
-    (kernel,) = summary["kernels"]
-    assert set(kernel) == {"name", "route", "source", "replaces", "launches",
-                           "max_abs_err", "ms", "plain_ms", "bound_ms",
-                           "bound_by", "library_ms"}
-    assert kernel["launches"] == 0 and kernel["ms"] is None
-    assert kernel["bound_ms"] > 0 and kernel["bound_by"] in ("bytes",
-                                                             "operations")
-    assert os.path.exists(os.path.join(_REPO, kernel["source"]))
-    path, line = kernel["replaces"].split(":")
-    with open(os.path.join(_REPO, path)) as f:
-        assert "def _fused_fwd_kernel_v4" in f.readlines()[int(line) - 1]
+    assert torch.are_deterministic_algorithms_enabled() == before
+    kernels = summary["kernels"]
+    assert [k["name"] for k in kernels] == ["dense_fwd_v4", "dense_bwd_v4",
+                                            "segment_sum_csr"]
+    replaced = {"dense_fwd_v4": "def _fused_fwd_kernel_v4",
+                "dense_bwd_v4": "def _fused_bwd_kernel_v4",
+                "segment_sum_csr": "def _segsum_kernel"}
+    for kernel in kernels:
+        assert set(kernel) == {"name", "route", "source", "replaces",
+                               "launches", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms"}
+        assert kernel["route"] == "cuda"
+        assert kernel["launches"] == 0 and kernel["ms"] is None
+        assert kernel["max_abs_err"] == 0.0
+        assert kernel["bound_ms"] > 0 and kernel["bound_by"] in (
+            "bytes", "operations")
+        assert os.path.exists(os.path.join(_REPO, kernel["source"]))
+        path, line = kernel["replaces"].split(":")
+        with open(os.path.join(_REPO, path)) as f:
+            assert f.readlines()[int(line) - 1].startswith(
+                replaced[kernel["name"]])
     assert [r["d_in"] for r in summary["per_shape"]] == [224, 224, 224, 128,
                                                           64]
+    assert [r["d"] for r in summary["per_shape_segsum"]] == [224, 224, 224,
+                                                             128, 64]
+    assert all(r["bitwise_repeat"] for r in summary["per_shape_bwd"])
     assert summary["model_max_dprob"] == 0.0
+    losses = np.asarray(summary["train_losses"])
+    assert losses.shape == (4, 3) and np.isfinite(losses).all()
+    assert summary["train_max_rel_loss_diff"] == 0.0
+    assert losses[-1, 0] < losses[0, 0]
     assert json.loads(lines[-1])["per_shape"] == summary["per_shape"]
+
+
+def test_backward_bound_counts_the_sender_sums_once_per_node():
+    """B2's bound: d_x and dW_s from the per-sender sums of d_op (N rows),
+    d_e and dW_e per valid slot. At the flagship's wide layer that is 13.8
+    GFLOP (14 µs at the bf16 peak) against ~95 MB (~28 µs at 3.35 TB/s):
+    bound by bytes. B3's landing there reads ~281,600 rows."""
+    n, e_pad, t, valid = 14080, 337920, 220, 267178
+    b = smoke._bwd_bound(224, 16, 464, n, e_pad, t, valid)
+    assert b["flops"] == 4.0 * (n * 224 * 464 + valid * 16 * 464)
+    assert 13.7e9 < b["flops"] < 13.9e9
+    assert b["bound_by"] == "bytes"
+    assert 0.027 < b["bound_ms"] < 0.030
+    s = smoke._segsum_bound(224, valid, 14422, n)
+    assert s["bound_by"] == "bytes"
+    assert s["bytes"] == (valid * 224 * 2 + 14422 * 224 * 4
+                          + (valid + 14422) * 4 + (n + 1) * 4 + n * 224 * 4)
 
 
 def test_kernel_bound_counts_the_projection_once_per_node():
@@ -127,6 +165,16 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_trace_train_sorts_kernels_into_kinds():
+    from radargnn_tpu_torch.trace_train import kind_of
+    assert kind_of("route_kernel") == "dense_bwd_v4 route (B2)"
+    assert kind_of("segment_sum_csr_kernel") == "segment_sum_csr (B3)"
+    assert kind_of("sm90_xmma_gemm_f32f32_f32f32") == "GEMMs (cuBLAS)"
+    assert kind_of("vectorized_elementwise_kernel<FillFunctor<float>>") \
+        .startswith("fills")
+    assert kind_of("something new") == "other"
 
 
 def test_trace_busy_time_is_the_union_of_kernel_intervals():
