@@ -13,17 +13,19 @@ Compute flattens to [G*N] / [G*E] with per-graph index offsets, which gives
 the block-diagonal batch semantics including batch-wide BatchNorm
 statistics. Index arrays stay int32, as in the JAX package.
 
-The port builds the plain layout and the dense fixed-degree tiling of kNN
-graphs (`csr_tiling={"mode": "dense", ...}`); the windowed/CSR tilings and
-halo partitioning raise until their slice lands (ROADMAP.md).
+The port builds the plain layout, the dense fixed-degree tiling of kNN
+graphs (`csr_tiling={"mode": "dense", ...}`) and the windowed tiling that
+radius graphs need (`csr_tiling=(node_block, edge_tile, window_blocks[,
+ovf_frac[, run_cap]])`, `ops.windowed_tiles`); the CSR tiling (a 2-tuple)
+and halo partitioning raise until their slice lands (ROADMAP.md).
 
-With a dense tiling the batch also carries its sender landing
-(`sender_landing`, an `ops.segment_sum.SenderLanding` in the flat global
-layout): every valid slot and overflow row grouped by sender, built once
-per batch on the host. The dense backward lands d_x through it in one
-deterministic segment sum, for all conv layers. `win_part_mask`, which the
-TPU backward needs to combine its window parts, is then unused by the
-port; it is kept so the batch stays array-for-array the JAX package's.
+With a tiling the batch also carries its sender landing (`sender_landing`,
+an `ops.segment_sum.SenderLanding` in the flat global layout): every valid
+slot and overflow row grouped by sender, built once per batch on the host.
+The fused backward lands d_x through it in one deterministic segment sum,
+for all conv layers. `win_part_mask`, which the TPU backward needs to
+combine its window parts, is then unused by the port; it is kept so the
+batch stays array-for-array the JAX package's.
 """
 
 from __future__ import annotations
@@ -40,19 +42,23 @@ from radargnn_tpu_torch.ops.dense_tiles import (
     window_part_mask,
 )
 from radargnn_tpu_torch.ops.segment_sum import SenderLanding, sender_landing
+from radargnn_tpu_torch.ops.windowed_tiles import prepare_windowed_csr_tiles
 
 _NOT_PORTED_TILING = (
-    "only the dense tiling ({'mode': 'dense', ...}) is ported; the windowed "
-    "and CSR tilings wait for ROADMAP.md item A9 (radius-graph fused path)")
+    "the CSR tiling (a 2-tuple csr_tiling) is not ported yet; it waits for "
+    "ROADMAP.md item B5. Use the dense dict or the windowed 3- to 5-tuple")
 
 
 class FlatTiling(NamedTuple):
-    """Flattened (global-index) dense tiling bundle in slot order.
+    """Flattened (global-index) tiling bundle in slot order.
 
     `win` = (senders_local, tile_win, part_mask, ovf_senders, ovf_receivers,
-    ovf_edge_feat) and `dense` = (r_tile, k), as in the JAX package; the
-    port reads every field of `win` but part_mask. `landing` is the
-    batch's sender landing for the backward (module docstring)."""
+    ovf_edge_feat), `dense` = (r_tile, k) for the dense layout and None for
+    the windowed one, `roll_passes` the windowed layout's static bound
+    (2**roll_passes >= the longest same-receiver run in a tile), as in the
+    JAX package; the port reads every field of `win` but part_mask, and
+    its kernels need no roll bound. `landing` is the batch's sender landing
+    for the backward (module docstring)."""
 
     senders: torch.Tensor
     receivers: torch.Tensor
@@ -61,8 +67,9 @@ class FlatTiling(NamedTuple):
     win: tuple
     node_block: int
     edge_tile: int
-    dense: tuple
+    dense: Optional[tuple] = None
     landing: Optional[SenderLanding] = None
+    roll_passes: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -80,8 +87,8 @@ class GraphBatch:
     pos: torch.Tensor              # [G, N, 2] float32
     vel: torch.Tensor              # [G, N, 2] float32
 
-    # dense fixed-degree tiling (ops.dense_tiles), edge arrays already in
-    # slot order; None when the batch was stacked without a tiling
+    # dense (ops.dense_tiles) or windowed (ops.windowed_tiles) tiling, edge
+    # arrays already in slot order; None when stacked without a tiling
     tiled_perm: Optional[torch.Tensor] = None        # [G, T*TE] int32
     tiled_receivers: Optional[torch.Tensor] = None   # [G, T*TE] int32, -1 pad
     tile_blocks: Optional[torch.Tensor] = None       # [G, T] int32 (local)
@@ -94,9 +101,10 @@ class GraphBatch:
     ovf_receivers: Optional[torch.Tensor] = None      # [G, Eo] int32, -1 pad
     ovf_edge_feat: Optional[torch.Tensor] = None      # [G, Eo, De] float32
 
-    # (node_block, edge_tile, None, ("dense", r_tile, k)) for a dense tiling
+    # (node_block, edge_tile, None, ("dense", r_tile, k)) for a dense
+    # tiling, (node_block, edge_tile, roll_passes) for a windowed one
     tile_geometry: Optional[tuple] = None
-    # the dense backward's d_x landing (flat global layout), with a tiling
+    # the fused backward's d_x landing (flat global layout), with a tiling
     sender_landing: Optional[SenderLanding] = None
     # number of valid edges, known on the host (for edges/s reporting)
     host_valid_edges: int = 0
@@ -151,18 +159,17 @@ class GraphBatch:
         return self.edge_feat.reshape(-1, self.edge_feat.shape[-1])
 
     def flat_tiling(self) -> Optional[FlatTiling]:
-        """Global flat dense tiling bundle (FlatTiling) in slot order, or None
-        if the batch carries no tiling. Per-graph tilings concatenate because
+        """Global flat tiling bundle (FlatTiling) in slot order, or None if
+        the batch carries no tiling. Per-graph tilings concatenate because
         max_nodes is a multiple of node_block (global block id =
         g·(N/node_block) + local block id)."""
         if self.tiled_senders is None:
             return None
         geo = self.tile_geometry
-        if geo is None or len(geo) < 4 or geo[3] is None \
-                or geo[3][0] != "dense":
-            raise NotImplementedError(_NOT_PORTED_TILING)
         node_block, edge_tile = geo[:2]
-        r_tile, k = geo[3][1:]
+        roll_passes = geo[2] if len(geo) > 2 else None
+        dense = tuple(geo[3][1:]) if len(geo) > 3 and geo[3] is not None \
+            and geo[3][0] == "dense" else None
         n = self.max_nodes
         if n % node_block:
             raise ValueError("max_nodes must align to node_block")
@@ -187,8 +194,8 @@ class GraphBatch:
         ovf_e = self.ovf_edge_feat.reshape(-1, self.ovf_edge_feat.shape[-1])
         win = (sloc, t_win, pmask, ovf_s, ovf_r, ovf_e)
         return FlatTiling(senders, recv, blocks, edge_feat, win,
-                          node_block, edge_tile, (r_tile, k),
-                          self.sender_landing)
+                          node_block, edge_tile, dense,
+                          self.sender_landing, roll_passes)
 
 
 @dataclasses.dataclass
@@ -230,6 +237,20 @@ def morton_sort_sample(sample: GraphSample) -> GraphSample:
         pos=sample.pos[perm], vel=sample.vel[perm])
 
 
+def roll_passes_bound(samples: List[GraphSample], edge_tile: int) -> int:
+    """Static bound on the TPU kernels' segmented-max log-roll passes for a
+    windowed batch of contiguous runs: 2**passes >= the largest in-degree,
+    which bounds the longest same-receiver run in a tile."""
+    max_deg = 1
+    for s in samples:
+        if s.num_edges:
+            max_deg = max(max_deg,
+                          int(np.bincount(s.receivers,
+                                          minlength=s.num_nodes).max()))
+    full = int(np.ceil(np.log2(edge_tile)))
+    return min(full, max(1, int(np.ceil(np.log2(max_deg)))))
+
+
 def overflow_budget(max_edges: int, edge_tile: int,
                     frac: float = 0.08) -> int:
     """Static overflow-edge budget (the same for every sample of a bucket,
@@ -250,9 +271,12 @@ def pad_sample(sample: GraphSample, max_nodes: int, max_edges: int,
 
     `csr_tiling={"mode": "dense", "node_block", "r_tile", "k",
     "window_blocks", "ovf_frac"}` Morton-orders the nodes and adds the dense
-    fixed-degree tiling and its overflow list (ops.dense_tiles).
+    fixed-degree tiling and its overflow list (ops.dense_tiles);
+    `csr_tiling=(node_block, edge_tile, window_blocks[, ovf_frac[,
+    run_cap]])` Morton-orders them and adds the windowed tiling and its
+    overflow list (ops.windowed_tiles).
     """
-    dense_cfg = None
+    dense_cfg = windowed = None
     if isinstance(csr_tiling, dict):
         if csr_tiling.get("mode") != "dense":
             raise ValueError(f"unknown tiling dict mode: {csr_tiling}")
@@ -261,6 +285,12 @@ def pad_sample(sample: GraphSample, max_nodes: int, max_edges: int,
                 "the sender-sorted overflow tiling (ovf_ssum) feeds a "
                 "training kernel that is not ported yet (ROADMAP.md, B3)")
         dense_cfg = dict(csr_tiling)
+        sample = morton_sort_sample(sample)
+    elif csr_tiling is not None and len(csr_tiling) >= 3:
+        node_block, edge_tile, window_blocks = csr_tiling[:3]
+        ovf_frac = csr_tiling[3] if len(csr_tiling) >= 4 else 0.08
+        run_cap = csr_tiling[4] if len(csr_tiling) >= 5 else None
+        windowed = (node_block, edge_tile, window_blocks, ovf_frac, run_cap)
         sample = morton_sort_sample(sample)
     elif csr_tiling is not None:
         raise NotImplementedError(_NOT_PORTED_TILING)
@@ -310,6 +340,10 @@ def pad_sample(sample: GraphSample, max_nodes: int, max_edges: int,
         labels=labels, boxes=boxes,
         pos=pad_nodes(sample.pos), vel=pad_nodes(sample.vel),
     )
+    if windowed is not None:
+        out.update(_windowed_tiling(out, senders, receivers, edge_mask,
+                                    max_nodes, max_edges, *windowed))
+        return out
     if dense_cfg is None:
         return out
 
@@ -348,12 +382,48 @@ def pad_sample(sample: GraphSample, max_nodes: int, max_edges: int,
     return out
 
 
+def _windowed_tiling(out: dict, senders, receivers, edge_mask,
+                     max_nodes: int, max_edges: int, node_block: int,
+                     edge_tile: int, window_blocks: int, ovf_frac: float,
+                     run_cap: Optional[int]) -> dict:
+    """The windowed tiling's arrays of one padded sample (the JAX package's
+    windowed branch of `pad_sample`): a static tile count and overflow
+    budget per bucket, so every batch has the same shapes."""
+    total_tiles = (max_edges + edge_tile - 1) // edge_tile \
+        + (max_nodes + node_block - 1) // node_block
+    budget = overflow_budget(max_edges, edge_tile, ovf_frac)
+    (perm, tile_blocks, padded_recv, senders_local, tile_win,
+     ovf_idx) = prepare_windowed_csr_tiles(
+        senders, receivers, edge_mask, max_nodes, node_block, edge_tile,
+        window_blocks, total_tiles, budget, run_cap=run_cap)
+    nblocks = (max_nodes + node_block - 1) // node_block
+    ovf_valid = ovf_idx >= 0
+    ovf_c = np.maximum(ovf_idx, 0)
+    tiled = dict(
+        tiled_perm=perm, tiled_receivers=padded_recv,
+        tile_blocks=tile_blocks, tiled_senders=senders[perm],
+        tiled_edge_feat=out["edge_feat"][perm],
+        win_senders_local=senders_local, tile_win=tile_win,
+        win_part_mask=window_part_mask(tile_win, nblocks, window_blocks),
+        ovf_senders=np.where(ovf_valid, senders[ovf_c], 0).astype(np.int32),
+        ovf_receivers=np.where(ovf_valid, receivers[ovf_c], -1
+                               ).astype(np.int32),
+        ovf_edge_feat=np.where(ovf_valid[:, None], out["edge_feat"][ovf_c],
+                               0.0).astype(np.float32))
+    check_overflow_sorted(tiled["ovf_receivers"],
+                          "prepare_windowed_csr_tiles plan")
+    return tiled
+
+
 def stack_samples(samples: List[GraphSample], max_nodes: int, bg_index: int,
                   max_edges: Optional[int] = None,
                   sort_edges_by_receiver: bool = True,
                   csr_tiling=None, device: DeviceLike = None) -> GraphBatch:
     """Pads and stacks host samples into a GraphBatch on `device` (the CUDA
-    card by default; raises when there is none and no device was given)."""
+    card by default; raises when there is none and no device was given).
+    A windowed batch records its roll bound as the JAX package does: log2
+    of the run cap under spread tiling, else `roll_passes_bound` of these
+    samples."""
     device = resolve_device(device)
     if max_edges is None:
         max_edges = max(s.num_edges for s in samples)
@@ -362,15 +432,24 @@ def stack_samples(samples: List[GraphSample], max_nodes: int, bg_index: int,
               for s in samples]
     arrays = {k: np.stack([p[k] for p in padded]) for k in padded[0]}
     geometry = landing = None
-    if csr_tiling is not None:
+    if isinstance(csr_tiling, dict):
         # edge_tile = r_tile*k slots; trailing ("dense", r_tile, k) marker
         # read by flat_tiling
         r_tile, kk = csr_tiling["r_tile"], csr_tiling["k"]
-        node_block = csr_tiling["node_block"]
-        geometry = (node_block, r_tile * kk, None, ("dense", r_tile, kk))
+        node_block, slots = csr_tiling["node_block"], r_tile * kk
+        geometry = (node_block, slots, None, ("dense", r_tile, kk))
+    elif csr_tiling is not None:
+        node_block, slots = csr_tiling[:2]
+        if len(csr_tiling) >= 5 and csr_tiling[4] is not None:
+            # spread tiling caps the runs by construction
+            roll_passes = (int(csr_tiling[4]) - 1).bit_length()
+        else:
+            roll_passes = roll_passes_bound(samples, slots)
+        geometry = (node_block, slots, roll_passes)
+    if csr_tiling is not None:
         landing = SenderLanding(*(
             torch.from_numpy(a).to(device) for a in _flat_sender_landing(
-                arrays, max_nodes, node_block, r_tile * kk)))
+                arrays, max_nodes, node_block, slots)))
     return GraphBatch(
         **{k: torch.from_numpy(v).to(device) for k, v in arrays.items()},
         tile_geometry=geometry, sender_landing=landing,
@@ -379,9 +458,9 @@ def stack_samples(samples: List[GraphSample], max_nodes: int, bg_index: int,
 
 def _flat_sender_landing(arrays: dict, max_nodes: int, node_block: int,
                          slots_per_tile: int):
-    """The sender landing of stacked dense-tiled arrays, in the global
-    layout `GraphBatch.flat_tiling` gives them (graph g's nodes and blocks
-    offset by g)."""
+    """The sender landing of stacked tiled arrays, in the global layout
+    `GraphBatch.flat_tiling` gives them (graph g's nodes and blocks offset
+    by g)."""
     g = arrays["tile_win"].shape[0]
     graph = np.arange(g, dtype=np.int64)[:, None]
     tile_win = arrays["tile_win"] + graph * (max_nodes // node_block)

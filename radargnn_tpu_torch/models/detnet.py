@@ -7,10 +7,10 @@ logits and box regression). The model runs on the flattened padded
 GraphBatch ([G·N, Dn] nodes, [G·E, De] edges, global edge indices) with
 validity masks.
 
-With a dense tiling (`batch.flat_tiling()`), the edge features arrive in slot
-order and the embedding runs in that layout; the overflow edge features ride
-the same embedding, with their own mask (and so their own BatchNorm
-statistics, as in the JAX package).
+With a tiling, dense or windowed (`batch.flat_tiling()`), the edge features
+arrive in slot order and the embedding runs in that layout; the overflow
+edge features ride the same embedding, with their own mask (and so their
+own BatchNorm statistics, as in the JAX package).
 """
 
 from __future__ import annotations

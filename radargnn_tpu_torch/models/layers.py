@@ -8,12 +8,15 @@ constant per receiver and commute with the max:
 
     aggr_r = (x @ W_r)[r] + b + max_e((x @ W_s)[s] + e @ W_e)
 
-(0 for receivers without in-edges). With a dense tiling the max runs in the
-dense aggregation (`ops.dense_aggregate`, a CUDA kernel on the card);
-without one it is a masked segment max over the edge list.
+(0 for receivers without in-edges). With a dense tiling (kNN graphs) the
+max runs in the dense aggregation (`ops.dense_aggregate`), with a windowed
+tiling (radius graphs, or any graph under `fused_tiling: "windowed"`) in
+the windowed aggregation (`ops.windowed_aggregate`), each a pair of CUDA
+kernels on the card; without a tiling it is a masked segment max over the
+edge list.
 
-The multi-layer pre-MLP (`SplitPreMLP`), halo partitioning and the
-windowed/CSR tilings are not ported yet and raise (ROADMAP.md).
+The multi-layer pre-MLP (`SplitPreMLP`), halo partitioning and the CSR
+tiling are not ported yet and raise (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,12 +31,14 @@ from radargnn_tpu_torch.models.mlp import (
 )
 from radargnn_tpu_torch.ops.dense_aggregate import dense_aggregate
 from radargnn_tpu_torch.ops.segment import hoisted_segment_max
+from radargnn_tpu_torch.ops.windowed_aggregate import windowed_aggregate
 
-# dense-tiling geometry, the JAX package's defaults: node blocks of the
-# sender windows, receivers per tile, slots per receiver over the kNN k
-# (+4 keeps the over-degree spill ~2.4% at the flagship degree profile),
-# and window width in node blocks
+# tiling geometry, the JAX package's defaults: node blocks of the sender
+# windows, slots per windowed tile, receivers per dense tile, dense slots
+# per receiver over the kNN k (+4 keeps the over-degree spill ~2.4% at the
+# flagship degree profile), and window width in node blocks
 FUSED_NODE_BLOCK = 256
+FUSED_EDGE_TILE = 512
 FUSED_DENSE_R_TILE = 64
 FUSED_DENSE_EXTRA_SLOTS = 4
 FUSED_WINDOW_BLOCKS = 3
@@ -42,17 +47,24 @@ FUSED_WINDOW_BLOCKS = 3
 def fused_csr_tiling(model_config, k=None):
     """`stack_samples` tiling spec for a GNNArchitectureConfig, or None when
     the fused path is off. `fused_tiling` "dense" (or "auto" with the kNN
-    degree `k` given) returns the dense tiling dict; the windowed and CSR
-    tilings are not ported yet."""
+    degree `k` given) returns the dense tiling dict; "windowed" (or "auto"
+    without `k`: radius graphs) the windowed tuple (node_block, edge_tile,
+    window_blocks, fused_overflow_fraction[, fused_run_cap]); the CSR
+    tiling is not ported yet."""
     if not getattr(model_config, "use_fused_aggregation", False):
         return None
     mode = getattr(model_config, "fused_tiling", "windowed")
     if mode == "auto":
         mode = "dense" if k is not None else "windowed"
+    if mode == "windowed":
+        tiling = (FUSED_NODE_BLOCK, FUSED_EDGE_TILE, FUSED_WINDOW_BLOCKS,
+                  getattr(model_config, "fused_overflow_fraction", 0.05))
+        run_cap = getattr(model_config, "fused_run_cap", None)
+        return tiling if run_cap is None else tiling + (run_cap,)
     if mode != "dense":
         raise NotImplementedError(
-            f'fused_tiling "{mode}" is not ported yet (ROADMAP.md item A9); '
-            'use "dense" (kNN graphs)')
+            f'fused_tiling "{mode}" is not ported yet (ROADMAP.md item B5); '
+            'use "dense" (kNN graphs) or "windowed"')
     if k is None:
         raise ValueError('fused_tiling "dense" needs the kNN degree k '
                          "(graph_construction.k); pass it to "
@@ -68,14 +80,21 @@ def fused_csr_tiling(model_config, k=None):
 
 
 def _fused_hoisted_max(x, w_s, w_e, offset, tiling) -> torch.Tensor:
-    """Hoisted max aggregation over the batch's dense tiling (its backward
-    lands d_x through the batch's sender landing)."""
-    r_tile, k = tiling.dense
+    """Hoisted max aggregation over the batch's tiling: the dense
+    aggregation for a dense tiling, the windowed one otherwise (either
+    backward lands d_x through the batch's sender landing)."""
     sloc, t_win, _, ovf_s, ovf_r, ovf_e = tiling.win
-    return dense_aggregate(x, w_s, tiling.edge_feat, w_e, offset, ovf_e,
-                           t_win, sloc, ovf_s, ovf_r, r_tile=r_tile, k=k,
-                           node_block=tiling.node_block,
-                           landing=tiling.landing)
+    if tiling.dense is not None:
+        r_tile, k = tiling.dense
+        return dense_aggregate(x, w_s, tiling.edge_feat, w_e, offset, ovf_e,
+                               t_win, sloc, ovf_s, ovf_r, r_tile=r_tile, k=k,
+                               node_block=tiling.node_block,
+                               landing=tiling.landing)
+    return windowed_aggregate(x, w_s, tiling.edge_feat, w_e, offset, ovf_e,
+                              tiling.receivers, tiling.blocks, t_win, sloc,
+                              ovf_s, ovf_r, node_block=tiling.node_block,
+                              edge_tile=tiling.edge_tile,
+                              landing=tiling.landing)
 
 
 def _check_hoisted(pre_layers: int, aggr: str) -> None:

@@ -23,6 +23,11 @@ The overflow backward is torch, as XLA in the JAX package. d_x is the
 d_xg rows and the overflow rows summed at their senders, landed in one
 deterministic pass by `ops.segment_sum` over the batch's sender-sorted
 order (`graph/batch.py` builds it once per batch).
+
+The overflow code, the operand preparation (`gather_operands`), the VJP
+body (`fused_backward`) and the kernels' input checks
+(`check_slot_operands`) serve the windowed aggregation too
+(`ops.windowed_aggregate`).
 """
 
 from __future__ import annotations
@@ -130,49 +135,58 @@ def _check(cond: bool, msg: str, kernel: str = "dense_fwd_v4") -> None:
         raise ValueError(f"{kernel} kernel: {msg}")
 
 
-def _check_operands(kernel: str, x_c, w_s_c, e_t_c, w_e_c, senders_local,
-                    tile_win, node_tensors: dict, *, r_tile: int,
-                    k: int) -> None:
-    """The checks both dense kernels share: device, contiguity, dtypes,
-    shapes and alignment of the slot-layout operands; `node_tensors` are
-    the float32 [T*R, H] inputs."""
+def check_slot_operands(kernel: str, x_c, w_s_c, e_t_c, w_e_c,
+                        index_tensors: dict, node_tensors: dict) -> None:
+    """The checks every fused slot kernel (dense and windowed) needs: all
+    on one CUDA device and contiguous; x, w_s, e_t, w_e bf16 with matching
+    widths, each a multiple of 8 and 16-byte aligned (the 16-byte row
+    loads); `index_tensors` int32; `node_tensors` float32."""
     dev = x_c.device
-    tensors = dict(x=x_c, w_s=w_s_c, e_t=e_t_c, w_e=w_e_c,
-                   senders_local=senders_local, tile_win=tile_win,
+    tensors = dict(x=x_c, w_s=w_s_c, e_t=e_t_c, w_e=w_e_c, **index_tensors,
                    **node_tensors)
     for name, ten in tensors.items():
         _check(ten.device == dev and dev.type == "cuda",
                f"{name} must be on {dev} (a CUDA device)", kernel)
         _check(ten.is_contiguous(), f"{name} must be contiguous", kernel)
-    for name in ("x", "w_s", "e_t", "w_e"):
-        _check(tensors[name].dtype == torch.bfloat16, f"{name} must be bf16",
-               kernel)
-    for name in node_tensors:
-        _check(tensors[name].dtype == torch.float32,
-               f"{name} must be float32", kernel)
-    for name in ("senders_local", "tile_win"):
-        _check(tensors[name].dtype == torch.int32, f"{name} must be int32",
-               kernel)
-    d = x_c.shape[1]
+    for names, dtype, label in (
+            (("x", "w_s", "e_t", "w_e"), torch.bfloat16, "bf16"),
+            (node_tensors, torch.float32, "float32"),
+            (index_tensors, torch.int32, "int32")):
+        for name in names:
+            _check(tensors[name].dtype == dtype, f"{name} must be {label}",
+                   kernel)
+    d, h = w_s_c.shape
+    de = e_t_c.shape[1]
+    _check(x_c.shape[1] == d and w_e_c.shape == (de, h),
+           f"w_s {tuple(w_s_c.shape)} / w_e {tuple(w_e_c.shape)} do not "
+           f"match d={x_c.shape[1]}, de={de}", kernel)
+    _check(d % 8 == 0 and de % 8 == 0,
+           f"feature widths must be multiples of 8 (d={d}, de={de})", kernel)
+    _check(x_c.data_ptr() % 16 == 0 and e_t_c.data_ptr() % 16 == 0,
+           "x and e_t must be 16-byte aligned", kernel)
+
+
+def _check_operands(kernel: str, x_c, w_s_c, e_t_c, w_e_c, senders_local,
+                    tile_win, node_tensors: dict, *, r_tile: int,
+                    k: int) -> None:
+    """The checks both dense kernels share: `check_slot_operands`, then the
+    slot layout's shapes; `node_tensors` are the float32 [T*R, H]
+    inputs."""
+    check_slot_operands(kernel, x_c, w_s_c, e_t_c, w_e_c,
+                        dict(senders_local=senders_local, tile_win=tile_win),
+                        node_tensors)
     h = w_s_c.shape[1]
-    e_pad, de = e_t_c.shape
+    e_pad = e_t_c.shape[0]
     te = r_tile * k
     t = tile_win.shape[0]
-    _check(w_s_c.shape == (d, h) and w_e_c.shape == (de, h),
-           f"w_s {tuple(w_s_c.shape)} / w_e {tuple(w_e_c.shape)} do not "
-           f"match d={d}, de={de}, h={h}", kernel)
     _check(e_pad == t * te and senders_local.shape == (e_pad,),
            f"{e_pad} slots do not match {t} tiles x {te}", kernel)
     for name, ten in node_tensors.items():
         _check(ten.shape == (t * r_tile, h),
                f"{name} must be [{t * r_tile}, {h}]", kernel)
-    _check(d % 8 == 0 and de % 8 == 0,
-           f"feature widths must be multiples of 8 (d={d}, de={de})", kernel)
     _check(r_tile % 16 == 0 and 16 <= r_tile <= 128,
            f"r_tile must be a multiple of 16 in [16, 128] (got {r_tile})",
            kernel)
-    _check(x_c.data_ptr() % 16 == 0 and e_t_c.data_ptr() % 16 == 0,
-           "x and e_t must be 16-byte aligned", kernel)
 
 
 def dense_fwd_cuda(x_c, w_s_c, e_t_c, w_e_c, senders_local, tile_win,
@@ -325,22 +339,73 @@ def _pad_depth(a: torch.Tensor, w: torch.Tensor):
     return a.contiguous(), w.contiguous()
 
 
+def gather_operands(x, w_s, e_t, w_e, e_ovf, ovf_s, ovf_r,
+                    num_nodes: int):
+    """A fused forward's operands in the gather dtype: the overflow maxima
+    inner_o [num_nodes, H] float32 and the depth-padded (x, w_s, e_t, w_e)
+    the kernels (and the backward) take."""
+    cd = gather_dtype(x.device)
+    x_c, w_s_c, w_e_c = x.to(cd), w_s.to(cd), w_e.to(cd)
+    inner_o = dense_overflow_inner(x_c, w_s_c, e_ovf.to(cd), w_e_c,
+                                   ovf_s, ovf_r, num_nodes)
+    x_p, w_s_p = _pad_depth(x_c, w_s_c)
+    e_p, w_e_p = _pad_depth(e_t.to(cd), w_e_c)
+    return inner_o, (x_p, w_s_p, e_p, w_e_p)
+
+
+def fused_backward(g, inner, slot_backward, x, w_s, w_e, e_ovf, ovf_s,
+                   ovf_r, order, row_ptr, dtypes) -> tuple:
+    """The custom VJP's body that both fused aggregations share: g and
+    inner zeroed at empty receivers, the kernels' slot part
+    `slot_backward(inner_z, g_pass) -> (d_xg, d_e_t, dW_s, dW_e)` (padded
+    widths, d_xg and d_e_t in the gather dtype), the overflow backward in
+    torch (XLA in the JAX package), and d_x: the d_xg rows and the
+    overflow rows summed at their senders in one landing over the batch's
+    sender order. Returns the gradients of (x, w_s, e_t, w_e, offset,
+    e_ovf) in their inputs' dtypes."""
+    x_dtype, e_dtype, e_ovf_dtype, offset_dtype = dtypes
+    d, de = x.shape[1], w_e.shape[0]
+    has = inner > _NEG / 2
+    g_pass = torch.where(has, g.float(), 0.0)
+    inner_z = torch.where(has, inner, 0.0)
+    d_xg, d_e_t, d_ws, d_we = slot_backward(inner_z, g_pass)
+
+    # the overflow operand is recomputed as the forward computed it, in the
+    # gather dtype; the products with d_op_o take the unrounded float32
+    # operands
+    cd = d_xg.dtype
+    mask = ovf_r >= 0
+    recv = torch.where(mask, ovf_r, 0).long()
+    op_o = _overflow_operand(x.to(cd), w_s.to(cd), e_ovf.to(cd), w_e.to(cd),
+                             ovf_s)
+    d_op_o = torch.where(mask[:, None] & _routes(op_o, inner_z[recv]),
+                         g_pass[recv], 0.0)
+    d_xo = d_op_o @ w_s.float().t()
+    pad = d_xg.shape[1] - d
+    if pad:
+        d_xo = torch.nn.functional.pad(d_xo, (0, pad))
+    d_x = segment_sum.segment_sum_csr(d_xg, order, row_ptr,
+                                      d_xo.contiguous())[:, :d]
+    x_o = x.float()[ovf_s.long()]
+    d_ws = d_ws[:d] + x_o.t() @ d_op_o
+    d_we = d_we[:de] + e_ovf.float().t() @ d_op_o
+    d_e_ovf = (d_op_o @ w_e.float().t()).to(e_ovf_dtype)
+    return (d_x.to(x_dtype), d_ws.to(w_s.dtype), d_e_t[:, :de].to(e_dtype),
+            d_we.to(w_e.dtype), g_pass.to(offset_dtype), d_e_ovf)
+
+
 def _forward(x, w_s, e_t, w_e, offset, e_ovf, tile_win, senders_local,
              ovf_s, ovf_r, geo, emit_inner: bool):
     """The forward on gather-dtype operands; returns (the kernel wrapper's
     result, the padded operands the backward reuses)."""
     r_tile, k, node_block = geo
-    cd = gather_dtype(x.device)
-    x_c, w_s_c, w_e_c = x.to(cd), w_s.to(cd), w_e.to(cd)
-    inner_o = dense_overflow_inner(x_c, w_s_c, e_ovf.to(cd), w_e_c,
-                                   ovf_s, ovf_r, offset.shape[0])
-    x_p, w_s_p = _pad_depth(x_c, w_s_c)
-    e_p, w_e_p = _pad_depth(e_t.to(cd), w_e_c)
-    res = dense_fwd(x_p, w_s_p, e_p, w_e_p, senders_local.contiguous(),
+    inner_o, padded = gather_operands(x, w_s, e_t, w_e, e_ovf, ovf_s, ovf_r,
+                                      offset.shape[0])
+    res = dense_fwd(*padded, senders_local.contiguous(),
                     tile_win.contiguous(), inner_o,
                     offset.float().contiguous(), r_tile=r_tile, k=k,
                     node_block=node_block, emit_inner=emit_inner)
-    return res, (x_p, w_s_p, e_p, w_e_p)
+    return res, padded
 
 
 class DenseAggregateFn(torch.autograd.Function):
@@ -365,38 +430,15 @@ class DenseAggregateFn(torch.autograd.Function):
         (x, w_s, w_e, e_ovf, x_p, w_s_p, e_p, w_e_p, sloc, t_win, ovf_s,
          ovf_r, order, row_ptr, inner) = ctx.saved_tensors
         r_tile, k, node_block = ctx.geo
-        x_dtype, e_dtype, e_ovf_dtype, offset_dtype = ctx.dtypes
-        d, de = x.shape[1], w_e.shape[0]
-        has = inner > _NEG / 2
-        g_pass = torch.where(has, g.float(), 0.0)
-        inner_z = torch.where(has, inner, 0.0)
-        d_xg, d_e_t, d_ws, d_we = dense_bwd(
-            x_p, w_s_p, e_p, w_e_p, sloc, t_win, inner_z, g_pass,
-            r_tile=r_tile, k=k, node_block=node_block)
 
-        # overflow backward (torch; XLA in the JAX package): the operand is
-        # recomputed as the forward computed it, in the gather dtype; the
-        # products with d_op_o take the unrounded float32 operands
-        cd = x_p.dtype
-        mask = ovf_r >= 0
-        recv = torch.where(mask, ovf_r, 0).long()
-        op_o = _overflow_operand(x.to(cd), w_s.to(cd), e_ovf.to(cd),
-                                 w_e.to(cd), ovf_s)
-        d_op_o = torch.where(mask[:, None] & _routes(op_o, inner_z[recv]),
-                             g_pass[recv], 0.0)
-        d_xo = d_op_o @ w_s.float().t()
-        pad = x_p.shape[1] - d
-        if pad:
-            d_xo = torch.nn.functional.pad(d_xo, (0, pad))
-        d_x = segment_sum.segment_sum_csr(d_xg, order, row_ptr,
-                                          d_xo.contiguous())[:, :d]
-        x_o = x.float()[ovf_s.long()]
-        d_ws = d_ws[:d] + x_o.t() @ d_op_o
-        d_we = d_we[:de] + e_ovf.float().t() @ d_op_o
-        d_e_ovf = (d_op_o @ w_e.float().t()).to(e_ovf_dtype)
-        return (d_x.to(x_dtype), d_ws.to(w_s.dtype),
-                d_e_t[:, :de].to(e_dtype), d_we.to(w_e.dtype),
-                g_pass.to(offset_dtype), d_e_ovf) + (None,) * 7
+        def slot_backward(inner_z, g_pass):
+            return dense_bwd(x_p, w_s_p, e_p, w_e_p, sloc, t_win, inner_z,
+                             g_pass, r_tile=r_tile, k=k,
+                             node_block=node_block)
+
+        return fused_backward(g, inner, slot_backward, x, w_s, w_e, e_ovf,
+                              ovf_s, ovf_r, order, row_ptr,
+                              ctx.dtypes) + (None,) * 7
 
 
 def dense_aggregate(x, w_s, e_t, w_e, offset, e_ovf, tile_win,

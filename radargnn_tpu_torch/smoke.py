@@ -1,6 +1,7 @@
 """End-to-end check of the port on one device: the kernels against their
-plain versions, the flagship DetNet serving path through `Predictor`, and
-the flagship training path through `Trainer`.
+plain versions, and the flagship DetNet's serving path (`Predictor`) and
+training path (`Trainer`) on two graphs: the kNN graph under the dense
+tiling, and the radius graph under the windowed tiling.
 
 `run(device)` is what `chip_smoke.py` calls on the card; the CPU tests call
 it at a tiny size, where the wrappers take their plain versions, nothing is
@@ -10,12 +11,14 @@ caught and continued.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import time
 from contextlib import ExitStack
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, NamedTuple, Tuple
 from unittest import mock
 
 import numpy as np
@@ -30,18 +33,29 @@ from radargnn_tpu_torch.models.detnet import DetNet
 from radargnn_tpu_torch.models.layers import fused_csr_tiling
 from radargnn_tpu_torch.ops import dense_aggregate as da
 from radargnn_tpu_torch.ops import segment_sum as ss
+from radargnn_tpu_torch.ops import windowed_aggregate as wa
 from radargnn_tpu_torch.postprocess.inference import Predictor
 from radargnn_tpu_torch.train.trainer import Trainer, set_seeds
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP_CONFIG = os.path.join(_REPO, "configurations",
                                "configuration_radarscenes.yml")
-KERNEL_SOURCES = ("dense_fwd_v4.cu", "dense_bwd_v4.cu", "segment_sum_csr.cu")
+KERNEL_SOURCES = ("dense_fwd_v4.cu", "dense_bwd_v4.cu", "segment_sum_csr.cu",
+                  "windowed_fwd_v3.cu", "windowed_bwd_v3.cu")
+# the kernels' names, in the order of `_counters()`
+KERNEL_NAMES = ("dense_fwd_v4", "dense_bwd_v4", "segment_sum_csr",
+                "windowed_fwd_v3", "windowed_bwd_v3")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12          # outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
+
+# the radius graph's cut-off at 2816 points per frame: mean in-degree
+# 20.0-22.8 on the synthetic frames, the flagship kNN graph's k = 20; at
+# other point counts it scales as 1/sqrt(points), which keeps the degree
+RADIUS_R = 3.0
+RADIUS_POINTS = 2816
 
 # forward kernel vs plain version on the same bf16 inputs: both sum exact
 # bf16 products in float32 and differ only in summation order
@@ -50,6 +64,7 @@ KERNEL_RTOL = 1e-3
 # (multiples of 1/8, check_bwd_kernels) where every product and sum is
 # exact in float32 in any order: they must agree up to the bf16 rounding
 # of equal values, so any error is a fault; the limit is the float32 one
+# (the windowed backward is held to exact agreement)
 BWD_RTOL = 1e-3
 # whole model, kernel path vs plain path on the card: a different f32
 # summation order can move an activation across a bf16 rounding boundary
@@ -89,38 +104,112 @@ def _time_ms(fn: Callable, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _kernel_bound(d: int, de: int, h: int, n: int, e_pad: int, t: int,
-                  valid_slots: int) -> Dict:
-    """Least time the card could take for one dense forward at these
-    shapes: the larger of the bf16 products the function needs over the
-    tensor-core peak, and the bytes (each input read once, the output
-    written once) over the HBM rate. The function needs x @ W_s once per
-    node, since x[s] @ W_s = (x @ W_s)[s], and e @ W_e once per valid slot.
-    `slot_flops` is the work of the current kernel, which runs both
-    products per valid slot as the TPU kernel does; it is not the bound."""
-    flops = 2.0 * (n * d * h + valid_slots * de * h)
-    nbytes = (n * d * 2 + d * h * 2 + e_pad * de * 2 + de * h * 2
-              + e_pad * 4 + t * 4 + 3 * n * h * 4)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+def _bound(flops: float, nbytes: float, peak_flops: float) -> Dict:
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
     return {"flops": flops, "bytes": nbytes,
-            "slot_flops": 2.0 * valid_slots * (d + de) * h,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def _kernel_bound(d: int, de: int, h: int, n: int, e_pad: int, t: int,
+                  valid_slots: int, index_arrays: int = 1) -> Dict:
+    """Least time the card could take for one fused forward at these
+    shapes: the larger of the bf16 products the function needs over the
+    tensor-core peak, and the bytes (each input read once, the output
+    written once) over the HBM rate. The function needs x @ W_s once per
+    node, since x[s] @ W_s = (x @ W_s)[s], and e @ W_e once per valid slot.
+    `index_arrays` int32 arrays per slot and per tile describe the layout
+    (dense: senders_local, tile_win; windowed: also receivers and
+    tile_blocks). `slot_flops` is the work of the current kernels, which
+    run both products per valid slot as the TPU kernels do; it is not the
+    bound."""
+    nbytes = (n * d * 2 + d * h * 2 + e_pad * de * 2 + de * h * 2
+              + index_arrays * (e_pad + t) * 4 + 3 * n * h * 4)
+    row = _bound(2.0 * (n * d * h + valid_slots * de * h), nbytes,
+                 PEAK_BF16_FLOPS)
+    row["slot_flops"] = 2.0 * valid_slots * (d + de) * h
+    return row
+
+
+def _bwd_bound(d: int, de: int, h: int, n: int, e_pad: int, t: int,
+               valid_slots: int, index_arrays: int = 1) -> Dict:
+    """Least time the card could take for one fused backward (the TPU
+    kernel's function, d_x landed): d_x = (the sum of d_op over a sender's
+    slots) @ W_s^T and dW_s = x^T @ (the same sums) once per node, d_e and
+    dW_e once per valid slot; the bytes of x, e_t, the layout's index
+    arrays, inner, g, the weights (in) and d_x, d_e, dW_s, dW_e (out)."""
+    nbytes = (n * d * 2 + e_pad * de * 2 + index_arrays * (e_pad + t) * 4
+              + 2 * n * h * 4 + (d + de) * h * 2 + n * d * 4
+              + e_pad * de * 2 + (d + de) * h * 4)
+    return _bound(4.0 * (n * d * h + valid_slots * de * h), nbytes,
+                  PEAK_BF16_FLOPS)
+
+
+def _segsum_bound(d: int, rows_bf16: int, rows_f32: int, n: int) -> Dict:
+    """Least time for one landing: each listed row read once (bf16 slot
+    rows, f32 overflow rows), its index, the row offsets, the f32 output
+    written once; one f32 add per element read."""
+    rows = rows_bf16 + rows_f32
+    nbytes = (rows_bf16 * d * 2 + rows_f32 * d * 4 + rows * 4 + (n + 1) * 4
+              + n * d * 4)
+    return _bound(float(rows * d), nbytes, PEAK_F32_FLOPS)
+
+
+class _Kernels(NamedTuple):
+    """How a batch's fused layout calls its forward and backward kernels
+    and their plain versions, on the operands alone."""
+
+    fwd_name: str
+    bwd_name: str
+    fwd: Callable           # (x, w_s, e_t, w_e, inner_o, offset, emit_inner)
+    fwd_plain: Callable
+    bwd: Callable           # (x, w_s, e_t, w_e, inner_z, g_pass)
+    bwd_plain: Callable
+    index_arrays: int
+
+
+def _kernels_of(tiling) -> _Kernels:
+    sloc, t_win = tiling.win[:2]
+    if tiling.dense is not None:
+        r_tile, k = tiling.dense
+        kw = dict(r_tile=r_tile, k=k, node_block=tiling.node_block)
+        layout = (sloc, t_win)
+        names, mod, fns = ("dense_fwd_v4", "dense_bwd_v4"), da, (
+            "dense_fwd", "dense_fwd_plain", "dense_bwd", "dense_bwd_plain")
+    else:
+        kw = dict(node_block=tiling.node_block, edge_tile=tiling.edge_tile)
+        layout = (tiling.receivers, sloc, t_win, tiling.blocks)
+        names, mod, fns = ("windowed_fwd_v3", "windowed_bwd_v3"), wa, (
+            "windowed_fwd", "windowed_fwd_plain", "windowed_bwd",
+            "windowed_bwd_plain")
+
+    def fwd(name):
+        fn = getattr(mod, name)
+        return lambda x, w_s, e_t, w_e, inner_o, offset, emit_inner=False: \
+            fn(x, w_s, e_t, w_e, *layout, inner_o, offset,
+               emit_inner=emit_inner, **kw)
+
+    def bwd(name):
+        fn = getattr(mod, name)
+        return lambda x, w_s, e_t, w_e, inner_z, g_pass: \
+            fn(x, w_s, e_t, w_e, *layout, inner_z, g_pass, **kw)
+
+    return _Kernels(*names, fwd(fns[0]), fwd(fns[1]), bwd(fns[2]),
+                    bwd(fns[3]), len(layout) // 2)
+
+
 def check_fwd_kernel(tiling, layer_shapes: List[tuple], seed: int, reps: int,
                      out: Callable = print) -> List[Dict]:
-    """Holds the dense forward kernel against `dense_fwd_plain` at each
-    (d_in, d_e, H) of the model, on the batch's real slot layout and seeded
-    bf16 inputs, in serving and in VJP mode (`inner`); times both on the
-    card. Raises beyond KERNEL_RTOL."""
-    r_tile, k = tiling.dense
+    """Holds the batch's forward kernel (dense or windowed) against its
+    plain version at each (d_in, d_e, H) of the model, on the batch's real
+    layout and seeded bf16 inputs, in serving and in VJP mode (`inner`);
+    times both on the card. Raises beyond KERNEL_RTOL."""
+    kern = _kernels_of(tiling)
     sloc, t_win, _, ovf_s, ovf_r, _ = tiling.win
     dev = sloc.device
     cd = da.gather_dtype(dev)
-    e_pad = sloc.shape[0]
-    t = t_win.shape[0]
-    n = t * r_tile
+    e_pad, t = sloc.shape[0], t_win.shape[0]
+    n = tiling.landing.row_ptr.shape[0] - 1
     valid_slots = int((sloc >= 0).sum())
     on_card = dev.type == "cuda"
     gen = torch.Generator().manual_seed(seed)
@@ -136,12 +225,11 @@ def check_fwd_kernel(tiling, layer_shapes: List[tuple], seed: int, reps: int,
         inner_o = da.dense_overflow_inner(
             x, w_s, rand(ovf_s.shape[0], de).to(cd), w_e, ovf_s, ovf_r, n)
         offset = rand(n, h)
-        args = (x, w_s, e_t, w_e, sloc, t_win, inner_o, offset)
-        kw = dict(r_tile=r_tile, k=k, node_block=tiling.node_block)
-        got = da.dense_fwd(*args, **kw)
-        ref = da.dense_fwd_plain(*args, **kw)
-        got_vjp, inner = da.dense_fwd(*args, emit_inner=True, **kw)
-        _, ref_inner = da.dense_fwd_plain(*args, emit_inner=True, **kw)
+        args = (x, w_s, e_t, w_e, inner_o, offset)
+        got = kern.fwd(*args)
+        ref = kern.fwd_plain(*args)
+        got_vjp, inner = kern.fwd(*args, emit_inner=True)
+        _, ref_inner = kern.fwd_plain(*args, emit_inner=True)
         if on_card:
             torch.cuda.synchronize()
         if not torch.isfinite(got).all():
@@ -156,55 +244,25 @@ def check_fwd_kernel(tiling, layer_shapes: List[tuple], seed: int, reps: int,
         scale = max(float(ref.abs().max()), 1.0)
         row = {"d_in": d, "d_e": de, "h": h, "max_abs_err": err,
                "max_rel_err": err / scale}
-        row.update(_kernel_bound(d, de, h, n, e_pad, t, valid_slots))
+        row.update(_kernel_bound(d, de, h, n, e_pad, t, valid_slots,
+                                 kern.index_arrays))
         if on_card:
-            row["ms"] = _time_ms(lambda: da.dense_fwd(*args, **kw), reps)
-            row["plain_ms"] = _time_ms(
-                lambda: da.dense_fwd_plain(*args, **kw), reps)
+            row["ms"] = _time_ms(lambda: kern.fwd(*args), reps)
+            row["plain_ms"] = _time_ms(lambda: kern.fwd_plain(*args), reps)
         else:
             row["ms"] = row["plain_ms"] = None
-        out(f"kernel dense_fwd_v4 d_in={d} H={h}: max_abs_err={err:.3e} "
+        out(f"kernel {kern.fwd_name} d_in={d} H={h}: max_abs_err={err:.3e} "
             f"max_rel_err={row['max_rel_err']:.3e} ms={row['ms']} "
             f"plain_ms={row['plain_ms']} bound_ms={row['bound_ms']:.4f} "
             f"({row['bound_by']}; {row['flops'] / 1e9:.2f} GFLOP needed, "
             f"{row['slot_flops'] / 1e9:.2f} GFLOP as the kernel does it)")
         if row["max_rel_err"] > KERNEL_RTOL:
             raise AssertionError(
-                f"dense_fwd_v4 disagrees with dense_fwd_plain at d_in={d}, "
-                f"H={h}: max_rel_err {row['max_rel_err']:.3e} > {KERNEL_RTOL}")
+                f"{kern.fwd_name} disagrees with its plain version at "
+                f"d_in={d}, H={h}: max_rel_err {row['max_rel_err']:.3e} > "
+                f"{KERNEL_RTOL}")
         results.append(row)
     return results
-
-
-def _bwd_bound(d: int, de: int, h: int, n: int, e_pad: int, t: int,
-               valid_slots: int) -> Dict:
-    """Least time the card could take for one dense backward (the TPU
-    kernel's function, d_x landed): d_x = (the sum of d_op over a sender's
-    slots) @ W_s^T and dW_s = x^T @ (the same sums) once per node, d_e and
-    dW_e once per valid slot; the bytes of x, e_t, sloc, tile_win, inner,
-    g, the weights (in) and d_x, d_e, dW_s, dW_e (out)."""
-    flops = 4.0 * (n * d * h + valid_slots * de * h)
-    nbytes = (n * d * 2 + e_pad * de * 2 + e_pad * 4 + t * 4 + 2 * n * h * 4
-              + (d + de) * h * 2 + n * d * 4 + e_pad * de * 2
-              + (d + de) * h * 4)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-    return {"flops": flops, "bytes": nbytes,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-
-
-def _segsum_bound(d: int, rows_bf16: int, rows_f32: int, n: int) -> Dict:
-    """Least time for one landing: each listed row read once (bf16 slot
-    rows, f32 overflow rows), its index, the row offsets, the f32 output
-    written once; one f32 add per element read."""
-    rows = rows_bf16 + rows_f32
-    flops = float(rows * d)
-    nbytes = (rows_bf16 * d * 2 + rows_f32 * d * 4 + rows * 4 + (n + 1) * 4
-              + n * d * 4)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return {"flops": flops, "bytes": nbytes,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def _rel_err(got: torch.Tensor, want: torch.Tensor) -> Tuple[float, float]:
@@ -213,34 +271,34 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> Tuple[float, float]:
 
 
 def check_bwd_kernels(tiling, layer_shapes: List[tuple], seed: int,
-                      reps: int, out: Callable = print
+                      reps: int, out: Callable = print, exact: bool = False
                       ) -> Tuple[List[Dict], List[Dict]]:
-    """Holds the dense backward kernels (B2) and the landing (B3) against
-    their plain versions at each (d_in, d_e, H) of the model, on the
-    batch's real slot layout and landing; checks that two runs give the
-    same bits; times kernels, plain versions and, for the landing,
-    `index_add_` (the library call) on the card.
+    """Holds the batch's backward kernels (dense B2 or windowed B4) and the
+    landing (B3) against their plain versions at each (d_in, d_e, H) of
+    the model, on the batch's real layout and landing; checks that two
+    runs give the same bits; times kernels, plain versions and, for the
+    landing, `index_add_` (the library call) on the card.
 
     The inputs are seeded dyadic bf16 values (x, e, g in multiples of 1/2
     or 1/8, the weights in multiples of 1/4), so every product and every
     sum the kernels and the plain versions form is exact in float32 in any
     order. Routing then compares equal operands in both, exact ties are
     frequent (every tied slot takes the full g), and the two must agree up
-    to bf16 rounding of equal values (BWD_RTOL). With real-valued inputs a
-    slot at the routing tolerance's edge may route in one version only;
-    the training comparison covers those inputs end to end."""
-    r_tile, k = tiling.dense
+    to bf16 rounding of equal values (BWD_RTOL; with `exact`, bitwise).
+    With real-valued inputs a slot at the routing tolerance's edge may
+    route in one version only; the training comparison covers those
+    inputs end to end."""
+    kern = _kernels_of(tiling)
     sloc, t_win, _, ovf_s, ovf_r, _ = tiling.win
     order, row_ptr = tiling.landing
     dev = sloc.device
     cd = da.gather_dtype(dev)
     e_pad, t = sloc.shape[0], t_win.shape[0]
-    n = t * r_tile
+    n = row_ptr.shape[0] - 1
     valid_slots = int((sloc >= 0).sum())
     valid_ovf = int((ovf_r >= 0).sum())
     on_card = dev.type == "cuda"
     gen = torch.Generator().manual_seed(seed)
-    kw = dict(r_tile=r_tile, k=k, node_block=tiling.node_block)
     # sender of every landed row, and a dummy segment n for the rest, for
     # the library call
     rows_total = e_pad + ovf_s.shape[0]
@@ -251,7 +309,7 @@ def check_bwd_kernels(tiling, layer_shapes: List[tuple], seed: int,
         return (torch.randint(lo, hi + 1, shape, generator=gen)
                 * step).to(dev)
 
-    b2_rows, b3_rows = [], []
+    bwd_rows, seg_rows = [], []
     for d, de, h in layer_shapes:
         x = dyadic(n, d).to(cd)
         w_s = dyadic(d, h, step=0.25).to(cd)
@@ -259,15 +317,14 @@ def check_bwd_kernels(tiling, layer_shapes: List[tuple], seed: int,
         w_e = dyadic(de, h, step=0.25).to(cd)
         inner_o = da.dense_overflow_inner(
             x, w_s, dyadic(ovf_s.shape[0], de).to(cd), w_e, ovf_s, ovf_r, n)
-        _, inner = da.dense_fwd(x, w_s, e_t, w_e, sloc, t_win, inner_o,
-                                torch.zeros_like(inner_o), emit_inner=True,
-                                **kw)
+        _, inner = kern.fwd(x, w_s, e_t, w_e, inner_o,
+                            torch.zeros_like(inner_o), emit_inner=True)
         has = inner > da._NEG / 2
-        args = (x, w_s, e_t, w_e, sloc, t_win, torch.where(has, inner, 0.0),
+        args = (x, w_s, e_t, w_e, torch.where(has, inner, 0.0),
                 torch.where(has, dyadic(n, h, lo=-8, hi=8, step=0.125), 0.0))
-        got = da.dense_bwd(*args, **kw)
-        ref = da.dense_bwd_plain(*args, **kw)
-        again = da.dense_bwd(*args, **kw)
+        got = kern.bwd(*args)
+        ref = kern.bwd_plain(*args)
+        again = kern.bwd(*args)
         # the landing: slot rows (d_xg, the gather dtype) then overflow rows
         d_xo = dyadic(ovf_s.shape[0], d, lo=-8, hi=8, step=0.125)
         land = (got[0], order, row_ptr, d_xo)
@@ -280,7 +337,7 @@ def check_bwd_kernels(tiling, layer_shapes: List[tuple], seed: int,
         for name, u, v in zip(names, got, ref):
             if u.shape != v.shape or u.dtype != v.dtype \
                     or not torch.isfinite(u).all():
-                raise AssertionError(f"dense_bwd_v4 {name} at d_in={d}: "
+                raise AssertionError(f"{kern.bwd_name} {name} at d_in={d}: "
                                      "shape, dtype or not finite")
         errs = [_rel_err(u, v) for u, v in zip(got, ref)]
         seg_err = _rel_err(d_x, d_x_ref)
@@ -289,14 +346,14 @@ def check_bwd_kernels(tiling, layer_shapes: List[tuple], seed: int,
         b2 = {"d_in": d, "d_e": de, "h": h,
               "max_abs_err": max(e[0] for e in errs),
               "max_rel_err": max(e[1] for e in errs), "bitwise_repeat": same,
-              **_bwd_bound(d, de, h, n, e_pad, t, valid_slots)}
+              **_bwd_bound(d, de, h, n, e_pad, t, valid_slots,
+                           kern.index_arrays)}
         b3 = {"d": d, "rows": valid_slots + valid_ovf,
               "max_abs_err": seg_err[0], "max_rel_err": seg_err[1],
               **_segsum_bound(d, valid_slots, valid_ovf, n)}
         if on_card:
-            b2["ms"] = _time_ms(lambda: da.dense_bwd(*args, **kw), reps)
-            b2["plain_ms"] = _time_ms(
-                lambda: da.dense_bwd_plain(*args, **kw), reps)
+            b2["ms"] = _time_ms(lambda: kern.bwd(*args), reps)
+            b2["plain_ms"] = _time_ms(lambda: kern.bwd_plain(*args), reps)
             b3["ms"] = _time_ms(lambda: ss.segment_sum_csr(*land), reps)
             b3["plain_ms"] = _time_ms(
                 lambda: ss.segment_sum_csr_plain(*land), reps)
@@ -307,7 +364,7 @@ def check_bwd_kernels(tiling, layer_shapes: List[tuple], seed: int,
         else:
             b2["ms"] = b2["plain_ms"] = None
             b3["ms"] = b3["plain_ms"] = b3["library_ms"] = None
-        out(f"kernel dense_bwd_v4 d_in={d} H={h}: errors (abs, rel) "
+        out(f"kernel {kern.bwd_name} d_in={d} H={h}: errors (abs, rel) "
             + ", ".join(f"{nm} {e[0]:.3e} {e[1]:.3e}"
                         for nm, e in zip(names, errs))
             + f"; bitwise repeat {same}; ms={b2['ms']} plain_ms="
@@ -318,19 +375,20 @@ def check_bwd_kernels(tiling, layer_shapes: List[tuple], seed: int,
             f"{seg_err[0]:.3e} ms={b3['ms']} plain_ms={b3['plain_ms']} "
             f"index_add_ ms={b3['library_ms']} bound_ms="
             f"{b3['bound_ms']:.4f} ({b3['bound_by']})")
-        if b2["max_rel_err"] > BWD_RTOL or seg_err[1] > BWD_RTOL:
+        limit = 0.0 if exact else BWD_RTOL
+        if b2["max_rel_err"] > limit or seg_err[1] > BWD_RTOL:
             raise AssertionError(
                 f"backward kernels disagree with their plain versions at "
                 f"d_in={d}, H={h}: {errs}, landing {seg_err}")
         if not same:
             raise AssertionError(f"two backward runs differ at d_in={d}")
-        b2_rows.append(b2)
-        b3_rows.append(b3)
-    return b2_rows, b3_rows
+        bwd_rows.append(b2)
+        seg_rows.append(b3)
+    return bwd_rows, seg_rows
 
 
 def _layer_shapes(model: DetNet) -> List[tuple]:
-    """(d_in, d_e, H) of each conv layer's dense aggregation."""
+    """(d_in, d_e, H) of each conv layer's fused aggregation."""
     shapes = []
     for i in range(model.num_conv):
         conv = getattr(model, f"conv_{i}")
@@ -339,64 +397,126 @@ def _layer_shapes(model: DetNet) -> List[tuple]:
     return shapes
 
 
-def flagship_serving(dev: DeviceLike, points: int, graphs: int,
-                     batches: int, seed: int
-                     ) -> Tuple[object, DetNet, List]:
-    """The serving path's set-up: the configuration's DetNet with seeded
-    weights on `dev`, and `batches` requests of `graphs` synthetic frames of
-    `points` points each, stacked under the dense kNN tiling the
-    configuration selects. Returns (arch config, model, loader)."""
+def flagship_configs(graph: str = "knn", points: int = RADIUS_POINTS):
+    """The flagship configuration's MODEL_ARCHITECTURE and GRAPH_CONSTRUCTION
+    sections, its background index, and the fields replaced in code:
+    `graph` "knn" reads the YAML verbatim (the dense tiling); "radius"
+    replaces exactly three fields, graph_construction_algorithm "radius",
+    graph_construction_settings {"k": 20, "r": RADIUS_R·sqrt(2816/points)}
+    and fused_run_cap None (the windowed tiling with contiguous runs: under
+    the YAML's run cap 4 the spread tiler sends 9-11 % of the radius
+    graph's edges to overflow, past the 5 % budget)."""
     cfg = UserConfigurationReader.read_config_file(FLAGSHIP_CONFIG)
     arch = UserConfigurationReader.get_config_object("MODEL_ARCHITECTURE", cfg)
     graph_cfg = UserConfigurationReader.get_config_object(
         "GRAPH_CONSTRUCTION", cfg)
     bg_index = UserConfigurationReader.get_config_object(
         "POSTPROCESSING", cfg).bg_index
-    k = graph_cfg.k
-    tiling_spec = fused_csr_tiling(arch, k=k)
+    replaced: Dict = {}
+    if graph == "radius":
+        replaced = {"graph_construction_algorithm": "radius",
+                    "graph_construction_settings": {
+                        "k": 20,
+                        "r": RADIUS_R * math.sqrt(RADIUS_POINTS / points)},
+                    "fused_run_cap": None}
+        graph_cfg = dataclasses.replace(graph_cfg, **{
+            k: replaced[k] for k in ("graph_construction_algorithm",
+                                     "graph_construction_settings")})
+        arch = dataclasses.replace(arch, fused_run_cap=None)
+    elif graph != "knn":
+        raise ValueError(f"unknown graph {graph!r}: 'knn' or 'radius'")
+    return arch, graph_cfg, bg_index, replaced
+
+
+def _round_up(v: int, align: int) -> int:
+    return -(-v // align) * align
+
+
+def flagship_serving(dev: DeviceLike, points: int, graphs: int,
+                     batches: int, seed: int, graph: str = "knn"
+                     ) -> Tuple[object, DetNet, List]:
+    """The serving path's set-up: the configuration's DetNet with seeded
+    weights on `dev`, and `batches` requests of `graphs` synthetic frames of
+    `points` points each, built as `graph` ("knn" or "radius",
+    `flagship_configs`) and stacked under the tiling the configuration
+    selects for it (dense for kNN, windowed for radius). Returns (arch
+    config, model, loader).
+
+    kNN requests take consecutive frames of `seed`; radius request i takes
+    the frames of seed + i, so that request 0 is the radius batch the
+    configuration was sized on (304,352 edges at 5 x 2816 points, seed 0).
+    Consecutive frames of seed 0 would not do: the tenth has 6,005 window
+    overflow edges, past the 3,584 that the 5 % budget allows (the JAX
+    package's tiler refuses it as well)."""
+    arch, graph_cfg, bg_index, _ = flagship_configs(graph, points)
+    tiling_spec = fused_csr_tiling(arch, k=graph_cfg.k)
     if tiling_spec is None:
         raise AssertionError("the configuration does not select the fused "
-                             "dense path")
-    align = int(np.lcm(tiling_spec["node_block"], tiling_spec["r_tile"]))
-    max_nodes = -(-points // align) * align
-    samples = make_samples(num_frames=graphs * batches, num_points=points,
-                           seed=seed, graph_config=graph_cfg,
-                           bg_index=bg_index)
+                             "path")
+    kw = dict(num_points=points, graph_config=graph_cfg, bg_index=bg_index)
+    if graph == "knn":
+        samples = make_samples(num_frames=graphs * batches, seed=seed, **kw)
+        max_nodes = _round_up(points, int(np.lcm(tiling_spec["node_block"],
+                                                 tiling_spec["r_tile"])))
+        max_edges = max_nodes * graph_cfg.k
+    else:
+        samples = [s for i in range(batches) for s in make_samples(
+            num_frames=graphs, seed=seed + i, **kw)]
+        # the JAX loader's bucket: nodes aligned to the node block, edges
+        # to 64
+        max_nodes = _round_up(points, tiling_spec[0])
+        max_edges = _round_up(max(s.num_edges for s in samples), 64)
     loader = [stack_samples(samples[i * graphs:(i + 1) * graphs],
                             max_nodes=max_nodes, bg_index=bg_index,
-                            max_edges=max_nodes * k, csr_tiling=tiling_spec,
+                            max_edges=max_edges, csr_tiling=tiling_spec,
                             device=dev)
               for i in range(batches)]
     return arch, DetNet(arch, device=dev, seed=seed), loader
 
 
+def knn_windowed_tiling(dev: DeviceLike, points: int, graphs: int,
+                        seed: int):
+    """The flagship kNN batch under the windowed tiling with the YAML's
+    run cap 4 (spread runs): the second layout the windowed kernels are
+    held to."""
+    arch, graph_cfg, bg_index, _ = flagship_configs("knn")
+    spec = fused_csr_tiling(dataclasses.replace(arch,
+                                                fused_tiling="windowed"))
+    samples = make_samples(num_frames=graphs, num_points=points, seed=seed,
+                           graph_config=graph_cfg, bg_index=bg_index)
+    max_nodes = _round_up(points, spec[0])
+    return stack_samples(samples, max_nodes=max_nodes, bg_index=bg_index,
+                         max_edges=max_nodes * graph_cfg.k, csr_tiling=spec,
+                         device=dev).flat_tiling()
+
+
 def _counters():
-    """The launch counters of the kernels on the main path."""
-    return (da.dense_fwd_cuda, da.dense_bwd_cuda, ss.segment_sum_csr_cuda)
+    """The launch counters of the kernels, in the order of KERNEL_NAMES."""
+    return (da.dense_fwd_cuda, da.dense_bwd_cuda, ss.segment_sum_csr_cuda,
+            wa.windowed_fwd_cuda, wa.windowed_bwd_cuda)
 
 
 def _plain_kernels() -> ExitStack:
     """Patches every kernel wrapper to its plain version (the plain path
     on the same device)."""
     stack = ExitStack()
-    stack.enter_context(mock.patch.object(da, "dense_fwd",
-                                          da.dense_fwd_plain))
-    stack.enter_context(mock.patch.object(da, "dense_bwd",
-                                          da.dense_bwd_plain))
-    stack.enter_context(mock.patch.object(ss, "segment_sum_csr",
-                                          ss.segment_sum_csr_plain))
+    for mod, name in ((da, "dense_fwd"), (da, "dense_bwd"),
+                      (ss, "segment_sum_csr"), (wa, "windowed_fwd"),
+                      (wa, "windowed_bwd")):
+        stack.enter_context(mock.patch.object(mod, name,
+                                              getattr(mod, f"{name}_plain")))
     return stack
 
 
 def flagship_training(dev: DeviceLike, arch, batch, seed: int, steps: int,
                       plain: bool = False) -> Dict:
     """The training path: a `Trainer` from the flagship configuration's
-    TRAINING section on a DetNet with weights from `seed`, `steps` train
-    steps on `batch`. Returns the per-step (total, cls, bb) losses, the
-    per-step wall seconds (each step ends when its losses reach the host),
-    the first step's gradients by parameter name, and the kernel launches
-    of the run (the counters are set to 0 just before it and read just
-    after)."""
+    TRAINING section on a DetNet of `arch` with weights from `seed`,
+    `steps` train steps on `batch`. Returns the per-step (total, cls, bb)
+    losses, the per-step wall seconds (each step ends when its losses reach
+    the host), the first step's gradients by parameter name, and the kernel
+    launches of the run (the counters are set to 0 just before it and read
+    just after)."""
     cfg = UserConfigurationReader.read_config_file(FLAGSHIP_CONFIG)
     train_cfg = UserConfigurationReader.get_config_object("TRAINING", cfg)
     trainer = Trainer(train_cfg, DetNet(arch, device=dev, seed=seed))
@@ -435,74 +555,54 @@ def _grad_agreement(got: Dict[str, torch.Tensor],
             "rel_diff": by_layer}
 
 
-def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
-        batches: int = 3, seed: int = 0, reps: int = 20,
-        train_steps: int = 4, out: Callable = print) -> Dict:
-    """Runs every phase; returns the summary (also printed as JSON lines).
+def _expect(launches: Dict[str, int], on_card: bool) -> List[int]:
+    """The launch counts a run must show, in the order of KERNEL_NAMES
+    (all 0 off the card, where the wrappers take their plain versions)."""
+    return [launches.get(name, 0) if on_card else 0 for name in KERNEL_NAMES]
 
-    `points`/`graphs` size the synthetic frames (the serving and training
-    batch is 5 graphs of 2816 points); `batches` is the number of requests
-    served, `train_steps` the train steps of each training run (the first
-    is a warm-up, the rest are timed)."""
-    dev = resolve_device(device)
-    on_card = dev.type == "cuda"
-    summary: Dict = {"device": str(dev)}
 
-    # -- card and build ----------------------------------------------------
-    if on_card:
-        summary["card"] = card_description()
-        out(f"card: {summary['card']}")
-        t0 = time.perf_counter()
-        built = nvcc_all(KERNEL_SOURCES)
-        da.load_fwd_kernel()
-        da.load_bwd_kernel()
-        ss.load_kernel()
-        summary["build_s"] = time.perf_counter() - t0
-        out(f"build: {summary['build_s']:.2f} s, {len(built)} sources "
-            "compiled in parallel")
-        for src, (path, log) in built.items():
-            out(f"{src} -> {path}")
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    out(f"  {line.strip()}")
-
-    # -- model and requests ------------------------------------------------
+def _build(out: Callable) -> float:
+    """Builds every kernel (one nvcc each, all started together) and loads
+    them; returns the seconds it took."""
     t0 = time.perf_counter()
-    arch, model, loader = flagship_serving(dev, points, graphs, batches, seed)
-    summary["host_batch_s"] = time.perf_counter() - t0
-    shapes = _layer_shapes(model)
-    out(f"model: {arch.conv_layer_type} conv {arch.conv_layer_dimensions}, "
-        f"compute {arch.compute_dtype}; requests: {batches} batches x "
-        f"{graphs} graphs x {points} points (bucket "
-        f"{loader[0].max_nodes}); host set-up "
-        f"{summary['host_batch_s']:.2f} s")
+    built = nvcc_all(KERNEL_SOURCES)
+    for load in (da.load_fwd_kernel, da.load_bwd_kernel, ss.load_kernel,
+                 wa.load_fwd_kernel, wa.load_bwd_kernel):
+        load()
+    seconds = time.perf_counter() - t0
+    out(f"build: {seconds:.2f} s, {len(built)} sources compiled in parallel")
+    for src, (path, log) in built.items():
+        out(f"{src} -> {path}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                out(f"  {line.strip()}")
+    return seconds
 
-    # -- kernels against their plain versions --------------------------------
-    tiling = loader[0].flat_tiling()
-    with torch.no_grad():
-        fwd_rows = check_fwd_kernel(tiling, shapes, seed, reps, out)
-        bwd_rows, seg_rows = check_bwd_kernels(tiling, shapes, seed, reps,
-                                               out)
 
-    # -- the serving path: Predictor over the requests -----------------------
+def _serve_phase(dev, arch, model, loader, graphs: int, points: int,
+                 expected: List[int], label: str, out: Callable) -> Dict:
+    """Serves every request of `loader` through `Predictor` (launches
+    counted: the counters are set to 0 just before and read just after),
+    checks the outputs, compares them with the same model on the plain
+    path, and times the requests on the card."""
+    on_card = dev.type == "cuda"
     predictor = Predictor(model, loader, verbose=False)
     for c in _counters():
         c.launches = 0
     predictions, _, _, _ = predictor.predict()
-    serve_launches = [c.launches for c in _counters()]
-    expected = [len(shapes) * batches if on_card else 0, 0, 0]
-    out(f"launches on the serving path: dense_fwd_v4, dense_bwd_v4, "
-        f"segment_sum_csr {serve_launches} (expected {expected})")
-    if serve_launches != expected:
-        raise AssertionError(f"serving launched {serve_launches}, expected "
-                             f"{expected}")
+    launches = [c.launches for c in _counters()]
+    out(f"launches on the {label} serving path ({', '.join(KERNEL_NAMES)}): "
+        f"{launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"{label} serving launched {launches}, "
+                             f"expected {expected}")
     probs = predictions["class_probability_prediction"]
     boxes = predictions["bounding_box_predictions"]
     n_cls = arch.classification_head_layer_dimensions[-1]
     n_box = arch.regression_head_layer_dimensions[-1]
-    if len(probs) != graphs * batches:
+    if len(probs) != graphs * len(loader):
         raise AssertionError(f"{len(probs)} graphs served, expected "
-                             f"{graphs * batches}")
+                             f"{graphs * len(loader)}")
     for p, b in zip(probs, boxes):
         if p.shape != (points, n_cls) or b.shape != (points, n_box) \
                 or not (np.isfinite(p).all() and np.isfinite(b).all()):
@@ -511,27 +611,29 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
         if not np.allclose(p.sum(axis=1), 1.0, atol=1e-4):
             raise AssertionError("class probabilities do not sum to 1")
 
-    # -- the same model on the plain path, same device -----------------------
+    # the same model on the plain path, same device
     worst_p = worst_b = 0.0
     for i, batch in enumerate(loader):
         with _plain_kernels():
             ref_p, ref_b = predictor.forward(batch)
         mask = batch.node_mask.reshape(-1)
-        got_p = torch.from_numpy(np.concatenate(probs[i * graphs:(i + 1) * graphs]))
-        got_b = torch.from_numpy(np.concatenate(boxes[i * graphs:(i + 1) * graphs]))
+        got_p = torch.from_numpy(np.concatenate(
+            probs[i * graphs:(i + 1) * graphs]))
+        got_b = torch.from_numpy(np.concatenate(
+            boxes[i * graphs:(i + 1) * graphs]))
         ref_p = ref_p[mask].double().cpu()
         ref_b = ref_b[mask].double().cpu()
         worst_p = max(worst_p, float((got_p - ref_p).abs().max()))
         worst_b = max(worst_b, float(((got_b - ref_b).abs()
                                       / (1.0 + ref_b.abs())).max()))
-    out(f"model vs plain path: max |dprob| {worst_p:.3e} (atol "
+    out(f"{label} model vs plain path: max |dprob| {worst_p:.3e} (atol "
         f"{MODEL_ATOL_PROB}), max |dbox|/(1+|box|) {worst_b:.3e} (rtol "
         f"{MODEL_RTOL_BOX})")
     if worst_p > MODEL_ATOL_PROB or worst_b > MODEL_RTOL_BOX:
-        raise AssertionError("the kernel path disagrees with the plain path")
-    summary["model_max_dprob"], summary["model_max_dbox_rel"] = worst_p, worst_b
-
-    # -- serving time --------------------------------------------------------
+        raise AssertionError(f"the {label} kernel path disagrees with the "
+                             "plain path")
+    res = {"serve_launches": launches, "model_max_dprob": worst_p,
+           "model_max_dbox_rel": worst_b}
     edges = [b.host_valid_edges for b in loader]
     if on_card:
         per_batch = []
@@ -541,64 +643,16 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
             predictor.forward(batch)
             torch.cuda.synchronize()
             per_batch.append(time.perf_counter() - t0)
-        per_batch_ms = [s * 1e3 for s in per_batch]
-        summary["batch_ms"] = per_batch_ms
-        summary["edges_per_s"] = sum(edges) / sum(per_batch)
-        out(f"serving: per-batch forward+softmax ms {per_batch_ms}; "
-            f"{summary['edges_per_s']} edges/s ({edges[0]} valid edges per "
-            f"batch) on {summary['card']}")
-
-    # -- the training path: Trainer, kernels then plain, same device ---------
-    train = _train_phase(dev, arch, loader[0], seed, train_steps, len(shapes),
-                         out)
-    summary.update(train)
-    if on_card:
-        out(f"training: ms per step {train['train_step_ms']} (first: "
-            f"warm-up); {train['train_edges_per_s']} train edges/s "
-            f"({edges[0]} valid edges per step); plain path ms per step "
-            f"{train['train_plain_step_ms']}; peak device memory "
-            f"{train['peak_mem_gb']:.2f} GB on {summary['card']}")
-
-    def entry(name, source, replaces, launches, rows, library):
-        return {
-            "name": name, "route": "cuda",
-            "source": f"radargnn_tpu_torch/csrc/{source}",
-            "replaces": f"radargnn_tpu/ops/pallas_kernels.py:{replaces}",
-            "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            # times and bound: one step's launches, one per layer shape
-            "ms": sum(r["ms"] for r in rows) if on_card else None,
-            "plain_ms": sum(r["plain_ms"] for r in rows) if on_card else None,
-            "bound_ms": sum(r["bound_ms"] for r in rows),
-            "bound_by": ("operations" if sum(r["flops"] for r in rows)
-                         / PEAK_BF16_FLOPS >= sum(r["bytes"] for r in rows)
-                         / PEAK_HBM_BYTES else "bytes"),
-            "library_ms": (sum(r["library_ms"] for r in rows)
-                           if library and on_card else None),
-        }
-
-    fwd_l, bwd_l, seg_l = train["train_launches"]
-    # no single PyTorch call computes gather + GEMM + segmented max, nor
-    # the routed backward; the landing's is index_add_
-    summary["kernels"] = [
-        entry("dense_fwd_v4", "dense_fwd_v4.cu", 2279, fwd_l, fwd_rows,
-              False),
-        entry("dense_bwd_v4", "dense_bwd_v4.cu", 2340, bwd_l, bwd_rows,
-              False),
-        entry("segment_sum_csr", "segment_sum_csr.cu", 854, seg_l, seg_rows,
-              True),
-    ]
-    summary["per_shape"] = fwd_rows
-    summary["per_shape_bwd"] = bwd_rows
-    summary["per_shape_segsum"] = seg_rows
-    out(json.dumps({"card": summary.get("card"), "per_shape": fwd_rows,
-                    "per_shape_bwd": bwd_rows,
-                    "per_shape_segsum": seg_rows}))
-    return summary
+        res["batch_ms"] = [s * 1e3 for s in per_batch]
+        res["edges_per_s"] = sum(edges) / sum(per_batch)
+        out(f"{label} serving: per-batch forward+softmax ms "
+            f"{res['batch_ms']}; {res['edges_per_s']} edges/s "
+            f"({edges} valid edges per batch)")
+    return res
 
 
-def _train_phase(dev, arch, batch, seed: int, steps: int, layers: int,
-                 out: Callable) -> Dict:
+def _train_phase(dev, arch, batch, seed: int, steps: int,
+                 expected: List[int], label: str, out: Callable) -> Dict:
     """Three training runs of `steps` steps from the same seeded weights on
     `batch`, with the configuration's deterministic setting: the kernel
     path (launches counted, steps timed), the kernel path again (the same
@@ -617,12 +671,11 @@ def _train_phase(dev, arch, batch, seed: int, steps: int, layers: int,
         plain = flagship_training(dev, arch, batch, seed, steps, plain=True)
     finally:
         torch.use_deterministic_algorithms(was_deterministic)
-    expected = [layers * steps if on_card else 0] * 3
-    out(f"launches on the training path ({steps} steps): dense_fwd_v4, "
-        f"dense_bwd_v4, segment_sum_csr {kern['launches']} (expected "
+    out(f"launches on the {label} training path ({steps} steps; "
+        f"{', '.join(KERNEL_NAMES)}): {kern['launches']} (expected "
         f"{expected}); deterministic algorithms {train_cfg.deterministic}")
     if kern["launches"] != expected:
-        raise AssertionError(f"training launched {kern['launches']}, "
+        raise AssertionError(f"{label} training launched {kern['launches']}, "
                              f"expected {expected}")
     losses = np.asarray(kern["losses"])
     if not np.isfinite(losses).all():
@@ -630,22 +683,22 @@ def _train_phase(dev, arch, batch, seed: int, steps: int, layers: int,
     ref = np.asarray(plain["losses"])
     worst = float((np.abs(losses - ref)
                    / np.maximum(np.abs(ref), 1e-12)).max())
-    out(f"training losses (total, cls, bb) per step: kernels "
+    out(f"{label} training losses (total, cls, bb) per step: kernels "
         f"{kern['losses']}; plain {plain['losses']}; max relative "
         f"difference {worst:.3e} (rtol {TRAIN_LOSS_RTOL}); second kernel "
         f"run bitwise equal: {again['losses'] == kern['losses']}")
     if worst > TRAIN_LOSS_RTOL:
-        raise AssertionError("the training kernel path disagrees with the "
-                             "plain path")
+        raise AssertionError(f"the {label} training kernel path disagrees "
+                             "with the plain path")
     if again["losses"] != kern["losses"]:
         raise AssertionError("two training runs from the same seed differ")
     grads = _grad_agreement(kern["grads"], plain["grads"])
-    out(f"first step's gradients, kernel vs plain path: cosine "
+    out(f"{label} first step's gradients, kernel vs plain path: cosine "
         f"{grads['cosine']:.6f}, norm ratio {grads['norm_ratio']:.6f}, "
         "relative difference by layer " + ", ".join(
             f"{n} {v:.2e}" for n, v in grads["rel_diff"].items()))
     timed = kern["seconds"][1:]
-    return {
+    res = {
         "train_launches": kern["launches"], "train_losses": kern["losses"],
         "train_plain_losses": plain["losses"],
         "train_max_rel_loss_diff": worst, "train_grad_agreement": grads,
@@ -655,3 +708,153 @@ def _train_phase(dev, arch, batch, seed: int, steps: int, layers: int,
                               / sum(timed)) if timed else None,
         "peak_mem_gb": peak,
     }
+    if on_card:
+        out(f"{label} training: ms per step {res['train_step_ms']} (first: "
+            f"warm-up); {res['train_edges_per_s']} train edges/s "
+            f"({batch.host_valid_edges} valid edges per step); plain path "
+            f"ms per step {res['train_plain_step_ms']}; peak device memory "
+            f"{peak:.2f} GB")
+    return res
+
+
+def _overflow_report(batch) -> Dict:
+    """Per frame of a windowed batch: valid edges, overflow edges against
+    the budget, and the largest in-degree."""
+    ovf = (batch.ovf_receivers >= 0).sum(dim=1).tolist()
+    valid = batch.edge_mask.sum(dim=1).tolist()
+    recv = batch.receivers.cpu().numpy()
+    mask = batch.edge_mask.cpu().numpy()
+    deg = [int(np.bincount(r[m], minlength=1).max()) if m.any() else 0
+           for r, m in zip(recv, mask)]
+    return {"valid_edges": valid, "overflow_edges": ovf,
+            "overflow_budget": batch.ovf_receivers.shape[1],
+            "max_in_degree": deg}
+
+
+def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
+        batches: int = 3, seed: int = 0, reps: int = 20,
+        train_steps: int = 4, out: Callable = print) -> Dict:
+    """Runs every phase; returns the summary (also printed as JSON lines).
+
+    `points`/`graphs` size the synthetic frames (the serving and training
+    batch is 5 graphs of 2816 points); `batches` is the number of requests
+    served, `train_steps` the train steps of each training run (the first
+    is a warm-up, the rest are timed). The kNN path (dense tiling) runs
+    first, then the radius path (windowed tiling)."""
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    summary: Dict = {"device": str(dev)}
+    if on_card:
+        summary["card"] = card_description()
+        out(f"card: {summary['card']}")
+        summary["build_s"] = _build(out)
+
+    # -- the kNN graph, dense tiling ----------------------------------------
+    t0 = time.perf_counter()
+    arch, model, loader = flagship_serving(dev, points, graphs, batches, seed)
+    summary["host_batch_s"] = time.perf_counter() - t0
+    shapes = _layer_shapes(model)
+    layers = len(shapes)
+    out(f"model: {arch.conv_layer_type} conv {arch.conv_layer_dimensions}, "
+        f"compute {arch.compute_dtype}; kNN requests: {batches} batches x "
+        f"{graphs} graphs x {points} points (bucket "
+        f"{loader[0].max_nodes}); host set-up "
+        f"{summary['host_batch_s']:.2f} s")
+    tiling = loader[0].flat_tiling()
+    with torch.no_grad():
+        fwd_rows = check_fwd_kernel(tiling, shapes, seed, reps, out)
+        bwd_rows, seg_rows = check_bwd_kernels(tiling, shapes, seed, reps,
+                                               out)
+    summary.update(_serve_phase(
+        dev, arch, model, loader, graphs, points,
+        _expect({"dense_fwd_v4": layers * batches}, on_card), "kNN", out))
+    summary.update(_train_phase(
+        dev, arch, loader[0], seed, train_steps,
+        _expect({n: layers * train_steps for n in KERNEL_NAMES[:3]},
+                on_card), "kNN", out))
+
+    # -- the radius graph, windowed tiling ----------------------------------
+    t0 = time.perf_counter()
+    r_arch, _, _, replaced = flagship_configs("radius", points)
+    _, r_model, r_loader = flagship_serving(dev, points, graphs, batches,
+                                            seed, graph="radius")
+    radius: Dict = {"replaced": replaced,
+                    "host_batch_s": time.perf_counter() - t0,
+                    "tiling": _overflow_report(r_loader[0])}
+    out(f"radius path: the flagship configuration with {json.dumps(replaced)}"
+        f" replaced; windowed tiling {fused_csr_tiling(r_arch)}; requests: "
+        f"{batches} batches x {graphs} graphs x {points} points (bucket "
+        f"{r_loader[0].max_nodes} nodes, {r_loader[0].max_edges} edges); "
+        f"first batch {json.dumps(radius['tiling'])}; host set-up "
+        f"{radius['host_batch_s']:.2f} s")
+    r_tiling = r_loader[0].flat_tiling()
+    knn_tiling = knn_windowed_tiling(dev, points, graphs, seed)
+    out(f"kNN batch under the windowed tiling (run cap 4): "
+        f"{int((knn_tiling.win[4] >= 0).sum())} overflow edges")
+    with torch.no_grad():
+        radius["per_shape_fwd"] = check_fwd_kernel(r_tiling, shapes, seed,
+                                                   reps, out)
+        radius["per_shape_bwd"], radius["per_shape_segsum"] = \
+            check_bwd_kernels(r_tiling, shapes, seed, reps, out, exact=True)
+        radius["knn_per_shape_fwd"] = check_fwd_kernel(knn_tiling, shapes,
+                                                       seed, reps, out)
+        radius["knn_per_shape_bwd"], radius["knn_per_shape_segsum"] = \
+            check_bwd_kernels(knn_tiling, shapes, seed, reps, out,
+                              exact=True)
+    radius.update(_serve_phase(
+        dev, r_arch, r_model, r_loader, graphs, points,
+        _expect({"windowed_fwd_v3": layers * batches}, on_card), "radius",
+        out))
+    radius.update(_train_phase(
+        dev, r_arch, r_loader[0], seed, train_steps,
+        _expect({n: layers * train_steps for n in KERNEL_NAMES[2:]},
+                on_card), "radius", out))
+    summary["radius"] = radius
+
+    def entry(name, source, replaces, launches, rows, checked, library):
+        return {
+            "name": name, "route": "cuda",
+            "source": f"radargnn_tpu_torch/csrc/{source}",
+            "replaces": f"radargnn_tpu/ops/pallas_kernels.py:{replaces}",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in checked),
+            # times and bound: one step's launches, one per layer shape
+            "ms": sum(r["ms"] for r in rows) if on_card else None,
+            "plain_ms": sum(r["plain_ms"] for r in rows) if on_card else None,
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": ("operations" if sum(r["flops"] for r in rows)
+                         / PEAK_BF16_FLOPS >= sum(r["bytes"] for r in rows)
+                         / PEAK_HBM_BYTES else "bytes"),
+            "library_ms": (sum(r["library_ms"] for r in rows)
+                           if library and on_card else None),
+        }
+
+    dense_l, radius_l = summary["train_launches"], radius["train_launches"]
+    r_fwd, r_bwd = radius["per_shape_fwd"], radius["per_shape_bwd"]
+    segs = seg_rows + radius["per_shape_segsum"] \
+        + radius["knn_per_shape_segsum"]
+    # launches: the training runs of each path (B3 lands d_x on both); no
+    # single PyTorch call computes gather + GEMM + segmented max, nor the
+    # routed backward; the landing's is index_add_
+    summary["kernels"] = [
+        entry("dense_fwd_v4", "dense_fwd_v4.cu", 2279, dense_l[0], fwd_rows,
+              fwd_rows, False),
+        entry("dense_bwd_v4", "dense_bwd_v4.cu", 2340, dense_l[1], bwd_rows,
+              bwd_rows, False),
+        entry("segment_sum_csr", "segment_sum_csr.cu", 854,
+              dense_l[2] + radius_l[2], seg_rows, segs, True),
+        entry("windowed_fwd_v3", "windowed_fwd_v3.cu", 1275, radius_l[3],
+              r_fwd, r_fwd + radius["knn_per_shape_fwd"], False),
+        entry("windowed_bwd_v3", "windowed_bwd_v3.cu", 1387, radius_l[4],
+              r_bwd, r_bwd + radius["knn_per_shape_bwd"], False),
+    ]
+    summary["per_shape"] = fwd_rows
+    summary["per_shape_bwd"] = bwd_rows
+    summary["per_shape_segsum"] = seg_rows
+    out(json.dumps({"card": summary.get("card"), "per_shape": fwd_rows,
+                    "per_shape_bwd": bwd_rows,
+                    "per_shape_segsum": seg_rows,
+                    "radius": {k: v for k, v in radius.items()
+                               if k.startswith(("per_shape", "knn_per",
+                                                "tiling"))}}))
+    return summary

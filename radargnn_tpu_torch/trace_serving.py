@@ -1,15 +1,19 @@
 """Where the serving time goes on the card.
 
 Runs the flagship serving path (the configuration_radarscenes.yml DetNet with
-seeded weights, requests of 5 x 2816-point synthetic frames, the dense kNN
-tiling, `Predictor.forward`) under torch.profiler and prints, as one JSON
-line: the card, the per-request wall time (unprofiled, and profiled
-beside it), serving edges/s, the device-busy time (the union of the card's
-kernel intervals), the idle share against the unprofiled wall, and the
-device time by kernel name. Run from the root of a checkout on a machine with a CUDA card:
+seeded weights, requests of 5 x 2816-point synthetic frames, `Predictor.
+forward`) under torch.profiler and prints, as one JSON line: the card, the
+per-request wall time (unprofiled, and profiled beside it), serving
+edges/s, the device-busy time (the union of the card's kernel intervals),
+the idle share against the unprofiled wall, and the device time by kernel
+name. Run from the root of a checkout on a machine with a CUDA card:
 
-    python -m radargnn_tpu_torch.trace_serving [--requests N] [--trace FILE]
+    python -m radargnn_tpu_torch.trace_serving [--requests N]
+        [--graph knn|radius] [--trace FILE]
 
+`--graph knn` (the default) serves kNN graphs under the dense tiling;
+`--graph radius` serves radius graphs under the windowed tiling (the
+configuration with three fields replaced, `smoke.flagship_configs`).
 `--trace` also writes the Chrome trace of the profiled window to FILE.
 """
 
@@ -72,12 +76,13 @@ def by_name(kernels: list, per: int, top: int) -> List[Dict]:
 
 
 def trace(requests: int = 5, points: int = 2816, graphs: int = 5,
-          seed: int = 0, top: int = 25,
-          trace_file: Optional[str] = None) -> Dict:
-    """Profiles `requests` served batches after one warm-up request."""
+          seed: int = 0, top: int = 25, trace_file: Optional[str] = None,
+          graph: str = "knn") -> Dict:
+    """Profiles `requests` served batches of `graph` after one warm-up
+    request."""
     dev = resolve_device("cuda")
     _, model, loader = flagship_serving(dev, points, graphs, requests + 1,
-                                        seed)
+                                        seed, graph=graph)
     predictor = Predictor(model, loader, verbose=False)
     predictor.forward(loader[0])                      # warm-up (and build)
     torch.cuda.synchronize()
@@ -97,7 +102,7 @@ def trace(requests: int = 5, points: int = 2816, graphs: int = 5,
     wall: List[float] = []
     kernels, busy = device_profile(lambda: wall.extend(serve()), trace_file)
     return {
-        "card": card_description(),
+        "card": card_description(), "graph": graph,
         "requests": requests, "graphs": graphs, "points": points,
         "wall_us_per_request": plain_wall,
         "profiled_wall_us_per_request": wall,
@@ -113,10 +118,12 @@ def trace(requests: int = 5, points: int = 2816, graphs: int = 5,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=5)
+    ap.add_argument("--graph", choices=("knn", "radius"), default="knn")
     ap.add_argument("--trace", default=None,
                     help="also write the Chrome trace to this file")
     args = ap.parse_args(argv)
-    print(json.dumps(trace(args.requests, trace_file=args.trace)))
+    print(json.dumps(trace(args.requests, trace_file=args.trace,
+                           graph=args.graph)))
     return 0
 
 

@@ -245,10 +245,12 @@ def test_stack_samples_match_jax(tiled):
 
 
 def test_stack_samples_refuses_unported_tilings():
+    """The CSR tiling (a 2-tuple) waits for its slice; the windowed tuple
+    is ported (tests/test_torch_windowed.py)."""
     samples = tsyn.make_samples(num_frames=1, num_points=64, seed=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbatch.stack_samples(samples, max_nodes=256, bg_index=5,
-                             csr_tiling=(256, 512, 3, 0.05), device="cpu")
+                             csr_tiling=(256, 512), device="cpu")
 
 
 def test_batch_to_moves_every_tensor():

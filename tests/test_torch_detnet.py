@@ -215,7 +215,7 @@ def test_unported_configurations_raise():
             **dict(kw, conv_pre_mlp_layer_number=2)), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused_csr_tiling(tcfg.GNNArchitectureConfig(
-            **dict(kw, use_fused_aggregation=True, fused_tiling="windowed")))
+            **dict(kw, use_fused_aggregation=True, fused_tiling="csr")))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DetNet(tcfg.GNNArchitectureConfig(**dict(kw, fused_bf16_max=True)),
                device="cpu")

@@ -23,6 +23,8 @@ from radargnn_tpu_torch import smoke
 from radargnn_tpu_torch.ops import dense_aggregate as da
 from radargnn_tpu_torch.ops import dense_tiles as tdt
 from radargnn_tpu_torch.ops import segment_sum as ss
+from radargnn_tpu_torch.ops import windowed_aggregate as wa
+from radargnn_tpu_torch.ops import windowed_tiles as wt
 
 RTOL = 1e-3
 RTOL_BF16_OUT = 1e-2
@@ -252,20 +254,193 @@ def test_backward_kernels_refuse_what_they_do_not_take():
         ss.segment_sum_csr(rows.half(), order, row_ptr)
 
 
+def _wcase(seed, n, e, nb, et, d, de, h, run_cap=None,
+           dtype=torch.bfloat16):
+    """A random graph with hub receivers (a tenth of the edges go to five
+    nodes, so their runs span tiles), its windowed tiling from the port's
+    host tiler, and the aggregation's inputs on the card in `dtype`."""
+    rng = np.random.default_rng(seed)
+    send = rng.integers(0, n, e).astype(np.int32)
+    recv = np.where(rng.random(e) < 0.1, rng.integers(0, 5, e),
+                    rng.integers(0, n, e)).astype(np.int32)
+    perm, blocks, precv, sloc, t_win, ovf_idx = \
+        wt.prepare_windowed_csr_tiles(send, recv, np.ones(e, bool), n, nb,
+                                      et, 3, ovf_budget=e, run_cap=run_cap)
+    ovf = ovf_idx >= 0
+    o = np.maximum(ovf_idx, 0)
+    e_feat = rng.normal(size=(e, de))
+
+    def t(arr, cast=None):
+        out = torch.from_numpy(np.ascontiguousarray(arr)).cuda()
+        return out if cast is None else out.to(cast)
+
+    ovf_s = np.where(ovf, send[o], 0).astype(np.int32)
+    land = ss.sender_landing(sloc, t_win, ovf_s, ovf, slots_per_tile=et,
+                             node_block=nb, num_nodes=n)
+    return dict(
+        landing=ss.SenderLanding(t(land[0]), t(land[1])),
+        x=t(rng.normal(size=(n, d)), dtype),
+        w_s=t(rng.normal(size=(d, h)) * d ** -0.5, dtype),
+        e_t=t(e_feat[perm], dtype),
+        w_e=t(rng.normal(size=(de, h)) * de ** -0.5, dtype),
+        offset=t(rng.normal(size=(n, h)), torch.float32),
+        e_ovf=t(np.where(ovf[:, None], e_feat[o], 0.0), dtype),
+        layout=(t(precv), t(sloc), t(t_win), t(blocks)),
+        ovf_s=t(ovf_s), ovf_r=t(np.where(ovf, recv[o], -1).astype(np.int32)),
+        kw=dict(node_block=nb, edge_tile=et))
+
+
+_WSHAPES = [
+    (200, 3000, 32, 32, 24, 8, 40),       # small tiles (R 32), odd H
+    (2048, 40000, 256, 512, 224, 16, 464),    # the flagship layers' widths
+    (2048, 40000, 256, 512, 128, 16, 272),
+    (2048, 40000, 256, 512, 64, 16, 144),
+]
+
+
+def _w_inner_o(c):
+    return da.dense_overflow_inner(c["x"], c["w_s"], c["e_ovf"], c["w_e"],
+                                   c["ovf_s"], c["ovf_r"],
+                                   c["offset"].shape[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("run_cap", [None, 4])
+@pytest.mark.parametrize("shape", _WSHAPES)
+def test_windowed_fwd_kernel_matches_plain(shape, run_cap):
+    """Contiguous and spread runs, hubs spanning tiles, serving and VJP
+    mode; the empty receivers agree exactly."""
+    _need_card()
+    c = _wcase(20, *shape, run_cap=run_cap)
+    args = (c["x"], c["w_s"], c["e_t"], c["w_e"], *c["layout"],
+            _w_inner_o(c), c["offset"])
+    before = wa.windowed_fwd_cuda.launches
+    got = wa.windowed_fwd(*args, **c["kw"])
+    got_vjp, inner = wa.windowed_fwd(*args, emit_inner=True, **c["kw"])
+    torch.cuda.synchronize()
+    assert wa.windowed_fwd_cuda.launches == before + 2
+    want, want_inner = wa.windowed_fwd_plain(*args, emit_inner=True,
+                                             **c["kw"])
+    assert torch.isfinite(got).all() and torch.equal(got, got_vjp)
+    assert _rel_err(got, want) <= RTOL
+    assert torch.equal(got == 0, want == 0)
+    has = want_inner > da._NEG / 2
+    assert torch.equal(inner > da._NEG / 2, has)
+    assert _rel_err(inner[has], want_inner[has]) <= RTOL
+
+
+def _w_bwd_inputs(c, seed, dyadic=False):
+    """The windowed backward's inputs: the kernel forward's maxima and a
+    seeded g, zeroed at empty receivers. With `dyadic` every operand is a
+    multiple of 1/8 (exact sums in any order)."""
+    gen = torch.Generator().manual_seed(seed)
+    if dyadic:
+        for k in ("x", "w_s", "e_t", "w_e"):
+            c[k] = (torch.randint(-4, 5, c[k].shape, generator=gen)
+                    * 0.125).to(c[k])
+    _, inner = wa.windowed_fwd(c["x"], c["w_s"], c["e_t"], c["w_e"],
+                               *c["layout"], _w_inner_o(c), c["offset"],
+                               emit_inner=True, **c["kw"])
+    g = torch.randn(inner.shape, generator=gen)
+    if dyadic:
+        g = (g * 8).round() / 8
+    has = inner > da._NEG / 2
+    return (c["x"], c["w_s"], c["e_t"], c["w_e"], *c["layout"],
+            torch.where(has, inner, 0.0), torch.where(has, g.cuda(), 0.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _WSHAPES[:2] + _WSHAPES[3:])
+def test_windowed_bwd_kernel_matches_plain(shape):
+    """On dyadic inputs the kernels and the plain version form the same
+    exact sums: all four outputs agree bitwise."""
+    _need_card()
+    c = _wcase(21, *shape)
+    args = _w_bwd_inputs(c, 22, dyadic=True)
+    before = wa.windowed_bwd_cuda.launches
+    got = wa.windowed_bwd(*args, **c["kw"])
+    torch.cuda.synchronize()
+    assert wa.windowed_bwd_cuda.launches == before + 1
+    want = wa.windowed_bwd_plain(*args, **c["kw"])
+    for name, u, v in zip(("d_xg", "d_e", "dW_s", "dW_e"), got, want):
+        assert u.dtype == v.dtype and u.shape == v.shape, name
+        assert torch.equal(u, v), name
+    assert got[1].abs().max() > 0
+
+
+@pytest.mark.gpu
+def test_windowed_backward_is_bitwise_deterministic():
+    """Two runs of the windowed backward kernels and the landing on the
+    same real-valued inputs give the same bits."""
+    _need_card()
+    c = _wcase(23, 2048, 40000, 256, 512, 224, 16, 464, run_cap=4)
+    args = _w_bwd_inputs(c, 24)
+    order, row_ptr = c["landing"]
+    ovf_rows = torch.ones((c["ovf_s"].shape[0], 224), device="cuda")
+    runs = []
+    for _ in range(2):
+        d_xg, d_e, dw_s, dw_e = wa.windowed_bwd(*args, **c["kw"])
+        d_x = ss.segment_sum_csr(d_xg, order, row_ptr, ovf_rows)
+        runs.append((d_x, d_e, dw_s, dw_e))
+    torch.cuda.synchronize()
+    for u, v in zip(*runs):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.gpu
+def test_windowed_aggregate_gradients_match_plain_path():
+    """The autograd Function on the kernels against the same Function with
+    the kernels patched to their plain versions, float32 inputs of odd
+    widths (zero-padded for the kernels)."""
+    _need_card()
+    c = _wcase(25, 200, 3000, 32, 32, 21, 2, 40, dtype=torch.float32)
+    recv, sloc, t_win, blocks = c["layout"]
+    names = ("x", "w_s", "e_t", "w_e", "offset", "e_ovf")
+    grads = []
+    for plain in (False, True):
+        leaves = [c[nm].clone().requires_grad_(True) for nm in names]
+        with smoke._plain_kernels() if plain else contextlib.nullcontext():
+            # the JAX package's argument order
+            out = wa.windowed_aggregate(*leaves, recv, blocks, t_win, sloc,
+                                        c["ovf_s"], c["ovf_r"],
+                                        landing=c["landing"], **c["kw"])
+            grads.append(torch.autograd.grad((out ** 2).sum(), leaves))
+    torch.cuda.synchronize()
+    for name, u, v in zip(names, *grads):
+        assert _rel_err(u, v) <= RTOL_BF16_OUT, name
+
+
+@pytest.mark.gpu
+def test_windowed_kernels_refuse_what_they_do_not_take():
+    _need_card()
+    c = _wcase(26, 200, 3000, 32, 32, 24, 8, 40)
+    args = list(_w_bwd_inputs(c, 27))
+    with pytest.raises(ValueError, match="bf16"):
+        wa.windowed_fwd(args[0].float(), *args[1:], **c["kw"])
+    with pytest.raises(ValueError, match="int32"):
+        wa.windowed_bwd(*args[:4], args[4].long(), *args[5:], **c["kw"])
+    with pytest.raises(ValueError, match="float32"):
+        wa.windowed_bwd(*args[:9], args[9].bfloat16(), **c["kw"])
+    with pytest.raises(ValueError, match="slots do not match"):
+        wa.windowed_fwd(*args, node_block=32, edge_tile=64)
+
+
 @pytest.mark.gpu
 def test_smoke_on_card():
     """The smoke at a small size: the kernels build and match their plain
     versions at the model's layer shapes, every conv layer of each of the
-    three requests launches the forward, and every conv layer of each of
-    the two train steps launches all three kernels. Two steps (one
-    update): on 2 x 512 points the bf16 gradient noise between the kernel
-    and the plain path is larger than at the flagship's 5 x 2816, and three
-    updates carried it to 2.5e-2 there, past the smoke's limit; one update
-    gave 7e-3."""
+    three requests launches its forward, and every conv layer of each of
+    the two train steps launches the path's three kernels (B3 on both
+    paths). Two steps (one update): on 2 x 512 points the bf16 gradient
+    noise between the kernel and the plain path is larger than at the
+    flagship's 5 x 2816, and three updates carried it to 2.5e-2 there,
+    past the smoke's limit; one update gave 7e-3."""
     _need_card()
     summary = smoke.run("cuda", points=512, graphs=2, batches=3, reps=2,
                         train_steps=2)
-    assert [k["launches"] for k in summary["kernels"]] == [5 * 2] * 3
+    assert [k["launches"] for k in summary["kernels"]] == \
+        [5 * 2, 5 * 2, 2 * 5 * 2, 5 * 2, 5 * 2]
+    assert summary["radius"]["serve_launches"] == [0, 0, 0, 5 * 3, 0]
     for kernel in summary["kernels"]:
         assert kernel["ms"] > 0 and kernel["plain_ms"] > 0
     assert summary["kernels"][2]["library_ms"] > 0

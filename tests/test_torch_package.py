@@ -2,6 +2,7 @@
 package), its on-card smoke rehearses on the CPU, and `chip_smoke.py` refuses
 to report a result without a card."""
 
+import dataclasses
 import json
 import os
 import re
@@ -29,7 +30,8 @@ _FORBIDDEN = re.compile(
 
 
 def _port_sources():
-    paths = [os.path.join(_REPO, "chip_smoke.py")]
+    paths = [os.path.join(_REPO, "chip_smoke.py"),
+             os.path.join(_REPO, "tests", "test_torch_gpu.py")]
     for root, _, files in os.walk(_PKG):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return paths
@@ -72,27 +74,33 @@ def test_every_submodule_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 37   # every module of both slices
+    assert int(proc.stdout.strip()) >= 39   # every module of three slices
 
 
 def test_smoke_rehearses_on_cpu():
-    """The on-card smoke, at a tiny size on the CPU: the flagship config,
-    the three kernels' checks against their plain versions at the model's
-    layer shapes, three requests, four train steps on the kernel path, again
-    and on the plain path (here all plain), and the kernels line with every
-    key the chip run reports, each entry pointing at the TPU kernel it
-    replaces. Nothing is timed and nothing launches here."""
+    """The on-card smoke, at a tiny size on the CPU: the flagship config on
+    the kNN graph (dense tiling) and on the radius graph (windowed tiling,
+    r scaled as 3.0·sqrt(2816/points) so the mean degree stays near 20),
+    the five kernels' checks against their plain versions at the model's
+    layer shapes (the windowed ones on both layouts), three requests, four
+    train steps on the kernel path, again and on the plain path (here all
+    plain), and the kernels line with every key the chip run reports, each
+    entry pointing at the TPU kernel it replaces. Nothing is timed and
+    nothing launches here."""
     lines = []
     before = torch.are_deterministic_algorithms_enabled()
     summary = smoke.run("cpu", points=200, graphs=2, batches=3, reps=1,
                         out=lines.append)
     assert torch.are_deterministic_algorithms_enabled() == before
     kernels = summary["kernels"]
-    assert [k["name"] for k in kernels] == ["dense_fwd_v4", "dense_bwd_v4",
-                                            "segment_sum_csr"]
+    assert [k["name"] for k in kernels] == [
+        "dense_fwd_v4", "dense_bwd_v4", "segment_sum_csr", "windowed_fwd_v3",
+        "windowed_bwd_v3"]
     replaced = {"dense_fwd_v4": "def _fused_fwd_kernel_v4",
                 "dense_bwd_v4": "def _fused_bwd_kernel_v4",
-                "segment_sum_csr": "def _segsum_kernel"}
+                "segment_sum_csr": "def _segsum_kernel",
+                "windowed_fwd_v3": "def _fused_fwd_kernel_v3",
+                "windowed_bwd_v3": "def _fused_bwd_kernel_v3"}
     for kernel in kernels:
         assert set(kernel) == {"name", "route", "source", "replaces",
                                "launches", "max_abs_err", "ms", "plain_ms",
@@ -117,7 +125,47 @@ def test_smoke_rehearses_on_cpu():
     assert losses.shape == (4, 3) and np.isfinite(losses).all()
     assert summary["train_max_rel_loss_diff"] == 0.0
     assert losses[-1, 0] < losses[0, 0]
-    assert json.loads(lines[-1])["per_shape"] == summary["per_shape"]
+    last = json.loads(lines[-1])
+    assert last["per_shape"] == summary["per_shape"]
+    radius = summary["radius"]
+    assert radius["replaced"] == {
+        "graph_construction_algorithm": "radius",
+        "graph_construction_settings": {"k": 20, "r": pytest.approx(
+            3.0 * np.sqrt(2816 / 200))},
+        "fused_run_cap": None}
+    assert last["radius"]["per_shape_fwd"] == radius["per_shape_fwd"]
+    for key in ("per_shape_bwd", "knn_per_shape_bwd"):
+        assert all(r["bitwise_repeat"] and r["max_abs_err"] == 0.0
+                   for r in radius[key])
+    assert [r["d_in"] for r in radius["knn_per_shape_fwd"]] == [
+        224, 224, 224, 128, 64]
+    # ~12 at 200 points: the frame's edges cut more of each r-disk there
+    mean_degree = np.mean(radius["tiling"]["valid_edges"]) / 200
+    assert 10 < mean_degree < 30
+    assert radius["model_max_dprob"] == 0.0
+    assert radius["train_max_rel_loss_diff"] == 0.0
+    r_losses = np.asarray(radius["train_losses"])
+    assert r_losses.shape == (4, 3) and r_losses[-1, 0] < r_losses[0, 0]
+
+
+def test_radius_configuration_replaces_three_fields():
+    """The radius path reads the flagship YAML and replaces exactly the
+    graph algorithm, its settings and the run cap; its tiling spec is the
+    windowed tuple with contiguous runs."""
+    k_arch, k_graph, _, none = smoke.flagship_configs("knn")
+    arch, graph, _, replaced = smoke.flagship_configs("radius")
+    assert none == {} and set(replaced) == {
+        "graph_construction_algorithm", "graph_construction_settings",
+        "fused_run_cap"}
+    assert (graph.graph_construction_algorithm, graph.r, graph.k) == \
+        ("radius", 3.0, None)
+    assert arch.fused_run_cap is None and k_arch.fused_run_cap == 4
+    assert dataclasses.replace(arch, fused_run_cap=4) == k_arch
+    assert dataclasses.replace(
+        graph, graph_construction_algorithm="knn",
+        graph_construction_settings=k_graph.graph_construction_settings) \
+        == k_graph
+    assert smoke.fused_csr_tiling(arch, k=graph.k) == (256, 512, 3, 0.05)
 
 
 def test_backward_bound_counts_the_sender_sums_once_per_node():
@@ -170,6 +218,9 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 def test_trace_train_sorts_kernels_into_kinds():
     from radargnn_tpu_torch.trace_train import kind_of
     assert kind_of("route_kernel") == "dense_bwd_v4 route (B2)"
+    assert kind_of("windowed_route_kernel") == "windowed_bwd_v3 route (B4)"
+    assert kind_of("windowed_fwd_v3_kernel") == "windowed_fwd_v3 (B4)"
+    assert kind_of("slot_products_kernel") == "slot products (B2 / B4)"
     assert kind_of("segment_sum_csr_kernel") == "segment_sum_csr (B3)"
     assert kind_of("sm90_xmma_gemm_f32f32_f32f32") == "GEMMs (cuBLAS)"
     assert kind_of("vectorized_elementwise_kernel<FillFunctor<float>>") \
