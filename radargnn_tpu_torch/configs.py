@@ -186,8 +186,9 @@ class GNNArchitectureConfig:
     # fused max aggregation over a tiled batch; None = AUTO, resolved in
     # __post_init__ to "the configuration is the hoisted one"
     use_fused_aggregation: Optional[bool] = None
-    # tiling family of the fused path: "auto" (dense for kNN graphs),
-    # "dense", "windowed" or "csr"; the port runs "dense" so far
+    # tiling family of the fused path: "auto" (dense for kNN graphs,
+    # windowed otherwise), "dense", "windowed" or "csr"; the port runs all
+    # four
     fused_tiling: str = "auto"
     # static overflow-edge budget fraction of the tiling
     fused_overflow_fraction: float = 0.05

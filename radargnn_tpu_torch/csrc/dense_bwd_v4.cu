@@ -87,7 +87,8 @@ __global__ void __launch_bounds__(256) route_kernel(
     const size_t tile_slot0 = static_cast<size_t>(t) * r_tile * k;
     dense_tile_rows(x, w_s, e_t, w_e, sloc, tile_win, n_x, d, de, h, r_tile,
                     k, node_block,
-                    [&](int j, float (*acc)[4], bool v0, bool v1) {
+                    [&](int j, float (*acc)[4], bool v0, bool v1,
+                        const __nv_bfloat16*) {
         const size_t slot0 = tile_slot0 + static_cast<size_t>(j) * r_tile;
 #pragma unroll
         for (int nt = 0; nt < kColTiles; ++nt) {
@@ -118,7 +119,7 @@ extern "C" {
 
 // Shared memory the routing pass needs for these shapes, in bytes.
 size_t dense_bwd_v4_smem_bytes(int d, int de, int r_tile) {
-    return dense_tile_smem_bytes(d, de, r_tile);
+    return slot_rows_smem_bytes<EdgeBf16>(d, de, r_tile);
 }
 
 // Launches the four passes on `stream`; returns the first cudaError_t.
@@ -144,7 +145,7 @@ int dense_bwd_v4(const void* x, const void* w_s, const void* e_t,
     const auto* tw = static_cast<const int32_t*>(tile_win);
     auto* dop = static_cast<__nv_bfloat16*>(d_op);
 
-    const size_t smem = dense_tile_smem_bytes(d, de, r_tile);
+    const size_t smem = slot_rows_smem_bytes<EdgeBf16>(d, de, r_tile);
     cudaError_t err = cudaFuncSetAttribute(
         route_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));

@@ -66,7 +66,8 @@ __global__ void __launch_bounds__(256) dense_fwd_v4_kernel(
 
     dense_tile_rows(x, w_s, e_t, w_e, sloc, tile_win, n_x, d, de, h, r_tile,
                     k, node_block,
-                    [&](int, float (*acc)[4], bool v0, bool v1) {
+                    [&](int, float (*acc)[4], bool v0, bool v1,
+                        const __nv_bfloat16*) {
 #pragma unroll
         for (int nt = 0; nt < kColTiles; ++nt) {
             if (v0) {
@@ -108,7 +109,7 @@ extern "C" {
 
 // Shared memory the kernel needs for these shapes, in bytes.
 size_t dense_fwd_v4_smem_bytes(int d, int de, int r_tile) {
-    return dense_tile_smem_bytes(d, de, r_tile);
+    return slot_rows_smem_bytes<EdgeBf16>(d, de, r_tile);
 }
 
 // Launches the kernel on `stream`; returns the cudaError_t of the launch.
@@ -120,7 +121,7 @@ int dense_fwd_v4(const void* x, const void* w_s, const void* e_t,
                  const void* inner_o, const void* offset, void* out,
                  void* inner, int n_x, int d, int de, int h, int num_tiles,
                  int r_tile, int k, int node_block, void* stream) {
-    const size_t smem = dense_tile_smem_bytes(d, de, r_tile);
+    const size_t smem = slot_rows_smem_bytes<EdgeBf16>(d, de, r_tile);
     cudaError_t err = cudaFuncSetAttribute(
         dense_fwd_v4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));

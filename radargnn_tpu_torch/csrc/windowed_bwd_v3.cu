@@ -77,7 +77,8 @@ __global__ void __launch_bounds__(128) windowed_route_kernel(
 
     dense_tile_rows(x, w_s, e_t, w_e, sloc, tile_win, n_x, d, de, h, r_chunk,
                     edge_tile / r_chunk, node_block,
-                    [&](int j, float (*acc)[4], bool, bool) {
+                    [&](int j, float (*acc)[4], bool, bool,
+                        const __nv_bfloat16*) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
             const size_t row = tile_slot0 + static_cast<size_t>(j) * r_chunk
@@ -115,7 +116,7 @@ extern "C" {
 
 // Shared memory the routing pass needs for these shapes, in bytes.
 size_t windowed_bwd_v3_smem_bytes(int d, int de, int r_chunk) {
-    return dense_tile_smem_bytes(d, de, r_chunk);
+    return slot_rows_smem_bytes<EdgeBf16>(d, de, r_chunk);
 }
 
 // Launches the four passes on `stream`; returns the first cudaError_t.
@@ -141,7 +142,7 @@ int windowed_bwd_v3(const void* x, const void* w_s, const void* e_t,
     const auto* tw = static_cast<const int32_t*>(tile_win);
     auto* dop = static_cast<__nv_bfloat16*>(d_op);
 
-    const size_t smem = dense_tile_smem_bytes(d, de, r_chunk);
+    const size_t smem = slot_rows_smem_bytes<EdgeBf16>(d, de, r_chunk);
     cudaError_t err = cudaFuncSetAttribute(
         windowed_route_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));

@@ -52,6 +52,7 @@
 #include <stdint.h>
 
 #include "dense_tile.cuh"
+#include "tile_walk.cuh"
 
 namespace {
 
@@ -59,32 +60,6 @@ using namespace radargnn;
 
 constexpr float kNeg = -3.0e38f;         // finite -inf stand-in
 constexpr int kAccLd = kBlockCols + 1;   // accumulator row stride (floats)
-
-// First index i in [0, n) with a[i] >= v (n if none); a non-decreasing.
-__device__ __forceinline__ int lower_bound(const int32_t* __restrict__ a,
-                                           int n, int v) {
-    int lo = 0, hi = n;
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (a[mid] < v) {
-            lo = mid + 1;
-        } else {
-            hi = mid;
-        }
-    }
-    return lo;
-}
-
-// *addr = max(*addr, v) for floats, atomically: a float with the sign bit
-// clear orders as a signed int, one with it set orders inversely as an
-// unsigned int. Exact, so the result is the same in any order.
-__device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
-    if (__float_as_int(v) >= 0) {
-        atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
-    } else {
-        atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
-    }
-}
 
 __global__ void __launch_bounds__(128) windowed_fwd_v3_kernel(
     const __nv_bfloat16* __restrict__ x,       // [n_x, d]
@@ -103,7 +78,7 @@ __global__ void __launch_bounds__(128) windowed_fwd_v3_kernel(
     int node_block, int edge_tile, int r_chunk) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     float* acc_s = reinterpret_cast<float*>(
-        smem_raw + dense_tile_smem_bytes(d, de, r_chunk));
+        smem_raw + slot_rows_smem_bytes<EdgeBf16>(d, de, r_chunk));
     const int blk = blockIdx.x;
     const int col0 = blockIdx.y * kBlockCols;
     const int tid = threadIdx.x;
@@ -117,30 +92,17 @@ __global__ void __launch_bounds__(128) windowed_fwd_v3_kernel(
     }
     const int lo = lower_bound(tile_blocks, num_tiles, blk);
     const int hi = lower_bound(tile_blocks, num_tiles, blk + 1);
-    tile_stage_weights(w_s, w_e, d, de, h, r_chunk);
+    stage_weights<EdgeBf16>(w_s, w_e, d, de, h, r_chunk, col0);
 
     for (int t = lo; t < hi; ++t) {
         const size_t tile_slot0 = static_cast<size_t>(t) * edge_tile;
-        tile_slot_rows(t, x, e_t, sloc, tile_win, n_x, d, de, r_chunk,
-                       edge_tile / r_chunk, node_block,
-                       [&](int j, float (*acc)[4], bool, bool) {
-            const size_t row0 =
-                tile_slot0 + static_cast<size_t>(j) * r_chunk + m0 + g;
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int rc = recv[row0 + half * 8];
-                const int local = rc - base;
-                if (rc < 0 || rc >= num_nodes || local < 0 ||
-                    local >= node_block) {
-                    continue;
-                }
-                float* row = acc_s + local * kAccLd + tq * 2;
-#pragma unroll
-                for (int nt = 0; nt < kColTiles; ++nt) {
-                    atomic_max_f32(row + nt * 8, acc[nt][half * 2]);
-                    atomic_max_f32(row + nt * 8 + 1, acc[nt][half * 2 + 1]);
-                }
-            }
+        slot_rows<EdgeBf16>(
+            t, x, e_t, WindowSenders(sloc, tile_win, t, node_block, n_x), d,
+            de, r_chunk, edge_tile / r_chunk,
+            [&](int j, float (*acc)[4], bool, bool, const __nv_bfloat16*) {
+            land_max(acc_s, kAccLd, acc, recv,
+                     tile_slot0 + static_cast<size_t>(j) * r_chunk + m0 + g,
+                     base, node_block, num_nodes, tq);
         });
     }
     __syncthreads();
@@ -165,7 +127,7 @@ extern "C" {
 // loop's buffers and the [node_block x 64] accumulator.
 size_t windowed_fwd_v3_smem_bytes(int d, int de, int r_chunk,
                                   int node_block) {
-    return dense_tile_smem_bytes(d, de, r_chunk) +
+    return slot_rows_smem_bytes<EdgeBf16>(d, de, r_chunk) +
            sizeof(float) * static_cast<size_t>(node_block) * kAccLd;
 }
 

@@ -14,16 +14,19 @@ the block-diagonal batch semantics including batch-wide BatchNorm
 statistics. Index arrays stay int32, as in the JAX package.
 
 The port builds the plain layout, the dense fixed-degree tiling of kNN
-graphs (`csr_tiling={"mode": "dense", ...}`) and the windowed tiling that
+graphs (`csr_tiling={"mode": "dense", ...}`), the windowed tiling that
 radius graphs need (`csr_tiling=(node_block, edge_tile, window_blocks[,
-ovf_frac[, run_cap]])`, `ops.windowed_tiles`); the CSR tiling (a 2-tuple)
-and halo partitioning raise until their slice lands (ROADMAP.md).
+ovf_frac[, run_cap]])`, `ops.windowed_tiles`) and the CSR tiling of
+`fused_tiling: "csr"` (`csr_tiling=(node_block, edge_tile)`: receiver-CSR
+tiles without a Morton order, and a second, sender-sorted tiling of the
+same slots, `ssum_*`); halo partitioning is not ported yet (ROADMAP.md).
 
 With a tiling the batch also carries its sender landing (`sender_landing`,
 an `ops.segment_sum.SenderLanding` in the flat global layout): every valid
-slot and overflow row grouped by sender, built once per batch on the host.
-The fused backward lands d_x through it in one deterministic segment sum,
-for all conv layers. `win_part_mask`, which the TPU backward needs to
+slot and overflow row grouped by sender, built once per batch on the host
+(for the CSR tiling, read off its sender-sorted tiling). The fused
+backward lands d_x through it in one deterministic segment sum, for all
+conv layers. `win_part_mask`, which the TPU backward needs to
 combine its window parts, is then unused by the port; it is kept so the
 batch stays array-for-array the JAX package's.
 """
@@ -41,24 +44,26 @@ from radargnn_tpu_torch.ops.dense_tiles import (
     check_overflow_sorted, morton_order, prepare_dense_knn_tiles,
     window_part_mask,
 )
-from radargnn_tpu_torch.ops.segment_sum import SenderLanding, sender_landing
-from radargnn_tpu_torch.ops.windowed_tiles import prepare_windowed_csr_tiles
-
-_NOT_PORTED_TILING = (
-    "the CSR tiling (a 2-tuple csr_tiling) is not ported yet; it waits for "
-    "ROADMAP.md item B5. Use the dense dict or the windowed 3- to 5-tuple")
+from radargnn_tpu_torch.ops.segment_sum import (
+    SenderLanding, csr_landing, sender_landing,
+)
+from radargnn_tpu_torch.ops.windowed_tiles import (
+    prepare_csr_tiles, prepare_windowed_csr_tiles,
+)
 
 
 class FlatTiling(NamedTuple):
     """Flattened (global-index) tiling bundle in slot order.
 
     `win` = (senders_local, tile_win, part_mask, ovf_senders, ovf_receivers,
-    ovf_edge_feat), `dense` = (r_tile, k) for the dense layout and None for
-    the windowed one, `roll_passes` the windowed layout's static bound
-    (2**roll_passes >= the longest same-receiver run in a tile), as in the
-    JAX package; the port reads every field of `win` but part_mask, and
-    its kernels need no roll bound. `landing` is the batch's sender landing
-    for the backward (module docstring)."""
+    ovf_edge_feat), None for the CSR tiling; `dense` = (r_tile, k) for the
+    dense layout and None otherwise; `roll_passes` the windowed layout's
+    static bound (2**roll_passes >= the longest same-receiver run in a
+    tile); `ssum` = (ssum_perm, ssum_senders, ssum_blocks), the CSR
+    tiling's sender-sorted second tiling, as in the JAX package. The port
+    reads every field of `win` but part_mask; its kernels need no roll
+    bound, and the CSR backward reads `ssum` through `landing`, the batch's
+    sender landing for the backward (module docstring)."""
 
     senders: torch.Tensor
     receivers: torch.Tensor
@@ -70,6 +75,7 @@ class FlatTiling(NamedTuple):
     dense: Optional[tuple] = None
     landing: Optional[SenderLanding] = None
     roll_passes: Optional[int] = None
+    ssum: Optional[tuple] = None
 
 
 @dataclasses.dataclass
@@ -87,13 +93,18 @@ class GraphBatch:
     pos: torch.Tensor              # [G, N, 2] float32
     vel: torch.Tensor              # [G, N, 2] float32
 
-    # dense (ops.dense_tiles) or windowed (ops.windowed_tiles) tiling, edge
-    # arrays already in slot order; None when stacked without a tiling
+    # dense (ops.dense_tiles), windowed or CSR (ops.windowed_tiles) tiling,
+    # edge arrays already in slot order; None when stacked without a tiling
     tiled_perm: Optional[torch.Tensor] = None        # [G, T*TE] int32
     tiled_receivers: Optional[torch.Tensor] = None   # [G, T*TE] int32, -1 pad
     tile_blocks: Optional[torch.Tensor] = None       # [G, T] int32 (local)
     tiled_senders: Optional[torch.Tensor] = None     # [G, T*TE] int32 (local)
     tiled_edge_feat: Optional[torch.Tensor] = None   # [G, T*TE, De] float32
+    # the CSR tiling's sender-sorted second tiling over the slots above:
+    # slot index per sender-sorted slot, its sender (-1 pad), tile blocks
+    ssum_perm: Optional[torch.Tensor] = None          # [G, E_s] int32
+    ssum_senders: Optional[torch.Tensor] = None       # [G, E_s] int32
+    ssum_blocks: Optional[torch.Tensor] = None        # [G, T_s] int32 (local)
     win_senders_local: Optional[torch.Tensor] = None  # [G, T*TE] int32, -1 pad
     tile_win: Optional[torch.Tensor] = None           # [G, T] int32 (local)
     win_part_mask: Optional[torch.Tensor] = None      # [G, WB, NBLK] bool
@@ -102,7 +113,8 @@ class GraphBatch:
     ovf_edge_feat: Optional[torch.Tensor] = None      # [G, Eo, De] float32
 
     # (node_block, edge_tile, None, ("dense", r_tile, k)) for a dense
-    # tiling, (node_block, edge_tile, roll_passes) for a windowed one
+    # tiling, (node_block, edge_tile, roll_passes) for a windowed one,
+    # (node_block, edge_tile) for the CSR one
     tile_geometry: Optional[tuple] = None
     # the fused backward's d_x landing (flat global layout), with a tiling
     sender_landing: Optional[SenderLanding] = None
@@ -181,6 +193,17 @@ class GraphBatch:
         blocks = (self.tile_blocks + b_off).reshape(-1)
         edge_feat = self.tiled_edge_feat.reshape(
             -1, self.tiled_edge_feat.shape[-1])
+        if self.win_senders_local is None:
+            # the CSR tiling: the sender-sorted perm indexes this graph's
+            # slots, so it offsets by the slots per graph
+            e_off = self._offsets(self.tiled_senders.shape[1])
+            ssum = ((self.ssum_perm + e_off).reshape(-1),
+                    torch.where(self.ssum_senders >= 0,
+                                self.ssum_senders + n_off, -1).reshape(-1),
+                    (self.ssum_blocks + b_off).reshape(-1))
+            return FlatTiling(senders, recv, blocks, edge_feat, None,
+                              node_block, edge_tile, None,
+                              self.sender_landing, roll_passes, ssum)
         # senders_local are window-relative: no offset. part_mask
         # concatenates along the (global) block axis.
         sloc = self.win_senders_local.reshape(-1)
@@ -274,9 +297,11 @@ def pad_sample(sample: GraphSample, max_nodes: int, max_edges: int,
     fixed-degree tiling and its overflow list (ops.dense_tiles);
     `csr_tiling=(node_block, edge_tile, window_blocks[, ovf_frac[,
     run_cap]])` Morton-orders them and adds the windowed tiling and its
-    overflow list (ops.windowed_tiles).
+    overflow list (ops.windowed_tiles); `csr_tiling=(node_block,
+    edge_tile)` keeps the node order and adds the CSR tiling and its
+    sender-sorted second tiling (`_csr_tiling`).
     """
-    dense_cfg = windowed = None
+    dense_cfg = windowed = csr = None
     if isinstance(csr_tiling, dict):
         if csr_tiling.get("mode") != "dense":
             raise ValueError(f"unknown tiling dict mode: {csr_tiling}")
@@ -293,7 +318,9 @@ def pad_sample(sample: GraphSample, max_nodes: int, max_edges: int,
         windowed = (node_block, edge_tile, window_blocks, ovf_frac, run_cap)
         sample = morton_sort_sample(sample)
     elif csr_tiling is not None:
-        raise NotImplementedError(_NOT_PORTED_TILING)
+        if len(csr_tiling) != 2:
+            raise ValueError(f"unknown csr_tiling {csr_tiling!r}")
+        csr = tuple(csr_tiling)
 
     n, e = sample.num_nodes, sample.num_edges
     if n > max_nodes or e > max_edges:
@@ -343,6 +370,10 @@ def pad_sample(sample: GraphSample, max_nodes: int, max_edges: int,
     if windowed is not None:
         out.update(_windowed_tiling(out, senders, receivers, edge_mask,
                                     max_nodes, max_edges, *windowed))
+        return out
+    if csr is not None:
+        out.update(_csr_tiling(out, senders, receivers, edge_mask,
+                               max_nodes, max_edges, *csr))
         return out
     if dense_cfg is None:
         return out
@@ -415,6 +446,27 @@ def _windowed_tiling(out: dict, senders, receivers, edge_mask,
     return tiled
 
 
+def _csr_tiling(out: dict, senders, receivers, edge_mask, max_nodes: int,
+                max_edges: int, node_block: int, edge_tile: int) -> dict:
+    """The CSR tiling's arrays of one padded sample (the JAX package's CSR
+    branch of `pad_sample`): receiver-CSR tiles of every valid edge under a
+    static tile budget, and a second pass of the same tiler over the tiled
+    senders, which sorts the valid slots by sender for the backward's d_x
+    landing (its perm indexes the receiver tiles' slots)."""
+    total_tiles = (max_edges + edge_tile - 1) // edge_tile \
+        + (max_nodes + node_block - 1) // node_block
+    perm, tile_blocks, padded_recv = prepare_csr_tiles(
+        receivers, edge_mask, max_nodes, node_block, edge_tile, total_tiles)
+    tiled_senders = senders[perm]
+    s_perm, s_blocks, s_padded = prepare_csr_tiles(
+        tiled_senders, padded_recv >= 0, max_nodes, node_block, edge_tile,
+        total_tiles)
+    return dict(tiled_perm=perm, tiled_receivers=padded_recv,
+                tile_blocks=tile_blocks, tiled_senders=tiled_senders,
+                tiled_edge_feat=out["edge_feat"][perm], ssum_perm=s_perm,
+                ssum_senders=s_padded, ssum_blocks=s_blocks)
+
+
 def stack_samples(samples: List[GraphSample], max_nodes: int, bg_index: int,
                   max_edges: Optional[int] = None,
                   sort_edges_by_receiver: bool = True,
@@ -423,7 +475,7 @@ def stack_samples(samples: List[GraphSample], max_nodes: int, bg_index: int,
     card by default; raises when there is none and no device was given).
     A windowed batch records its roll bound as the JAX package does: log2
     of the run cap under spread tiling, else `roll_passes_bound` of these
-    samples."""
+    samples; a CSR batch records (node_block, edge_tile)."""
     device = resolve_device(device)
     if max_edges is None:
         max_edges = max(s.num_edges for s in samples)
@@ -438,6 +490,9 @@ def stack_samples(samples: List[GraphSample], max_nodes: int, bg_index: int,
         r_tile, kk = csr_tiling["r_tile"], csr_tiling["k"]
         node_block, slots = csr_tiling["node_block"], r_tile * kk
         geometry = (node_block, slots, None, ("dense", r_tile, kk))
+    elif csr_tiling is not None and len(csr_tiling) == 2:
+        node_block, slots = csr_tiling
+        geometry = (node_block, slots)
     elif csr_tiling is not None:
         node_block, slots = csr_tiling[:2]
         if len(csr_tiling) >= 5 and csr_tiling[4] is not None:
@@ -460,9 +515,16 @@ def _flat_sender_landing(arrays: dict, max_nodes: int, node_block: int,
                          slots_per_tile: int):
     """The sender landing of stacked tiled arrays, in the global layout
     `GraphBatch.flat_tiling` gives them (graph g's nodes and blocks offset
-    by g)."""
-    g = arrays["tile_win"].shape[0]
+    by g; for the CSR tiling its slots too)."""
+    g = arrays["tiled_senders"].shape[0]
     graph = np.arange(g, dtype=np.int64)[:, None]
+    if "ssum_perm" in arrays:
+        send = arrays["ssum_senders"]
+        return csr_landing(
+            (arrays["ssum_perm"]
+             + graph * arrays["tiled_senders"].shape[1]).reshape(-1),
+            np.where(send >= 0, send + graph * max_nodes, -1).reshape(-1),
+            g * max_nodes)
     tile_win = arrays["tile_win"] + graph * (max_nodes // node_block)
     ovf_valid = arrays["ovf_receivers"] >= 0
     return sender_landing(

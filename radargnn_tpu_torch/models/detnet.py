@@ -7,10 +7,13 @@ logits and box regression). The model runs on the flattened padded
 GraphBatch ([G·N, Dn] nodes, [G·E, De] edges, global edge indices) with
 validity masks.
 
-With a tiling, dense or windowed (`batch.flat_tiling()`), the edge features
-arrive in slot order and the embedding runs in that layout; the overflow
-edge features ride the same embedding, with their own mask (and so their
-own BatchNorm statistics, as in the JAX package).
+With a tiling, dense, windowed or CSR (`batch.flat_tiling()`), the edge
+features arrive in slot order and the embedding runs in that layout; the
+overflow edge features of the dense and windowed tilings ride the same
+embedding, with their own mask (and so their own BatchNorm statistics, as
+in the JAX package). Those two tilings round the edge features to the
+compute dtype once; the CSR tiling keeps them float32, as its kernels take
+them.
 """
 
 from __future__ import annotations
@@ -106,17 +109,20 @@ class DetNet(nn.Module):
         if tiling is not None:
             edge_mask = tiling.receivers >= 0
             e = tiling.edge_feat
-            sloc, t_win, pmask, ovf_s, ovf_r, ovf_e = tiling.win
+            win = tiling.win
             if cfg.initial_edge_feature_embedding:
                 e = self.edge_emb_mlp(e, edge_mask)
-                ovf_e = self.edge_emb_mlp(ovf_e, ovf_r >= 0)
-            if dtype != "float32":
-                # the edge features are rounded to the compute dtype once,
-                # for every layer
-                cd = compute_dtype(dtype)
-                e, ovf_e = e.to(cd), ovf_e.to(cd)
-            tiling = tiling._replace(
-                edge_feat=e, win=(sloc, t_win, pmask, ovf_s, ovf_r, ovf_e))
+            if win is not None:
+                sloc, t_win, pmask, ovf_s, ovf_r, ovf_e = win
+                if cfg.initial_edge_feature_embedding:
+                    ovf_e = self.edge_emb_mlp(ovf_e, ovf_r >= 0)
+                if dtype != "float32":
+                    # the edge features are rounded to the compute dtype
+                    # once, for every layer
+                    cd = compute_dtype(dtype)
+                    e, ovf_e = e.to(cd), ovf_e.to(cd)
+                win = (sloc, t_win, pmask, ovf_s, ovf_r, ovf_e)
+            tiling = tiling._replace(edge_feat=e, win=win)
         elif cfg.initial_edge_feature_embedding:
             e = self.edge_emb_mlp(e, edge_mask)
 

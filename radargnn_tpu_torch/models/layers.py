@@ -11,12 +11,13 @@ constant per receiver and commute with the max:
 (0 for receivers without in-edges). With a dense tiling (kNN graphs) the
 max runs in the dense aggregation (`ops.dense_aggregate`), with a windowed
 tiling (radius graphs, or any graph under `fused_tiling: "windowed"`) in
-the windowed aggregation (`ops.windowed_aggregate`), each a pair of CUDA
-kernels on the card; without a tiling it is a masked segment max over the
-edge list.
+the windowed aggregation (`ops.windowed_aggregate`), with the CSR tiling
+(`fused_tiling: "csr"`) in the CSR aggregation (`ops.csr_aggregate`),
+each a pair of CUDA kernels on the card; without a tiling it is a masked
+segment max over the edge list.
 
-The multi-layer pre-MLP (`SplitPreMLP`), halo partitioning and the CSR
-tiling are not ported yet and raise (ROADMAP.md).
+The multi-layer pre-MLP (`SplitPreMLP`) and halo partitioning are not
+ported yet and raise (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from torch import nn
 from radargnn_tpu_torch.models.mlp import (
     LinearReluStack, TorchLinear, compute_dtype, matmul_f32,
 )
+from radargnn_tpu_torch.ops.csr_aggregate import csr_aggregate
 from radargnn_tpu_torch.ops.dense_aggregate import dense_aggregate
 from radargnn_tpu_torch.ops.segment import hoisted_segment_max
 from radargnn_tpu_torch.ops.windowed_aggregate import windowed_aggregate
@@ -49,22 +51,23 @@ def fused_csr_tiling(model_config, k=None):
     the fused path is off. `fused_tiling` "dense" (or "auto" with the kNN
     degree `k` given) returns the dense tiling dict; "windowed" (or "auto"
     without `k`: radius graphs) the windowed tuple (node_block, edge_tile,
-    window_blocks, fused_overflow_fraction[, fused_run_cap]); the CSR
-    tiling is not ported yet."""
+    window_blocks, fused_overflow_fraction[, fused_run_cap]); "csr" the
+    CSR tuple (node_block, edge_tile), for any graph."""
     if not getattr(model_config, "use_fused_aggregation", False):
         return None
     mode = getattr(model_config, "fused_tiling", "windowed")
     if mode == "auto":
         mode = "dense" if k is not None else "windowed"
+    if mode == "csr":
+        return (FUSED_NODE_BLOCK, FUSED_EDGE_TILE)
     if mode == "windowed":
         tiling = (FUSED_NODE_BLOCK, FUSED_EDGE_TILE, FUSED_WINDOW_BLOCKS,
                   getattr(model_config, "fused_overflow_fraction", 0.05))
         run_cap = getattr(model_config, "fused_run_cap", None)
         return tiling if run_cap is None else tiling + (run_cap,)
     if mode != "dense":
-        raise NotImplementedError(
-            f'fused_tiling "{mode}" is not ported yet (ROADMAP.md item B5); '
-            'use "dense" (kNN graphs) or "windowed"')
+        raise ValueError(f'unknown fused_tiling "{mode}": "auto", "dense", '
+                         '"windowed" or "csr"')
     if k is None:
         raise ValueError('fused_tiling "dense" needs the kNN degree k '
                          "(graph_construction.k); pass it to "
@@ -81,8 +84,15 @@ def fused_csr_tiling(model_config, k=None):
 
 def _fused_hoisted_max(x, w_s, w_e, offset, tiling) -> torch.Tensor:
     """Hoisted max aggregation over the batch's tiling: the dense
-    aggregation for a dense tiling, the windowed one otherwise (either
-    backward lands d_x through the batch's sender landing)."""
+    aggregation for a dense tiling, the windowed one for a tiling with
+    sender windows, the CSR one otherwise (each backward lands d_x through
+    the batch's sender landing)."""
+    if tiling.win is None:
+        return csr_aggregate(x, w_s, tiling.edge_feat, w_e, tiling.senders,
+                             tiling.receivers, tiling.blocks, offset,
+                             node_block=tiling.node_block,
+                             edge_tile=tiling.edge_tile,
+                             landing=tiling.landing)
     sloc, t_win, _, ovf_s, ovf_r, ovf_e = tiling.win
     if tiling.dense is not None:
         r_tile, k = tiling.dense
@@ -151,11 +161,12 @@ class MPNNConv(nn.Module):
         if self.edge_encoder is not None:
             edge_attr = self.edge_encoder(edge_attr)
             if tiling is not None:
-                sloc, t_win, pmask, ovf_s, ovf_r, ovf_e = tiling.win
+                win = tiling.win
+                if win is not None:
+                    # the overflow edges ride the same encoder
+                    win = win[:5] + (self.edge_encoder(win[5]),)
                 tiling = tiling._replace(
-                    edge_feat=self.edge_encoder(tiling.edge_feat),
-                    win=(sloc, t_win, pmask, ovf_s, ovf_r,
-                         self.edge_encoder(ovf_e)))
+                    edge_feat=self.edge_encoder(tiling.edge_feat), win=win)
         lin = self.pre_mlp.lin_0
         d = self.in_channels
         w = lin.weight.t()                          # [in, out], flax layout

@@ -27,7 +27,8 @@ order (`graph/batch.py` builds it once per batch).
 The overflow code, the operand preparation (`gather_operands`), the VJP
 body (`fused_backward`) and the kernels' input checks
 (`check_slot_operands`) serve the windowed aggregation too
-(`ops.windowed_aggregate`).
+(`ops.windowed_aggregate`); the depth padding and the checks serve the
+CSR aggregation (`ops.csr_aggregate`).
 """
 
 from __future__ import annotations
@@ -136,9 +137,11 @@ def _check(cond: bool, msg: str, kernel: str = "dense_fwd_v4") -> None:
 
 
 def check_slot_operands(kernel: str, x_c, w_s_c, e_t_c, w_e_c,
-                        index_tensors: dict, node_tensors: dict) -> None:
-    """The checks every fused slot kernel (dense and windowed) needs: all
-    on one CUDA device and contiguous; x, w_s, e_t, w_e bf16 with matching
+                        index_tensors: dict, node_tensors: dict,
+                        edge_dtype: torch.dtype = torch.bfloat16) -> None:
+    """The checks every fused slot kernel (dense, windowed and CSR) needs:
+    all on one CUDA device and contiguous; x and w_s bf16, e_t and w_e
+    `edge_dtype` (bf16, or float32 for the CSR kernels), with matching
     widths, each a multiple of 8 and 16-byte aligned (the 16-byte row
     loads); `index_tensors` int32; `node_tensors` float32."""
     dev = x_c.device
@@ -148,8 +151,10 @@ def check_slot_operands(kernel: str, x_c, w_s_c, e_t_c, w_e_c,
         _check(ten.device == dev and dev.type == "cuda",
                f"{name} must be on {dev} (a CUDA device)", kernel)
         _check(ten.is_contiguous(), f"{name} must be contiguous", kernel)
+    edge_label = "bf16" if edge_dtype == torch.bfloat16 else "float32"
     for names, dtype, label in (
-            (("x", "w_s", "e_t", "w_e"), torch.bfloat16, "bf16"),
+            (("x", "w_s"), torch.bfloat16, "bf16"),
+            (("e_t", "w_e"), edge_dtype, edge_label),
             (node_tensors, torch.float32, "float32"),
             (index_tensors, torch.int32, "int32")):
         for name in names:

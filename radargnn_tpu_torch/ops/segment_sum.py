@@ -1,5 +1,5 @@
 """Segment sum over segment-sorted rows (CSR): the deterministic landing of
-the dense backward's d_x.
+the fused backwards' d_x (dense, windowed and CSR paths).
 
 Port of `pallas_segment_sum_csr` (`radargnn_tpu/ops/pallas_kernels.py`),
 `out[n] = sum of the rows whose segment is n`, in float32. Here the rows
@@ -28,9 +28,10 @@ from radargnn_tpu_torch.build import load_library
 
 
 class SenderLanding(NamedTuple):
-    """Where the dense backward lands d_x: the rows (valid slots of the
-    flat slot layout, then valid overflow rows) grouped by global sender,
-    stable within a sender, and each sender's range in `order`."""
+    """Where a fused backward lands d_x: the rows (valid slots of the flat
+    slot layout, then valid overflow rows where the layout has them)
+    grouped by global sender, stable within a sender, and each sender's
+    range in `order`."""
 
     order: torch.Tensor       # [M] int32, row indices
     row_ptr: torch.Tensor     # [N + 1] int32
@@ -49,13 +50,39 @@ def sender_landing(senders_local: np.ndarray, tile_win: np.ndarray,
                     slots_per_tile)
     send = np.concatenate([np.where(sloc >= 0, win + sloc, -1),
                            np.where(ovf_valid, ovf_s, -1).astype(np.int64)])
+    return rows_by_sender(send, num_nodes)
+
+
+def rows_by_sender(send: np.ndarray, num_nodes: int):
+    """(order, row_ptr) int32 of the rows with a sender (send >= 0), grouped
+    by sender and stable within one."""
+    send = np.asarray(send).astype(np.int64)
     rows = np.flatnonzero(send >= 0)
     order = rows[np.argsort(send[rows], kind="stable")]
-    counts = np.bincount(send[rows], minlength=num_nodes)
+    return order.astype(np.int32), _row_ptr(send[rows], num_nodes)
+
+
+def _row_ptr(send: np.ndarray, num_nodes: int) -> np.ndarray:
+    counts = np.bincount(send, minlength=num_nodes)
     if counts.size > num_nodes:
         raise ValueError(f"a sender lies past the {num_nodes} nodes")
-    row_ptr = np.concatenate([[0], np.cumsum(counts)])
-    return order.astype(np.int32), row_ptr.astype(np.int32)
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def csr_landing(ssum_perm: np.ndarray, ssum_senders: np.ndarray,
+                num_nodes: int):
+    """The landing of the CSR path, read off its sender-sorted second tiling
+    (`prepare_csr_tiles` over the receiver tiles' senders, in the flat
+    global layout): `order` is ssum_perm at the tiling's valid slots, in
+    tile order, so the landing sums each sender's rows in the order the
+    TPU's `_segsum_kernel` visits them. Returns (order, row_ptr) int32."""
+    ssum_senders = np.asarray(ssum_senders).astype(np.int64)
+    valid = ssum_senders >= 0
+    send = ssum_senders[valid]
+    if np.any(np.diff(send) < 0):
+        raise ValueError("the sender-sorted tiling is not sorted by sender")
+    order = np.asarray(ssum_perm)[valid].astype(np.int32)
+    return order, _row_ptr(send, num_nodes)
 
 
 def segment_ids(row_ptr: torch.Tensor) -> torch.Tensor:

@@ -52,6 +52,15 @@ def chunk_rows(edge_tile: int) -> int:
     return math.gcd(edge_tile, 64)
 
 
+def slot_counts(recv, tile_blocks, num_nodes: int, node_block: int,
+                edge_tile: int) -> torch.Tensor:
+    """Whether each slot counts: its receiver lies in its tile's node block
+    (the empty slots carry receiver -1). The CSR layout's rule too."""
+    base = tile_blocks.long().repeat_interleave(edge_tile) * node_block
+    r = recv.long()
+    return (r >= base) & (r < base + node_block) & (r < num_nodes)
+
+
 def _slot_geometry(recv, sloc, tile_win, tile_blocks, x_rows: int,
                    num_nodes: int, node_block: int, edge_tile: int):
     """Per slot: its global sender (0 where it has none), whether it has
@@ -59,9 +68,7 @@ def _slot_geometry(recv, sloc, tile_win, tile_blocks, x_rows: int,
     win = tile_win.long().repeat_interleave(edge_tile) * node_block
     sender = win + sloc.long().clamp(min=0)
     has_sender = (sloc >= 0) & (sender < x_rows)
-    base = tile_blocks.long().repeat_interleave(edge_tile) * node_block
-    r = recv.long()
-    valid = (r >= base) & (r < base + node_block) & (r < num_nodes)
+    valid = slot_counts(recv, tile_blocks, num_nodes, node_block, edge_tile)
     return torch.where(has_sender, sender, 0), has_sender, valid
 
 

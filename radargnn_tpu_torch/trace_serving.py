@@ -9,11 +9,12 @@ the idle share against the unprofiled wall, and the device time by kernel
 name. Run from the root of a checkout on a machine with a CUDA card:
 
     python -m radargnn_tpu_torch.trace_serving [--requests N]
-        [--graph knn|radius] [--trace FILE]
+        [--graph knn|radius] [--tiling csr] [--trace FILE]
 
 `--graph knn` (the default) serves kNN graphs under the dense tiling;
 `--graph radius` serves radius graphs under the windowed tiling (the
-configuration with three fields replaced, `smoke.flagship_configs`).
+configuration with three fields replaced, `smoke.flagship_configs`);
+`--tiling csr` serves either under the CSR tiling (fused_tiling "csr").
 `--trace` also writes the Chrome trace of the profiled window to FILE.
 """
 
@@ -77,12 +78,12 @@ def by_name(kernels: list, per: int, top: int) -> List[Dict]:
 
 def trace(requests: int = 5, points: int = 2816, graphs: int = 5,
           seed: int = 0, top: int = 25, trace_file: Optional[str] = None,
-          graph: str = "knn") -> Dict:
-    """Profiles `requests` served batches of `graph` after one warm-up
-    request."""
+          graph: str = "knn", tiling: Optional[str] = None) -> Dict:
+    """Profiles `requests` served batches of `graph` (under `tiling`, or
+    the one the configuration selects) after one warm-up request."""
     dev = resolve_device("cuda")
     _, model, loader = flagship_serving(dev, points, graphs, requests + 1,
-                                        seed, graph=graph)
+                                        seed, graph=graph, tiling=tiling)
     predictor = Predictor(model, loader, verbose=False)
     predictor.forward(loader[0])                      # warm-up (and build)
     torch.cuda.synchronize()
@@ -102,7 +103,7 @@ def trace(requests: int = 5, points: int = 2816, graphs: int = 5,
     wall: List[float] = []
     kernels, busy = device_profile(lambda: wall.extend(serve()), trace_file)
     return {
-        "card": card_description(), "graph": graph,
+        "card": card_description(), "graph": graph, "tiling": tiling,
         "requests": requests, "graphs": graphs, "points": points,
         "wall_us_per_request": plain_wall,
         "profiled_wall_us_per_request": wall,
@@ -119,11 +120,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=5)
     ap.add_argument("--graph", choices=("knn", "radius"), default="knn")
+    ap.add_argument("--tiling", choices=("csr",), default=None,
+                    help="the CSR tiling instead of the configuration's")
     ap.add_argument("--trace", default=None,
                     help="also write the Chrome trace to this file")
     args = ap.parse_args(argv)
     print(json.dumps(trace(args.requests, trace_file=args.trace,
-                           graph=args.graph)))
+                           graph=args.graph, tiling=args.tiling)))
     return 0
 
 

@@ -116,16 +116,22 @@ class Trainer:
             cfg.bg_index, cfg.cls_loss_weight, cfg.bb_loss_weight,
             batch.node_mask.reshape(-1))
 
+    def losses(self, batch: GraphBatch
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Train-mode forward (running statistics move) and the detection
+        loss on `batch`: the (total, cls, bb) 0-d tensors that train_step
+        differentiates, with their graph."""
+        self.model.train()
+        logits, bb = self.model.forward_batch(batch)
+        return self._loss_terms(logits, bb, batch, self._weights)
+
     def train_step(self, batch: GraphBatch
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Train-mode forward (running statistics move), the detection
         loss, backward and one optimizer step; returns the (total, cls, bb)
         losses as 0-d tensors on the device, without waiting for them."""
-        self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        logits, bb = self.model.forward_batch(batch)
-        total, l_cls, l_bb = self._loss_terms(logits, bb, batch,
-                                              self._weights)
+        total, l_cls, l_bb = self.losses(batch)
         total.backward()
         self.optimizer.step()
         return total.detach(), l_cls.detach(), l_bb.detach()

@@ -245,12 +245,14 @@ def test_stack_samples_match_jax(tiled):
 
 
 def test_stack_samples_refuses_unported_tilings():
-    """The CSR tiling (a 2-tuple) waits for its slice; the windowed tuple
-    is ported (tests/test_torch_windowed.py)."""
+    """The sender-sorted overflow tiling of the dense layout (ovf_ssum)
+    waits for its kernel variant; the windowed tuple and the CSR 2-tuple
+    are ported (tests/test_torch_windowed.py, tests/test_torch_csr.py)."""
     samples = tsyn.make_samples(num_frames=1, num_points=64, seed=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbatch.stack_samples(samples, max_nodes=256, bg_index=5,
-                             csr_tiling=(256, 512), device="cpu")
+        tbatch.stack_samples(samples, max_nodes=128, bg_index=5,
+                             csr_tiling=dict(_dense_spec(), ovf_ssum=True),
+                             device="cpu")
 
 
 def test_batch_to_moves_every_tensor():

@@ -213,9 +213,10 @@ def test_unported_configurations_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DetNet(tcfg.GNNArchitectureConfig(
             **dict(kw, conv_pre_mlp_layer_number=2)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_csr_tiling(tcfg.GNNArchitectureConfig(
-            **dict(kw, use_fused_aggregation=True, fused_tiling="csr")))
+    # the CSR tiling is ported (tests/test_torch_csr.py)
+    assert fused_csr_tiling(tcfg.GNNArchitectureConfig(
+        **dict(kw, use_fused_aggregation=True, fused_tiling="csr"))) == \
+        (256, 512)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DetNet(tcfg.GNNArchitectureConfig(**dict(kw, fused_bf16_max=True)),
                device="cpu")
