@@ -2,9 +2,10 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-It prints the card's name and power limit and builds the port's seven
+It prints the card's name and power limit and builds the port's eleven
 CUDA kernels from the sources in the checkout (dense forward and backward,
 segment-sum landing, windowed forward and backward, CSR forward and
+backward, fused linear, message segment-max, v1 hoisted forward and
 backward; one nvcc each, in parallel). It holds each kernel against its
 plain PyTorch version at every layer shape of the flagship RadarScenes
 DetNet (the windowed kernels on the radius batch and on the kNN batch
@@ -19,9 +20,17 @@ and trains the same DetNet for a few steps through the port's Trainer
 (the flagship configuration, deterministic algorithms on), checks that
 every conv layer launched the path's kernels, that each path matches the
 same model on the plain path and that a second training run gives the
-same losses, and prints the kernels' times beside their bounds. The last
-line is one JSON object with "ok" and the device; any failed phase exits
-non-zero.
+same losses. A fourth phase holds the four kernels that no model path runs
+against their plain versions at the flagship's widths on the kNN batch
+(the v1 pair at the five layer shapes under 128 x 256 receiver-CSR tiles,
+its backward exact on dyadic inputs and bitwise repeatable; the message
+segment-max at 464 -> 464; the fused linear at 4096 x 256 -> 512 and over
+the batch's nodes at 224 -> 464), then drives their entry points,
+radargnn_tpu_torch.benchmarks.kernel_check (prints KERNEL CHECK OK) and
+kernel_bench (two JSON lines at 450,560 edges), and checks that each of
+the four launched. It prints the kernels' times beside their bounds. The
+last line is one JSON object with "ok" and the device; any failed phase
+exits non-zero.
 """
 
 import json

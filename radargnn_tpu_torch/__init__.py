@@ -14,6 +14,8 @@ Ported so far — the DetNet serving path with the dense kNN tiling:
     postprocess      — boxes, Predictor
     weights          — flax variables <-> state_dict bridge
     smoke            — the on-card end-to-end check run by chip_smoke.py
+    benchmarks       — kernel_check and kernel_bench, the kernels' own
+                       entry points on the card
 
 Entry points run on the CUDA card unless the caller asks for the CPU.
 """

@@ -2,7 +2,11 @@
 plain versions, and the flagship DetNet's serving path (`Predictor`) and
 training path (`Trainer`) on three paths: the kNN graph under the dense
 tiling, the radius graph under the windowed tiling, and the kNN graph
-under the CSR tiling (`fused_tiling: "csr"`).
+under the CSR tiling (`fused_tiling: "csr"`). A fourth phase holds the
+four kernels that no model path runs (fused linear, message segment-max,
+the v1 hoisted forward and backward) against their plain versions at the
+flagship's widths and drives their entry points, `benchmarks.kernel_check`
+and `benchmarks.kernel_bench`.
 
 `run(device)` is what `chip_smoke.py` calls on the card; the CPU tests call
 it at a tiny size, where the wrappers take their plain versions, nothing is
@@ -25,6 +29,8 @@ from unittest import mock
 import numpy as np
 import torch
 
+from radargnn_tpu_torch.benchmarks import kernel_bench, kernel_check
+from radargnn_tpu_torch.benchmarks.kernel_bench import time_ms as _time_ms
 from radargnn_tpu_torch.build import nvcc_all
 from radargnn_tpu_torch.configs import UserConfigurationReader
 from radargnn_tpu_torch.data.synthetic import make_samples
@@ -32,10 +38,15 @@ from radargnn_tpu_torch.device import DeviceLike, resolve_device
 from radargnn_tpu_torch.graph.batch import stack_samples
 from radargnn_tpu_torch.models.detnet import DetNet
 from radargnn_tpu_torch.models.layers import fused_csr_tiling
+from radargnn_tpu_torch.models.mlp import matmul_f32
 from radargnn_tpu_torch.ops import csr_aggregate as ca
 from radargnn_tpu_torch.ops import dense_aggregate as da
+from radargnn_tpu_torch.ops import fused_linear as fl
+from radargnn_tpu_torch.ops import hoisted_aggregate as ha
+from radargnn_tpu_torch.ops import message_segment_max as msm
 from radargnn_tpu_torch.ops import segment_sum as ss
 from radargnn_tpu_torch.ops import windowed_aggregate as wa
+from radargnn_tpu_torch.ops.windowed_tiles import prepare_csr_tiles
 from radargnn_tpu_torch.postprocess.inference import Predictor
 from radargnn_tpu_torch.train.trainer import Trainer, set_seeds
 
@@ -44,11 +55,13 @@ FLAGSHIP_CONFIG = os.path.join(_REPO, "configurations",
                                "configuration_radarscenes.yml")
 KERNEL_SOURCES = ("dense_fwd_v4.cu", "dense_bwd_v4.cu", "segment_sum_csr.cu",
                   "windowed_fwd_v3.cu", "windowed_bwd_v3.cu", "csr_fwd_v2.cu",
-                  "csr_bwd_v2.cu")
+                  "csr_bwd_v2.cu", "fused_linear.cu", "msg_segmax.cu",
+                  "hoisted_fwd_v1.cu", "hoisted_bwd_v1.cu")
 # the kernels' names, in the order of `_counters()`
 KERNEL_NAMES = ("dense_fwd_v4", "dense_bwd_v4", "segment_sum_csr",
                 "windowed_fwd_v3", "windowed_bwd_v3", "csr_fwd_v2",
-                "csr_bwd_v2")
+                "csr_bwd_v2", "fused_linear", "msg_segmax", "hoisted_fwd_v1",
+                "hoisted_bwd_v1")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
@@ -79,6 +92,13 @@ BWD_RTOL = 1e-3
 # float32 summation order differs, relative to each output's own scale; a
 # d_op rounded to bf16 on that side would move them by about 2e-3
 CSR_EDGE_GRAD_RTOL = 1e-5
+# the float32 kernels of the fourth phase (fused linear, message
+# segment-max, the v1 forward; the v1 backward's d_e, dW_e and d_b with a
+# real-valued g) against their plain versions, relative to the output's
+# scale: float32 products and sums on both sides, in other orders (an fma
+# chain against a matmul), about 1e-6; a bf16 or TF32 product would be
+# about 1e-3
+F32_RTOL = 1e-5
 # whole model, kernel path vs plain path on the card: a different f32
 # summation order can move an activation across a bf16 rounding boundary
 # (one bf16 ulp, 2^-8 relative) in the next layer's matmul inputs, and five
@@ -116,20 +136,6 @@ def card_description() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-
-
-def _time_ms(fn: Callable, reps: int) -> float:
-    """Mean device time of fn() in ms, by CUDA events over `reps` calls
-    after one warm-up call."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def _bound(flops: float, nbytes: float, peak_flops: float,
@@ -614,7 +620,8 @@ def _counters():
     """The launch counters of the kernels, in the order of KERNEL_NAMES."""
     return (da.dense_fwd_cuda, da.dense_bwd_cuda, ss.segment_sum_csr_cuda,
             wa.windowed_fwd_cuda, wa.windowed_bwd_cuda, ca.csr_fwd_cuda,
-            ca.csr_bwd_cuda)
+            ca.csr_bwd_cuda, fl.fused_linear_cuda, msm.msg_segmax_cuda,
+            ha.hoisted_fwd_cuda, ha.hoisted_bwd_cuda)
 
 
 def _plain_kernels() -> ExitStack:
@@ -741,7 +748,8 @@ def _build(out: Callable) -> float:
     built = nvcc_all(KERNEL_SOURCES)
     for load in (da.load_fwd_kernel, da.load_bwd_kernel, ss.load_kernel,
                  wa.load_fwd_kernel, wa.load_bwd_kernel, ca.load_fwd_kernel,
-                 ca.load_bwd_kernel):
+                 ca.load_bwd_kernel, fl.load_kernel, msm.load_kernel,
+                 ha.load_fwd_kernel, ha.load_bwd_kernel):
         load()
     seconds = time.perf_counter() - t0
     out(f"build: {seconds:.2f} s, {len(built)} sources compiled in parallel")
@@ -925,9 +933,358 @@ def _tiling_report(batch) -> Dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# the fourth phase: the kernels no model path runs
+# ---------------------------------------------------------------------------
+
+class V1Tiling(NamedTuple):
+    """A batch's edges (global node ids, all graphs) under the receiver-CSR
+    tiles of `prepare_csr_tiles` at the v1 factories' defaults (128-node
+    blocks, 256-slot tiles): the layout the v1 pair and the message
+    segment-max are held on."""
+
+    senders: torch.Tensor     # [E_pad] int32, the permuted senders
+    recv: torch.Tensor        # [E_pad] int32, -1 on an empty slot
+    blocks: torch.Tensor      # [T] int32
+    num_nodes: int
+    node_block: int
+    edge_tile: int
+    valid_slots: int
+
+
+def v1_tiling(batch, node_block: int = 128, edge_tile: int = 256
+              ) -> V1Tiling:
+    """The batch's valid edges under the v1 factories' CSR tiles."""
+    n = batch.num_graphs * batch.max_nodes
+    send = batch.flat_senders().cpu().numpy()
+    recv = batch.flat_receivers().cpu().numpy()
+    mask = batch.edge_mask.reshape(-1).cpu().numpy()
+    perm, blocks, padded = prepare_csr_tiles(recv, mask, n, node_block,
+                                             edge_tile)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(batch.device)
+
+    return V1Tiling(t(send[perm]), t(padded), t(blocks), n, node_block,
+                    edge_tile, int((padded >= 0).sum()))
+
+
+def _f32_bound(flops: float, nbytes: float) -> Dict:
+    """The bound of a float32 kernel: its operations at the float32 peak
+    outside the tensor cores, its bytes at the HBM rate."""
+    return _bound(flops, nbytes, PEAK_F32_FLOPS)
+
+
+def _timed(row: Dict, on_card: bool, reps: int, **fns: Callable) -> None:
+    """row[name] = the device time of each fn on the card, None off it."""
+    for name, fn in fns.items():
+        row[name] = _time_ms(fn, reps) if on_card else None
+
+
+def check_linear_kernel(dev, cases: List[tuple], seed: int, reps: int,
+                        out: Callable = print) -> List[Dict]:
+    """Holds the fused linear kernel against its plain version on seeded
+    float32 inputs, for each (rows, d_in, d_out, relu, weight scale), to
+    F32_RTOL of the output's scale; times the kernel, the plain version and
+    the library call (torch.addmm, then ReLU) on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    on_card = dev.type == "cuda"
+    rows = []
+    for m, k, n, relu, scale in cases:
+        x = torch.randn((m, k), generator=gen).to(dev)
+        w = (torch.randn((k, n), generator=gen) * scale).to(dev)
+        b = torch.randn((n,), generator=gen).to(dev)
+        got = fl.fused_linear(x, w, b, relu=relu)
+        ref = fl.fused_linear_plain(x, w, b, relu=relu)
+        if on_card:
+            torch.cuda.synchronize()
+        err, rel = _rel_err(got, ref)
+        if got.shape != (m, n) or not torch.isfinite(got).all() \
+                or rel > F32_RTOL:
+            raise AssertionError(f"fused_linear disagrees with its plain "
+                                 f"version at {m} x {k} -> {n}: {rel:.3e}")
+
+        def library():
+            y = torch.addmm(b, x, w)
+            return y.relu_() if relu else y
+
+        row = {"rows": m, "d_in": k, "d_out": n, "relu": relu,
+               "max_abs_err": err, "max_rel_err": rel,
+               **_f32_bound(2.0 * m * k * n,
+                            4.0 * (m * k + k * n + n + m * n))}
+        _timed(row, on_card, reps,
+               ms=lambda: fl.fused_linear(x, w, b, relu=relu),
+               plain_ms=lambda: fl.fused_linear_plain(x, w, b, relu=relu),
+               library_ms=library)
+        out(f"kernel fused_linear {m} x {k} -> {n} (relu {relu}): "
+            f"max_abs_err={err:.3e} max_rel_err={rel:.3e} ms={row['ms']} "
+            f"plain_ms={row['plain_ms']} addmm ms={row['library_ms']} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+        rows.append(row)
+    return rows
+
+
+def _segmax_small_cases(dev) -> List[Dict]:
+    """The empty-block and all-negative cases of the JAX package's tests:
+    (m_in, w, b, padded receivers, tile blocks, geometry) on `dev`, with the
+    values the output must hold."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    rng = np.random.default_rng(2)
+    m_in = rng.normal(size=(120, 8)).astype(np.float32)
+    recv = rng.integers(0, 30, 120).astype(np.int32)   # first block only
+    perm, tb, padded = prepare_csr_tiles(recv, np.ones(120, bool), 128, 32,
+                                         32)
+    empty = dict(name="empty blocks", args=(
+        t(m_in[perm]), t(rng.normal(size=(8, 16)).astype(np.float32)),
+        t(np.zeros(16, np.float32)), t(padded), t(tb)),
+        kw=dict(num_nodes=128, node_block=32, edge_tile=32),
+        zero_rows=slice(32, None))
+    recv = np.repeat(np.arange(4), 4).astype(np.int32)
+    perm, tb, padded = prepare_csr_tiles(recv, np.ones(16, bool), 8, 8, 8)
+    negative = dict(name="all-negative", args=(
+        t(-np.ones((16, 4), np.float32)), t(np.eye(4, dtype=np.float32)),
+        t(np.zeros(4, np.float32)), t(padded), t(tb)),
+        kw=dict(num_nodes=8, node_block=8, edge_tile=8),
+        zero_rows=slice(4, None), exact=(slice(0, 4), -1.0))
+    return [empty, negative]
+
+
+def check_segmax_kernel(v1: V1Tiling, d_in: int, h: int, seed: int,
+                        reps: int, out: Callable = print) -> List[Dict]:
+    """Holds the message segment-max kernel against its plain version on
+    the batch's receivers under the v1 tiles, with seeded float32 messages
+    of width d_in -> h, to F32_RTOL of the output's scale, and on the
+    empty-block and all-negative cases (empty receivers exactly 0, negative
+    maxima kept); times the kernel, the plain version and the library path
+    (torch.addmm, then scatter_reduce_ "amax") on the card."""
+    dev = v1.recv.device
+    on_card = dev.type == "cuda"
+    gen = torch.Generator().manual_seed(seed)
+    e_pad, t = v1.recv.shape[0], v1.blocks.shape[0]
+    n = v1.num_nodes
+    m_in = torch.randn((e_pad, d_in), generator=gen).to(dev)
+    w = (torch.randn((d_in, h), generator=gen) * d_in ** -0.5).to(dev)
+    b = torch.randn((h,), generator=gen).to(dev)
+    kw = dict(num_nodes=n, node_block=v1.node_block, edge_tile=v1.edge_tile)
+    args = (m_in, w, b, v1.recv, v1.blocks)
+    got = msm.msg_segmax(*args, **kw)
+    ref = msm.msg_segmax_plain(*args, **kw)
+    # the library path on the same slots: empty slots land on a spare row
+    counts = wa.slot_counts(v1.recv, v1.blocks, n, v1.node_block,
+                            v1.edge_tile)
+    index = torch.where(counts, v1.recv.long(), n)[:, None].expand(e_pad, h)
+
+    def library():
+        m = torch.addmm(b, m_in, w)
+        return torch.zeros((n + 1, h), dtype=torch.float32, device=dev
+                           ).scatter_reduce_(0, index, m, "amax",
+                                             include_self=False)[:n]
+
+    rows = []
+    for case in [None] + _segmax_small_cases(dev):
+        if case is not None:
+            got = msm.msg_segmax(*case["args"], **case["kw"])
+            ref = msm.msg_segmax_plain(*case["args"], **case["kw"])
+        if on_card:
+            torch.cuda.synchronize()
+        err, rel = _rel_err(got, ref)
+        name = "kNN batch" if case is None else case["name"]
+        ok = torch.isfinite(got).all() and rel <= F32_RTOL
+        if case is not None:
+            ok = ok and bool((got[case["zero_rows"]] == 0).all())
+            if "exact" in case:
+                rows_, value = case["exact"]
+                ok = ok and bool((got[rows_] == value).all())
+        if not ok:
+            raise AssertionError(f"msg_segmax disagrees with its plain "
+                                 f"version ({name}): {rel:.3e}")
+        row = {"case": name, "max_abs_err": err, "max_rel_err": rel}
+        if case is None:
+            row.update(e_pad=e_pad, valid_slots=v1.valid_slots, d_in=d_in,
+                       h=h, **_f32_bound(
+                           2.0 * v1.valid_slots * d_in * h,
+                           4.0 * (e_pad * d_in + d_in * h + h + e_pad + t
+                                  + n * h)))
+            _timed(row, on_card, reps,
+                   ms=lambda: msm.msg_segmax(*args, **kw),
+                   plain_ms=lambda: msm.msg_segmax_plain(*args, **kw),
+                   library_ms=library)
+            if on_card:
+                lib_err = float((library() - ref).abs().max())
+                row["library_max_abs_err"] = lib_err
+            out(f"kernel msg_segmax {d_in} -> {h} on {e_pad} slots "
+                f"({v1.valid_slots} valid, {t} tiles of {v1.edge_tile}): "
+                f"max_abs_err={err:.3e} max_rel_err={rel:.3e} "
+                f"ms={row['ms']} plain_ms={row['plain_ms']} addmm + "
+                f"scatter_reduce_ ms={row['library_ms']} bound_ms="
+                f"{row['bound_ms']:.4f} ({row['bound_by']}; "
+                f"{row['flops'] / 1e9:.1f} GFLOP)")
+        else:
+            out(f"kernel msg_segmax, {name}: max_abs_err={err:.3e}")
+        rows.append(row)
+    return rows
+
+
+def _v1_bounds(v1: V1Tiling, de: int, h: int) -> Tuple[Dict, Dict]:
+    """The v1 forward's and backward's bounds: the edge products per valid
+    slot in float32 (the forward 1, the backward 3: the recomputed
+    operand, d_e, dW_e), and the bytes of their inputs and outputs."""
+    e_pad, t, n = v1.recv.shape[0], v1.blocks.shape[0], v1.num_nodes
+    edge = 2.0 * v1.valid_slots * de * h
+    index = 4.0 * (2 * e_pad + t)
+    weights = 4.0 * (de * h + h)
+    fwd = _f32_bound(edge, 4.0 * (3 * n * h + e_pad * de) + weights + index)
+    bwd = _f32_bound(3 * edge, 4.0 * (3 * n * h + 2 * e_pad * de + e_pad * h)
+                     + 2 * weights + index)
+    return fwd, bwd
+
+
+def check_v1_kernels(v1: V1Tiling, layer_shapes: List[tuple], seed: int,
+                     reps: int, out: Callable = print
+                     ) -> Tuple[List[Dict], List[Dict]]:
+    """Holds the v1 pair against their plain versions at each (d_in, d_e,
+    H) of the model, on the batch under the v1 tiles, with y_s the
+    node-level projection x @ W_s.
+
+    The forward runs on seeded real-valued inputs, in serving and in VJP
+    mode, to F32_RTOL of the output's scale. The backward runs on dyadic
+    operands (x, e in multiples of 1/2, the weights of 1/4, b and g of
+    1/8): every sum is exact in float32 in any order, the routing compares
+    equal operands, ties are frequent, and its four outputs must agree
+    bitwise; then on the same operands with a real-valued g, which only the
+    summation order of d_e, dW_e and d_b can tell apart (F32_RTOL of each
+    output's scale); two runs must give the same bits."""
+    dev = v1.recv.device
+    on_card = dev.type == "cuda"
+    gen = torch.Generator().manual_seed(seed)
+    n, e_pad = v1.num_nodes, v1.recv.shape[0]
+    layout = (v1.senders, v1.recv, v1.blocks)
+    kw = dict(node_block=v1.node_block, edge_tile=v1.edge_tile)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    def dyadic(*shape, lo=-2, hi=2, step=0.5):
+        return (torch.randint(lo, hi + 1, shape, generator=gen)
+                * step).float().to(dev)
+
+    names = ("d_op", "d_e", "dW_e", "d_b")
+    fwd_rows, bwd_rows = [], []
+    for d, de, h in layer_shapes:
+        fwd_bound, bwd_bound = _v1_bounds(v1, de, h)
+        y_s = matmul_f32(rand(n, d), rand(d, h, scale=d ** -0.5))
+        args = (y_s, rand(e_pad, de), rand(de, h, scale=de ** -0.5),
+                rand(h), *layout, rand(n, h))
+        got = ha.hoisted_fwd(*args, **kw)
+        ref = ha.hoisted_fwd_plain(*args, **kw)
+        got_vjp, inner = ha.hoisted_fwd(*args, **kw, emit_inner=True)
+        _, ref_inner = ha.hoisted_fwd_plain(*args, **kw, emit_inner=True)
+        if on_card:
+            torch.cuda.synchronize()
+        has = ref_inner > da._NEG / 2
+        if not torch.isfinite(got).all() or not torch.equal(got_vjp, got) \
+                or not torch.equal(inner > da._NEG / 2, has):
+            raise AssertionError(f"hoisted_fwd_v1 at H={h}: output not "
+                                 "finite, or VJP mode differs")
+        err = max(float((got - ref).abs().max()),
+                  float((inner[has] - ref_inner[has]).abs().max()))
+        f_row = {"d_in": d, "d_e": de, "h": h, "max_abs_err": err,
+                 "max_rel_err": err / max(float(ref.abs().max()), 1.0),
+                 **fwd_bound}
+        _timed(f_row, on_card, reps,
+               ms=lambda: ha.hoisted_fwd(*args, **kw),
+               plain_ms=lambda: ha.hoisted_fwd_plain(*args, **kw))
+
+        # the backward on dyadic operands
+        y_s = matmul_f32(dyadic(n, d), dyadic(d, h, step=0.25))
+        ops = (y_s, dyadic(e_pad, de), dyadic(de, h, step=0.25),
+               dyadic(h, lo=-8, hi=8, step=0.125))
+        _, inner = ha.hoisted_fwd(*ops, *layout,
+                                  torch.zeros((n, h), device=dev), **kw,
+                                  emit_inner=True)
+        has = inner > da._NEG / 2
+        bargs = ops + layout + (torch.where(has, inner, 0.0), torch.where(
+            has, dyadic(n, h, lo=-8, hi=8, step=0.125), 0.0))
+        got = ha.hoisted_bwd(*bargs, **kw)
+        ref = ha.hoisted_bwd_plain(*bargs, **kw)
+        again = ha.hoisted_bwd(*bargs, **kw)
+        bargs_g = bargs[:-1] + (torch.where(has, rand(n, h), 0.0),)
+        real_g = [_own_scale_err(u, v) for u, v in
+                  zip(ha.hoisted_bwd(*bargs_g, **kw),
+                      ha.hoisted_bwd_plain(*bargs_g, **kw))]
+        if on_card:
+            torch.cuda.synchronize()
+        errs = [_rel_err(u, v) for u, v in zip(got, ref)]
+        same = all(torch.equal(u, v) for u, v in zip(got, again))
+        b_row = {"d_in": d, "d_e": de, "h": h,
+                 "max_abs_err": max(e[0] for e in errs),
+                 "max_rel_err": max(e[1] for e in errs),
+                 "bitwise_repeat": same,
+                 "real_g_rel_err": dict(zip(names, real_g)), **bwd_bound}
+        _timed(b_row, on_card, reps,
+               ms=lambda: ha.hoisted_bwd(*bargs, **kw),
+               plain_ms=lambda: ha.hoisted_bwd_plain(*bargs, **kw))
+        out(f"kernel hoisted_fwd_v1 d_in={d} H={h}: max_abs_err={err:.3e} "
+            f"max_rel_err={f_row['max_rel_err']:.3e} ms={f_row['ms']} "
+            f"plain_ms={f_row['plain_ms']} bound_ms="
+            f"{f_row['bound_ms']:.4f} ({f_row['bound_by']})")
+        out(f"kernel hoisted_bwd_v1 d_in={d} H={h}: dyadic errors (abs) "
+            + ", ".join(f"{nm} {e[0]:.3e}" for nm, e in zip(names, errs))
+            + "; real-valued g, relative to each output's scale "
+            + ", ".join(f"{nm} {e:.3e}" for nm, e in zip(names, real_g))
+            + f"; bitwise repeat {same}; ms={b_row['ms']} plain_ms="
+            f"{b_row['plain_ms']} bound_ms={b_row['bound_ms']:.4f} "
+            f"({b_row['bound_by']})")
+        if f_row["max_rel_err"] > F32_RTOL:
+            raise AssertionError(f"hoisted_fwd_v1 disagrees with its plain "
+                                 f"version at H={h}: {f_row['max_rel_err']}")
+        if b_row["max_abs_err"] > 0.0 or max(real_g) > F32_RTOL or not same:
+            raise AssertionError(f"hoisted_bwd_v1 disagrees with its plain "
+                                 f"version at H={h}: dyadic {errs}, real g "
+                                 f"{real_g}, bitwise repeat {same}")
+        fwd_rows.append(f_row)
+        bwd_rows.append(b_row)
+    return fwd_rows, bwd_rows
+
+
+def kernel_entry_points(dev, bench: Tuple[int, int, int, int], reps: int,
+                        out: Callable = print) -> Dict:
+    """The fourth phase's main path: `kernel_check` and `kernel_bench` (at
+    `bench` = (edges, nodes, d_in, H)), with the launch counters set to 0
+    just before and read just after. The four kernels no model path runs
+    must launch as often as the two entry points call them (none off the
+    card); the other kernels' launches (kernel_check's dense and windowed
+    checks) are reported."""
+    on_card = dev.type == "cuda"
+    for c in _counters():
+        c.launches = 0
+    check = kernel_check.run(dev, out)
+    bench_res = kernel_bench.run(dev, *bench, reps=reps, out=out)
+    launches = dict(zip(KERNEL_NAMES, (c.launches for c in _counters())))
+    # kernel_check: one linear, one segment-max, the forward through both
+    # v1 factories, the kernel backward once; kernel_bench: its check, a
+    # warm-up and `reps` timed calls of each path
+    expected = _expect({"fused_linear": 1, "msg_segmax": 3 + reps,
+                        "hoisted_fwd_v1": 2, "hoisted_bwd_v1": 1}, on_card)
+    got = [launches[name] for name in KERNEL_NAMES]
+    out(f"launches of kernel_check + kernel_bench ({', '.join(KERNEL_NAMES)})"
+        f": {got} (the last four expected {expected[7:]})")
+    if got[7:] != expected[7:]:
+        raise AssertionError(f"the kernel entry points launched {got[7:]}, "
+                             f"expected {expected[7:]}")
+    return {"entry_launches": launches, "kernel_check": check,
+            "kernel_bench": bench_res}
+
+
+BENCH_SIZE = (450_560, 22_528, 464, 464)   # kernel_bench's defaults
+
+
 def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
         batches: int = 3, seed: int = 0, reps: int = 20,
-        train_steps: int = 4, out: Callable = print) -> Dict:
+        train_steps: int = 4, bench: Tuple[int, int, int, int] = BENCH_SIZE,
+        out: Callable = print) -> Dict:
     """Runs every phase; returns the summary (also printed as JSON lines).
 
     `points`/`graphs` size the synthetic frames (the serving and training
@@ -935,7 +1292,10 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
     served, `train_steps` the train steps of each training run (the first
     is a warm-up, the rest are timed). The kNN path (dense tiling) runs
     first, then the radius path (windowed tiling), then the kNN graph
-    under the CSR tiling."""
+    under the CSR tiling, then the fourth phase: the four kernels no model
+    path runs, held against their plain versions at the flagship's widths
+    on the kNN batch, then their entry points `kernel_check` and
+    `kernel_bench` (at `bench` = (edges, nodes, d_in, H))."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     summary: Dict = {"device": str(dev)}
@@ -1045,6 +1405,26 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
                 on_card), "CSR", out))
     summary["csr"] = csr
 
+    # -- the kernels no model path runs: fused linear, segment-max, v1 ------
+    v1 = v1_tiling(loader[0])
+    wide = max(shapes, key=lambda s: s[2])
+    nodes = v1.num_nodes
+    out(f"fourth phase: the kNN batch under the v1 tiles ({v1.node_block} "
+        f"nodes x {v1.edge_tile} slots): {v1.recv.shape[0]} slots, "
+        f"{v1.valid_slots} valid, {v1.blocks.shape[0]} tiles")
+    last: Dict = {}
+    with torch.no_grad():
+        last["linear"] = check_linear_kernel(
+            dev, [(4096, 256, 512, True, 0.05),
+                  (nodes, shapes[0][0], shapes[0][2], False,
+                   shapes[0][0] ** -0.5)], seed, reps, out)
+        last["segmax"] = check_segmax_kernel(v1, wide[2], wide[2], seed,
+                                             reps, out)
+    last["v1_fwd"], last["v1_bwd"] = check_v1_kernels(v1, shapes, seed, reps,
+                                                      out)
+    last.update(kernel_entry_points(dev, bench, reps, out))
+    summary["last_four"] = last
+
     def entry(name, source, replaces, launches, rows, checked, library):
         return {
             "name": name, "route": "cuda",
@@ -1088,6 +1468,24 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
         entry("csr_bwd_v2", "csr_bwd_v2.cu", 1030, csr_l[6], c_bwd,
               c_bwd + csr["radius_per_shape_bwd"], False),
     ]
+    # the fourth phase: launches from its entry points; times and bounds of
+    # the fused linear at the flagship's node shape (224 -> 464 over the
+    # batch's nodes), of the segment-max on the kNN batch, and of the v1
+    # pair summed over the five layer shapes
+    entry_l = last["entry_launches"]
+    lin, seg = last["linear"], last["segmax"]
+    summary["kernels"] += [
+        entry("fused_linear", "fused_linear.cu", 94, entry_l["fused_linear"],
+              lin[1:], lin, True),
+        entry("msg_segmax", "msg_segmax.cu", 558, entry_l["msg_segmax"],
+              seg[:1], seg, True),
+        entry("hoisted_fwd_v1", "hoisted_fwd_v1.cu", 707,
+              entry_l["hoisted_fwd_v1"], last["v1_fwd"], last["v1_fwd"],
+              False),
+        entry("hoisted_bwd_v1", "hoisted_bwd_v1.cu", 2015,
+              entry_l["hoisted_bwd_v1"], last["v1_bwd"], last["v1_bwd"],
+              False),
+    ]
     summary["per_shape"] = fwd_rows
     summary["per_shape_bwd"] = bwd_rows
     summary["per_shape_segsum"] = seg_rows
@@ -1099,5 +1497,8 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
                                                 "tiling"))},
                     "csr": {k: v for k, v in csr.items()
                             if k.startswith(("per_shape", "radius_per",
-                                             "tiling", "radius_tiling"))}}))
+                                             "tiling", "radius_tiling"))},
+                    "last_four": {k: last[k] for k in (
+                        "linear", "segmax", "v1_fwd", "v1_bwd",
+                        "kernel_bench")}}))
     return summary

@@ -16,6 +16,7 @@ it: their forward, and their d_e and dW_e with a real-valued g, are held
 to the smoke's float32 limits."""
 
 import contextlib
+import json
 from unittest import mock
 
 import numpy as np
@@ -23,9 +24,13 @@ import pytest
 import torch
 
 from radargnn_tpu_torch import smoke
+from radargnn_tpu_torch.benchmarks import kernel_bench, kernel_check
 from radargnn_tpu_torch.ops import csr_aggregate as ca
 from radargnn_tpu_torch.ops import dense_aggregate as da
 from radargnn_tpu_torch.ops import dense_tiles as tdt
+from radargnn_tpu_torch.ops import fused_linear as fl
+from radargnn_tpu_torch.ops import hoisted_aggregate as ha
+from radargnn_tpu_torch.ops import message_segment_max as msm
 from radargnn_tpu_torch.ops import segment_sum as ss
 from radargnn_tpu_torch.ops import windowed_aggregate as wa
 from radargnn_tpu_torch.ops import windowed_tiles as wt
@@ -620,6 +625,302 @@ def test_csr_kernels_refuse_what_they_do_not_take():
     assert ca.csr_fwd_cuda.launches == before
 
 
+# -- the kernels no model path runs: fused linear, segment-max, v1 pair ----
+
+def _cuda(arr, dtype=torch.float32):
+    return torch.from_numpy(np.ascontiguousarray(arr)).cuda().to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    (1000, 48, 64, False), (1000, 48, 64, True),
+    (14080, 224, 464, False),     # the flagship's nodes, 224 -> 464
+    (4096, 256, 512, True),       # kernel_check's shape
+    (333, 37, 71, True),          # no dimension a multiple of a tile
+])
+def test_fused_linear_kernel_matches_plain(shape):
+    """B9 against its plain version to smoke.F32_RTOL of the output's
+    scale: float32 products and sums on both sides."""
+    _need_card()
+    m, k, n, relu = shape
+    rng = np.random.default_rng(40)
+    x = _cuda(rng.normal(size=(m, k)))
+    w = _cuda(rng.normal(size=(k, n)) * k ** -0.5)
+    b = _cuda(rng.normal(size=(n,)))
+    before = fl.fused_linear_cuda.launches
+    got = fl.fused_linear(x, w, b, relu=relu)
+    torch.cuda.synchronize()
+    assert fl.fused_linear_cuda.launches == before + 1
+    want = fl.fused_linear_plain(x, w, b, relu=relu)
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    assert _rel_err(got, want) <= smoke.F32_RTOL
+    if relu:
+        assert (got >= 0).all()
+
+
+def _segmax_inputs(seed, e, n, d_in, h, nb, et, mask_frac=0.9):
+    rng = np.random.default_rng(seed)
+    recv = rng.integers(0, n, e).astype(np.int32)
+    perm, blocks, precv = wt.prepare_csr_tiles(recv, rng.random(e) < mask_frac,
+                                               n, nb, et)
+    m_in = rng.normal(size=(e, d_in))[perm]
+    return (_cuda(m_in), _cuda(rng.normal(size=(d_in, h)) * d_in ** -0.5),
+            _cuda(rng.normal(size=(h,))), _cuda(precv, torch.int32),
+            _cuda(blocks, torch.int32)), dict(num_nodes=n, node_block=nb,
+                                              edge_tile=et)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    (6000, 1000, 37, 71, 128, 128),     # odd widths, a partial last block
+    (60000, 2816, 464, 464, 128, 256),  # kernel_bench's widths and tiles
+    (600, 100, 24, 40, 32, 32),         # tests/test_pallas.py's case
+])
+@pytest.mark.parametrize("variant", ["scan", "onehot"])
+def test_msg_segmax_kernel_matches_plain(shape, variant):
+    """B8 under both of the JAX function's variants against its plain
+    version to smoke.F32_RTOL of the output's scale; receivers without a
+    slot are exactly 0."""
+    _need_card()
+    args, kw = _segmax_inputs(41, *shape)
+    before = msm.msg_segmax_cuda.launches
+    got = msm.fused_message_segment_max(*args, variant=variant, **kw)
+    torch.cuda.synchronize()
+    assert msm.msg_segmax_cuda.launches == before + 1
+    want = msm.msg_segmax_plain(*args, **kw)
+    assert _rel_err(got, want) <= smoke.F32_RTOL
+    assert torch.equal(got == 0, want == 0)
+
+
+@pytest.mark.gpu
+def test_msg_segmax_empty_blocks_and_negative_maxima():
+    """The empty-block and all-negative cases of the JAX package's tests,
+    as the smoke holds them: empty receivers 0, negative maxima kept."""
+    _need_card()
+    for case in smoke._segmax_small_cases(torch.device("cuda")):
+        got = msm.msg_segmax(*case["args"], **case["kw"])
+        want = msm.msg_segmax_plain(*case["args"], **case["kw"])
+        torch.cuda.synchronize()
+        assert (got[case["zero_rows"]] == 0).all(), case["name"]
+        assert _rel_err(got, want) <= smoke.F32_RTOL, case["name"]
+        if "exact" in case:
+            rows, value = case["exact"]
+            assert (got[rows] == value).all()
+
+
+def _v1_inputs(seed, n, e, de, h, nb=128, et=256, dyadic=False):
+    """A random graph under the v1 tiles and the v1 pair's float32 inputs
+    on the card; with `dyadic` every operand is a multiple of 1/8."""
+    rng = np.random.default_rng(seed)
+    send = rng.integers(0, n, e).astype(np.int32)
+    recv = rng.integers(0, n, e).astype(np.int32)
+    perm, blocks, precv = wt.prepare_csr_tiles(recv, rng.random(e) < 0.9, n,
+                                               nb, et)
+
+    def r(*shape):
+        a = rng.normal(size=shape)
+        return np.round(a * 4) / 8 if dyadic else a
+
+    ops = (_cuda(r(n, h)), _cuda(r(e, de)[perm]), _cuda(r(de, h)),
+           _cuda(r(h)))
+    layout = (_cuda(send[perm], torch.int32), _cuda(precv, torch.int32),
+              _cuda(blocks, torch.int32))
+    return ops, layout, _cuda(r(n, h)), dict(node_block=nb, edge_tile=et)
+
+
+_V1SHAPES = [
+    (2816, 56320, 16, 464),     # a flagship frame at the widest layer
+    (2816, 56320, 16, 144),
+    (300, 4000, 3, 40),         # odd widths, a partial last block
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _V1SHAPES)
+def test_hoisted_fwd_kernel_matches_plain(shape):
+    """B6, serving and VJP mode, against its plain version to
+    smoke.F32_RTOL of the output's scale; empty receivers agree exactly."""
+    _need_card()
+    ops, layout, offset, kw = _v1_inputs(42, *shape)
+    before = ha.hoisted_fwd_cuda.launches
+    got = ha.hoisted_fwd(*ops, *layout, offset, **kw)
+    got_vjp, inner = ha.hoisted_fwd(*ops, *layout, offset, emit_inner=True,
+                                    **kw)
+    torch.cuda.synchronize()
+    assert ha.hoisted_fwd_cuda.launches == before + 2
+    want, want_inner = ha.hoisted_fwd_plain(*ops, *layout, offset,
+                                            emit_inner=True, **kw)
+    assert torch.equal(got, got_vjp)
+    assert _rel_err(got, want) <= smoke.F32_RTOL
+    has = want_inner > da._NEG / 2
+    assert torch.equal(inner > da._NEG / 2, has)
+    assert _rel_err(inner[has], want_inner[has]) <= smoke.F32_RTOL
+
+
+def _v1_bwd_args(ops, layout, kw, seed, real_g=False):
+    n, h = ops[0].shape[0], ops[0].shape[1]
+    _, inner = ha.hoisted_fwd(*ops, *layout, torch.zeros(
+        (n, h), device="cuda"), emit_inner=True, **kw)
+    gen = torch.Generator().manual_seed(seed)
+    g = torch.randn((n, h), generator=gen)
+    if not real_g:
+        g = (g * 8).round() / 8
+    has = inner > da._NEG / 2
+    return ops + layout + (torch.where(has, inner, 0.0),
+                           torch.where(has, g.cuda(), 0.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _V1SHAPES)
+def test_hoisted_bwd_kernel_is_exact_on_dyadic_inputs(shape):
+    """On dyadic inputs B7 and its plain version form the same exact sums
+    (ties are frequent; each tied slot takes the full g): d_op, d_e, dW_e
+    and d_b agree bitwise, and a second run gives the same bits."""
+    _need_card()
+    ops, layout, _, kw = _v1_inputs(43, *shape, dyadic=True)
+    args = _v1_bwd_args(ops, layout, kw, 44)
+    before = ha.hoisted_bwd_cuda.launches
+    got = ha.hoisted_bwd(*args, **kw)
+    again = ha.hoisted_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert ha.hoisted_bwd_cuda.launches == before + 2
+    want = ha.hoisted_bwd_plain(*args, **kw)
+    for name, u, v, w in zip(("d_op", "d_e", "dW_e", "d_b"), got, want,
+                             again):
+        assert u.shape == v.shape and torch.equal(u, v), name
+        assert torch.equal(u, w), name
+    assert got[0].abs().max() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _V1SHAPES[:1] + _V1SHAPES[2:])
+def test_hoisted_bwd_kernel_with_a_real_valued_g(shape):
+    """Dyadic operands (exact routing) with a real-valued g: d_e, dW_e and
+    d_b agree with the plain version to smoke.F32_RTOL of their own scale,
+    d_op exactly."""
+    _need_card()
+    ops, layout, _, kw = _v1_inputs(45, *shape, dyadic=True)
+    args = _v1_bwd_args(ops, layout, kw, 46, real_g=True)
+    got = ha.hoisted_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    want = ha.hoisted_bwd_plain(*args, **kw)
+    assert torch.equal(got[0], want[0])
+    for name, i in (("d_e", 1), ("dW_e", 2), ("d_b", 3)):
+        assert smoke._own_scale_err(got[i], want[i]) <= smoke.F32_RTOL, name
+
+
+@pytest.mark.gpu
+def test_hoisted_bwd_kernel_gates_padding_slots():
+    """A padding slot (receiver -1) whose operand equals receiver 0's
+    inner_z takes no gradient: the has_recv gate of the TPU kernel."""
+    _need_card()
+    ops, layout, _, kw = _v1_inputs(47, 300, 4000, 8, 40, dyadic=True)
+    args = list(_v1_bwd_args(ops, layout, kw, 48))
+    recv = layout[1]
+    pad = int(torch.nonzero(recv < 0)[0])
+    op_pad = (args[0][layout[0][pad].long()] + args[1][pad] @ args[2]) \
+        + args[3]
+    args[7] = args[7].clone()
+    args[7][0] = op_pad
+    args[8] = args[8].clone()
+    args[8][0] = 1.0
+    d_op, d_e, _, _ = ha.hoisted_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert (d_op[pad] == 0).all() and (d_e[pad] == 0).all()
+    want = ha.hoisted_bwd_plain(*args, **kw)
+    assert torch.equal(d_op, want[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("factory", [
+    "make_fused_hoisted_aggregate", "make_fused_hoisted_aggregate_pallas_bwd"])
+def test_hoisted_aggregate_gradients_match_plain_path(factory):
+    """Both v1 factories on the kernels against the same factories with
+    the kernels patched to their plain versions: the output and the five
+    gradients (B3 lands d_y_s for the kernel backward)."""
+    _need_card()
+    ops, layout, offset, kw = _v1_inputs(49, 2816, 56320, 16, 144)
+    fused = getattr(ha, factory)(2816, **kw)
+    results = []
+    for plain in (False, True):
+        patches = contextlib.ExitStack()
+        if plain:
+            for name in ("hoisted_fwd", "hoisted_bwd"):
+                patches.enter_context(mock.patch.object(
+                    ha, name, getattr(ha, f"{name}_plain")))
+            patches.enter_context(mock.patch.object(
+                ss, "segment_sum_csr", ss.segment_sum_csr_plain))
+        with patches:
+            leaves = [a.clone().requires_grad_(True)
+                      for a in ops + (offset,)]
+            out = fused(*leaves[:4], *layout, leaves[4])
+            results.append((out.detach(),) + torch.autograd.grad(
+                (out ** 2).sum(), leaves))
+    torch.cuda.synchronize()
+    for name, u, v in zip(("out", "y_s", "e_t", "w_e", "b", "offset"),
+                          *results):
+        assert _rel_err(u, v) <= 1e-4, name
+
+
+@pytest.mark.gpu
+def test_float32_kernels_refuse_what_they_do_not_take():
+    """A CUDA tensor the four kernels do not take raises; nothing falls
+    back to the plain versions."""
+    _need_card()
+    x = torch.randn(64, 32, device="cuda")
+    w = torch.randn(32, 16, device="cuda")
+    b = torch.randn(16, device="cuda")
+    counters = (fl.fused_linear_cuda, msm.msg_segmax_cuda,
+                ha.hoisted_fwd_cuda, ha.hoisted_bwd_cuda)
+    before = [c.launches for c in counters]
+    with pytest.raises(ValueError, match="float32"):
+        fl.fused_linear(x.bfloat16(), w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        fl.fused_linear(x, w.t().contiguous().t(), b)
+    with pytest.raises(ValueError, match="do not match"):
+        fl.fused_linear(x, w[:16], b)
+    args, kw = _segmax_inputs(50, 600, 100, 24, 40, 32, 32)
+    with pytest.raises(ValueError, match="float32"):
+        msm.msg_segmax(args[0].double(), *args[1:], **kw)
+    with pytest.raises(ValueError, match="int32"):
+        msm.msg_segmax(*args[:3], args[3].long(), args[4], **kw)
+    with pytest.raises(ValueError, match="slots do not match"):
+        msm.msg_segmax(*args, num_nodes=100, node_block=32, edge_tile=64)
+    ops, layout, offset, vkw = _v1_inputs(51, 300, 4000, 8, 40)
+    with pytest.raises(ValueError, match="float32"):
+        ha.hoisted_fwd(ops[0].bfloat16(), *ops[1:], *layout, offset, **vkw)
+    with pytest.raises(ValueError, match="int32"):
+        ha.hoisted_fwd(*ops, layout[0].long(), *layout[1:], offset, **vkw)
+    with pytest.raises(ValueError, match="contiguous"):
+        ha.hoisted_bwd(*ops, *layout, offset, offset.t().contiguous().t(),
+                       **vkw)
+    ops, layout, offset, vkw = _v1_inputs(52, 100, 1000, 8, 40, nb=32, et=30)
+    fwd_launches = ha.hoisted_fwd_cuda.launches
+    args = _v1_bwd_args(ops, layout, vkw, 53)   # the forward takes 30 slots
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ha.hoisted_bwd(*args, **vkw)
+    before[2] += ha.hoisted_fwd_cuda.launches - fwd_launches
+    assert [c.launches for c in counters] == before
+
+
+@pytest.mark.gpu
+def test_kernel_entry_points_on_card():
+    """kernel_check passes on the card (its last line KERNEL CHECK OK), and
+    kernel_bench at a reduced size prints both JSON lines with times."""
+    _need_card()
+    lines = []
+    kernel_check.run("cuda", out=lines.append)
+    assert lines[-1] == "KERNEL CHECK OK"
+    lines = []
+    res = kernel_bench.run("cuda", edges=45_056, nodes=2_253, reps=2,
+                           out=lines.append)
+    rows = [json.loads(s) for s in lines]
+    assert [r["metric"] for r in rows] == ["segmax_library_ms",
+                                           "segmax_kernel_ms"]
+    assert all(r["value"] > 0 for r in rows)
+    assert res["tiles"] > 0
+
+
 @pytest.mark.gpu
 def test_smoke_on_card():
     """The smoke at a small size: the kernels build and match their plain
@@ -630,11 +931,15 @@ def test_smoke_on_card():
     at its own parameters, with the smoke's limits."""
     _need_card()
     summary = smoke.run("cuda", points=512, graphs=2, batches=3, reps=2,
-                        train_steps=2)
+                        train_steps=2, bench=(45_056, 2_253, 464, 464))
+    # the fourth phase's kernels: kernel_check's linear, segment-max (and
+    # kernel_bench's check, warm-up and 2 timed calls), the forward through
+    # both v1 factories and the kernel backward
     assert [k["launches"] for k in summary["kernels"]] == \
-        [5 * 2, 5 * 2, 3 * 5 * 2, 5 * 2, 5 * 2, 5 * 2, 5 * 2]
-    assert summary["radius"]["serve_launches"] == [0, 0, 0, 5 * 3, 0, 0, 0]
-    assert summary["csr"]["serve_launches"] == [0, 0, 0, 0, 0, 5 * 3, 0]
+        [5 * 2, 5 * 2, 3 * 5 * 2, 5 * 2, 5 * 2, 5 * 2, 5 * 2, 1, 1 + 3 + 1,
+         2, 1]
+    assert summary["radius"]["serve_launches"] == [0, 0, 0, 5 * 3] + [0] * 7
+    assert summary["csr"]["serve_launches"] == [0] * 5 + [5 * 3] + [0] * 5
     for kernel in summary["kernels"]:
         assert kernel["ms"] > 0 and kernel["plain_ms"] > 0
     assert summary["kernels"][2]["library_ms"] > 0

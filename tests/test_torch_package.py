@@ -69,14 +69,19 @@ def test_every_submodule_imports_without_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'radargnn_tpu')]\n"
         "assert not bad, bad\n"
-        "assert 'radargnn_tpu_torch.ops.csr_aggregate' in names\n"
+        "for m in ('ops.csr_aggregate', 'ops.fused_linear', "
+        "'ops.message_segment_max', 'ops.hoisted_aggregate', "
+        "'benchmarks.kernel_check', 'benchmarks.kernel_bench'):\n"
+        "    assert 'radargnn_tpu_torch.' + m in names, m\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 40   # every module of four slices
-    assert os.path.join(_PKG, "ops", "csr_aggregate.py") in _port_sources()
+    assert int(proc.stdout.strip()) >= 46   # every module of five slices
+    for path in (("ops", "csr_aggregate.py"), ("ops", "hoisted_aggregate.py"),
+                 ("benchmarks", "kernel_check.py")):
+        assert os.path.join(_PKG, *path) in _port_sources()
 
 
 def test_smoke_rehearses_on_cpu():
@@ -86,26 +91,33 @@ def test_smoke_rehearses_on_cpu():
     on the kNN graph under the CSR tiling, the seven kernels' checks
     against their plain versions at the model's layer shapes (the windowed
     and the CSR ones on two layouts each), three requests, four train steps
-    on the kernel path, again and on the plain path (here all plain), and
-    the kernels line with every key the chip run reports, each entry
-    pointing at the TPU kernel it replaces. Nothing is timed and nothing
-    launches here."""
+    on the kernel path, again and on the plain path (here all plain); the
+    fourth phase (the other four kernels against their plain versions at
+    the flagship's widths, then kernel_check and kernel_bench, the latter
+    at a tiny size); and the kernels line with every key the chip run
+    reports, each of the eleven entries pointing at the TPU kernel it
+    replaces. Nothing is timed and nothing launches here."""
     lines = []
     before = torch.are_deterministic_algorithms_enabled()
     summary = smoke.run("cpu", points=200, graphs=2, batches=3, reps=1,
-                        out=lines.append)
+                        bench=(2000, 96, 24, 40), out=lines.append)
     assert torch.are_deterministic_algorithms_enabled() == before
     kernels = summary["kernels"]
     assert [k["name"] for k in kernels] == [
         "dense_fwd_v4", "dense_bwd_v4", "segment_sum_csr", "windowed_fwd_v3",
-        "windowed_bwd_v3", "csr_fwd_v2", "csr_bwd_v2"]
+        "windowed_bwd_v3", "csr_fwd_v2", "csr_bwd_v2", "fused_linear",
+        "msg_segmax", "hoisted_fwd_v1", "hoisted_bwd_v1"]
     replaced = {"dense_fwd_v4": "def _fused_fwd_kernel_v4",
                 "dense_bwd_v4": "def _fused_bwd_kernel_v4",
                 "segment_sum_csr": "def _segsum_kernel",
                 "windowed_fwd_v3": "def _fused_fwd_kernel_v3",
                 "windowed_bwd_v3": "def _fused_bwd_kernel_v3",
                 "csr_fwd_v2": "def _fused_fwd_kernel_v2",
-                "csr_bwd_v2": "def _fused_bwd_kernel_v2"}
+                "csr_bwd_v2": "def _fused_bwd_kernel_v2",
+                "fused_linear": "def _linear_kernel",
+                "msg_segmax": "def _msg_segmax_scan_kernel",
+                "hoisted_fwd_v1": "def _hoisted_scan_kernel",
+                "hoisted_bwd_v1": "def _hoisted_bwd_kernel"}
     for kernel in kernels:
         assert set(kernel) == {"name", "route", "source", "replaces",
                                "launches", "max_abs_err", "ms", "plain_ms",
@@ -167,6 +179,27 @@ def test_smoke_rehearses_on_cpu():
     # the radius batch under the CSR tiling: 256-node blocks of 512 slots
     assert all(v > 0 for v in csr["radius_tiling"]["valid_edges"])
     assert csr["radius_tiling"]["tiles_per_graph"] > 1
+    last4 = summary["last_four"]
+    assert [(r["rows"], r["d_in"], r["d_out"]) for r in last4["linear"]] == [
+        (4096, 256, 512), (2 * 256, 224, 464)]
+    assert [r["case"] for r in last4["segmax"]] == [
+        "kNN batch", "empty blocks", "all-negative"]
+    assert (last4["segmax"][0]["d_in"], last4["segmax"][0]["h"]) == (464, 464)
+    assert [r["h"] for r in last4["v1_fwd"]] == [464, 464, 464, 272, 144]
+    assert all(r["d_e"] == 16 for r in last4["v1_bwd"])
+    assert all(r["bitwise_repeat"] and r["max_abs_err"] == 0.0
+               for r in last4["v1_bwd"])
+    assert all(r["bound_by"] == "operations" for r in last4["v1_fwd"])
+    assert set(last4["entry_launches"]) == set(smoke.KERNEL_NAMES)
+    assert last4["kernel_check"]["strict_ratio"] == pytest.approx(1.0,
+                                                                  abs=0.03)
+    assert last4["kernel_bench"]["kernel_ms"] is None
+    assert "KERNEL CHECK OK" in lines
+    bench_lines = [json.loads(s) for s in lines if s.startswith(
+        '{"metric": "segmax_')]
+    assert [b["metric"] for b in bench_lines] == ["segmax_library_ms",
+                                                  "segmax_kernel_ms"]
+    assert last["last_four"]["v1_fwd"] == last4["v1_fwd"]
 
 
 def test_radius_configuration_replaces_three_fields():
