@@ -1,167 +1,381 @@
-// Dense fixed-degree hoisted max aggregation, backward kernels.
+// Dense fixed-degree hoisted max aggregation, backward: the bits-routed
+// sender-sum backward.
 //
 // Replaces the TPU kernel radargnn_tpu/ops/pallas_kernels.py:
 // _fused_bwd_kernel_v4 (reached through _fused_bwd_call_v4 and the custom
-// VJP of make_fused_dense_aggregate) on Hopper (sm_90a).
+// VJP of make_fused_dense_aggregate) on Hopper (sm_90a), in the form of
+// its `sender_dx` variant.
 //
-// What it computes (slot layout in dense_tile.cuh; inner_z and g_pass are
-// [T*R, h] f32, inner_z = 0 and g_pass = 0 at empty receivers):
-//   op[slot]   = x[sender] @ W_s + e_t[slot] @ W_e                 (f32)
-//   d_op[slot] = g_pass[recv] where the slot is valid and
-//                |op - inner_z[recv]| <= 1e-5 |inner_z[recv]| + 1e-5,
-//                else 0; rounded to bf16. Every tied slot takes the full g.
-//   d_xg[slot] = bf16(d_op[slot] @ W_s^T)          [T*TE, d]
-//   d_e[slot]  = bf16(d_op[slot] @ W_e^T)          [T*TE, de]
-//   dW_s       = sum over slots of x[sender]^T d_op  [d, h]  f32
-//   dW_e       = sum over slots of e_t^T d_op        [de, h] f32
-// d_x, the d_xg rows summed at their senders, is landed by the B3 kernel
-// (segment_sum_csr.cu) over the batch's sender-sorted row order, together
-// with the overflow rows; the TPU kernel lands it in window parts instead.
+// What it computes (slot layout in dense_gather.cuh; g_pass is [T*R, hg]
+// f32, 0 at empty receivers, hg = H rounded up to 8; bits come from the
+// forward's VJP mode, dense_fwd_v4.cu):
+//   d_op[slot] = bf16(g_pass[recv(slot)]) where the slot's bit is set,
+//                else 0 (every tied slot takes the full g)
+//   d_e[slot]  = bf16(d_op[slot] @ W_e^T)                  [T*TE, de]
+//   dW_e       = sum over slots of e_t[slot]^T d_op[slot]  [de, hg] f32
+//   d_ys[s]    = sum of d_op over the rows the landing lists for sender s:
+//                its slots, then its overflow rows d_op_o (f32)
+//                                                          [N, hg] f32
+// The caller forms d_x = bf16(d_ys) @ W_s^T and dW_s = bf16(x)^T bf16(d_ys)
+// as node-wide products, as the JAX package's sender_dx wrapper does.
 //
-// Design: four launches on one stream, no atomics and fixed summation
+// Design: three launches on one stream, no atomics and fixed summation
 // orders, so two runs on the same inputs are bitwise equal.
-//  1. route: one block per (tile, 64-column slice) runs the forward's
-//     slot-row loop (dense_tile_rows, the same code and mma order), so op
-//     is bitwise the forward's and the winning slot matches inner exactly;
-//     it writes d_op [T*TE, hp] bf16 (hp = h rounded up to 64, zero past h).
-//  2.-4. slot products, weight partials and their ordered reduce
-//     (slot_grads.cuh, shared with the windowed backward).
-// The gather is an indexed load of x by global sender, as in the forward;
-// the TPU kernel's saved per-slot x_g stream is not needed.
+//  1. recv_pass: one block per tile. The tile's R rows of g, rounded to
+//     bf16, sit in shared memory; each warp owns 16 receivers, i.e. 16
+//     slots of every slot row. d_op fragments are built in registers from
+//     those rows and the slots' bits (a masked bf16 pair per register):
+//     d_e = d_op @ W_e^T on mma.sync (the W_e fragments read through the
+//     read-only cache), and dW_e = e^T @ d_op per 64-column chunk, summed
+//     over the slot rows in registers, then over the warps in order into
+//     one partial per tile.
+//  2. send_pass: one warp per sender walks the batch's sender-sorted
+//     landing order (SenderLanding: order, row_ptr); each lane owns 8
+//     columns, rebuilds a slot row's d_op from its byte of bits and
+//     g_pass[recv] (loaded only where a bit is set; ~1 column in 20
+//     routes), adds an overflow row as it lies, and keeps the sum in
+//     registers. d_op [E_pad, H] (~314 MB per wide layer) is never written.
+//  3. reduce_pass: dW_e = the per-tile partials summed in tile order.
 //
-// What bounds it on the card. The function needs d_x = (sum over a
-// sender's slots of d_op) @ W_s^T and dW_s = x^T @ (the same sums), so its
-// products are 4*N*d*h + 4*valid*de*h flops (~13.8 GFLOP at the flagship's
-// wide layer, 14 us at the bf16 peak) against ~94 MB of compulsory bytes
-// (x, e_t, sloc, inner, g, d_x, d_e, the weights; ~28 us at 3.35 TB/s): it
-// is bound by bytes. This design multiplies per slot, as the TPU kernel
-// does (three products of ~75 GFLOP each per wide layer, with the padded
-// slots) on mma.sync from shared memory, and writes and reads d_op
-// [E_pad, hp] bf16 twice, so it is held by its own tensor-core work and
-// that traffic, far above the floor.
+// What bounds it on the card. The function needs d_x and dW_s as
+// node-wide products (4 N d H flops) and d_e, dW_e once per valid slot
+// (4 valid d_e H), ~13.8 GFLOP at the flagship's wide layer (14 us at the
+// bf16 peak), against the bits (21.6 MB), e_t, the landing, g, d_e, d_x,
+// the weights (~94 MB; ~28 us at 3.35 TB/s): it is bound by bytes. The TPU
+// kernel recomputes the forward's op and multiplies per slot (three
+// products of ~75 GFLOP per wide layer); here the routing is a bit test
+// and the sender sums are adds, so what remains is the passes' L2 traffic
+// (g rows re-read per routed byte) and the bit unpacking. The times are in
+// PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "dense_tile.cuh"
-#include "slot_grads.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
 using namespace radargnn;
 
-__global__ void __launch_bounds__(256) route_kernel(
-    const __nv_bfloat16* __restrict__ x,       // [n_x, d]
-    const __nv_bfloat16* __restrict__ w_s,     // [d, h]
-    const __nv_bfloat16* __restrict__ e_t,     // [T*TE, de]
-    const __nv_bfloat16* __restrict__ w_e,     // [de, h]
-    const int32_t* __restrict__ sloc,          // [T*TE]
-    const int32_t* __restrict__ tile_win,      // [T]
-    const float* __restrict__ inner_z,         // [T*R, h]
-    const float* __restrict__ g_pass,          // [T*R, h]
-    __nv_bfloat16* __restrict__ d_op,          // [T*TE, hp]
-    int n_x, int d, int de, int h, int hp, int r_tile, int k,
-    int node_block) {
-    const int t = blockIdx.x;
-    const int col0 = blockIdx.y * kBlockCols;
-    const int lane = threadIdx.x & 31;
-    const int m0 = (threadIdx.x >> 5) * 16;
-    const int g = lane >> 2, tq = lane & 3;
+constexpr int kRedCols = kBlockCols;     // dW_e chunk width (columns)
 
-    // inner_z and g_pass at this thread's receivers and columns
-    float inz[kColTiles][4], gp[kColTiles][4];
+// Keeps the bf16 of a pair (low half: the even column) whose bit in
+// `word` at `bit` / `bit + 1` is set, zeroes the other.
+__device__ __forceinline__ uint32_t mask_pair(uint32_t pair, uint32_t word,
+                                              int bit) {
+    const uint32_t two = (word >> bit) & 3u;
+    return pair & (((two & 1u) ? 0x0000FFFFu : 0u) |
+                   ((two & 2u) ? 0xFFFF0000u : 0u));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+    return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+           (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__global__ void __launch_bounds__(256) recv_pass_kernel(
+    const uint32_t* __restrict__ bits,         // [T*TE, hp/32]
+    const float* __restrict__ g_pass,          // [T*R, hg]
+    const __nv_bfloat16* __restrict__ e_t,     // [T*TE, de]
+    const __nv_bfloat16* __restrict__ w_e,     // [de, hg]
+    __nv_bfloat16* __restrict__ d_e,           // [T*TE, de]
+    float* __restrict__ we_part,               // [T, de16, hp]
+    int de, int hg, int hp, int r_tile, int k) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int ldg_s = hp + 8;                  // gs row stride (bf16)
+    auto* gs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [r][ldg_s]
+    float* red = reinterpret_cast<float*>(gs + r_tile * ldg_s);
+    const int t = blockIdx.x;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int nwarps = blockDim.x >> 5;
+    const int m0 = warp * 16;
+    const int g = lane >> 2, tq = lane & 3;
+    const int words = hp / 32;
+    const int de16 = (de + 15) & ~15;
+    const size_t tile_slot0 = static_cast<size_t>(t) * r_tile * k;
+
+    // the tile's g rows, rounded to bf16 (d_op's values), zero past hg
+    for (int i = tid; i < r_tile * (hp / 4); i += blockDim.x) {
+        const int r = i / (hp / 4), c = (i % (hp / 4)) * 4;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (c < hg) {
+            v = *reinterpret_cast<const float4*>(
+                g_pass + (static_cast<size_t>(t) * r_tile + r) * hg + c);
+        }
+        __nv_bfloat162* dst =
+            reinterpret_cast<__nv_bfloat162*>(gs + r * ldg_s + c);
+        dst[0] = __floats2bfloat162_rn(v.x, v.y);
+        dst[1] = __floats2bfloat162_rn(v.z, v.w);
+    }
+    __syncthreads();
+
+    // d_e: per slot row, the warp's 16 slots (receivers m0 .. m0+15) x
+    // each 16-feature chunk, over hp in k-steps of 16 columns
+    const __nv_bfloat16* g0 = gs + (m0 + g) * ldg_s;
+    const __nv_bfloat16* g8 = gs + (m0 + g + 8) * ldg_s;
+    for (int j = 0; j < k; ++j) {
+        const size_t slot_a = tile_slot0 + static_cast<size_t>(j) * r_tile +
+                              m0 + g;
+        const uint32_t* ba = bits + slot_a * words;
+        const uint32_t* bb = bits + (slot_a + 8) * words;
+        for (int f0 = 0; f0 < de; f0 += 16) {
+            float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+            for (int w = 0; w < words; ++w) {
+                const uint32_t wa = __ldg(ba + w), wb = __ldg(bb + w);
 #pragma unroll
-    for (int nt = 0; nt < kColTiles; ++nt) {
+                for (int half = 0; half < 2; ++half) {
+                    const int h0 = w * 32 + half * 16;
+                    const int bit = half * 16 + tq * 2;
+                    const int col = h0 + tq * 2;
+                    uint32_t a[4] = {
+                        mask_pair(ld_pair(g0 + col), wa, bit),
+                        mask_pair(ld_pair(g8 + col), wb, bit),
+                        mask_pair(ld_pair(g0 + col + 8), wa, bit + 8),
+                        mask_pair(ld_pair(g8 + col + 8), wb, bit + 8)};
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            const int row = m0 + g + (q >> 1) * 8;
-            const int col = col0 + nt * 8 + tq * 2 + (q & 1);
-            const size_t idx =
-                (static_cast<size_t>(t) * r_tile + row) * h + col;
-            inz[nt][q] = col < h ? inner_z[idx] : 0.0f;
-            gp[nt][q] = col < h ? g_pass[idx] : 0.0f;
+                    for (int nn = 0; nn < 2; ++nn) {
+                        const int f = f0 + nn * 8 + g;
+                        uint32_t b[2] = {0u, 0u};
+                        if (f < de) {
+                            const uint32_t* wr = reinterpret_cast<
+                                const uint32_t*>(w_e + static_cast<size_t>(
+                                    f) * hg);
+                            if (col < hg) b[0] = __ldg(wr + col / 2);
+                            if (col + 8 < hg) b[1] = __ldg(wr + col / 2 + 4);
+                        }
+                        mma_bf16_16816(acc[nn], a, b);
+                    }
+                }
+            }
+#pragma unroll
+            for (int nn = 0; nn < 2; ++nn) {
+#pragma unroll
+                for (int half = 0; half < 2; ++half) {
+                    const int f = f0 + nn * 8 + tq * 2;
+                    if (f >= de) continue;
+                    const size_t slot = slot_a + half * 8;
+                    *reinterpret_cast<__nv_bfloat162*>(
+                        d_e + slot * de + f) = __floats2bfloat162_rn(
+                            acc[nn][half * 2], acc[nn][half * 2 + 1]);
+                }
+            }
         }
     }
 
-    const size_t tile_slot0 = static_cast<size_t>(t) * r_tile * k;
-    dense_tile_rows(x, w_s, e_t, w_e, sloc, tile_win, n_x, d, de, h, r_tile,
-                    k, node_block,
-                    [&](int j, float (*acc)[4], bool v0, bool v1,
-                        const __nv_bfloat16*) {
-        const size_t slot0 = tile_slot0 + static_cast<size_t>(j) * r_tile;
+    // dW_e: per 16-feature chunk and 64-column chunk, each warp sums
+    // e^T (16 features x its 16 slots) @ d_op (16 slots x 64 columns) over
+    // the slot rows; then the warps' sums in order
+    for (int f0 = 0; f0 < de16; f0 += 16) {
+        for (int c0 = 0; c0 < hp; c0 += kRedCols) {
+            float acc[kColTiles][4];
 #pragma unroll
-        for (int nt = 0; nt < kColTiles; ++nt) {
-            const int col = col0 + nt * 8 + tq * 2;
+            for (int nt = 0; nt < kColTiles; ++nt)
 #pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const bool valid = half ? v1 : v0;
-                float o[2];
+                for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
+            for (int j = 0; j < k; ++j) {
+                const size_t slot0 = tile_slot0 +
+                    static_cast<size_t>(j) * r_tile + m0;
+                // A = e^T: rows features f0+g, f0+g+8; columns slots
+                // tq*2, tq*2+1 (a0, a1) and tq*2+8, tq*2+9 (a2, a3)
+                __nv_bfloat16 ev[4][2];
 #pragma unroll
-                for (int c = 0; c < 2; ++c) {
-                    const int q = half * 2 + c;
-                    const float in = inz[nt][q];
-                    const bool sel = valid &&
-                        fabsf(acc[nt][q] - in) <= 1e-5f * fabsf(in) + 1e-5f;
-                    o[c] = sel ? gp[nt][q] : 0.0f;
+                for (int s = 0; s < 4; ++s) {
+                    const size_t slot = slot0 + (s >> 1) * 8 + tq * 2 +
+                                        (s & 1);
+#pragma unroll
+                    for (int hf = 0; hf < 2; ++hf) {
+                        const int f = f0 + g + hf * 8;
+                        ev[s][hf] = f < de ? e_t[slot * de + f]
+                                           : __float2bfloat16(0.0f);
+                    }
                 }
-                const size_t row = slot0 + m0 + g + half * 8;
-                *reinterpret_cast<__nv_bfloat162*>(d_op + row * hp + col) =
-                    __floats2bfloat162_rn(o[0], o[1]);
+                const uint32_t a[4] = {pack_bf16(ev[0][0], ev[1][0]),
+                                       pack_bf16(ev[0][1], ev[1][1]),
+                                       pack_bf16(ev[2][0], ev[3][0]),
+                                       pack_bf16(ev[2][1], ev[3][1])};
+                // the bits of the four slots tq*2, tq*2+1, tq*2+8, tq*2+9
+                // over this chunk's 64 columns
+                uint2 wv[4];
+#pragma unroll
+                for (int s = 0; s < 4; ++s) {
+                    const size_t slot = slot0 + (s >> 1) * 8 + tq * 2 +
+                                        (s & 1);
+                    wv[s] = __ldg(reinterpret_cast<const uint2*>(
+                        bits + slot * words + c0 / 32));
+                }
+                // B = d_op: rows slots (as above), column c0 + nt*8 + g
+#pragma unroll
+                for (int nt = 0; nt < kColTiles; ++nt) {
+                    const int col = c0 + nt * 8 + g;
+                    const int bit = (nt & 3) * 8 + g;
+                    __nv_bfloat16 v[4];
+#pragma unroll
+                    for (int s = 0; s < 4; ++s) {
+                        const int row = m0 + (s >> 1) * 8 + tq * 2 + (s & 1);
+                        const uint32_t w = (nt >> 2) ? wv[s].y : wv[s].x;
+                        v[s] = ((w >> bit) & 1u) ? gs[row * ldg_s + col]
+                                                 : __float2bfloat16(0.0f);
+                    }
+                    const uint32_t b[2] = {pack_bf16(v[0], v[1]),
+                                           pack_bf16(v[2], v[3])};
+                    mma_bf16_16816(acc[nt], a, b);
+                }
+            }
+            // acc[nt][q]: feature f0 + g + (q >> 1) * 8, column
+            // c0 + nt*8 + tq*2 + (q & 1)
+            float* mine = red + warp * 16 * kRedCols;
+#pragma unroll
+            for (int nt = 0; nt < kColTiles; ++nt) {
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    mine[(g + (q >> 1) * 8) * kRedCols + nt * 8 + tq * 2 +
+                         (q & 1)] = acc[nt][q];
+                }
+            }
+            __syncthreads();
+            for (int i = tid; i < 16 * kRedCols; i += blockDim.x) {
+                float s = 0.0f;
+                for (int w = 0; w < nwarps; ++w) {
+                    s += red[w * 16 * kRedCols + i];
+                }
+                const int m = i / kRedCols, n = i % kRedCols;
+                we_part[(static_cast<size_t>(t) * de16 + f0 + m) * hp + c0 +
+                        n] = s;
+            }
+            __syncthreads();
+        }
+    }
+}
+
+__device__ __forceinline__ void add_f32x8(float* acc, const float* src) {
+    const float4 u = *reinterpret_cast<const float4*>(src);
+    const float4 w = *reinterpret_cast<const float4*>(src + 4);
+    acc[0] += u.x; acc[1] += u.y; acc[2] += u.z; acc[3] += u.w;
+    acc[4] += w.x; acc[5] += w.y; acc[6] += w.z; acc[7] += w.w;
+}
+
+// acc[b] += bf16(src[b]) where bit b of `byte` is set (d_op's rounding)
+__device__ __forceinline__ void add_routed8(float* acc, const float* src,
+                                            uint32_t byte) {
+    const float4 u = *reinterpret_cast<const float4*>(src);
+    const float4 w = *reinterpret_cast<const float4*>(src + 4);
+    const float v[8] = {u.x, u.y, u.z, u.w, w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+        if ((byte >> b) & 1u) {
+            acc[b] += __bfloat162float(__float2bfloat16_rn(v[b]));
+        }
+    }
+}
+
+__global__ void __launch_bounds__(256) send_pass_kernel(
+    const uint32_t* __restrict__ bits,         // [n_slots, hp/32]
+    const float* __restrict__ g_pass,          // [N, hg]
+    const float* __restrict__ d_op_o,          // [Eo, hg]
+    const int32_t* __restrict__ order,         // [M]
+    const int32_t* __restrict__ row_ptr,       // [N + 1]
+    float* __restrict__ d_ys,                  // [N, hg]
+    long long n_slots, int n_seg, int hg, int words, int te, int r_tile) {
+    const int seg = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (seg >= n_seg) return;
+    const int begin = row_ptr[seg], end = row_ptr[seg + 1];
+    for (int c = lane; c < hg / 8; c += 32) {
+        float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        for (int e = begin; e < end; ++e) {
+            const long long i = order[e];
+            if (i < n_slots) {
+                const uint32_t byte =
+                    (__ldg(bits + i * words + c / 4) >> ((c & 3) * 8)) & 0xFFu;
+                if (byte != 0u) {
+                    const long long recv = i / te * r_tile + i % r_tile;
+                    add_routed8(acc, g_pass + recv * hg + c * 8, byte);
+                }
+            } else {
+                add_f32x8(acc, d_op_o + (i - n_slots) * hg + c * 8);
             }
         }
-    });
+        float* dst = d_ys + static_cast<size_t>(seg) * hg + c * 8;
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[0], acc[1], acc[2], acc[3]);
+        *reinterpret_cast<float4*>(dst + 4) =
+            make_float4(acc[4], acc[5], acc[6], acc[7]);
+    }
+}
+
+// dW_e = the per-tile partials summed in order of the tile
+__global__ void reduce_pass_kernel(const float* __restrict__ we_part,
+                                   int num_tiles, int de, int de16, int hg,
+                                   int hp, float* __restrict__ dw_e) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= de * hg) return;
+    const int m = i / hg, n = i % hg;
+    float s = 0.0f;
+    for (int t = 0; t < num_tiles; ++t) {
+        s += we_part[(static_cast<size_t>(t) * de16 + m) * hp + n];
+    }
+    dw_e[i] = s;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory the routing pass needs for these shapes, in bytes.
-size_t dense_bwd_v4_smem_bytes(int d, int de, int r_tile) {
-    return slot_rows_smem_bytes<EdgeBf16>(d, de, r_tile);
+// Shared memory the receiver pass needs for these shapes, in bytes.
+size_t dense_bwd_v4_smem_bytes(int hp, int r_tile) {
+    return sizeof(__nv_bfloat16) * static_cast<size_t>(r_tile) * (hp + 8) +
+           sizeof(float) * static_cast<size_t>(r_tile / 16) * 16 * kRedCols;
 }
 
-// Launches the four passes on `stream`; returns the first cudaError_t.
-// Scratch: d_op [T*TE, hp] bf16 and partial [n_part, d+de, hp] f32, with
-// hp = h rounded up to 64. The caller checks shapes, types and alignment
-// (as for dense_fwd_v4; h a multiple of 8).
-int dense_bwd_v4(const void* x, const void* w_s, const void* e_t,
-                 const void* w_e, const void* sloc, const void* tile_win,
-                 const void* inner_z, const void* g_pass, void* d_op,
-                 void* partial, void* d_xg, void* d_e, void* dw_s,
-                 void* dw_e, int n_x, int d, int de, int h, int num_tiles,
-                 int r_tile, int k, int node_block, int n_part,
-                 void* stream) {
+// Launches the three passes on `stream`; returns the first cudaError_t.
+// Scratch: we_part [T, de16, hp] f32 (de16 = de rounded up to 16). The
+// caller checks shapes, types and alignment: de and hg multiples of 8,
+// hp = H rounded up to 64, r_tile a multiple of 16 and at most 128.
+int dense_bwd_v4(const void* bits, const void* g_pass, const void* e_t,
+                 const void* w_e, const void* d_op_o, const void* order,
+                 const void* row_ptr, void* d_e, void* we_part, void* dw_e,
+                 void* d_ys, long long n_slots, int num_tiles, int r_tile,
+                 int k, int de, int hg, int hp, int n_seg, void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int hp = (h + kBlockCols - 1) / kBlockCols * kBlockCols;
-    const int te = r_tile * k;
-    const int n_slots = num_tiles * te;
-    const auto* xb = static_cast<const __nv_bfloat16*>(x);
-    const auto* wsb = static_cast<const __nv_bfloat16*>(w_s);
-    const auto* etb = static_cast<const __nv_bfloat16*>(e_t);
-    const auto* web = static_cast<const __nv_bfloat16*>(w_e);
-    const auto* sl = static_cast<const int32_t*>(sloc);
-    const auto* tw = static_cast<const int32_t*>(tile_win);
-    auto* dop = static_cast<__nv_bfloat16*>(d_op);
-
-    const size_t smem = slot_rows_smem_bytes<EdgeBf16>(d, de, r_tile);
+    const auto* b = static_cast<const uint32_t*>(bits);
+    const auto* g = static_cast<const float*>(g_pass);
+    const int de16 = (de + 15) & ~15;
+    const size_t smem = dense_bwd_v4_smem_bytes(hp, r_tile);
     cudaError_t err = cudaFuncSetAttribute(
-        route_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        recv_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    route_kernel<<<dim3(num_tiles, hp / kBlockCols), (r_tile / 16) * 32,
-                   smem, st>>>(
-        xb, wsb, etb, web, sl, tw, static_cast<const float*>(inner_z),
-        static_cast<const float*>(g_pass), dop, n_x, d, de, h, hp, r_tile,
-        k, node_block);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-    return static_cast<int>(launch_slot_grads(
-        xb, wsb, etb, web, sl, tw, dop, static_cast<float*>(partial),
-        static_cast<__nv_bfloat16*>(d_xg), static_cast<__nv_bfloat16*>(d_e),
-        static_cast<float*>(dw_s), static_cast<float*>(dw_e), n_x, d, de, h,
-        hp, n_slots, te, node_block, n_part, st));
+    if (num_tiles > 0) {
+        recv_pass_kernel<<<num_tiles, (r_tile / 16) * 32, smem, st>>>(
+            b, g, static_cast<const __nv_bfloat16*>(e_t),
+            static_cast<const __nv_bfloat16*>(w_e),
+            static_cast<__nv_bfloat16*>(d_e), static_cast<float*>(we_part),
+            de, hg, hp, r_tile, k);
+        if ((err = cudaGetLastError()) != cudaSuccess) {
+            return static_cast<int>(err);
+        }
+    }
+    const int warps_per_block = 8;
+    const int blocks = (n_seg + warps_per_block - 1) / warps_per_block;
+    if (blocks > 0) {
+        send_pass_kernel<<<blocks, warps_per_block * 32, 0, st>>>(
+            b, g, static_cast<const float*>(d_op_o),
+            static_cast<const int32_t*>(order),
+            static_cast<const int32_t*>(row_ptr), static_cast<float*>(d_ys),
+            n_slots, n_seg, hg, hp / 32, r_tile * k, r_tile);
+        if ((err = cudaGetLastError()) != cudaSuccess) {
+            return static_cast<int>(err);
+        }
+    }
+    if (de * hg > 0) {
+        reduce_pass_kernel<<<(de * hg + 255) / 256, 256, 0, st>>>(
+            static_cast<const float*>(we_part), num_tiles, de, de16, hg, hp,
+            static_cast<float*>(dw_e));
+    }
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

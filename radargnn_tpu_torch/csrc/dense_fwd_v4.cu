@@ -1,54 +1,118 @@
-// Dense fixed-degree hoisted max aggregation, forward kernel.
+// Dense fixed-degree hoisted max aggregation, forward: the node projection
+// and the gather-max.
 //
 // Replaces the TPU kernel radargnn_tpu/ops/pallas_kernels.py:
 // _fused_fwd_kernel_v4 (reached through _fused_fwd_call_v4 and
 // make_fused_dense_aggregate) on Hopper (sm_90a).
 //
-// What it computes (slot layout in dense_tile.cuh):
-//   op[slot]  = x[sender] @ W_s + e_t[slot] @ W_e      (bf16 in, f32 acc)
+// What it computes (slot layout in dense_gather.cuh):
+//   y_s       = x @ W_s, [n_x, hp] f32 (bf16 in, f32 accumulation; hp = H
+//               rounded up to 64, zero past H)            dense_proj_v4
+//   op[slot]  = y_s[sender] + e_t[slot] @ W_e             dense_fwd_v4
 //             = -3e38 for empty slots
 //   inner[n]  = max(max_j op[t*TE + j*R + r], inner_o[n])
 //   out[n]    = offset[n] + inner[n] where inner[n] > -1.5e38, else 0
-// In VJP mode (a non-null `inner_out`, the TPU kernel's emit_inner) the
-// kernel also writes inner[n], the maxima the backward routes against;
-// serving passes null and skips that [N, H] write.
+// In VJP mode (non-null `inner_out` and `bits`, the TPU kernel's
+// emit_inner) it also writes inner[n] and one routing bit per (slot,
+// column), set where the slot holds an edge and |op - inner| <= 1e-5
+// |inner| + 1e-5 (the strict routing of the TPU kernel's backward, under
+// which every tied slot takes the full g): bits[slot][w] holds columns
+// 32w .. 32w+31. The backward (dense_bwd_v4.cu) routes on these bits, so
+// it sees this op bit for bit without recomputing it. Serving passes null
+// and skips both writes.
 //
-// Design. The TPU kernel gathers the sender rows with a one-hot [TE, W]
-// matmul over a Morton window of x; here a gather is an indexed load, so
-// each block loads the R sender rows of one slot row j straight from x,
-// and the window only serves to form the global sender index
-// (dense_tile_rows). The running max over the K slot rows lives in
-// registers. The overflow maxima, the offset and the empty-receiver rule
-// are the epilogue, as on the TPU.
-//
-// What bounds it on the card. At the flagship shapes (N=14,080, R=64,
-// K=24, d_in up to 224, H up to 464) the function needs x @ W_s once per
-// node (x[s] @ W_s = (x @ W_s)[s]) and e @ W_e once per valid slot: ~7
-// GFLOP of bf16 products per wide layer against ~97 MB of compulsory
-// traffic, so the floor is the HBM rate (~29 us per wide layer). This
-// design, like the TPU kernel, multiplies x[s] @ W_s once per slot
-// (~60 GFLOP per wide layer, ~8x the function's work), re-gathers each
-// sender row once per 64-column slice (x is small enough to stay in L2)
-// and feeds mma.sync from shared memory rather than wgmma, so it is held
-// by its own tensor-core work, far above the floor. The node-level
-// projection computed inside the kernel (ROADMAP.md B1) removes the
-// per-slot product; the times are recorded in PERF.md.
+// What bounds it on the card. The function needs x @ W_s once per node
+// (x[s] @ W_s = y_s[s]; 2.9 GFLOP at the flagship's wide layer, N =
+// 14,080, d 224, H 464) and e @ W_e once per slot (5 GFLOP at d_e 16),
+// against ~97 MB of compulsory traffic (x, e_t, the index arrays, inner_o,
+// offset, out): the HBM rate bounds it (~29 us per wide layer; the VJP
+// mode adds inner and the bits, ~48 MB). The TPU kernel multiplies
+// x[s] @ W_s once per slot, ~60 GFLOP per wide layer; this design projects
+// once per node in its own launch (dense_proj_v4: one block per 64 nodes x
+// 64 columns on mma.sync, both operands staged in shared memory) and
+// gathers y_s rows (26 MB at the wide layer, which stays in the 50 MB L2):
+// one block per (tile, 64-column slice) copies each slot row's R sender
+// rows with 16-byte cp.async, double-buffered, adds the edge product (one
+// m16n8k16 step at d_e 16) and keeps the running max in registers. The
+// L2 reads of y_s (E_pad x H x 4 bytes, ~630 MB per wide layer) are what
+// holds it above the floor; the VJP mode gathers twice (the max, then the
+// bits against it). The times are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "dense_tile.cuh"
+#include "dense_gather.cuh"
 
 namespace {
 
 using namespace radargnn;
 
 constexpr float kNeg = -3.0e38f;         // finite -inf stand-in
+constexpr int kProjRows = 64;            // nodes per projection block
+
+// y_s[n][c] = sum_k x[n][k] w_s[k][c] for c < h, 0 for h <= c < hp. One
+// block = 64 nodes x one 64-column slice, 4 warps of 16 nodes; the x rows
+// (16-byte cp.async) and the W_s slice (transposed) in shared memory, the
+// depth padded to the mma k with zeros.
+__global__ void __launch_bounds__(128) dense_proj_kernel(
+    const __nv_bfloat16* __restrict__ x,       // [n, d]
+    const __nv_bfloat16* __restrict__ w_s,     // [d, h]
+    float* __restrict__ y_s,                   // [n, hp]
+    int n, int d, int h, int hp) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int kp = (d + 15) & ~15, ld = kp + 8;
+    auto* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][ld]
+    __nv_bfloat16* ws = xs + kProjRows * ld;                // [64][ld]
+    const int row0 = blockIdx.x * kProjRows;
+    const int col0 = blockIdx.y * kBlockCols;
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int m0 = (tid >> 5) * 16;
+    const int g = lane >> 2, tq = lane & 3;
+
+    const int chunks = kp / 8;                 // 16-byte chunks per row
+    for (int i = tid; i < kProjRows * chunks; i += blockDim.x) {
+        const int r = i / chunks, c = i % chunks;
+        const bool ok = row0 + r < n && c * 8 < d;
+        cp_async16(xs + r * ld + c * 8,
+                   ok ? x + static_cast<size_t>(row0 + r) * d + c * 8 : x,
+                   ok);
+    }
+    cp_async_commit();
+    const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+    for (int i = tid; i < kp * kBlockCols; i += blockDim.x) {
+        const int kk = i / kBlockCols, nn = i % kBlockCols;
+        const int col = col0 + nn;
+        ws[nn * ld + kk] = (kk < d && col < h)
+            ? w_s[static_cast<size_t>(kk) * h + col] : zero;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    float acc[kColTiles][4];
+#pragma unroll
+    for (int nt = 0; nt < kColTiles; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
+    warp_gemm(acc, xs + m0 * ld, ld, ws, ld, kp, g, tq);
+
+#pragma unroll
+    for (int nt = 0; nt < kColTiles; ++nt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int row = row0 + m0 + g + half * 8;
+            if (row >= n) continue;
+            *reinterpret_cast<float2*>(
+                y_s + static_cast<size_t>(row) * hp + col0 + nt * 8 +
+                tq * 2) = make_float2(acc[nt][half * 2],
+                                      acc[nt][half * 2 + 1]);
+        }
+    }
+}
 
 __global__ void __launch_bounds__(256) dense_fwd_v4_kernel(
-    const __nv_bfloat16* __restrict__ x,       // [n_x, d]
-    const __nv_bfloat16* __restrict__ w_s,     // [d, h]
+    const float* __restrict__ y_s,             // [n_x, hp]
     const __nv_bfloat16* __restrict__ e_t,     // [T*TE, de]
     const __nv_bfloat16* __restrict__ w_e,     // [de, h]
     const int32_t* __restrict__ sloc,          // [T*TE]
@@ -57,17 +121,23 @@ __global__ void __launch_bounds__(256) dense_fwd_v4_kernel(
     const float* __restrict__ offset,          // [T*R, h]
     float* __restrict__ out,                   // [T*R, h]
     float* __restrict__ inner_out,             // [T*R, h] or null
-    int n_x, int d, int de, int h, int r_tile, int k, int node_block) {
+    uint32_t* __restrict__ bits,               // [T*TE, hp/32] or null
+    int n_x, int de, int h, int hp, int r_tile, int k, int node_block) {
+    const int t = blockIdx.x;
+    const int col0 = blockIdx.y * kBlockCols;
+    const int lane = threadIdx.x & 31;
+    const int m0 = (threadIdx.x >> 5) * 16;
+    const int g = lane >> 2, tq = lane & 3;
+    const DenseSenders senders(sloc, tile_win, t, node_block, n_x);
+    stage_edge_weights(gather_smem(de, r_tile), w_e, de, h, r_tile, col0);
+
     float mx[kColTiles][4];
 #pragma unroll
     for (int nt = 0; nt < kColTiles; ++nt)
 #pragma unroll
         for (int q = 0; q < 4; ++q) mx[nt][q] = kNeg;
-
-    dense_tile_rows(x, w_s, e_t, w_e, sloc, tile_win, n_x, d, de, h, r_tile,
-                    k, node_block,
-                    [&](int, float (*acc)[4], bool v0, bool v1,
-                        const __nv_bfloat16*) {
+    gather_rows(t, y_s, e_t, senders, de, hp, r_tile, k, col0,
+                [&](int, float (*acc)[4], bool v0, bool v1) {
 #pragma unroll
         for (int nt = 0; nt < kColTiles; ++nt) {
             if (v0) {
@@ -81,12 +151,8 @@ __global__ void __launch_bounds__(256) dense_fwd_v4_kernel(
         }
     });
 
-    // epilogue: overflow maxima, hoisted offset, empty receivers -> 0
-    const int t = blockIdx.x;
-    const int col0 = blockIdx.y * kBlockCols;
-    const int lane = threadIdx.x & 31;
-    const int m0 = (threadIdx.x >> 5) * 16;
-    const int g = lane >> 2, tq = lane & 3;
+    // epilogue: overflow maxima, hoisted offset, empty receivers -> 0;
+    // mx becomes inner (the VJP pass routes against it)
 #pragma unroll
     for (int nt = 0; nt < kColTiles; ++nt) {
 #pragma unroll
@@ -97,48 +163,108 @@ __global__ void __launch_bounds__(256) dense_fwd_v4_kernel(
             const size_t idx =
                 (static_cast<size_t>(t) * r_tile + row) * h + col;
             const float inner = fmaxf(mx[nt][q], inner_o[idx]);
+            mx[nt][q] = inner;
             if (inner_out != nullptr) inner_out[idx] = inner;
             out[idx] = inner > kNeg / 2 ? offset[idx] + inner : 0.0f;
         }
     }
+    if (bits == nullptr) return;
+
+    // VJP mode: the same loop again, each op against its receiver's inner
+    const int words = hp / 32;
+    const size_t tile_slot0 = static_cast<size_t>(t) * r_tile * k;
+    gather_rows(t, y_s, e_t, senders, de, hp, r_tile, k, col0,
+                [&](int j, float (*acc)[4], bool v0, bool v1) {
+        bool sel[kColTiles][4];
+#pragma unroll
+        for (int nt = 0; nt < kColTiles; ++nt) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const int col = col0 + nt * 8 + tq * 2 + (q & 1);
+                sel[nt][q] = ((q >> 1) ? v1 : v0) && col < h &&
+                             routes(acc[nt][q], mx[nt][q]);
+            }
+        }
+        uint32_t w[2][2];
+        pack_row_bits(sel, tq, w);
+        if (tq == 0) {
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const size_t slot = tile_slot0 +
+                    static_cast<size_t>(j) * r_tile + m0 + g + half * 8;
+                *reinterpret_cast<uint2*>(bits + slot * words + col0 / 32) =
+                    make_uint2(w[half][0], w[half][1]);
+            }
+        }
+    });
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory the kernel needs for these shapes, in bytes.
-size_t dense_fwd_v4_smem_bytes(int d, int de, int r_tile) {
-    return slot_rows_smem_bytes<EdgeBf16>(d, de, r_tile);
+// Shared memory the projection needs for depth d, in bytes.
+size_t dense_proj_v4_smem_bytes(int d) {
+    return sizeof(__nv_bfloat16) * 2 * kProjRows *
+           static_cast<size_t>(((d + 15) & ~15) + 8);
 }
 
-// Launches the kernel on `stream`; returns the cudaError_t of the launch.
-// The caller checks shapes, types and alignment: d and de multiples of 8,
-// r_tile a multiple of 16 and at most 128, 16-byte aligned x and e_t.
-// `inner` may be null (serving); otherwise it receives the maxima.
-int dense_fwd_v4(const void* x, const void* w_s, const void* e_t,
-                 const void* w_e, const void* sloc, const void* tile_win,
-                 const void* inner_o, const void* offset, void* out,
-                 void* inner, int n_x, int d, int de, int h, int num_tiles,
-                 int r_tile, int k, int node_block, void* stream) {
-    const size_t smem = slot_rows_smem_bytes<EdgeBf16>(d, de, r_tile);
+// Launches the projection on `stream`; returns the cudaError_t of the
+// launch. The caller checks shapes, types and alignment: d a multiple of
+// 8, hp = h rounded up to 64, 16-byte aligned x.
+int dense_proj_v4(const void* x, const void* w_s, void* y_s, int n, int d,
+                  int h, int hp, void* stream) {
+    const size_t smem = dense_proj_v4_smem_bytes(d);
+    cudaError_t err = cudaFuncSetAttribute(
+        dense_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((n + kProjRows - 1) / kProjRows, hp / kBlockCols);
+    if (grid.x > 0) {
+        dense_proj_kernel<<<grid, 128, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const __nv_bfloat16*>(x),
+            static_cast<const __nv_bfloat16*>(w_s), static_cast<float*>(y_s),
+            n, d, h, hp);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory the gather-max needs for these shapes, in bytes.
+size_t dense_fwd_v4_smem_bytes(int de, int r_tile) {
+    return gather_smem_bytes(de, r_tile);
+}
+
+// Launches the gather-max on `stream`; returns the cudaError_t of the
+// launch. The caller checks shapes, types and alignment: de a multiple of
+// 8, r_tile a multiple of 16 and at most 128, y_s [n_x, hp] with hp = h
+// rounded up to 64, 16-byte aligned e_t. `inner` and `bits` are both null
+// (serving) or both set (VJP mode).
+int dense_fwd_v4(const void* y_s, const void* e_t, const void* w_e,
+                 const void* sloc, const void* tile_win, const void* inner_o,
+                 const void* offset, void* out, void* inner, void* bits,
+                 int n_x, int de, int h, int hp, int num_tiles, int r_tile,
+                 int k, int node_block, void* stream) {
+    const size_t smem = gather_smem_bytes(de, r_tile);
     cudaError_t err = cudaFuncSetAttribute(
         dense_fwd_v4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(num_tiles, (h + kBlockCols - 1) / kBlockCols);
+    const dim3 grid(num_tiles, hp / kBlockCols);
     const dim3 block((r_tile / 16) * 32);
-    dense_fwd_v4_kernel<<<grid, block, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w_s),
-        static_cast<const __nv_bfloat16*>(e_t),
-        static_cast<const __nv_bfloat16*>(w_e),
-        static_cast<const int32_t*>(sloc),
-        static_cast<const int32_t*>(tile_win),
-        static_cast<const float*>(inner_o),
-        static_cast<const float*>(offset), static_cast<float*>(out),
-        static_cast<float*>(inner), n_x, d, de, h, r_tile, k, node_block);
+    if (grid.x > 0) {
+        dense_fwd_v4_kernel<<<grid, block, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(y_s),
+            static_cast<const __nv_bfloat16*>(e_t),
+            static_cast<const __nv_bfloat16*>(w_e),
+            static_cast<const int32_t*>(sloc),
+            static_cast<const int32_t*>(tile_win),
+            static_cast<const float*>(inner_o),
+            static_cast<const float*>(offset), static_cast<float*>(out),
+            static_cast<float*>(inner), static_cast<uint32_t*>(bits), n_x,
+            de, h, hp, r_tile, k, node_block);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,7 +26,9 @@ from torch import nn
 from radargnn_tpu_torch.configs import GNNArchitectureConfig
 from radargnn_tpu_torch.device import DeviceLike, resolve_device
 from radargnn_tpu_torch.graph.batch import GraphBatch
-from radargnn_tpu_torch.models.layers import MPNNConv, RadarPointGNNConv
+from radargnn_tpu_torch.models.layers import (
+    BF16_MAX_ENV, MPNNConv, RadarPointGNNConv,
+)
 from radargnn_tpu_torch.models.mlp import MLP, MaskedBatchNorm, compute_dtype
 
 
@@ -43,10 +45,13 @@ class DetNet(nn.Module):
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         cfg = self.config = config
-        if getattr(cfg, "fused_bf16_max", False):
+        bf16_max = getattr(cfg, "fused_bf16_max", False) \
+            if BF16_MAX_ENV is None else BF16_MAX_ENV == "1"
+        if bf16_max:
             raise NotImplementedError(
-                "fused_bf16_max (bf16-equality max routing) is not ported; "
-                "the dense kernels route strictly (ROADMAP.md item B2)")
+                "fused_bf16_max (bf16-equality max routing; also "
+                "RADARGNN_FUSED_BF16_MAX=1) is not ported; the kernels route "
+                "strictly (ROADMAP.md item B (i) 1)")
         dtype = getattr(cfg, "compute_dtype", "float32")
         bn = cfg.batch_norm_in_mlps
 

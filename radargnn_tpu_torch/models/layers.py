@@ -22,6 +22,7 @@ ported yet and raise (ROADMAP.md).
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -35,15 +36,65 @@ from radargnn_tpu_torch.ops.dense_aggregate import dense_aggregate
 from radargnn_tpu_torch.ops.segment import hoisted_segment_max
 from radargnn_tpu_torch.ops.windowed_aggregate import windowed_aggregate
 
-# tiling geometry, the JAX package's defaults: node blocks of the sender
-# windows, slots per windowed tile, receivers per dense tile, dense slots
-# per receiver over the kNN k (+4 keeps the over-degree spill ~2.4% at the
-# flagship degree profile), and window width in node blocks
-FUSED_NODE_BLOCK = 256
-FUSED_EDGE_TILE = 512
-FUSED_DENSE_R_TILE = 64
-FUSED_DENSE_EXTRA_SLOTS = 4
-FUSED_WINDOW_BLOCKS = 3
+# The JAX package's env knobs (radargnn_tpu/models/layers.py), read at
+# import with its names and defaults, so both packages tile a frame alike
+# and accept or refuse it alike. Geometry: node blocks of the sender
+# windows, slots per windowed tile, window width in node blocks, receivers
+# per dense tile, dense slots per receiver over the kNN k (+4 keeps the
+# over-degree spill ~2.4% at the flagship degree profile), and the spread
+# tiling's run cap ("" / unset: the config's fused_run_cap; "0": contiguous
+# runs).
+FUSED_NODE_BLOCK = int(os.environ.get("RADARGNN_FUSED_NODE_BLOCK", 256))
+FUSED_EDGE_TILE = int(os.environ.get("RADARGNN_FUSED_EDGE_TILE", 512))
+FUSED_WINDOW_BLOCKS = int(os.environ.get("RADARGNN_FUSED_WINDOW_BLOCKS", 3))
+FUSED_DENSE_R_TILE = int(os.environ.get("RADARGNN_FUSED_DENSE_R_TILE", 64))
+FUSED_DENSE_EXTRA_SLOTS = int(
+    os.environ.get("RADARGNN_FUSED_DENSE_EXTRA_SLOTS", 4))
+_RUN_CAP_ENV = os.environ.get("RADARGNN_FUSED_RUN_CAP")
+# bf16-equality max routing: None follows the config's fused_bf16_max;
+# "0" forces strict routing (the port's), "1" the bf16 variant (not ported)
+BF16_MAX_ENV = os.environ.get("RADARGNN_FUSED_BF16_MAX")
+# kernel-body variants the port has not ported: a value other than the
+# default raises where the fused path is set up (check_fused_knobs), with
+# the ROADMAP item that holds the variant
+_UNPORTED_KNOBS = {
+    "RADARGNN_FUSED_OVF_SSUM": "B (i) 2",
+    "RADARGNN_FUSED_STREAM_M": "B (i) 3",
+    "RADARGNN_FUSED_BF16_LANDING": "B (i) 3",
+    "RADARGNN_FUSED_PRECOMP_LAND": "B (i) 3",
+}
+# the sender-sum backward: the dense backward has that form always (its
+# d_x and dW_s are node-wide products of the H-wide sender sums), so "1"
+# is accepted there and on the CSR path, whose JAX kernels ignore it; the
+# windowed backward keeps the per-slot d_xg form and refuses it
+_SENDER_DX = os.environ.get("RADARGNN_FUSED_SENDER_DX", "0") == "1"
+# RADARGNN_FUSED_{PRECOMP_EQ,PRECOMP_EQT,EQ_MIN_WIDTH,DENSE_XLA_MAX_WIDTH}
+# choose how the TPU streams its one-hot gathers and whether narrow dense
+# layers run as XLA; they compute the same forward (the XLA fallback's
+# autodiff splits g among exactly tied slots, where the kernels give each
+# the full g), a gather here is an indexed load, and the port reads none
+# of them (ROADMAP.md B (iii)).
+
+
+def check_fused_knobs(mode: str) -> None:
+    """Raises NotImplementedError, naming the knob, where an env knob asks
+    for a kernel variant the port does not have; `mode` is the fused
+    tiling ("dense", "windowed" or "csr")."""
+    for name, item in _UNPORTED_KNOBS.items():
+        if os.environ.get(name, "0") != "0":
+            raise NotImplementedError(
+                f"{name}={os.environ[name]} selects a kernel variant that is "
+                f"not ported (ROADMAP.md item {item}); unset it or set 0")
+    if BF16_MAX_ENV not in (None, "0"):
+        raise NotImplementedError(
+            f"RADARGNN_FUSED_BF16_MAX={BF16_MAX_ENV}: bf16-equality max "
+            "routing is not ported (ROADMAP.md item B (i) 1); unset it or "
+            "set 0")
+    if _SENDER_DX and mode == "windowed":
+        raise NotImplementedError(
+            "RADARGNN_FUSED_SENDER_DX=1: the windowed backward's sender-sum "
+            "form is not ported (ROADMAP.md item R4); the dense backward "
+            "has that form always")
 
 
 def fused_csr_tiling(model_config, k=None):
@@ -52,22 +103,27 @@ def fused_csr_tiling(model_config, k=None):
     degree `k` given) returns the dense tiling dict; "windowed" (or "auto"
     without `k`: radius graphs) the windowed tuple (node_block, edge_tile,
     window_blocks, fused_overflow_fraction[, fused_run_cap]); "csr" the
-    CSR tuple (node_block, edge_tile), for any graph."""
+    CSR tuple (node_block, edge_tile), for any graph. The geometry follows
+    the env knobs as in the JAX package; an unported variant knob raises
+    (`check_fused_knobs`)."""
     if not getattr(model_config, "use_fused_aggregation", False):
         return None
     mode = getattr(model_config, "fused_tiling", "windowed")
     if mode == "auto":
         mode = "dense" if k is not None else "windowed"
+    if mode not in ("dense", "windowed", "csr"):
+        raise ValueError(f'unknown fused_tiling "{mode}": "auto", "dense", '
+                         '"windowed" or "csr"')
+    check_fused_knobs(mode)
     if mode == "csr":
         return (FUSED_NODE_BLOCK, FUSED_EDGE_TILE)
     if mode == "windowed":
         tiling = (FUSED_NODE_BLOCK, FUSED_EDGE_TILE, FUSED_WINDOW_BLOCKS,
                   getattr(model_config, "fused_overflow_fraction", 0.05))
         run_cap = getattr(model_config, "fused_run_cap", None)
+        if _RUN_CAP_ENV:
+            run_cap = int(_RUN_CAP_ENV) or None
         return tiling if run_cap is None else tiling + (run_cap,)
-    if mode != "dense":
-        raise ValueError(f'unknown fused_tiling "{mode}": "auto", "dense", '
-                         '"windowed" or "csr"')
     if k is None:
         raise ValueError('fused_tiling "dense" needs the kNN degree k '
                          "(graph_construction.k); pass it to "
@@ -77,7 +133,7 @@ def fused_csr_tiling(model_config, k=None):
     return {"mode": "dense", "node_block": FUSED_NODE_BLOCK,
             "r_tile": FUSED_DENSE_R_TILE,
             "k": int(k) + FUSED_DENSE_EXTRA_SLOTS,
-            "window_blocks": FUSED_WINDOW_BLOCKS,
+            "window_blocks": FUSED_WINDOW_BLOCKS, "ovf_ssum": False,
             "ovf_frac": getattr(model_config, "fused_overflow_fraction",
                                 0.05) + 0.03}
 
@@ -87,6 +143,8 @@ def _fused_hoisted_max(x, w_s, w_e, offset, tiling) -> torch.Tensor:
     aggregation for a dense tiling, the windowed one for a tiling with
     sender windows, the CSR one otherwise (each backward lands d_x through
     the batch's sender landing)."""
+    check_fused_knobs("csr" if tiling.win is None else
+                      "dense" if tiling.dense is not None else "windowed")
     if tiling.win is None:
         return csr_aggregate(x, w_s, tiling.edge_feat, w_e, tiling.senders,
                              tiling.receivers, tiling.blocks, offset,

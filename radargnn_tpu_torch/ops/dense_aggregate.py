@@ -7,28 +7,42 @@ with the slot layout of `ops.dense_tiles`,
                (x[sender] @ w_s + e @ w_e)
     out[n]   = offset[n] + inner[n] for non-empty n, else 0.
 
-On the card the slot part of the forward runs in the hand-written kernel
-`csrc/dense_fwd_v4.cu` (it replaces `_fused_fwd_kernel_v4`); the overflow
-part stays plain torch (`dense_overflow_inner`), as it is XLA in the JAX
-package. As there, the gather operands are bf16 on the accelerator and
-float32 where the JAX package runs its kernels in interpret mode (the CPU).
+On the card this is three launches of the port's own, which replace
+`_fused_fwd_kernel_v4` and `_fused_bwd_kernel_v4`; the TPU kernels' one-hot
+gathers and per-slot products are not carried over:
 
-The gradient is `DenseAggregateFn`, the custom VJP of the JAX package
-(:2713-2796): the forward runs in VJP mode and saves `inner`; the backward
-routes g to every valid slot whose recomputed operand lies within
-1e-5 |inner| + 1e-5 of its receiver's max (a tied slot takes the full g),
-in the hand-written kernels of `csrc/dense_bwd_v4.cu` (they replace
-`_fused_bwd_kernel_v4`): d_e per slot, dW_s, dW_e and the per-slot d_xg.
-The overflow backward is torch, as XLA in the JAX package. d_x is the
-d_xg rows and the overflow rows summed at their senders, landed in one
-deterministic pass by `ops.segment_sum` over the batch's sender-sorted
-order (`graph/batch.py` builds it once per batch).
+  * the node projection `y_s = x @ w_s` once per node, [N, hp] float32
+    (hp = H rounded up to 64, zero past H; `dense_proj`,
+    `csrc/dense_fwd_v4.cu`), since x[s] @ w_s = y_s[s];
+  * the gather-max (`dense_fwd`, same file): op[slot] = y_s[sender] +
+    e_t[slot] @ w_e, the max over a receiver's K slots and its overflow
+    maxima, the offset epilogue. In VJP mode it also writes `inner` and one
+    routing bit per (slot, column), set where the slot is valid and
+    |op - inner| <= 1e-5 |inner| + 1e-5: the strict routing of the TPU
+    kernel, under which every tied slot takes the full g;
+  * the backward (`dense_bwd`, `csrc/dense_bwd_v4.cu`): d_op[slot] =
+    bf16(g[receiver]) where the slot's bit is set, else 0; d_e = d_op @
+    w_e^T and dW_e in a receiver-major pass over the tiles, and the H-wide
+    sender sums d_ys[s] = the sum of d_op over s's slots and its overflow
+    rows in a sender-major pass over the batch's landing order
+    (`graph/batch.py` builds it once per batch). Fixed summation orders,
+    no atomics.
 
-The overflow code, the operand preparation (`gather_operands`), the VJP
-body (`fused_backward`) and the kernels' input checks
-(`check_slot_operands`) serve the windowed aggregation too
-(`ops.windowed_aggregate`); the depth padding and the checks serve the
-CSR aggregation (`ops.csr_aggregate`).
+d_x = bf16(d_ys) @ w_s^T and dW_s = bf16(x)^T @ bf16(d_ys) are then
+node-wide products, the JAX package's `sender_dx` form (its wrapper
+:2742-2754). The routing comes from the forward's bits, so the backward
+sees the forward's op bit for bit without recomputing it. The overflow
+edges' operand is y_s[ovf_s] + e_ovf @ w_e, scatter-maxed in torch (XLA in
+the JAX package); the forward saves it for the overflow backward. As in
+the JAX package, the gather operands are bf16 on the accelerator and
+float32 where the JAX package runs its kernels in interpret mode (the CPU),
+where every wrapper takes its plain version.
+
+The old overflow form (`dense_overflow_inner`), the operand preparation
+(`gather_operands`), the per-slot VJP body (`fused_backward`) and the
+kernels' input checks (`check_slot_operands`) serve the windowed
+aggregation (`ops.windowed_aggregate`); the depth and width padding and the
+checks serve the CSR aggregation (`ops.csr_aggregate`).
 """
 
 from __future__ import annotations
@@ -46,6 +60,20 @@ _MAX_SMEM = 232448      # bytes of shared memory a block may use on sm_90
 _ROUTE_RTOL = _ROUTE_ATOL = 1e-5    # strict max routing, as in the JAX package
 
 
+def col_pad(h: int) -> int:
+    """H rounded up to the kernels' 64-column slices: y_s's row width, and
+    32 times the routing bits' words per slot."""
+    return -(-h // 64) * 64
+
+
+def _slot_receivers(e_pad: int, r_tile: int, k: int,
+                    device) -> torch.Tensor:
+    """Receiver of every slot of the dense layout, int64: slot t*TE + j*R +
+    r holds an in-edge of receiver t*R + r."""
+    slot = torch.arange(e_pad, device=device)
+    return slot // (r_tile * k) * r_tile + slot % r_tile
+
+
 def _sender_index(senders_local: torch.Tensor, tile_win: torch.Tensor,
                   te: int, node_block: int) -> torch.Tensor:
     """Global sender of every slot (0 for empty slots), int64."""
@@ -59,46 +87,74 @@ def _routes(op: torch.Tensor, inner: torch.Tensor) -> torch.Tensor:
     return (op - inner).abs() <= _ROUTE_RTOL * inner.abs() + _ROUTE_ATOL
 
 
-def dense_fwd_plain(x_c, w_s_c, e_t_c, w_e_c, senders_local, tile_win,
-                    inner_o, offset, *, r_tile: int, k: int, node_block: int,
-                    emit_inner: bool = False):
-    """Plain torch version of the dense forward kernel: the same function
-    on the same inputs (x_c, w_s_c, e_t_c, w_e_c in the gather dtype;
-    inner_o, offset float32), products in float32. Returns out, or
-    (out, inner) with `emit_inner`."""
-    te = r_tile * k
+def pack_bits(sel: torch.Tensor) -> torch.Tensor:
+    """[E, H] bool -> [E, col_pad(H) / 32] int32 words: bit b of word w is
+    column 32 w + b (zero past H)."""
+    e, h = sel.shape
+    sel = torch.nn.functional.pad(sel, (0, col_pad(h) - h))
+    bit = 2 ** torch.arange(32, dtype=torch.int64, device=sel.device)
+    words = (sel.reshape(e, -1, 32).long() * bit).sum(-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def unpack_bits(bits: torch.Tensor, h: int) -> torch.Tensor:
+    """The inverse of `pack_bits`: [E, W] int32 -> [E, h] bool."""
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    sel = (bits[:, :, None] >> shifts) & 1
+    return sel.reshape(bits.shape[0], -1)[:, :h].bool()
+
+
+def dense_proj_plain(x_c, w_s_c) -> torch.Tensor:
+    """Plain torch version of the projection kernel: y_s = x @ w_s in
+    float32 from operands in the gather dtype, [N, col_pad(H)], zero past
+    H."""
     h = w_s_c.shape[1]
+    y = matmul_f32(x_c, w_s_c, x_c.dtype)
+    return torch.nn.functional.pad(y, (0, col_pad(h) - h))
+
+
+def dense_fwd_plain(y_s, e_t_c, w_e_c, senders_local, tile_win, inner_o,
+                    offset, *, r_tile: int, k: int, node_block: int,
+                    emit_inner: bool = False):
+    """Plain torch version of the gather-max kernel: the same function on
+    the same inputs (y_s [N, hp] float32; e_t_c, w_e_c in the gather dtype;
+    inner_o, offset float32 [N, H]). Returns out, or (out, inner, bits)
+    with `emit_inner`: bits [E_pad, hp / 32] int32, one per (slot,
+    column), set where the slot is valid and its op routes (`_routes`)."""
+    te = r_tile * k
+    h = offset.shape[1]
     sender = _sender_index(senders_local, tile_win, te, node_block)
-    op = matmul_f32(x_c[sender], w_s_c, x_c.dtype) \
-        + matmul_f32(e_t_c, w_e_c, e_t_c.dtype)
-    op = torch.where((senders_local >= 0)[:, None], op, _NEG)
+    op = y_s[sender, :h] + matmul_f32(e_t_c, w_e_c, e_t_c.dtype)
+    valid = (senders_local >= 0)[:, None]
+    op = torch.where(valid, op, _NEG)
     acc = op.reshape(-1, k, r_tile, h).amax(dim=1).reshape(-1, h)
     inner = torch.maximum(acc, inner_o)
     out = torch.where(inner > _NEG / 2, offset + inner, 0.0)
-    return (out, inner) if emit_inner else out
+    if not emit_inner:
+        return out
+    inner3 = inner.reshape(-1, 1, r_tile, h)
+    sel = _routes(op.reshape(-1, k, r_tile, h), inner3).reshape(-1, h)
+    return out, inner, pack_bits(valid & sel)
 
 
-def dense_bwd_plain(x_c, w_s_c, e_t_c, w_e_c, senders_local, tile_win,
-                    inner_z, g_pass, *, r_tile: int, k: int,
-                    node_block: int):
-    """Plain torch version of the dense backward kernels on the same inputs
-    (gather dtype operands; inner_z, g_pass float32 [N, H] with 0 at empty
-    receivers). Returns (d_xg [E_pad, d] and d_e [E_pad, de] in the gather
-    dtype, dW_s [d, H] and dW_e [de, H] float32); d_op is rounded to the
-    gather dtype, as the TPU kernel rounds it to its grad dtype."""
-    cd = x_c.dtype
-    h = w_s_c.shape[1]
-    valid = (senders_local >= 0)[:, None]
-    sender = _sender_index(senders_local, tile_win, r_tile * k, node_block)
-    x_g = torch.where(valid, x_c[sender], 0)
-    op = matmul_f32(x_g, w_s_c, cd) + matmul_f32(e_t_c, w_e_c, cd)
-    inner3 = inner_z.reshape(-1, 1, r_tile, h)
-    d_op = torch.where(_routes(op.reshape(-1, k, r_tile, h), inner3),
-                       g_pass.reshape(-1, 1, r_tile, h), 0.0)
-    d_op = torch.where(valid, d_op.reshape(-1, h), 0.0).to(cd)
-    return (matmul_f32(d_op, w_s_c.t(), cd).to(cd),
-            matmul_f32(d_op, w_e_c.t(), cd).to(cd),
-            matmul_f32(x_g.t(), d_op, cd), matmul_f32(e_t_c.t(), d_op, cd))
+def dense_bwd_plain(bits, g_pass, e_t_c, w_e_c, d_op_o, order, row_ptr, *,
+                    r_tile: int, k: int):
+    """Plain torch version of the backward kernels on the same inputs (bits
+    from the forward; g_pass float32 [N, H], 0 at empty receivers; e_t_c,
+    w_e_c in the gather dtype; d_op_o [Eo, H] float32, the overflow rows).
+    d_op is g at the slot's receiver where the bit is set, rounded to the
+    gather dtype, as the TPU kernel rounds it to its grad dtype. Returns
+    (d_e [E_pad, de] in the gather dtype, dW_e [de, H] float32, d_ys
+    [N, H] float32: the slots' and overflow rows' d_op summed at their
+    senders over the landing)."""
+    cd = e_t_c.dtype
+    h = g_pass.shape[1]
+    recv = _slot_receivers(e_t_c.shape[0], r_tile, k, g_pass.device)
+    d_op = torch.where(unpack_bits(bits, h), g_pass[recv], 0.0).to(cd)
+    return (matmul_f32(d_op, w_e_c.t(), cd).to(cd),
+            matmul_f32(e_t_c.t(), d_op, cd),
+            segment_sum.segment_sum_csr_plain(d_op, order, row_ptr, d_op_o))
 
 
 # ---------------------------------------------------------------------------
@@ -106,18 +162,24 @@ def dense_bwd_plain(x_c, w_s_c, e_t_c, w_e_c, senders_local, tile_win,
 # ---------------------------------------------------------------------------
 
 def _bind_fwd(lib: ctypes.CDLL) -> None:
+    lib.dense_proj_v4.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.dense_proj_v4.restype = ctypes.c_int
+    lib.dense_proj_v4_smem_bytes.argtypes = [ctypes.c_int]
+    lib.dense_proj_v4_smem_bytes.restype = ctypes.c_size_t
     lib.dense_fwd_v4.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.dense_fwd_v4.restype = ctypes.c_int
-    lib.dense_fwd_v4_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.dense_fwd_v4_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.dense_fwd_v4_smem_bytes.restype = ctypes.c_size_t
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.dense_bwd_v4.argtypes = (
-        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 11 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+        + [ctypes.c_void_p])
     lib.dense_bwd_v4.restype = ctypes.c_int
-    lib.dense_bwd_v4_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.dense_bwd_v4_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.dense_bwd_v4_smem_bytes.restype = ctypes.c_size_t
 
 
@@ -171,74 +233,200 @@ def check_slot_operands(kernel: str, x_c, w_s_c, e_t_c, w_e_c,
            "x and e_t must be 16-byte aligned", kernel)
 
 
-def _check_operands(kernel: str, x_c, w_s_c, e_t_c, w_e_c, senders_local,
-                    tile_win, node_tensors: dict, *, r_tile: int,
-                    k: int) -> None:
-    """The checks both dense kernels share: `check_slot_operands`, then the
-    slot layout's shapes; `node_tensors` are the float32 [T*R, H]
-    inputs."""
-    check_slot_operands(kernel, x_c, w_s_c, e_t_c, w_e_c,
-                        dict(senders_local=senders_local, tile_win=tile_win),
-                        node_tensors)
+def _check_tensors(kernel: str, dtypes: dict, **tensors) -> None:
+    """All on one CUDA device and contiguous, each of its dtype."""
+    dev = next(iter(tensors.values())).device
+    for name, ten in tensors.items():
+        _check(ten.device == dev and dev.type == "cuda",
+               f"{name} must be on {dev} (a CUDA device)", kernel)
+        _check(ten.is_contiguous(), f"{name} must be contiguous", kernel)
+        _check(ten.dtype == dtypes[name],
+               f"{name} must be {str(dtypes[name]).split('.')[-1]}", kernel)
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def dense_proj_cuda(x_c, w_s_c) -> torch.Tensor:
+    """Launches the projection of `csrc/dense_fwd_v4.cu` on the current
+    stream; raises on inputs it does not take. Counts its launches in
+    `dense_proj_cuda.launches`."""
+    kernel = "dense_proj_v4"
+    bf16 = torch.bfloat16
+    _check_tensors(kernel, dict(x=bf16, w_s=bf16), x=x_c, w_s=w_s_c)
+    n, d = x_c.shape
     h = w_s_c.shape[1]
-    e_pad = e_t_c.shape[0]
-    te = r_tile * k
-    t = tile_win.shape[0]
-    _check(e_pad == t * te and senders_local.shape == (e_pad,),
-           f"{e_pad} slots do not match {t} tiles x {te}", kernel)
-    for name, ten in node_tensors.items():
-        _check(ten.shape == (t * r_tile, h),
-               f"{name} must be [{t * r_tile}, {h}]", kernel)
+    _check(w_s_c.shape[0] == d and d % 8 == 0,
+           f"x [{n}, {d}] and w_s {tuple(w_s_c.shape)}: d must match and be "
+           "a multiple of 8", kernel)
+    lib = load_fwd_kernel()
+    _check(lib.dense_proj_v4_smem_bytes(d) <= _MAX_SMEM,
+           f"d={d} needs more shared memory than a block has", kernel)
+    y_s = torch.empty((n, col_pad(h)), dtype=torch.float32,
+                      device=x_c.device)
+    with torch.cuda.device(x_c.device):
+        err = lib.dense_proj_v4(x_c.data_ptr(), w_s_c.data_ptr(),
+                                y_s.data_ptr(), n, d, h, y_s.shape[1],
+                                _stream(x_c.device))
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+    dense_proj_cuda.launches += 1
+    return y_s
+
+
+dense_proj_cuda.launches = 0
+
+
+def dense_proj(x_c, w_s_c) -> torch.Tensor:
+    """The projection's wrapper: a CUDA tensor launches the kernel (or
+    raises), a CPU tensor takes the plain version."""
+    fn = dense_proj_cuda if x_c.is_cuda else dense_proj_plain
+    return fn(x_c, w_s_c)
+
+
+def dense_fwd_cuda(y_s, e_t_c, w_e_c, senders_local, tile_win, inner_o,
+                   offset, *, r_tile: int, k: int, node_block: int,
+                   emit_inner: bool = False):
+    """Launches the gather-max of `csrc/dense_fwd_v4.cu` on the current
+    stream (VJP mode with `emit_inner`: it also writes `inner` and the
+    routing bits); raises on inputs the kernel does not take. Counts its
+    launches in `dense_fwd_cuda.launches`."""
+    kernel = "dense_fwd_v4"
+    f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
+    _check_tensors(kernel, dict(y_s=f32, e_t=bf16, w_e=bf16,
+                                senders_local=i32, tile_win=i32,
+                                inner_o=f32, offset=f32),
+                   y_s=y_s, e_t=e_t_c, w_e=w_e_c,
+                   senders_local=senders_local, tile_win=tile_win,
+                   inner_o=inner_o, offset=offset)
+    e_pad, de = e_t_c.shape
+    num_nodes, h = offset.shape
+    te, t = r_tile * k, tile_win.shape[0]
+    hp = col_pad(h)
+    _check(e_pad == t * te and senders_local.shape == (e_pad,)
+           and num_nodes == t * r_tile,
+           f"{e_pad} slots, {num_nodes} receivers do not match {t} tiles x "
+           f"{r_tile} x {k}", kernel)
+    _check(inner_o.shape == offset.shape and w_e_c.shape == (de, h)
+           and y_s.shape[1] == hp and de % 8 == 0,
+           f"y_s {tuple(y_s.shape)}, w_e {tuple(w_e_c.shape)}, inner_o "
+           f"{tuple(inner_o.shape)} do not match H={h}, de={de} (a multiple "
+           "of 8)", kernel)
     _check(r_tile % 16 == 0 and 16 <= r_tile <= 128,
            f"r_tile must be a multiple of 16 in [16, 128] (got {r_tile})",
            kernel)
-
-
-def dense_fwd_cuda(x_c, w_s_c, e_t_c, w_e_c, senders_local, tile_win,
-                   inner_o, offset, *, r_tile: int, k: int, node_block: int,
-                   emit_inner: bool = False):
-    """Launches `csrc/dense_fwd_v4.cu` on the current stream (VJP mode with
-    `emit_inner`: it also writes `inner`); raises on inputs the kernel does
-    not take. Counts its launches in `dense_fwd_cuda.launches`."""
-    _check_operands("dense_fwd_v4", x_c, w_s_c, e_t_c, w_e_c, senders_local,
-                    tile_win, dict(inner_o=inner_o, offset=offset),
-                    r_tile=r_tile, k=k)
-    dev = x_c.device
-    n_x, d = x_c.shape
-    de = e_t_c.shape[1]
-    h = w_s_c.shape[1]
-    t = tile_win.shape[0]
     lib = load_fwd_kernel()
-    _check(lib.dense_fwd_v4_smem_bytes(d, de, r_tile) <= _MAX_SMEM,
-           f"d={d} needs more shared memory than a block has")
-    out = torch.empty((t * r_tile, h), dtype=torch.float32, device=dev)
-    inner = torch.empty_like(out) if emit_inner else None
+    _check(lib.dense_fwd_v4_smem_bytes(de, r_tile) <= _MAX_SMEM,
+           f"de={de} needs more shared memory than a block has", kernel)
+    dev = y_s.device
+    out = torch.empty((num_nodes, h), dtype=f32, device=dev)
+    inner = bits = None
+    if emit_inner:
+        inner = torch.empty_like(out)
+        bits = torch.empty((e_pad, hp // 32), dtype=i32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dense_fwd_v4(
-            x_c.data_ptr(), w_s_c.data_ptr(), e_t_c.data_ptr(),
-            w_e_c.data_ptr(), senders_local.data_ptr(), tile_win.data_ptr(),
+            y_s.data_ptr(), e_t_c.data_ptr(), w_e_c.data_ptr(),
+            senders_local.data_ptr(), tile_win.data_ptr(),
             inner_o.data_ptr(), offset.data_ptr(), out.data_ptr(),
             None if inner is None else inner.data_ptr(),
-            n_x, d, de, h, t, r_tile, k, node_block, stream)
+            None if bits is None else bits.data_ptr(),
+            y_s.shape[0], de, h, hp, t, r_tile, k, node_block, _stream(dev))
     if err != 0:
-        raise RuntimeError(f"dense_fwd_v4 launch failed: cudaError {err}")
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
     dense_fwd_cuda.launches += 1
-    return (out, inner) if emit_inner else out
+    return (out, inner, bits) if emit_inner else out
 
 
 dense_fwd_cuda.launches = 0
 
 
-def dense_fwd(x_c, w_s_c, e_t_c, w_e_c, senders_local, tile_win, inner_o,
-              offset, *, r_tile: int, k: int, node_block: int,
+def dense_fwd(y_s, e_t_c, w_e_c, senders_local, tile_win, inner_o, offset,
+              *, r_tile: int, k: int, node_block: int,
               emit_inner: bool = False):
-    """The dense forward kernel's wrapper: a CUDA tensor launches the
-    kernel (or raises), a CPU tensor takes the plain version."""
-    fn = dense_fwd_cuda if x_c.is_cuda else dense_fwd_plain
-    return fn(x_c, w_s_c, e_t_c, w_e_c, senders_local, tile_win, inner_o,
-              offset, r_tile=r_tile, k=k, node_block=node_block,
+    """The gather-max kernel's wrapper: a CUDA tensor launches the kernel
+    (or raises), a CPU tensor takes the plain version."""
+    fn = dense_fwd_cuda if y_s.is_cuda else dense_fwd_plain
+    return fn(y_s, e_t_c, w_e_c, senders_local, tile_win, inner_o, offset,
+              r_tile=r_tile, k=k, node_block=node_block,
               emit_inner=emit_inner)
+
+
+def pad_width(*tensors):
+    """Zero-pads the last dimension of each tensor to a multiple of 8, the
+    backward kernels' 16-byte loads of H-wide rows (a padded column's g is
+    0, so it routes nothing); copies only where a pad is needed."""
+    pad = -tensors[0].shape[-1] % 8
+    if not pad:
+        return tensors
+    return tuple(torch.nn.functional.pad(t, (0, pad)).contiguous()
+                 for t in tensors)
+
+
+def dense_bwd_cuda(bits, g_pass, e_t_c, w_e_c, d_op_o, order, row_ptr, *,
+                   r_tile: int, k: int):
+    """Launches the three passes of `csrc/dense_bwd_v4.cu` on the current
+    stream; raises on inputs the kernels do not take. Returns what
+    `dense_bwd_plain` returns. Counts its launches in
+    `dense_bwd_cuda.launches` (one per backward)."""
+    kernel = "dense_bwd_v4"
+    f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
+    num_nodes, h = g_pass.shape
+    g_pass, w_e_c, d_op_o = pad_width(g_pass, w_e_c, d_op_o)
+    _check_tensors(kernel, dict(bits=i32, g_pass=f32, e_t=bf16, w_e=bf16,
+                                d_op_o=f32, order=i32, row_ptr=i32),
+                   bits=bits, g_pass=g_pass, e_t=e_t_c, w_e=w_e_c,
+                   d_op_o=d_op_o, order=order, row_ptr=row_ptr)
+    e_pad, de = e_t_c.shape
+    hg = g_pass.shape[1]
+    hp = col_pad(h)
+    te = r_tile * k
+    t = e_pad // te
+    _check(e_pad == t * te and num_nodes == t * r_tile
+           and bits.shape == (e_pad, hp // 32)
+           and row_ptr.shape == (num_nodes + 1,),
+           f"bits {tuple(bits.shape)}, g_pass [{num_nodes}, {h}], "
+           f"{e_pad} slots do not match tiles of {r_tile} x {k}", kernel)
+    _check(w_e_c.shape == (de, hg) and d_op_o.shape[1] == hg
+           and de % 8 == 0,
+           f"w_e {tuple(w_e_c.shape)}, d_op_o {tuple(d_op_o.shape)} do not "
+           f"match H={h}, de={de} (a multiple of 8)", kernel)
+    _check(r_tile % 16 == 0 and 16 <= r_tile <= 128,
+           f"r_tile must be a multiple of 16 in [16, 128] (got {r_tile})",
+           kernel)
+    lib = load_bwd_kernel()
+    _check(lib.dense_bwd_v4_smem_bytes(hp, r_tile) <= _MAX_SMEM,
+           f"H={h} needs more shared memory than a block has", kernel)
+    dev = bits.device
+    de16 = -(-de // 16) * 16
+    d_e = torch.empty((e_pad, de), dtype=bf16, device=dev)
+    we_part = torch.empty((t, de16, hp), dtype=f32, device=dev)
+    dw_e = torch.empty((de, hg), dtype=f32, device=dev)
+    d_ys = torch.empty((num_nodes, hg), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.dense_bwd_v4(
+            bits.data_ptr(), g_pass.data_ptr(), e_t_c.data_ptr(),
+            w_e_c.data_ptr(), d_op_o.data_ptr(), order.data_ptr(),
+            row_ptr.data_ptr(), d_e.data_ptr(), we_part.data_ptr(),
+            dw_e.data_ptr(), d_ys.data_ptr(), e_pad, t, r_tile, k, de, hg,
+            hp, num_nodes, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+    dense_bwd_cuda.launches += 1
+    return d_e, dw_e[:, :h], d_ys[:, :h]
+
+
+dense_bwd_cuda.launches = 0
+
+
+def dense_bwd(bits, g_pass, e_t_c, w_e_c, d_op_o, order, row_ptr, *,
+              r_tile: int, k: int):
+    """The dense backward kernels' wrapper: a CUDA tensor launches them (or
+    raises), a CPU tensor takes the plain version."""
+    fn = dense_bwd_cuda if bits.is_cuda else dense_bwd_plain
+    return fn(bits, g_pass, e_t_c, w_e_c, d_op_o, order, row_ptr,
+              r_tile=r_tile, k=k)
 
 
 def weight_partials(num_slots: int) -> int:
@@ -247,85 +435,47 @@ def weight_partials(num_slots: int) -> int:
     return max(1, min(64, -(-num_slots // 2048)))
 
 
-def dense_bwd_cuda(x_c, w_s_c, e_t_c, w_e_c, senders_local, tile_win,
-                   inner_z, g_pass, *, r_tile: int, k: int, node_block: int):
-    """Launches the four passes of `csrc/dense_bwd_v4.cu` on the current
-    stream; raises on inputs the kernels do not take. Returns what
-    `dense_bwd_plain` returns. Counts its launches in
-    `dense_bwd_cuda.launches` (one per backward)."""
-    kernel = "dense_bwd_v4"
-    _check_operands(kernel, x_c, w_s_c, e_t_c, w_e_c, senders_local,
-                    tile_win, dict(inner_z=inner_z, g_pass=g_pass),
-                    r_tile=r_tile, k=k)
-    dev = x_c.device
-    n_x, d = x_c.shape
-    e_pad, de = e_t_c.shape
-    h = w_s_c.shape[1]
-    t = tile_win.shape[0]
-    _check(h % 8 == 0, f"h must be a multiple of 8 (got {h})", kernel)
-    lib = load_bwd_kernel()
-    _check(lib.dense_bwd_v4_smem_bytes(d, de, r_tile) <= _MAX_SMEM,
-           f"d={d} needs more shared memory than a block has", kernel)
-    hp = -(-h // 64) * 64
-    n_part = weight_partials(e_pad)
-    bf16, f32 = torch.bfloat16, torch.float32
-    d_op = torch.empty((e_pad, hp), dtype=bf16, device=dev)
-    partial = torch.empty((n_part, d + de, hp), dtype=f32, device=dev)
-    d_xg = torch.empty((e_pad, d), dtype=bf16, device=dev)
-    d_e = torch.empty((e_pad, de), dtype=bf16, device=dev)
-    dw_s = torch.empty((d, h), dtype=f32, device=dev)
-    dw_e = torch.empty((de, h), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dense_bwd_v4(
-            x_c.data_ptr(), w_s_c.data_ptr(), e_t_c.data_ptr(),
-            w_e_c.data_ptr(), senders_local.data_ptr(), tile_win.data_ptr(),
-            inner_z.data_ptr(), g_pass.data_ptr(), d_op.data_ptr(),
-            partial.data_ptr(), d_xg.data_ptr(), d_e.data_ptr(),
-            dw_s.data_ptr(), dw_e.data_ptr(), n_x, d, de, h, t, r_tile, k,
-            node_block, n_part, stream)
-    if err != 0:
-        raise RuntimeError(f"dense_bwd_v4 launch failed: cudaError {err}")
-    dense_bwd_cuda.launches += 1
-    return d_xg, d_e, dw_s, dw_e
-
-
-dense_bwd_cuda.launches = 0
-
-
-def dense_bwd(x_c, w_s_c, e_t_c, w_e_c, senders_local, tile_win, inner_z,
-              g_pass, *, r_tile: int, k: int, node_block: int):
-    """The dense backward kernels' wrapper: a CUDA tensor launches them (or
-    raises), a CPU tensor takes the plain version."""
-    fn = dense_bwd_cuda if x_c.is_cuda else dense_bwd_plain
-    return fn(x_c, w_s_c, e_t_c, w_e_c, senders_local, tile_win, inner_z,
-              g_pass, r_tile=r_tile, k=k, node_block=node_block)
-
-
 # ---------------------------------------------------------------------------
-# overflow part, autograd Function and entry point
+# overflow part, the pieces the windowed path shares, autograd Function and
+# entry point
 # ---------------------------------------------------------------------------
 
 def _overflow_operand(x_c, w_s_c, e_ovf_c, w_e_c, ovf_s) -> torch.Tensor:
-    """The overflow edges' operands [Eo, H] float32: the overflow senders
-    gathered at node width and projected, plus their edge projection."""
+    """The windowed path's overflow operands [Eo, H] float32: the overflow
+    senders gathered at node width and projected, plus their edge
+    projection."""
     return matmul_f32(x_c[ovf_s.long()], w_s_c, x_c.dtype) \
         + matmul_f32(e_ovf_c, w_e_c, e_ovf_c.dtype)
 
 
-def dense_overflow_inner(x_c, w_s_c, e_ovf_c, w_e_c, ovf_s, ovf_r,
-                         num_nodes: int) -> torch.Tensor:
-    """Raw per-node maxima of the overflow edges, [num_nodes, H] float32,
-    _NEG for receivers without overflow edges: gather the overflow senders
-    at node width, project, and scatter-max (padding entries, ovf_r < 0,
-    carry _NEG and so never win)."""
+def overflow_maxima(op_o: torch.Tensor, ovf_r: torch.Tensor,
+                    num_nodes: int) -> torch.Tensor:
+    """Scatter-max of the overflow operands [Eo, H] to raw per-node maxima
+    [num_nodes, H] float32, _NEG for receivers without overflow edges
+    (padding entries, ovf_r < 0, carry _NEG and so never win)."""
     mask = ovf_r >= 0
-    y = _overflow_operand(x_c, w_s_c, e_ovf_c, w_e_c, ovf_s)
-    y = torch.where(mask[:, None], y, _NEG)
+    y = torch.where(mask[:, None], op_o, _NEG)
     idx = torch.where(mask, ovf_r, 0).long()[:, None].expand_as(y)
     out = torch.full((num_nodes, y.shape[1]), _NEG, dtype=torch.float32,
                      device=y.device)
     return out.scatter_reduce_(0, idx, y, "amax", include_self=False)
+
+
+def dense_overflow_inner(x_c, w_s_c, e_ovf_c, w_e_c, ovf_s, ovf_r,
+                         num_nodes: int) -> torch.Tensor:
+    """The JAX package's `dense_overflow_inner` (the windowed path's
+    overflow): gather the overflow senders at node width, project, and
+    scatter-max."""
+    return overflow_maxima(
+        _overflow_operand(x_c, w_s_c, e_ovf_c, w_e_c, ovf_s), ovf_r,
+        num_nodes)
+
+
+def dense_overflow_operand(y_s, e_ovf_c, w_e_c, ovf_s) -> torch.Tensor:
+    """The dense path's overflow operands [Eo, H] float32 from the node
+    projection, y_s[ovf_s] + e_ovf @ w_e: the slots' operand function."""
+    return y_s[ovf_s.long(), :w_e_c.shape[1]] \
+        + matmul_f32(e_ovf_c, w_e_c, e_ovf_c.dtype)
 
 
 def gather_dtype(device: torch.device) -> torch.dtype:
@@ -360,7 +510,7 @@ def gather_operands(x, w_s, e_t, w_e, e_ovf, ovf_s, ovf_r,
 
 def fused_backward(g, inner, slot_backward, x, w_s, w_e, e_ovf, ovf_s,
                    ovf_r, order, row_ptr, dtypes) -> tuple:
-    """The custom VJP's body that both fused aggregations share: g and
+    """The windowed aggregation's custom VJP body (the per-slot form): g and
     inner zeroed at empty receivers, the kernels' slot part
     `slot_backward(inner_z, g_pass) -> (d_xg, d_e_t, dW_s, dW_e)` (padded
     widths, d_xg and d_e_t in the gather dtype), the overflow backward in
@@ -401,16 +551,21 @@ def fused_backward(g, inner, slot_backward, x, w_s, w_e, e_ovf, ovf_s,
 
 def _forward(x, w_s, e_t, w_e, offset, e_ovf, tile_win, senders_local,
              ovf_s, ovf_r, geo, emit_inner: bool):
-    """The forward on gather-dtype operands; returns (the kernel wrapper's
-    result, the padded operands the backward reuses)."""
+    """The forward on gather-dtype operands: the projection, the overflow
+    operands and maxima, the gather-max. Returns (the gather-max wrapper's
+    result, the overflow operands, the depth-padded (e_t, w_e))."""
     r_tile, k, node_block = geo
-    inner_o, padded = gather_operands(x, w_s, e_t, w_e, e_ovf, ovf_s, ovf_r,
-                                      offset.shape[0])
-    res = dense_fwd(*padded, senders_local.contiguous(),
+    cd = gather_dtype(x.device)
+    x_p, w_s_p = _pad_depth(x.to(cd), w_s.to(cd))
+    e_p, w_e_p = _pad_depth(e_t.to(cd), w_e.to(cd))
+    y_s = dense_proj(x_p, w_s_p)
+    op_o = dense_overflow_operand(y_s, e_ovf.to(cd), w_e.to(cd), ovf_s)
+    inner_o = overflow_maxima(op_o, ovf_r, offset.shape[0])
+    res = dense_fwd(y_s, e_p, w_e_p, senders_local.contiguous(),
                     tile_win.contiguous(), inner_o,
                     offset.float().contiguous(), r_tile=r_tile, k=k,
                     node_block=node_block, emit_inner=emit_inner)
-    return res, padded
+    return res, op_o, (e_p, w_e_p)
 
 
 class DenseAggregateFn(torch.autograd.Function):
@@ -419,31 +574,42 @@ class DenseAggregateFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w_s, e_t, w_e, offset, e_ovf, tile_win,
                 senders_local, ovf_s, ovf_r, order, row_ptr, geo):
-        (out, inner), padded = _forward(x, w_s, e_t, w_e, offset, e_ovf,
-                                        tile_win, senders_local, ovf_s,
-                                        ovf_r, geo, emit_inner=True)
+        (out, inner, bits), op_o, padded = _forward(
+            x, w_s, e_t, w_e, offset, e_ovf, tile_win, senders_local, ovf_s,
+            ovf_r, geo, emit_inner=True)
         ctx.geo = geo
         ctx.dtypes = (x.dtype, e_t.dtype, e_ovf.dtype, offset.dtype)
-        ctx.save_for_backward(x, w_s, w_e, e_ovf, *padded,
-                              senders_local.contiguous(),
-                              tile_win.contiguous(), ovf_s, ovf_r, order,
-                              row_ptr, inner)
+        ctx.save_for_backward(x, w_s, w_e, e_ovf, *padded, bits, op_o,
+                              ovf_r, order, row_ptr, inner)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        (x, w_s, w_e, e_ovf, x_p, w_s_p, e_p, w_e_p, sloc, t_win, ovf_s,
-         ovf_r, order, row_ptr, inner) = ctx.saved_tensors
-        r_tile, k, node_block = ctx.geo
-
-        def slot_backward(inner_z, g_pass):
-            return dense_bwd(x_p, w_s_p, e_p, w_e_p, sloc, t_win, inner_z,
-                             g_pass, r_tile=r_tile, k=k,
-                             node_block=node_block)
-
-        return fused_backward(g, inner, slot_backward, x, w_s, w_e, e_ovf,
-                              ovf_s, ovf_r, order, row_ptr,
-                              ctx.dtypes) + (None,) * 7
+        (x, w_s, w_e, e_ovf, e_p, w_e_p, bits, op_o, ovf_r, order, row_ptr,
+         inner) = ctx.saved_tensors
+        r_tile, k, _ = ctx.geo
+        x_dtype, e_dtype, e_ovf_dtype, offset_dtype = ctx.dtypes
+        de = w_e.shape[0]
+        cd = e_p.dtype
+        has = inner > _NEG / 2
+        g_pass = torch.where(has, g.float(), 0.0)
+        inner_z = torch.where(has, inner, 0.0)
+        # the overflow rows route on the forward's own operands and land in
+        # the sender sums with the slots' rows
+        mask = ovf_r >= 0
+        recv = torch.where(mask, ovf_r, 0).long()
+        d_op_o = torch.where(mask[:, None] & _routes(op_o, inner_z[recv]),
+                             g_pass[recv], 0.0)
+        d_e_t, d_we, d_ys = dense_bwd(bits, g_pass, e_p, w_e_p, d_op_o,
+                                      order, row_ptr, r_tile=r_tile, k=k)
+        # d_x and dW_s: node-wide products of the sender sums
+        d_x = matmul_f32(d_ys, w_s.t(), cd)
+        d_ws = matmul_f32(x.t(), d_ys, cd)
+        d_we = d_we[:de] + e_ovf.float().t() @ d_op_o
+        d_e_ovf = (d_op_o @ w_e.float().t()).to(e_ovf_dtype)
+        return (d_x.to(x_dtype), d_ws.to(w_s.dtype),
+                d_e_t[:, :de].to(e_dtype), d_we.to(w_e.dtype),
+                g_pass.to(offset_dtype), d_e_ovf) + (None,) * 7
 
 
 def dense_aggregate(x, w_s, e_t, w_e, offset, e_ovf, tile_win,
@@ -462,8 +628,9 @@ def dense_aggregate(x, w_s, e_t, w_e, offset, e_ovf, tile_win,
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, w_s, e_t, w_e, offset, e_ovf))
     if not needs_grad:
-        out, _ = _forward(x, w_s, e_t, w_e, offset, e_ovf, tile_win,
-                          senders_local, ovf_s, ovf_r, geo, emit_inner=False)
+        out, _, _ = _forward(x, w_s, e_t, w_e, offset, e_ovf, tile_win,
+                             senders_local, ovf_s, ovf_r, geo,
+                             emit_inner=False)
         return out
     if landing is None:
         raise ValueError("the dense aggregation's backward needs the batch's "

@@ -242,28 +242,32 @@ def windowed_bwd_cuda(x_c, w_s_c, e_t_c, w_e_c, recv, sloc, tile_win,
     `windowed_bwd_plain` returns. Counts its launches in
     `windowed_bwd_cuda.launches` (one per backward)."""
     kernel = "windowed_bwd_v3"
+    h = inner_z.shape[1]
+    # any conv width: H zero-padded to a multiple of 8 for the kernels'
+    # 16-byte row loads (a padded column's g is 0, so it routes nothing)
+    w_s_c, w_e_c, inner_z, g_pass = da.pad_width(w_s_c, w_e_c, inner_z,
+                                                 g_pass)
     _check_operands(kernel, x_c, w_s_c, e_t_c, w_e_c, recv, sloc, tile_win,
                     tile_blocks, dict(inner_z=inner_z, g_pass=g_pass),
                     edge_tile=edge_tile)
     dev = x_c.device
     n_x, d = x_c.shape
     e_pad, de = e_t_c.shape
-    num_nodes, h = inner_z.shape
+    num_nodes, hw = inner_z.shape
     t = tile_win.shape[0]
-    _check(h % 8 == 0, f"h must be a multiple of 8 (got {h})", kernel)
     r_chunk = chunk_rows(edge_tile)
     lib = load_bwd_kernel()
     _check(lib.windowed_bwd_v3_smem_bytes(d, de, r_chunk) <= da._MAX_SMEM,
            f"d={d} needs more shared memory than a block has", kernel)
-    hp = -(-h // 64) * 64
+    hp = -(-hw // 64) * 64
     n_part = da.weight_partials(e_pad)
     bf16, f32 = torch.bfloat16, torch.float32
     d_op = torch.empty((e_pad, hp), dtype=bf16, device=dev)
     partial = torch.empty((n_part, d + de, hp), dtype=f32, device=dev)
     d_xg = torch.empty((e_pad, d), dtype=bf16, device=dev)
     d_e = torch.empty((e_pad, de), dtype=bf16, device=dev)
-    dw_s = torch.empty((d, h), dtype=f32, device=dev)
-    dw_e = torch.empty((de, h), dtype=f32, device=dev)
+    dw_s = torch.empty((d, hw), dtype=f32, device=dev)
+    dw_e = torch.empty((de, hw), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.windowed_bwd_v3(
@@ -272,12 +276,12 @@ def windowed_bwd_cuda(x_c, w_s_c, e_t_c, w_e_c, recv, sloc, tile_win,
             tile_win.data_ptr(), tile_blocks.data_ptr(), inner_z.data_ptr(),
             g_pass.data_ptr(), d_op.data_ptr(), partial.data_ptr(),
             d_xg.data_ptr(), d_e.data_ptr(), dw_s.data_ptr(),
-            dw_e.data_ptr(), n_x, d, de, h, t, num_nodes, node_block,
+            dw_e.data_ptr(), n_x, d, de, hw, t, num_nodes, node_block,
             edge_tile, r_chunk, n_part, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
     windowed_bwd_cuda.launches += 1
-    return d_xg, d_e, dw_s, dw_e
+    return d_xg, d_e, dw_s[:, :h], dw_e[:, :h]
 
 
 windowed_bwd_cuda.launches = 0

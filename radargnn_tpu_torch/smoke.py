@@ -57,11 +57,12 @@ KERNEL_SOURCES = ("dense_fwd_v4.cu", "dense_bwd_v4.cu", "segment_sum_csr.cu",
                   "windowed_fwd_v3.cu", "windowed_bwd_v3.cu", "csr_fwd_v2.cu",
                   "csr_bwd_v2.cu", "fused_linear.cu", "msg_segmax.cu",
                   "hoisted_fwd_v1.cu", "hoisted_bwd_v1.cu")
-# the kernels' names, in the order of `_counters()`
+# the kernels' names, in the order of `_counters()`; dense_proj_v4 (the
+# node projection, csrc/dense_fwd_v4.cu) is B1's first launch
 KERNEL_NAMES = ("dense_fwd_v4", "dense_bwd_v4", "segment_sum_csr",
                 "windowed_fwd_v3", "windowed_bwd_v3", "csr_fwd_v2",
                 "csr_bwd_v2", "fused_linear", "msg_segmax", "hoisted_fwd_v1",
-                "hoisted_bwd_v1")
+                "hoisted_bwd_v1", "dense_proj_v4")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
@@ -87,6 +88,12 @@ CSR_FWD_RTOL = 1e-5
 # of equal values, so any error is a fault; the limit is the float32 one
 # (the windowed and CSR backward are held to exact agreement)
 BWD_RTOL = 1e-3
+# the dense forward's routing bits on real-valued inputs, kernel against
+# plain version: their operands differ by float32 summation order, so a
+# slot whose gap to its receiver's max lies within a rounding of the 1e-5
+# tolerance may flip (of order 1e-7 of the bits for operands of unit
+# scale); on dyadic inputs they must agree exactly
+BITS_FLIP_FRAC = 1e-6
 # the CSR backward's edge-side outputs d_e and dW_e with a real-valued
 # float32 g (dyadic operands, so op and routing stay exact): only the
 # float32 summation order differs, relative to each output's own scale; a
@@ -218,20 +225,14 @@ class _Kernels(NamedTuple):
 
 
 def _kernels_of(tiling) -> _Kernels:
-    """The layout's kernels: dense, windowed, or CSR (no window, no
-    overflow: its forward takes no inner_o, which the callers pass as
-    None)."""
+    """The layout's kernels: windowed, or CSR (no window, no overflow: its
+    forward takes no inner_o, which the callers pass as None). The dense
+    layout's kernels have their own checks (`check_dense_kernels`)."""
     if tiling.win is None:
         kw = dict(node_block=tiling.node_block, edge_tile=tiling.edge_tile)
         layout = (tiling.senders, tiling.receivers, tiling.blocks)
         names, mod, fns = ("csr_fwd_v2", "csr_bwd_v2"), ca, (
             "csr_fwd", "csr_fwd_plain", "csr_bwd", "csr_bwd_plain")
-    elif tiling.dense is not None:
-        r_tile, k = tiling.dense
-        kw = dict(r_tile=r_tile, k=k, node_block=tiling.node_block)
-        layout = tiling.win[:2]
-        names, mod, fns = ("dense_fwd_v4", "dense_bwd_v4"), da, (
-            "dense_fwd", "dense_fwd_plain", "dense_bwd", "dense_bwd_plain")
     else:
         sloc, t_win = tiling.win[:2]
         kw = dict(node_block=tiling.node_block, edge_tile=tiling.edge_tile)
@@ -493,6 +494,246 @@ def check_bwd_kernels(tiling, layer_shapes: List[tuple], seed: int,
     return bwd_rows, seg_rows
 
 
+def _proj_bound(d: int, h: int, n: int) -> Dict:
+    """Least time for the node projection: x @ W_s once per node in bf16,
+    x and W_s read once, y_s [n, hp] float32 written once."""
+    return _bound(2.0 * n * d * h,
+                  n * d * 2 + d * h * 2 + n * da.col_pad(h) * 4,
+                  PEAK_BF16_FLOPS)
+
+
+def _gather_bound(de: int, h: int, n: int, e_pad: int, t: int,
+                  valid_slots: int, vjp: bool = False) -> Dict:
+    """Least time for the gather-max given y_s: e @ W_e once per valid
+    slot in bf16 and a max per element; y_s, e_t, W_e, the index arrays,
+    inner_o and offset read once, out written once (in VJP mode also
+    inner and the routing bits)."""
+    hp = da.col_pad(h)
+    nbytes = (n * hp * 4 + e_pad * de * 2 + de * h * 2 + (e_pad + t) * 4
+              + 3 * n * h * 4)
+    if vjp:
+        nbytes += n * h * 4 + e_pad * hp // 8
+    return _bound(2.0 * valid_slots * de * h, nbytes, PEAK_BF16_FLOPS,
+                  float(valid_slots * h))
+
+
+def _dense_bwd_bound(de: int, h: int, n: int, e_pad: int, rows: int,
+                     n_ovf: int, routed: int) -> Dict:
+    """Least time for the dense backward kernels: d_e and dW_e once per
+    routed d_op element in bf16 (4 de flops each; every other product has
+    a zero factor), and the sender sums' adds (`routed` set bits, plus the
+    overflow rows' elements, in float32); the bits, g, e_t, W_e, the
+    overflow rows and the landing (`rows` listed rows, N + 1 offsets) read
+    once, d_e, dW_e and d_ys written once. The work depends on the data:
+    `routed` is this run's count of set bits."""
+    hp = da.col_pad(h)
+    nbytes = (e_pad * hp // 8 + n * h * 4 + e_pad * de * 2 + de * h * 2
+              + n_ovf * h * 4 + rows * 4 + (n + 1) * 4
+              + e_pad * de * 2 + de * h * 4 + n * h * 4)
+    return _bound(4.0 * routed * de, nbytes, PEAK_BF16_FLOPS,
+                  float(routed + n_ovf * h))
+
+
+def _library_mm(x: torch.Tensor, w: torch.Tensor) -> Callable:
+    """One PyTorch call computing the projection's function (bf16 operands,
+    float32 products and sums): torch.mm with out_dtype where this torch
+    has it, else torch.mm of the operands upcast (exact products)."""
+    try:
+        torch.mm(x[:1], w, out_dtype=torch.float32)
+        return lambda: torch.mm(x, w, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        return lambda: torch.mm(x.float(), w.float())
+
+
+def check_dense_kernels(tiling, layer_shapes: List[tuple], seed: int,
+                        reps: int, out: Callable = print
+                        ) -> Tuple[List[Dict], List[Dict], List[Dict]]:
+    """Holds the dense layout's kernels against their plain versions at
+    each (d_in, d_e, H) of the model, on the batch's real layout and
+    landing: the projection (B1's first launch) and the gather-max (B1) on
+    seeded real-valued bf16 inputs (KERNEL_RTOL; the routing bits of the VJP
+    mode may differ only where an operand's gap to its max lies within a
+    float32 rounding of the 1e-5 tolerance: at most BITS_FLIP_FRAC of the
+    bits), then the forward again and the backward (B2) on dyadic inputs,
+    where every product and sum is exact in float32 in any order: the bits
+    must agree exactly, and the backward's outputs up to the bf16 rounding
+    of equal values (BWD_RTOL); two backward runs must give the same bits.
+    Times kernels, plain versions and, for the projection, one torch.mm on
+    the card. Returns the rows of (projection, gather-max, backward)."""
+    r_tile, k = tiling.dense
+    kw = dict(r_tile=r_tile, k=k, node_block=tiling.node_block)
+    sloc, t_win, _, ovf_s, ovf_r, _ = tiling.win
+    order, row_ptr = tiling.landing
+    dev = sloc.device
+    cd = da.gather_dtype(dev)
+    e_pad, t = sloc.shape[0], t_win.shape[0]
+    n = row_ptr.shape[0] - 1
+    valid_slots = _valid_slots(tiling)
+    n_ovf = ovf_s.shape[0]
+    on_card = dev.type == "cuda"
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    def dyadic(*shape, lo=-2, hi=2, step=0.5):
+        return (torch.randint(lo, hi + 1, shape, generator=gen)
+                * step).to(dev)
+
+    def forward(fwd, proj, x, w_s, e_t, w_e, e_ovf, offset):
+        y_s = proj(x, w_s)
+        inner_o = da.overflow_maxima(
+            da.dense_overflow_operand(y_s, e_ovf, w_e, ovf_s), ovf_r, n)
+        return y_s, inner_o, fwd(y_s, e_t, w_e, sloc, t_win, inner_o,
+                                 offset, emit_inner=True, **kw)
+
+    proj_rows, fwd_rows, bwd_rows = [], [], []
+    for d, de, h in layer_shapes:
+        # -- the forward on real-valued inputs ------------------------------
+        x, w_s = rand(n, d).to(cd), rand(d, h, scale=d ** -0.5).to(cd)
+        e_t, w_e = rand(e_pad, de).to(cd), rand(de, h, scale=de ** -0.5).to(cd)
+        e_ovf, offset = rand(n_ovf, de).to(cd), rand(n, h)
+        y_s = da.dense_proj(x, w_s)
+        y_ref = da.dense_proj_plain(x, w_s)
+        inner_o = da.overflow_maxima(
+            da.dense_overflow_operand(y_s, e_ovf, w_e, ovf_s), ovf_r, n)
+        args = (y_s, e_t, w_e, sloc, t_win, inner_o, offset)
+        got = da.dense_fwd(*args, **kw)
+        ref = da.dense_fwd_plain(*args, **kw)
+        got_vjp, inner, bits = da.dense_fwd(*args, emit_inner=True, **kw)
+        _, ref_inner, ref_bits = da.dense_fwd_plain(*args, emit_inner=True,
+                                                    **kw)
+        if on_card:
+            torch.cuda.synchronize()
+        if not (torch.isfinite(got).all() and torch.isfinite(y_s).all()):
+            raise AssertionError(f"dense forward not finite at d={d}, h={h}")
+        if not torch.equal(got_vjp, got):
+            raise AssertionError("the VJP mode changed the forward's output")
+        has = ref_inner > da._NEG / 2
+        if not torch.equal(inner > da._NEG / 2, has):
+            raise AssertionError("VJP mode: empty receivers differ")
+        proj_err = _rel_err(y_s, y_ref)
+        err = max(float((got - ref).abs().max()),
+                  float((inner[has] - ref_inner[has]).abs().max()))
+        flips = _popcount(bits ^ ref_bits)
+        n_bits = e_pad * h
+        p_row = {"d_in": d, "h": h, "max_abs_err": proj_err[0],
+                 "max_rel_err": proj_err[1], **_proj_bound(d, h, n)}
+        row = {"d_in": d, "d_e": de, "h": h, "max_abs_err": err,
+               "max_rel_err": err / max(float(ref.abs().max()), 1.0),
+               "bits_flipped": flips, "bits": n_bits,
+               "bound_vjp_ms": _gather_bound(de, h, n, e_pad, t, valid_slots,
+                                             vjp=True)["bound_ms"],
+               "function_bound_ms": _kernel_bound(
+                   d, de, h, n, e_pad, t, valid_slots)["bound_ms"],
+               **_gather_bound(de, h, n, e_pad, t, valid_slots)}
+        if on_card:
+            p_row["ms"] = _time_ms(lambda: da.dense_proj(x, w_s), reps)
+            p_row["plain_ms"] = _time_ms(lambda: da.dense_proj_plain(x, w_s),
+                                         reps)
+            p_row["library_ms"] = _time_ms(_library_mm(x, w_s), reps)
+            row["ms"] = _time_ms(lambda: da.dense_fwd(*args, **kw), reps)
+            row["vjp_ms"] = _time_ms(
+                lambda: da.dense_fwd(*args, emit_inner=True, **kw), reps)
+            row["plain_ms"] = _time_ms(lambda: da.dense_fwd_plain(*args, **kw),
+                                       reps)
+        else:
+            p_row["ms"] = p_row["plain_ms"] = p_row["library_ms"] = None
+            row["ms"] = row["vjp_ms"] = row["plain_ms"] = None
+        out(f"kernel dense_proj_v4 d_in={d} H={h}: max_abs_err="
+            f"{proj_err[0]:.3e} ms={p_row['ms']} plain_ms={p_row['plain_ms']}"
+            f" torch.mm ms={p_row['library_ms']} bound_ms="
+            f"{p_row['bound_ms']:.4f} ({p_row['bound_by']})")
+        out(f"kernel dense_fwd_v4 d_in={d} H={h}: max_abs_err={err:.3e} "
+            f"max_rel_err={row['max_rel_err']:.3e} bits flipped {flips} of "
+            f"{n_bits} ms={row['ms']} (VJP mode {row['vjp_ms']}) plain_ms="
+            f"{row['plain_ms']} bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']}; the whole forward's bound "
+            f"{row['function_bound_ms']:.4f})")
+        if proj_err[1] > KERNEL_RTOL or row["max_rel_err"] > KERNEL_RTOL \
+                or flips > BITS_FLIP_FRAC * n_bits:
+            raise AssertionError(
+                f"dense forward kernels disagree with their plain versions "
+                f"at d_in={d}, H={h}: projection {proj_err}, gather-max "
+                f"{row['max_rel_err']:.3e}, {flips} bits flipped")
+
+        # -- the forward and the backward on dyadic inputs ------------------
+        x, w_s = dyadic(n, d).to(cd), dyadic(d, h, step=0.25).to(cd)
+        e_t, w_e = dyadic(e_pad, de).to(cd), dyadic(de, h, step=0.25).to(cd)
+        e_ovf, offset = dyadic(n_ovf, de).to(cd), torch.zeros((n, h),
+                                                              device=dev)
+        y_s, _, (_, inner, bits) = forward(da.dense_fwd, da.dense_proj, x,
+                                           w_s, e_t, w_e, e_ovf, offset)
+        _, _, (_, ref_inner, ref_bits) = forward(
+            da.dense_fwd_plain, da.dense_proj_plain, x, w_s, e_t, w_e, e_ovf,
+            offset)
+        if on_card:
+            torch.cuda.synchronize()
+        if not (torch.equal(bits, ref_bits) and torch.equal(inner,
+                                                            ref_inner)):
+            raise AssertionError(f"dyadic inputs at d_in={d}, H={h}: the "
+                                 "kernel's inner or routing bits differ")
+        has = inner > da._NEG / 2
+        g_pass = torch.where(has, dyadic(n, h, lo=-8, hi=8, step=0.125), 0.0)
+        inner_z = torch.where(has, inner, 0.0)
+        op_o = da.dense_overflow_operand(y_s, e_ovf, w_e, ovf_s)
+        mask = ovf_r >= 0
+        recv = torch.where(mask, ovf_r, 0).long()
+        d_op_o = torch.where(mask[:, None] & da._routes(op_o, inner_z[recv]),
+                             g_pass[recv], 0.0)
+        b_args = (bits, g_pass, e_t, w_e, d_op_o, order, row_ptr)
+        b_kw = dict(r_tile=r_tile, k=k)
+        got = da.dense_bwd(*b_args, **b_kw)
+        ref = da.dense_bwd_plain(*b_args, **b_kw)
+        again = da.dense_bwd(*b_args, **b_kw)
+        if on_card:
+            torch.cuda.synchronize()
+        names = ("d_e", "dW_e", "d_ys")
+        for name, u, v in zip(names, got, ref):
+            if u.shape != v.shape or u.dtype != v.dtype \
+                    or not torch.isfinite(u).all():
+                raise AssertionError(f"dense_bwd_v4 {name} at d_in={d}: "
+                                     "shape, dtype or not finite")
+        errs = [_rel_err(u, v) for u, v in zip(got, ref)]
+        same = all(torch.equal(u, v) for u, v in zip(got, again))
+        routed = _popcount(bits)
+        b2 = {"d_in": d, "d_e": de, "h": h,
+              "max_abs_err": max(e[0] for e in errs),
+              "max_rel_err": max(e[1] for e in errs), "bitwise_repeat": same,
+              "routed": routed,
+              **_dense_bwd_bound(de, h, n, e_pad, int(order.shape[0]),
+                                 n_ovf, routed)}
+        if on_card:
+            b2["ms"] = _time_ms(lambda: da.dense_bwd(*b_args, **b_kw), reps)
+            b2["plain_ms"] = _time_ms(
+                lambda: da.dense_bwd_plain(*b_args, **b_kw), reps)
+        else:
+            b2["ms"] = b2["plain_ms"] = None
+        out(f"kernel dense_bwd_v4 d_in={d} H={h}: errors (abs, rel) "
+            + ", ".join(f"{nm} {e[0]:.3e} {e[1]:.3e}"
+                        for nm, e in zip(names, errs))
+            + f"; dyadic bits equal; {routed} routed; bitwise repeat {same}; "
+            f"ms={b2['ms']} plain_ms={b2['plain_ms']} bound_ms="
+            f"{b2['bound_ms']:.4f} ({b2['bound_by']}; "
+            f"{b2['bytes'] / 1e6:.1f} MB)")
+        if b2["max_rel_err"] > BWD_RTOL:
+            raise AssertionError(
+                f"dense_bwd_v4 disagrees with its plain version at d_in={d}, "
+                f"H={h}: {errs}")
+        if not same:
+            raise AssertionError(f"two backward runs differ at d_in={d}")
+        proj_rows.append(p_row)
+        fwd_rows.append(row)
+        bwd_rows.append(b2)
+    return proj_rows, fwd_rows, bwd_rows
+
+
+def _popcount(bits: torch.Tensor) -> int:
+    """Set bits of an int32 tensor."""
+    b = bits.contiguous().view(torch.uint8).cpu().numpy()
+    return int(np.unpackbits(b).sum())
+
+
 def _layer_shapes(model: DetNet) -> List[tuple]:
     """(d_in, d_e, H) of each conv layer's fused aggregation."""
     shapes = []
@@ -621,15 +862,15 @@ def _counters():
     return (da.dense_fwd_cuda, da.dense_bwd_cuda, ss.segment_sum_csr_cuda,
             wa.windowed_fwd_cuda, wa.windowed_bwd_cuda, ca.csr_fwd_cuda,
             ca.csr_bwd_cuda, fl.fused_linear_cuda, msm.msg_segmax_cuda,
-            ha.hoisted_fwd_cuda, ha.hoisted_bwd_cuda)
+            ha.hoisted_fwd_cuda, ha.hoisted_bwd_cuda, da.dense_proj_cuda)
 
 
 def _plain_kernels() -> ExitStack:
     """Patches every kernel wrapper to its plain version (the plain path
     on the same device)."""
     stack = ExitStack()
-    for mod, name in ((da, "dense_fwd"), (da, "dense_bwd"),
-                      (ss, "segment_sum_csr"), (wa, "windowed_fwd"),
+    for mod, name in ((da, "dense_proj"), (da, "dense_fwd"),
+                      (da, "dense_bwd"), (ss, "segment_sum_csr"), (wa, "windowed_fwd"),
                       (wa, "windowed_bwd"), (ca, "csr_fwd"),
                       (ca, "csr_bwd")):
         stack.enter_context(mock.patch.object(mod, name,
@@ -1270,10 +1511,10 @@ def kernel_entry_points(dev, bench: Tuple[int, int, int, int], reps: int,
                         "hoisted_fwd_v1": 2, "hoisted_bwd_v1": 1}, on_card)
     got = [launches[name] for name in KERNEL_NAMES]
     out(f"launches of kernel_check + kernel_bench ({', '.join(KERNEL_NAMES)})"
-        f": {got} (the last four expected {expected[7:]})")
-    if got[7:] != expected[7:]:
-        raise AssertionError(f"the kernel entry points launched {got[7:]}, "
-                             f"expected {expected[7:]}")
+        f": {got} (the four from fused_linear on expected {expected[7:11]})")
+    if got[7:11] != expected[7:11]:
+        raise AssertionError(f"the kernel entry points launched {got[7:11]}, "
+                             f"expected {expected[7:11]}")
     return {"entry_launches": launches, "kernel_check": check,
             "kernel_bench": bench_res}
 
@@ -1317,15 +1558,15 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
         f"{summary['host_batch_s']:.2f} s")
     tiling = loader[0].flat_tiling()
     with torch.no_grad():
-        fwd_rows = check_fwd_kernel(tiling, shapes, seed, reps, out)
-        bwd_rows, seg_rows = check_bwd_kernels(tiling, shapes, seed, reps,
-                                               out)
+        proj_rows, fwd_rows, bwd_rows = check_dense_kernels(
+            tiling, shapes, seed, reps, out)
+    dense = ("dense_proj_v4", "dense_fwd_v4")
     summary.update(_serve_phase(
         dev, arch, model, loader, graphs, points,
-        _expect({"dense_fwd_v4": layers * batches}, on_card), "kNN", out))
+        _expect({n: layers * batches for n in dense}, on_card), "kNN", out))
     summary.update(_train_phase(
         dev, arch, loader[0], seed, train_steps,
-        _expect({n: layers * train_steps for n in KERNEL_NAMES[:3]},
+        _expect({n: layers * train_steps for n in dense + ("dense_bwd_v4",)},
                 on_card), "kNN", out))
 
     # -- the radius graph, windowed tiling ----------------------------------
@@ -1446,13 +1687,17 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
     csr_l = csr["train_launches"]
     r_fwd, r_bwd = radius["per_shape_fwd"], radius["per_shape_bwd"]
     c_fwd, c_bwd = csr["per_shape_fwd"], csr["per_shape_bwd"]
-    segs = seg_rows + radius["per_shape_segsum"] \
-        + radius["knn_per_shape_segsum"] + csr["per_shape_segsum"] \
+    seg_rows = radius["knn_per_shape_segsum"]
+    segs = radius["per_shape_segsum"] + seg_rows + csr["per_shape_segsum"] \
         + csr["radius_per_shape_segsum"]
-    # launches: the training runs of each path (B3 lands d_x on all three);
+    # launches: the training runs of each path (B3 lands d_x on the
+    # windowed and CSR paths; the dense backward sums by sender itself);
     # no single PyTorch call computes gather + GEMM + segmented max, nor the
-    # routed backward; the landing's is index_add_
+    # routed backward; the projection's is torch.mm, the landing's
+    # index_add_ (timed on the kNN batch under the windowed tiling)
     summary["kernels"] = [
+        entry("dense_proj_v4", "dense_fwd_v4.cu", 2279, dense_l[11],
+              proj_rows, proj_rows, True),
         entry("dense_fwd_v4", "dense_fwd_v4.cu", 2279, dense_l[0], fwd_rows,
               fwd_rows, False),
         entry("dense_bwd_v4", "dense_bwd_v4.cu", 2340, dense_l[1], bwd_rows,
@@ -1486,12 +1731,12 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
               entry_l["hoisted_bwd_v1"], last["v1_bwd"], last["v1_bwd"],
               False),
     ]
+    summary["per_shape_proj"] = proj_rows
     summary["per_shape"] = fwd_rows
     summary["per_shape_bwd"] = bwd_rows
-    summary["per_shape_segsum"] = seg_rows
-    out(json.dumps({"card": summary.get("card"), "per_shape": fwd_rows,
+    out(json.dumps({"card": summary.get("card"),
+                    "per_shape_proj": proj_rows, "per_shape": fwd_rows,
                     "per_shape_bwd": bwd_rows,
-                    "per_shape_segsum": seg_rows,
                     "radius": {k: v for k, v in radius.items()
                                if k.startswith(("per_shape", "knn_per",
                                                 "tiling"))},

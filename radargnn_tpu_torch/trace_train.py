@@ -48,17 +48,21 @@ from radargnn_tpu_torch.trace_serving import by_name, device_profile
 from radargnn_tpu_torch.train.trainer import Trainer, set_seeds
 
 # kernel kinds, first match wins (lower-case substrings of the kernel name);
-# the slot-gradient passes are one code in the three backward kernels
+# the slot-gradient passes are one code in the windowed and CSR backward
+# kernels
 _KINDS = (
-    ("dense_fwd_v4 (B1)", ("dense_fwd_v4",)),
+    ("dense_proj_v4 (B1 projection)", ("dense_proj",)),
+    ("dense_fwd_v4 (B1 gather-max)", ("dense_fwd_v4",)),
+    ("dense_bwd_v4 receiver pass (B2)", ("recv_pass",)),
+    ("dense_bwd_v4 sender sums (B2)", ("send_pass",)),
+    ("dense_bwd_v4 dW_e reduce (B2)", ("reduce_pass",)),
     ("windowed_fwd_v3 (B4)", ("windowed_fwd_v3",)),
     ("csr_fwd_v2 (B5)", ("csr_fwd_v2",)),
     ("windowed_bwd_v3 route (B4)", ("windowed_route",)),
     ("csr_bwd_v2 route + edge partials (B5)", ("csr_route",)),
     ("csr_bwd_v2 edge reduce (B5)", ("csr_edge_reduce",)),
-    ("dense_bwd_v4 route (B2)", ("route_kernel",)),
-    ("slot products (B2 / B4 / B5)", ("slot_products",)),
-    ("weight partials + reduce (B2 / B4 / B5)",
+    ("slot products (B4 / B5)", ("slot_products",)),
+    ("weight partials + reduce (B4 / B5)",
      ("weight_partials", "reduce_partials")),
     ("segment_sum_csr (B3)", ("segment_sum_csr",)),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "ampere", "sm80_",

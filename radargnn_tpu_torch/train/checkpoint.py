@@ -13,7 +13,8 @@ Flax encodes a numpy array as the msgpack extension type 1 holding the
 packed (shape, dtype name, C-order bytes) and a numpy scalar as type 3;
 this module writes and reads that encoding with `msgpack` alone, so files
 cross between the two packages both ways. `msgpack` is imported where it
-is used. The orbax backend (multi-host) is ROADMAP item A10.
+is used. The orbax backend (multi-host, `RADARGNN_CKPT_BACKEND=orbax`) is ROADMAP
+item A6 and raises.
 """
 
 from __future__ import annotations
@@ -91,7 +92,13 @@ def save_train_state(folder: str, *, params, batch_stats, opt_state,
                      scheduler_lr: float,
                      extra: Optional[Dict[str, Any]] = None) -> None:
     """Writes model.msgpack, opt_state.msgpack and meta.json to `folder`
-    (trees of numpy arrays in the flax / optax layouts)."""
+    (trees of numpy arrays in the flax / optax layouts): the JAX package's
+    msgpack backend. Its other backend, `RADARGNN_CKPT_BACKEND=orbax`, is
+    not ported and raises."""
+    if os.environ.get("RADARGNN_CKPT_BACKEND") == "orbax":
+        raise NotImplementedError(
+            "RADARGNN_CKPT_BACKEND=orbax: only the msgpack backend is ported "
+            "(orbax: ROADMAP.md item A6)")
     os.makedirs(folder, exist_ok=True)
     meta = {"epoch": epoch, "scheduler_lr": float(scheduler_lr),
             "losses": {k: [float(x) for x in v] for k, v in losses.items()}}
@@ -109,7 +116,7 @@ def load_train_state(folder: str):
     either package's `save_train_state` wrote with the msgpack backend."""
     if os.path.isdir(os.path.join(folder, "orbax")):
         raise NotImplementedError("orbax checkpoints are not ported yet "
-                                  "(ROADMAP.md item A10)")
+                                  "(ROADMAP.md item A6)")
     model = load_variables(os.path.join(folder, "model.msgpack"))
     opt_sd = load_variables(os.path.join(folder, "opt_state.msgpack"))
     with open(os.path.join(folder, "meta.json")) as f:

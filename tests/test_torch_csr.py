@@ -175,13 +175,14 @@ def test_fused_csr_tiling_csr_matches_jax():
             **dict(kw, fused_tiling="sparse")))
 
 
-def _agg_setup(seed=13, widths=None, hub=False):
+def _agg_setup(seed=13, widths=None, hub=False, h=32):
     """tests/test_pallas.py's v2 case (96 nodes, 500 random edges, 10 %
     masked, 32-node blocks, 32-slot tiles), optionally with a tenth of the
     edges on five hub receivers (runs span tiles) and odd widths (d_in,
-    d_e); the receiver tiling and the sender-sorted tiling."""
+    d_e), conv width `h`; the receiver tiling and the sender-sorted
+    tiling."""
     rng = np.random.default_rng(seed)
-    n, e, d_in, de, h = 96, 500, 24, 8, 32
+    n, e, d_in, de = 96, 500, 24, 8
     nb, et = 32, 32
     send = rng.integers(0, n, e).astype(np.int32)
     recv = rng.integers(0, n, e).astype(np.int32)
@@ -291,6 +292,20 @@ def test_csr_aggregate_gradients_match_jax(case, ssum):
         assert u.dtype == np.float32 and u.shape == v.shape, name
         np.testing.assert_allclose(u, v, rtol=RTOL, atol=ATOL, err_msg=name)
     assert np.abs(got[2]).max() > 0
+
+
+def test_csr_aggregate_at_a_conv_width_of_450():
+    """H = 450, not a multiple of 8 (the card's backward pads it): the
+    forward and the five gradients against the JAX package."""
+    geo, a = _agg_setup(seed=19, widths=(21, 2), h=450)
+    want = np.asarray(_jax_fused(geo, a, True)(
+        *(jnp.asarray(a[k]) for k in _DIFF)))
+    got = _port_call(geo, a)
+    assert got.shape == want.shape == (geo["n"], 450)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    for name, u, v in zip(_DIFF, _port_grads(geo, a), _jax_grads(geo, a)):
+        assert u.shape == v.shape, name
+        np.testing.assert_allclose(u, v, rtol=RTOL, atol=ATOL, err_msg=name)
 
 
 def test_csr_aggregate_gives_tied_slots_the_full_g():

@@ -9,7 +9,12 @@ there, so they agree to float32 summation order (rtol/atol 1e-4, the
 tolerance of the JAX package's own kernel-vs-XLA test), gradients
 included: the port lands d_x by sender in another order than the JAX
 package's window parts, which float32 absorbs well inside 1e-4 here. The
-CUDA kernels themselves run only on the card (tests/test_torch_gpu.py)."""
+CUDA kernels themselves run only on the card (tests/test_torch_gpu.py).
+
+The port's dense backward routes on the forward's bits and lands the
+H-wide sender sums (the JAX package's `sender_dx` form); it is held to the
+JAX custom VJP with and without `sender_dx`, which compute the same
+function."""
 
 import jax
 import jax.numpy as jnp
@@ -29,12 +34,12 @@ _DIFF = ("x", "w_s", "e_t", "w_e", "offset", "e_ovf")
 RTOL = ATOL = 1e-4
 
 
-def _dense_setup(seed=7, K=7, variable_degree=True):
+def _dense_setup(seed=7, K=7, variable_degree=True, h=32):
     """tests/test_pallas.py's `_dense_setup`: a small graph and its dense
     tiling from the JAX package's host tiler. Variable in-degree exercises
-    the over-degree spill and window overflow."""
+    the over-degree spill and window overflow; `h` is the conv width."""
     rng = np.random.default_rng(seed)
-    n, d_in, de, h = 96, 24, 8, 32
+    n, d_in, de = 96, 24, 8
     r_tile, node_block, wb = 8, 16, 2
     if variable_degree:
         e = 400
@@ -92,10 +97,11 @@ def _cut_widths(a, widths):
                 e_t=a["e_t"][:, :de], e_ovf=a["e_ovf"][:, :de])
 
 
-def _jax_grads(geo, a):
+def _jax_grads(geo, a, sender_dx=False):
     """jax.grad of (fused(...)**2).sum() in the six differentiable args."""
     fused = jpk.make_fused_dense_aggregate(
-        geo["n"], geo["K"], geo["r_tile"], geo["node_block"], geo["wb"])
+        geo["n"], geo["K"], geo["r_tile"], geo["node_block"], geo["wb"],
+        sender_dx=sender_dx)
     consts = tuple(map(jnp.asarray, (a["tile_win"], a["sloc"], a["pmask"],
                                      a["ovf_s"], a["ovf_r"])))
     grads = jax.grad(lambda *ar: (fused(*ar, *consts) ** 2).sum(),
@@ -207,27 +213,57 @@ def test_dense_fwd_plain_masks_dummy_slots_by_sender():
     torch.testing.assert_close(again, base, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("sender_dx", [False, True])
 @pytest.mark.parametrize("variable_degree", [True, False])
 @pytest.mark.parametrize("widths", [None, (21, 5)])
-def test_dense_aggregate_gradients_match_jax(variable_degree, widths):
+def test_dense_aggregate_gradients_match_jax(variable_degree, widths,
+                                            sender_dx):
     """The six gradients of (out**2).sum() (x, w_s, e_t, w_e, offset,
     e_ovf), through the port's autograd Function and through the JAX
-    package's custom VJP (interpret mode), with the overflow path."""
+    package's custom VJP (interpret mode), with the overflow path, the JAX
+    backward with its per-slot d_x or its sender sums (`sender_dx`)."""
     geo, a = _dense_setup(variable_degree=variable_degree)
     a = _cut_widths(a, widths)
-    launches = (da.dense_fwd_cuda.launches, da.dense_bwd_cuda.launches,
-                ss.segment_sum_csr_cuda.launches)
+    launches = _launches()
     got = _port_grads(geo, a)
-    assert launches == (da.dense_fwd_cuda.launches,
-                        da.dense_bwd_cuda.launches,
-                        ss.segment_sum_csr_cuda.launches)   # CPU: none
-    for name, u, v in zip(_DIFF, got, _jax_grads(geo, a)):
+    assert launches == _launches()                       # CPU: none
+    for name, u, v in zip(_DIFF, got, _jax_grads(geo, a, sender_dx)):
         assert u.dtype == np.float32 and u.shape == v.shape, name
         np.testing.assert_allclose(u, v, rtol=RTOL, atol=ATOL, err_msg=name)
     assert np.abs(got[5]).max() > 0, "the overflow path should take g"
 
 
-def test_dense_aggregate_gives_tied_slots_the_full_g():
+def _launches():
+    return (da.dense_proj_cuda.launches, da.dense_fwd_cuda.launches,
+            da.dense_bwd_cuda.launches, ss.segment_sum_csr_cuda.launches)
+
+
+@pytest.mark.parametrize("sender_dx", [False, True])
+def test_dense_aggregate_at_a_conv_width_of_450(sender_dx):
+    """H = 450 (2 x 224 + 2: raw relative-position edge features, no edge
+    embedding), not a multiple of 8: the forward and the six gradients
+    against the JAX package."""
+    geo, a = _dense_setup(seed=11, h=450)
+    a = _cut_widths(a, (21, 2))
+    fused = jpk.make_fused_dense_aggregate(
+        geo["n"], geo["K"], geo["r_tile"], geo["node_block"], geo["wb"],
+        sender_dx=sender_dx)
+    want = np.asarray(fused(
+        *map(jnp.asarray, (a["x"], a["w_s"], a["e_t"], a["w_e"],
+                           a["offset"], a["e_ovf"], a["tile_win"],
+                           a["sloc"], a["pmask"], a["ovf_s"], a["ovf_r"]))))
+    got = da.dense_aggregate(*_port_args(a), r_tile=geo["r_tile"],
+                             k=geo["K"], node_block=geo["node_block"])
+    assert got.shape == want.shape == (geo["n"], 450)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    for name, u, v in zip(_DIFF, _port_grads(geo, a),
+                          _jax_grads(geo, a, sender_dx)):
+        assert u.shape == v.shape, name
+        np.testing.assert_allclose(u, v, rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("sender_dx", [False, True])
+def test_dense_aggregate_gives_tied_slots_the_full_g(sender_dx):
     """Two slots of one receiver with the same sender and the same edge
     features tie exactly. Both packages give each of them the full g (the
     TPU kernel's rule), not g/2 (the unfused path's segment max): each tied
@@ -245,11 +281,14 @@ def test_dense_aggregate_gives_tied_slots_the_full_g():
     pm = jpk.window_part_mask(a["tile_win"], -(-geo["n"] // geo["node_block"]),
                               geo["wb"])
     tied["pmask"] = alone["pmask"] = pm
-    for grads in (_port_grads(geo, tied), _jax_grads(geo, tied)):
+    def jax_grads(geo, a):
+        return _jax_grads(geo, a, sender_dx)
+
+    for grads in (_port_grads(geo, tied), jax_grads(geo, tied)):
         d_e = grads[2]
         assert np.abs(d_e[slot0]).max() > 0, "the tied pair should win"
         np.testing.assert_array_equal(d_e[slot0], d_e[slot1])
-    for fn in (_port_grads, _jax_grads):
+    for fn in (_port_grads, jax_grads):
         np.testing.assert_allclose(fn(geo, tied)[2][slot0],
                                    fn(geo, alone)[2][slot0],
                                    rtol=RTOL, atol=ATOL)
@@ -266,27 +305,94 @@ def test_dense_aggregate_needs_the_landing_for_grad():
         da.dense_aggregate(*args, **kw)
 
 
-def test_dense_bwd_plain_matches_the_function_s_slot_part():
-    """dense_bwd_plain alone, on the slot layout without overflow: d_e per
-    slot is d_op @ W_e^T, and it vanishes on empty slots."""
-    geo, a = _dense_setup()
+def _slot_operands(geo, a, overflow=True):
+    """The forward's pieces on the setup: y_s, the operand of every slot
+    (_NEG at empty slots) and the plain forward's (out, inner, bits), with
+    the overflow maxima or without (`overflow` False: the slots alone)."""
     x, w_s, e_t, w_e, offset, e_ovf, t_win, sloc, ovf_s, ovf_r = \
         _port_args(a)
     kw = dict(r_tile=geo["r_tile"], k=geo["K"], node_block=geo["node_block"])
-    inner_o = torch.full_like(offset, da._NEG)
-    _, inner = da.dense_fwd(x, w_s, e_t, w_e, sloc, t_win, inner_o, offset,
-                            emit_inner=True, **kw)
+    y_s = da.dense_proj(x, w_s)
+    inner_o = da.overflow_maxima(
+        da.dense_overflow_operand(y_s, e_ovf, w_e, ovf_s), ovf_r, geo["n"])
+    if not overflow:
+        inner_o = torch.full_like(offset, da._NEG)
+    res = da.dense_fwd(y_s, e_t, w_e, sloc, t_win, inner_o, offset,
+                       emit_inner=True, **kw)
+    sender = t_win.long().repeat_interleave(geo["r_tile"] * geo["K"]) \
+        * geo["node_block"] + sloc.long().clamp(min=0)
+    op = (x[sender] @ w_s + e_t @ w_e).double()
+    op = torch.where((sloc >= 0)[:, None], op, da._NEG)
+    return y_s, op, res
+
+
+@pytest.mark.parametrize("variable_degree", [True, False])
+def test_dense_fwd_bits_are_the_routes_of_the_operand(variable_degree):
+    """The forward's saved bits (VJP mode) are `_routes` of the slot's
+    operand against its receiver's max, at valid slots, and zero past H:
+    the operand recomputed here as x[sender] @ w_s + e @ w_e."""
+    geo, a = _dense_setup(variable_degree=variable_degree)
+    y_s, op, (out, inner, bits) = _slot_operands(geo, a)
+    h = inner.shape[1]
+    assert y_s.shape == (geo["n"], da.col_pad(h))
+    assert bits.dtype == torch.int32
+    assert bits.shape == (op.shape[0], da.col_pad(h) // 32)
+    recv = da._slot_receivers(op.shape[0], geo["r_tile"], geo["K"], "cpu")
+    valid = torch.from_numpy(a["sloc"] >= 0)
+    want = da._routes(op.float(), inner[recv]) & valid[:, None]
+    got = da.unpack_bits(bits, da.col_pad(h))
+    assert torch.equal(got[:, :h], want)
+    assert not got[:, h:].any()
+    assert torch.equal(da.pack_bits(want), bits)
+    # each receiver's max over its slots is routed where it is the max
+    slot_max = op.float().reshape(-1, geo["K"], geo["r_tile"], h).amax(1)
+    at_max = (slot_max.reshape(-1, h) == inner) & (inner > da._NEG / 2)
+    routed = got[:, :h].reshape(-1, geo["K"], geo["r_tile"], h).any(1)
+    assert at_max.any() and routed.reshape(-1, h)[at_max].all()
+
+
+def test_pack_bits_round_trips():
+    sel = torch.from_numpy(np.random.default_rng(4).random((37, 100)) < 0.3)
+    bits = da.pack_bits(sel)
+    assert bits.shape == (37, 4) and bits.dtype == torch.int32
+    assert torch.equal(da.unpack_bits(bits, 100), sel)
+    sel[:, 31] = True           # the sign bit of word 0
+    assert torch.equal(da.unpack_bits(da.pack_bits(sel), 100), sel)
+
+
+def test_dense_bwd_plain_matches_the_function_s_slot_part():
+    """dense_bwd_plain alone on the slot layout without overflow rows, the
+    new return contract (d_e, dW_e, d_ys): d_op is g at the slot's
+    receiver where its bit is set; d_e per slot is d_op @ W_e^T and
+    vanishes on empty slots; dW_e is e_t^T d_op; d_ys sums d_op at the
+    slots' senders."""
+    geo, a = _dense_setup()
+    _, _, (_, inner, bits) = _slot_operands(geo, a, overflow=False)
+    _, _, e_t, w_e, _, _, _, sloc, _, _ = _port_args(a)
     has = inner > da._NEG / 2
     g = torch.from_numpy(np.random.default_rng(1).normal(
         size=inner.shape).astype(np.float32))
-    d_xg, d_e, dw_s, dw_e = da.dense_bwd(
-        x, w_s, e_t, w_e, sloc, t_win, torch.where(has, inner, 0.0),
-        torch.where(has, g, 0.0), **kw)
-    assert d_xg.shape == (e_t.shape[0], x.shape[1])
-    assert dw_s.shape == w_s.shape and dw_e.shape == w_e.shape
+    g_pass = torch.where(has, g, 0.0)
+    landing = _landing(geo, a)
+    n_ovf = a["ovf_s"].shape[0]
+    d_op_o = torch.zeros((n_ovf, inner.shape[1]))
+    d_e, dw_e, d_ys = da.dense_bwd(bits, g_pass, e_t, w_e, d_op_o,
+                                   landing.order, landing.row_ptr,
+                                   r_tile=geo["r_tile"], k=geo["K"])
+    assert d_e.shape == e_t.shape and dw_e.shape == w_e.shape
+    assert d_ys.shape == inner.shape and d_ys.dtype == torch.float32
     empty = sloc < 0
-    assert empty.any()
-    assert (d_e[empty] == 0).all() and (d_xg[empty] == 0).all()
+    assert empty.any() and (d_e[empty] == 0).all()
+    recv = da._slot_receivers(e_t.shape[0], geo["r_tile"], geo["K"], "cpu")
+    d_op = torch.where(da.unpack_bits(bits, inner.shape[1]), g_pass[recv],
+                       0.0)
+    torch.testing.assert_close(d_e, d_op @ w_e.t())
+    torch.testing.assert_close(dw_e, e_t.t() @ d_op)
+    sender = torch.from_numpy(np.repeat(a["tile_win"], geo["r_tile"] * geo["K"])
+                              * geo["node_block"] + a["sloc"]).long()
+    want = torch.zeros_like(d_ys).index_add_(
+        0, sender[~empty], d_op[~empty])
+    torch.testing.assert_close(d_ys, want)
     # every receiver with a slot routes its g to at least one slot
     routed = (d_e.reshape(-1, geo["K"], geo["r_tile"], d_e.shape[1]) != 0
               ).any(dim=(1, 3)).reshape(-1)
@@ -366,31 +472,33 @@ def test_sender_landing_groups_every_valid_row_by_sender(variable_degree):
 
 
 def test_dense_fwd_cuda_refuses_cpu_tensors():
-    """The kernel's wrapper checks its inputs before it builds or launches:
-    it never falls back to the plain version."""
+    """The kernels' wrappers check their inputs before they build or
+    launch: they never fall back to the plain versions."""
     geo, a = _dense_setup()
     x, w_s, e_t, w_e, offset, e_ovf, t_win, sloc, ovf_s, ovf_r = \
         _port_args(a)
     inner_o = torch.full_like(offset, da._NEG)
     with pytest.raises(ValueError, match="CUDA"):
-        da.dense_fwd_cuda(x.bfloat16(), w_s.bfloat16(), e_t.bfloat16(),
-                          w_e.bfloat16(), sloc, t_win, inner_o, offset,
-                          r_tile=geo["r_tile"], k=geo["K"],
+        da.dense_proj_cuda(x.bfloat16(), w_s.bfloat16())
+    y_s = da.dense_proj_plain(x, w_s)
+    with pytest.raises(ValueError, match="CUDA"):
+        da.dense_fwd_cuda(y_s, e_t.bfloat16(), w_e.bfloat16(), sloc, t_win,
+                          inner_o, offset, r_tile=geo["r_tile"], k=geo["K"],
                           node_block=geo["node_block"])
 
 
 def test_backward_wrappers_refuse_cpu_tensors():
     """The backward kernels' and the landing's wrappers too."""
     geo, a = _dense_setup()
-    x, w_s, e_t, w_e, offset, e_ovf, t_win, sloc, ovf_s, ovf_r = \
-        _port_args(a)
-    kw = dict(r_tile=geo["r_tile"], k=geo["K"], node_block=geo["node_block"])
-    bf = [t.bfloat16() for t in (x, w_s, e_t, w_e)]
-    with pytest.raises(ValueError, match="CUDA"):
-        da.dense_bwd_cuda(*bf, sloc, t_win, offset, offset, **kw)
+    _, _, (_, inner, bits) = _slot_operands(geo, a)
+    e_t, w_e = (torch.from_numpy(a[k]).bfloat16() for k in ("e_t", "w_e"))
     order, row_ptr = _landing(geo, a)
     with pytest.raises(ValueError, match="CUDA"):
-        ss.segment_sum_csr_cuda(bf[0], order, row_ptr)
+        da.dense_bwd_cuda(bits, inner, e_t, w_e,
+                          torch.zeros((a["ovf_s"].shape[0], inner.shape[1])),
+                          order, row_ptr, r_tile=geo["r_tile"], k=geo["K"])
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.segment_sum_csr_cuda(e_t, order, row_ptr)
 
 
 def test_gather_dtype_follows_the_device():

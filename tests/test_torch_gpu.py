@@ -83,41 +83,66 @@ def _rel_err(got, want):
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1.0)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", [
-    (128, 7, 16, 32, 24, 8, 40),          # small tile, H not a multiple of 64
-    (1024, 24, 64, 256, 224, 16, 464),    # the flagship layers' widths
+def _fwd_args(c):
+    """The gather-max's inputs for case `c` on the kernel path: the
+    projection, the overflow maxima from it, the layout, the offset."""
+    y_s = da.dense_proj(c["x"], c["w_s"])
+    inner_o = da.overflow_maxima(
+        da.dense_overflow_operand(y_s, c["e_ovf"], c["w_e"], c["ovf_s"]),
+        c["ovf_r"], c["offset"].shape[0])
+    return (y_s, c["e_t"], c["w_e"], c["sloc"], c["tile_win"], inner_o,
+            c["offset"])
+
+
+# (n, K, R, node_block, d_in, d_e, H): a small tile with H not a multiple
+# of 64, then the five layer shapes of the flagship (three alike)
+_DSHAPES = [
+    (128, 7, 16, 32, 24, 8, 40),
+    (1024, 24, 64, 256, 224, 16, 464),
     (1024, 24, 64, 256, 128, 16, 272),
     (1024, 24, 64, 256, 64, 16, 144),
-])
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _DSHAPES)
 def test_dense_fwd_kernel_matches_plain(shape):
+    """The projection and the gather-max against their plain versions,
+    serving and VJP mode; the empty receivers agree exactly and the
+    routing bits all but exactly (real-valued inputs)."""
     _need_card()
     c = _case(0, *shape)
-    inner_o = da.dense_overflow_inner(c["x"], c["w_s"], c["e_ovf"], c["w_e"],
-                                      c["ovf_s"], c["ovf_r"], shape[0])
-    args = (c["x"], c["w_s"], c["e_t"], c["w_e"], c["sloc"], c["tile_win"],
-            inner_o, c["offset"])
-    before = da.dense_fwd_cuda.launches
+    before = (da.dense_proj_cuda.launches, da.dense_fwd_cuda.launches)
+    args = _fwd_args(c)
     got = da.dense_fwd(*args, **c["kw"])
+    got_vjp, inner, bits = da.dense_fwd(*args, emit_inner=True, **c["kw"])
     torch.cuda.synchronize()
-    assert da.dense_fwd_cuda.launches == before + 1
-    want = da.dense_fwd_plain(*args, **c["kw"])
-    assert torch.isfinite(got).all()
+    assert (da.dense_proj_cuda.launches, da.dense_fwd_cuda.launches) == (
+        before[0] + 1, before[1] + 2)
+    assert _rel_err(args[0], da.dense_proj_plain(c["x"], c["w_s"])) <= RTOL
+    want, want_inner, want_bits = da.dense_fwd_plain(*args, emit_inner=True,
+                                                     **c["kw"])
+    assert torch.isfinite(got).all() and torch.equal(got, got_vjp)
     assert _rel_err(got, want) <= RTOL
     assert torch.equal(got == 0, want == 0)       # the same empty receivers
+    has = want_inner > da._NEG / 2
+    assert torch.equal(inner > da._NEG / 2, has)
+    flips = smoke._popcount(bits ^ want_bits)
+    assert flips <= smoke.BITS_FLIP_FRAC * bits.numel() * 32
+    assert smoke._popcount(bits) > 0
 
 
 @pytest.mark.gpu
 def test_dense_aggregate_pads_odd_widths():
     """Widths that are not multiples of 8 (d_in 21, d_e 2: raw edge features
-    without an embedding) reach the kernel zero-padded, from float32
+    without an embedding) reach the kernels zero-padded, from float32
     inputs, and give the plain path's result."""
     _need_card()
     c = _case(1, 128, 7, 16, 32, 21, 2, 40, dtype=torch.float32)
     args = (c["x"], c["w_s"], c["e_t"], c["w_e"], c["offset"], c["e_ovf"],
             c["tile_win"], c["sloc"], c["ovf_s"], c["ovf_r"])
     got = da.dense_aggregate(*args, **c["kw"])
-    with mock.patch.object(da, "dense_fwd", da.dense_fwd_plain):
+    with smoke._plain_kernels():
         want = da.dense_aggregate(*args, **c["kw"])
     torch.cuda.synchronize()
     assert _rel_err(got, want) <= RTOL
@@ -127,56 +152,75 @@ def test_dense_aggregate_pads_odd_widths():
 def test_kernel_refuses_what_it_does_not_take():
     _need_card()
     c = _case(2, 128, 7, 16, 32, 24, 8, 40)
-    inner_o = torch.full_like(c["offset"], da._NEG)
-    args = [c["x"], c["w_s"], c["e_t"], c["w_e"], c["sloc"], c["tile_win"],
-            inner_o, c["offset"]]
+    args = list(_fwd_args(c))
     with pytest.raises(ValueError, match="bf16"):
-        da.dense_fwd(c["x"].float(), *args[1:], **c["kw"])
+        da.dense_proj(c["x"].float(), c["w_s"])
     with pytest.raises(ValueError, match="contiguous"):
-        da.dense_fwd(c["x"].t().contiguous().t(), *args[1:], **c["kw"])
+        da.dense_proj(c["x"].t().contiguous().t(), c["w_s"])
+    with pytest.raises(ValueError, match="float32"):
+        da.dense_fwd(args[0].bfloat16(), *args[1:], **c["kw"])
+    with pytest.raises(ValueError, match="bf16"):
+        da.dense_fwd(args[0], args[1].float(), *args[2:], **c["kw"])
     c = _case(3, 128, 7, 8, 32, 24, 8, 40)          # 8 receivers per tile
     with pytest.raises(ValueError, match="r_tile"):
-        da.dense_fwd(c["x"], c["w_s"], c["e_t"], c["w_e"], c["sloc"],
-                     c["tile_win"], torch.full_like(c["offset"], da._NEG),
-                     c["offset"], **c["kw"])
+        da.dense_fwd(*_fwd_args(c), **c["kw"])
 
 
-def _bwd_inputs(c, seed):
-    """The backward kernels' inputs for case `c`: the kernel forward's
-    maxima (VJP mode) and a seeded g, zeroed at empty receivers."""
-    n = c["offset"].shape[0]
-    inner_o = da.dense_overflow_inner(c["x"], c["w_s"], c["e_ovf"], c["w_e"],
-                                      c["ovf_s"], c["ovf_r"], n)
-    _, inner = da.dense_fwd(c["x"], c["w_s"], c["e_t"], c["w_e"], c["sloc"],
-                            c["tile_win"], inner_o, c["offset"],
-                            emit_inner=True, **c["kw"])
+def _bwd_inputs(c, seed, dyadic=False):
+    """The backward kernels' inputs for case `c`: the kernel forward's bits
+    (VJP mode), a seeded g zeroed at empty receivers, the overflow rows
+    routed on the forward's overflow operands, the landing."""
+    if dyadic:
+        gen = torch.Generator().manual_seed(seed + 1000)
+        for name, scale in (("x", 1.0), ("w_s", 0.25), ("e_t", 1.0),
+                            ("w_e", 0.25), ("e_ovf", 1.0)):
+            c[name] = (torch.randint(-4, 5, c[name].shape, generator=gen)
+                       * scale / 2).to(c[name])
+    args = _fwd_args(c)
+    _, inner, bits = da.dense_fwd(*args, emit_inner=True, **c["kw"])
     gen = torch.Generator().manual_seed(seed)
     g = torch.randn(inner.shape, generator=gen).cuda()
+    if dyadic:
+        g = torch.randint(-8, 9, inner.shape, generator=gen).cuda() / 8.0
     has = inner > da._NEG / 2
-    return (c["x"], c["w_s"], c["e_t"], c["w_e"], c["sloc"], c["tile_win"],
-            torch.where(has, inner, 0.0), torch.where(has, g, 0.0))
+    g_pass = torch.where(has, g, 0.0)
+    inner_z = torch.where(has, inner, 0.0)
+    op_o = da.dense_overflow_operand(args[0], c["e_ovf"], c["w_e"],
+                                     c["ovf_s"])
+    mask = c["ovf_r"] >= 0
+    recv = torch.where(mask, c["ovf_r"], 0).long()
+    d_op_o = torch.where(mask[:, None] & da._routes(op_o, inner_z[recv]),
+                         g_pass[recv], 0.0)
+    order, row_ptr = c["landing"]
+    return (bits, g_pass, c["e_t"], c["w_e"], d_op_o, order, row_ptr)
+
+
+def _bkw(c):
+    return dict(r_tile=c["kw"]["r_tile"], k=c["kw"]["k"])
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [
-    (128, 7, 16, 32, 24, 8, 40),
-    (1024, 24, 64, 256, 224, 16, 464),
-    (1024, 24, 64, 256, 64, 16, 144),
-])
-def test_dense_bwd_kernel_matches_plain(shape):
+@pytest.mark.parametrize("shape", _DSHAPES)
+@pytest.mark.parametrize("dyadic", [False, True])
+def test_dense_bwd_kernel_matches_plain(shape, dyadic):
+    """d_e, dW_e and the sender sums d_ys against the plain version from
+    the same bits; on dyadic inputs, where every sum is exact, bitwise."""
     _need_card()
     c = _case(4, *shape)
-    args = _bwd_inputs(c, 5)
+    args = _bwd_inputs(c, 5, dyadic)
     before = da.dense_bwd_cuda.launches
-    got = da.dense_bwd(*args, **c["kw"])
+    got = da.dense_bwd(*args, **_bkw(c))
     torch.cuda.synchronize()
     assert da.dense_bwd_cuda.launches == before + 1
-    want = da.dense_bwd_plain(*args, **c["kw"])
-    for name, u, v, tol in zip(("d_xg", "d_e", "dW_s", "dW_e"), got, want,
-                               (RTOL_BF16_OUT, RTOL_BF16_OUT, RTOL, RTOL)):
+    want = da.dense_bwd_plain(*args, **_bkw(c))
+    for name, u, v, tol in zip(("d_e", "dW_e", "d_ys"), got, want,
+                               (RTOL_BF16_OUT, RTOL, RTOL)):
         assert u.dtype == v.dtype and u.shape == v.shape, name
         assert torch.isfinite(u).all(), name
         assert _rel_err(u.float(), v.float()) <= tol, name
+        if dyadic and name != "dW_e":
+            assert torch.equal(u, v), name
+    assert float(got[2].abs().max()) > 0
 
 
 @pytest.mark.gpu
@@ -207,42 +251,50 @@ def test_segment_sum_kernel_matches_plain():
 
 @pytest.mark.gpu
 def test_dense_backward_is_bitwise_deterministic():
-    """Two runs of the backward kernels and the landing on the same inputs
-    give the same bits."""
+    """Two runs of the forward (bits) and of the backward kernels on the
+    same real-valued inputs give the same bits."""
     _need_card()
     c = _case(8, 1024, 24, 64, 256, 224, 16, 464)
     args = _bwd_inputs(c, 9)
-    order, row_ptr = c["landing"]
-    # the landing lists the overflow rows too, after the slots
-    ovf_rows = torch.ones((c["ovf_s"].shape[0], 224), device="cuda")
-    runs = []
-    for _ in range(2):
-        d_xg, d_e, dw_s, dw_e = da.dense_bwd(*args, **c["kw"])
-        d_x = ss.segment_sum_csr(d_xg, order, row_ptr, ovf_rows)
-        runs.append((d_x, d_e, dw_s, dw_e))
+    again = _bwd_inputs(c, 9)
+    assert torch.equal(args[0], again[0])
+    runs = [da.dense_bwd(*args, **_bkw(c)) for _ in range(2)]
     torch.cuda.synchronize()
     for u, v in zip(*runs):
         assert torch.equal(u, v)
 
 
-@pytest.mark.gpu
-def test_dense_aggregate_gradients_match_plain_path():
-    """The autograd Function on the kernels against the same Function with
-    the three kernels patched to their plain versions, float32 inputs of
-    odd widths (zero-padded for the kernels)."""
-    _need_card()
-    c = _case(10, 128, 7, 16, 32, 21, 2, 40, dtype=torch.float32)
-    names = ("x", "w_s", "e_t", "w_e", "offset", "e_ovf")
+def _grads_kernel_and_plain(aggregate, c, names, *consts):
+    """The gradients of (out**2).sum() through `aggregate` on the kernels
+    and with every kernel patched to its plain version."""
     grads = []
     for plain in (False, True):
         leaves = [c[nm].clone().requires_grad_(True) for nm in names]
         with smoke._plain_kernels() if plain else contextlib.nullcontext():
-            out = da.dense_aggregate(*leaves, c["tile_win"], c["sloc"],
-                                     c["ovf_s"], c["ovf_r"],
-                                     landing=c["landing"], **c["kw"])
+            out = aggregate(leaves, *consts)
             grads.append(torch.autograd.grad((out ** 2).sum(), leaves))
     torch.cuda.synchronize()
-    for name, u, v in zip(names, *grads):
+    return grads
+
+
+def _dense_agg(c):
+    def call(leaves):
+        return da.dense_aggregate(*leaves, c["tile_win"], c["sloc"],
+                                  c["ovf_s"], c["ovf_r"],
+                                  landing=c["landing"], **c["kw"])
+    return call
+
+
+@pytest.mark.gpu
+def test_dense_aggregate_gradients_match_plain_path():
+    """The autograd Function on the kernels against the same Function with
+    the kernels patched to their plain versions, float32 inputs of odd
+    widths (zero-padded for the kernels)."""
+    _need_card()
+    c = _case(10, 128, 7, 16, 32, 21, 2, 40, dtype=torch.float32)
+    names = ("x", "w_s", "e_t", "w_e", "offset", "e_ovf")
+    for name, u, v in zip(names, *_grads_kernel_and_plain(_dense_agg(c), c,
+                                                          names)):
         assert _rel_err(u, v) <= RTOL_BF16_OUT, name
 
 
@@ -251,10 +303,14 @@ def test_backward_kernels_refuse_what_they_do_not_take():
     _need_card()
     c = _case(11, 128, 7, 16, 32, 24, 8, 40)
     args = list(_bwd_inputs(c, 12))
-    with pytest.raises(ValueError, match="bf16"):
-        da.dense_bwd(args[0].float(), *args[1:], **c["kw"])
+    with pytest.raises(ValueError, match="int32"):
+        da.dense_bwd(args[0].long(), *args[1:], **_bkw(c))
     with pytest.raises(ValueError, match="float32"):
-        da.dense_bwd(*args[:7], args[7].bfloat16(), **c["kw"])
+        da.dense_bwd(args[0], args[1].bfloat16(), *args[2:], **_bkw(c))
+    with pytest.raises(ValueError, match="bf16"):
+        da.dense_bwd(*args[:2], args[2].float(), *args[3:], **_bkw(c))
+    with pytest.raises(ValueError, match="do not match"):
+        da.dense_bwd(args[0][:, :1].contiguous(), *args[1:], **_bkw(c))
     order, row_ptr = c["landing"]
     rows = torch.zeros((c["e_t"].shape[0], 24), device="cuda")
     with pytest.raises(ValueError, match="int32"):
@@ -625,6 +681,45 @@ def test_csr_kernels_refuse_what_they_do_not_take():
     assert ca.csr_fwd_cuda.launches == before
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["dense", "windowed", "csr"])
+def test_backward_at_a_conv_width_of_450(path):
+    """H = 450 (2 x 224 + 2, raw relative-position edge features), not a
+    multiple of 8: each path's autograd Function trains on the kernels
+    (the backward wrappers pad H) and matches the plain path."""
+    _need_card()
+    if path == "dense":
+        c = _case(40, 256, 9, 32, 64, 21, 2, 450, dtype=torch.float32)
+        names = ("x", "w_s", "e_t", "w_e", "offset", "e_ovf")
+        aggregate = _dense_agg(c)
+        launches = (da.dense_bwd_cuda, "launches")
+    elif path == "windowed":
+        c = _wcase(41, 200, 3000, 32, 32, 21, 2, 450, dtype=torch.float32)
+        names = ("x", "w_s", "e_t", "w_e", "offset", "e_ovf")
+        recv, sloc, t_win, blocks = c["layout"]
+
+        def aggregate(leaves):
+            return wa.windowed_aggregate(*leaves, recv, blocks, t_win, sloc,
+                                         c["ovf_s"], c["ovf_r"],
+                                         landing=c["landing"], **c["kw"])
+        launches = (wa.windowed_bwd_cuda, "launches")
+    else:
+        c = _ccase(42, 200, 3000, 32, 32, 21, 2, 450, dtype=torch.float32)
+        names = ("x", "w_s", "e_t", "w_e", "offset")
+
+        def aggregate(leaves):
+            x, w_s, e_t, w_e, offset = leaves
+            return ca.csr_aggregate(x, w_s, e_t, w_e, *c["layout"], offset,
+                                    landing=c["landing"], **c["kw"])
+        launches = (ca.csr_bwd_cuda, "launches")
+    before = getattr(*launches)
+    grads = _grads_kernel_and_plain(aggregate, c, names)
+    assert getattr(*launches) == before + 1
+    for name, u, v in zip(names, *grads):
+        assert u.shape == c[name].shape and torch.isfinite(u).all(), name
+        assert _rel_err(u, v) <= RTOL_BF16_OUT, name
+
+
 # -- the kernels no model path runs: fused linear, segment-max, v1 pair ----
 
 def _cuda(arr, dtype=torch.float32):
@@ -925,10 +1020,11 @@ def test_kernel_entry_points_on_card():
 def test_smoke_on_card():
     """The smoke at a small size: the kernels build and match their plain
     versions at the model's layer shapes, every conv layer of each of the
-    three requests launches its forward, and every conv layer of each of
-    the two train steps launches the path's three kernels (B3 on all
-    three paths). Two steps keep it short; each is held to the plain path
-    at its own parameters, with the smoke's limits."""
+    three requests launches its forward (the dense path its projection
+    too), and every conv layer of each of the two train steps launches the
+    path's kernels (B3 on the windowed and CSR paths). Two steps keep it
+    short; each is held to the plain path at its own parameters, with the
+    smoke's limits."""
     _need_card()
     summary = smoke.run("cuda", points=512, graphs=2, batches=3, reps=2,
                         train_steps=2, bench=(45_056, 2_253, 464, 464))
@@ -936,10 +1032,12 @@ def test_smoke_on_card():
     # kernel_bench's check, warm-up and 2 timed calls), the forward through
     # both v1 factories and the kernel backward
     assert [k["launches"] for k in summary["kernels"]] == \
-        [5 * 2, 5 * 2, 3 * 5 * 2, 5 * 2, 5 * 2, 5 * 2, 5 * 2, 1, 1 + 3 + 1,
-         2, 1]
-    assert summary["radius"]["serve_launches"] == [0, 0, 0, 5 * 3] + [0] * 7
-    assert summary["csr"]["serve_launches"] == [0] * 5 + [5 * 3] + [0] * 5
+        [5 * 2, 5 * 2, 5 * 2, 2 * 5 * 2, 5 * 2, 5 * 2, 5 * 2, 5 * 2, 1,
+         1 + 3 + 1, 2, 1]
+    assert summary["serve_launches"] == [5 * 3] + [0] * 10 + [5 * 3]
+    assert summary["radius"]["serve_launches"] == [0, 0, 0, 5 * 3] + [0] * 8
+    assert summary["csr"]["serve_launches"] == [0] * 5 + [5 * 3] + [0] * 6
     for kernel in summary["kernels"]:
         assert kernel["ms"] > 0 and kernel["plain_ms"] > 0
-    assert summary["kernels"][2]["library_ms"] > 0
+    assert summary["kernels"][0]["library_ms"] > 0
+    assert summary["kernels"][3]["library_ms"] > 0

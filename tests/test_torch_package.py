@@ -95,7 +95,7 @@ def test_smoke_rehearses_on_cpu():
     fourth phase (the other four kernels against their plain versions at
     the flagship's widths, then kernel_check and kernel_bench, the latter
     at a tiny size); and the kernels line with every key the chip run
-    reports, each of the eleven entries pointing at the TPU kernel it
+    reports, each of the twelve entries pointing at the TPU kernel it
     replaces. Nothing is timed and nothing launches here."""
     lines = []
     before = torch.are_deterministic_algorithms_enabled()
@@ -104,10 +104,12 @@ def test_smoke_rehearses_on_cpu():
     assert torch.are_deterministic_algorithms_enabled() == before
     kernels = summary["kernels"]
     assert [k["name"] for k in kernels] == [
-        "dense_fwd_v4", "dense_bwd_v4", "segment_sum_csr", "windowed_fwd_v3",
+        "dense_proj_v4", "dense_fwd_v4", "dense_bwd_v4", "segment_sum_csr",
+        "windowed_fwd_v3",
         "windowed_bwd_v3", "csr_fwd_v2", "csr_bwd_v2", "fused_linear",
         "msg_segmax", "hoisted_fwd_v1", "hoisted_bwd_v1"]
-    replaced = {"dense_fwd_v4": "def _fused_fwd_kernel_v4",
+    replaced = {"dense_proj_v4": "def _fused_fwd_kernel_v4",
+                "dense_fwd_v4": "def _fused_fwd_kernel_v4",
                 "dense_bwd_v4": "def _fused_bwd_kernel_v4",
                 "segment_sum_csr": "def _segsum_kernel",
                 "windowed_fwd_v3": "def _fused_fwd_kernel_v3",
@@ -134,9 +136,11 @@ def test_smoke_rehearses_on_cpu():
                 replaced[kernel["name"]])
     assert [r["d_in"] for r in summary["per_shape"]] == [224, 224, 224, 128,
                                                           64]
-    assert [r["d"] for r in summary["per_shape_segsum"]] == [224, 224, 224,
-                                                             128, 64]
-    assert all(r["bitwise_repeat"] for r in summary["per_shape_bwd"])
+    assert [r["h"] for r in summary["per_shape_proj"]] == [464, 464, 464,
+                                                           272, 144]
+    assert all(r["bits_flipped"] == 0 for r in summary["per_shape"])
+    assert all(r["bitwise_repeat"] and r["routed"] > 0
+               for r in summary["per_shape_bwd"])
     assert summary["model_max_dprob"] == 0.0
     losses = np.asarray(summary["train_losses"])
     assert losses.shape == (4, 3) and np.isfinite(losses).all()

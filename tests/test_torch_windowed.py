@@ -213,13 +213,13 @@ def test_roll_passes_bound_matches_jax():
             jbatch.roll_passes_bound(js, edge_tile)
 
 
-def _agg_setup(seed=31, run_cap=None, widths=None):
+def _agg_setup(seed=31, run_cap=None, widths=None, h=32):
     """tests/test_pallas.py's windowed aggregate case (96 nodes, 500 random
     edges, 16-node blocks, 32-slot tiles, 2-block windows), its tiling from
-    the port's tiler, optional odd widths (d_in, d_e)."""
+    the port's tiler, optional odd widths (d_in, d_e), conv width `h`."""
     send, recv, mask, n = _random_graph(seed)
     rng = np.random.default_rng(seed + 100)
-    d_in, de, h = 24, 8, 32
+    d_in, de = 24, 8
     nb, et, wb = 16, 32, 2
     a = dict(x=rng.normal(size=(n, d_in)).astype(np.float32),
              w_s=(rng.normal(size=(d_in, h)) * 0.3).astype(np.float32),
@@ -330,6 +330,20 @@ def test_windowed_aggregate_gradients_match_jax(run_cap, widths):
         assert u.dtype == np.float32 and u.shape == v.shape, name
         np.testing.assert_allclose(u, v, rtol=RTOL, atol=ATOL, err_msg=name)
     assert np.abs(got[5]).max() > 0, "the overflow path should take g"
+
+
+def test_windowed_aggregate_at_a_conv_width_of_450():
+    """H = 450, not a multiple of 8 (the card's backward pads it): the
+    forward and the six gradients against the JAX package."""
+    geo, a = _agg_setup(seed=41, widths=(21, 2), h=450)
+    want = np.asarray(_jax_fused(geo)(*(jnp.asarray(a[k]) for k in _DIFF),
+                                      *_jax_consts(a)))
+    got = _port_call(geo, a)
+    assert got.shape == want.shape == (geo["n"], 450)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    for name, u, v in zip(_DIFF, _port_grads(geo, a), _jax_grads(geo, a)):
+        assert u.shape == v.shape, name
+        np.testing.assert_allclose(u, v, rtol=RTOL, atol=ATOL, err_msg=name)
 
 
 def test_windowed_aggregate_gives_tied_slots_the_full_g():
