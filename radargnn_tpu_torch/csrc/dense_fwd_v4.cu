@@ -28,12 +28,13 @@
 // offset, out): the HBM rate bounds it (~29 us per wide layer; the VJP
 // mode adds inner and the bits, ~48 MB). The TPU kernel multiplies
 // x[s] @ W_s once per slot, ~60 GFLOP per wide layer; this design projects
-// once per node in its own launch (dense_proj_v4: one block per 64 nodes x
-// 64 columns on mma.sync, both operands staged in shared memory) and
+// once per node in its own launch (dense_proj_v4: one block per 128 nodes
+// x 64 columns on mma.sync, both operands staged in shared memory) and
 // gathers y_s rows (26 MB at the wide layer, which stays in the 50 MB L2):
 // one block per (tile, 64-column slice) copies each slot row's R sender
-// rows with 16-byte cp.async, double-buffered, adds the edge product (one
-// m16n8k16 step at d_e 16) and keeps the running max in registers. The
+// rows with 16-byte cp.async into a ring of buffers (dense_gather.cuh),
+// adds the edge product (one m16n8k16 step at d_e 16) and keeps the
+// running max in registers. The
 // L2 reads of y_s (E_pad x H x 4 bytes, ~630 MB per wide layer) are what
 // holds it above the floor; the VJP mode gathers twice (the max, then the
 // bits against it). The times are in PERF.md.
@@ -49,21 +50,23 @@ namespace {
 using namespace radargnn;
 
 constexpr float kNeg = -3.0e38f;         // finite -inf stand-in
-constexpr int kProjRows = 64;            // nodes per projection block
+constexpr int kProjRows = 128;           // nodes per projection block
+constexpr int kProjLdw = kBlockCols + 8; // W_s slice row stride (bf16)
 
-// y_s[n][c] = sum_k x[n][k] w_s[k][c] for c < h, 0 for h <= c < hp. One
-// block = 64 nodes x one 64-column slice, 4 warps of 16 nodes; the x rows
-// (16-byte cp.async) and the W_s slice (transposed) in shared memory, the
-// depth padded to the mma k with zeros.
-__global__ void __launch_bounds__(128) dense_proj_kernel(
+// y_s[n][c] = sum_k x[n][k] w_s[k][c] for c < hw, 0 for hw <= c < hp. One
+// block = 128 nodes x one 64-column slice, 8 warps of 16 nodes; the x rows
+// and the W_s slice as it lies ([k][64], 16-byte cp.async, zero past d
+// and hw) in shared memory, the depth padded to the mma k; ldmatrix.trans
+// hands the mma the slice's column fragments.
+__global__ void __launch_bounds__(256) dense_proj_kernel(
     const __nv_bfloat16* __restrict__ x,       // [n, d]
-    const __nv_bfloat16* __restrict__ w_s,     // [d, h]
+    const __nv_bfloat16* __restrict__ w_s,     // [d, hw]
     float* __restrict__ y_s,                   // [n, hp]
-    int n, int d, int h, int hp) {
+    int n, int d, int hw, int hp) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int kp = (d + 15) & ~15, ld = kp + 8;
-    auto* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][ld]
-    __nv_bfloat16* ws = xs + kProjRows * ld;                // [64][ld]
+    const int kp = (d + 15) & ~15, ldx = kp + 8;
+    auto* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [128][ldx]
+    __nv_bfloat16* ws = xs + kProjRows * ldx;               // [kp][ldw]
     const int row0 = blockIdx.x * kProjRows;
     const int col0 = blockIdx.y * kBlockCols;
     const int tid = threadIdx.x;
@@ -71,22 +74,23 @@ __global__ void __launch_bounds__(128) dense_proj_kernel(
     const int m0 = (tid >> 5) * 16;
     const int g = lane >> 2, tq = lane & 3;
 
-    const int chunks = kp / 8;                 // 16-byte chunks per row
+    const int chunks = kp / 8;                 // 16-byte chunks per x row
     for (int i = tid; i < kProjRows * chunks; i += blockDim.x) {
         const int r = i / chunks, c = i % chunks;
         const bool ok = row0 + r < n && c * 8 < d;
-        cp_async16(xs + r * ld + c * 8,
+        cp_async16(xs + r * ldx + c * 8,
                    ok ? x + static_cast<size_t>(row0 + r) * d + c * 8 : x,
                    ok);
     }
-    cp_async_commit();
-    const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-    for (int i = tid; i < kp * kBlockCols; i += blockDim.x) {
-        const int kk = i / kBlockCols, nn = i % kBlockCols;
-        const int col = col0 + nn;
-        ws[nn * ld + kk] = (kk < d && col < h)
-            ? w_s[static_cast<size_t>(kk) * h + col] : zero;
+    constexpr int kWChunks = kBlockCols / 8;   // 16-byte chunks per W row
+    for (int i = tid; i < kp * kWChunks; i += blockDim.x) {
+        const int kk = i / kWChunks, c = i % kWChunks;
+        const int col = col0 + c * 8;
+        const bool ok = kk < d && col < hw;
+        cp_async16(ws + kk * kProjLdw + c * 8,
+                   ok ? w_s + static_cast<size_t>(kk) * hw + col : w_s, ok);
     }
+    cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
 
@@ -95,7 +99,23 @@ __global__ void __launch_bounds__(128) dense_proj_kernel(
     for (int nt = 0; nt < kColTiles; ++nt)
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
-    warp_gemm(acc, xs + m0 * ld, ld, ws, ld, kp, g, tq);
+    // lane t addresses row t % 8 of 8x8 matrix t / 8
+    const int mrow = lane & 7, mat = lane >> 3;
+    for (int k0 = 0; k0 < kp; k0 += 16) {
+        const __nv_bfloat16* ap = xs + (m0 + g) * ldx + k0 + tq * 2;
+        const uint32_t a[4] = {ld_pair(ap), ld_pair(ap + 8 * ldx),
+                               ld_pair(ap + 8), ld_pair(ap + 8 * ldx + 8)};
+#pragma unroll
+        for (int nt = 0; nt < kColTiles; nt += 2) {
+            // B (16 depths x 8 columns) for tiles nt and nt+1: matrices
+            // (k+0, nt) (k+8, nt) (k+0, nt+1) (k+8, nt+1)
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, ws + (k0 + mrow + (mat & 1) * 8) * kProjLdw
+                                 + nt * 8 + (mat >> 1) * 8);
+            mma_bf16_16816(acc[nt], a, b);
+            mma_bf16_16816(acc[nt + 1], a, b + 2);
+        }
+    }
 
 #pragma unroll
     for (int nt = 0; nt < kColTiles; ++nt) {
@@ -205,15 +225,16 @@ extern "C" {
 
 // Shared memory the projection needs for depth d, in bytes.
 size_t dense_proj_v4_smem_bytes(int d) {
-    return sizeof(__nv_bfloat16) * 2 * kProjRows *
-           static_cast<size_t>(((d + 15) & ~15) + 8);
+    const size_t kp = (d + 15) & ~15;
+    return sizeof(__nv_bfloat16) * (kProjRows * (kp + 8) + kp * kProjLdw);
 }
 
 // Launches the projection on `stream`; returns the cudaError_t of the
-// launch. The caller checks shapes, types and alignment: d a multiple of
-// 8, hp = h rounded up to 64, 16-byte aligned x.
+// launch. The caller checks shapes, types and alignment: d and hw (w_s's
+// width, H zero-padded to a multiple of 8) multiples of 8, hp = H rounded
+// up to 64, 16-byte aligned x and w_s.
 int dense_proj_v4(const void* x, const void* w_s, void* y_s, int n, int d,
-                  int h, int hp, void* stream) {
+                  int hw, int hp, void* stream) {
     const size_t smem = dense_proj_v4_smem_bytes(d);
     cudaError_t err = cudaFuncSetAttribute(
         dense_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -221,11 +242,11 @@ int dense_proj_v4(const void* x, const void* w_s, void* y_s, int n, int d,
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((n + kProjRows - 1) / kProjRows, hp / kBlockCols);
     if (grid.x > 0) {
-        dense_proj_kernel<<<grid, 128, smem,
+        dense_proj_kernel<<<grid, 256, smem,
                             static_cast<cudaStream_t>(stream)>>>(
             static_cast<const __nv_bfloat16*>(x),
             static_cast<const __nv_bfloat16*>(w_s), static_cast<float*>(y_s),
-            n, d, h, hp);
+            n, d, hw, hp);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -15,9 +15,10 @@
 // The W_e slice (transposed, depth padded to the mma k) stays in shared
 // memory. For each slot row j the block copies the R sender rows' 64-column
 // slice of y_s (16-byte cp.async, zero for an empty slot) and the R edge
-// rows into a double buffer, so row j+1 loads while row j computes; each
-// warp then forms acc[16 x 64] = e_rows @ W_e on mma.sync and adds the y_s
-// slice from shared memory.
+// rows into a ring of kGatherStages buffers, so rows j+1 .. j+stages-1 are
+// in flight while row j computes (the L2 gather's latency, not its
+// bandwidth, held a double buffer); each warp then forms acc[16 x 64] =
+// e_rows @ W_e on mma.sync and adds the y_s slice from shared memory.
 #pragma once
 
 #include "mma_bf16.cuh"
@@ -26,20 +27,24 @@ namespace radargnn {
 
 constexpr int kYsLd = kBlockCols + 8;    // y_s slice row stride (floats):
                                          // conflict-free float2 fragments
+#ifndef DENSE_GATHER_STAGES
+#define DENSE_GATHER_STAGES 3
+#endif
+constexpr int kGatherStages = DENSE_GATHER_STAGES;   // slot-row buffers
 
 struct GatherSmem {
     int kpe, lde;              // edge depth padded to the mma k; stride (+8)
     __nv_bfloat16* we_s;       // [64][lde]       W_e slice, transposed
-    __nv_bfloat16* ea;         // 2 x [r][lde]    edge rows
-    float* ys;                 // 2 x [r][kYsLd]  sender rows' y_s slice
+    __nv_bfloat16* ea;         // stages x [r][lde]    edge rows
+    float* ys;                 // stages x [r][kYsLd]  sender rows' y_s
 };
 
 // Shared memory the loop needs, in bytes.
 __host__ __device__ inline size_t gather_smem_bytes(int de, int r) {
     const int lde = ((de + 15) & ~15) + 8;
-    return sizeof(__nv_bfloat16) * static_cast<size_t>(kBlockCols + 2 * r) *
-               lde +
-           sizeof(float) * static_cast<size_t>(2 * r) * kYsLd;
+    return sizeof(__nv_bfloat16) *
+               static_cast<size_t>(kBlockCols + kGatherStages * r) * lde +
+           sizeof(float) * static_cast<size_t>(kGatherStages * r) * kYsLd;
 }
 
 __device__ __forceinline__ GatherSmem gather_smem(int de, int r) {
@@ -49,8 +54,8 @@ __device__ __forceinline__ GatherSmem gather_smem(int de, int r) {
     S.lde = S.kpe + 8;
     S.we_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
     S.ea = S.we_s + kBlockCols * S.lde;
-    // (64 + 2r) * lde bf16 is a multiple of 16 bytes (lde % 8 == 0)
-    S.ys = reinterpret_cast<float*>(S.ea + 2 * r * S.lde);
+    // (64 + stages r) lde bf16 is a multiple of 16 bytes (lde % 8 == 0)
+    S.ys = reinterpret_cast<float*>(S.ea + kGatherStages * r * S.lde);
     return S;
 }
 
@@ -69,7 +74,7 @@ struct DenseSenders {
 };
 
 // Stages the W_e slice [col0, col0 + 64), zero past de and h, and zeroes
-// the depth padding [de, kpe) of both edge-row buffers (the mma reads it,
+// the depth padding [de, kpe) of every edge-row buffer (the mma reads it,
 // the copies never write it). The loop's first barrier publishes it.
 __device__ __forceinline__ void stage_edge_weights(
     const GatherSmem& S, const __nv_bfloat16* __restrict__ w_e, int de,
@@ -81,7 +86,8 @@ __device__ __forceinline__ void stage_edge_weights(
         S.we_s[n * S.lde + kk] = (kk < de && col < h)
             ? w_e[static_cast<size_t>(kk) * h + col] : zero;
     }
-    for (int i = threadIdx.x; i < 2 * r * (S.kpe - de); i += blockDim.x) {
+    for (int i = threadIdx.x; i < kGatherStages * r * (S.kpe - de);
+         i += blockDim.x) {
         const int rr = i / (S.kpe - de), c = i % (S.kpe - de);
         S.ea[rr * S.lde + de + c] = zero;
     }
@@ -126,18 +132,20 @@ __device__ __forceinline__ void gather_rows(
                        e_t + (slot0 + rr) * static_cast<size_t>(de) + c * 8,
                        true);
         }
-        cp_async_commit();
     };
 
-    issue(0, 0);
+    // one commit group per slot row, empty past the last: row j has landed
+    // once at most stages - 1 groups are pending
+    for (int s = 0; s < kGatherStages - 1; ++s) {
+        if (s < k) issue(s, s);
+        cp_async_commit();
+    }
     for (int j = 0; j < k; ++j) {
-        const int buf = j & 1;
-        if (j + 1 < k) {
-            issue(j + 1, buf ^ 1);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
+        const int buf = j % kGatherStages;
+        const int next = j + kGatherStages - 1;
+        if (next < k) issue(next, next % kGatherStages);
+        cp_async_commit();
+        cp_async_wait<kGatherStages - 1>();
         __syncthreads();
 
         float acc[kColTiles][4];
@@ -162,7 +170,7 @@ __device__ __forceinline__ void gather_rows(
         const size_t slot0 = tile_slot0 + static_cast<size_t>(j) * r;
         visit(j, acc, senders(slot0 + m0 + g) >= 0,
               senders(slot0 + m0 + g + 8) >= 0);
-        __syncthreads();       // the buffer is refilled two steps later
+        __syncthreads();       // the buffer is refilled in the next step
     }
 }
 

@@ -248,15 +248,27 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def pad_width(*tensors):
+    """Zero-pads the last dimension of each tensor to a multiple of 8, the
+    backward kernels' 16-byte loads of H-wide rows (a padded column's g is
+    0, so it routes nothing); copies only where a pad is needed."""
+    pad = -tensors[0].shape[-1] % 8
+    if not pad:
+        return tensors
+    return tuple(torch.nn.functional.pad(t, (0, pad)).contiguous()
+                 for t in tensors)
+
+
 def dense_proj_cuda(x_c, w_s_c) -> torch.Tensor:
     """Launches the projection of `csrc/dense_fwd_v4.cu` on the current
     stream; raises on inputs it does not take. Counts its launches in
     `dense_proj_cuda.launches`."""
     kernel = "dense_proj_v4"
     bf16 = torch.bfloat16
+    h = w_s_c.shape[1]
+    (w_s_c,) = pad_width(w_s_c)         # 16-byte rows of the W_s slice
     _check_tensors(kernel, dict(x=bf16, w_s=bf16), x=x_c, w_s=w_s_c)
     n, d = x_c.shape
-    h = w_s_c.shape[1]
     _check(w_s_c.shape[0] == d and d % 8 == 0,
            f"x [{n}, {d}] and w_s {tuple(w_s_c.shape)}: d must match and be "
            "a multiple of 8", kernel)
@@ -267,8 +279,8 @@ def dense_proj_cuda(x_c, w_s_c) -> torch.Tensor:
                       device=x_c.device)
     with torch.cuda.device(x_c.device):
         err = lib.dense_proj_v4(x_c.data_ptr(), w_s_c.data_ptr(),
-                                y_s.data_ptr(), n, d, h, y_s.shape[1],
-                                _stream(x_c.device))
+                                y_s.data_ptr(), n, d, w_s_c.shape[1],
+                                y_s.shape[1], _stream(x_c.device))
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
     dense_proj_cuda.launches += 1
@@ -351,17 +363,6 @@ def dense_fwd(y_s, e_t_c, w_e_c, senders_local, tile_win, inner_o, offset,
     return fn(y_s, e_t_c, w_e_c, senders_local, tile_win, inner_o, offset,
               r_tile=r_tile, k=k, node_block=node_block,
               emit_inner=emit_inner)
-
-
-def pad_width(*tensors):
-    """Zero-pads the last dimension of each tensor to a multiple of 8, the
-    backward kernels' 16-byte loads of H-wide rows (a padded column's g is
-    0, so it routes nothing); copies only where a pad is needed."""
-    pad = -tensors[0].shape[-1] % 8
-    if not pad:
-        return tensors
-    return tuple(torch.nn.functional.pad(t, (0, pad)).contiguous()
-                 for t in tensors)
 
 
 def dense_bwd_cuda(bits, g_pass, e_t_c, w_e_c, d_op_o, order, row_ptr, *,

@@ -311,10 +311,14 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 def test_trace_train_sorts_kernels_into_kinds():
     from radargnn_tpu_torch.trace_train import kind_of
-    assert kind_of("route_kernel") == "dense_bwd_v4 route (B2)"
+    assert kind_of("dense_proj_kernel") == "dense_proj_v4 (B1 projection)"
+    assert kind_of("dense_fwd_v4_kernel") == "dense_fwd_v4 (B1 gather-max)"
+    assert kind_of("recv_pass_kernel") == "dense_bwd_v4 receiver pass (B2)"
+    assert kind_of("send_pass_kernel") == "dense_bwd_v4 sender sums (B2)"
+    assert kind_of("reduce_pass_kernel") == "dense_bwd_v4 dW_e reduce (B2)"
     assert kind_of("windowed_route_kernel") == "windowed_bwd_v3 route (B4)"
     assert kind_of("windowed_fwd_v3_kernel") == "windowed_fwd_v3 (B4)"
-    assert kind_of("slot_products_kernel") == "slot products (B2 / B4 / B5)"
+    assert kind_of("slot_products_kernel") == "slot products (B4 / B5)"
     assert kind_of("csr_fwd_v2_kernel") == "csr_fwd_v2 (B5)"
     assert kind_of("csr_route_kernel") == \
         "csr_bwd_v2 route + edge partials (B5)"
