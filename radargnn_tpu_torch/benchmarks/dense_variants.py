@@ -1,16 +1,18 @@
-"""The dense gather-max (csrc/dense_fwd_v4.cu) built with different depths
-of its cp.async ring (DENSE_GATHER_STAGES), timed on the flagship kNN
-batch, on one card.
+"""Build variants of the dense gather-max (csrc/dense_fwd_v4.cu: the depth
+of its cp.async ring, DENSE_GATHER_STAGES, and whether the y_s rows also
+go through L1, DENSE_GATHER_L1), timed on the flagship kNN batch, on one
+card.
 
-Each depth is built into its own library in the build directory and timed,
-in turns, at the flagship's wide layer shape (d_in 224, d_e 16, H 464) on
-the batch of `smoke.flagship_serving` (5 x 2816 points, dense tiling), in
-serving mode and in VJP mode (inner and the routing bits), with CUDA events
-over `reps` calls after a warm-up; every depth must give the default
-build's output, inner and bits bit for bit. Prints one JSON line with the
-card's name and power limit.
+Each variant is built into its own library in the build directory and
+timed, in turns and then in reverse order, at the flagship's wide layer
+shape (d_in 224, d_e 16, H 464) on the batch of `smoke.flagship_serving`
+(5 x 2816 points, dense tiling), in serving mode and in VJP mode (inner
+and the routing bits), with CUDA events over `reps` calls after a warm-up;
+every variant must give the default build's output, inner and bits bit for
+bit. Prints one JSON line with the card's name and power limit.
 
-    python -m radargnn_tpu_torch.benchmarks.dense_stages [--stages 2 3 4]
+    python -m radargnn_tpu_torch.benchmarks.dense_variants \
+        [--variants DENSE_GATHER_STAGES=2 DENSE_GATHER_STAGES=2,DENSE_GATHER_L1=1]
 """
 
 from __future__ import annotations
@@ -29,17 +31,16 @@ from radargnn_tpu_torch.ops import dense_aggregate as da
 from radargnn_tpu_torch.smoke import card_description, flagship_serving
 
 
-def _build(stages: int) -> ctypes.CDLL:
-    """dense_fwd_v4.cu with a ring of `stages` buffers, bound as the port
-    binds it."""
-    path, _ = nvcc_shared("dense_fwd_v4.cu",
-                          (f"DENSE_GATHER_STAGES={stages}",))
+def _build(variant: str) -> ctypes.CDLL:
+    """dense_fwd_v4.cu with the comma-separated NAME=VALUE `variant`, bound
+    as the port binds it."""
+    path, _ = nvcc_shared("dense_fwd_v4.cu", tuple(variant.split(",")))
     lib = ctypes.CDLL(path)
     da._bind_fwd(lib)
     return lib
 
 
-def run(stages: List[int], reps: int = 20, seed: int = 0) -> Dict:
+def run(variants: List[str], reps: int = 20, seed: int = 0) -> Dict:
     dev = torch.device("cuda")
     _, _, loader = flagship_serving(dev, 2816, 5, 1, seed)
     tiling = loader[0].flat_tiling()
@@ -62,31 +63,33 @@ def run(stages: List[int], reps: int = 20, seed: int = 0) -> Dict:
     args = (y_s, e_t, w_e, sloc, t_win, inner_o, rand(n, h))
     kw = dict(r_tile=r_tile, k=k, node_block=tiling.node_block)
     want = da.dense_fwd(*args, emit_inner=True, **kw)
-    libs = {s: _build(s) for s in stages}
-    rows = {s: {"serving_ms": [], "vjp_ms": []} for s in stages}
-    for turn in (stages, stages[::-1]):
-        for s in turn:
+    libs = {v: _build(v) for v in variants}
+    rows = {v: {"serving_ms": [], "vjp_ms": []} for v in variants}
+    for turn in (variants, variants[::-1]):
+        for v in turn:
             with mock.patch.object(da, "load_fwd_kernel",
-                                   lambda s=s: libs[s]):
+                                   lambda v=v: libs[v]):
                 got = da.dense_fwd(*args, emit_inner=True, **kw)
                 torch.cuda.synchronize()
-                if not all(torch.equal(u, v) for u, v in zip(got, want)):
-                    raise AssertionError(f"{s} stages change the result")
-                rows[s]["serving_ms"].append(
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"{v} changes the result")
+                rows[v]["serving_ms"].append(
                     time_ms(lambda: da.dense_fwd(*args, **kw), reps))
-                rows[s]["vjp_ms"].append(time_ms(
+                rows[v]["vjp_ms"].append(time_ms(
                     lambda: da.dense_fwd(*args, emit_inner=True, **kw),
                     reps))
     return {"card": card_description(), "shape": [d, de, h],
-            "stages": {str(s): r for s, r in rows.items()}}
+            "variants": rows}
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--stages", type=int, nargs="+", default=[2, 3, 4])
+    parser.add_argument("--variants", nargs="+", default=[
+        "DENSE_GATHER_STAGES=2", "DENSE_GATHER_STAGES=3",
+        "DENSE_GATHER_STAGES=2,DENSE_GATHER_L1=1"])
     parser.add_argument("--reps", type=int, default=20)
     args = parser.parse_args()
-    print(json.dumps(run(args.stages, args.reps)))
+    print(json.dumps(run(args.variants, args.reps)))
 
 
 if __name__ == "__main__":

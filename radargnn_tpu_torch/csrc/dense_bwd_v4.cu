@@ -19,16 +19,17 @@
 // The caller forms d_x = bf16(d_ys) @ W_s^T and dW_s = bf16(x)^T bf16(d_ys)
 // as node-wide products, as the JAX package's sender_dx wrapper does.
 //
-// Design: three launches on one stream, no atomics and fixed summation
+// Design: four launches on one stream, no atomics and fixed summation
 // orders, so two runs on the same inputs are bitwise equal.
-//  1. recv_pass: one block per tile. The tile's R rows of g, rounded to
+//  1. de_pass: one block per tile. The tile's R rows of g, rounded to
 //     bf16, sit in shared memory; each warp owns 16 receivers, i.e. 16
 //     slots of every slot row. d_op fragments are built in registers from
-//     those rows and the slots' bits (a masked bf16 pair per register):
-//     d_e = d_op @ W_e^T on mma.sync (the W_e fragments read through the
-//     read-only cache), and dW_e = e^T @ d_op per 64-column chunk, summed
-//     over the slot rows in registers, then over the warps in order into
-//     one partial per tile.
+//     those rows and the slots' bits (a masked bf16 pair per register), and
+//     d_e = d_op @ W_e^T runs on mma.sync (the W_e fragments read through
+//     the read-only cache).
+//  1b. dwe_pass: one block per (tile, 64-column chunk), the chunk of the
+//     g rows in shared memory: dW_e = e^T @ d_op, summed over the slot rows
+//     in registers, then over the warps in order into one partial per tile.
 //  2. send_pass: one warp per sender walks the batch's sender-sorted
 //     landing order (SenderLanding: order, row_ptr); each lane owns 8
 //     columns, rebuilds a slot row's d_op from its byte of bits and
@@ -75,47 +76,50 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
            (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
-__global__ void __launch_bounds__(256) recv_pass_kernel(
-    const uint32_t* __restrict__ bits,         // [T*TE, hp/32]
-    const float* __restrict__ g_pass,          // [T*R, hg]
-    const __nv_bfloat16* __restrict__ e_t,     // [T*TE, de]
-    const __nv_bfloat16* __restrict__ w_e,     // [de, hg]
-    __nv_bfloat16* __restrict__ d_e,           // [T*TE, de]
-    float* __restrict__ we_part,               // [T, de16, hp]
-    int de, int hg, int hp, int r_tile, int k) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int ldg_s = hp + 8;                  // gs row stride (bf16)
-    auto* gs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [r][ldg_s]
-    float* red = reinterpret_cast<float*>(gs + r_tile * ldg_s);
-    const int t = blockIdx.x;
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5, lane = tid & 31;
-    const int nwarps = blockDim.x >> 5;
-    const int m0 = warp * 16;
-    const int g = lane >> 2, tq = lane & 3;
-    const int words = hp / 32;
-    const int de16 = (de + 15) & ~15;
-    const size_t tile_slot0 = static_cast<size_t>(t) * r_tile * k;
-
-    // the tile's g rows, rounded to bf16 (d_op's values), zero past hg
-    for (int i = tid; i < r_tile * (hp / 4); i += blockDim.x) {
-        const int r = i / (hp / 4), c = (i % (hp / 4)) * 4;
+// The tile's R rows of g over columns [c0, c0 + width), rounded to bf16
+// (d_op's values), zero past hg, into gs (row stride ld).
+__device__ __forceinline__ void stage_g_rows(
+    const float* __restrict__ g_pass, __nv_bfloat16* gs, int ld, int t,
+    int r_tile, int hg, int c0, int width) {
+    for (int i = threadIdx.x; i < r_tile * (width / 4); i += blockDim.x) {
+        const int r = i / (width / 4), c = (i % (width / 4)) * 4;
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (c < hg) {
+        if (c0 + c < hg) {
             v = *reinterpret_cast<const float4*>(
-                g_pass + (static_cast<size_t>(t) * r_tile + r) * hg + c);
+                g_pass + (static_cast<size_t>(t) * r_tile + r) * hg + c0 +
+                c);
         }
         __nv_bfloat162* dst =
-            reinterpret_cast<__nv_bfloat162*>(gs + r * ldg_s + c);
+            reinterpret_cast<__nv_bfloat162*>(gs + r * ld + c);
         dst[0] = __floats2bfloat162_rn(v.x, v.y);
         dst[1] = __floats2bfloat162_rn(v.z, v.w);
     }
+}
+
+// d_e of one tile (blockIdx.x): per slot row, each warp's 16 slots
+// (receivers m0 .. m0+15) x each 16-feature chunk, over hp in k-steps of
+// 16 columns; A = d_op built from the g rows in shared memory and the
+// slots' bits, B = W_e through the read-only cache.
+__global__ void __launch_bounds__(256) de_pass_kernel(
+    const uint32_t* __restrict__ bits,         // [T*TE, hp/32]
+    const float* __restrict__ g_pass,          // [T*R, hg]
+    const __nv_bfloat16* __restrict__ w_e,     // [de, hg]
+    __nv_bfloat16* __restrict__ d_e,           // [T*TE, de]
+    int de, int hg, int hp, int r_tile, int k) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int ld = hp + 8;                     // gs row stride (bf16)
+    auto* gs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [r][ld]
+    const int t = blockIdx.x;
+    const int lane = threadIdx.x & 31;
+    const int m0 = (threadIdx.x >> 5) * 16;
+    const int g = lane >> 2, tq = lane & 3;
+    const int words = hp / 32;
+    const size_t tile_slot0 = static_cast<size_t>(t) * r_tile * k;
+    stage_g_rows(g_pass, gs, ld, t, r_tile, hg, 0, hp);
     __syncthreads();
 
-    // d_e: per slot row, the warp's 16 slots (receivers m0 .. m0+15) x
-    // each 16-feature chunk, over hp in k-steps of 16 columns
-    const __nv_bfloat16* g0 = gs + (m0 + g) * ldg_s;
-    const __nv_bfloat16* g8 = gs + (m0 + g + 8) * ldg_s;
+    const __nv_bfloat16* g0 = gs + (m0 + g) * ld;
+    const __nv_bfloat16* g8 = gs + (m0 + g + 8) * ld;
     for (int j = 0; j < k; ++j) {
         const size_t slot_a = tile_slot0 + static_cast<size_t>(j) * r_tile +
                               m0 + g;
@@ -127,9 +131,8 @@ __global__ void __launch_bounds__(256) recv_pass_kernel(
                 const uint32_t wa = __ldg(ba + w), wb = __ldg(bb + w);
 #pragma unroll
                 for (int half = 0; half < 2; ++half) {
-                    const int h0 = w * 32 + half * 16;
+                    const int col = w * 32 + half * 16 + tq * 2;
                     const int bit = half * 16 + tq * 2;
-                    const int col = h0 + tq * 2;
                     uint32_t a[4] = {
                         mask_pair(ld_pair(g0 + col), wa, bit),
                         mask_pair(ld_pair(g8 + col), wb, bit),
@@ -164,89 +167,110 @@ __global__ void __launch_bounds__(256) recv_pass_kernel(
             }
         }
     }
+}
 
-    // dW_e: per 16-feature chunk and 64-column chunk, each warp sums
-    // e^T (16 features x its 16 slots) @ d_op (16 slots x 64 columns) over
-    // the slot rows; then the warps' sums in order
+// dW_e's partial of one tile (blockIdx.x) over one 64-column chunk
+// (blockIdx.y): per 16-feature chunk, each warp sums e^T (16 features x
+// its 16 slots) @ d_op (16 slots x 64 columns) over the slot rows, then
+// the warps' sums are added in order.
+__global__ void __launch_bounds__(256) dwe_pass_kernel(
+    const uint32_t* __restrict__ bits,         // [T*TE, hp/32]
+    const float* __restrict__ g_pass,          // [T*R, hg]
+    const __nv_bfloat16* __restrict__ e_t,     // [T*TE, de]
+    float* __restrict__ we_part,               // [T, de16, hp]
+    int de, int hg, int hp, int r_tile, int k) {
+    constexpr int ld = kRedCols + 8;           // gs row stride (bf16)
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    auto* gs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [r][ld]
+    float* red = reinterpret_cast<float*>(gs + r_tile * ld);
+    const int t = blockIdx.x;
+    const int c0 = blockIdx.y * kRedCols;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int nwarps = blockDim.x >> 5;
+    const int m0 = warp * 16;
+    const int g = lane >> 2, tq = lane & 3;
+    const int words = hp / 32;
+    const int de16 = (de + 15) & ~15;
+    const size_t tile_slot0 = static_cast<size_t>(t) * r_tile * k;
+    stage_g_rows(g_pass, gs, ld, t, r_tile, hg, c0, kRedCols);
+    __syncthreads();
+
     for (int f0 = 0; f0 < de16; f0 += 16) {
-        for (int c0 = 0; c0 < hp; c0 += kRedCols) {
-            float acc[kColTiles][4];
+        float acc[kColTiles][4];
 #pragma unroll
-            for (int nt = 0; nt < kColTiles; ++nt)
+        for (int nt = 0; nt < kColTiles; ++nt)
 #pragma unroll
-                for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
-            for (int j = 0; j < k; ++j) {
-                const size_t slot0 = tile_slot0 +
-                    static_cast<size_t>(j) * r_tile + m0;
-                // A = e^T: rows features f0+g, f0+g+8; columns slots
-                // tq*2, tq*2+1 (a0, a1) and tq*2+8, tq*2+9 (a2, a3)
-                __nv_bfloat16 ev[4][2];
+            for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
+        for (int j = 0; j < k; ++j) {
+            const size_t slot0 = tile_slot0 +
+                static_cast<size_t>(j) * r_tile + m0;
+            // A = e^T: rows features f0+g, f0+g+8; columns slots tq*2,
+            // tq*2+1 (a0, a1) and tq*2+8, tq*2+9 (a2, a3)
+            __nv_bfloat16 ev[4][2];
 #pragma unroll
-                for (int s = 0; s < 4; ++s) {
-                    const size_t slot = slot0 + (s >> 1) * 8 + tq * 2 +
-                                        (s & 1);
+            for (int s = 0; s < 4; ++s) {
+                const size_t slot = slot0 + (s >> 1) * 8 + tq * 2 + (s & 1);
 #pragma unroll
-                    for (int hf = 0; hf < 2; ++hf) {
-                        const int f = f0 + g + hf * 8;
-                        ev[s][hf] = f < de ? e_t[slot * de + f]
-                                           : __float2bfloat16(0.0f);
-                    }
-                }
-                const uint32_t a[4] = {pack_bf16(ev[0][0], ev[1][0]),
-                                       pack_bf16(ev[0][1], ev[1][1]),
-                                       pack_bf16(ev[2][0], ev[3][0]),
-                                       pack_bf16(ev[2][1], ev[3][1])};
-                // the bits of the four slots tq*2, tq*2+1, tq*2+8, tq*2+9
-                // over this chunk's 64 columns
-                uint2 wv[4];
-#pragma unroll
-                for (int s = 0; s < 4; ++s) {
-                    const size_t slot = slot0 + (s >> 1) * 8 + tq * 2 +
-                                        (s & 1);
-                    wv[s] = __ldg(reinterpret_cast<const uint2*>(
-                        bits + slot * words + c0 / 32));
-                }
-                // B = d_op: rows slots (as above), column c0 + nt*8 + g
-#pragma unroll
-                for (int nt = 0; nt < kColTiles; ++nt) {
-                    const int col = c0 + nt * 8 + g;
-                    const int bit = (nt & 3) * 8 + g;
-                    __nv_bfloat16 v[4];
-#pragma unroll
-                    for (int s = 0; s < 4; ++s) {
-                        const int row = m0 + (s >> 1) * 8 + tq * 2 + (s & 1);
-                        const uint32_t w = (nt >> 2) ? wv[s].y : wv[s].x;
-                        v[s] = ((w >> bit) & 1u) ? gs[row * ldg_s + col]
-                                                 : __float2bfloat16(0.0f);
-                    }
-                    const uint32_t b[2] = {pack_bf16(v[0], v[1]),
-                                           pack_bf16(v[2], v[3])};
-                    mma_bf16_16816(acc[nt], a, b);
+                for (int hf = 0; hf < 2; ++hf) {
+                    const int f = f0 + g + hf * 8;
+                    ev[s][hf] = f < de ? e_t[slot * de + f]
+                                       : __float2bfloat16(0.0f);
                 }
             }
-            // acc[nt][q]: feature f0 + g + (q >> 1) * 8, column
-            // c0 + nt*8 + tq*2 + (q & 1)
-            float* mine = red + warp * 16 * kRedCols;
+            const uint32_t a[4] = {pack_bf16(ev[0][0], ev[1][0]),
+                                   pack_bf16(ev[0][1], ev[1][1]),
+                                   pack_bf16(ev[2][0], ev[3][0]),
+                                   pack_bf16(ev[2][1], ev[3][1])};
+            // the bits of the slots tq*2, tq*2+1, tq*2+8, tq*2+9 over the
+            // chunk's 64 columns
+            uint2 wv[4];
+#pragma unroll
+            for (int s = 0; s < 4; ++s) {
+                const size_t slot = slot0 + (s >> 1) * 8 + tq * 2 + (s & 1);
+                wv[s] = __ldg(reinterpret_cast<const uint2*>(
+                    bits + slot * words + c0 / 32));
+            }
+            // B = d_op: rows the slots above, column c0 + nt*8 + g
 #pragma unroll
             for (int nt = 0; nt < kColTiles; ++nt) {
+                const int col = nt * 8 + g;
+                const int bit = (nt & 3) * 8 + g;
+                __nv_bfloat16 v[4];
 #pragma unroll
-                for (int q = 0; q < 4; ++q) {
-                    mine[(g + (q >> 1) * 8) * kRedCols + nt * 8 + tq * 2 +
-                         (q & 1)] = acc[nt][q];
+                for (int s = 0; s < 4; ++s) {
+                    const int row = m0 + (s >> 1) * 8 + tq * 2 + (s & 1);
+                    const uint32_t w = (nt >> 2) ? wv[s].y : wv[s].x;
+                    v[s] = ((w >> bit) & 1u) ? gs[row * ld + col]
+                                             : __float2bfloat16(0.0f);
                 }
+                const uint32_t b[2] = {pack_bf16(v[0], v[1]),
+                                       pack_bf16(v[2], v[3])};
+                mma_bf16_16816(acc[nt], a, b);
             }
-            __syncthreads();
-            for (int i = tid; i < 16 * kRedCols; i += blockDim.x) {
-                float s = 0.0f;
-                for (int w = 0; w < nwarps; ++w) {
-                    s += red[w * 16 * kRedCols + i];
-                }
-                const int m = i / kRedCols, n = i % kRedCols;
-                we_part[(static_cast<size_t>(t) * de16 + f0 + m) * hp + c0 +
-                        n] = s;
-            }
-            __syncthreads();
         }
+        // acc[nt][q]: feature f0 + g + (q >> 1) * 8, column
+        // c0 + nt*8 + tq*2 + (q & 1)
+        float* mine = red + warp * 16 * kRedCols;
+#pragma unroll
+        for (int nt = 0; nt < kColTiles; ++nt) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                mine[(g + (q >> 1) * 8) * kRedCols + nt * 8 + tq * 2 +
+                     (q & 1)] = acc[nt][q];
+            }
+        }
+        __syncthreads();
+        for (int i = tid; i < 16 * kRedCols; i += blockDim.x) {
+            float s = 0.0f;
+            for (int w = 0; w < nwarps; ++w) {
+                s += red[w * 16 * kRedCols + i];
+            }
+            const int m = i / kRedCols, n = i % kRedCols;
+            we_part[(static_cast<size_t>(t) * de16 + f0 + m) * hp + c0 + n] =
+                s;
+        }
+        __syncthreads();
     }
 }
 
@@ -324,13 +348,13 @@ __global__ void reduce_pass_kernel(const float* __restrict__ we_part,
 
 extern "C" {
 
-// Shared memory the receiver pass needs for these shapes, in bytes.
+// Shared memory the receiver passes need for these shapes, in bytes (the
+// larger, d_e's: the tile's g rows over all columns).
 size_t dense_bwd_v4_smem_bytes(int hp, int r_tile) {
-    return sizeof(__nv_bfloat16) * static_cast<size_t>(r_tile) * (hp + 8) +
-           sizeof(float) * static_cast<size_t>(r_tile / 16) * 16 * kRedCols;
+    return sizeof(__nv_bfloat16) * static_cast<size_t>(r_tile) * (hp + 8);
 }
 
-// Launches the three passes on `stream`; returns the first cudaError_t.
+// Launches the four passes on `stream`; returns the first cudaError_t.
 // Scratch: we_part [T, de16, hp] f32 (de16 = de rounded up to 16). The
 // caller checks shapes, types and alignment: de and hg multiples of 8,
 // hp = H rounded up to 64, r_tile a multiple of 16 and at most 128.
@@ -343,17 +367,32 @@ int dense_bwd_v4(const void* bits, const void* g_pass, const void* e_t,
     const auto* b = static_cast<const uint32_t*>(bits);
     const auto* g = static_cast<const float*>(g_pass);
     const int de16 = (de + 15) & ~15;
-    const size_t smem = dense_bwd_v4_smem_bytes(hp, r_tile);
+    const int threads = (r_tile / 16) * 32;
+    const size_t smem_de = dense_bwd_v4_smem_bytes(hp, r_tile);
+    const size_t smem_dwe =
+        sizeof(__nv_bfloat16) * static_cast<size_t>(r_tile) *
+            (kRedCols + 8) +
+        sizeof(float) * static_cast<size_t>(r_tile / 16) * 16 * kRedCols;
     cudaError_t err = cudaFuncSetAttribute(
-        recv_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        de_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem_de));
+    if (err == cudaSuccess) {
+        err = cudaFuncSetAttribute(
+            dwe_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem_dwe));
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
     if (num_tiles > 0) {
-        recv_pass_kernel<<<num_tiles, (r_tile / 16) * 32, smem, st>>>(
+        de_pass_kernel<<<num_tiles, threads, smem_de, st>>>(
+            b, g, static_cast<const __nv_bfloat16*>(w_e),
+            static_cast<__nv_bfloat16*>(d_e), de, hg, hp, r_tile, k);
+        if ((err = cudaGetLastError()) != cudaSuccess) {
+            return static_cast<int>(err);
+        }
+        dwe_pass_kernel<<<dim3(num_tiles, hp / kRedCols), threads, smem_dwe,
+                          st>>>(
             b, g, static_cast<const __nv_bfloat16*>(e_t),
-            static_cast<const __nv_bfloat16*>(w_e),
-            static_cast<__nv_bfloat16*>(d_e), static_cast<float*>(we_part),
-            de, hg, hp, r_tile, k);
+            static_cast<float*>(we_part), de, hg, hp, r_tile, k);
         if ((err = cudaGetLastError()) != cudaSuccess) {
             return static_cast<int>(err);
         }

@@ -28,9 +28,26 @@ namespace radargnn {
 constexpr int kYsLd = kBlockCols + 8;    // y_s slice row stride (floats):
                                          // conflict-free float2 fragments
 #ifndef DENSE_GATHER_STAGES
-#define DENSE_GATHER_STAGES 3
+#define DENSE_GATHER_STAGES 2
 #endif
 constexpr int kGatherStages = DENSE_GATHER_STAGES;   // slot-row buffers
+// DENSE_GATHER_L1 1: the y_s rows through L1 as well (cp.async.ca), so a
+// sender that recurs in a tile's slots may hit there; 0: L2 only (.cg)
+#ifndef DENSE_GATHER_L1
+#define DENSE_GATHER_L1 0
+#endif
+
+// 16-byte async copy global -> shared of a y_s chunk (zeros when !pred)
+__device__ __forceinline__ void cp_async16_ys(void* smem, const void* gmem,
+                                              bool pred) {
+#if DENSE_GATHER_L1
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(gmem), "r"(pred ? 16 : 0));
+#else
+    cp_async16(smem, gmem, pred);
+#endif
+}
 
 struct GatherSmem {
     int kpe, lde;              // edge depth padded to the mma k; stride (+8)
@@ -123,7 +140,7 @@ __device__ __forceinline__ void gather_rows(
             const float* src =
                 s >= 0 ? y_s + static_cast<size_t>(s) * hp + col0 + c * 4
                        : y_s;
-            cp_async16(ys + rr * kYsLd + c * 4, src, s >= 0);
+            cp_async16_ys(ys + rr * kYsLd + c * 4, src, s >= 0);
         }
         __nv_bfloat16* ea = S.ea + buf * r * S.lde;
         for (int i = tid; i < r * echunks; i += nthreads) {

@@ -53,7 +53,8 @@ from radargnn_tpu_torch.train.trainer import Trainer, set_seeds
 _KINDS = (
     ("dense_proj_v4 (B1 projection)", ("dense_proj",)),
     ("dense_fwd_v4 (B1 gather-max)", ("dense_fwd_v4",)),
-    ("dense_bwd_v4 receiver pass (B2)", ("recv_pass",)),
+    ("dense_bwd_v4 dW_e pass (B2)", ("dwe_pass",)),
+    ("dense_bwd_v4 d_e pass (B2)", ("de_pass",)),
     ("dense_bwd_v4 sender sums (B2)", ("send_pass",)),
     ("dense_bwd_v4 dW_e reduce (B2)", ("reduce_pass",)),
     ("windowed_fwd_v3 (B4)", ("windowed_fwd_v3",)),

@@ -313,7 +313,8 @@ def test_trace_train_sorts_kernels_into_kinds():
     from radargnn_tpu_torch.trace_train import kind_of
     assert kind_of("dense_proj_kernel") == "dense_proj_v4 (B1 projection)"
     assert kind_of("dense_fwd_v4_kernel") == "dense_fwd_v4 (B1 gather-max)"
-    assert kind_of("recv_pass_kernel") == "dense_bwd_v4 receiver pass (B2)"
+    assert kind_of("de_pass_kernel") == "dense_bwd_v4 d_e pass (B2)"
+    assert kind_of("dwe_pass_kernel") == "dense_bwd_v4 dW_e pass (B2)"
     assert kind_of("send_pass_kernel") == "dense_bwd_v4 sender sums (B2)"
     assert kind_of("reduce_pass_kernel") == "dense_bwd_v4 dW_e reduce (B2)"
     assert kind_of("windowed_route_kernel") == "windowed_bwd_v3 route (B4)"
