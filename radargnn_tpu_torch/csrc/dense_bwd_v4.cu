@@ -23,10 +23,10 @@
 // orders, so two runs on the same inputs are bitwise equal.
 //  1. de_pass: one block per tile. The tile's R rows of g, rounded to
 //     bf16, sit in shared memory; each warp owns 16 receivers, i.e. 16
-//     slots of every slot row. d_op fragments are built in registers from
-//     those rows and the slots' bits (a masked bf16 pair per register), and
-//     d_e = d_op @ W_e^T runs on mma.sync (the W_e fragments read through
-//     the read-only cache).
+//     slots, of every second slot row. d_op fragments are built in
+//     registers from those rows and the slots' bits (a masked bf16 pair per
+//     register), and d_e = d_op @ W_e^T runs on mma.sync (the W_e
+//     fragments read through the read-only cache).
 //  1b. dwe_pass: one block per (tile, 64-column chunk), the chunk of the
 //     g rows in shared memory: dW_e = e^T @ d_op, summed over the slot rows
 //     in registers, then over the warps in order into one partial per tile.
@@ -96,11 +96,15 @@ __device__ __forceinline__ void stage_g_rows(
     }
 }
 
-// d_e of one tile (blockIdx.x): per slot row, each warp's 16 slots
-// (receivers m0 .. m0+15) x each 16-feature chunk, over hp in k-steps of
-// 16 columns; A = d_op built from the g rows in shared memory and the
-// slots' bits, B = W_e through the read-only cache.
-__global__ void __launch_bounds__(256) de_pass_kernel(
+// d_e of one tile (blockIdx.x). Warp w owns the 16 receivers of row group
+// w % (R/16), i.e. 16 slots of each slot row, and every second slot row
+// (j = w / (R/16), +2, ...): per slot row and 16-feature chunk, over hp in
+// k-steps of 16 columns, A = d_op built from the g rows in shared memory
+// and the slots' bits (16 words per slot loaded together ahead of use),
+// B = W_e through the read-only cache.
+constexpr int kDeWords = 16;             // bit words of a slot in flight
+
+__global__ void __launch_bounds__(512) de_pass_kernel(
     const uint32_t* __restrict__ bits,         // [T*TE, hp/32]
     const float* __restrict__ g_pass,          // [T*R, hg]
     const __nv_bfloat16* __restrict__ w_e,     // [de, hg]
@@ -110,8 +114,9 @@ __global__ void __launch_bounds__(256) de_pass_kernel(
     const int ld = hp + 8;                     // gs row stride (bf16)
     auto* gs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [r][ld]
     const int t = blockIdx.x;
-    const int lane = threadIdx.x & 31;
-    const int m0 = (threadIdx.x >> 5) * 16;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int groups = r_tile / 16;
+    const int m0 = (warp % groups) * 16;
     const int g = lane >> 2, tq = lane & 3;
     const int words = hp / 32;
     const size_t tile_slot0 = static_cast<size_t>(t) * r_tile * k;
@@ -120,36 +125,53 @@ __global__ void __launch_bounds__(256) de_pass_kernel(
 
     const __nv_bfloat16* g0 = gs + (m0 + g) * ld;
     const __nv_bfloat16* g8 = gs + (m0 + g + 8) * ld;
-    for (int j = 0; j < k; ++j) {
+    for (int j = warp / groups; j < k; j += 2) {
         const size_t slot_a = tile_slot0 + static_cast<size_t>(j) * r_tile +
                               m0 + g;
         const uint32_t* ba = bits + slot_a * words;
         const uint32_t* bb = bits + (slot_a + 8) * words;
         for (int f0 = 0; f0 < de; f0 += 16) {
             float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-            for (int w = 0; w < words; ++w) {
-                const uint32_t wa = __ldg(ba + w), wb = __ldg(bb + w);
+            for (int w0 = 0; w0 < words; w0 += kDeWords) {
+                // words is even: 8-byte loads, all issued before use
+                uint2 wa[kDeWords / 2], wb[kDeWords / 2];
 #pragma unroll
-                for (int half = 0; half < 2; ++half) {
-                    const int col = w * 32 + half * 16 + tq * 2;
-                    const int bit = half * 16 + tq * 2;
-                    uint32_t a[4] = {
-                        mask_pair(ld_pair(g0 + col), wa, bit),
-                        mask_pair(ld_pair(g8 + col), wb, bit),
-                        mask_pair(ld_pair(g0 + col + 8), wa, bit + 8),
-                        mask_pair(ld_pair(g8 + col + 8), wb, bit + 8)};
+                for (int i = 0; i < kDeWords / 2; ++i) {
+                    const bool ok = w0 + 2 * i < words;
+                    wa[i] = ok ? __ldg(reinterpret_cast<const uint2*>(
+                                     ba + w0) + i) : make_uint2(0u, 0u);
+                    wb[i] = ok ? __ldg(reinterpret_cast<const uint2*>(
+                                     bb + w0) + i) : make_uint2(0u, 0u);
+                }
 #pragma unroll
-                    for (int nn = 0; nn < 2; ++nn) {
-                        const int f = f0 + nn * 8 + g;
-                        uint32_t b[2] = {0u, 0u};
-                        if (f < de) {
-                            const uint32_t* wr = reinterpret_cast<
-                                const uint32_t*>(w_e + static_cast<size_t>(
-                                    f) * hg);
-                            if (col < hg) b[0] = __ldg(wr + col / 2);
-                            if (col + 8 < hg) b[1] = __ldg(wr + col / 2 + 4);
+                for (int wi = 0; wi < kDeWords; ++wi) {
+                    if (w0 + wi >= words) break;
+                    const uint32_t xa = (wi & 1) ? wa[wi / 2].y : wa[wi / 2].x;
+                    const uint32_t xb = (wi & 1) ? wb[wi / 2].y : wb[wi / 2].x;
+#pragma unroll
+                    for (int half = 0; half < 2; ++half) {
+                        const int col = (w0 + wi) * 32 + half * 16 + tq * 2;
+                        const int bit = half * 16 + tq * 2;
+                        uint32_t a[4] = {
+                            mask_pair(ld_pair(g0 + col), xa, bit),
+                            mask_pair(ld_pair(g8 + col), xb, bit),
+                            mask_pair(ld_pair(g0 + col + 8), xa, bit + 8),
+                            mask_pair(ld_pair(g8 + col + 8), xb, bit + 8)};
+#pragma unroll
+                        for (int nn = 0; nn < 2; ++nn) {
+                            const int f = f0 + nn * 8 + g;
+                            uint32_t b[2] = {0u, 0u};
+                            if (f < de) {
+                                const uint32_t* wr = reinterpret_cast<
+                                    const uint32_t*>(
+                                        w_e + static_cast<size_t>(f) * hg);
+                                if (col < hg) b[0] = __ldg(wr + col / 2);
+                                if (col + 8 < hg) {
+                                    b[1] = __ldg(wr + col / 2 + 4);
+                                }
+                            }
+                            mma_bf16_16816(acc[nn], a, b);
                         }
-                        mma_bf16_16816(acc[nn], a, b);
                     }
                 }
             }
@@ -383,7 +405,7 @@ int dense_bwd_v4(const void* bits, const void* g_pass, const void* e_t,
     }
     if (err != cudaSuccess) return static_cast<int>(err);
     if (num_tiles > 0) {
-        de_pass_kernel<<<num_tiles, threads, smem_de, st>>>(
+        de_pass_kernel<<<num_tiles, 2 * threads, smem_de, st>>>(
             b, g, static_cast<const __nv_bfloat16*>(w_e),
             static_cast<__nv_bfloat16*>(d_e), de, hg, hp, r_tile, k);
         if ((err = cudaGetLastError()) != cudaSuccess) {

@@ -149,7 +149,8 @@ __global__ void __launch_bounds__(256) dense_fwd_v4_kernel(
     const int m0 = (threadIdx.x >> 5) * 16;
     const int g = lane >> 2, tq = lane & 3;
     const DenseSenders senders(sloc, tile_win, t, node_block, n_x);
-    stage_edge_weights(gather_smem(de, r_tile), w_e, de, h, r_tile, col0);
+    stage_edge_weights(gather_smem(de, r_tile, k), w_e, de, h, r_tile,
+                       col0);
 
     float mx[kColTiles][4];
 #pragma unroll
@@ -252,8 +253,8 @@ int dense_proj_v4(const void* x, const void* w_s, void* y_s, int n, int d,
 }
 
 // Shared memory the gather-max needs for these shapes, in bytes.
-size_t dense_fwd_v4_smem_bytes(int de, int r_tile) {
-    return gather_smem_bytes(de, r_tile);
+size_t dense_fwd_v4_smem_bytes(int de, int r_tile, int k) {
+    return gather_smem_bytes(de, r_tile, k);
 }
 
 // Launches the gather-max on `stream`; returns the cudaError_t of the
@@ -266,7 +267,7 @@ int dense_fwd_v4(const void* y_s, const void* e_t, const void* w_e,
                  const void* offset, void* out, void* inner, void* bits,
                  int n_x, int de, int h, int hp, int num_tiles, int r_tile,
                  int k, int node_block, void* stream) {
-    const size_t smem = gather_smem_bytes(de, r_tile);
+    const size_t smem = gather_smem_bytes(de, r_tile, k);
     cudaError_t err = cudaFuncSetAttribute(
         dense_fwd_v4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));

@@ -51,25 +51,28 @@ __device__ __forceinline__ void cp_async16_ys(void* smem, const void* gmem,
 
 struct GatherSmem {
     int kpe, lde;              // edge depth padded to the mma k; stride (+8)
+    int* snd;                  // [r*k]           the tile's senders (-1: none)
     __nv_bfloat16* we_s;       // [64][lde]       W_e slice, transposed
     __nv_bfloat16* ea;         // stages x [r][lde]    edge rows
     float* ys;                 // stages x [r][kYsLd]  sender rows' y_s
 };
 
 // Shared memory the loop needs, in bytes.
-__host__ __device__ inline size_t gather_smem_bytes(int de, int r) {
+__host__ __device__ inline size_t gather_smem_bytes(int de, int r, int k) {
     const int lde = ((de + 15) & ~15) + 8;
-    return sizeof(__nv_bfloat16) *
+    return sizeof(int) * static_cast<size_t>(((r * k + 3) & ~3)) +
+           sizeof(__nv_bfloat16) *
                static_cast<size_t>(kBlockCols + kGatherStages * r) * lde +
            sizeof(float) * static_cast<size_t>(kGatherStages * r) * kYsLd;
 }
 
-__device__ __forceinline__ GatherSmem gather_smem(int de, int r) {
+__device__ __forceinline__ GatherSmem gather_smem(int de, int r, int k) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     GatherSmem S;
     S.kpe = (de + 15) & ~15;
     S.lde = S.kpe + 8;
-    S.we_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+    S.snd = reinterpret_cast<int*>(smem_raw);
+    S.we_s = reinterpret_cast<__nv_bfloat16*>(S.snd + ((r * k + 3) & ~3));
     S.ea = S.we_s + kBlockCols * S.lde;
     // (64 + stages r) lde bf16 is a multiple of 16 bytes (lde % 8 == 0)
     S.ys = reinterpret_cast<float*>(S.ea + kGatherStages * r * S.lde);
@@ -110,7 +113,8 @@ __device__ __forceinline__ void stage_edge_weights(
     }
 }
 
-// Calls visit(j, acc, v0, v1) for each slot row j = 0..k-1 of tile t:
+// Calls visit(j, acc, v0, v1) for each slot row j = 0..k-1 of tile t
+// (the tile's senders are staged in shared memory first):
 // acc[nt][q] is op at row m0 + g + (q >> 1) * 8 and column
 // col0 + nt * 8 + tq * 2 + (q & 1) (m0 = 16 * warp, g = lane / 4,
 // tq = lane % 4); v0 / v1 say whether rows m0+g / m0+g+8 hold an edge.
@@ -121,7 +125,7 @@ __device__ __forceinline__ void gather_rows(
     const __nv_bfloat16* __restrict__ e_t,     // [T*TE, de]
     const DenseSenders& senders, int de, int hp, int r, int k, int col0,
     Visit&& visit) {
-    const GatherSmem S = gather_smem(de, r);
+    const GatherSmem S = gather_smem(de, r, k);
     const int tid = threadIdx.x;
     const int nthreads = blockDim.x;
     const int lane = tid & 31;
@@ -131,12 +135,19 @@ __device__ __forceinline__ void gather_rows(
     constexpr int kYsChunks = kBlockCols / 4;  // 16-byte chunks of a slice
     const int echunks = de / 8;
 
+    // the tile's senders, once: the copies below index y_s by them
+    for (int i = tid; i < r * k; i += nthreads) {
+        S.snd[i] = senders(tile_slot0 + i);
+    }
+    __syncthreads();
+
     auto issue = [&](int j, int buf) {
         const size_t slot0 = tile_slot0 + static_cast<size_t>(j) * r;
+        const int* snd = S.snd + j * r;
         float* ys = S.ys + buf * r * kYsLd;
         for (int i = tid; i < r * kYsChunks; i += nthreads) {
             const int rr = i / kYsChunks, c = i % kYsChunks;
-            const int s = senders(slot0 + rr);
+            const int s = snd[rr];
             const float* src =
                 s >= 0 ? y_s + static_cast<size_t>(s) * hp + col0 + c * 4
                        : y_s;
@@ -184,9 +195,8 @@ __device__ __forceinline__ void gather_rows(
             }
         }
 
-        const size_t slot0 = tile_slot0 + static_cast<size_t>(j) * r;
-        visit(j, acc, senders(slot0 + m0 + g) >= 0,
-              senders(slot0 + m0 + g + 8) >= 0);
+        visit(j, acc, S.snd[j * r + m0 + g] >= 0,
+              S.snd[j * r + m0 + g + 8] >= 0);
         __syncthreads();       // the buffer is refilled in the next step
     }
 }

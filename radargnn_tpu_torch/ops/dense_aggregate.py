@@ -170,7 +170,7 @@ def _bind_fwd(lib: ctypes.CDLL) -> None:
     lib.dense_fwd_v4.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.dense_fwd_v4.restype = ctypes.c_int
-    lib.dense_fwd_v4_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.dense_fwd_v4_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.dense_fwd_v4_smem_bytes.restype = ctypes.c_size_t
 
 
@@ -329,8 +329,9 @@ def dense_fwd_cuda(y_s, e_t_c, w_e_c, senders_local, tile_win, inner_o,
            f"r_tile must be a multiple of 16 in [16, 128] (got {r_tile})",
            kernel)
     lib = load_fwd_kernel()
-    _check(lib.dense_fwd_v4_smem_bytes(de, r_tile) <= _MAX_SMEM,
-           f"de={de} needs more shared memory than a block has", kernel)
+    _check(lib.dense_fwd_v4_smem_bytes(de, r_tile, k) <= _MAX_SMEM,
+           f"de={de}, {r_tile} x {k} slots need more shared memory than a "
+           "block has", kernel)
     dev = y_s.device
     out = torch.empty((num_nodes, h), dtype=f32, device=dev)
     inner = bits = None
