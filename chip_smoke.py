@@ -3,18 +3,21 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 It prints the card's name and power limit and builds the port's eleven
-CUDA kernels from the sources in the checkout (dense forward and backward,
-segment-sum landing, windowed forward and backward, CSR forward and
-backward, fused linear, message segment-max, v1 hoisted forward and
-backward; one nvcc each, in parallel). It holds each kernel against its
-plain PyTorch version at every layer shape of the flagship RadarScenes
-DetNet (the windowed kernels on the radius batch and on the kNN batch
-under the windowed tiling, the CSR kernels on the kNN batch and on the
-radius batch under the CSR tiling), and checks that two backward runs give
-the same bits. Then, for three paths, the kNN graph (dense tiling), the
-radius graph (windowed tiling; the flagship configuration with three
-fields replaced, printed) and the kNN graph under the CSR tiling (the
-flagship configuration with fused_tiling "csr", printed), it serves a few
+CUDA sources from the checkout (dense forward: the node projection and
+the gather-max; dense backward; segment-sum landing; windowed forward and
+backward; CSR forward and backward; fused linear; message segment-max; v1
+hoisted forward and backward; one nvcc each, in parallel). It holds each
+of the twelve kernels against its plain PyTorch version at every layer
+shape of the flagship RadarScenes DetNet (the dense kernels on the kNN
+batch, the forward's routing bits on real-valued inputs and, with the
+backward, exactly on dyadic ones; the windowed kernels on the radius batch
+and on the kNN batch under the windowed tiling, the CSR kernels on the kNN
+batch and on the radius batch under the CSR tiling), and checks that two
+backward runs give the same bits. Then, for three paths, the kNN graph
+(dense tiling), the radius graph (windowed tiling; the flagship
+configuration with three fields replaced, printed) and the kNN graph under
+the CSR tiling (the flagship configuration with fused_tiling "csr",
+printed), it serves a few
 batches of 5 x 2816-point synthetic frames through the port's Predictor
 and trains the same DetNet for a few steps through the port's Trainer
 (the flagship configuration, deterministic algorithms on), checks that

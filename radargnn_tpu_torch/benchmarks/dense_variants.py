@@ -11,8 +11,8 @@ and the routing bits), with CUDA events over `reps` calls after a warm-up;
 every variant must give the default build's output, inner and bits bit for
 bit. Prints one JSON line with the card's name and power limit.
 
-    python -m radargnn_tpu_torch.benchmarks.dense_variants \
-        [--variants DENSE_GATHER_STAGES=2 DENSE_GATHER_STAGES=2,DENSE_GATHER_L1=1]
+    python -m radargnn_tpu_torch.benchmarks.dense_variants [--variants
+        DENSE_GATHER_STAGES=2 DENSE_GATHER_STAGES=2,DENSE_GATHER_L1=1 ...]
 """
 
 from __future__ import annotations

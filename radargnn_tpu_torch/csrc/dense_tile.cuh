@@ -1,9 +1,10 @@
-// The slot-row loop shared by every fused kernel of the port: the forward
-// kernels (dense_fwd_v4.cu, windowed_fwd_v3.cu, csr_fwd_v2.cu) and the
-// backward's routing passes (dense_bwd_v4.cu, windowed_bwd_v3.cu,
-// csr_bwd_v2.cu). A forward and its backward run this one code path, so the
-// backward recomputes the forward's op bitwise: same shared-memory layout,
-// same mma order, same float32 summation order.
+// The slot-row loop shared by the windowed and CSR fused kernels: the
+// forward kernels (windowed_fwd_v3.cu, csr_fwd_v2.cu) and the backward's
+// routing passes (windowed_bwd_v3.cu, csr_bwd_v2.cu). A forward and its
+// backward run this one code path, so the backward recomputes the
+// forward's op bitwise: same shared-memory layout, same mma order, same
+// float32 summation order. (The dense kernels gather the node projection
+// instead, dense_gather.cuh, and route on the forward's saved bits.)
 //
 // Layout. Tile t holds TE = R*K slots; slot t*TE + j*R + r sits in slot row
 // j, row r. A `senders` functor gives a slot's global sender, or -1 where
@@ -236,7 +237,7 @@ __device__ __forceinline__ void slot_rows(
 }
 
 // The slot-row loop of the block's own tile (blockIdx.x) and column slice
-// (blockIdx.y) in the dense or windowed layout, weights staged.
+// (blockIdx.y) in the windowed layout's row chunks, weights staged.
 template <class Visit>
 __device__ __forceinline__ void dense_tile_rows(
     const __nv_bfloat16* __restrict__ x,       // [n_x, d]

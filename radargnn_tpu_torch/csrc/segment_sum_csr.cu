@@ -1,5 +1,5 @@
 // Segment sum over segment-sorted rows: the deterministic landing of the
-// dense backward's d_x.
+// windowed and CSR backwards' d_x.
 //
 // Replaces the TPU kernel radargnn_tpu/ops/pallas_kernels.py:
 // _segsum_kernel (reached through pallas_segment_sum_csr) on Hopper
@@ -11,9 +11,11 @@
 // order[row_ptr[n] .. row_ptr[n+1]):
 //   out[n] = sum over those rows, in f32, in the order listed
 //   (0 for an empty segment).
-// The dense backward lands its per-slot d_xg (bf16, source a) and the
+// The windowed backward lands its per-slot d_xg (bf16, source a) and the
 // overflow rows' d_op_o @ W_s^T (f32, source b) at their senders in one
 // launch; the batch builds the sender-sorted order once (graph/batch.py).
+// (The dense backward sums its H-wide rows by sender itself, from the
+// routing bits: dense_bwd_v4.cu.)
 //
 // Design. The TPU kernel lands a segment-sorted tile into its node block
 // with a one-hot matmul and carries the block's sum across grid steps.

@@ -1,5 +1,5 @@
 // The passes of the fused backward that follow the routing pass, shared by
-// dense_bwd_v4.cu, windowed_bwd_v3.cu and csr_bwd_v2.cu: given the routed
+// windowed_bwd_v3.cu and csr_bwd_v2.cu: given the routed
 // d_op [n_slots, hp] bf16 (hp = h rounded up to 64, zero past h),
 //   [d_xg | d_e][slot] = bf16(d_op[slot] @ [W_s | W_e]^T)
 //   dW_s = sum over slots of x[sender]^T d_op,  dW_e = sum of e_t^T d_op

@@ -1,5 +1,6 @@
 """Segment sum over segment-sorted rows (CSR): the deterministic landing of
-the fused backwards' d_x (dense, windowed and CSR paths).
+the fused backwards' d_x (windowed and CSR paths), and the batch's sender
+landing (`SenderLanding`), which the dense backward's sender sums walk too.
 
 Port of `pallas_segment_sum_csr` (`radargnn_tpu/ops/pallas_kernels.py`),
 `out[n] = sum of the rows whose segment is n`, in float32. Here the rows
@@ -7,8 +8,9 @@ come in through an index: `order` lists them grouped by segment and
 segment n owns `order[row_ptr[n]:row_ptr[n+1]]` (the TPU version takes the
 rows pre-permuted into segment-sorted tiles instead). The rows may come
 from two sources, `a` (bf16 or float32) and `b` (float32), numbered one
-after the other, so the dense backward lands its per-slot rows and its
-overflow rows in one pass.
+after the other, so the windowed backward lands its per-slot rows and its
+overflow rows in one pass (the dense plain backward sums its H-wide rows
+the same way).
 
 On the card this is the hand-written kernel `csrc/segment_sum_csr.cu`
 (replaces `_segsum_kernel`): one warp per segment, sums in a fixed order,

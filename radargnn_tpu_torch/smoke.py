@@ -534,15 +534,18 @@ def _dense_bwd_bound(de: int, h: int, n: int, e_pad: int, rows: int,
                   float(routed + n_ovf * h))
 
 
-def _library_mm(x: torch.Tensor, w: torch.Tensor) -> Callable:
+def _library_mm(x: torch.Tensor, w: torch.Tensor) -> Tuple[str, Callable]:
     """One PyTorch call computing the projection's function (bf16 operands,
-    float32 products and sums): torch.mm with out_dtype where this torch
-    has it, else torch.mm of the operands upcast (exact products)."""
+    float32 products and sums), and its name: torch.mm with out_dtype where
+    this torch has it, else torch.mm of the operands upcast (exact
+    products)."""
     try:
         torch.mm(x[:1], w, out_dtype=torch.float32)
-        return lambda: torch.mm(x, w, out_dtype=torch.float32)
+        return ("torch.mm(out_dtype=float32)",
+                lambda: torch.mm(x, w, out_dtype=torch.float32))
     except (TypeError, RuntimeError):
-        return lambda: torch.mm(x.float(), w.float())
+        return ("torch.mm(x.float(), w.float())",
+                lambda: torch.mm(x.float(), w.float()))
 
 
 def check_dense_kernels(tiling, layer_shapes: List[tuple], seed: int,
@@ -591,7 +594,8 @@ def check_dense_kernels(tiling, layer_shapes: List[tuple], seed: int,
     for d, de, h in layer_shapes:
         # -- the forward on real-valued inputs ------------------------------
         x, w_s = rand(n, d).to(cd), rand(d, h, scale=d ** -0.5).to(cd)
-        e_t, w_e = rand(e_pad, de).to(cd), rand(de, h, scale=de ** -0.5).to(cd)
+        e_t = rand(e_pad, de).to(cd)
+        w_e = rand(de, h, scale=de ** -0.5).to(cd)
         e_ovf, offset = rand(n_ovf, de).to(cd), rand(n, h)
         y_s = da.dense_proj(x, w_s)
         y_ref = da.dense_proj_plain(x, w_s)
@@ -631,18 +635,20 @@ def check_dense_kernels(tiling, layer_shapes: List[tuple], seed: int,
             p_row["ms"] = _time_ms(lambda: da.dense_proj(x, w_s), reps)
             p_row["plain_ms"] = _time_ms(lambda: da.dense_proj_plain(x, w_s),
                                          reps)
-            p_row["library_ms"] = _time_ms(_library_mm(x, w_s), reps)
+            p_row["library"], library = _library_mm(x, w_s)
+            p_row["library_ms"] = _time_ms(library, reps)
             row["ms"] = _time_ms(lambda: da.dense_fwd(*args, **kw), reps)
             row["vjp_ms"] = _time_ms(
                 lambda: da.dense_fwd(*args, emit_inner=True, **kw), reps)
-            row["plain_ms"] = _time_ms(lambda: da.dense_fwd_plain(*args, **kw),
-                                       reps)
+            row["plain_ms"] = _time_ms(
+                lambda: da.dense_fwd_plain(*args, **kw), reps)
         else:
             p_row["ms"] = p_row["plain_ms"] = p_row["library_ms"] = None
             row["ms"] = row["vjp_ms"] = row["plain_ms"] = None
         out(f"kernel dense_proj_v4 d_in={d} H={h}: max_abs_err="
             f"{proj_err[0]:.3e} ms={p_row['ms']} plain_ms={p_row['plain_ms']}"
-            f" torch.mm ms={p_row['library_ms']} bound_ms="
+            f" {p_row.get('library', 'torch.mm')} ms={p_row['library_ms']} "
+            f"bound_ms="
             f"{p_row['bound_ms']:.4f} ({p_row['bound_by']})")
         out(f"kernel dense_fwd_v4 d_in={d} H={h}: max_abs_err={err:.3e} "
             f"max_rel_err={row['max_rel_err']:.3e} bits flipped {flips} of "
@@ -660,8 +666,8 @@ def check_dense_kernels(tiling, layer_shapes: List[tuple], seed: int,
         # -- the forward and the backward on dyadic inputs ------------------
         x, w_s = dyadic(n, d).to(cd), dyadic(d, h, step=0.25).to(cd)
         e_t, w_e = dyadic(e_pad, de).to(cd), dyadic(de, h, step=0.25).to(cd)
-        e_ovf, offset = dyadic(n_ovf, de).to(cd), torch.zeros((n, h),
-                                                              device=dev)
+        e_ovf = dyadic(n_ovf, de).to(cd)
+        offset = torch.zeros((n, h), device=dev)
         y_s, _, (_, inner, bits) = forward(da.dense_fwd, da.dense_proj, x,
                                            w_s, e_t, w_e, e_ovf, offset)
         _, _, (_, ref_inner, ref_bits) = forward(
@@ -870,7 +876,8 @@ def _plain_kernels() -> ExitStack:
     on the same device)."""
     stack = ExitStack()
     for mod, name in ((da, "dense_proj"), (da, "dense_fwd"),
-                      (da, "dense_bwd"), (ss, "segment_sum_csr"), (wa, "windowed_fwd"),
+                      (da, "dense_bwd"), (ss, "segment_sum_csr"),
+                      (wa, "windowed_fwd"),
                       (wa, "windowed_bwd"), (ca, "csr_fwd"),
                       (ca, "csr_bwd")):
         stack.enter_context(mock.patch.object(mod, name,

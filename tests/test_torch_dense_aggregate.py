@@ -388,8 +388,9 @@ def test_dense_bwd_plain_matches_the_function_s_slot_part():
                        0.0)
     torch.testing.assert_close(d_e, d_op @ w_e.t())
     torch.testing.assert_close(dw_e, e_t.t() @ d_op)
-    sender = torch.from_numpy(np.repeat(a["tile_win"], geo["r_tile"] * geo["K"])
-                              * geo["node_block"] + a["sloc"]).long()
+    sender = torch.from_numpy(
+        np.repeat(a["tile_win"], geo["r_tile"] * geo["K"])
+        * geo["node_block"] + a["sloc"]).long()
     want = torch.zeros_like(d_ys).index_add_(
         0, sender[~empty], d_op[~empty])
     torch.testing.assert_close(d_ys, want)

@@ -200,9 +200,9 @@ arch = tcfg.GNNArchitectureConfig(
     regression_head_layer_dimensions=[5], use_fused_aggregation=True,
     fused_tiling="dense", fused_overflow_fraction=0.3)
 spec = tlayers.fused_csr_tiling(arch, k=20)
-b = tbatch.stack_samples(tsyn.make_samples(num_frames=2, num_points=200, seed=0), max_nodes=256,
-                         bg_index=5, max_edges=256 * 20, csr_tiling=spec,
-                         device="cpu")
+b = tbatch.stack_samples(
+    tsyn.make_samples(num_frames=2, num_points=200, seed=0), max_nodes=256,
+    bg_index=5, max_edges=256 * 20, csr_tiling=spec, device="cpu")
 np.savez(__import__("sys").argv[1], **{k: v.numpy()
                                       for k, v in b.tensors().items()})
 print(json.dumps(repr(spec)))
@@ -219,9 +219,10 @@ print(json.dumps(repr(spec)))
         fused_tiling="dense", fused_overflow_fraction=0.3)
     spec = tlayers.fused_csr_tiling(arch, k=20)
     assert arch_spec == repr(spec)
-    b = tbatch.stack_samples(tsyn.make_samples(num_frames=2, num_points=200, seed=0),
-                             max_nodes=256, bg_index=5, max_edges=256 * 20,
-                             csr_tiling=spec, device="cpu")
+    b = tbatch.stack_samples(
+        tsyn.make_samples(num_frames=2, num_points=200, seed=0),
+        max_nodes=256, bg_index=5, max_edges=256 * 20, csr_tiling=spec,
+        device="cpu")
     got = np.load(out)
     for k, v in b.tensors().items():
         np.testing.assert_array_equal(got[k], v.numpy(), err_msg=k)
