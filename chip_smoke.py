@@ -2,38 +2,37 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-It prints the card's name and power limit and builds the port's eleven
-CUDA sources from the checkout (dense forward: the node projection and
-the gather-max; dense backward; segment-sum landing; windowed forward and
+It prints the card's name and power limit and builds the port's eleven CUDA
+sources from the checkout (dense forward: the node projection and the
+gather-max; dense backward; segment-sum landing; windowed forward and
 backward; CSR forward and backward; fused linear; message segment-max; v1
-hoisted forward and backward; one nvcc each, in parallel). It holds each
-of the twelve kernels against its plain PyTorch version at every layer
-shape of the flagship RadarScenes DetNet (the dense kernels on the kNN
-batch, the forward's routing bits on real-valued inputs and, with the
-backward, exactly on dyadic ones; the windowed kernels on the radius batch
-and on the kNN batch under the windowed tiling, the CSR kernels on the kNN
-batch and on the radius batch under the CSR tiling), and checks that two
-backward runs give the same bits. Then, for three paths, the kNN graph
-(dense tiling), the radius graph (windowed tiling; the flagship
-configuration with three fields replaced, printed) and the kNN graph under
-the CSR tiling (the flagship configuration with fused_tiling "csr",
-printed), it serves a few
-batches of 5 x 2816-point synthetic frames through the port's Predictor
-and trains the same DetNet for a few steps through the port's Trainer
-(the flagship configuration, deterministic algorithms on), checks that
-every conv layer launched the path's kernels, that each path matches the
-same model on the plain path and that a second training run gives the
-same losses. A fourth phase holds the four kernels that no model path runs
-against their plain versions at the flagship's widths on the kNN batch
-(the v1 pair at the five layer shapes under 128 x 256 receiver-CSR tiles,
-its backward exact on dyadic inputs and bitwise repeatable; the message
+hoisted forward and backward; one nvcc each, in parallel). It holds each of
+the twelve kernels against its plain PyTorch version at every layer shape
+of the flagship RadarScenes DetNet (the dense kernels on the kNN batch, the
+forward's routing bits on real-valued inputs and, with the backward,
+exactly on dyadic ones; the windowed kernels on the radius batch and on the
+kNN batch under the windowed tiling, the CSR kernels on the kNN batch and
+on the radius batch under the CSR tiling), and checks that two backward
+runs give the same bits. Then, for three paths, the kNN graph (dense
+tiling), the radius graph (windowed tiling; the flagship configuration with
+three fields replaced, printed) and the kNN graph under the CSR tiling (the
+flagship configuration with fused_tiling "csr", printed), it serves a few
+batches of 5 x 2816-point synthetic frames through the port's Predictor and
+trains the same DetNet for a few steps through the port's Trainer (the
+flagship configuration, deterministic algorithms on), checks that every
+conv layer launched the path's kernels, that each path matches the same
+model on the plain path and that a second training run gives the same
+losses. A fourth phase holds the four kernels that no model path runs
+against their plain versions at the flagship's widths on the kNN batch (the
+v1 pair at the five layer shapes under 128 x 256 receiver-CSR tiles, its
+backward exact on dyadic inputs and bitwise repeatable; the message
 segment-max at 464 -> 464; the fused linear at 4096 x 256 -> 512 and over
 the batch's nodes at 224 -> 464), then drives their entry points,
 radargnn_tpu_torch.benchmarks.kernel_check (prints KERNEL CHECK OK) and
-kernel_bench (two JSON lines at 450,560 edges), and checks that each of
-the four launched. It prints the kernels' times beside their bounds. The
-last line is one JSON object with "ok" and the device; any failed phase
-exits non-zero.
+kernel_bench (two JSON lines at 450,560 edges), and checks that each of the
+four launched. It prints the kernels' times beside their bounds. The last
+line is one JSON object with "ok" and the device; any failed phase exits
+non-zero.
 """
 
 import json
