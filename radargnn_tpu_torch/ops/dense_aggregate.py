@@ -233,6 +233,10 @@ def check_slot_operands(kernel: str, x_c, w_s_c, e_t_c, w_e_c,
            "x and e_t must be 16-byte aligned", kernel)
 
 
+_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "float32",
+                torch.int32: "int32"}
+
+
 def _check_tensors(kernel: str, dtypes: dict, **tensors) -> None:
     """All on one CUDA device and contiguous, each of its dtype."""
     dev = next(iter(tensors.values())).device
@@ -241,7 +245,7 @@ def _check_tensors(kernel: str, dtypes: dict, **tensors) -> None:
                f"{name} must be on {dev} (a CUDA device)", kernel)
         _check(ten.is_contiguous(), f"{name} must be contiguous", kernel)
         _check(ten.dtype == dtypes[name],
-               f"{name} must be {str(dtypes[name]).split('.')[-1]}", kernel)
+               f"{name} must be {_DTYPE_NAMES[dtypes[name]]}", kernel)
 
 
 def _stream(dev: torch.device) -> int:

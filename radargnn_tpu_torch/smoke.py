@@ -269,7 +269,7 @@ def _valid_slots(tiling) -> int:
 
 def check_fwd_kernel(tiling, layer_shapes: List[tuple], seed: int, reps: int,
                      out: Callable = print) -> List[Dict]:
-    """Holds the batch's forward kernel (dense, windowed or CSR) against its
+    """Holds the batch's forward kernel (windowed or CSR) against its
     plain version at each (d_in, d_e, H) of the model, on the batch's real
     layout and seeded inputs (bf16; e_t and W_e float32 for the CSR
     kernel), in serving and in VJP mode (`inner`); times both on the card.
@@ -354,7 +354,7 @@ def _own_scale_err(got: torch.Tensor, want: torch.Tensor) -> float:
 def check_bwd_kernels(tiling, layer_shapes: List[tuple], seed: int,
                       reps: int, out: Callable = print, exact: bool = False
                       ) -> Tuple[List[Dict], List[Dict]]:
-    """Holds the batch's backward kernels (dense B2, windowed B4 or CSR B5)
+    """Holds the batch's backward kernels (windowed B4 or CSR B5)
     and the landing (B3) against their plain versions at each (d_in, d_e, H) of
     the model, on the batch's real layout and landing; checks that two
     runs give the same bits; times kernels, plain versions and, for the
