@@ -13,12 +13,14 @@
 //
 // One block = one tile x one 64-column slice, R/16 warps of 16 rows each.
 // The W_e slice (transposed, depth padded to the mma k) stays in shared
-// memory. For each slot row j the block copies the R sender rows' 64-column
-// slice of y_s (16-byte cp.async, zero for an empty slot) and the R edge
-// rows into a ring of kGatherStages buffers, so rows j+1 .. j+stages-1 are
-// in flight while row j computes (the L2 gather's latency, not its
-// bandwidth, held a double buffer); each warp then forms acc[16 x 64] =
-// e_rows @ W_e on mma.sync and adds the y_s slice from shared memory.
+// memory, and so do the tile's senders (staged once: the copies index y_s
+// by them). For each slot row j the block copies the R sender rows'
+// 64-column slice of y_s (16-byte cp.async, zero for an empty slot) and
+// the R edge rows into a ring of kGatherStages buffers, so rows j+1 ..
+// j+stages-1 are in flight while row j computes; each warp then forms
+// acc[16 x 64] = e_rows @ W_e on mma.sync and adds the y_s slice from
+// shared memory. Two buffers measured fastest: a deeper ring costs blocks
+// per SM (benchmarks/dense_variants.py, PERF.md).
 #pragma once
 
 #include "mma_bf16.cuh"
