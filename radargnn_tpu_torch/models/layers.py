@@ -54,15 +54,15 @@ _RUN_CAP_ENV = os.environ.get("RADARGNN_FUSED_RUN_CAP")
 # bf16-equality max routing: None follows the config's fused_bf16_max;
 # "0" forces strict routing (the port's), "1" the bf16 variant (not ported)
 BF16_MAX_ENV = os.environ.get("RADARGNN_FUSED_BF16_MAX")
-# kernel-body variants the port has not ported: a value other than the
-# default raises where the fused path is set up (check_fused_knobs), with
-# the ROADMAP item that holds the variant
+# kernel-body variants the port has not ported, with the ROADMAP item that
+# holds each: a value other than the default "0" raises where the fused
+# path is set up (check_fused_knobs)
 _UNPORTED_KNOBS = {
-    "RADARGNN_FUSED_OVF_SSUM": "B (i) 2",
-    "RADARGNN_FUSED_STREAM_M": "B (i) 3",
-    "RADARGNN_FUSED_BF16_LANDING": "B (i) 3",
-    "RADARGNN_FUSED_PRECOMP_LAND": "B (i) 3",
-}
+    name: (os.environ.get(name, "0"), item) for name, item in (
+        ("RADARGNN_FUSED_OVF_SSUM", "B (i) 2"),
+        ("RADARGNN_FUSED_STREAM_M", "B (i) 3"),
+        ("RADARGNN_FUSED_BF16_LANDING", "B (i) 3"),
+        ("RADARGNN_FUSED_PRECOMP_LAND", "B (i) 3"))}
 # the sender-sum backward: the dense backward has that form always (its
 # d_x and dW_s are node-wide products of the H-wide sender sums), so "1"
 # is accepted there and on the CSR path, whose JAX kernels ignore it; the
@@ -80,11 +80,11 @@ def check_fused_knobs(mode: str) -> None:
     """Raises NotImplementedError, naming the knob, where an env knob asks
     for a kernel variant the port does not have; `mode` is the fused
     tiling ("dense", "windowed" or "csr")."""
-    for name, item in _UNPORTED_KNOBS.items():
-        if os.environ.get(name, "0") != "0":
+    for name, (value, item) in _UNPORTED_KNOBS.items():
+        if value != "0":
             raise NotImplementedError(
-                f"{name}={os.environ[name]} selects a kernel variant that is "
-                f"not ported (ROADMAP.md item {item}); unset it or set 0")
+                f"{name}={value} selects a kernel variant that is not "
+                f"ported (ROADMAP.md item {item}); unset it or set 0")
     if BF16_MAX_ENV not in (None, "0"):
         raise NotImplementedError(
             f"RADARGNN_FUSED_BF16_MAX={BF16_MAX_ENV}: bf16-equality max "

@@ -248,6 +248,13 @@ def _check_tensors(kernel: str, dtypes: dict, **tensors) -> None:
                f"{name} must be {_DTYPE_NAMES[dtypes[name]]}", kernel)
 
 
+def _check_aligned(kernel: str, **tensors) -> None:
+    """16-byte aligned data (the kernels' 16-byte copies and row loads)."""
+    for name, ten in tensors.items():
+        _check(ten.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned",
+               kernel)
+
+
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -276,6 +283,7 @@ def dense_proj_cuda(x_c, w_s_c) -> torch.Tensor:
     _check(w_s_c.shape[0] == d and d % 8 == 0,
            f"x [{n}, {d}] and w_s {tuple(w_s_c.shape)}: d must match and be "
            "a multiple of 8", kernel)
+    _check_aligned(kernel, x=x_c, w_s=w_s_c)
     lib = load_fwd_kernel()
     _check(lib.dense_proj_v4_smem_bytes(d) <= _MAX_SMEM,
            f"d={d} needs more shared memory than a block has", kernel)
@@ -332,6 +340,7 @@ def dense_fwd_cuda(y_s, e_t_c, w_e_c, senders_local, tile_win, inner_o,
     _check(r_tile % 16 == 0 and 16 <= r_tile <= 128,
            f"r_tile must be a multiple of 16 in [16, 128] (got {r_tile})",
            kernel)
+    _check_aligned(kernel, y_s=y_s, e_t=e_t_c)
     lib = load_fwd_kernel()
     _check(lib.dense_fwd_v4_smem_bytes(de, r_tile, k) <= _MAX_SMEM,
            f"de={de}, {r_tile} x {k} slots need more shared memory than a "
@@ -401,6 +410,8 @@ def dense_bwd_cuda(bits, g_pass, e_t_c, w_e_c, d_op_o, order, row_ptr, *,
     _check(r_tile % 16 == 0 and 16 <= r_tile <= 128,
            f"r_tile must be a multiple of 16 in [16, 128] (got {r_tile})",
            kernel)
+    _check_aligned(kernel, bits=bits, g_pass=g_pass, w_e=w_e_c,
+                   d_op_o=d_op_o)
     lib = load_bwd_kernel()
     _check(lib.dense_bwd_v4_smem_bytes(hp, r_tile) <= _MAX_SMEM,
            f"H={h} needs more shared memory than a block has", kernel)
