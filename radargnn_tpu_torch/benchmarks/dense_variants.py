@@ -9,7 +9,10 @@ shape (d_in 224, d_e 16, H 464) on the batch of `smoke.flagship_serving`
 (5 x 2816 points, dense tiling), in serving mode and in VJP mode (inner
 and the routing bits), with CUDA events over `reps` calls after a warm-up;
 every variant must give the default build's output, inner and bits bit for
-bit. Prints one JSON line with the card's name and power limit.
+bit. Then it times the default build with the slots' senders replaced:
+all at the window's first node (the least y_s traffic), and drawn at
+random within the window (no locality), which shows what the y_s reads
+cost. Prints one JSON line with the card's name and power limit.
 
     python -m radargnn_tpu_torch.benchmarks.dense_variants [--variants
         DENSE_GATHER_STAGES=2 DENSE_GATHER_STAGES=2,DENSE_GATHER_L1=1 ...]
@@ -78,8 +81,24 @@ def run(variants: List[str], reps: int = 20, seed: int = 0) -> Dict:
                 rows[v]["vjp_ms"].append(time_ms(
                     lambda: da.dense_fwd(*args, emit_inner=True, **kw),
                     reps))
+    # the default build on the same slots with other senders: every slot
+    # at its window's first node (the least y_s traffic the layout allows),
+    # and the slots' senders shuffled within the window (no locality)
+    probes = {}
+    gen_p = torch.Generator().manual_seed(seed + 1)
+    valid = sloc >= 0
+    window = tiling.node_block * 3
+    shuffled = torch.randint(0, window, sloc.shape, generator=gen_p).to(dev)
+    for name, layout in (("one_row", torch.where(valid, 0, -1)),
+                         ("shuffled", torch.where(valid, shuffled, -1))):
+        p_args = (y_s, e_t, w_e, layout.to(torch.int32).contiguous(), t_win,
+                  inner_o, args[-1])
+        probes[name] = {
+            "serving_ms": time_ms(lambda: da.dense_fwd(*p_args, **kw), reps),
+            "vjp_ms": time_ms(lambda: da.dense_fwd(*p_args, emit_inner=True,
+                                                   **kw), reps)}
     return {"card": card_description(), "shape": [d, de, h],
-            "variants": rows}
+            "variants": rows, "sender_probes": probes}
 
 
 def main() -> None:
