@@ -12,7 +12,8 @@ every variant must give the default build's output, inner and bits bit for
 bit. Then it times the default build with the slots' senders replaced:
 all at the window's first node (the least y_s traffic), and drawn at
 random within the window (no locality), which shows what the y_s reads
-cost. Prints one JSON line with the card's name and power limit.
+cost, and how many distinct senders each tile reads. Prints one JSON line
+with the card's name and power limit.
 
     python -m radargnn_tpu_torch.benchmarks.dense_variants [--variants
         DENSE_GATHER_STAGES=2 DENSE_GATHER_STAGES=2,DENSE_GATHER_L1=1 ...]
@@ -26,6 +27,7 @@ import json
 from typing import Dict, List
 from unittest import mock
 
+import numpy as np
 import torch
 
 from radargnn_tpu_torch.benchmarks.kernel_bench import time_ms
@@ -97,8 +99,17 @@ def run(variants: List[str], reps: int = 20, seed: int = 0) -> Dict:
             "serving_ms": time_ms(lambda: da.dense_fwd(*p_args, **kw), reps),
             "vjp_ms": time_ms(lambda: da.dense_fwd(*p_args, emit_inner=True,
                                                    **kw), reps)}
+    # how often a tile reads each of its senders' rows: the reuse a
+    # gather that staged each tile's distinct rows once would exploit
+    te = r_tile * k
+    per_tile = sloc.reshape(-1, te).cpu().numpy()
+    distinct = np.array([np.unique(t[t >= 0]).size for t in per_tile])
+    slots = (per_tile >= 0).sum(axis=1)
+    reuse = {"distinct_senders_per_tile": np.percentile(
+                 distinct, [0, 50, 90, 100]).tolist(),
+             "valid_slots_per_tile_median": float(np.median(slots))}
     return {"card": card_description(), "shape": [d, de, h],
-            "variants": rows, "sender_probes": probes}
+            "variants": rows, "sender_probes": probes, "reuse": reuse}
 
 
 def main() -> None:
