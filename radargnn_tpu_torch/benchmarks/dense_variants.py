@@ -1,7 +1,6 @@
-"""Build variants of the dense gather-max (csrc/dense_fwd_v4.cu: the depth
-of its cp.async ring, DENSE_GATHER_STAGES, and whether the y_s rows also
-go through L1, DENSE_GATHER_L1), timed on the flagship kNN batch, on one
-card.
+"""Build variants of the dense gather-max (csrc/dense_fwd_v4.cu: how many
+distinct sender rows it stages at a time, DENSE_GATHER_ROWS), timed on the
+flagship kNN batch, on one card.
 
 Each variant is built into its own library in the build directory and
 timed, in turns and then in reverse order, at the flagship's wide layer
@@ -16,7 +15,7 @@ cost, and how many distinct senders each tile reads. Prints one JSON line
 with the card's name and power limit.
 
     python -m radargnn_tpu_torch.benchmarks.dense_variants [--variants
-        DENSE_GATHER_STAGES=2 DENSE_GATHER_STAGES=2,DENSE_GATHER_L1=1 ...]
+        DENSE_GATHER_ROWS=192 DENSE_GATHER_ROWS=128 ...]
 """
 
 from __future__ import annotations
@@ -115,8 +114,8 @@ def run(variants: List[str], reps: int = 20, seed: int = 0) -> Dict:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--variants", nargs="+", default=[
-        "DENSE_GATHER_STAGES=2", "DENSE_GATHER_STAGES=3",
-        "DENSE_GATHER_STAGES=2,DENSE_GATHER_L1=1"])
+        "DENSE_GATHER_ROWS=192", "DENSE_GATHER_ROWS=128",
+        "DENSE_GATHER_ROWS=256"])
     parser.add_argument("--reps", type=int, default=20)
     args = parser.parse_args()
     print(json.dumps(run(args.variants, args.reps)))

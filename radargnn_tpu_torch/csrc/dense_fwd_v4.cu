@@ -30,14 +30,14 @@
 // x[s] @ W_s once per slot, ~60 GFLOP per wide layer; this design projects
 // once per node in its own launch (dense_proj_v4: one block per 128 nodes
 // x 64 columns on mma.sync, both operands staged in shared memory) and
-// gathers y_s rows (26 MB at the wide layer, which stays in the 50 MB L2):
-// one block per (tile, 64-column slice) copies each slot row's R sender
-// rows with 16-byte cp.async into a ring of buffers (dense_gather.cuh),
-// adds the edge product (one m16n8k16 step at d_e 16) and keeps the
-// running max in registers. The
-// L2 reads of y_s (E_pad x H x 4 bytes, ~630 MB per wide layer) are what
-// holds it above the floor; the VJP mode gathers twice (the max, then the
-// bits against it). The times are in PERF.md.
+// gathers y_s rows (26 MB at the wide layer): one block per (tile,
+// 64-column slice) stages the slices of the tile's distinct senders in
+// shared memory once (dense_gather.cuh), walks the slot rows with the edge
+// rows double-buffered, adds the edge product (one m16n8k16 step at d_e
+// 16) and keeps the running max in registers. Reading a y_s row per slot
+// from L2 (~630 MB per wide layer) held the first versions of this kernel;
+// the distinct rows are ~9x fewer. The VJP mode runs the loop twice (the
+// max, then the bits against it). The times are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -208,9 +208,11 @@ __global__ void __launch_bounds__(256) dense_fwd_v4_kernel(
         }
         uint32_t w[2][2];
         pack_row_bits(sel, tq, w);
-        if (tq == 0) {
+        // a slot's words are written in the chunk that holds its sender;
+        // the words of empty slots stay as the caller zeroed them
 #pragma unroll
-            for (int half = 0; half < 2; ++half) {
+        for (int half = 0; half < 2; ++half) {
+            if (tq == 0 && (half ? v1 : v0)) {
                 const size_t slot = tile_slot0 +
                     static_cast<size_t>(j) * r_tile + m0 + g + half * 8;
                 *reinterpret_cast<uint2*>(bits + slot * words + col0 / 32) =
@@ -261,7 +263,7 @@ size_t dense_fwd_v4_smem_bytes(int de, int r_tile, int k) {
 // launch. The caller checks shapes, types and alignment: de a multiple of
 // 8, r_tile a multiple of 16 and at most 128, y_s [n_x, hp] with hp = h
 // rounded up to 64, 16-byte aligned e_t. `inner` and `bits` are both null
-// (serving) or both set (VJP mode).
+// (serving) or both set (VJP mode; bits zeroed by the caller).
 int dense_fwd_v4(const void* y_s, const void* e_t, const void* w_e,
                  const void* sloc, const void* tile_win, const void* inner_o,
                  const void* offset, void* out, void* inner, void* bits,

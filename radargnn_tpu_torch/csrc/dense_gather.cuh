@@ -12,60 +12,61 @@
 // y_s is [n_x, hp] float32 (hp = H rounded up to 64, zero past H).
 //
 // One block = one tile x one 64-column slice, R/16 warps of 16 rows each.
-// The W_e slice (transposed, depth padded to the mma k) stays in shared
-// memory, and so do the tile's senders (staged once: the copies index y_s
-// by them). For each slot row j the block copies the R sender rows'
-// 64-column slice of y_s (16-byte cp.async, zero for an empty slot) and
-// the R edge rows into a ring of kGatherStages buffers, so rows j+1 ..
-// j+stages-1 are in flight while row j computes; each warp then forms
-// acc[16 x 64] = e_rows @ W_e on mma.sync and adds the y_s slice from
-// shared memory. Two buffers measured fastest: a deeper ring costs blocks
-// per SM (benchmarks/dense_variants.py, PERF.md).
+// A tile's ~1,200 slots read only ~140 distinct sender rows at the
+// flagship's shapes (benchmarks/dense_variants.py), and reading a row per
+// slot from L2 bound the first versions of this loop. So the block first
+// finds the tile's distinct senders (a bit per window position in shared
+// memory, ranked by a prefix count), copies their 64-column slices of y_s
+// into shared memory once (16-byte cp.async), and then walks the slot
+// rows: the R edge rows of slot row j are copied (double-buffered, so row
+// j+1 loads while row j computes), each warp forms acc[16 x 64] =
+// e_rows @ W_e on mma.sync and adds the y_s slice of each slot's sender
+// from shared memory. Senders are taken kWinSpan window positions and
+// kGatherRows distinct rows at a time; a tile with more runs the slot rows
+// once per such chunk, each slot in the chunk that holds its sender.
 #pragma once
 
 #include "mma_bf16.cuh"
 
 namespace radargnn {
 
-constexpr int kYsLd = kBlockCols + 8;    // y_s slice row stride (floats):
-                                         // conflict-free float2 fragments
-#ifndef DENSE_GATHER_STAGES
-#define DENSE_GATHER_STAGES 2
+constexpr int kYsLd = kBlockCols + 8;    // staged y_s row stride (floats)
+// distinct sender rows staged at a time: 192 covers every tile of the
+// flagship's batches (their largest has 190) and leaves room for three
+// blocks per SM (benchmarks/dense_variants.py times other values)
+#ifndef DENSE_GATHER_ROWS
+#define DENSE_GATHER_ROWS 192
 #endif
-constexpr int kGatherStages = DENSE_GATHER_STAGES;   // slot-row buffers
-// DENSE_GATHER_L1 1: the y_s rows through L1 as well (cp.async.ca), so a
-// sender that recurs in a tile's slots may hit there; 0: L2 only (.cg)
-#ifndef DENSE_GATHER_L1
-#define DENSE_GATHER_L1 0
-#endif
-
-// 16-byte async copy global -> shared of a y_s chunk (zeros when !pred)
-__device__ __forceinline__ void cp_async16_ys(void* smem, const void* gmem,
-                                              bool pred) {
-#if DENSE_GATHER_L1
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(s), "l"(gmem), "r"(pred ? 16 : 0));
-#else
-    cp_async16(smem, gmem, pred);
-#endif
-}
+constexpr int kGatherRows = DENSE_GATHER_ROWS;
+constexpr int kWinSpan = 8192;           // window positions per range
+constexpr int kWinWords = kWinSpan / 32;
 
 struct GatherSmem {
     int kpe, lde;              // edge depth padded to the mma k; stride (+8)
-    int* snd;                  // [r*k]           the tile's senders (-1: none)
-    __nv_bfloat16* we_s;       // [64][lde]       W_e slice, transposed
-    __nv_bfloat16* ea;         // stages x [r][lde]    edge rows
-    float* ys;                 // stages x [r][kYsLd]  sender rows' y_s
+    int* cidx;                 // [r*k]   rank of the slot's sender among the
+                               //         range's distinct senders, or -1
+    int* inv;                  // [kGatherRows] window position of each
+                               //         staged row of the chunk
+    unsigned* mask;            // [kWinWords] senders present in the range
+    int* base;                 // [kWinWords] rank of each word's first bit
+    int* scalars;              // [4]     the tile's span, the range's count
+    __nv_bfloat16* we_s;       // [64][lde]        W_e slice, transposed
+    __nv_bfloat16* ea;         // 2 x [r][lde]     edge rows
+    float* ys;                 // [kGatherRows][kYsLd] staged y_s slices
 };
+
+__host__ __device__ inline size_t gather_ints(int r, int k) {
+    return static_cast<size_t>((r * k + kGatherRows + 2 * kWinWords + 4 +
+                                3) & ~3);
+}
 
 // Shared memory the loop needs, in bytes.
 __host__ __device__ inline size_t gather_smem_bytes(int de, int r, int k) {
     const int lde = ((de + 15) & ~15) + 8;
-    return sizeof(int) * static_cast<size_t>(((r * k + 3) & ~3)) +
-           sizeof(__nv_bfloat16) *
-               static_cast<size_t>(kBlockCols + kGatherStages * r) * lde +
-           sizeof(float) * static_cast<size_t>(kGatherStages * r) * kYsLd;
+    return sizeof(int) * gather_ints(r, k) +
+           sizeof(__nv_bfloat16) * static_cast<size_t>(kBlockCols + 2 * r) *
+               lde +
+           sizeof(float) * static_cast<size_t>(kGatherRows) * kYsLd;
 }
 
 __device__ __forceinline__ GatherSmem gather_smem(int de, int r, int k) {
@@ -73,16 +74,21 @@ __device__ __forceinline__ GatherSmem gather_smem(int de, int r, int k) {
     GatherSmem S;
     S.kpe = (de + 15) & ~15;
     S.lde = S.kpe + 8;
-    S.snd = reinterpret_cast<int*>(smem_raw);
-    S.we_s = reinterpret_cast<__nv_bfloat16*>(S.snd + ((r * k + 3) & ~3));
+    S.cidx = reinterpret_cast<int*>(smem_raw);
+    S.inv = S.cidx + r * k;
+    S.mask = reinterpret_cast<unsigned*>(S.inv + kGatherRows);
+    S.base = reinterpret_cast<int*>(S.mask + kWinWords);
+    S.scalars = S.base + kWinWords;
+    S.we_s = reinterpret_cast<__nv_bfloat16*>(S.cidx + gather_ints(r, k));
     S.ea = S.we_s + kBlockCols * S.lde;
-    // (64 + stages r) lde bf16 is a multiple of 16 bytes (lde % 8 == 0)
-    S.ys = reinterpret_cast<float*>(S.ea + kGatherStages * r * S.lde);
+    // (64 + 2r) lde bf16 is a multiple of 16 bytes (lde % 8 == 0)
+    S.ys = reinterpret_cast<float*>(S.ea + 2 * r * S.lde);
     return S;
 }
 
-// A slot's global sender, or -1 for an empty slot (or one past n_x). The
-// index arrays are read-only for the kernel's life (__ldg).
+// A slot's sender as a window position (the window starts at node win0),
+// or -1 for an empty slot or one past n_x. The index arrays are read-only
+// for the kernel's life (__ldg).
 struct DenseSenders {
     const int32_t* sloc;
     int win0, n_x;
@@ -91,12 +97,12 @@ struct DenseSenders {
         : sloc(sloc_), win0(__ldg(tile_win + t) * node_block), n_x(n_x_) {}
     __device__ int operator()(size_t slot) const {
         const int sl = __ldg(sloc + slot);
-        return sl >= 0 && win0 + sl < n_x ? win0 + sl : -1;
+        return sl >= 0 && win0 + sl < n_x ? sl : -1;
     }
 };
 
 // Stages the W_e slice [col0, col0 + 64), zero past de and h, and zeroes
-// the depth padding [de, kpe) of every edge-row buffer (the mma reads it,
+// the depth padding [de, kpe) of both edge-row buffers (the mma reads it,
 // the copies never write it). The loop's first barrier publishes it.
 __device__ __forceinline__ void stage_edge_weights(
     const GatherSmem& S, const __nv_bfloat16* __restrict__ w_e, int de,
@@ -108,19 +114,102 @@ __device__ __forceinline__ void stage_edge_weights(
         S.we_s[n * S.lde + kk] = (kk < de && col < h)
             ? w_e[static_cast<size_t>(kk) * h + col] : zero;
     }
-    for (int i = threadIdx.x; i < kGatherStages * r * (S.kpe - de);
-         i += blockDim.x) {
+    for (int i = threadIdx.x; i < 2 * r * (S.kpe - de); i += blockDim.x) {
         const int rr = i / (S.kpe - de), c = i % (S.kpe - de);
         S.ea[rr * S.lde + de + c] = zero;
     }
 }
 
-// Calls visit(j, acc, v0, v1) for each slot row j = 0..k-1 of tile t
-// (the tile's senders are staged in shared memory first):
-// acc[nt][q] is op at row m0 + g + (q >> 1) * 8 and column
-// col0 + nt * 8 + tq * 2 + (q & 1) (m0 = 16 * warp, g = lane / 4,
-// tq = lane % 4); v0 / v1 say whether rows m0+g / m0+g+8 hold an edge.
-// Every thread of the block calls it; stage_edge_weights first.
+// The distinct senders of the rk slots from tile_slot0 at window positions
+// [p0, p0 + kWinSpan): S.mask, S.base and S.cidx (-1 for a slot whose
+// sender lies elsewhere); returns their count. Every thread of the block
+// calls it.
+__device__ __forceinline__ int rank_senders(const GatherSmem& S,
+                                            size_t tile_slot0,
+                                            const DenseSenders& senders,
+                                            int rk, int p0) {
+    const int tid = threadIdx.x;
+    for (int w = tid; w < kWinWords; w += blockDim.x) S.mask[w] = 0u;
+    __syncthreads();
+    for (int i = tid; i < rk; i += blockDim.x) {
+        const int p = senders(tile_slot0 + i) - p0;
+        if (p >= 0 && p < kWinSpan) {
+            atomicOr(S.mask + (p >> 5), 1u << (p & 31));
+        }
+    }
+    __syncthreads();
+    // exclusive prefix count over the words: warp 0, each lane a run of
+    // kWinWords / 32 consecutive words
+    if (tid < 32) {
+        constexpr int kRun = kWinWords / 32;
+        int sum = 0;
+#pragma unroll
+        for (int i = 0; i < kRun; ++i) sum += __popc(S.mask[tid * kRun + i]);
+        int incl = sum;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+            const int v = __shfl_up_sync(0xffffffffu, incl, off);
+            if (tid >= off) incl += v;
+        }
+        int run = incl - sum;
+#pragma unroll
+        for (int i = 0; i < kRun; ++i) {
+            S.base[tid * kRun + i] = run;
+            run += __popc(S.mask[tid * kRun + i]);
+        }
+        if (tid == 31) S.scalars[1] = incl;
+    }
+    __syncthreads();
+    for (int i = tid; i < rk; i += blockDim.x) {
+        const int p = senders(tile_slot0 + i) - p0;
+        int c = -1;
+        if (p >= 0 && p < kWinSpan) {
+            const unsigned below = S.mask[p >> 5] & ((1u << (p & 31)) - 1u);
+            c = S.base[p >> 5] + __popc(below);
+        }
+        S.cidx[i] = c;
+    }
+    const int count = S.scalars[1];
+    __syncthreads();
+    return count;
+}
+
+// Copies the 64-column slices of the distinct senders ranked [c0, c0 + n)
+// into S.ys (16-byte cp.async, committed; the caller waits and syncs).
+__device__ __forceinline__ void stage_sender_rows(
+    const GatherSmem& S, const float* __restrict__ y_s, int win0, int p0,
+    int hp, int col0, int c0, int n) {
+    const int tid = threadIdx.x;
+    // the window position of each staged rank, from the bits (a word's bits
+    // are ranked in order from its base, so each entry is written once)
+    for (int w = tid; w < kWinWords; w += blockDim.x) {
+        unsigned bits = S.mask[w];
+        int c = S.base[w];
+        while (bits != 0u) {
+            const int b = __ffs(bits) - 1;
+            if (c >= c0 && c < c0 + n) S.inv[c - c0] = w * 32 + b;
+            bits &= bits - 1u;
+            ++c;
+        }
+    }
+    __syncthreads();
+    constexpr int kChunks = kBlockCols / 4;    // 16-byte chunks of a slice
+    for (int i = tid; i < n * kChunks; i += blockDim.x) {
+        const int rr = i / kChunks, c = i % kChunks;
+        const size_t row = static_cast<size_t>(win0 + p0 + S.inv[rr]);
+        cp_async16(S.ys + rr * kYsLd + c * 4, y_s + row * hp + col0 + c * 4,
+                   true);
+    }
+    cp_async_commit();
+}
+
+// Calls visit(j, acc, v0, v1) for each slot row j = 0..k-1 of tile t and
+// each chunk of its distinct senders: acc[nt][q] is op at row
+// m0 + g + (q >> 1) * 8 and column col0 + nt * 8 + tq * 2 + (q & 1)
+// (m0 = 16 * warp, g = lane / 4, tq = lane % 4); v0 / v1 say whether rows
+// m0+g / m0+g+8 hold an edge whose sender is in the chunk (each slot with
+// an edge is in exactly one chunk). Every thread of the block calls it;
+// stage_edge_weights first.
 template <class Visit>
 __device__ __forceinline__ void gather_rows(
     int t, const float* __restrict__ y_s,      // [n_x, hp]
@@ -134,27 +223,21 @@ __device__ __forceinline__ void gather_rows(
     const int g = lane >> 2, tq = lane & 3;
     const int m0 = (tid >> 5) * 16;
     const size_t tile_slot0 = static_cast<size_t>(t) * r * k;
-    constexpr int kYsChunks = kBlockCols / 4;  // 16-byte chunks of a slice
     const int echunks = de / 8;
 
-    // the tile's senders, once: the copies below index y_s by them
-    for (int i = tid; i < r * k; i += nthreads) {
-        S.snd[i] = senders(tile_slot0 + i);
-    }
+    // the tile's window span: one past its largest sender position
+    if (tid == 0) S.scalars[0] = 0;
     __syncthreads();
+    int span = 0;
+    for (int i = tid; i < r * k; i += nthreads) {
+        span = max(span, senders(tile_slot0 + i) + 1);
+    }
+    atomicMax(S.scalars, span);
+    __syncthreads();
+    span = S.scalars[0];
 
     auto issue = [&](int j, int buf) {
         const size_t slot0 = tile_slot0 + static_cast<size_t>(j) * r;
-        const int* snd = S.snd + j * r;
-        float* ys = S.ys + buf * r * kYsLd;
-        for (int i = tid; i < r * kYsChunks; i += nthreads) {
-            const int rr = i / kYsChunks, c = i % kYsChunks;
-            const int s = snd[rr];
-            const float* src =
-                s >= 0 ? y_s + static_cast<size_t>(s) * hp + col0 + c * 4
-                       : y_s;
-            cp_async16_ys(ys + rr * kYsLd + c * 4, src, s >= 0);
-        }
         __nv_bfloat16* ea = S.ea + buf * r * S.lde;
         for (int i = tid; i < r * echunks; i += nthreads) {
             const int rr = i / echunks, c = i % echunks;
@@ -162,44 +245,50 @@ __device__ __forceinline__ void gather_rows(
                        e_t + (slot0 + rr) * static_cast<size_t>(de) + c * 8,
                        true);
         }
+        cp_async_commit();
     };
 
-    // one commit group per slot row, empty past the last: row j has landed
-    // once at most stages - 1 groups are pending
-    for (int s = 0; s < kGatherStages - 1; ++s) {
-        if (s < k) issue(s, s);
-        cp_async_commit();
-    }
-    for (int j = 0; j < k; ++j) {
-        const int buf = j % kGatherStages;
-        const int next = j + kGatherStages - 1;
-        if (next < k) issue(next, next % kGatherStages);
-        cp_async_commit();
-        cp_async_wait<kGatherStages - 1>();
-        __syncthreads();
+    for (int p0 = 0; p0 < span; p0 += kWinSpan) {
+        const int count = rank_senders(S, tile_slot0, senders, r * k, p0);
+        for (int c0 = 0; c0 < count; c0 += kGatherRows) {
+            const int n = min(kGatherRows, count - c0);
+            stage_sender_rows(S, y_s, senders.win0, p0, hp, col0, c0, n);
+            issue(0, 0);
+            for (int j = 0; j < k; ++j) {
+                const int buf = j & 1;
+                if (j + 1 < k) {
+                    issue(j + 1, buf ^ 1);
+                    cp_async_wait<1>();
+                } else {
+                    cp_async_wait<0>();
+                }
+                __syncthreads();
 
-        float acc[kColTiles][4];
+                float acc[kColTiles][4];
 #pragma unroll
-        for (int nt = 0; nt < kColTiles; ++nt)
+                for (int nt = 0; nt < kColTiles; ++nt)
 #pragma unroll
-            for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
-        warp_gemm(acc, S.ea + buf * r * S.lde + m0 * S.lde, S.lde, S.we_s,
-                  S.lde, S.kpe, g, tq);
-        const float* ys = S.ys + buf * r * kYsLd;
+                    for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
+                warp_gemm(acc, S.ea + buf * r * S.lde + m0 * S.lde, S.lde,
+                          S.we_s, S.lde, S.kpe, g, tq);
+                bool in[2];
 #pragma unroll
-        for (int nt = 0; nt < kColTiles; ++nt) {
+                for (int half = 0; half < 2; ++half) {
+                    const int c = S.cidx[j * r + m0 + g + half * 8] - c0;
+                    in[half] = c >= 0 && c < n;
+                    const float* ys = S.ys + (in[half] ? c : 0) * kYsLd;
 #pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const float2 y = *reinterpret_cast<const float2*>(
-                    ys + (m0 + g + half * 8) * kYsLd + nt * 8 + tq * 2);
-                acc[nt][half * 2] += y.x;
-                acc[nt][half * 2 + 1] += y.y;
+                    for (int nt = 0; nt < kColTiles; ++nt) {
+                        const float2 y = *reinterpret_cast<const float2*>(
+                            ys + nt * 8 + tq * 2);
+                        acc[nt][half * 2] += y.x;
+                        acc[nt][half * 2 + 1] += y.y;
+                    }
+                }
+                visit(j, acc, in[0], in[1]);
+                __syncthreads();   // the buffers are refilled next
             }
         }
-
-        visit(j, acc, S.snd[j * r + m0 + g] >= 0,
-              S.snd[j * r + m0 + g + 8] >= 0);
-        __syncthreads();       // the buffer is refilled in the next step
     }
 }
 

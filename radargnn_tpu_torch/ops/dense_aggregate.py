@@ -350,7 +350,8 @@ def dense_fwd_cuda(y_s, e_t_c, w_e_c, senders_local, tile_win, inner_o,
     inner = bits = None
     if emit_inner:
         inner = torch.empty_like(out)
-        bits = torch.empty((e_pad, hp // 32), dtype=i32, device=dev)
+        # the kernel writes the words of the slots that hold an edge
+        bits = torch.zeros((e_pad, hp // 32), dtype=i32, device=dev)
     with torch.cuda.device(dev):
         err = lib.dense_fwd_v4(
             y_s.data_ptr(), e_t_c.data_ptr(), w_e_c.data_ptr(),
