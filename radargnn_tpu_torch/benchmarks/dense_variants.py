@@ -1,5 +1,6 @@
 """Build variants of the dense gather-max (csrc/dense_fwd_v4.cu: how many
-distinct sender rows it stages at a time, DENSE_GATHER_ROWS), timed on the
+distinct sender rows it stages at a time, DENSE_GATHER_ROWS, and how many
+edge-row buffers it keeps in flight, DENSE_GATHER_ESTAGES), timed on the
 flagship kNN batch, on one card.
 
 Each variant is built into its own library in the build directory and
@@ -114,8 +115,9 @@ def run(variants: List[str], reps: int = 20, seed: int = 0) -> Dict:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--variants", nargs="+", default=[
-        "DENSE_GATHER_ROWS=192", "DENSE_GATHER_ROWS=128",
-        "DENSE_GATHER_ROWS=256"])
+        "DENSE_GATHER_ESTAGES=2", "DENSE_GATHER_ESTAGES=4",
+        "DENSE_GATHER_ESTAGES=6", "DENSE_GATHER_ROWS=160,DENSE_GATHER_ESTAGES=4",
+        "DENSE_GATHER_ROWS=160,DENSE_GATHER_ESTAGES=8"])
     parser.add_argument("--reps", type=int, default=20)
     args = parser.parse_args()
     print(json.dumps(run(args.variants, args.reps)))

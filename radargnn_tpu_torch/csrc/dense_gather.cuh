@@ -18,8 +18,9 @@
 // finds the tile's distinct senders (a bit per window position in shared
 // memory, ranked by a prefix count), copies their 64-column slices of y_s
 // into shared memory once (16-byte cp.async), and then walks the slot
-// rows: the R edge rows of slot row j are copied (double-buffered, so row
-// j+1 loads while row j computes), each warp forms acc[16 x 64] =
+// rows: the R edge rows of slot row j are copied through a ring of
+// kEStages buffers (rows j+1 .. j+stages-1 load while row j computes: the
+// copies' latency, not their bytes, holds the loop), each warp forms acc[16 x 64] =
 // e_rows @ W_e on mma.sync and adds the y_s slice of each slot's sender
 // from shared memory. Senders are taken kWinSpan window positions and
 // kGatherRows distinct rows at a time; a tile with more runs the slot rows
@@ -38,6 +39,12 @@ constexpr int kYsLd = kBlockCols + 8;    // staged y_s row stride (floats)
 #define DENSE_GATHER_ROWS 192
 #endif
 constexpr int kGatherRows = DENSE_GATHER_ROWS;
+// edge-row buffers: the copies of slot rows j+1 .. j+stages-1 are in
+// flight while row j computes
+#ifndef DENSE_GATHER_ESTAGES
+#define DENSE_GATHER_ESTAGES 6
+#endif
+constexpr int kEStages = DENSE_GATHER_ESTAGES;
 constexpr int kWinSpan = 8192;           // window positions per range
 constexpr int kWinWords = kWinSpan / 32;
 
@@ -51,7 +58,7 @@ struct GatherSmem {
     int* base;                 // [kWinWords] rank of each word's first bit
     int* scalars;              // [4]     the tile's span, the range's count
     __nv_bfloat16* we_s;       // [64][lde]        W_e slice, transposed
-    __nv_bfloat16* ea;         // 2 x [r][lde]     edge rows
+    __nv_bfloat16* ea;         // kEStages x [r][lde] edge rows
     float* ys;                 // [kGatherRows][kYsLd] staged y_s slices
 };
 
@@ -64,8 +71,8 @@ __host__ __device__ inline size_t gather_ints(int r, int k) {
 __host__ __device__ inline size_t gather_smem_bytes(int de, int r, int k) {
     const int lde = ((de + 15) & ~15) + 8;
     return sizeof(int) * gather_ints(r, k) +
-           sizeof(__nv_bfloat16) * static_cast<size_t>(kBlockCols + 2 * r) *
-               lde +
+           sizeof(__nv_bfloat16) *
+               static_cast<size_t>(kBlockCols + kEStages * r) * lde +
            sizeof(float) * static_cast<size_t>(kGatherRows) * kYsLd;
 }
 
@@ -81,8 +88,8 @@ __device__ __forceinline__ GatherSmem gather_smem(int de, int r, int k) {
     S.scalars = S.base + kWinWords;
     S.we_s = reinterpret_cast<__nv_bfloat16*>(S.cidx + gather_ints(r, k));
     S.ea = S.we_s + kBlockCols * S.lde;
-    // (64 + 2r) lde bf16 is a multiple of 16 bytes (lde % 8 == 0)
-    S.ys = reinterpret_cast<float*>(S.ea + 2 * r * S.lde);
+    // (64 + stages r) lde bf16 is a multiple of 16 bytes (lde % 8 == 0)
+    S.ys = reinterpret_cast<float*>(S.ea + kEStages * r * S.lde);
     return S;
 }
 
@@ -102,7 +109,7 @@ struct DenseSenders {
 };
 
 // Stages the W_e slice [col0, col0 + 64), zero past de and h, and zeroes
-// the depth padding [de, kpe) of both edge-row buffers (the mma reads it,
+// the depth padding [de, kpe) of every edge-row buffer (the mma reads it,
 // the copies never write it). The loop's first barrier publishes it.
 __device__ __forceinline__ void stage_edge_weights(
     const GatherSmem& S, const __nv_bfloat16* __restrict__ w_e, int de,
@@ -114,7 +121,8 @@ __device__ __forceinline__ void stage_edge_weights(
         S.we_s[n * S.lde + kk] = (kk < de && col < h)
             ? w_e[static_cast<size_t>(kk) * h + col] : zero;
     }
-    for (int i = threadIdx.x; i < 2 * r * (S.kpe - de); i += blockDim.x) {
+    for (int i = threadIdx.x; i < kEStages * r * (S.kpe - de);
+         i += blockDim.x) {
         const int rr = i / (S.kpe - de), c = i % (S.kpe - de);
         S.ea[rr * S.lde + de + c] = zero;
     }
@@ -236,14 +244,19 @@ __device__ __forceinline__ void gather_rows(
     __syncthreads();
     span = S.scalars[0];
 
-    auto issue = [&](int j, int buf) {
-        const size_t slot0 = tile_slot0 + static_cast<size_t>(j) * r;
-        __nv_bfloat16* ea = S.ea + buf * r * S.lde;
-        for (int i = tid; i < r * echunks; i += nthreads) {
-            const int rr = i / echunks, c = i % echunks;
-            cp_async16(ea + rr * S.lde + c * 8,
-                       e_t + (slot0 + rr) * static_cast<size_t>(de) + c * 8,
-                       true);
+    // the edge rows of slot row j into their ring buffer, one commit group
+    // per row (an empty group past the last row)
+    auto issue = [&](int j) {
+        if (j < k) {
+            const size_t slot0 = tile_slot0 + static_cast<size_t>(j) * r;
+            __nv_bfloat16* ea = S.ea + (j % kEStages) * r * S.lde;
+            for (int i = tid; i < r * echunks; i += nthreads) {
+                const int rr = i / echunks, c = i % echunks;
+                cp_async16(ea + rr * S.lde + c * 8,
+                           e_t + (slot0 + rr) * static_cast<size_t>(de) +
+                               c * 8,
+                           true);
+            }
         }
         cp_async_commit();
     };
@@ -253,15 +266,11 @@ __device__ __forceinline__ void gather_rows(
         for (int c0 = 0; c0 < count; c0 += kGatherRows) {
             const int n = min(kGatherRows, count - c0);
             stage_sender_rows(S, y_s, senders.win0, p0, hp, col0, c0, n);
-            issue(0, 0);
+            for (int j = 0; j < kEStages - 1; ++j) issue(j);
             for (int j = 0; j < k; ++j) {
-                const int buf = j & 1;
-                if (j + 1 < k) {
-                    issue(j + 1, buf ^ 1);
-                    cp_async_wait<1>();
-                } else {
-                    cp_async_wait<0>();
-                }
+                const int buf = j % kEStages;
+                issue(j + kEStages - 1);
+                cp_async_wait<kEStages - 1>();   // row j (and the y_s rows)
                 __syncthreads();
 
                 float acc[kColTiles][4];
