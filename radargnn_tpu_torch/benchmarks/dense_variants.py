@@ -115,9 +115,9 @@ def run(variants: List[str], reps: int = 20, seed: int = 0) -> Dict:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--variants", nargs="+", default=[
-        "DENSE_GATHER_ESTAGES=2", "DENSE_GATHER_ESTAGES=4",
-        "DENSE_GATHER_ESTAGES=6", "DENSE_GATHER_ROWS=160,DENSE_GATHER_ESTAGES=4",
-        "DENSE_GATHER_ROWS=160,DENSE_GATHER_ESTAGES=8"])
+        "DENSE_GATHER_ROWS=192", "DENSE_GATHER_ROWS=256",
+        "DENSE_GATHER_ESTAGES=4",
+        "DENSE_GATHER_ROWS=160,DENSE_GATHER_ESTAGES=4"])
     parser.add_argument("--reps", type=int, default=20)
     args = parser.parse_args()
     print(json.dumps(run(args.variants, args.reps)))

@@ -19,10 +19,9 @@
 // memory, ranked by a prefix count), copies their 64-column slices of y_s
 // into shared memory once (16-byte cp.async), and then walks the slot
 // rows: the R edge rows of slot row j are copied through a ring of
-// kEStages buffers (rows j+1 .. j+stages-1 load while row j computes: the
-// copies' latency, not their bytes, holds the loop), each warp forms acc[16 x 64] =
-// e_rows @ W_e on mma.sync and adds the y_s slice of each slot's sender
-// from shared memory. Senders are taken kWinSpan window positions and
+// kEStages buffers (rows j+1 .. j+stages-1 load while row j computes),
+// each warp forms acc[16 x 64] = e_rows @ W_e on mma.sync and adds the
+// y_s slice of each slot's sender from shared memory. Senders are taken kWinSpan window positions and
 // kGatherRows distinct rows at a time; a tile with more runs the slot rows
 // once per such chunk, each slot in the chunk that holds its sender.
 #pragma once
@@ -40,9 +39,10 @@ constexpr int kYsLd = kBlockCols + 8;    // staged y_s row stride (floats)
 #endif
 constexpr int kGatherRows = DENSE_GATHER_ROWS;
 // edge-row buffers: the copies of slot rows j+1 .. j+stages-1 are in
-// flight while row j computes
+// flight while row j computes; deeper rings cost blocks per SM and
+// measured slower (benchmarks/dense_variants.py)
 #ifndef DENSE_GATHER_ESTAGES
-#define DENSE_GATHER_ESTAGES 6
+#define DENSE_GATHER_ESTAGES 2
 #endif
 constexpr int kEStages = DENSE_GATHER_ESTAGES;
 constexpr int kWinSpan = 8192;           // window positions per range

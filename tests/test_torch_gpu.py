@@ -95,12 +95,16 @@ def _fwd_args(c):
 
 
 # (n, K, R, node_block, d_in, d_e, H): a small tile with H not a multiple
-# of 64, then the five layer shapes of the flagship (three alike)
+# of 64, the five layer shapes of the flagship (three alike); random
+# senders give a tile more distinct senders than the gather stages at once
 _DSHAPES = [
     (128, 7, 16, 32, 24, 8, 40),
     (1024, 24, 64, 256, 224, 16, 464),
     (1024, 24, 64, 256, 128, 16, 272),
     (1024, 24, 64, 256, 64, 16, 144),
+    # a 3 x 4096-node window: the gather ranks senders in ranges of 8192
+    # window positions
+    (12288, 6, 16, 4096, 24, 8, 40),
 ]
 
 
