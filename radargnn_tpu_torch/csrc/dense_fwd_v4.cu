@@ -34,10 +34,11 @@
 // 64-column slice) stages the slices of the tile's distinct senders in
 // shared memory once (dense_gather.cuh), walks the slot rows with the edge
 // rows double-buffered, adds the edge product (one m16n8k16 step at d_e
-// 16) and keeps the running max in registers. Reading a y_s row per slot
-// from L2 (~630 MB per wide layer) held the first versions of this kernel;
-// the distinct rows are ~9x fewer. The VJP mode runs the loop twice (the
-// max, then the bits against it). The times are in PERF.md.
+// 16) and keeps the running max in registers; the distinct rows are ~9x
+// fewer than the slots' (~630 MB per wide layer read per slot). The VJP
+// mode walks the slot rows twice (the max, then the bits against it). It
+// runs at ~7x its bound; what holds it is not measured (PERF.md, with the
+// times).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -157,7 +158,7 @@ __global__ void __launch_bounds__(256) dense_fwd_v4_kernel(
     for (int nt = 0; nt < kColTiles; ++nt)
 #pragma unroll
         for (int q = 0; q < 4; ++q) mx[nt][q] = kNeg;
-    gather_rows(t, y_s, e_t, senders, de, hp, r_tile, k, col0,
+    gather_rows(t, y_s, e_t, senders, de, hp, r_tile, k, col0, false,
                 [&](int, float (*acc)[4], bool v0, bool v1) {
 #pragma unroll
         for (int nt = 0; nt < kColTiles; ++nt) {
@@ -191,10 +192,11 @@ __global__ void __launch_bounds__(256) dense_fwd_v4_kernel(
     }
     if (bits == nullptr) return;
 
-    // VJP mode: the same loop again, each op against its receiver's inner
     const int words = hp / 32;
     const size_t tile_slot0 = static_cast<size_t>(t) * r_tile * k;
-    gather_rows(t, y_s, e_t, senders, de, hp, r_tile, k, col0,
+    // VJP mode: the same loop again, each op against its receiver's inner
+    // (the staged senders of a one-chunk tile are walked again as they lie)
+    gather_rows(t, y_s, e_t, senders, de, hp, r_tile, k, col0, true,
                 [&](int j, float (*acc)[4], bool v0, bool v1) {
         bool sel[kColTiles][4];
 #pragma unroll

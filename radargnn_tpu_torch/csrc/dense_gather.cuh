@@ -13,17 +13,18 @@
 //
 // One block = one tile x one 64-column slice, R/16 warps of 16 rows each.
 // A tile's ~1,200 slots read only ~140 distinct sender rows at the
-// flagship's shapes (benchmarks/dense_variants.py), and reading a row per
-// slot from L2 bound the first versions of this loop. So the block first
-// finds the tile's distinct senders (a bit per window position in shared
-// memory, ranked by a prefix count), copies their 64-column slices of y_s
-// into shared memory once (16-byte cp.async), and then walks the slot
-// rows: the R edge rows of slot row j are copied through a ring of
-// kEStages buffers (rows j+1 .. j+stages-1 load while row j computes),
-// each warp forms acc[16 x 64] = e_rows @ W_e on mma.sync and adds the
-// y_s slice of each slot's sender from shared memory. Senders are taken kWinSpan window positions and
-// kGatherRows distinct rows at a time; a tile with more runs the slot rows
-// once per such chunk, each slot in the chunk that holds its sender.
+// flagship's shapes (benchmarks/dense_variants.py). So the block first
+// loads the slots' senders into shared memory, finds the distinct ones (a
+// bit per window position, ranked by a prefix count), copies their
+// 64-column slices of y_s into shared memory once (16-byte cp.async), and
+// then walks the slot rows: the R edge rows of slot row j are copied
+// through a ring of kEStages buffers (rows j+1 .. j+stages-1 load while row
+// j computes), each warp forms acc[16 x 64] = e_rows @ W_e on mma.sync and
+// adds the y_s slice of each slot's sender from shared memory. Senders are
+// taken kWinSpan window positions and kGatherRows distinct rows at a time;
+// a tile with more runs the slot rows once per such chunk, each slot in
+// the chunk that holds its sender. The VJP mode's second pass walks a
+// one-chunk tile's staged rows again.
 #pragma once
 
 #include "mma_bf16.cuh"
@@ -45,32 +46,39 @@ constexpr int kGatherRows = DENSE_GATHER_ROWS;
 #define DENSE_GATHER_ESTAGES 2
 #endif
 constexpr int kEStages = DENSE_GATHER_ESTAGES;
-constexpr int kWinSpan = 8192;           // window positions per range
+constexpr int kWinSpan = 4096;           // window positions per range
 constexpr int kWinWords = kWinSpan / 32;
 
 struct GatherSmem {
     int kpe, lde;              // edge depth padded to the mma k; stride (+8)
-    int* cidx;                 // [r*k]   rank of the slot's sender among the
-                               //         range's distinct senders, or -1
+    int* pos;                  // [r*k]   the slot's sender as a window
+                               //         position, or -1
     int* inv;                  // [kGatherRows] window position of each
                                //         staged row of the chunk
     unsigned* mask;            // [kWinWords] senders present in the range
     int* base;                 // [kWinWords] rank of each word's first bit
-    int* scalars;              // [4]     the tile's span, the range's count
+    int* scalars;              // [4]     the tile's span, the range's
+                               //         count, the chunks walked, the
+                               //         last chunk's rows
+    int16_t* cidx;             // [r*k]   rank of the slot's sender among the
+                               //         range's distinct senders, or -1
     __nv_bfloat16* we_s;       // [64][lde]        W_e slice, transposed
     __nv_bfloat16* ea;         // kEStages x [r][lde] edge rows
     float* ys;                 // [kGatherRows][kYsLd] staged y_s slices
 };
 
-__host__ __device__ inline size_t gather_ints(int r, int k) {
-    return static_cast<size_t>((r * k + kGatherRows + 2 * kWinWords + 4 +
-                                3) & ~3);
+// bytes of the index arrays (pos .. cidx), a multiple of 16
+__host__ __device__ inline size_t gather_index_bytes(int r, int k) {
+    const size_t b = sizeof(int) * static_cast<size_t>(
+                         r * k + kGatherRows + 2 * kWinWords + 4) +
+                     sizeof(int16_t) * static_cast<size_t>(r * k);
+    return (b + 15) & ~static_cast<size_t>(15);
 }
 
 // Shared memory the loop needs, in bytes.
 __host__ __device__ inline size_t gather_smem_bytes(int de, int r, int k) {
     const int lde = ((de + 15) & ~15) + 8;
-    return sizeof(int) * gather_ints(r, k) +
+    return gather_index_bytes(r, k) +
            sizeof(__nv_bfloat16) *
                static_cast<size_t>(kBlockCols + kEStages * r) * lde +
            sizeof(float) * static_cast<size_t>(kGatherRows) * kYsLd;
@@ -81,12 +89,14 @@ __device__ __forceinline__ GatherSmem gather_smem(int de, int r, int k) {
     GatherSmem S;
     S.kpe = (de + 15) & ~15;
     S.lde = S.kpe + 8;
-    S.cidx = reinterpret_cast<int*>(smem_raw);
-    S.inv = S.cidx + r * k;
+    S.pos = reinterpret_cast<int*>(smem_raw);
+    S.inv = S.pos + r * k;
     S.mask = reinterpret_cast<unsigned*>(S.inv + kGatherRows);
     S.base = reinterpret_cast<int*>(S.mask + kWinWords);
     S.scalars = S.base + kWinWords;
-    S.we_s = reinterpret_cast<__nv_bfloat16*>(S.cidx + gather_ints(r, k));
+    S.cidx = reinterpret_cast<int16_t*>(S.scalars + 4);
+    S.we_s = reinterpret_cast<__nv_bfloat16*>(
+        smem_raw + gather_index_bytes(r, k));
     S.ea = S.we_s + kBlockCols * S.lde;
     // (64 + stages r) lde bf16 is a multiple of 16 bytes (lde % 8 == 0)
     S.ys = reinterpret_cast<float*>(S.ea + kEStages * r * S.lde);
@@ -128,19 +138,17 @@ __device__ __forceinline__ void stage_edge_weights(
     }
 }
 
-// The distinct senders of the rk slots from tile_slot0 at window positions
+// The distinct senders of the rk slots (S.pos) at window positions
 // [p0, p0 + kWinSpan): S.mask, S.base and S.cidx (-1 for a slot whose
 // sender lies elsewhere); returns their count. Every thread of the block
 // calls it.
-__device__ __forceinline__ int rank_senders(const GatherSmem& S,
-                                            size_t tile_slot0,
-                                            const DenseSenders& senders,
-                                            int rk, int p0) {
+__device__ __forceinline__ int rank_senders(const GatherSmem& S, int rk,
+                                            int p0) {
     const int tid = threadIdx.x;
     for (int w = tid; w < kWinWords; w += blockDim.x) S.mask[w] = 0u;
     __syncthreads();
     for (int i = tid; i < rk; i += blockDim.x) {
-        const int p = senders(tile_slot0 + i) - p0;
+        const int p = S.pos[i] - p0;
         if (p >= 0 && p < kWinSpan) {
             atomicOr(S.mask + (p >> 5), 1u << (p & 31));
         }
@@ -169,13 +177,13 @@ __device__ __forceinline__ int rank_senders(const GatherSmem& S,
     }
     __syncthreads();
     for (int i = tid; i < rk; i += blockDim.x) {
-        const int p = senders(tile_slot0 + i) - p0;
+        const int p = S.pos[i] - p0;
         int c = -1;
         if (p >= 0 && p < kWinSpan) {
             const unsigned below = S.mask[p >> 5] & ((1u << (p & 31)) - 1u);
             c = S.base[p >> 5] + __popc(below);
         }
-        S.cidx[i] = c;
+        S.cidx[i] = static_cast<int16_t>(c);
     }
     const int count = S.scalars[1];
     __syncthreads();
@@ -216,33 +224,25 @@ __device__ __forceinline__ void stage_sender_rows(
 // m0 + g + (q >> 1) * 8 and column col0 + nt * 8 + tq * 2 + (q & 1)
 // (m0 = 16 * warp, g = lane / 4, tq = lane % 4); v0 / v1 say whether rows
 // m0+g / m0+g+8 hold an edge whose sender is in the chunk (each slot with
-// an edge is in exactly one chunk). Every thread of the block calls it;
+// an edge is in exactly one chunk). With `reuse`, a tile whose senders the
+// previous call staged in one chunk walks its slot rows again without
+// ranking or copying anything. Every thread of the block calls it;
 // stage_edge_weights first.
 template <class Visit>
 __device__ __forceinline__ void gather_rows(
     int t, const float* __restrict__ y_s,      // [n_x, hp]
     const __nv_bfloat16* __restrict__ e_t,     // [T*TE, de]
     const DenseSenders& senders, int de, int hp, int r, int k, int col0,
-    Visit&& visit) {
+    bool reuse, Visit&& visit) {
     const GatherSmem S = gather_smem(de, r, k);
     const int tid = threadIdx.x;
     const int nthreads = blockDim.x;
     const int lane = tid & 31;
     const int g = lane >> 2, tq = lane & 3;
     const int m0 = (tid >> 5) * 16;
-    const size_t tile_slot0 = static_cast<size_t>(t) * r * k;
+    const int rk = r * k;
+    const size_t tile_slot0 = static_cast<size_t>(t) * rk;
     const int echunks = de / 8;
-
-    // the tile's window span: one past its largest sender position
-    if (tid == 0) S.scalars[0] = 0;
-    __syncthreads();
-    int span = 0;
-    for (int i = tid; i < r * k; i += nthreads) {
-        span = max(span, senders(tile_slot0 + i) + 1);
-    }
-    atomicMax(S.scalars, span);
-    __syncthreads();
-    span = S.scalars[0];
 
     // the edge rows of slot row j into their ring buffer, one commit group
     // per row (an empty group past the last row)
@@ -261,44 +261,74 @@ __device__ __forceinline__ void gather_rows(
         cp_async_commit();
     };
 
-    for (int p0 = 0; p0 < span; p0 += kWinSpan) {
-        const int count = rank_senders(S, tile_slot0, senders, r * k, p0);
-        for (int c0 = 0; c0 < count; c0 += kGatherRows) {
-            const int n = min(kGatherRows, count - c0);
-            stage_sender_rows(S, y_s, senders.win0, p0, hp, col0, c0, n);
-            for (int j = 0; j < kEStages - 1; ++j) issue(j);
-            for (int j = 0; j < k; ++j) {
-                const int buf = j % kEStages;
-                issue(j + kEStages - 1);
-                cp_async_wait<kEStages - 1>();   // row j (and the y_s rows)
-                __syncthreads();
+    // the slot rows over the staged chunk of ranks [c0, c0 + n)
+    auto walk = [&](int c0, int n) {
+        for (int j = 0; j < kEStages - 1; ++j) issue(j);
+        for (int j = 0; j < k; ++j) {
+            const int buf = j % kEStages;
+            issue(j + kEStages - 1);
+            cp_async_wait<kEStages - 1>();       // row j (and the y_s rows)
+            __syncthreads();
 
-                float acc[kColTiles][4];
+            float acc[kColTiles][4];
 #pragma unroll
-                for (int nt = 0; nt < kColTiles; ++nt)
+            for (int nt = 0; nt < kColTiles; ++nt)
 #pragma unroll
-                    for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
-                warp_gemm(acc, S.ea + buf * r * S.lde + m0 * S.lde, S.lde,
-                          S.we_s, S.lde, S.kpe, g, tq);
-                bool in[2];
+                for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
+            warp_gemm(acc, S.ea + buf * r * S.lde + m0 * S.lde, S.lde,
+                      S.we_s, S.lde, S.kpe, g, tq);
+            bool in[2];
 #pragma unroll
-                for (int half = 0; half < 2; ++half) {
-                    const int c = S.cidx[j * r + m0 + g + half * 8] - c0;
-                    in[half] = c >= 0 && c < n;
-                    const float* ys = S.ys + (in[half] ? c : 0) * kYsLd;
+            for (int half = 0; half < 2; ++half) {
+                const int c = S.cidx[j * r + m0 + g + half * 8] - c0;
+                in[half] = c >= 0 && c < n;
+                const float* ys = S.ys + (in[half] ? c : 0) * kYsLd;
 #pragma unroll
-                    for (int nt = 0; nt < kColTiles; ++nt) {
-                        const float2 y = *reinterpret_cast<const float2*>(
-                            ys + nt * 8 + tq * 2);
-                        acc[nt][half * 2] += y.x;
-                        acc[nt][half * 2 + 1] += y.y;
-                    }
+                for (int nt = 0; nt < kColTiles; ++nt) {
+                    const float2 y = *reinterpret_cast<const float2*>(
+                        ys + nt * 8 + tq * 2);
+                    acc[nt][half * 2] += y.x;
+                    acc[nt][half * 2 + 1] += y.y;
                 }
-                visit(j, acc, in[0], in[1]);
-                __syncthreads();   // the buffers are refilled next
             }
+            visit(j, acc, in[0], in[1]);
+            __syncthreads();       // the buffers are refilled next
+        }
+    };
+
+    if (reuse && S.scalars[2] == 1) {
+        walk(0, S.scalars[3]);
+        return;
+    }
+    // the slots' senders, four loads in flight per thread, and the tile's
+    // window span: one past its largest sender position
+    if (tid == 0) S.scalars[0] = 0;
+#pragma unroll 4
+    for (int i = tid; i < rk; i += nthreads) {
+        S.pos[i] = senders(tile_slot0 + i);
+    }
+    __syncthreads();
+    int span = 0;
+    for (int i = tid; i < rk; i += nthreads) span = max(span, S.pos[i] + 1);
+    atomicMax(S.scalars, span);
+    __syncthreads();
+    span = S.scalars[0];
+
+    int chunks = 0, last = 0;
+    for (int p0 = 0; p0 < span; p0 += kWinSpan) {
+        const int count = rank_senders(S, rk, p0);
+        for (int c0 = 0; c0 < count; c0 += kGatherRows) {
+            last = min(kGatherRows, count - c0);
+            stage_sender_rows(S, y_s, senders.win0, p0, hp, col0, c0, last);
+            walk(c0, last);
+            ++chunks;
         }
     }
+    if (tid == 0) {
+        S.scalars[2] = chunks;
+        S.scalars[3] = last;
+    }
+    __syncthreads();
 }
 
 // The strict routing test of the TPU kernel and of ops/dense_aggregate.py
