@@ -50,22 +50,18 @@ def compile_shared(cmd: List[str], src: str, name: str,
     return out, proc.stdout + proc.stderr
 
 
-def nvcc_shared(src_name: str,
-                defines: Sequence[str] = ()) -> Tuple[str, str]:
+def nvcc_shared(src_name: str) -> Tuple[str, str]:
     """Builds `csrc/<src_name>` with nvcc for sm_90a into a shared library
     with a plain C interface (loaded with ctypes); returns (path, the
-    compiler's output, which includes ptxas's register/spill report).
-    `defines` ("NAME=VALUE") build a variant into a library of its own."""
+    compiler's output, which includes ptxas's register/spill report)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else "nvcc"
     stem = os.path.splitext(src_name)[0]
-    suffix = "".join(f"_{d.replace('=', '')}" for d in defines)
     return compile_shared(
         [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-        + [f"-D{d}" for d in defines],
-        source_path("csrc", src_name), f"lib{stem}{suffix}.so",
+         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"],
+        source_path("csrc", src_name), f"lib{stem}.so",
         deps=glob.glob(source_path("csrc", "*.cuh")))
 
 

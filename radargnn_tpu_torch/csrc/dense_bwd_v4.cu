@@ -13,11 +13,13 @@
 //                else 0 (every tied slot takes the full g)
 //   d_e[slot]  = bf16(d_op[slot] @ W_e^T)                  [T*TE, de]
 //   dW_e       = sum over slots of e_t[slot]^T d_op[slot]  [de, hg] f32
-//   d_ys[s]    = sum of d_op over the rows the landing lists for sender s:
-//                its slots, then its overflow rows d_op_o (f32)
+//   d_ys[s]    = sum of d_op over the slots the landing lists for sender s
 //                                                          [N, hg] f32
-// The caller forms d_x = bf16(d_ys) @ W_s^T and dW_s = bf16(x)^T bf16(d_ys)
-// as node-wide products, as the JAX package's sender_dx wrapper does.
+//   d_yo[s]    = sum of its overflow rows d_op_o (f32)     [N, hg] f32
+// The caller forms d_x = bf16(d_ys) @ W_s^T + d_yo @ W_s^T and dW_s =
+// bf16(x)^T bf16(d_ys) + x^T d_yo as node-wide products: the JAX package's
+// sender_dx wrapper rounds the slots' sums to bf16 and keeps the overflow
+// part in float32.
 //
 // Design: four launches on one stream, no atomics and fixed summation
 // orders, so two runs on the same inputs are bitwise equal.
@@ -34,8 +36,9 @@
 //     landing order (SenderLanding: order, row_ptr); each lane owns 8
 //     columns, rebuilds a slot row's d_op from its byte of bits and
 //     g_pass[recv] (loaded only where a bit is set; ~1 column in 20
-//     routes), adds an overflow row as it lies, and keeps the sum in
-//     registers. d_op [E_pad, H] (~314 MB per wide layer) is never written.
+//     routes), adds an overflow row as it lies to a second sum, and keeps
+//     both in registers. d_op [E_pad, H] (~314 MB per wide layer) is never
+//     written.
 //  3. reduce_pass: dW_e = the per-tile partials summed in tile order.
 //
 // What bounds it on the card. The function needs d_x and dW_s as
@@ -303,6 +306,11 @@ __device__ __forceinline__ void add_f32x8(float* acc, const float* src) {
     acc[4] += w.x; acc[5] += w.y; acc[6] += w.z; acc[7] += w.w;
 }
 
+__device__ __forceinline__ void store_f32x8(float* dst, const float* v) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
 // acc[b] += bf16(src[b]) where bit b of `byte` is set (d_op's rounding)
 __device__ __forceinline__ void add_routed8(float* acc, const float* src,
                                             uint32_t byte) {
@@ -324,6 +332,7 @@ __global__ void __launch_bounds__(256) send_pass_kernel(
     const int32_t* __restrict__ order,         // [M]
     const int32_t* __restrict__ row_ptr,       // [N + 1]
     float* __restrict__ d_ys,                  // [N, hg]
+    float* __restrict__ d_yo,                  // [N, hg]
     long long n_slots, int n_seg, int hg, int words, int te, int r_tile) {
     const int seg = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
     const int lane = threadIdx.x & 31;
@@ -331,6 +340,7 @@ __global__ void __launch_bounds__(256) send_pass_kernel(
     const int begin = row_ptr[seg], end = row_ptr[seg + 1];
     for (int c = lane; c < hg / 8; c += 32) {
         float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        float acc_o[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
         for (int e = begin; e < end; ++e) {
             const long long i = order[e];
             if (i < n_slots) {
@@ -341,14 +351,12 @@ __global__ void __launch_bounds__(256) send_pass_kernel(
                     add_routed8(acc, g_pass + recv * hg + c * 8, byte);
                 }
             } else {
-                add_f32x8(acc, d_op_o + (i - n_slots) * hg + c * 8);
+                add_f32x8(acc_o, d_op_o + (i - n_slots) * hg + c * 8);
             }
         }
-        float* dst = d_ys + static_cast<size_t>(seg) * hg + c * 8;
-        *reinterpret_cast<float4*>(dst) =
-            make_float4(acc[0], acc[1], acc[2], acc[3]);
-        *reinterpret_cast<float4*>(dst + 4) =
-            make_float4(acc[4], acc[5], acc[6], acc[7]);
+        const size_t at = static_cast<size_t>(seg) * hg + c * 8;
+        store_f32x8(d_ys + at, acc);
+        store_f32x8(d_yo + at, acc_o);
     }
 }
 
@@ -383,8 +391,9 @@ size_t dense_bwd_v4_smem_bytes(int hp, int r_tile) {
 int dense_bwd_v4(const void* bits, const void* g_pass, const void* e_t,
                  const void* w_e, const void* d_op_o, const void* order,
                  const void* row_ptr, void* d_e, void* we_part, void* dw_e,
-                 void* d_ys, long long n_slots, int num_tiles, int r_tile,
-                 int k, int de, int hg, int hp, int n_seg, void* stream) {
+                 void* d_ys, void* d_yo, long long n_slots, int num_tiles,
+                 int r_tile, int k, int de, int hg, int hp, int n_seg,
+                 void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const auto* b = static_cast<const uint32_t*>(bits);
     const auto* g = static_cast<const float*>(g_pass);
@@ -426,7 +435,8 @@ int dense_bwd_v4(const void* bits, const void* g_pass, const void* e_t,
             b, g, static_cast<const float*>(d_op_o),
             static_cast<const int32_t*>(order),
             static_cast<const int32_t*>(row_ptr), static_cast<float*>(d_ys),
-            n_slots, n_seg, hg, hp / 32, r_tile * k, r_tile);
+            static_cast<float*>(d_yo), n_slots, n_seg, hg, hp / 32,
+            r_tile * k, r_tile);
         if ((err = cudaGetLastError()) != cudaSuccess) {
             return static_cast<int>(err);
         }

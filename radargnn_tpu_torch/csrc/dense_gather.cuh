@@ -34,18 +34,12 @@ namespace radargnn {
 constexpr int kYsLd = kBlockCols + 8;    // staged y_s row stride (floats)
 // distinct sender rows staged at a time: 192 covers every tile of the
 // flagship's batches (their largest has 190) and leaves room for three
-// blocks per SM (benchmarks/dense_variants.py times other values)
-#ifndef DENSE_GATHER_ROWS
-#define DENSE_GATHER_ROWS 192
-#endif
-constexpr int kGatherRows = DENSE_GATHER_ROWS;
+// blocks per SM (128 and 256 measured slower; PERF.md)
+constexpr int kGatherRows = 192;
 // edge-row buffers: the copies of slot rows j+1 .. j+stages-1 are in
 // flight while row j computes; deeper rings cost blocks per SM and
-// measured slower (benchmarks/dense_variants.py)
-#ifndef DENSE_GATHER_ESTAGES
-#define DENSE_GATHER_ESTAGES 2
-#endif
-constexpr int kEStages = DENSE_GATHER_ESTAGES;
+// measured slower (PERF.md)
+constexpr int kEStages = 2;
 constexpr int kWinSpan = 4096;           // window positions per range
 constexpr int kWinWords = kWinSpan / 32;
 

@@ -143,8 +143,6 @@ def _fused_hoisted_max(x, w_s, w_e, offset, tiling) -> torch.Tensor:
     aggregation for a dense tiling, the windowed one for a tiling with
     sender windows, the CSR one otherwise (each backward lands d_x through
     the batch's sender landing)."""
-    check_fused_knobs("csr" if tiling.win is None else
-                      "dense" if tiling.dense is not None else "windowed")
     if tiling.win is None:
         return csr_aggregate(x, w_s, tiling.edge_feat, w_e, tiling.senders,
                              tiling.receivers, tiling.blocks, offset,

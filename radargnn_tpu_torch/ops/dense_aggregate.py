@@ -23,14 +23,15 @@ gathers and per-slot products are not carried over:
   * the backward (`dense_bwd`, `csrc/dense_bwd_v4.cu`): d_op[slot] =
     bf16(g[receiver]) where the slot's bit is set, else 0; d_e = d_op @
     w_e^T and dW_e in a receiver-major pass over the tiles, and the H-wide
-    sender sums d_ys[s] = the sum of d_op over s's slots and its overflow
-    rows in a sender-major pass over the batch's landing order
-    (`graph/batch.py` builds it once per batch). Fixed summation orders,
-    no atomics.
+    sender sums d_ys[s] = the sum of d_op over s's slots and d_yo[s] = the
+    sum of its overflow rows, in one sender-major pass over the batch's
+    landing order (`graph/batch.py` builds it once per batch). Fixed
+    summation orders, no atomics.
 
-d_x = bf16(d_ys) @ w_s^T and dW_s = bf16(x)^T @ bf16(d_ys) are then
-node-wide products, the JAX package's `sender_dx` form (its wrapper
-:2742-2754). The routing comes from the forward's bits, so the backward
+d_x = bf16(d_ys) @ w_s^T + d_yo @ w_s^T and dW_s = bf16(x)^T @ bf16(d_ys)
++ x^T @ d_yo are then node-wide products, the JAX package's `sender_dx`
+form (its wrapper :2742-2754, the overflow part in float32 as at
+:2787-2789). The routing comes from the forward's bits, so the backward
 sees the forward's op bit for bit without recomputing it. The overflow
 edges' operand is y_s[ovf_s] + e_ovf @ w_e, scatter-maxed in torch (XLA in
 the JAX package); the forward saves it for the overflow backward. As in
@@ -145,16 +146,19 @@ def dense_bwd_plain(bits, g_pass, e_t_c, w_e_c, d_op_o, order, row_ptr, *,
     w_e_c in the gather dtype; d_op_o [Eo, H] float32, the overflow rows).
     d_op is g at the slot's receiver where the bit is set, rounded to the
     gather dtype, as the TPU kernel rounds it to its grad dtype. Returns
-    (d_e [E_pad, de] in the gather dtype, dW_e [de, H] float32, d_ys
-    [N, H] float32: the slots' and overflow rows' d_op summed at their
-    senders over the landing)."""
+    (d_e [E_pad, de] in the gather dtype, dW_e [de, H] float32, d_ys and
+    d_yo [N, H] float32: the slots' d_op and the overflow rows summed at
+    their senders over the landing)."""
     cd = e_t_c.dtype
     h = g_pass.shape[1]
     recv = _slot_receivers(e_t_c.shape[0], r_tile, k, g_pass.device)
     d_op = torch.where(unpack_bits(bits, h), g_pass[recv], 0.0).to(cd)
+    # one landing of [slot rows | 0] and [0 | overflow rows]
+    sums = segment_sum.segment_sum_csr_plain(
+        torch.nn.functional.pad(d_op.float(), (0, h)), order, row_ptr,
+        torch.nn.functional.pad(d_op_o, (h, 0)))
     return (matmul_f32(d_op, w_e_c.t(), cd).to(cd),
-            matmul_f32(e_t_c.t(), d_op, cd),
-            segment_sum.segment_sum_csr_plain(d_op, order, row_ptr, d_op_o))
+            matmul_f32(e_t_c.t(), d_op, cd), sums[:, :h], sums[:, h:])
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +180,7 @@ def _bind_fwd(lib: ctypes.CDLL) -> None:
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.dense_bwd_v4.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 7
         + [ctypes.c_void_p])
     lib.dense_bwd_v4.restype = ctypes.c_int
     lib.dense_bwd_v4_smem_bytes.argtypes = [ctypes.c_int] * 2
@@ -196,41 +200,6 @@ def load_bwd_kernel() -> ctypes.CDLL:
 def _check(cond: bool, msg: str, kernel: str = "dense_fwd_v4") -> None:
     if not cond:
         raise ValueError(f"{kernel} kernel: {msg}")
-
-
-def check_slot_operands(kernel: str, x_c, w_s_c, e_t_c, w_e_c,
-                        index_tensors: dict, node_tensors: dict,
-                        edge_dtype: torch.dtype = torch.bfloat16) -> None:
-    """The checks every fused slot kernel (dense, windowed and CSR) needs:
-    all on one CUDA device and contiguous; x and w_s bf16, e_t and w_e
-    `edge_dtype` (bf16, or float32 for the CSR kernels), with matching
-    widths, each a multiple of 8 and 16-byte aligned (the 16-byte row
-    loads); `index_tensors` int32; `node_tensors` float32."""
-    dev = x_c.device
-    tensors = dict(x=x_c, w_s=w_s_c, e_t=e_t_c, w_e=w_e_c, **index_tensors,
-                   **node_tensors)
-    for name, ten in tensors.items():
-        _check(ten.device == dev and dev.type == "cuda",
-               f"{name} must be on {dev} (a CUDA device)", kernel)
-        _check(ten.is_contiguous(), f"{name} must be contiguous", kernel)
-    edge_label = "bf16" if edge_dtype == torch.bfloat16 else "float32"
-    for names, dtype, label in (
-            (("x", "w_s"), torch.bfloat16, "bf16"),
-            (("e_t", "w_e"), edge_dtype, edge_label),
-            (node_tensors, torch.float32, "float32"),
-            (index_tensors, torch.int32, "int32")):
-        for name in names:
-            _check(tensors[name].dtype == dtype, f"{name} must be {label}",
-                   kernel)
-    d, h = w_s_c.shape
-    de = e_t_c.shape[1]
-    _check(x_c.shape[1] == d and w_e_c.shape == (de, h),
-           f"w_s {tuple(w_s_c.shape)} / w_e {tuple(w_e_c.shape)} do not "
-           f"match d={x_c.shape[1]}, de={de}", kernel)
-    _check(d % 8 == 0 and de % 8 == 0,
-           f"feature widths must be multiples of 8 (d={d}, de={de})", kernel)
-    _check(x_c.data_ptr() % 16 == 0 and e_t_c.data_ptr() % 16 == 0,
-           "x and e_t must be 16-byte aligned", kernel)
 
 
 _DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "float32",
@@ -253,6 +222,29 @@ def _check_aligned(kernel: str, **tensors) -> None:
     for name, ten in tensors.items():
         _check(ten.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned",
                kernel)
+
+
+def check_slot_operands(kernel: str, x_c, w_s_c, e_t_c, w_e_c,
+                        index_tensors: dict, node_tensors: dict,
+                        edge_dtype: torch.dtype = torch.bfloat16) -> None:
+    """The checks every fused slot kernel (dense, windowed and CSR) needs:
+    all on one CUDA device and contiguous; x and w_s bf16, e_t and w_e
+    `edge_dtype` (bf16, or float32 for the CSR kernels), with matching
+    widths, each a multiple of 8 and 16-byte aligned (the 16-byte row
+    loads); `index_tensors` int32; `node_tensors` float32."""
+    dtypes = dict(x=torch.bfloat16, w_s=torch.bfloat16, e_t=edge_dtype,
+                  w_e=edge_dtype, **dict.fromkeys(index_tensors, torch.int32),
+                  **dict.fromkeys(node_tensors, torch.float32))
+    _check_tensors(kernel, dtypes, x=x_c, w_s=w_s_c, e_t=e_t_c, w_e=w_e_c,
+                   **index_tensors, **node_tensors)
+    d, h = w_s_c.shape
+    de = e_t_c.shape[1]
+    _check(x_c.shape[1] == d and w_e_c.shape == (de, h),
+           f"w_s {tuple(w_s_c.shape)} / w_e {tuple(w_e_c.shape)} do not "
+           f"match d={x_c.shape[1]}, de={de}", kernel)
+    _check(d % 8 == 0 and de % 8 == 0,
+           f"feature widths must be multiples of 8 (d={d}, de={de})", kernel)
+    _check_aligned(kernel, x=x_c, e_t=e_t_c)
 
 
 def _stream(dev: torch.device) -> int:
@@ -422,17 +414,18 @@ def dense_bwd_cuda(bits, g_pass, e_t_c, w_e_c, d_op_o, order, row_ptr, *,
     we_part = torch.empty((t, de16, hp), dtype=f32, device=dev)
     dw_e = torch.empty((de, hg), dtype=f32, device=dev)
     d_ys = torch.empty((num_nodes, hg), dtype=f32, device=dev)
+    d_yo = torch.empty_like(d_ys)
     with torch.cuda.device(dev):
         err = lib.dense_bwd_v4(
             bits.data_ptr(), g_pass.data_ptr(), e_t_c.data_ptr(),
             w_e_c.data_ptr(), d_op_o.data_ptr(), order.data_ptr(),
             row_ptr.data_ptr(), d_e.data_ptr(), we_part.data_ptr(),
-            dw_e.data_ptr(), d_ys.data_ptr(), e_pad, t, r_tile, k, de, hg,
-            hp, num_nodes, _stream(dev))
+            dw_e.data_ptr(), d_ys.data_ptr(), d_yo.data_ptr(), e_pad, t,
+            r_tile, k, de, hg, hp, num_nodes, _stream(dev))
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
     dense_bwd_cuda.launches += 1
-    return d_e, dw_e[:, :h], d_ys[:, :h]
+    return d_e, dw_e[:, :h], d_ys[:, :h], d_yo[:, :h]
 
 
 dense_bwd_cuda.launches = 0
@@ -613,16 +606,19 @@ class DenseAggregateFn(torch.autograd.Function):
         g_pass = torch.where(has, g.float(), 0.0)
         inner_z = torch.where(has, inner, 0.0)
         # the overflow rows route on the forward's own operands and land in
-        # the sender sums with the slots' rows
+        # the same pass as the slots' rows, in sums of their own
         mask = ovf_r >= 0
         recv = torch.where(mask, ovf_r, 0).long()
         d_op_o = torch.where(mask[:, None] & _routes(op_o, inner_z[recv]),
                              g_pass[recv], 0.0)
-        d_e_t, d_we, d_ys = dense_bwd(bits, g_pass, e_p, w_e_p, d_op_o,
-                                      order, row_ptr, r_tile=r_tile, k=k)
-        # d_x and dW_s: node-wide products of the sender sums
-        d_x = matmul_f32(d_ys, w_s.t(), cd)
-        d_ws = matmul_f32(x.t(), d_ys, cd)
+        d_e_t, d_we, d_ys, d_yo = dense_bwd(bits, g_pass, e_p, w_e_p, d_op_o,
+                                            order, row_ptr, r_tile=r_tile,
+                                            k=k)
+        # d_x and dW_s: node-wide products of the sender sums, the slots'
+        # in the gather dtype, the overflow's in float32 as in the JAX
+        # package
+        d_x = matmul_f32(d_ys, w_s.t(), cd) + d_yo @ w_s.float().t()
+        d_ws = matmul_f32(x.t(), d_ys, cd) + x.float().t() @ d_yo
         d_we = d_we[:de] + e_ovf.float().t() @ d_op_o
         d_e_ovf = (d_op_o @ w_e.float().t()).to(e_ovf_dtype)
         return (d_x.to(x_dtype), d_ws.to(w_s.dtype),

@@ -496,10 +496,15 @@ def check_bwd_kernels(tiling, layer_shapes: List[tuple], seed: int,
 
 def _proj_bound(d: int, h: int, n: int) -> Dict:
     """Least time for the node projection: x @ W_s once per node in bf16,
-    x and W_s read once, y_s [n, hp] float32 written once."""
-    return _bound(2.0 * n * d * h,
-                  n * d * 2 + d * h * 2 + n * da.col_pad(h) * 4,
+    x and W_s read once, y_s [n, H] float32 written once."""
+    return _bound(2.0 * n * d * h, n * d * 2 + d * h * 2 + n * h * 4,
                   PEAK_BF16_FLOPS)
+
+
+def _bits_bytes(e_pad: int, h: int) -> int:
+    """The routing bits the function needs: one per (slot, column), in
+    32-bit words."""
+    return e_pad * -(-h // 32) * 4
 
 
 def _gather_bound(de: int, h: int, n: int, e_pad: int, t: int,
@@ -508,11 +513,10 @@ def _gather_bound(de: int, h: int, n: int, e_pad: int, t: int,
     slot in bf16 and a max per element; y_s, e_t, W_e, the index arrays,
     inner_o and offset read once, out written once (in VJP mode also
     inner and the routing bits)."""
-    hp = da.col_pad(h)
-    nbytes = (n * hp * 4 + e_pad * de * 2 + de * h * 2 + (e_pad + t) * 4
+    nbytes = (n * h * 4 + e_pad * de * 2 + de * h * 2 + (e_pad + t) * 4
               + 3 * n * h * 4)
     if vjp:
-        nbytes += n * h * 4 + e_pad * hp // 8
+        nbytes += n * h * 4 + _bits_bytes(e_pad, h)
     return _bound(2.0 * valid_slots * de * h, nbytes, PEAK_BF16_FLOPS,
                   float(valid_slots * h))
 
@@ -524,12 +528,11 @@ def _dense_bwd_bound(de: int, h: int, n: int, e_pad: int, rows: int,
     a zero factor), and the sender sums' adds (`routed` set bits, plus the
     overflow rows' elements, in float32); the bits, g, e_t, W_e, the
     overflow rows and the landing (`rows` listed rows, N + 1 offsets) read
-    once, d_e, dW_e and d_ys written once. The work depends on the data:
-    `routed` is this run's count of set bits."""
-    hp = da.col_pad(h)
-    nbytes = (e_pad * hp // 8 + n * h * 4 + e_pad * de * 2 + de * h * 2
-              + n_ovf * h * 4 + rows * 4 + (n + 1) * 4
-              + e_pad * de * 2 + de * h * 4 + n * h * 4)
+    once, d_e, dW_e and the two sender sums written once. The work depends
+    on the data: `routed` is this run's count of set bits."""
+    nbytes = (_bits_bytes(e_pad, h) + n * h * 4 + e_pad * de * 2
+              + de * h * 2 + n_ovf * h * 4 + rows * 4 + (n + 1) * 4
+              + e_pad * de * 2 + de * h * 4 + 2 * n * h * 4)
     return _bound(4.0 * routed * de, nbytes, PEAK_BF16_FLOPS,
                   float(routed + n_ovf * h))
 
@@ -694,7 +697,7 @@ def check_dense_kernels(tiling, layer_shapes: List[tuple], seed: int,
         again = da.dense_bwd(*b_args, **b_kw)
         if on_card:
             torch.cuda.synchronize()
-        names = ("d_e", "dW_e", "d_ys")
+        names = ("d_e", "dW_e", "d_ys", "d_yo")
         for name, u, v in zip(names, got, ref):
             if u.shape != v.shape or u.dtype != v.dtype \
                     or not torch.isfinite(u).all():

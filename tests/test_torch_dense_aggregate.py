@@ -361,11 +361,11 @@ def test_pack_bits_round_trips():
 
 
 def test_dense_bwd_plain_matches_the_function_s_slot_part():
-    """dense_bwd_plain alone on the slot layout without overflow rows, the
-    new return contract (d_e, dW_e, d_ys): d_op is g at the slot's
-    receiver where its bit is set; d_e per slot is d_op @ W_e^T and
+    """dense_bwd_plain alone on the slot layout (bits without the overflow
+    maxima), the return contract (d_e, dW_e, d_ys, d_yo): d_op is g at the
+    slot's receiver where its bit is set; d_e per slot is d_op @ W_e^T and
     vanishes on empty slots; dW_e is e_t^T d_op; d_ys sums d_op at the
-    slots' senders."""
+    slots' senders, d_yo the overflow rows at theirs."""
     geo, a = _dense_setup()
     _, _, (_, inner, bits) = _slot_operands(geo, a, overflow=False)
     _, _, e_t, w_e, _, _, _, sloc, _, _ = _port_args(a)
@@ -374,13 +374,17 @@ def test_dense_bwd_plain_matches_the_function_s_slot_part():
         size=inner.shape).astype(np.float32))
     g_pass = torch.where(has, g, 0.0)
     landing = _landing(geo, a)
-    n_ovf = a["ovf_s"].shape[0]
-    d_op_o = torch.zeros((n_ovf, inner.shape[1]))
-    d_e, dw_e, d_ys = da.dense_bwd(bits, g_pass, e_t, w_e, d_op_o,
-                                   landing.order, landing.row_ptr,
-                                   r_tile=geo["r_tile"], k=geo["K"])
+    ovf_valid = torch.from_numpy(a["ovf_r"] >= 0)
+    d_op_o = torch.where(ovf_valid[:, None], torch.from_numpy(
+        np.random.default_rng(2).normal(
+            size=(ovf_valid.shape[0], inner.shape[1])).astype(np.float32)),
+        0.0)
+    d_e, dw_e, d_ys, d_yo = da.dense_bwd(bits, g_pass, e_t, w_e, d_op_o,
+                                         landing.order, landing.row_ptr,
+                                         r_tile=geo["r_tile"], k=geo["K"])
     assert d_e.shape == e_t.shape and dw_e.shape == w_e.shape
-    assert d_ys.shape == inner.shape and d_ys.dtype == torch.float32
+    for sums in (d_ys, d_yo):
+        assert sums.shape == inner.shape and sums.dtype == torch.float32
     empty = sloc < 0
     assert empty.any() and (d_e[empty] == 0).all()
     recv = da._slot_receivers(e_t.shape[0], geo["r_tile"], geo["K"], "cpu")
@@ -394,6 +398,10 @@ def test_dense_bwd_plain_matches_the_function_s_slot_part():
     want = torch.zeros_like(d_ys).index_add_(
         0, sender[~empty], d_op[~empty])
     torch.testing.assert_close(d_ys, want)
+    assert ovf_valid.any()
+    want_o = torch.zeros_like(d_yo).index_add_(
+        0, torch.from_numpy(a["ovf_s"]).long()[ovf_valid], d_op_o[ovf_valid])
+    torch.testing.assert_close(d_yo, want_o)
     # every receiver with a slot routes its g to at least one slot
     routed = (d_e.reshape(-1, geo["K"], geo["r_tile"], d_e.shape[1]) != 0
               ).any(dim=(1, 3)).reshape(-1)

@@ -207,8 +207,9 @@ def _bkw(c):
 @pytest.mark.parametrize("shape", _DSHAPES)
 @pytest.mark.parametrize("dyadic", [False, True])
 def test_dense_bwd_kernel_matches_plain(shape, dyadic):
-    """d_e, dW_e and the sender sums d_ys against the plain version from
-    the same bits; on dyadic inputs, where every sum is exact, bitwise."""
+    """d_e, dW_e and the sender sums d_ys (slots) and d_yo (overflow rows)
+    against the plain version from the same bits; on dyadic inputs, where
+    every sum is exact, bitwise."""
     _need_card()
     c = _case(4, *shape)
     args = _bwd_inputs(c, 5, dyadic)
@@ -217,14 +218,14 @@ def test_dense_bwd_kernel_matches_plain(shape, dyadic):
     torch.cuda.synchronize()
     assert da.dense_bwd_cuda.launches == before + 1
     want = da.dense_bwd_plain(*args, **_bkw(c))
-    for name, u, v, tol in zip(("d_e", "dW_e", "d_ys"), got, want,
-                               (RTOL_BF16_OUT, RTOL, RTOL)):
+    for name, u, v, tol in zip(("d_e", "dW_e", "d_ys", "d_yo"), got, want,
+                               (RTOL_BF16_OUT, RTOL, RTOL, RTOL)):
         assert u.dtype == v.dtype and u.shape == v.shape, name
         assert torch.isfinite(u).all(), name
         assert _rel_err(u.float(), v.float()) <= tol, name
         if dyadic and name != "dW_e":
             assert torch.equal(u, v), name
-    assert float(got[2].abs().max()) > 0
+    assert float(got[2].abs().max()) > 0 and float(got[3].abs().max()) > 0
 
 
 @pytest.mark.gpu
