@@ -1,6 +1,7 @@
 // The CSR (v2) layout's part of the shared slot-row loop (dense_tile.cuh):
 // its senders and its float32 edge policy, for the forward kernel
-// (csr_fwd_v2.cu) and the backward's routing pass (csr_bwd_v2.cu).
+// (csr_fwd_v2.cu). The backward (csr_bwd_v2.cu) rebuilds the same op from
+// the node projection and this policy's fma chain, in its own code.
 //
 // Layout (receiver-CSR tiles, ops/windowed_tiles.py: prepare_csr_tiles): a
 // slot carries its global sender senders[slot] and its global receiver

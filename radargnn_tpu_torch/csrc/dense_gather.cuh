@@ -28,6 +28,7 @@
 #pragma once
 
 #include "mma_bf16.cuh"
+#include "tile_walk.cuh"
 
 namespace radargnn {
 
@@ -323,14 +324,6 @@ __device__ __forceinline__ void gather_rows(
         S.scalars[3] = last;
     }
     __syncthreads();
-}
-
-// The strict routing test of the TPU kernel and of ops/dense_aggregate.py
-// (_routes): |op - inner| <= 1e-5 |inner| + 1e-5, rounded step by step as
-// torch rounds it (no fused multiply-add).
-__device__ __forceinline__ bool routes(float op, float inner) {
-    return fabsf(__fsub_rn(op, inner)) <=
-           __fadd_rn(__fmul_rn(1e-5f, fabsf(inner)), 1e-5f);
 }
 
 // The warp's routing bits of one slot row over the block's 64 columns:

@@ -1,10 +1,12 @@
 // The slot-row loop shared by the windowed and CSR fused kernels: the
-// forward kernels (windowed_fwd_v3.cu, csr_fwd_v2.cu) and the backward's
-// routing passes (windowed_bwd_v3.cu, csr_bwd_v2.cu). A forward and its
+// forward kernels (windowed_fwd_v3.cu, csr_fwd_v2.cu) and the windowed
+// backward's routing pass (windowed_bwd_v3.cu). A forward and its
 // backward run this one code path, so the backward recomputes the
 // forward's op bitwise: same shared-memory layout, same mma order, same
 // float32 summation order. (The dense kernels gather the node projection
-// instead, dense_gather.cuh, and route on the forward's saved bits.)
+// instead, dense_gather.cuh, and route on the forward's saved bits; the
+// CSR backward, csr_bwd_v2.cu, rebuilds the x part from the node
+// projection, whose mma steps match warp_gemm's bit for bit.)
 //
 // Layout. Tile t holds TE = R*K slots; slot t*TE + j*R + r sits in slot row
 // j, row r. A `senders` functor gives a slot's global sender, or -1 where

@@ -1,13 +1,11 @@
-// The passes of the fused backward that follow the routing pass, shared by
-// windowed_bwd_v3.cu and csr_bwd_v2.cu: given the routed
-// d_op [n_slots, hp] bf16 (hp = h rounded up to 64, zero past h),
+// The passes of the windowed backward (windowed_bwd_v3.cu) that follow
+// its routing pass: given the routed d_op [n_slots, hp] bf16 (hp = h
+// rounded up to 64, zero past h),
 //   [d_xg | d_e][slot] = bf16(d_op[slot] @ [W_s | W_e]^T)
 //   dW_s = sum over slots of x[sender]^T d_op,  dW_e = sum of e_t^T d_op
 // with a slot's sender tile_win[slot / te] * node_block + sloc[slot] (empty
-// slots, sloc < 0, add nothing), or sloc[slot] itself where tile_win is
-// null (global senders, the CSR layout). With de = 0 the passes compute
-// d_xg and dW_s alone (csr_bwd_v2.cu forms d_e and dW_e in float32). No
-// atomics and fixed summation orders, so two runs on the same inputs are
+// slots, sloc < 0, add nothing). (csr_bwd_v2.cu forms its slot products
+// with the same sums on larger tiles.) No atomics and fixed summation orders, so two runs on the same inputs are
 // bitwise equal:
 //  - slot_products: one block per 64 slots x 64 output columns, mma.sync
 //    over 64-deep chunks of h;
@@ -119,7 +117,7 @@ __global__ void __launch_bounds__(128) weight_partials_kernel(
     const __nv_bfloat16* __restrict__ x,       // [n_x, d]
     const __nv_bfloat16* __restrict__ e_t,     // [n_slots, de]
     const int32_t* __restrict__ sloc,          // [n_slots]
-    const int32_t* __restrict__ tile_win,      // [T] or null
+    const int32_t* __restrict__ tile_win,      // [T]
     const __nv_bfloat16* __restrict__ d_op,    // [n_slots, hp]
     float* __restrict__ partial,               // [P, d + de, hp]
     int n_x, int d, int de, int hp, int te, int node_block, int n_slots,
@@ -148,8 +146,7 @@ __global__ void __launch_bounds__(128) weight_partials_kernel(
                 const int m = m_blk + c * 8;
                 const int sl = sloc[slot];
                 if (sl >= 0 && m < d) {
-                    const int snd = tile_win == nullptr
-                        ? sl : tile_win[slot / te] * node_block + sl;
+                    const int snd = tile_win[slot / te] * node_block + sl;
                     if (snd < n_x) src_a = x + static_cast<size_t>(snd) * d + m;
                 } else if (sl >= 0 && m < mc) {
                     src_a = e_t + static_cast<size_t>(slot) * de + (m - d);

@@ -2,7 +2,7 @@
 // kernels share (windowed_fwd_v3.cu, csr_fwd_v2.cu): the block's tile range
 // by binary search over the non-decreasing tile_blocks, and the landing of
 // a slot row's op in a shared-memory accumulator by an exact float atomic
-// max.
+// max; and the strict routing test of the backward kernels.
 #pragma once
 
 #include <stdint.h>
@@ -31,6 +31,14 @@ __device__ __forceinline__ bool receiver_in_block(int rc, int base,
                                                   int node_block,
                                                   int num_nodes) {
     return rc >= 0 && rc < num_nodes && rc >= base && rc < base + node_block;
+}
+
+// The strict routing test of the TPU kernel and of ops/dense_aggregate.py
+// (_routes): |op - inner| <= 1e-5 |inner| + 1e-5, rounded step by step as
+// torch rounds it (no fused multiply-add).
+__device__ __forceinline__ bool routes(float op, float inner) {
+    return fabsf(__fsub_rn(op, inner)) <=
+           __fadd_rn(__fmul_rn(1e-5f, fabsf(inner)), 1e-5f);
 }
 
 // *addr = max(*addr, v) for floats, atomically: a float with the sign bit

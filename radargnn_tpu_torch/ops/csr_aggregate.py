@@ -29,7 +29,11 @@ whose recomputed operand lies within 1e-5 |inner| + 1e-5 of its
 receiver's max (a tied slot takes the full g), and lands d_x by sender in
 one deterministic pass of `ops.segment_sum` over the batch's landing,
 which `graph/batch.py` builds from the sender-sorted second tiling
-(`ssum_*`), as `pallas_segment_sum_csr` lands it on the TPU.
+(`ssum_*`), as `pallas_segment_sum_csr` lands it on the TPU. On the card
+the backward rebuilds the operand from the node projection, y_s = x @ w_s
+once per node (`dense_proj_v4`), as y_s[sender] + e_t @ w_e: bitwise the
+forward kernel's operand (`csr_bwd_projected_plain` is that form in plain
+torch).
 """
 
 from __future__ import annotations
@@ -88,18 +92,27 @@ def csr_fwd_plain(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
     return (out, inner) if emit_inner else out
 
 
-def csr_bwd_plain(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
-                  inner_z, g_pass, *, node_block: int, edge_tile: int):
-    """Plain torch version of the CSR backward kernels on the same inputs
-    (inner_z, g_pass float32 [num_nodes, H] with 0 at empty receivers).
-    Returns (d_xg [E_pad, d] in the gather dtype, d_e [E_pad, de] float32,
-    dW_s [d, H] and dW_e [de, H] float32): d_xg and dW_s from d_op rounded
-    to the gather dtype, d_e and dW_e from the float32 d_op, as the TPU
-    kernel computes them."""
+def projected_operands(x_c, w_s_c, e_c, w_e_c, senders, recv,
+                       tile_blocks, num_nodes: int, node_block: int,
+                       edge_tile: int):
+    """What `_slot_operands` returns, with op rebuilt as the backward kernel
+    rebuilds it: the node projection y_s = x @ w_s once per node
+    (`dense_aggregate.dense_proj_plain`), then y_s[sender] + e_t @ w_e
+    (the edge part in float32)."""
+    valid = slot_counts(recv, tile_blocks, num_nodes, node_block, edge_tile)
+    h = w_s_c.shape[1]
+    snd = senders.long()
+    y_s = da.dense_proj_plain(x_c, w_s_c)[:, :h]
+    x_g = torch.where(valid[:, None], x_c[snd], 0)
+    op = torch.where(valid[:, None], y_s[snd], 0.0) \
+        + matmul_f32(e_c, w_e_c, torch.float32)
+    return x_g, op, torch.where(valid, recv.long(), 0), valid
+
+
+def _bwd_from_operands(operands, x_c, w_s_c, e_c, w_e_c, inner_z, g_pass):
+    """The CSR backward's products from (x_g, op, receiver, valid)."""
     cd = x_c.dtype
-    x_g, op, rc, valid = _slot_operands(
-        x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
-        inner_z.shape[0], node_block, edge_tile)
+    x_g, op, rc, valid = operands
     d_op = torch.where(valid[:, None] & _routes(op, inner_z[rc]),
                        g_pass[rc], 0.0)
     d_op_c = d_op.to(cd)
@@ -109,9 +122,43 @@ def csr_bwd_plain(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
             matmul_f32(x_g.t(), d_op_c, cd), matmul_f32(e_c.t(), d_op, f32))
 
 
+def csr_bwd_plain(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
+                  inner_z, g_pass, *, node_block: int, edge_tile: int,
+                  landing=None):
+    """Plain torch version of the CSR backward kernels on the same inputs
+    (inner_z, g_pass float32 [num_nodes, H] with 0 at empty receivers).
+    Returns (d_xg [E_pad, d] in the gather dtype, d_e [E_pad, de] float32,
+    dW_s [d, H] and dW_e [de, H] float32): d_xg and dW_s from d_op rounded
+    to the gather dtype, d_e and dW_e from the float32 d_op, as the TPU
+    kernel computes them. `landing`, which the kernels take for their
+    sender sums, is not needed: dW_s sums over the slots here."""
+    return _bwd_from_operands(
+        _slot_operands(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
+                       inner_z.shape[0], node_block, edge_tile),
+        x_c, w_s_c, e_c, w_e_c, inner_z, g_pass)
+
+
+def csr_bwd_projected_plain(x_c, w_s_c, e_c, w_e_c, senders, recv,
+                            tile_blocks, inner_z, g_pass, *,
+                            node_block: int, edge_tile: int, landing=None):
+    """`csr_bwd_plain` on the operand the backward kernel rebuilds from the
+    node projection (`projected_operands`): the kernel's steps in plain
+    torch, the same function."""
+    return _bwd_from_operands(
+        projected_operands(x_c, w_s_c, e_c, w_e_c, senders, recv,
+                           tile_blocks, inner_z.shape[0], node_block,
+                           edge_tile),
+        x_c, w_s_c, e_c, w_e_c, inner_z, g_pass)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels: build at first use, bind through ctypes
 # ---------------------------------------------------------------------------
+
+# fixed node chunks the CSR backward's dW_s sums over on the card (each
+# gives one partial; the partials are then summed in order)
+DWS_PARTIALS = 32
+
 
 def _bind_fwd(lib: ctypes.CDLL) -> None:
     lib.csr_fwd_v2.argtypes = (
@@ -123,10 +170,15 @@ def _bind_fwd(lib: ctypes.CDLL) -> None:
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.csr_bwd_v2.argtypes = (
-        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.csr_bwd_v2.restype = ctypes.c_int
-    lib.csr_bwd_v2_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.csr_bwd_v2_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.csr_bwd_v2_smem_bytes.restype = ctypes.c_size_t
+    lib.csr_bwd_v2_we_part_floats.argtypes = [ctypes.c_int] * 3
+    lib.csr_bwd_v2_we_part_floats.restype = ctypes.c_size_t
+    lib.csr_bwd_v2_dws.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                                   + [ctypes.c_void_p])
+    lib.csr_bwd_v2_dws.restype = ctypes.c_int
 
 
 def load_fwd_kernel() -> ctypes.CDLL:
@@ -217,11 +269,21 @@ def csr_fwd(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks, offset, *,
 
 
 def csr_bwd_cuda(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
-                 inner_z, g_pass, *, node_block: int, edge_tile: int):
-    """Launches the five passes of `csrc/csr_bwd_v2.cu` on the current
-    stream; raises on inputs the kernels do not take. Returns what
-    `csr_bwd_plain` returns. Counts its launches in `csr_bwd_cuda.launches`
-    (one per backward)."""
+                 inner_z, g_pass, *, node_block: int, edge_tile: int,
+                 landing=None, return_d_op: bool = False):
+    """Launches the CSR backward on the current stream: the node
+    projection (`dense_proj_v4`, `csrc/dense_fwd_v4.cu`), the routing pass,
+    slot products and dW_e reduce of `csrc/csr_bwd_v2.cu`, the sender sums
+    of bf16(d_op) over `landing` (the batch's `SenderLanding`, by the B3
+    kernel `csrc/segment_sum_csr.cu`) and dW_s from them (`csr_bwd_v2`'s
+    dW_s passes); raises on inputs the kernels do not take. Returns what
+    `csr_bwd_plain` returns, and with `return_d_op` also the routed
+    bf16(d_op) [E_pad, H] (nonzero where a slot took its receiver's g).
+    Scratch: y_s [N, hp] and the sender sums [N, hp] float32, d_op
+    [E_pad, hp] bf16, the routing blocks' dW_e partials and the dW_s
+    partials [n_part, d, hp] float32, hp = H rounded up to 64. Counts its
+    launches in `csr_bwd_cuda.launches` (one per backward; the projection
+    and the sender sums count in their own kernels' counters)."""
     kernel = "csr_bwd_v2"
     h = inner_z.shape[1]
     # any conv width: H zero-padded to a multiple of 8 for the kernels'
@@ -231,57 +293,67 @@ def csr_bwd_cuda(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
     _check_operands(kernel, x_c, w_s_c, e_c, w_e_c, senders, recv,
                     tile_blocks, dict(inner_z=inner_z, g_pass=g_pass),
                     edge_tile=edge_tile)
+    da._check_aligned(kernel, inner_z=inner_z, g_pass=g_pass)
+    _check(landing is not None and landing.row_ptr.numel() - 1
+           == x_c.shape[0],
+           "needs the batch's sender landing over x's nodes (the sender "
+           "sums that make dW_s)", kernel)
     dev = x_c.device
     n_x, d = x_c.shape
     e_pad, de = e_c.shape
     num_nodes, hw = inner_z.shape
-    t = tile_blocks.shape[0]
     lib = load_bwd_kernel()
-
-    def smem(r):
-        return lib.csr_bwd_v2_smem_bytes(d, de, r)
-
-    r_chunk = _slot_rows(edge_tile, smem)
-    _check(smem(r_chunk) <= da._MAX_SMEM,
-           f"d={d}, de={de} need more shared memory than a block has",
+    _check(lib.csr_bwd_v2_smem_bytes(de, hw) <= da._MAX_SMEM,
+           f"de={de}, H={hw} need more shared memory than a block has",
            kernel)
-    hp = -(-hw // 64) * 64
-    n_part = da.weight_partials(e_pad)
+    y_s = da.dense_proj(x_c, w_s_c)
+    hp = y_s.shape[1]
     bf16, f32 = torch.bfloat16, torch.float32
     d_op = torch.empty((e_pad, hp), dtype=bf16, device=dev)
-    de_part = torch.empty((hp // 64, e_pad, de), dtype=f32, device=dev)
-    we_part = torch.empty((t, de, hp), dtype=f32, device=dev)
-    partial = torch.empty((n_part, d, hp), dtype=f32, device=dev)
+    we_part = torch.empty((lib.csr_bwd_v2_we_part_floats(e_pad, de, hp),),
+                          dtype=f32, device=dev)
     d_xg = torch.empty((e_pad, d), dtype=bf16, device=dev)
     d_e = torch.empty((e_pad, de), dtype=f32, device=dev)
-    dw_s = torch.empty((d, hw), dtype=f32, device=dev)
     dw_e = torch.empty((de, hw), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.csr_bwd_v2(
-            x_c.data_ptr(), w_s_c.data_ptr(), e_c.data_ptr(),
+            y_s.data_ptr(), w_s_c.data_ptr(), e_c.data_ptr(),
             w_e_c.data_ptr(), senders.data_ptr(), recv.data_ptr(),
             tile_blocks.data_ptr(), inner_z.data_ptr(), g_pass.data_ptr(),
-            d_op.data_ptr(), de_part.data_ptr(), we_part.data_ptr(),
-            partial.data_ptr(), d_xg.data_ptr(), d_e.data_ptr(),
-            dw_s.data_ptr(), dw_e.data_ptr(), n_x, d, de, hw, t, num_nodes,
-            node_block, edge_tile, r_chunk, n_part, stream)
+            d_op.data_ptr(), we_part.data_ptr(), d_xg.data_ptr(),
+            d_e.data_ptr(), dw_e.data_ptr(), n_x, d, de, hw, num_nodes,
+            node_block, edge_tile, e_pad, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+    sums = segment_sum.segment_sum_csr(d_op, landing.order, landing.row_ptr)
+    n_part = DWS_PARTIALS
+    partial = torch.empty((n_part, d, hp), dtype=f32, device=dev)
+    dw_s = torch.empty((d, hw), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.csr_bwd_v2_dws(x_c.data_ptr(), sums.data_ptr(),
+                                 partial.data_ptr(), dw_s.data_ptr(), n_x, d,
+                                 hw, n_part,
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} dW_s launch failed: cudaError {err}")
     csr_bwd_cuda.launches += 1
-    return d_xg, d_e, dw_s[:, :h], dw_e[:, :h]
+    out = (d_xg, d_e, dw_s[:, :h], dw_e[:, :h])
+    return out + (d_op[:, :h],) if return_d_op else out
 
 
 csr_bwd_cuda.launches = 0
 
 
 def csr_bwd(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks, inner_z,
-            g_pass, *, node_block: int, edge_tile: int):
+            g_pass, *, node_block: int, edge_tile: int, landing=None):
     """The CSR backward kernels' wrapper: a CUDA tensor launches them (or
-    raises), a CPU tensor takes the plain version."""
+    raises; they need the batch's sender `landing`), a CPU tensor takes the
+    plain version."""
     fn = csr_bwd_cuda if x_c.is_cuda else csr_bwd_plain
     return fn(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks, inner_z,
-              g_pass, node_block=node_block, edge_tile=edge_tile)
+              g_pass, node_block=node_block, edge_tile=edge_tile,
+              landing=landing)
 
 
 # ---------------------------------------------------------------------------
@@ -326,10 +398,11 @@ class CsrAggregateFn(torch.autograd.Function):
         has = inner > _NEG / 2
         g_pass = torch.where(has, g.float(), 0.0)
         inner_z = torch.where(has, inner, 0.0)
+        landing = segment_sum.SenderLanding(order, row_ptr)
         d_xg, d_e, d_ws, d_we = csr_bwd(
             x_p, w_s_p, e_p, w_e_p, senders, recv, blocks, inner_z, g_pass,
-            node_block=node_block, edge_tile=edge_tile)
-        d_x = segment_sum.segment_sum_csr(d_xg, order, row_ptr)[:, :d]
+            node_block=node_block, edge_tile=edge_tile, landing=landing)
+        d_x = segment_sum.segment_sum_csr(d_xg, *landing)[:, :d]
         return (d_x.to(x_dtype), d_ws[:d].to(w_s_dtype),
                 d_e[:, :de].to(e_dtype), d_we[:de].to(w_e_dtype),
                 g_pass.to(offset_dtype)) + (None,) * 6

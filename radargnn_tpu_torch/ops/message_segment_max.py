@@ -57,7 +57,7 @@ def fused_message_segment_max_reference(m_in, w, b, receivers, mask,
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.msg_segmax.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+    lib.msg_segmax.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     lib.msg_segmax.restype = ctypes.c_int
     lib.msg_segmax_smem_bytes.argtypes = [ctypes.c_int]
@@ -72,6 +72,11 @@ def load_kernel() -> ctypes.CDLL:
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"msg_segmax kernel: {msg}")
+
+
+def _vec4(t: torch.Tensor, width: int) -> int:
+    """1 where rows of `width` floats of `t` may be read in 16-byte loads."""
+    return int(width % 4 == 0 and t.data_ptr() % 16 == 0)
 
 
 def msg_segmax_cuda(m_in, w, b, padded_recv, tile_blocks, *, num_nodes: int,
@@ -102,7 +107,8 @@ def msg_segmax_cuda(m_in, w, b, padded_recv, tile_blocks, *, num_nodes: int,
         err = lib.msg_segmax(m_in.data_ptr(), w.data_ptr(), b.data_ptr(),
                              padded_recv.data_ptr(), tile_blocks.data_ptr(),
                              out.data_ptr(), d_in, h, t, num_nodes,
-                             node_block, edge_tile, stream)
+                             node_block, edge_tile,
+                             _vec4(m_in, d_in), _vec4(w, h), stream)
     if err != 0:
         raise RuntimeError(f"msg_segmax launch failed: cudaError {err}")
     msg_segmax_cuda.launches += 1

@@ -67,6 +67,7 @@ KERNEL_NAMES = ("dense_fwd_v4", "dense_bwd_v4", "segment_sum_csr",
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12          # outside the tensor cores
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 # the radius graph's cut-off at 2816 points per frame: mean in-degree
@@ -250,10 +251,13 @@ def _kernels_of(tiling) -> _Kernels:
                       emit_inner=emit_inner, **kw)
         return call
 
+    # the CSR backward's sender sums (dW_s) walk the batch's landing
+    bwd_kw = dict(kw, landing=tiling.landing) if tiling.win is None else kw
+
     def bwd(name):
         fn = getattr(mod, name)
         return lambda x, w_s, e_t, w_e, inner_z, g_pass: \
-            fn(x, w_s, e_t, w_e, *layout, inner_z, g_pass, **kw)
+            fn(x, w_s, e_t, w_e, *layout, inner_z, g_pass, **bwd_kw)
 
     csr = tiling.win is None
     return _Kernels(*names, fwd(fns[0]), fwd(fns[1]), bwd(fns[2]),
@@ -1220,6 +1224,11 @@ def v1_tiling(batch, node_block: int = 128, edge_tile: int = 256
                     edge_tile, int((padded >= 0).sum()))
 
 
+# the fused linear against torch.addmm: rounds of timed calls, alternating
+# which runs first (their spread between calls is ~2x, PERF.md)
+LINEAR_ROUNDS = 6
+
+
 def _f32_bound(flops: float, nbytes: float) -> Dict:
     """The bound of a float32 kernel: its operations at the float32 peak
     outside the tensor cores, its bytes at the HBM rate."""
@@ -1236,8 +1245,11 @@ def check_linear_kernel(dev, cases: List[tuple], seed: int, reps: int,
                         out: Callable = print) -> List[Dict]:
     """Holds the fused linear kernel against its plain version on seeded
     float32 inputs, for each (rows, d_in, d_out, relu, weight scale), to
-    F32_RTOL of the output's scale; times the kernel, the plain version and
-    the library call (torch.addmm, then ReLU) on the card."""
+    F32_RTOL of the output's scale; times on the card the plain version
+    and, in LINEAR_ROUNDS rounds that alternate which runs first, the
+    kernel, torch.addmm + ReLU and torch.addmm alone at every shape (the
+    library call for the case's function is the one with ReLU where the
+    case has one); the rows keep each time's median and its rounds."""
     gen = torch.Generator().manual_seed(seed)
     on_card = dev.type == "cuda"
     rows = []
@@ -1255,22 +1267,33 @@ def check_linear_kernel(dev, cases: List[tuple], seed: int, reps: int,
             raise AssertionError(f"fused_linear disagrees with its plain "
                                  f"version at {m} x {k} -> {n}: {rel:.3e}")
 
-        def library():
-            y = torch.addmm(b, x, w)
-            return y.relu_() if relu else y
-
+        fns = {"ms": lambda: fl.fused_linear(x, w, b, relu=relu),
+               "addmm_relu_ms": lambda: torch.addmm(b, x, w).relu_(),
+               "addmm_ms": lambda: torch.addmm(b, x, w)}
         row = {"rows": m, "d_in": k, "d_out": n, "relu": relu,
                "max_abs_err": err, "max_rel_err": rel,
                **_f32_bound(2.0 * m * k * n,
                             4.0 * (m * k + k * n + n + m * n))}
         _timed(row, on_card, reps,
-               ms=lambda: fl.fused_linear(x, w, b, relu=relu),
-               plain_ms=lambda: fl.fused_linear_plain(x, w, b, relu=relu),
-               library_ms=library)
+               plain_ms=lambda: fl.fused_linear_plain(x, w, b, relu=relu))
+        for name in fns:
+            row[name] = None
+        if on_card:
+            times = {name: [] for name in fns}
+            for r in range(LINEAR_ROUNDS):
+                for name in (fns if r % 2 == 0 else reversed(list(fns))):
+                    times[name].append(_time_ms(fns[name], reps))
+            for name, ts in times.items():
+                row[name] = float(np.median(ts))
+                row[f"{name}_rounds"] = ts
+        row["library_ms"] = row["addmm_relu_ms" if relu else "addmm_ms"]
         out(f"kernel fused_linear {m} x {k} -> {n} (relu {relu}): "
             f"max_abs_err={err:.3e} max_rel_err={rel:.3e} ms={row['ms']} "
-            f"plain_ms={row['plain_ms']} addmm ms={row['library_ms']} "
-            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+            f"plain_ms={row['plain_ms']} addmm + ReLU ms="
+            f"{row['addmm_relu_ms']} addmm ms={row['addmm_ms']} (medians of "
+            f"{LINEAR_ROUNDS} alternating rounds) bound_ms="
+            f"{row['bound_ms']:.4f} "
+            f"({row['bound_by']})")
         rows.append(row)
     return rows
 
@@ -1302,11 +1325,31 @@ def _segmax_small_cases(dev) -> List[Dict]:
     return [empty, negative]
 
 
+def segmax_wide_range(rng: np.random.Generator, e: int, d_in: int,
+                      h: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Float32 (m_in [e, d_in], W [d_in, h], b [h]) whose messages span a
+    wide range with cancelling terms: |m_in| log-uniform in [1e-3, 1e3]
+    with random signs, and the second half of the columns repeating the
+    first, each scaled by a factor in [0.5, 1.5), against the negated rows
+    of W, so that each pair of terms cancels to at most half of one."""
+    m_in = rng.choice([-1.0, 1.0], size=(e, d_in)) \
+        * 10.0 ** rng.uniform(-3.0, 3.0, size=(e, d_in))
+    w = rng.normal(size=(d_in, h)) * d_in ** -0.5
+    half = d_in // 2
+    m_in[:, half:2 * half] = m_in[:, :half] \
+        * rng.uniform(0.5, 1.5, size=(e, half))
+    w[half:2 * half] = -w[:half]
+    b = rng.normal(size=(h,))
+    return (m_in.astype(np.float32), w.astype(np.float32),
+            b.astype(np.float32))
+
+
 def check_segmax_kernel(v1: V1Tiling, d_in: int, h: int, seed: int,
                         reps: int, out: Callable = print) -> List[Dict]:
     """Holds the message segment-max kernel against its plain version on
     the batch's receivers under the v1 tiles, with seeded float32 messages
-    of width d_in -> h, to F32_RTOL of the output's scale, and on the
+    of width d_in -> h and with wide-range ones (`segmax_wide_range`), to
+    F32_RTOL of the output's scale, two runs bitwise equal, and on the
     empty-block and all-negative cases (empty receivers exactly 0, negative
     maxima kept); times the kernel, the plain version and the library path
     (torch.addmm, then scatter_reduce_ "amax") on the card."""
@@ -1333,31 +1376,43 @@ def check_segmax_kernel(v1: V1Tiling, d_in: int, h: int, seed: int,
                            ).scatter_reduce_(0, index, m, "amax",
                                              include_self=False)[:n]
 
+    again = msm.msg_segmax(*args, **kw)
+    wide_m, wide_w, wide_b = (torch.from_numpy(a).to(dev) for a in
+                              segmax_wide_range(np.random.default_rng(seed),
+                                                e_pad, d_in, h))
+    wide = dict(name="wide range", args=(wide_m, wide_w, wide_b, v1.recv,
+                                         v1.blocks), kw=kw)
     rows = []
-    for case in [None] + _segmax_small_cases(dev):
+    for case in [None, wide] + _segmax_small_cases(dev):
         if case is not None:
             got = msm.msg_segmax(*case["args"], **case["kw"])
             ref = msm.msg_segmax_plain(*case["args"], **case["kw"])
+            again = msm.msg_segmax(*case["args"], **case["kw"])
         if on_card:
             torch.cuda.synchronize()
         err, rel = _rel_err(got, ref)
         name = "kNN batch" if case is None else case["name"]
-        ok = torch.isfinite(got).all() and rel <= F32_RTOL
-        if case is not None:
+        ok = torch.isfinite(got).all() and rel <= F32_RTOL \
+            and torch.equal(got, again)
+        if "zero_rows" in (case or {}):
             ok = ok and bool((got[case["zero_rows"]] == 0).all())
             if "exact" in case:
                 rows_, value = case["exact"]
                 ok = ok and bool((got[rows_] == value).all())
         if not ok:
             raise AssertionError(f"msg_segmax disagrees with its plain "
-                                 f"version ({name}): {rel:.3e}")
+                                 f"version or with itself ({name}): "
+                                 f"{rel:.3e}")
         row = {"case": name, "max_abs_err": err, "max_rel_err": rel}
         if case is None:
+            flops = 2.0 * v1.valid_slots * d_in * h
+            nbytes = 4.0 * (e_pad * d_in + d_in * h + h + e_pad + t + n * h)
+            # the row is held to the float32 floor; beside it the floor of
+            # the kernel's design, three TF32 products per product
             row.update(e_pad=e_pad, valid_slots=v1.valid_slots, d_in=d_in,
-                       h=h, **_f32_bound(
-                           2.0 * v1.valid_slots * d_in * h,
-                           4.0 * (e_pad * d_in + d_in * h + h + e_pad + t
-                                  + n * h)))
+                       h=h, **_f32_bound(flops, nbytes),
+                       tf32x3_bound_ms=_bound(3 * flops, nbytes,
+                                              PEAK_TF32_FLOPS)["bound_ms"])
             _timed(row, on_card, reps,
                    ms=lambda: msm.msg_segmax(*args, **kw),
                    plain_ms=lambda: msm.msg_segmax_plain(*args, **kw),
@@ -1371,9 +1426,11 @@ def check_segmax_kernel(v1: V1Tiling, d_in: int, h: int, seed: int,
                 f"ms={row['ms']} plain_ms={row['plain_ms']} addmm + "
                 f"scatter_reduce_ ms={row['library_ms']} bound_ms="
                 f"{row['bound_ms']:.4f} ({row['bound_by']}; "
-                f"{row['flops'] / 1e9:.1f} GFLOP)")
+                f"{row['flops'] / 1e9:.1f} GFLOP; 3xTF32 floor "
+                f"{row['tf32x3_bound_ms']:.4f})")
         else:
-            out(f"kernel msg_segmax, {name}: max_abs_err={err:.3e}")
+            out(f"kernel msg_segmax, {name}: max_abs_err={err:.3e} "
+                f"max_rel_err={rel:.3e}")
         rows.append(row)
     return rows
 
@@ -1650,10 +1707,13 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
         _expect({"csr_fwd_v2": layers * batches}, on_card), "CSR", out))
     csr.update(_train_phase(
         dev, c_arch, c_loader[0], seed, train_steps,
-        _expect({n: layers * train_steps for n in ("segment_sum_csr",
-                                                   "csr_fwd_v2",
-                                                   "csr_bwd_v2")},
-                on_card), "CSR", out))
+        # the CSR backward's operand comes from the node projection, its
+        # dW_s from the sender sums of d_op (a second landing a layer)
+        _expect(dict({n: layers * train_steps for n in ("csr_fwd_v2",
+                                                        "csr_bwd_v2",
+                                                        "dense_proj_v4")},
+                     segment_sum_csr=2 * layers * train_steps), on_card),
+        "CSR", out))
     summary["csr"] = csr
 
     # -- the kernels no model path runs: fused linear, segment-max, v1 ------

@@ -51,7 +51,7 @@ from radargnn_tpu_torch.train.trainer import Trainer, set_seeds
 # the slot-gradient passes are one code in the windowed and CSR backward
 # kernels
 _KINDS = (
-    ("dense_proj_v4 (B1 projection)", ("dense_proj",)),
+    ("dense_proj_v4 (projection: B1, B5 backward)", ("dense_proj",)),
     ("dense_fwd_v4 (B1 gather-max)", ("dense_fwd_v4",)),
     ("dense_bwd_v4 dW_e pass (B2)", ("dwe_pass",)),
     ("dense_bwd_v4 d_e pass (B2)", ("de_pass",)),
@@ -60,10 +60,11 @@ _KINDS = (
     ("windowed_fwd_v3 (B4)", ("windowed_fwd_v3",)),
     ("csr_fwd_v2 (B5)", ("csr_fwd_v2",)),
     ("windowed_bwd_v3 route (B4)", ("windowed_route",)),
-    ("csr_bwd_v2 route + edge partials (B5)", ("csr_route",)),
-    ("csr_bwd_v2 edge reduce (B5)", ("csr_edge_reduce",)),
+    ("csr_bwd_v2 route + edge side (B5)", ("csr_route",)),
+    ("csr_bwd_v2 dW_s partials (B5)", ("csr_dws",)),
+    ("csr_bwd_v2 dW_e, dW_s reduce (B5)", ("csr_reduce",)),
     ("slot products (B4 / B5)", ("slot_products",)),
-    ("weight partials + reduce (B4 / B5)",
+    ("weight partials + reduce (B4)",
      ("weight_partials", "reduce_partials")),
     ("segment_sum_csr (B3)", ("segment_sum_csr",)),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "ampere", "sm80_",

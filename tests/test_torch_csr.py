@@ -16,6 +16,7 @@ the card (tests/test_torch_gpu.py), where the bf16 side of v2's contract
 shows."""
 
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +41,7 @@ from radargnn_tpu_torch.graph import batch as tbatch
 from radargnn_tpu_torch.models import layers as tlayers
 from radargnn_tpu_torch.models.detnet import DetNet
 from radargnn_tpu_torch.ops import csr_aggregate as ca
+from radargnn_tpu_torch.ops import dense_aggregate as da
 from radargnn_tpu_torch.ops import segment_sum as ss
 from radargnn_tpu_torch.ops import windowed_tiles as wt
 from radargnn_tpu_torch.postprocess.inference import Predictor
@@ -308,12 +310,12 @@ def test_csr_aggregate_at_a_conv_width_of_450():
         np.testing.assert_allclose(u, v, rtol=RTOL, atol=ATOL, err_msg=name)
 
 
-def test_csr_aggregate_gives_tied_slots_the_full_g():
-    """Dyadic inputs (multiples of 1/8): two slots of one receiver with the
-    same sender and the same edge features tie exactly, and both packages
-    give each the full g: each tied slot's d_e equals what it takes when
-    its twin is emptied."""
-    geo, a = _agg_setup(seed=41)
+def _tied_pair(seed=41):
+    """Dyadic inputs (multiples of 1/8) where two slots of one receiver
+    have the same sender and the same edge features, so they tie exactly:
+    the case with the pair (`tied`), the case with its second slot emptied
+    (`alone`), and the pair's first slot."""
+    geo, a = _agg_setup(seed=seed)
     rng = np.random.default_rng(5)
     for k in _DIFF:
         a[k] = (rng.integers(-4, 5, a[k].shape) * 0.125).astype(np.float32)
@@ -333,12 +335,97 @@ def test_csr_aggregate_gives_tied_slots_the_full_g():
         # the sender-sorted tiling of the edited slots
         t["s_perm"], t["s_blocks"], t["s_send"] = wt.prepare_csr_tiles(
             t["senders"], t["recv"] >= 0, geo["n"], geo["node_block"], et)
+    return geo, tied, alone, s0
+
+
+def _assert_tied_pair_takes_the_full_g(grads, geo, tied, alone, s0):
+    d_e = grads(geo, tied)[2]
+    assert np.abs(d_e[s0]).max() > 0, "the tied pair should win"
+    np.testing.assert_array_equal(d_e[s0], d_e[s0 + 1])
+    np.testing.assert_allclose(d_e[s0], grads(geo, alone)[2][s0],
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_csr_aggregate_gives_tied_slots_the_full_g():
+    """Dyadic inputs (multiples of 1/8): two slots of one receiver with the
+    same sender and the same edge features tie exactly, and both packages
+    give each the full g: each tied slot's d_e equals what it takes when
+    its twin is emptied."""
+    case = _tied_pair()
     for fn in (_port_grads, _jax_grads):
-        d_e = fn(geo, tied)[2]
-        assert np.abs(d_e[s0]).max() > 0, "the tied pair should win"
-        np.testing.assert_array_equal(d_e[s0], d_e[s0 + 1])
-        np.testing.assert_allclose(d_e[s0], fn(geo, alone)[2][s0],
-                                   rtol=RTOL, atol=ATOL)
+        _assert_tied_pair_takes_the_full_g(fn, *case)
+
+
+# -- the operand the card's backward rebuilds from the node projection ----
+
+def _operands(fn, a, geo, dyadic_seed=None):
+    """`fn` (ca._slot_operands or ca.projected_operands) on case `a`, on
+    dyadic inputs (multiples of 1/8) when `dyadic_seed` is given."""
+    if dyadic_seed is not None:
+        rng = np.random.default_rng(dyadic_seed)
+        a = dict(a, **{k: (rng.integers(-4, 5, a[k].shape) * 0.125
+                           ).astype(np.float32) for k in _DIFF})
+    x, w_s, e_t, w_e = ca.csr_operands(
+        *(torch.from_numpy(np.ascontiguousarray(a[k]))
+          for k in ("x", "w_s", "e_t", "w_e")))
+    lay = [torch.from_numpy(a[k]) for k in ("senders", "recv", "blocks")]
+    kw = dict(node_block=geo["node_block"], edge_tile=geo["edge_tile"])
+    ops = fn(x, w_s, e_t, w_e, *lay, geo["n"], kw["node_block"],
+             kw["edge_tile"])
+    _, inner = ca.csr_fwd_plain(x, w_s, e_t, w_e, *lay,
+                                torch.zeros((geo["n"], w_s.shape[1])),
+                                emit_inner=True, **kw)
+    return ops, inner
+
+
+@pytest.mark.parametrize("case", ["random", "hub", "odd_widths", "h450"])
+def test_projected_operand_routes_the_slots_of_the_per_slot_operand(case):
+    """On dyadic inputs, where every sum is exact in any order, the operand
+    rebuilt from the node projection (y_s[sender] + e_t @ w_e) equals the
+    per-slot operand of `_slot_operands` and routes exactly its slots
+    against the forward's maxima; the maxima route at least one slot."""
+    geo, a = _agg_setup(seed=23, hub=case == "hub",
+                        widths=None if case in ("random", "hub") else (21, 5),
+                        h=450 if case == "h450" else 32)
+    (x_g, op, rc, valid), inner = _operands(ca._slot_operands, a, geo, 29)
+    (x_p, op_p, rc_p, valid_p), _ = _operands(ca.projected_operands, a, geo,
+                                              29)
+    assert torch.equal(valid, valid_p) and torch.equal(rc, rc_p)
+    assert torch.equal(x_g, x_p)
+    torch.testing.assert_close(op_p, op, rtol=0, atol=0)
+    has = inner > da._NEG / 2
+    z = torch.where(has, inner, 0.0)
+    routed = valid[:, None] & da._routes(op, z[rc])
+    routed_p = valid_p[:, None] & da._routes(op_p, z[rc_p])
+    assert torch.equal(routed, routed_p)
+    hits = torch.zeros_like(inner).index_add_(0, rc, routed.float())
+    assert bool((hits[has] >= 1).all())
+
+
+def _projected_grads(geo, a, ssum=True):
+    """_port_grads with the backward on the projected operand."""
+    with mock.patch.object(ca, "csr_bwd", ca.csr_bwd_projected_plain):
+        return _port_grads(geo, a, ssum)
+
+
+@pytest.mark.parametrize("case", ["random", "hub", "odd_widths", "h450"])
+def test_projected_backward_gradients_match_jax(case):
+    """The five gradients through CsrAggregateFn with the backward taking
+    the operand rebuilt from the node projection (the card's design, in
+    plain torch) against the JAX package's custom VJP in interpret mode."""
+    geo, a = _agg_setup(seed=17, hub=case == "hub",
+                        widths=None if case in ("random", "hub") else (21, 5),
+                        h=450 if case == "h450" else 32)
+    got = _projected_grads(geo, a)
+    for name, u, v in zip(_DIFF, got, _jax_grads(geo, a)):
+        assert u.shape == v.shape, name
+        np.testing.assert_allclose(u, v, rtol=RTOL, atol=ATOL, err_msg=name)
+    assert np.abs(got[2]).max() > 0
+
+
+def test_projected_backward_gives_tied_slots_the_full_g():
+    """The tied-slot case of the full-g rule on the projected operand."""
+    _assert_tied_pair_takes_the_full_g(_projected_grads, *_tied_pair())
 
 
 def test_csr_fwd_plain_masks_empty_slots_by_receiver():

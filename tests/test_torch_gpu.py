@@ -16,6 +16,7 @@ it: their forward, and their d_e and dW_e with a real-valued g, are held
 to the smoke's float32 limits."""
 
 import contextlib
+import functools
 import json
 from unittest import mock
 
@@ -589,7 +590,7 @@ def test_csr_bwd_kernel_matches_plain(shape):
     c = _ccase(31, *shape)
     args = _c_bwd_inputs(c, 32, dyadic=True)
     before = ca.csr_bwd_cuda.launches
-    got = ca.csr_bwd(*args, **c["kw"])
+    got = ca.csr_bwd(*args, landing=c["landing"], **c["kw"])
     torch.cuda.synchronize()
     assert ca.csr_bwd_cuda.launches == before + 1
     want = ca.csr_bwd_plain(*args, **c["kw"])
@@ -611,7 +612,7 @@ def test_csr_bwd_edge_grads_keep_float32_d_op(shape):
     _need_card()
     c = _ccase(38, *shape)
     args = _c_bwd_inputs(c, 39, dyadic=True, real_g=True)
-    got = ca.csr_bwd(*args, **c["kw"])
+    got = ca.csr_bwd(*args, landing=c["landing"], **c["kw"])
     torch.cuda.synchronize()
     want = ca.csr_bwd_plain(*args, **c["kw"])
     rounded = ca.csr_bwd_plain(*args[:-1], args[-1].bfloat16().float(),
@@ -633,12 +634,69 @@ def test_csr_backward_is_bitwise_deterministic():
     order, row_ptr = c["landing"]
     runs = []
     for _ in range(2):
-        d_xg, d_e, dw_s, dw_e = ca.csr_bwd(*args, **c["kw"])
+        d_xg, d_e, dw_s, dw_e = ca.csr_bwd(*args, landing=c["landing"], **c["kw"])
         d_x = ss.segment_sum_csr(d_xg, order, row_ptr)
         runs.append((d_x, d_e, dw_s, dw_e))
     torch.cuda.synchronize()
     for u, v in zip(*runs):
         assert torch.equal(u, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _CSHAPES)
+def test_csr_projection_is_the_forwards_x_part(shape):
+    """The backward rebuilds op from the node projection y_s = x @ W_s
+    (dense_proj_v4): with a zero edge side the forward's op is its x part
+    alone, so the forward kernel's maxima must equal the maxima of
+    y_s[sender] over each receiver's slots bit for bit."""
+    _need_card()
+    c = _ccase(52, *shape)
+    senders, recv, blocks = c["layout"]
+    e_t, w_e = torch.zeros_like(c["e_t"]), torch.zeros_like(c["w_e"])
+    _, inner = ca.csr_fwd(c["x"], c["w_s"], e_t, w_e, *c["layout"],
+                          c["offset"], emit_inner=True, **c["kw"])
+    n, h = c["offset"].shape
+    y_s = da.dense_proj(c["x"], c["w_s"])[:, :h]
+    valid = wa.slot_counts(recv, blocks, n, **c["kw"])
+    rc = torch.where(valid, recv.long(), 0)
+    op = torch.where(valid[:, None], y_s[senders.long().clamp(min=0)],
+                     da._NEG)
+    want = torch.full((n, h), da._NEG, device="cuda").scatter_reduce_(
+        0, rc[:, None].expand_as(op), op, "amax")
+    torch.cuda.synchronize()
+    assert torch.equal(inner, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _CSHAPES)
+def test_csr_bwd_routes_as_the_forward(shape):
+    """On real-valued inputs the routing pass marks, on its operand rebuilt
+    from y_s, the slots the plain version's per-slot operand marks, up to
+    flips at the tolerance's edge (their operands differ by float32
+    summation order; at most smoke.BITS_FLIP_FRAC of the (slot, column)
+    pairs), and every non-empty (receiver, column) routes at least one
+    slot: the forward's maximum itself."""
+    _need_card()
+    c = _ccase(53, *shape)
+    x, w_s, e_t, w_e = c["x"], c["w_s"], c["e_t"], c["w_e"]
+    _, inner = ca.csr_fwd(x, w_s, e_t, w_e, *c["layout"], c["offset"],
+                          emit_inner=True, **c["kw"])
+    has = inner > da._NEG / 2
+    inner_z = torch.where(has, inner, 0.0)
+    d_op = ca.csr_bwd_cuda(x, w_s, e_t, w_e, *c["layout"], inner_z,
+                           has.float(), landing=c["landing"],
+                           return_d_op=True, **c["kw"])[-1]
+    n, h = inner.shape
+    _, op, rc, valid = ca._slot_operands(x, w_s, e_t, w_e, *c["layout"], n,
+                                         **c["kw"])
+    want = valid[:, None] & da._routes(op, inner_z[rc])
+    torch.cuda.synchronize()
+    got = d_op != 0
+    assert got.shape == want.shape
+    assert int((got != want).sum()) <= smoke.BITS_FLIP_FRAC * got.numel()
+    assert not got[~valid].any()
+    hits = torch.zeros((n, h), device="cuda").index_add_(0, rc, got.float())
+    assert bool((hits[has] >= 1).all())
 
 
 @pytest.mark.gpu
@@ -806,6 +864,44 @@ def test_msg_segmax_empty_blocks_and_negative_maxima():
         if "exact" in case:
             rows, value = case["exact"]
             assert (got[rows] == value).all()
+
+
+@functools.lru_cache(maxsize=1)
+def _knn_v1():
+    """The smoke's kNN batch (5 x 2816 points, seed 0) under the v1 tiles:
+    the layout the message segment-max is held on."""
+    _, _, loader = smoke.flagship_serving(torch.device("cuda"), 2816, 5, 1,
+                                          0)
+    return smoke.v1_tiling(loader[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "wide range"])
+def test_msg_segmax_on_the_knn_batch(case):
+    """B8 at 464 -> 464 on the kNN batch under the v1 tiles, on seeded
+    messages and on wide-range ones (smoke.segmax_wide_range), against its
+    plain version to smoke.F32_RTOL of the output's scale; two runs give
+    the same bits."""
+    _need_card()
+    v1 = _knn_v1()
+    rng = np.random.default_rng(54)
+    e_pad = v1.recv.shape[0]
+    if case == "random":
+        m_in = rng.normal(size=(e_pad, 464))
+        w = rng.normal(size=(464, 464)) * 464 ** -0.5
+        b = rng.normal(size=464)
+    else:
+        m_in, w, b = smoke.segmax_wide_range(rng, e_pad, 464, 464)
+    args = (_cuda(m_in), _cuda(w), _cuda(b), v1.recv, v1.blocks)
+    kw = dict(num_nodes=v1.num_nodes, node_block=v1.node_block,
+              edge_tile=v1.edge_tile)
+    got = msm.msg_segmax(*args, **kw)
+    again = msm.msg_segmax(*args, **kw)
+    want = msm.msg_segmax_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert _rel_err(got, want) <= smoke.F32_RTOL
+    assert torch.equal(got == 0, want == 0)
 
 
 def _v1_inputs(seed, n, e, de, h, nb=128, et=256, dyadic=False):
@@ -1037,7 +1133,7 @@ def test_smoke_on_card():
     # kernel_bench's check, warm-up and 2 timed calls), the forward through
     # both v1 factories and the kernel backward
     assert [k["launches"] for k in summary["kernels"]] == \
-        [5 * 2, 5 * 2, 5 * 2, 2 * 5 * 2, 5 * 2, 5 * 2, 5 * 2, 5 * 2, 1,
+        [5 * 2, 5 * 2, 5 * 2, 3 * 5 * 2, 5 * 2, 5 * 2, 5 * 2, 5 * 2, 1,
          1 + 3 + 1, 2, 1]
     assert summary["serve_launches"] == [5 * 3] + [0] * 10 + [5 * 3]
     assert summary["radius"]["serve_launches"] == [0, 0, 0, 5 * 3] + [0] * 8

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from radargnn_tpu.ops import pallas_kernels as jpk
+from radargnn_tpu_torch import smoke
 from radargnn_tpu_torch.benchmarks import kernel_bench
 from radargnn_tpu_torch.ops import fused_linear as fl
 from radargnn_tpu_torch.ops import message_segment_max as msm
@@ -87,6 +88,22 @@ def test_segmax_random_matches_jax(variant):
     case = _segmax_case(rng, e=600, n=100, din=24, h=40)
     got, want, ref = _both(*case, n=100, node_block=32, edge_tile=32,
                            variant=variant)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(ref, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("variant", ["scan", "onehot"])
+def test_segmax_wide_range_matches_jax(variant):
+    """Messages over a wide range of magnitudes with cancelling terms
+    (smoke.segmax_wide_range: |m_in| from 1e-3 to 1e3, pairs of terms that
+    cancel to at most half of one) under both variants."""
+    rng = np.random.default_rng(6)
+    m_in, w, b = smoke.segmax_wide_range(rng, 600, 24, 40)
+    receivers = rng.integers(0, 100, 600).astype(np.int32)
+    mask = rng.random(600) < 0.85
+    got, want, ref = _both(m_in, receivers, mask, w, b, 100, 32, 32,
+                           variant=variant)
+    assert np.abs(want).max() > 100
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(ref, want, rtol=RTOL, atol=ATOL)
 

@@ -187,7 +187,7 @@ def test_smoke_rehearses_on_cpu():
     assert [(r["rows"], r["d_in"], r["d_out"]) for r in last4["linear"]] == [
         (4096, 256, 512), (2 * 256, 224, 464)]
     assert [r["case"] for r in last4["segmax"]] == [
-        "kNN batch", "empty blocks", "all-negative"]
+        "kNN batch", "wide range", "empty blocks", "all-negative"]
     assert (last4["segmax"][0]["d_in"], last4["segmax"][0]["h"]) == (464, 464)
     assert [r["h"] for r in last4["v1_fwd"]] == [464, 464, 464, 272, 144]
     assert all(r["d_e"] == 16 for r in last4["v1_bwd"])
@@ -311,7 +311,8 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 def test_trace_train_sorts_kernels_into_kinds():
     from radargnn_tpu_torch.trace_train import kind_of
-    assert kind_of("dense_proj_kernel") == "dense_proj_v4 (B1 projection)"
+    assert kind_of("dense_proj_kernel") == \
+        "dense_proj_v4 (projection: B1, B5 backward)"
     assert kind_of("dense_fwd_v4_kernel") == "dense_fwd_v4 (B1 gather-max)"
     assert kind_of("de_pass_kernel") == "dense_bwd_v4 d_e pass (B2)"
     assert kind_of("dwe_pass_kernel") == "dense_bwd_v4 dW_e pass (B2)"
@@ -321,9 +322,11 @@ def test_trace_train_sorts_kernels_into_kinds():
     assert kind_of("windowed_fwd_v3_kernel") == "windowed_fwd_v3 (B4)"
     assert kind_of("slot_products_kernel") == "slot products (B4 / B5)"
     assert kind_of("csr_fwd_v2_kernel") == "csr_fwd_v2 (B5)"
-    assert kind_of("csr_route_kernel") == \
-        "csr_bwd_v2 route + edge partials (B5)"
-    assert kind_of("csr_edge_reduce_kernel") == "csr_bwd_v2 edge reduce (B5)"
+    assert kind_of("csr_route_kernel") == "csr_bwd_v2 route + edge side (B5)"
+    assert kind_of("csr_reduce_kernel") == "csr_bwd_v2 dW_e, dW_s reduce (B5)"
+    assert kind_of("csr_dws_partials_kernel") == \
+        "csr_bwd_v2 dW_s partials (B5)"
+    assert kind_of("csr_slot_products_kernel") == "slot products (B4 / B5)"
     assert kind_of("segment_sum_csr_kernel") == "segment_sum_csr (B3)"
     assert kind_of("sm90_xmma_gemm_f32f32_f32f32") == "GEMMs (cuBLAS)"
     assert kind_of("vectorized_elementwise_kernel<FillFunctor<float>>") \
