@@ -50,23 +50,18 @@ def compile_shared(cmd: List[str], src: str, name: str,
     return out, proc.stdout + proc.stderr
 
 
-def nvcc_shared(src_name: str,
-                defines: Sequence[str] = ()) -> Tuple[str, str]:
+def nvcc_shared(src_name: str) -> Tuple[str, str]:
     """Builds `csrc/<src_name>` with nvcc for sm_90a into a shared library
-    with a plain C interface (loaded with ctypes), with the macros
-    `defines` set (a probe's variant of a kernel, in a library of its own);
-    returns (path, the compiler's output, which includes ptxas's
-    register/spill report)."""
+    with a plain C interface (loaded with ctypes); returns (path, the
+    compiler's output, which includes ptxas's register/spill report)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else "nvcc"
     stem = os.path.splitext(src_name)[0]
-    suffix = "".join(f"_{m.lower()}" for m in defines)
     return compile_shared(
         [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-        + [f"-D{m}" for m in defines],
-        source_path("csrc", src_name), f"lib{stem}{suffix}.so",
+         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"],
+        source_path("csrc", src_name), f"lib{stem}.so",
         deps=glob.glob(source_path("csrc", "*.cuh")))
 
 
@@ -78,20 +73,18 @@ def nvcc_all(src_names: Sequence[str]) -> Dict[str, Tuple[str, str]]:
     return dict(zip(src_names, results))
 
 
-_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}
 _LIBS_LOCK = threading.Lock()
 
 
-def load_library(src_name: str, bind: Callable[[ctypes.CDLL], None],
-                 defines: Sequence[str] = ()) -> ctypes.CDLL:
-    """Builds `csrc/<src_name>` (nvcc_shared, with the macros `defines`)
-    and loads it with ctypes once per process; `bind` declares its
-    functions' argtypes and restypes."""
-    key = (src_name, tuple(defines))
+def load_library(src_name: str,
+                 bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """Builds `csrc/<src_name>` (nvcc_shared) and loads it with ctypes once
+    per process; `bind` declares its functions' argtypes and restypes."""
     with _LIBS_LOCK:
-        if key not in _LIBS:
-            path, _ = nvcc_shared(src_name, defines)
+        if src_name not in _LIBS:
+            path, _ = nvcc_shared(src_name)
             lib = ctypes.CDLL(path)
             bind(lib)
-            _LIBS[key] = lib
-        return _LIBS[key]
+            _LIBS[src_name] = lib
+        return _LIBS[src_name]

@@ -19,9 +19,9 @@
 // the port has one kernel for both.
 //
 // What bounds it on the card: 2 E d_in H float32 operations over the valid
-// slots, at 281,600 valid slots and d_in = H = 464 121 GFLOP: 1.81 ms at 67
-// TFLOP/s outside the tensor cores, or 0.74 ms as the three TF32 products
-// below at the 495 TFLOP/s dense TF32 peak, against 0.6 GB of m_in, W, b,
+// slots, at 281,600 valid slots and d_in = H = 464 121 GFLOP, as the three
+// TF32 products below at the 495 TFLOP/s dense TF32 peak: 0.74 ms (1.81 ms
+// at 67 TFLOP/s outside the tensor cores), against 0.6 GB of m_in, W, b,
 // the receivers and the output read or written once (0.18 ms at 3.35
 // TB/s): the operations.
 //
@@ -31,7 +31,8 @@
 //  - the grid's fast axis is the column slice (blockIdx.x), so the slices
 //    of one node block run side by side and read that block's rows of m_in
 //    from device memory once (the others hit L2); with the node block fast
-//    a block's slices ran ~110 blocks apart and each read m_in again;
+//    a block's slices ran ~110 blocks apart and each read m_in again (that
+//    order measured <= 2 % slower: PERF.md);
 //  - the product runs on the tensor cores in 3xTF32: each float32 operand
 //    x is split into a TF32 part hi = tf32(x) and a TF32 rest lo =
 //    tf32(x - hi), and a b = lo_a hi_b + hi_a lo_b + hi_a hi_b, three
@@ -203,15 +204,8 @@ __global__ void __launch_bounds__(kThreads, 1) msg_segmax_kernel(
     extern __shared__ __align__(16) unsigned char smem_raw[];
     Smem& S = *reinterpret_cast<Smem*>(smem_raw);
     float* acc_s = reinterpret_cast<float*>(smem_raw + sizeof(Smem));
-#ifdef MSG_SEGMAX_NODE_BLOCK_FAST
-    // the grid order of the earlier kernel, node block fast: built only by
-    // benchmarks/segmax_probe.py, to time what reading m_in once saves
-    const int col0 = blockIdx.y * kCols;
-    const int blk = blockIdx.x;
-#else
     const int col0 = blockIdx.x * kCols;
     const int blk = blockIdx.y;
-#endif
     const int tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
     const int g = lane >> 2, tq = lane & 3;
@@ -368,11 +362,7 @@ int msg_segmax(const void* m_in, const void* w, const void* b,
     const int slices = (h + kCols - 1) / kCols;
     const int blocks = (num_nodes + node_block - 1) / node_block;
     if (blocks == 0) return static_cast<int>(cudaSuccess);
-#ifdef MSG_SEGMAX_NODE_BLOCK_FAST
-    const dim3 grid(blocks, slices);
-#else
     const dim3 grid(slices, blocks);
-#endif
     msg_segmax_kernel<<<grid, kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(m_in), static_cast<const float*>(w),

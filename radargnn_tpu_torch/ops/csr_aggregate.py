@@ -123,15 +123,14 @@ def _bwd_from_operands(operands, x_c, w_s_c, e_c, w_e_c, inner_z, g_pass):
 
 
 def csr_bwd_plain(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
-                  inner_z, g_pass, *, node_block: int, edge_tile: int,
-                  landing=None):
+                  inner_z, g_pass, *, node_block: int, edge_tile: int):
     """Plain torch version of the CSR backward kernels on the same inputs
     (inner_z, g_pass float32 [num_nodes, H] with 0 at empty receivers).
     Returns (d_xg [E_pad, d] in the gather dtype, d_e [E_pad, de] float32,
     dW_s [d, H] and dW_e [de, H] float32): d_xg and dW_s from d_op rounded
     to the gather dtype, d_e and dW_e from the float32 d_op, as the TPU
-    kernel computes them. `landing`, which the kernels take for their
-    sender sums, is not needed: dW_s sums over the slots here."""
+    kernel computes them. dW_s sums over the slots here, where the kernels
+    sum over the batch's sender landing."""
     return _bwd_from_operands(
         _slot_operands(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
                        inner_z.shape[0], node_block, edge_tile),
@@ -140,7 +139,7 @@ def csr_bwd_plain(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
 
 def csr_bwd_projected_plain(x_c, w_s_c, e_c, w_e_c, senders, recv,
                             tile_blocks, inner_z, g_pass, *,
-                            node_block: int, edge_tile: int, landing=None):
+                            node_block: int, edge_tile: int):
     """`csr_bwd_plain` on the operand the backward kernel rebuilds from the
     node projection (`projected_operands`): the kernel's steps in plain
     torch, the same function."""
@@ -270,20 +269,28 @@ def csr_fwd(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks, offset, *,
 
 def csr_bwd_cuda(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
                  inner_z, g_pass, *, node_block: int, edge_tile: int,
-                 landing=None, return_d_op: bool = False):
+                 landing=None):
     """Launches the CSR backward on the current stream: the node
     projection (`dense_proj_v4`, `csrc/dense_fwd_v4.cu`), the routing pass,
     slot products and dW_e reduce of `csrc/csr_bwd_v2.cu`, the sender sums
     of bf16(d_op) over `landing` (the batch's `SenderLanding`, by the B3
     kernel `csrc/segment_sum_csr.cu`) and dW_s from them (`csr_bwd_v2`'s
     dW_s passes); raises on inputs the kernels do not take. Returns what
-    `csr_bwd_plain` returns, and with `return_d_op` also the routed
-    bf16(d_op) [E_pad, H] (nonzero where a slot took its receiver's g).
-    Scratch: y_s [N, hp] and the sender sums [N, hp] float32, d_op
-    [E_pad, hp] bf16, the routing blocks' dW_e partials and the dW_s
-    partials [n_part, d, hp] float32, hp = H rounded up to 64. Counts its
+    `csr_bwd_plain` returns. Scratch: y_s [N, hp] and the sender sums
+    [N, hp] float32, d_op [E_pad, hp] bf16, the routing blocks' dW_e
+    partials and the dW_s partials [n_part, d, hp] float32, hp = H rounded
+    up to 64. Counts its
     launches in `csr_bwd_cuda.launches` (one per backward; the projection
     and the sender sums count in their own kernels' counters)."""
+    return _csr_bwd_launch(x_c, w_s_c, e_c, w_e_c, senders, recv,
+                           tile_blocks, inner_z, g_pass, node_block,
+                           edge_tile, landing)[:4]
+
+
+def _csr_bwd_launch(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
+                    inner_z, g_pass, node_block, edge_tile, landing):
+    """`csr_bwd_cuda`'s launches; returns its outputs and the routed
+    bf16(d_op) [E_pad, H] (nonzero where a slot took its receiver's g)."""
     kernel = "csr_bwd_v2"
     h = inner_z.shape[1]
     # any conv width: H zero-padded to a multiple of 8 for the kernels'
@@ -338,8 +345,7 @@ def csr_bwd_cuda(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
     if err != 0:
         raise RuntimeError(f"{kernel} dW_s launch failed: cudaError {err}")
     csr_bwd_cuda.launches += 1
-    out = (d_xg, d_e, dw_s[:, :h], dw_e[:, :h])
-    return out + (d_op[:, :h],) if return_d_op else out
+    return d_xg, d_e, dw_s[:, :h], dw_e[:, :h], d_op[:, :h]
 
 
 csr_bwd_cuda.launches = 0
@@ -350,10 +356,12 @@ def csr_bwd(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks, inner_z,
     """The CSR backward kernels' wrapper: a CUDA tensor launches them (or
     raises; they need the batch's sender `landing`), a CPU tensor takes the
     plain version."""
-    fn = csr_bwd_cuda if x_c.is_cuda else csr_bwd_plain
-    return fn(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks, inner_z,
-              g_pass, node_block=node_block, edge_tile=edge_tile,
-              landing=landing)
+    args = (x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks, inner_z,
+            g_pass)
+    if x_c.is_cuda:
+        return csr_bwd_cuda(*args, node_block=node_block,
+                            edge_tile=edge_tile, landing=landing)
+    return csr_bwd_plain(*args, node_block=node_block, edge_tile=edge_tile)
 
 
 # ---------------------------------------------------------------------------

@@ -683,9 +683,9 @@ def test_csr_bwd_routes_as_the_forward(shape):
                           emit_inner=True, **c["kw"])
     has = inner > da._NEG / 2
     inner_z = torch.where(has, inner, 0.0)
-    d_op = ca.csr_bwd_cuda(x, w_s, e_t, w_e, *c["layout"], inner_z,
-                           has.float(), landing=c["landing"],
-                           return_d_op=True, **c["kw"])[-1]
+    d_op = ca._csr_bwd_launch(x, w_s, e_t, w_e, *c["layout"], inner_z,
+                              has.float(), c["kw"]["node_block"],
+                              c["kw"]["edge_tile"], c["landing"])[-1]
     n, h = inner.shape
     _, op, rc, valid = ca._slot_operands(x, w_s, e_t, w_e, *c["layout"], n,
                                          **c["kw"])

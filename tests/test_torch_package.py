@@ -262,6 +262,24 @@ def test_csr_bounds_count_the_edge_products_in_float32():
     assert 0.130 < b["bound_ms"] < 0.132
 
 
+def test_segmax_bound_is_the_3xtf32_floor():
+    """B8 forms each float32 product as three TF32 products on the tensor
+    cores: at 464 -> 464 over the flagship kNN batch's 281,600 valid slots
+    (121 GFLOP) its bound is 3 x 121 GFLOP at 495 TFLOP/s, 0.735 ms, bound
+    by operations; the float32 floor outside the tensor cores, 1.81 ms,
+    stands beside it."""
+    valid, e_pad, t, n = 281600, 309760, 605, 14080
+    b = smoke._segmax_bound(valid, e_pad, 464, 464, t, n)
+    assert b["product_flops"] == 2.0 * valid * 464 * 464
+    assert b["flops"] == 3 * b["product_flops"]
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == b["tf32x3_bound_ms"]
+    assert 0.734 < b["bound_ms"] < 0.736
+    assert 1.80 < b["f32_bound_ms"] < 1.82
+    assert b["bytes"] == 4.0 * (e_pad * 464 + 464 * 464 + 464 + e_pad + t
+                                + n * 464)
+
+
 def test_backward_bound_counts_the_sender_sums_once_per_node():
     """B2's bound: d_x and dW_s from the per-sender sums of d_op (N rows),
     d_e and dW_e per valid slot. At the flagship's wide layer that is 13.8
@@ -400,7 +418,7 @@ def test_bf16_model_hands_the_csr_backward_a_bf16_exact_g():
     from radargnn_tpu_torch.ops import csr_aggregate as ca
     seen = []
 
-    def spy(*args, **kw):
+    def spy(*args, landing=None, **kw):
         g = args[-1]
         seen.append(bool(g.abs().max() > 0)
                     and torch.equal(g, g.bfloat16().float()))
