@@ -9,11 +9,11 @@ backward; CSR forward and backward; fused linear; message segment-max; v1
 hoisted forward and backward; one nvcc each, in parallel). It holds each of
 the twelve kernels against its plain PyTorch version at every layer shape
 of the flagship RadarScenes DetNet (the dense kernels on the kNN batch, the
-forward's routing bits on real-valued inputs and, with the backward,
-exactly on dyadic ones; the windowed kernels on the radius batch and on the
-kNN batch under the windowed tiling, the CSR kernels on the kNN batch and
-on the radius batch under the CSR tiling), and checks that two backward
-runs give the same bits. Then, for three paths, the kNN graph (dense
+windowed kernels on the radius batch and on the kNN batch under the
+windowed tiling: the forward's routing bits on real-valued inputs and,
+with the backward, exactly on dyadic ones; the CSR kernels on the kNN
+batch and on the radius batch under the CSR tiling), and checks that two
+backward runs give the same bits. Then, for three paths, the kNN graph (dense
 tiling), the radius graph (windowed tiling; the flagship configuration with
 three fields replaced, printed) and the kNN graph under the CSR tiling (the
 flagship configuration with fused_tiling "csr", printed), it serves a few

@@ -60,16 +60,16 @@
 //     products are float32 fma on the CUDA cores (3xTF32 on the tensor
 //     cores measured no faster: PERF.md).
 //  2. slot products: d_xg from bf16(d_op) per slot, as the TPU kernel
-//     forms it (128 slots x 64 outputs a block, the same mma sums as
-//     slot_grads.cuh's slot products, so the same bits); then dW_e = the
+//     forms it (128 slots x 64 outputs a block, mma.sync in ascending
+//     depth from a zero accumulator); then dW_e = the
 //     routing blocks' partials summed in order (csr_reduce_kernel).
 //  3. dW_s (csr_bwd_v2_dws, after the caller's landing): the B3 kernel
 //     sums bf16(d_op) at the senders over the batch's sender landing (s
 //     [n_x, hp] f32), then x^T s in float32 (128 x 128 SIMT tiles over
 //     fixed node chunks, the partials summed in order): the TPU kernel's
 //     sum over slots of x[sender]^T bf16(d_op) up to float32 summation
-//     order, over n_x nodes instead of the slots (the slot-by-slot
-//     weight partials of slot_grads.cuh took 2.8 ms a step: PERF.md).
+//     order, over n_x nodes instead of the slots (slot-by-slot weight
+//     partials took 2.8 ms a step: PERF.md).
 // The times are in PERF.md.
 
 #include <cuda_bf16.h>
@@ -348,8 +348,7 @@ constexpr size_t kSpSmem = sizeof(__nv_bfloat16) * kSpStages *
 
 // d_xg[s][n] = bf16(sum over k of d_op[s][k] W_s[n][k]) for one block of
 // 128 slots x 64 outputs: mma.sync m16n8k16 in ascending depth from a zero
-// accumulator, the same sums as slot_grads.cuh's slot_products (so the
-// same bits) on larger tiles, fragments by ldmatrix and a three-stage
+// accumulator, fragments by ldmatrix and a three-stage
 // cp.async ring. The output tile is the fast grid axis, so the 64-output
 // tiles of a slot block run side by side and read its d_op rows from
 // device memory once.

@@ -22,7 +22,7 @@ namespace radargnn {
 constexpr int kWeLd = kBlockCols + 4;    // float32 W_e slice row stride
 
 // Senders of the CSR layout in a tile of the block at `base`: -1 where the
-// slot does not count or its sender lies past n_x (read as WindowSenders).
+// slot does not count or its sender lies past n_x.
 struct CsrSenders {
     const int32_t* senders;    // [T*TE]
     const int32_t* recv;       // [T*TE]

@@ -2,9 +2,9 @@
 // slot of a dense tile from the node-level projection,
 //   op[slot] = y_s[sender] + e_t[slot] @ W_e     (f32; the edge product on
 //                                                  the tensor cores)
-// over one 64-column slice, and the routing bits' packing. Both passes of
-// the VJP-mode forward (the max, then the bits) run this one loop, so the
-// second sees the first's op bit for bit.
+// over one 64-column slice. Both passes of the VJP-mode forward (the max,
+// then the bits) run this one loop, so the second sees the first's op bit
+// for bit; the bits are packed by tile_walk.cuh's pack_row_bits.
 //
 // Layout (ops/dense_tiles.py). Tile t holds TE = R*K slots; slot t*TE + j*R
 // + r sits in slot row j, row r, and is an in-edge of receiver t*R + r. Its
@@ -324,34 +324,6 @@ __device__ __forceinline__ void gather_rows(
         S.scalars[3] = last;
     }
     __syncthreads();
-}
-
-// The warp's routing bits of one slot row over the block's 64 columns:
-// sel[nt][q] in the acc layout above. Returns, on the lanes with tq == 0,
-// the two 32-bit words (columns col0 .. col0+31, col0+32 .. col0+63) of
-// row m0+g (half 0) and of row m0+g+8 (half 1); every lane must call it
-// (it shuffles across the four lanes of a row).
-__device__ __forceinline__ void pack_row_bits(bool (*sel)[4], int tq,
-                                              uint32_t (*words)[2]) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-        uint32_t w[2] = {0u, 0u};
-#pragma unroll
-        for (int nt = 0; nt < kColTiles; ++nt) {
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-                if (sel[nt][half * 2 + c]) {
-                    w[nt >> 2] |= 1u << ((nt & 3) * 8 + tq * 2 + c);
-                }
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            w[i] |= __shfl_xor_sync(0xffffffffu, w[i], 1);
-            w[i] |= __shfl_xor_sync(0xffffffffu, w[i], 2);
-            words[half][i] = w[i];
-        }
-    }
 }
 
 }  // namespace radargnn

@@ -1,21 +1,15 @@
-// The slot-row loop shared by the windowed and CSR fused kernels: the
-// forward kernels (windowed_fwd_v3.cu, csr_fwd_v2.cu) and the windowed
-// backward's routing pass (windowed_bwd_v3.cu). A forward and its
-// backward run this one code path, so the backward recomputes the
-// forward's op bitwise: same shared-memory layout, same mma order, same
-// float32 summation order. (The dense kernels gather the node projection
-// instead, dense_gather.cuh, and route on the forward's saved bits; the
-// CSR backward, csr_bwd_v2.cu, rebuilds the x part from the node
-// projection, whose mma steps match warp_gemm's bit for bit.)
+// The slot-row loop of the CSR forward kernel (csr_fwd_v2.cu, with the
+// CSR senders and float32 edge policy of csr_tile.cuh): each slot's op
+// from its sender's x row and its edge row. (The dense and windowed
+// forwards gather the node projection instead, dense_gather.cuh and
+// windowed_fwd_v3.cu, and save routing bits for their backward; the CSR
+// backward, csr_bwd_v2.cu, rebuilds the x part from the node projection,
+// whose mma steps match warp_gemm's bit for bit.)
 //
 // Layout. Tile t holds TE = R*K slots; slot t*TE + j*R + r sits in slot row
 // j, row r. A `senders` functor gives a slot's global sender, or -1 where
-// the slot does not count: in the dense and windowed layouts
-// (WindowSenders) it is tile_win[t]*node_block + senders_local[slot] (-1:
-// empty slot); in the CSR layout (csr_tile.cuh) it is listed beside the
-// slot, which counts where its receiver lies in the tile's node block. In
-// the dense layout row r of tile t is receiver t*R+r in every slot row; in
-// the windowed and CSR layouts a slot's receiver is listed beside it.
+// the slot does not count (csr_tile.cuh: listed beside the slot, which
+// counts where its receiver lies in the tile's node block).
 //
 // One block = one 64-column slice of H (col0), (R/16) warps, each owning 16
 // rows. The W_s column slice (transposed, k contiguous) and the edge
@@ -25,94 +19,13 @@
 // double-buffered so row j+1 loads while j multiplies) and each warp forms
 //   acc[16 x 64] = x[sender] @ W_s[:, cols]      (mma.sync bf16 -> f32)
 //                + e_t[slot] @ W_e[:, cols]      (the edge policy)
-// then hands it to `visit`. The edge policy is EdgeBf16 (below: e_t and W_e
-// in bf16, mma.sync into the same accumulators; the dense and windowed
-// kernels) or EdgeF32 (csr_tile.cuh: float32, an fma chain added to the x
-// part; v2's contract).
+// then hands it to `visit`. The edge policy is EdgeF32 (csr_tile.cuh:
+// float32, an fma chain added to the x part; v2's contract).
 #pragma once
 
 #include "mma_bf16.cuh"
 
 namespace radargnn {
-
-// The edge side in bf16: W_e transposed like W_s, the edge rows padded to
-// the mma k, the product accumulated by mma.sync after the x part.
-struct EdgeBf16 {
-    using T = __nv_bfloat16;
-    struct Smem {
-        int kpe, lde;          // depth padded to the mma k; row stride (+8:
-                               // conflict-free fragments)
-        T* we_s;               // [64][lde]     W_e slice, transposed
-        T* ea_s;               // 2 x [r][lde]  edge-feature rows
-    };
-    __host__ __device__ static size_t smem_bytes(int de, int r) {
-        const int lde = ((de + 15) & ~15) + 8;
-        return sizeof(T) * static_cast<size_t>(kBlockCols + 2 * r) * lde;
-    }
-    __device__ static Smem layout(unsigned char* base, int de, int r) {
-        Smem S;
-        S.kpe = (de + 15) & ~15;
-        S.lde = S.kpe + 8;
-        S.we_s = reinterpret_cast<T*>(base);
-        S.ea_s = S.we_s + kBlockCols * S.lde;
-        return S;
-    }
-    // The W_e slice, zero past de and h; zeroes the depth padding
-    // [de, kpe) of the row buffers, which the mma reads and the gathers
-    // never write.
-    __device__ static void stage(const Smem& S, const T* __restrict__ w_e,
-                                 int de, int h, int r, int col0) {
-        const T zero = __float2bfloat16(0.0f);
-        for (int i = threadIdx.x; i < S.kpe * kBlockCols; i += blockDim.x) {
-            const int kk = i / kBlockCols, n = i % kBlockCols;
-            const int col = col0 + n;
-            S.we_s[n * S.lde + kk] = (kk < de && col < h)
-                ? w_e[static_cast<size_t>(kk) * h + col] : zero;
-        }
-        for (int i = threadIdx.x; i < 2 * r * (S.kpe - de); i += blockDim.x) {
-            const int rr = i / (S.kpe - de), c = i % (S.kpe - de);
-            S.ea_s[rr * S.lde + de + c] = zero;
-        }
-    }
-    __device__ static T* rows(const Smem& S, int buf, int r) {
-        return S.ea_s + buf * r * S.lde;
-    }
-    // Starts the copy of the R edge rows from slot slot0 into buffer buf.
-    __device__ static void issue(const Smem& S, int buf,
-                                 const T* __restrict__ e_t, size_t slot0,
-                                 int de, int r) {
-        T* ea = rows(S, buf, r);
-        const int chunks = de / 8;              // 16-byte chunks per row
-        for (int i = threadIdx.x; i < r * chunks; i += blockDim.x) {
-            const int rr = i / chunks, c = i % chunks;
-            cp_async16(ea + rr * S.lde + c * 8,
-                       e_t + (slot0 + rr) * static_cast<size_t>(de) + c * 8,
-                       true);
-        }
-    }
-    // acc += the warp's 16 edge rows (ea: the slot row's buffer) @ W_e.
-    __device__ static void product(const Smem& S, const T* ea,
-                                   float (*acc)[4], int m0, int g, int tq,
-                                   int) {
-        warp_gemm(acc, ea + m0 * S.lde, S.lde, S.we_s, S.lde, S.kpe, g, tq);
-    }
-};
-
-// Senders of the dense and windowed layouts: tile t's window starts at node
-// tile_win[t] * node_block; -1 for an empty slot or one past n_x. The
-// index arrays are read-only for a kernel's life: read through the
-// non-coherent cache (__ldg), as the kernels' __restrict__ parameters are.
-struct WindowSenders {
-    const int32_t* sloc;       // [T*TE]
-    int win0, n_x;
-    __device__ WindowSenders(const int32_t* sloc_, const int32_t* tile_win,
-                             int t, int node_block, int n_x_)
-        : sloc(sloc_), win0(__ldg(tile_win + t) * node_block), n_x(n_x_) {}
-    __device__ int operator()(size_t slot) const {
-        const int sl = __ldg(sloc + slot);
-        return sl >= 0 && win0 + sl < n_x ? win0 + sl : -1;
-    }
-};
 
 // The loop's buffers in dynamic shared memory: the W_s slice and the
 // double-buffered sender rows, then the edge policy's.
@@ -236,26 +149,6 @@ __device__ __forceinline__ void slot_rows(
               senders(slot0 + m0 + g + 8) >= 0, ea);
         __syncthreads();       // the buffer is refilled two steps later
     }
-}
-
-// The slot-row loop of the block's own tile (blockIdx.x) and column slice
-// (blockIdx.y) in the windowed layout's row chunks, weights staged.
-template <class Visit>
-__device__ __forceinline__ void dense_tile_rows(
-    const __nv_bfloat16* __restrict__ x,       // [n_x, d]
-    const __nv_bfloat16* __restrict__ w_s,     // [d, h]
-    const __nv_bfloat16* __restrict__ e_t,     // [T*TE, de]
-    const __nv_bfloat16* __restrict__ w_e,     // [de, h]
-    const int32_t* __restrict__ sloc,          // [T*TE]
-    const int32_t* __restrict__ tile_win,      // [T]
-    int n_x, int d, int de, int h, int r_tile, int k, int node_block,
-    Visit&& visit) {
-    stage_weights<EdgeBf16>(w_s, w_e, d, de, h, r_tile,
-                            blockIdx.y * kBlockCols);
-    slot_rows<EdgeBf16>(blockIdx.x, x, e_t,
-                        WindowSenders(sloc, tile_win, blockIdx.x, node_block,
-                                      n_x),
-                        d, de, r_tile, k, visit);
 }
 
 }  // namespace radargnn

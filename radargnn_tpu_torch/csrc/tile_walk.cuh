@@ -2,7 +2,9 @@
 // kernels share (windowed_fwd_v3.cu, csr_fwd_v2.cu): the block's tile range
 // by binary search over the non-decreasing tile_blocks, and the landing of
 // a slot row's op in a shared-memory accumulator by an exact float atomic
-// max; and the strict routing test of the backward kernels.
+// max; and the strict routing test and the packing of its bits, which the
+// VJP-mode forwards (dense_fwd_v4.cu, windowed_fwd_v3.cu) save for their
+// backward.
 #pragma once
 
 #include <stdint.h>
@@ -71,6 +73,106 @@ __device__ __forceinline__ void land_max(float* acc_s, int ld,
         for (int nt = 0; nt < kColTiles; ++nt) {
             atomic_max_f32(row + nt * 8, acc[nt][half * 2]);
             atomic_max_f32(row + nt * 8 + 1, acc[nt][half * 2 + 1]);
+        }
+    }
+}
+
+// A float as an int that orders as the float does (-0 below +0): a
+// non-negative float keeps its bits, a negative one flips its magnitude
+// bits. One signed atomicMax of the keys then lands a float max, with no
+// branch on the sign.
+__device__ __forceinline__ int ordered_key(float v) {
+    const int i = __float_as_int(v);
+    return i >= 0 ? i : i ^ 0x7FFFFFFF;
+}
+
+__device__ __forceinline__ float ordered_float(int k) {
+    return __int_as_float(k >= 0 ? k : k ^ 0x7FFFFFFF);
+}
+
+// Lands a warp's 16 rows of op (acc: rows g (half 0) and g + 8 (half 1),
+// g = lane / 4, columns nt * 8 + tq * 2 + {0, 1}; receivers rc[half]) in
+// the block's [node_block x 64] accumulator of ordered keys (row stride
+// ld) by atomic max, where a row's receiver lies in the block at `base`.
+// A receiver's slots lie together in the tiler's order, so where all 8
+// rows of a half share one receiver, a butterfly over them leaves the
+// maxima on every lane and each lane lands 2 of the 64 columns: 2 atomic
+// instructions with all 32 lanes active, in place of 16 with the 8 rows'
+// lanes on 8 equal addresses, which serialise. Other halves land row by
+// row (folding their shorter runs by shuffles measured no faster, and
+// slower under the spread tiler; PERF.md). acc is overwritten. Every lane
+// must call it (it shuffles across the warp).
+__device__ __forceinline__ void land_max_runs(int* keys_s, int ld,
+                                              float (*acc)[4], const int* rc,
+                                              int base, int node_block,
+                                              int num_nodes, int g, int tq) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        const int key =
+            receiver_in_block(rc[half], base, node_block, num_nodes)
+                ? rc[half] : -1;
+        const int key0 = __shfl_sync(0xffffffffu, key, 0);
+        if (__all_sync(0xffffffffu, key == key0)) {
+            if (key0 < 0) continue;
+#pragma unroll
+            for (int off = 4; off < 32; off <<= 1) {
+#pragma unroll
+                for (int nt = 0; nt < kColTiles; ++nt) {
+#pragma unroll
+                    for (int c = 0; c < 2; ++c) {
+                        float& a = acc[nt][half * 2 + c];
+                        a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+                    }
+                }
+            }
+            // lane g lands column tile g of its tq
+            float v0 = acc[0][half * 2], v1 = acc[0][half * 2 + 1];
+#pragma unroll
+            for (int nt = 1; nt < kColTiles; ++nt) {
+                if (g == nt) {
+                    v0 = acc[nt][half * 2];
+                    v1 = acc[nt][half * 2 + 1];
+                }
+            }
+            int* at = keys_s + (key0 - base) * ld + g * 8 + tq * 2;
+            atomicMax(at, ordered_key(v0));
+            atomicMax(at + 1, ordered_key(v1));
+        } else if (key >= 0) {
+            int* row = keys_s + (key - base) * ld + tq * 2;
+#pragma unroll
+            for (int nt = 0; nt < kColTiles; ++nt) {
+                atomicMax(row + nt * 8, ordered_key(acc[nt][half * 2]));
+                atomicMax(row + nt * 8 + 1,
+                          ordered_key(acc[nt][half * 2 + 1]));
+            }
+        }
+    }
+}
+
+// The warp's routing bits of one slot row over the block's 64 columns:
+// sel[nt][q] in the acc layout above. Returns, on the lanes with tq == 0,
+// the two 32-bit words (columns col0 .. col0+31, col0+32 .. col0+63) of
+// row m0+g (half 0) and of row m0+g+8 (half 1); every lane must call it
+// (it shuffles across the four lanes of a row).
+__device__ __forceinline__ void pack_row_bits(bool (*sel)[4], int tq,
+                                              uint32_t (*words)[2]) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        uint32_t w[2] = {0u, 0u};
+#pragma unroll
+        for (int nt = 0; nt < kColTiles; ++nt) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+                if (sel[nt][half * 2 + c]) {
+                    w[nt >> 2] |= 1u << ((nt & 3) * 8 + tq * 2 + c);
+                }
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            w[i] |= __shfl_xor_sync(0xffffffffu, w[i], 1);
+            w[i] |= __shfl_xor_sync(0xffffffffu, w[i], 2);
+            words[half][i] = w[i];
         }
     }
 }

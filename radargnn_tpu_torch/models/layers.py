@@ -63,11 +63,10 @@ _UNPORTED_KNOBS = {
         ("RADARGNN_FUSED_STREAM_M", "B (i) 3"),
         ("RADARGNN_FUSED_BF16_LANDING", "B (i) 3"),
         ("RADARGNN_FUSED_PRECOMP_LAND", "B (i) 3"))}
-# the sender-sum backward: the dense backward has that form always (its
-# d_x and dW_s are node-wide products of the H-wide sender sums), so "1"
-# is accepted there and on the CSR path, whose JAX kernels ignore it; the
-# windowed backward keeps the per-slot d_xg form and refuses it
-_SENDER_DX = os.environ.get("RADARGNN_FUSED_SENDER_DX", "0") == "1"
+# RADARGNN_FUSED_SENDER_DX (the sender-sum backward) changes nothing here:
+# the dense and windowed backward have that form always (their d_x and
+# dW_s are node-wide products of the H-wide sender sums), and the CSR
+# path's JAX kernels ignore it.
 # RADARGNN_FUSED_{PRECOMP_EQ,PRECOMP_EQT,EQ_MIN_WIDTH,DENSE_XLA_MAX_WIDTH}
 # choose how the TPU streams its one-hot gathers and whether narrow dense
 # layers run as XLA; they compute the same forward (the XLA fallback's
@@ -90,11 +89,6 @@ def check_fused_knobs(mode: str) -> None:
             f"RADARGNN_FUSED_BF16_MAX={BF16_MAX_ENV}: bf16-equality max "
             "routing is not ported (ROADMAP.md item B (i) 1); unset it or "
             "set 0")
-    if _SENDER_DX and mode == "windowed":
-        raise NotImplementedError(
-            "RADARGNN_FUSED_SENDER_DX=1: the windowed backward's sender-sum "
-            "form is not ported (ROADMAP.md item R4); the dense backward "
-            "has that form always")
 
 
 def fused_csr_tiling(model_config, k=None):

@@ -39,11 +39,15 @@ the JAX package, the gather operands are bf16 on the accelerator and
 float32 where the JAX package runs its kernels in interpret mode (the CPU),
 where every wrapper takes its plain version.
 
-The old overflow form (`dense_overflow_inner`), the operand preparation
-(`gather_operands`), the per-slot VJP body (`fused_backward`) and the
-kernels' input checks (`check_slot_operands`) serve the windowed
-aggregation (`ops.windowed_aggregate`); the depth and width padding and the
-checks serve the CSR aggregation (`ops.csr_aggregate`).
+The windowed aggregation (`ops.windowed_aggregate`) has the same form
+and shares its pieces: the projection and the overflow operands
+(`project_operands`), the routing bits (`pack_bits`), the backward's
+plain body (`routed_bwd_plain`), launcher (`routed_bwd_launch`) and VJP
+body (`routed_backward`), and the kernels' input checks; the depth and
+width padding and the checks also serve the CSR aggregation
+(`ops.csr_aggregate`). The JAX package's overflow form
+(`dense_overflow_inner`: gather, project, scatter-max) is kept for the
+tests and the smoke's inputs.
 """
 
 from __future__ import annotations
@@ -139,19 +143,20 @@ def dense_fwd_plain(y_s, e_t_c, w_e_c, senders_local, tile_win, inner_o,
     return out, inner, pack_bits(valid & sel)
 
 
-def dense_bwd_plain(bits, g_pass, e_t_c, w_e_c, d_op_o, order, row_ptr, *,
-                    r_tile: int, k: int):
-    """Plain torch version of the backward kernels on the same inputs (bits
-    from the forward; g_pass float32 [N, H], 0 at empty receivers; e_t_c,
-    w_e_c in the gather dtype; d_op_o [Eo, H] float32, the overflow rows).
-    d_op is g at the slot's receiver where the bit is set, rounded to the
-    gather dtype, as the TPU kernel rounds it to its grad dtype. Returns
-    (d_e [E_pad, de] in the gather dtype, dW_e [de, H] float32, d_ys and
-    d_yo [N, H] float32: the slots' d_op and the overflow rows summed at
-    their senders over the landing)."""
+def routed_bwd_plain(bits, g_pass, e_t_c, w_e_c, d_op_o, recv, order,
+                     row_ptr):
+    """Plain torch version of the bits-routed backward kernels (the dense
+    and the windowed one) on the same inputs: bits from the forward;
+    g_pass float32 [N, H], 0 at empty receivers; e_t_c, w_e_c in the gather
+    dtype; d_op_o [Eo, H] float32, the overflow rows; `recv` int64, every
+    slot's receiver (any node where the slot has no bits). d_op is g at the
+    slot's receiver where the bit is set, rounded to the gather dtype, as
+    the TPU kernel rounds it to its grad dtype. Returns (d_e [E_pad, de] in
+    the gather dtype, dW_e [de, H] float32, d_ys and d_yo [N, H] float32:
+    the slots' d_op and the overflow rows summed at their senders over the
+    landing)."""
     cd = e_t_c.dtype
     h = g_pass.shape[1]
-    recv = _slot_receivers(e_t_c.shape[0], r_tile, k, g_pass.device)
     d_op = torch.where(unpack_bits(bits, h), g_pass[recv], 0.0).to(cd)
     # one landing of [slot rows | 0] and [0 | overflow rows]
     sums = segment_sum.segment_sum_csr_plain(
@@ -159,6 +164,15 @@ def dense_bwd_plain(bits, g_pass, e_t_c, w_e_c, d_op_o, order, row_ptr, *,
         torch.nn.functional.pad(d_op_o, (h, 0)))
     return (matmul_f32(d_op, w_e_c.t(), cd).to(cd),
             matmul_f32(e_t_c.t(), d_op, cd), sums[:, :h], sums[:, h:])
+
+
+def dense_bwd_plain(bits, g_pass, e_t_c, w_e_c, d_op_o, order, row_ptr, *,
+                    r_tile: int, k: int):
+    """Plain torch version of the dense backward kernels: `routed_bwd_plain`
+    with the dense layout's receivers."""
+    recv = _slot_receivers(e_t_c.shape[0], r_tile, k, g_pass.device)
+    return routed_bwd_plain(bits, g_pass, e_t_c, w_e_c, d_op_o, recv, order,
+                            row_ptr)
 
 
 # ---------------------------------------------------------------------------
@@ -179,9 +193,7 @@ def _bind_fwd(lib: ctypes.CDLL) -> None:
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
-    lib.dense_bwd_v4.argtypes = (
-        [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 7
-        + [ctypes.c_void_p])
+    lib.dense_bwd_v4.argtypes = ROUTED_BWD_ARGTYPES + [ctypes.c_void_p]
     lib.dense_bwd_v4.restype = ctypes.c_int
     lib.dense_bwd_v4_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.dense_bwd_v4_smem_bytes.restype = ctypes.c_size_t
@@ -372,13 +384,16 @@ def dense_fwd(y_s, e_t_c, w_e_c, senders_local, tile_win, inner_o, offset,
               emit_inner=emit_inner)
 
 
-def dense_bwd_cuda(bits, g_pass, e_t_c, w_e_c, d_op_o, order, row_ptr, *,
-                   r_tile: int, k: int):
-    """Launches the three passes of `csrc/dense_bwd_v4.cu` on the current
-    stream; raises on inputs the kernels do not take. Returns what
-    `dense_bwd_plain` returns. Counts its launches in
-    `dense_bwd_cuda.launches` (one per backward)."""
-    kernel = "dense_bwd_v4"
+def routed_bwd_launch(kernel: str, load, bits, g_pass, e_t_c, w_e_c, d_op_o,
+                      order, row_ptr, *, r_tile: int, k: int, extra=(),
+                      smem_bytes=None):
+    """The checks, scratch and launch both bits-routed backwards (dense
+    and windowed, `csrc/routed_bwd.cuh`) share: `load` builds and binds the
+    library whose entry point is named `kernel`, `extra` are its layout's
+    arguments after the common ones (the windowed receivers), and
+    `smem_bytes(lib, hp)` the shared memory its passes need where that
+    depends on the shapes. The caller checks the layout's own shapes.
+    Returns what `routed_bwd_plain` returns."""
     f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
     num_nodes, h = g_pass.shape
     g_pass, w_e_c, d_op_o = pad_width(g_pass, w_e_c, d_op_o)
@@ -391,8 +406,7 @@ def dense_bwd_cuda(bits, g_pass, e_t_c, w_e_c, d_op_o, order, row_ptr, *,
     hp = col_pad(h)
     te = r_tile * k
     t = e_pad // te
-    _check(e_pad == t * te and num_nodes == t * r_tile
-           and bits.shape == (e_pad, hp // 32)
+    _check(e_pad == t * te and bits.shape == (e_pad, hp // 32)
            and row_ptr.shape == (num_nodes + 1,),
            f"bits {tuple(bits.shape)}, g_pass [{num_nodes}, {h}], "
            f"{e_pad} slots do not match tiles of {r_tile} x {k}", kernel)
@@ -405,8 +419,8 @@ def dense_bwd_cuda(bits, g_pass, e_t_c, w_e_c, d_op_o, order, row_ptr, *,
            kernel)
     _check_aligned(kernel, bits=bits, g_pass=g_pass, w_e=w_e_c,
                    d_op_o=d_op_o)
-    lib = load_bwd_kernel()
-    _check(lib.dense_bwd_v4_smem_bytes(hp, r_tile) <= _MAX_SMEM,
+    lib = load()
+    _check(smem_bytes is None or smem_bytes(lib, hp) <= _MAX_SMEM,
            f"H={h} needs more shared memory than a block has", kernel)
     dev = bits.device
     de16 = -(-de // 16) * 16
@@ -416,16 +430,38 @@ def dense_bwd_cuda(bits, g_pass, e_t_c, w_e_c, d_op_o, order, row_ptr, *,
     d_ys = torch.empty((num_nodes, hg), dtype=f32, device=dev)
     d_yo = torch.empty_like(d_ys)
     with torch.cuda.device(dev):
-        err = lib.dense_bwd_v4(
+        err = getattr(lib, kernel)(
             bits.data_ptr(), g_pass.data_ptr(), e_t_c.data_ptr(),
             w_e_c.data_ptr(), d_op_o.data_ptr(), order.data_ptr(),
             row_ptr.data_ptr(), d_e.data_ptr(), we_part.data_ptr(),
             dw_e.data_ptr(), d_ys.data_ptr(), d_yo.data_ptr(), e_pad, t,
-            r_tile, k, de, hg, hp, num_nodes, _stream(dev))
+            r_tile, k, de, hg, hp, num_nodes, *extra, _stream(dev))
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
-    dense_bwd_cuda.launches += 1
     return d_e, dw_e[:, :h], d_ys[:, :h], d_yo[:, :h]
+
+
+# the argument types of a routed backward's entry point before its layout's
+ROUTED_BWD_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 7)
+
+
+def dense_bwd_cuda(bits, g_pass, e_t_c, w_e_c, d_op_o, order, row_ptr, *,
+                   r_tile: int, k: int):
+    """Launches the four passes of `csrc/dense_bwd_v4.cu` on the current
+    stream; raises on inputs the kernels do not take. Returns what
+    `dense_bwd_plain` returns. Counts its launches in
+    `dense_bwd_cuda.launches` (one per backward)."""
+    kernel = "dense_bwd_v4"
+    _check(g_pass.shape[0] * k == e_t_c.shape[0],
+           f"g_pass [{g_pass.shape[0]}, ...] does not match "
+           f"{e_t_c.shape[0]} slots of {r_tile} x {k} tiles", kernel)
+    res = routed_bwd_launch(
+        kernel, load_bwd_kernel, bits, g_pass, e_t_c, w_e_c, d_op_o, order,
+        row_ptr, r_tile=r_tile, k=k,
+        smem_bytes=lambda lib, hp: lib.dense_bwd_v4_smem_bytes(hp, r_tile))
+    dense_bwd_cuda.launches += 1
+    return res
 
 
 dense_bwd_cuda.launches = 0
@@ -438,12 +474,6 @@ def dense_bwd(bits, g_pass, e_t_c, w_e_c, d_op_o, order, row_ptr, *,
     fn = dense_bwd_cuda if bits.is_cuda else dense_bwd_plain
     return fn(bits, g_pass, e_t_c, w_e_c, d_op_o, order, row_ptr,
               r_tile=r_tile, k=k)
-
-
-def weight_partials(num_slots: int) -> int:
-    """Number of fixed slot chunks the backward sums dW over (each gives
-    one partial; the partials are then summed in order)."""
-    return max(1, min(64, -(-num_slots // 2048)))
 
 
 # ---------------------------------------------------------------------------
@@ -505,59 +535,19 @@ def _pad_depth(a: torch.Tensor, w: torch.Tensor):
     return a.contiguous(), w.contiguous()
 
 
-def gather_operands(x, w_s, e_t, w_e, e_ovf, ovf_s, ovf_r,
-                    num_nodes: int):
-    """A fused forward's operands in the gather dtype: the overflow maxima
-    inner_o [num_nodes, H] float32 and the depth-padded (x, w_s, e_t, w_e)
-    the kernels (and the backward) take."""
+def project_operands(x, w_s, e_t, w_e, e_ovf, ovf_s, ovf_r, num_nodes: int):
+    """The projection and the overflow side of a bits-routed forward
+    (dense and windowed), on operands in the gather dtype: y_s = x @ w_s
+    (`dense_proj`), the overflow operands op_o = y_s[ovf_s] + e_ovf @ w_e
+    and their maxima inner_o [num_nodes, H] float32, and the depth-padded
+    (e_t, w_e) the gather-max kernels take. Returns (y_s, op_o, inner_o,
+    e_p, w_e_p)."""
     cd = gather_dtype(x.device)
-    x_c, w_s_c, w_e_c = x.to(cd), w_s.to(cd), w_e.to(cd)
-    inner_o = dense_overflow_inner(x_c, w_s_c, e_ovf.to(cd), w_e_c,
-                                   ovf_s, ovf_r, num_nodes)
-    x_p, w_s_p = _pad_depth(x_c, w_s_c)
-    e_p, w_e_p = _pad_depth(e_t.to(cd), w_e_c)
-    return inner_o, (x_p, w_s_p, e_p, w_e_p)
-
-
-def fused_backward(g, inner, slot_backward, x, w_s, w_e, e_ovf, ovf_s,
-                   ovf_r, order, row_ptr, dtypes) -> tuple:
-    """The windowed aggregation's custom VJP body (the per-slot form): g and
-    inner zeroed at empty receivers, the kernels' slot part
-    `slot_backward(inner_z, g_pass) -> (d_xg, d_e_t, dW_s, dW_e)` (padded
-    widths, d_xg and d_e_t in the gather dtype), the overflow backward in
-    torch (XLA in the JAX package), and d_x: the d_xg rows and the
-    overflow rows summed at their senders in one landing over the batch's
-    sender order. Returns the gradients of (x, w_s, e_t, w_e, offset,
-    e_ovf) in their inputs' dtypes."""
-    x_dtype, e_dtype, e_ovf_dtype, offset_dtype = dtypes
-    d, de = x.shape[1], w_e.shape[0]
-    has = inner > _NEG / 2
-    g_pass = torch.where(has, g.float(), 0.0)
-    inner_z = torch.where(has, inner, 0.0)
-    d_xg, d_e_t, d_ws, d_we = slot_backward(inner_z, g_pass)
-
-    # the overflow operand is recomputed as the forward computed it, in the
-    # gather dtype; the products with d_op_o take the unrounded float32
-    # operands
-    cd = d_xg.dtype
-    mask = ovf_r >= 0
-    recv = torch.where(mask, ovf_r, 0).long()
-    op_o = _overflow_operand(x.to(cd), w_s.to(cd), e_ovf.to(cd), w_e.to(cd),
-                             ovf_s)
-    d_op_o = torch.where(mask[:, None] & _routes(op_o, inner_z[recv]),
-                         g_pass[recv], 0.0)
-    d_xo = d_op_o @ w_s.float().t()
-    pad = d_xg.shape[1] - d
-    if pad:
-        d_xo = torch.nn.functional.pad(d_xo, (0, pad))
-    d_x = segment_sum.segment_sum_csr(d_xg, order, row_ptr,
-                                      d_xo.contiguous())[:, :d]
-    x_o = x.float()[ovf_s.long()]
-    d_ws = d_ws[:d] + x_o.t() @ d_op_o
-    d_we = d_we[:de] + e_ovf.float().t() @ d_op_o
-    d_e_ovf = (d_op_o @ w_e.float().t()).to(e_ovf_dtype)
-    return (d_x.to(x_dtype), d_ws.to(w_s.dtype), d_e_t[:, :de].to(e_dtype),
-            d_we.to(w_e.dtype), g_pass.to(offset_dtype), d_e_ovf)
+    x_p, w_s_p = _pad_depth(x.to(cd), w_s.to(cd))
+    e_p, w_e_p = _pad_depth(e_t.to(cd), w_e.to(cd))
+    y_s = dense_proj(x_p, w_s_p)
+    op_o = dense_overflow_operand(y_s, e_ovf.to(cd), w_e.to(cd), ovf_s)
+    return y_s, op_o, overflow_maxima(op_o, ovf_r, num_nodes), e_p, w_e_p
 
 
 def _forward(x, w_s, e_t, w_e, offset, e_ovf, tile_win, senders_local,
@@ -566,17 +556,50 @@ def _forward(x, w_s, e_t, w_e, offset, e_ovf, tile_win, senders_local,
     operands and maxima, the gather-max. Returns (the gather-max wrapper's
     result, the overflow operands, the depth-padded (e_t, w_e))."""
     r_tile, k, node_block = geo
-    cd = gather_dtype(x.device)
-    x_p, w_s_p = _pad_depth(x.to(cd), w_s.to(cd))
-    e_p, w_e_p = _pad_depth(e_t.to(cd), w_e.to(cd))
-    y_s = dense_proj(x_p, w_s_p)
-    op_o = dense_overflow_operand(y_s, e_ovf.to(cd), w_e.to(cd), ovf_s)
-    inner_o = overflow_maxima(op_o, ovf_r, offset.shape[0])
+    y_s, op_o, inner_o, e_p, w_e_p = project_operands(
+        x, w_s, e_t, w_e, e_ovf, ovf_s, ovf_r, offset.shape[0])
     res = dense_fwd(y_s, e_p, w_e_p, senders_local.contiguous(),
                     tile_win.contiguous(), inner_o,
                     offset.float().contiguous(), r_tile=r_tile, k=k,
                     node_block=node_block, emit_inner=emit_inner)
     return res, op_o, (e_p, w_e_p)
+
+
+def routed_backward(g, inner, op_o, ovf_r, x, w_s, w_e, e_ovf, dtypes,
+                    slot_backward, round_sums: bool) -> tuple:
+    """The custom VJP body of a bits-routed aggregation (dense and
+    windowed): g and inner zeroed at empty receivers; the overflow rows
+    routed on the forward's own operands; the kernels' part
+    `slot_backward(g_pass, d_op_o) -> (d_e_t, dW_e, d_ys, d_yo)` (padded
+    depth, d_e_t in the gather dtype); then d_x and dW_s as node-wide
+    products of the sender sums. With `round_sums` (the dense path) the
+    slots' sums meet W_s and x in the gather dtype and the overflow's in
+    float32, as the JAX package's dense `sender_dx` wrapper forms them;
+    without (the windowed path), (d_ys + d_yo) @ W_s^T and x^T (d_ys +
+    d_yo) in float32, as its windowed wrapper does. Returns the gradients
+    of (x, w_s, e_t, w_e, offset, e_ovf) in their inputs' dtypes."""
+    x_dtype, e_dtype, e_ovf_dtype, offset_dtype = dtypes
+    de = w_e.shape[0]
+    has = inner > _NEG / 2
+    g_pass = torch.where(has, g.float(), 0.0)
+    inner_z = torch.where(has, inner, 0.0)
+    mask = ovf_r >= 0
+    recv = torch.where(mask, ovf_r, 0).long()
+    d_op_o = torch.where(mask[:, None] & _routes(op_o, inner_z[recv]),
+                         g_pass[recv], 0.0)
+    d_e_t, d_we, d_ys, d_yo = slot_backward(g_pass, d_op_o)
+    if round_sums:
+        cd = d_e_t.dtype
+        d_x = matmul_f32(d_ys, w_s.t(), cd) + d_yo @ w_s.float().t()
+        d_ws = matmul_f32(x.t(), d_ys, cd) + x.float().t() @ d_yo
+    else:
+        d_y = d_ys + d_yo
+        d_x = d_y @ w_s.float().t()
+        d_ws = x.float().t() @ d_y
+    d_we = d_we[:de] + e_ovf.float().t() @ d_op_o
+    d_e_ovf = (d_op_o @ w_e.float().t()).to(e_ovf_dtype)
+    return (d_x.to(x_dtype), d_ws.to(w_s.dtype), d_e_t[:, :de].to(e_dtype),
+            d_we.to(w_e.dtype), g_pass.to(offset_dtype), d_e_ovf)
 
 
 class DenseAggregateFn(torch.autograd.Function):
@@ -599,31 +622,14 @@ class DenseAggregateFn(torch.autograd.Function):
         (x, w_s, w_e, e_ovf, e_p, w_e_p, bits, op_o, ovf_r, order, row_ptr,
          inner) = ctx.saved_tensors
         r_tile, k, _ = ctx.geo
-        x_dtype, e_dtype, e_ovf_dtype, offset_dtype = ctx.dtypes
-        de = w_e.shape[0]
-        cd = e_p.dtype
-        has = inner > _NEG / 2
-        g_pass = torch.where(has, g.float(), 0.0)
-        inner_z = torch.where(has, inner, 0.0)
-        # the overflow rows route on the forward's own operands and land in
-        # the same pass as the slots' rows, in sums of their own
-        mask = ovf_r >= 0
-        recv = torch.where(mask, ovf_r, 0).long()
-        d_op_o = torch.where(mask[:, None] & _routes(op_o, inner_z[recv]),
-                             g_pass[recv], 0.0)
-        d_e_t, d_we, d_ys, d_yo = dense_bwd(bits, g_pass, e_p, w_e_p, d_op_o,
-                                            order, row_ptr, r_tile=r_tile,
-                                            k=k)
-        # d_x and dW_s: node-wide products of the sender sums, the slots'
-        # in the gather dtype, the overflow's in float32 as in the JAX
-        # package
-        d_x = matmul_f32(d_ys, w_s.t(), cd) + d_yo @ w_s.float().t()
-        d_ws = matmul_f32(x.t(), d_ys, cd) + x.float().t() @ d_yo
-        d_we = d_we[:de] + e_ovf.float().t() @ d_op_o
-        d_e_ovf = (d_op_o @ w_e.float().t()).to(e_ovf_dtype)
-        return (d_x.to(x_dtype), d_ws.to(w_s.dtype),
-                d_e_t[:, :de].to(e_dtype), d_we.to(w_e.dtype),
-                g_pass.to(offset_dtype), d_e_ovf) + (None,) * 7
+
+        def slot_backward(g_pass, d_op_o):
+            return dense_bwd(bits, g_pass, e_p, w_e_p, d_op_o, order,
+                             row_ptr, r_tile=r_tile, k=k)
+
+        return routed_backward(g, inner, op_o, ovf_r, x, w_s, w_e, e_ovf,
+                               ctx.dtypes, slot_backward,
+                               round_sums=True) + (None,) * 7
 
 
 def dense_aggregate(x, w_s, e_t, w_e, offset, e_ovf, tile_win,

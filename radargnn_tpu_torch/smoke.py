@@ -17,6 +17,7 @@ caught and continued.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -211,57 +212,34 @@ def _segsum_bound(d: int, rows_bf16: int, rows_f32: int, n: int) -> Dict:
     return _bound(float(rows * d), nbytes, PEAK_F32_FLOPS)
 
 
-class _Kernels(NamedTuple):
-    """How a batch's fused layout calls its forward and backward kernels
-    and their plain versions, on the operands alone."""
+class _CsrKernels(NamedTuple):
+    """How the CSR layout calls its forward and backward kernels (B5) and
+    their plain versions, on the operands alone."""
 
-    fwd_name: str
-    bwd_name: str
-    fwd: Callable           # (x, w_s, e_t, w_e, inner_o, offset, emit_inner)
+    fwd: Callable           # (x, w_s, e_t, w_e, offset, emit_inner)
     fwd_plain: Callable
     bwd: Callable           # (x, w_s, e_t, w_e, inner_z, g_pass)
     bwd_plain: Callable
-    index_arrays: int
-    edge_f32: bool          # e_t and w_e float32 (the CSR kernels)
 
 
-def _kernels_of(tiling) -> _Kernels:
-    """The layout's kernels: windowed, or CSR (no window, no overflow: its
-    forward takes no inner_o, which the callers pass as None). The dense
-    layout's kernels have their own checks (`check_dense_kernels`)."""
-    if tiling.win is None:
-        kw = dict(node_block=tiling.node_block, edge_tile=tiling.edge_tile)
-        layout = (tiling.senders, tiling.receivers, tiling.blocks)
-        names, mod, fns = ("csr_fwd_v2", "csr_bwd_v2"), ca, (
-            "csr_fwd", "csr_fwd_plain", "csr_bwd", "csr_bwd_plain")
-    else:
-        sloc, t_win = tiling.win[:2]
-        kw = dict(node_block=tiling.node_block, edge_tile=tiling.edge_tile)
-        layout = (tiling.receivers, sloc, t_win, tiling.blocks)
-        names, mod, fns = ("windowed_fwd_v3", "windowed_bwd_v3"), wa, (
-            "windowed_fwd", "windowed_fwd_plain", "windowed_bwd",
-            "windowed_bwd_plain")
+def _csr_kernels(tiling) -> _CsrKernels:
+    """The CSR layout's kernels (no window, no overflow)."""
+    kw = dict(node_block=tiling.node_block, edge_tile=tiling.edge_tile)
+    layout = (tiling.senders, tiling.receivers, tiling.blocks)
 
-    def fwd(name):
-        fn = getattr(mod, name)
+    def fwd(fn):
+        return lambda x, w_s, e_t, w_e, offset, emit_inner=False: fn(
+            x, w_s, e_t, w_e, *layout, offset, emit_inner=emit_inner, **kw)
 
-        def call(x, w_s, e_t, w_e, inner_o, offset, emit_inner=False):
-            node = (offset,) if inner_o is None else (inner_o, offset)
-            return fn(x, w_s, e_t, w_e, *layout, *node,
-                      emit_inner=emit_inner, **kw)
-        return call
+    def bwd(fn):
+        return lambda x, w_s, e_t, w_e, inner_z, g_pass: fn(
+            x, w_s, e_t, w_e, *layout, inner_z, g_pass, **kw)
 
-    def bwd(name):
-        fn = getattr(mod, name)
-        # the CSR kernels' sender sums (dW_s) walk the batch's landing
-        bwd_kw = dict(kw, landing=tiling.landing) \
-            if name == "csr_bwd" else kw
-        return lambda x, w_s, e_t, w_e, inner_z, g_pass: \
-            fn(x, w_s, e_t, w_e, *layout, inner_z, g_pass, **bwd_kw)
-
-    csr = tiling.win is None
-    return _Kernels(*names, fwd(fns[0]), fwd(fns[1]), bwd(fns[2]),
-                    bwd(fns[3]), 2 if csr else len(layout) // 2, csr)
+    # the kernels' sender sums (dW_s) walk the batch's landing
+    return _CsrKernels(fwd(ca.csr_fwd), fwd(ca.csr_fwd_plain),
+                       bwd(functools.partial(ca.csr_bwd,
+                                             landing=tiling.landing)),
+                       bwd(ca.csr_bwd_plain))
 
 
 def _valid_slots(tiling) -> int:
@@ -273,15 +251,14 @@ def _valid_slots(tiling) -> int:
 
 def check_fwd_kernel(tiling, layer_shapes: List[tuple], seed: int, reps: int,
                      out: Callable = print) -> List[Dict]:
-    """Holds the batch's forward kernel (windowed or CSR) against its
-    plain version at each (d_in, d_e, H) of the model, on the batch's real
-    layout and seeded inputs (bf16; e_t and W_e float32 for the CSR
-    kernel), in serving and in VJP mode (`inner`); times both on the card.
-    Raises beyond KERNEL_RTOL (CSR: CSR_FWD_RTOL)."""
-    kern = _kernels_of(tiling)
+    """Holds the CSR forward kernel (B5) against its plain version at each
+    (d_in, d_e, H) of the model, on the batch's real layout and seeded
+    inputs (x, W_s bf16; e_t and W_e float32, v2's contract), in serving
+    and in VJP mode (`inner`); times both on the card. Raises beyond
+    CSR_FWD_RTOL."""
+    kern = _csr_kernels(tiling)
     dev = tiling.receivers.device
     cd = da.gather_dtype(dev)
-    ed = torch.float32 if kern.edge_f32 else cd
     e_pad, t = tiling.receivers.shape[0], tiling.blocks.shape[0]
     n = tiling.landing.row_ptr.shape[0] - 1
     valid_slots = _valid_slots(tiling)
@@ -294,16 +271,10 @@ def check_fwd_kernel(tiling, layer_shapes: List[tuple], seed: int, reps: int,
 
         x = rand(n, d).to(cd)
         w_s = rand(d, h, scale=d ** -0.5).to(cd)
-        e_t = rand(e_pad, de).to(ed)
-        w_e = rand(de, h, scale=de ** -0.5).to(ed)
-        inner_o = None
-        if tiling.win is not None:
-            ovf_s, ovf_r = tiling.win[3:5]
-            inner_o = da.dense_overflow_inner(
-                x, w_s, rand(ovf_s.shape[0], de).to(cd), w_e, ovf_s, ovf_r,
-                n)
+        e_t = rand(e_pad, de)
+        w_e = rand(de, h, scale=de ** -0.5)
         offset = rand(n, h)
-        args = (x, w_s, e_t, w_e, inner_o, offset)
+        args = (x, w_s, e_t, w_e, offset)
         got = kern.fwd(*args)
         ref = kern.fwd_plain(*args)
         got_vjp, inner = kern.fwd(*args, emit_inner=True)
@@ -322,24 +293,23 @@ def check_fwd_kernel(tiling, layer_shapes: List[tuple], seed: int, reps: int,
         scale = max(float(ref.abs().max()), 1.0)
         row = {"d_in": d, "d_e": de, "h": h, "max_abs_err": err,
                "max_rel_err": err / scale}
-        row.update(_kernel_bound(d, de, h, n, e_pad, t, valid_slots,
-                                 kern.index_arrays, kern.edge_f32))
+        row.update(_kernel_bound(d, de, h, n, e_pad, t, valid_slots, 2,
+                                 True))
         if on_card:
             row["ms"] = _time_ms(lambda: kern.fwd(*args), reps)
             row["plain_ms"] = _time_ms(lambda: kern.fwd_plain(*args), reps)
         else:
             row["ms"] = row["plain_ms"] = None
-        out(f"kernel {kern.fwd_name} d_in={d} H={h}: max_abs_err={err:.3e} "
+        out(f"kernel csr_fwd_v2 d_in={d} H={h}: max_abs_err={err:.3e} "
             f"max_rel_err={row['max_rel_err']:.3e} ms={row['ms']} "
             f"plain_ms={row['plain_ms']} bound_ms={row['bound_ms']:.4f} "
             f"({row['bound_by']}; {row['flops'] / 1e9:.2f} GFLOP needed, "
             f"{row['slot_flops'] / 1e9:.2f} GFLOP as the kernel does it)")
-        limit = CSR_FWD_RTOL if kern.edge_f32 else KERNEL_RTOL
-        if row["max_rel_err"] > limit:
+        if row["max_rel_err"] > CSR_FWD_RTOL:
             raise AssertionError(
-                f"{kern.fwd_name} disagrees with its plain version at "
-                f"d_in={d}, H={h}: max_rel_err {row['max_rel_err']:.3e} > "
-                f"{limit}")
+                f"csr_fwd_v2 disagrees with its plain version at d_in={d}, "
+                f"H={h}: max_rel_err {row['max_rel_err']:.3e} > "
+                f"{CSR_FWD_RTOL}")
         results.append(row)
     return results
 
@@ -355,60 +325,122 @@ def _own_scale_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return err / max(float(want.float().abs().max()), 1e-30)
 
 
+def _dyadic(gen: torch.Generator, dev):
+    """Seeded multiples of `step` in [lo * step, hi * step] on `dev`."""
+    def dyadic(*shape, lo=-2, hi=2, step=0.5):
+        return (torch.randint(lo, hi + 1, shape, generator=gen)
+                * step).to(dev)
+    return dyadic
+
+
+def _landing_row(rows, d_xo, order, row_ptr, n: int, reps: int,
+                 on_card: bool) -> Tuple[Dict, torch.Tensor]:
+    """The landing (B3) of `rows` (slot rows, bf16 or float32) and `d_xo`
+    (overflow rows, float32, or None) against its plain version: errors,
+    a bitwise repeat, times of the kernel, the plain version and
+    `index_add_` (the library call) on the card. Returns (row, d_x)."""
+    dev = rows.device
+    d = rows.shape[1]
+    n_rows = rows.shape[0] + (0 if d_xo is None else d_xo.shape[0])
+    # sender of every landed row, and a dummy segment n for the rest, for
+    # the library call
+    seg = torch.full((n_rows,), n, dtype=torch.long, device=dev)
+    seg[order.long()] = ss.segment_ids(row_ptr)
+    land = (rows, order, row_ptr, d_xo)
+    d_x = ss.segment_sum_csr(*land)
+    d_x_ref = ss.segment_sum_csr_plain(*land)
+    same = torch.equal(d_x, ss.segment_sum_csr(*land))
+    err = _rel_err(d_x, d_x_ref)
+    n_ovf = int((order >= rows.shape[0]).sum())
+    row = {"d": d, "rows": int(order.shape[0]), "max_abs_err": err[0],
+           "max_rel_err": err[1], "bitwise_repeat": same,
+           **_segsum_bound(d, int(order.shape[0]) - n_ovf, n_ovf, n)}
+    if on_card:
+        row["ms"] = _time_ms(lambda: ss.segment_sum_csr(*land), reps)
+        row["plain_ms"] = _time_ms(lambda: ss.segment_sum_csr_plain(*land),
+                                   reps)
+        src = rows.float() if d_xo is None else torch.cat([rows.float(),
+                                                           d_xo])
+        acc = torch.zeros((n + 1, d), dtype=torch.float32, device=dev)
+        row["library_ms"] = _time_ms(lambda: acc.index_add_(0, seg, src),
+                                     reps)
+    else:
+        row["ms"] = row["plain_ms"] = row["library_ms"] = None
+    return row, d_x
+
+
+def check_landing(tiling, layer_shapes: List[tuple], seed: int, reps: int,
+                  out: Callable = print) -> List[Dict]:
+    """Holds the landing (B3, `segment_sum_csr`) against its plain version
+    on a windowed layout's landing: seeded dyadic bf16 slot rows of each
+    layer's width d_in (a per-slot d_xg, as the TPU kernel's backward
+    forms it) and float32 overflow rows, exact in any order, so the two
+    must agree exactly and two runs bitwise; times it against
+    `index_add_` on the card. (The windowed backward sums by sender itself
+    since the bits-routed design; the CSR backward lands with B3.)"""
+    order, row_ptr = tiling.landing
+    dev = order.device
+    cd = da.gather_dtype(dev)
+    e_pad, n_ovf = tiling.win[0].shape[0], tiling.win[3].shape[0]
+    n = row_ptr.shape[0] - 1
+    on_card = dev.type == "cuda"
+    dyadic = _dyadic(torch.Generator().manual_seed(seed), dev)
+    rows = []
+    for d, _, _ in layer_shapes:
+        row, _ = _landing_row(dyadic(e_pad, d).to(cd),
+                              dyadic(n_ovf, d, lo=-8, hi=8, step=0.125),
+                              order, row_ptr, n, reps, on_card)
+        out(f"kernel segment_sum_csr d={d} rows={row['rows']}: max_abs_err="
+            f"{row['max_abs_err']:.3e} bitwise repeat "
+            f"{row['bitwise_repeat']} ms={row['ms']} plain_ms="
+            f"{row['plain_ms']} index_add_ ms={row['library_ms']} bound_ms="
+            f"{row['bound_ms']:.4f} ({row['bound_by']})")
+        if row["max_abs_err"] > 0.0 or not row["bitwise_repeat"]:
+            raise AssertionError(f"the landing disagrees with its plain "
+                                 f"version at d={d}: {row}")
+        rows.append(row)
+    return rows
+
+
 def check_bwd_kernels(tiling, layer_shapes: List[tuple], seed: int,
                       reps: int, out: Callable = print, exact: bool = False
                       ) -> Tuple[List[Dict], List[Dict]]:
-    """Holds the batch's backward kernels (windowed B4 or CSR B5)
-    and the landing (B3) against their plain versions at each (d_in, d_e, H) of
-    the model, on the batch's real layout and landing; checks that two
-    runs give the same bits; times kernels, plain versions and, for the
-    landing, `index_add_` (the library call) on the card.
+    """Holds the CSR backward kernels (B5) and the landing (B3) against
+    their plain versions at each (d_in, d_e, H) of the model, on the
+    batch's real layout and landing; checks that two runs give the same
+    bits; times kernels, plain versions and, for the landing,
+    `index_add_` (the library call) on the card.
 
-    The inputs are seeded dyadic bf16 values (x, e, g in multiples of 1/2
-    or 1/8, the weights in multiples of 1/4), so every product and every
-    sum the kernels and the plain versions form is exact in float32 in any
+    The inputs are seeded dyadic values (x, e, g in multiples of 1/2 or
+    1/8, the weights in multiples of 1/4), so every product and every sum
+    the kernels and the plain versions form is exact in float32 in any
     order. Routing then compares equal operands in both, exact ties are
     frequent (every tied slot takes the full g), and the two must agree up
     to bf16 rounding of equal values (BWD_RTOL; with `exact`, bitwise).
     With real-valued inputs a slot at the routing tolerance's edge may
     route in one version only; the training comparison covers those
     inputs end to end. Dyadic g is exact in bf16, so it cannot tell a
-    float32 d_op from a rounded one: the CSR kernels, whose edge side
-    stays float32, also run the same operands with a real-valued g, and
-    d_e and dW_e must then agree to CSR_EDGE_GRAD_RTOL of their scale."""
-    kern = _kernels_of(tiling)
+    float32 d_op from a rounded one: the kernels, whose edge side stays
+    float32, also run the same operands with a real-valued g, and d_e and
+    dW_e must then agree to CSR_EDGE_GRAD_RTOL of their scale."""
+    kern = _csr_kernels(tiling)
     order, row_ptr = tiling.landing
     dev = tiling.receivers.device
     cd = da.gather_dtype(dev)
-    ed = torch.float32 if kern.edge_f32 else cd
     e_pad, t = tiling.receivers.shape[0], tiling.blocks.shape[0]
     n = row_ptr.shape[0] - 1
     valid_slots = _valid_slots(tiling)
-    ovf = tiling.win is not None      # the CSR layout has no overflow
-    ovf_s, ovf_r = tiling.win[3:5] if ovf else (None, None)
-    valid_ovf = int((ovf_r >= 0).sum()) if ovf else 0
     on_card = dev.type == "cuda"
     gen = torch.Generator().manual_seed(seed)
-    # sender of every landed row, and a dummy segment n for the rest, for
-    # the library call
-    rows_total = e_pad + (ovf_s.shape[0] if ovf else 0)
-    seg = torch.full((rows_total,), n, dtype=torch.long, device=dev)
-    seg[order.long()] = ss.segment_ids(row_ptr)
-
-    def dyadic(*shape, lo=-2, hi=2, step=0.5):
-        return (torch.randint(lo, hi + 1, shape, generator=gen)
-                * step).to(dev)
+    dyadic = _dyadic(gen, dev)
 
     bwd_rows, seg_rows = [], []
     for d, de, h in layer_shapes:
         x = dyadic(n, d).to(cd)
         w_s = dyadic(d, h, step=0.25).to(cd)
-        e_t = dyadic(e_pad, de).to(ed)
-        w_e = dyadic(de, h, step=0.25).to(ed)
-        inner_o = da.dense_overflow_inner(
-            x, w_s, dyadic(ovf_s.shape[0], de).to(cd), w_e, ovf_s, ovf_r,
-            n) if ovf else None
-        _, inner = kern.fwd(x, w_s, e_t, w_e, inner_o,
+        e_t = dyadic(e_pad, de)
+        w_e = dyadic(de, h, step=0.25)
+        _, inner = kern.fwd(x, w_s, e_t, w_e,
                             torch.zeros((n, h), device=dev), emit_inner=True)
         has = inner > da._NEG / 2
         args = (x, w_s, e_t, w_e, torch.where(has, inner, 0.0),
@@ -416,80 +448,60 @@ def check_bwd_kernels(tiling, layer_shapes: List[tuple], seed: int,
         got = kern.bwd(*args)
         ref = kern.bwd_plain(*args)
         again = kern.bwd(*args)
-        if kern.edge_f32:
-            # the same exact op and routing with a real-valued g: the
-            # edge side's d_op stays float32 (CSR_EDGE_GRAD_RTOL)
-            args_g = args[:5] + (torch.where(
-                has, torch.randn((n, h), generator=gen).to(dev), 0.0),)
-            real_g = [_own_scale_err(u, v) for u, v in
-                      zip(kern.bwd(*args_g), kern.bwd_plain(*args_g))]
-        # the landing: slot rows (d_xg, the gather dtype) then overflow rows
-        d_xo = dyadic(ovf_s.shape[0], d, lo=-8, hi=8, step=0.125) \
-            if ovf else None
-        land = (got[0], order, row_ptr, d_xo)
-        d_x = ss.segment_sum_csr(*land)
-        d_x_ref = ss.segment_sum_csr_plain(*land)
-        d_x_again = ss.segment_sum_csr(again[0], order, row_ptr, d_xo)
+        # the same exact op and routing with a real-valued g: the edge
+        # side's d_op stays float32 (CSR_EDGE_GRAD_RTOL)
+        args_g = args[:5] + (torch.where(
+            has, torch.randn((n, h), generator=gen).to(dev), 0.0),)
+        real_g = [_own_scale_err(u, v) for u, v in
+                  zip(kern.bwd(*args_g), kern.bwd_plain(*args_g))]
+        # the landing of the kernel's slot rows (d_xg, the gather dtype)
+        b3, d_x = _landing_row(got[0], None, order, row_ptr, n, reps,
+                               on_card)
+        d_x_again = ss.segment_sum_csr(again[0], order, row_ptr)
         if on_card:
             torch.cuda.synchronize()
         names = ("d_xg", "d_e", "dW_s", "dW_e")
         for name, u, v in zip(names, got, ref):
             if u.shape != v.shape or u.dtype != v.dtype \
                     or not torch.isfinite(u).all():
-                raise AssertionError(f"{kern.bwd_name} {name} at d_in={d}: "
+                raise AssertionError(f"csr_bwd_v2 {name} at d_in={d}: "
                                      "shape, dtype or not finite")
         errs = [_rel_err(u, v) for u, v in zip(got, ref)]
-        seg_err = _rel_err(d_x, d_x_ref)
         same = all(torch.equal(u, v) for u, v in
                    zip((d_x, *got[1:]), (d_x_again, *again[1:])))
         b2 = {"d_in": d, "d_e": de, "h": h,
               "max_abs_err": max(e[0] for e in errs),
               "max_rel_err": max(e[1] for e in errs), "bitwise_repeat": same,
-              **_bwd_bound(d, de, h, n, e_pad, t, valid_slots,
-                           kern.index_arrays, kern.edge_f32)}
-        if kern.edge_f32:
-            b2["real_g_rel_err"] = dict(zip(names, real_g))
-        b3 = {"d": d, "rows": valid_slots + valid_ovf,
-              "max_abs_err": seg_err[0], "max_rel_err": seg_err[1],
-              **_segsum_bound(d, valid_slots, valid_ovf, n)}
+              "real_g_rel_err": dict(zip(names, real_g)),
+              **_bwd_bound(d, de, h, n, e_pad, t, valid_slots, 2, True)}
         if on_card:
             b2["ms"] = _time_ms(lambda: kern.bwd(*args), reps)
             b2["plain_ms"] = _time_ms(lambda: kern.bwd_plain(*args), reps)
-            b3["ms"] = _time_ms(lambda: ss.segment_sum_csr(*land), reps)
-            b3["plain_ms"] = _time_ms(
-                lambda: ss.segment_sum_csr_plain(*land), reps)
-            src = got[0].float() if d_xo is None \
-                else torch.cat([got[0].float(), d_xo])
-            acc = torch.zeros((n + 1, d), dtype=torch.float32, device=dev)
-            b3["library_ms"] = _time_ms(
-                lambda: acc.index_add_(0, seg, src), reps)
         else:
             b2["ms"] = b2["plain_ms"] = None
-            b3["ms"] = b3["plain_ms"] = b3["library_ms"] = None
-        out(f"kernel {kern.bwd_name} d_in={d} H={h}: errors (abs, rel) "
+        out(f"kernel csr_bwd_v2 d_in={d} H={h}: errors (abs, rel) "
             + ", ".join(f"{nm} {e[0]:.3e} {e[1]:.3e}"
                         for nm, e in zip(names, errs))
             + f"; bitwise repeat {same}; ms={b2['ms']} plain_ms="
             f"{b2['plain_ms']} bound_ms={b2['bound_ms']:.4f} "
             f"({b2['bound_by']}; {b2['flops'] / 1e9:.2f} GFLOP, "
             f"{b2['bytes'] / 1e6:.1f} MB)")
-        if kern.edge_f32:
-            out(f"kernel {kern.bwd_name} d_in={d} H={h}, real-valued g: "
-                "errors relative to each output's scale " + ", ".join(
-                    f"{nm} {e:.3e}" for nm, e in zip(names, real_g))
-                + f" (d_e, dW_e held to {CSR_EDGE_GRAD_RTOL})")
+        out(f"kernel csr_bwd_v2 d_in={d} H={h}, real-valued g: errors "
+            "relative to each output's scale " + ", ".join(
+                f"{nm} {e:.3e}" for nm, e in zip(names, real_g))
+            + f" (d_e, dW_e held to {CSR_EDGE_GRAD_RTOL})")
         out(f"kernel segment_sum_csr d={d} rows={b3['rows']}: max_abs_err="
-            f"{seg_err[0]:.3e} ms={b3['ms']} plain_ms={b3['plain_ms']} "
-            f"index_add_ ms={b3['library_ms']} bound_ms="
+            f"{b3['max_abs_err']:.3e} ms={b3['ms']} plain_ms="
+            f"{b3['plain_ms']} index_add_ ms={b3['library_ms']} bound_ms="
             f"{b3['bound_ms']:.4f} ({b3['bound_by']})")
         limit = 0.0 if exact else BWD_RTOL
-        if b2["max_rel_err"] > limit or seg_err[1] > BWD_RTOL:
+        if b2["max_rel_err"] > limit or b3["max_rel_err"] > BWD_RTOL:
             raise AssertionError(
                 f"backward kernels disagree with their plain versions at "
-                f"d_in={d}, H={h}: {errs}, landing {seg_err}")
-        if kern.edge_f32 and max(real_g[1], real_g[3]) > CSR_EDGE_GRAD_RTOL:
+                f"d_in={d}, H={h}: {errs}, landing {b3['max_rel_err']}")
+        if max(real_g[1], real_g[3]) > CSR_EDGE_GRAD_RTOL:
             raise AssertionError(
-                f"{kern.bwd_name}'s d_e or dW_e disagrees with its plain "
+                f"csr_bwd_v2's d_e or dW_e disagrees with its plain "
                 f"version at d_in={d}, H={h} with a real-valued g: {real_g}")
         if not same:
             raise AssertionError(f"two backward runs differ at d_in={d}")
@@ -512,31 +524,36 @@ def _bits_bytes(e_pad: int, h: int) -> int:
 
 
 def _gather_bound(de: int, h: int, n: int, e_pad: int, t: int,
-                  valid_slots: int, vjp: bool = False) -> Dict:
+                  valid_slots: int, vjp: bool = False,
+                  index_arrays: int = 1) -> Dict:
     """Least time for the gather-max given y_s: e @ W_e once per valid
-    slot in bf16 and a max per element; y_s, e_t, W_e, the index arrays,
+    slot in bf16 and a max per element; y_s, e_t, W_e, the index arrays
+    (`index_arrays` int32 per slot and per tile: dense 1, windowed 2),
     inner_o and offset read once, out written once (in VJP mode also
     inner and the routing bits)."""
-    nbytes = (n * h * 4 + e_pad * de * 2 + de * h * 2 + (e_pad + t) * 4
-              + 3 * n * h * 4)
+    nbytes = (n * h * 4 + e_pad * de * 2 + de * h * 2
+              + index_arrays * (e_pad + t) * 4 + 3 * n * h * 4)
     if vjp:
         nbytes += n * h * 4 + _bits_bytes(e_pad, h)
     return _bound(2.0 * valid_slots * de * h, nbytes, PEAK_BF16_FLOPS,
                   float(valid_slots * h))
 
 
-def _dense_bwd_bound(de: int, h: int, n: int, e_pad: int, rows: int,
-                     n_ovf: int, routed: int) -> Dict:
-    """Least time for the dense backward kernels: d_e and dW_e once per
-    routed d_op element in bf16 (4 de flops each; every other product has
-    a zero factor), and the sender sums' adds (`routed` set bits, plus the
-    overflow rows' elements, in float32); the bits, g, e_t, W_e, the
-    overflow rows and the landing (`rows` listed rows, N + 1 offsets) read
-    once, d_e, dW_e and the two sender sums written once. The work depends
-    on the data: `routed` is this run's count of set bits."""
+def _routed_bwd_bound(de: int, h: int, n: int, e_pad: int, rows: int,
+                      n_ovf: int, routed: int, slot_arrays: int = 0) -> Dict:
+    """Least time for the bits-routed backward kernels (dense and
+    windowed): d_e and dW_e once per routed d_op element in bf16 (4 de
+    flops each; every other product has a zero factor), and the sender
+    sums' adds (`routed` set bits, plus the overflow rows' elements, in
+    float32); the bits, g, e_t, W_e, the overflow rows, `slot_arrays` int32
+    arrays per slot (the windowed receivers) and the landing (`rows` listed
+    rows, N + 1 offsets) read once, d_e, dW_e and the two sender sums
+    written once. The work depends on the data: `routed` is this run's
+    count of set bits."""
     nbytes = (_bits_bytes(e_pad, h) + n * h * 4 + e_pad * de * 2
-              + de * h * 2 + n_ovf * h * 4 + rows * 4 + (n + 1) * 4
-              + e_pad * de * 2 + de * h * 4 + 2 * n * h * 4)
+              + de * h * 2 + n_ovf * h * 4 + slot_arrays * e_pad * 4
+              + rows * 4 + (n + 1) * 4 + e_pad * de * 2 + de * h * 4
+              + 2 * n * h * 4)
     return _bound(4.0 * routed * de, nbytes, PEAK_BF16_FLOPS,
                   float(routed + n_ovf * h))
 
@@ -555,28 +572,84 @@ def _library_mm(x: torch.Tensor, w: torch.Tensor) -> Tuple[str, Callable]:
                 lambda: torch.mm(x.float(), w.float()))
 
 
-def check_dense_kernels(tiling, layer_shapes: List[tuple], seed: int,
-                        reps: int, out: Callable = print
-                        ) -> Tuple[List[Dict], List[Dict], List[Dict]]:
-    """Holds the dense layout's kernels against their plain versions at
-    each (d_in, d_e, H) of the model, on the batch's real layout and
-    landing: the projection (B1's first launch) and the gather-max (B1) on
-    seeded real-valued bf16 inputs (KERNEL_RTOL; the routing bits of the VJP
-    mode may differ only where an operand's gap to its max lies within a
-    float32 rounding of the 1e-5 tolerance: at most BITS_FLIP_FRAC of the
-    bits), then the forward again and the backward (B2) on dyadic inputs,
-    where every product and sum is exact in float32 in any order: the bits
-    must agree exactly, and the backward's outputs up to the bf16 rounding
-    of equal values (BWD_RTOL); two backward runs must give the same bits.
-    Times kernels, plain versions and, for the projection, one torch.mm on
-    the card. Returns the rows of (projection, gather-max, backward)."""
-    r_tile, k = tiling.dense
-    kw = dict(r_tile=r_tile, k=k, node_block=tiling.node_block)
-    sloc, t_win, _, ovf_s, ovf_r, _ = tiling.win
+class _Routed(NamedTuple):
+    """How a bits-routed layout (dense or windowed) calls its gather-max
+    and backward kernels and their plain versions, on the operands
+    alone."""
+
+    fwd_name: str
+    bwd_name: str
+    fwd: Callable           # (y_s, e_t, w_e, inner_o, offset, emit_inner)
+    fwd_plain: Callable
+    bwd: Callable           # (bits, g_pass, e_t, w_e, d_op_o)
+    bwd_plain: Callable
+    index_arrays: int       # int32 arrays per slot and per tile
+    slot_arrays: int        # int32 arrays per slot the backward reads
+
+
+def _routed_of(tiling) -> _Routed:
+    """The layout's kernels: dense (`tiling.dense` set) or windowed."""
+    sloc, t_win = tiling.win[:2]
+    order, row_ptr = tiling.landing
+    if tiling.dense is not None:
+        r_tile, k = tiling.dense
+        names, mod = ("dense_fwd_v4", "dense_bwd_v4"), da
+        layout, arrays = (sloc, t_win), 1
+        fwd_kw = dict(r_tile=r_tile, k=k, node_block=tiling.node_block)
+        bwd_layout, bwd_kw = (), dict(r_tile=r_tile, k=k)
+    else:
+        names, mod = ("windowed_fwd_v3", "windowed_bwd_v3"), wa
+        layout, arrays = (tiling.receivers, sloc, t_win, tiling.blocks), 2
+        fwd_kw = dict(node_block=tiling.node_block,
+                      edge_tile=tiling.edge_tile)
+        bwd_layout = (tiling.receivers,)
+        bwd_kw = dict(edge_tile=tiling.edge_tile)
+    stem = names[0][:names[0].index("_")]
+
+    def fwd(fn):
+        return lambda y_s, e_t, w_e, inner_o, offset, emit_inner=False: fn(
+            y_s, e_t, w_e, *layout, inner_o, offset, emit_inner=emit_inner,
+            **fwd_kw)
+
+    def bwd(fn):
+        return lambda bits, g_pass, e_t, w_e, d_op_o: fn(
+            bits, g_pass, e_t, w_e, d_op_o, *bwd_layout, order, row_ptr,
+            **bwd_kw)
+
+    return _Routed(*names, fwd(getattr(mod, f"{stem}_fwd")),
+                   fwd(getattr(mod, f"{stem}_fwd_plain")),
+                   bwd(getattr(mod, f"{stem}_bwd")),
+                   bwd(getattr(mod, f"{stem}_bwd_plain")), arrays,
+                   len(bwd_layout))
+
+
+def check_routed_kernels(tiling, layer_shapes: List[tuple], seed: int,
+                         reps: int, out: Callable = print,
+                         exact: bool = False
+                         ) -> Tuple[List[Dict], List[Dict], List[Dict]]:
+    """Holds a bits-routed layout's kernels (dense: B1, B2; windowed: B4)
+    against their plain versions at each (d_in, d_e, H) of the model, on
+    the batch's real layout and landing: the projection (`dense_proj_v4`)
+    and the gather-max on seeded real-valued bf16 inputs (KERNEL_RTOL; the
+    routing bits of the VJP mode may differ only where an operand's gap to
+    its max lies within a float32 rounding of the 1e-5 tolerance: at most
+    BITS_FLIP_FRAC of the bits), then the forward again and the backward on
+    dyadic inputs, where every product and sum is exact in float32 in any
+    order: the bits must agree exactly, and the backward's outputs up to
+    the bf16 rounding of equal values (BWD_RTOL; with `exact`, bitwise);
+    two backward runs must give the same bits. Times kernels, plain
+    versions and, for the projection, one torch.mm on the card; the
+    gather-max in serving and in
+    VJP mode (the row's `vjp`). Each row also holds the bound of the whole
+    function as the TPU kernel forms it (`function_bound_ms`, per slot).
+    Returns the rows of (projection, gather-max, backward)."""
+    kern = _routed_of(tiling)
+    sloc = tiling.win[0]
+    ovf_s, ovf_r = tiling.win[3:5]
     order, row_ptr = tiling.landing
     dev = sloc.device
     cd = da.gather_dtype(dev)
-    e_pad, t = sloc.shape[0], t_win.shape[0]
+    e_pad, t = sloc.shape[0], tiling.win[1].shape[0]
     n = row_ptr.shape[0] - 1
     valid_slots = _valid_slots(tiling)
     n_ovf = ovf_s.shape[0]
@@ -594,8 +667,8 @@ def check_dense_kernels(tiling, layer_shapes: List[tuple], seed: int,
         y_s = proj(x, w_s)
         inner_o = da.overflow_maxima(
             da.dense_overflow_operand(y_s, e_ovf, w_e, ovf_s), ovf_r, n)
-        return y_s, inner_o, fwd(y_s, e_t, w_e, sloc, t_win, inner_o,
-                                 offset, emit_inner=True, **kw)
+        return y_s, inner_o, fwd(y_s, e_t, w_e, inner_o, offset,
+                                 emit_inner=True)
 
     proj_rows, fwd_rows, bwd_rows = [], [], []
     for d, de, h in layer_shapes:
@@ -608,16 +681,16 @@ def check_dense_kernels(tiling, layer_shapes: List[tuple], seed: int,
         y_ref = da.dense_proj_plain(x, w_s)
         inner_o = da.overflow_maxima(
             da.dense_overflow_operand(y_s, e_ovf, w_e, ovf_s), ovf_r, n)
-        args = (y_s, e_t, w_e, sloc, t_win, inner_o, offset)
-        got = da.dense_fwd(*args, **kw)
-        ref = da.dense_fwd_plain(*args, **kw)
-        got_vjp, inner, bits = da.dense_fwd(*args, emit_inner=True, **kw)
-        _, ref_inner, ref_bits = da.dense_fwd_plain(*args, emit_inner=True,
-                                                    **kw)
+        args = (y_s, e_t, w_e, inner_o, offset)
+        got = kern.fwd(*args)
+        ref = kern.fwd_plain(*args)
+        got_vjp, inner, bits = kern.fwd(*args, emit_inner=True)
+        _, ref_inner, ref_bits = kern.fwd_plain(*args, emit_inner=True)
         if on_card:
             torch.cuda.synchronize()
         if not (torch.isfinite(got).all() and torch.isfinite(y_s).all()):
-            raise AssertionError(f"dense forward not finite at d={d}, h={h}")
+            raise AssertionError(f"{kern.fwd_name} not finite at d={d}, "
+                                 f"h={h}")
         if not torch.equal(got_vjp, got):
             raise AssertionError("the VJP mode changed the forward's output")
         has = ref_inner > da._NEG / 2
@@ -628,64 +701,71 @@ def check_dense_kernels(tiling, layer_shapes: List[tuple], seed: int,
                   float((inner[has] - ref_inner[has]).abs().max()))
         flips = _popcount(bits ^ ref_bits)
         n_bits = e_pad * h
+        gather = dict(de=de, h=h, n=n, e_pad=e_pad, t=t,
+                      valid_slots=valid_slots,
+                      index_arrays=kern.index_arrays)
         p_row = {"d_in": d, "h": h, "max_abs_err": proj_err[0],
                  "max_rel_err": proj_err[1], **_proj_bound(d, h, n)}
         row = {"d_in": d, "d_e": de, "h": h, "max_abs_err": err,
                "max_rel_err": err / max(float(ref.abs().max()), 1.0),
                "bits_flipped": flips, "bits": n_bits,
-               "bound_vjp_ms": _gather_bound(de, h, n, e_pad, t, valid_slots,
-                                             vjp=True)["bound_ms"],
                "function_bound_ms": _kernel_bound(
-                   d, de, h, n, e_pad, t, valid_slots)["bound_ms"],
-               **_gather_bound(de, h, n, e_pad, t, valid_slots)}
+                   d, de, h, n, e_pad, t, valid_slots,
+                   kern.index_arrays)["bound_ms"],
+               "vjp": _gather_bound(vjp=True, **gather),
+               **_gather_bound(**gather)}
         if on_card:
             p_row["ms"] = _time_ms(lambda: da.dense_proj(x, w_s), reps)
             p_row["plain_ms"] = _time_ms(lambda: da.dense_proj_plain(x, w_s),
                                          reps)
             p_row["library"], library = _library_mm(x, w_s)
             p_row["library_ms"] = _time_ms(library, reps)
-            row["ms"] = _time_ms(lambda: da.dense_fwd(*args, **kw), reps)
-            row["vjp_ms"] = _time_ms(
-                lambda: da.dense_fwd(*args, emit_inner=True, **kw), reps)
-            row["plain_ms"] = _time_ms(
-                lambda: da.dense_fwd_plain(*args, **kw), reps)
+            row["ms"] = _time_ms(lambda: kern.fwd(*args), reps)
+            row["plain_ms"] = _time_ms(lambda: kern.fwd_plain(*args), reps)
+            row["vjp"]["ms"] = _time_ms(
+                lambda: kern.fwd(*args, emit_inner=True), reps)
+            row["vjp"]["plain_ms"] = _time_ms(
+                lambda: kern.fwd_plain(*args, emit_inner=True), reps)
         else:
             p_row["ms"] = p_row["plain_ms"] = p_row["library_ms"] = None
-            row["ms"] = row["vjp_ms"] = row["plain_ms"] = None
+            row["ms"] = row["plain_ms"] = None
+            row["vjp"]["ms"] = row["vjp"]["plain_ms"] = None
         out(f"kernel dense_proj_v4 d_in={d} H={h}: max_abs_err="
             f"{proj_err[0]:.3e} ms={p_row['ms']} plain_ms={p_row['plain_ms']}"
             f" {p_row.get('library', 'torch.mm')} ms={p_row['library_ms']} "
             f"bound_ms="
             f"{p_row['bound_ms']:.4f} ({p_row['bound_by']})")
-        out(f"kernel dense_fwd_v4 d_in={d} H={h}: max_abs_err={err:.3e} "
+        out(f"kernel {kern.fwd_name} d_in={d} H={h}: max_abs_err={err:.3e} "
             f"max_rel_err={row['max_rel_err']:.3e} bits flipped {flips} of "
-            f"{n_bits} ms={row['ms']} (VJP mode {row['vjp_ms']}) plain_ms="
-            f"{row['plain_ms']} bound_ms={row['bound_ms']:.4f} "
-            f"({row['bound_by']}; the whole forward's bound "
-            f"{row['function_bound_ms']:.4f})")
+            f"{n_bits} ms={row['ms']} plain_ms={row['plain_ms']} bound_ms="
+            f"{row['bound_ms']:.4f} ({row['bound_by']}); VJP mode ms="
+            f"{row['vjp']['ms']} plain_ms={row['vjp']['plain_ms']} bound_ms="
+            f"{row['vjp']['bound_ms']:.4f} ({row['vjp']['bound_by']}); the "
+            f"whole forward's bound {row['function_bound_ms']:.4f}")
         if proj_err[1] > KERNEL_RTOL or row["max_rel_err"] > KERNEL_RTOL \
                 or flips > BITS_FLIP_FRAC * n_bits:
             raise AssertionError(
-                f"dense forward kernels disagree with their plain versions "
-                f"at d_in={d}, H={h}: projection {proj_err}, gather-max "
-                f"{row['max_rel_err']:.3e}, {flips} bits flipped")
+                f"{kern.fwd_name} and the projection disagree with their "
+                f"plain versions at d_in={d}, H={h}: projection {proj_err}, "
+                f"gather-max {row['max_rel_err']:.3e}, {flips} bits flipped")
 
         # -- the forward and the backward on dyadic inputs ------------------
         x, w_s = dyadic(n, d).to(cd), dyadic(d, h, step=0.25).to(cd)
         e_t, w_e = dyadic(e_pad, de).to(cd), dyadic(de, h, step=0.25).to(cd)
         e_ovf = dyadic(n_ovf, de).to(cd)
         offset = torch.zeros((n, h), device=dev)
-        y_s, _, (_, inner, bits) = forward(da.dense_fwd, da.dense_proj, x,
-                                           w_s, e_t, w_e, e_ovf, offset)
+        y_s, _, (_, inner, bits) = forward(kern.fwd, da.dense_proj, x, w_s,
+                                           e_t, w_e, e_ovf, offset)
         _, _, (_, ref_inner, ref_bits) = forward(
-            da.dense_fwd_plain, da.dense_proj_plain, x, w_s, e_t, w_e, e_ovf,
+            kern.fwd_plain, da.dense_proj_plain, x, w_s, e_t, w_e, e_ovf,
             offset)
         if on_card:
             torch.cuda.synchronize()
         if not (torch.equal(bits, ref_bits) and torch.equal(inner,
                                                             ref_inner)):
-            raise AssertionError(f"dyadic inputs at d_in={d}, H={h}: the "
-                                 "kernel's inner or routing bits differ")
+            raise AssertionError(f"dyadic inputs at d_in={d}, H={h}: "
+                                 f"{kern.fwd_name}'s inner or routing bits "
+                                 "differ")
         has = inner > da._NEG / 2
         g_pass = torch.where(has, dyadic(n, h, lo=-8, hi=8, step=0.125), 0.0)
         inner_z = torch.where(has, inner, 0.0)
@@ -694,18 +774,17 @@ def check_dense_kernels(tiling, layer_shapes: List[tuple], seed: int,
         recv = torch.where(mask, ovf_r, 0).long()
         d_op_o = torch.where(mask[:, None] & da._routes(op_o, inner_z[recv]),
                              g_pass[recv], 0.0)
-        b_args = (bits, g_pass, e_t, w_e, d_op_o, order, row_ptr)
-        b_kw = dict(r_tile=r_tile, k=k)
-        got = da.dense_bwd(*b_args, **b_kw)
-        ref = da.dense_bwd_plain(*b_args, **b_kw)
-        again = da.dense_bwd(*b_args, **b_kw)
+        b_args = (bits, g_pass, e_t, w_e, d_op_o)
+        got = kern.bwd(*b_args)
+        ref = kern.bwd_plain(*b_args)
+        again = kern.bwd(*b_args)
         if on_card:
             torch.cuda.synchronize()
         names = ("d_e", "dW_e", "d_ys", "d_yo")
         for name, u, v in zip(names, got, ref):
             if u.shape != v.shape or u.dtype != v.dtype \
                     or not torch.isfinite(u).all():
-                raise AssertionError(f"dense_bwd_v4 {name} at d_in={d}: "
+                raise AssertionError(f"{kern.bwd_name} {name} at d_in={d}: "
                                      "shape, dtype or not finite")
         errs = [_rel_err(u, v) for u, v in zip(got, ref)]
         same = all(torch.equal(u, v) for u, v in zip(got, again))
@@ -714,25 +793,28 @@ def check_dense_kernels(tiling, layer_shapes: List[tuple], seed: int,
               "max_abs_err": max(e[0] for e in errs),
               "max_rel_err": max(e[1] for e in errs), "bitwise_repeat": same,
               "routed": routed,
-              **_dense_bwd_bound(de, h, n, e_pad, int(order.shape[0]),
-                                 n_ovf, routed)}
+              "function_bound_ms": _bwd_bound(
+                  d, de, h, n, e_pad, t, valid_slots,
+                  kern.index_arrays)["bound_ms"],
+              **_routed_bwd_bound(de, h, n, e_pad, int(order.shape[0]),
+                                  n_ovf, routed, kern.slot_arrays)}
         if on_card:
-            b2["ms"] = _time_ms(lambda: da.dense_bwd(*b_args, **b_kw), reps)
-            b2["plain_ms"] = _time_ms(
-                lambda: da.dense_bwd_plain(*b_args, **b_kw), reps)
+            b2["ms"] = _time_ms(lambda: kern.bwd(*b_args), reps)
+            b2["plain_ms"] = _time_ms(lambda: kern.bwd_plain(*b_args), reps)
         else:
             b2["ms"] = b2["plain_ms"] = None
-        out(f"kernel dense_bwd_v4 d_in={d} H={h}: errors (abs, rel) "
+        out(f"kernel {kern.bwd_name} d_in={d} H={h}: errors (abs, rel) "
             + ", ".join(f"{nm} {e[0]:.3e} {e[1]:.3e}"
                         for nm, e in zip(names, errs))
             + f"; dyadic bits equal; {routed} routed; bitwise repeat {same}; "
             f"ms={b2['ms']} plain_ms={b2['plain_ms']} bound_ms="
             f"{b2['bound_ms']:.4f} ({b2['bound_by']}; "
-            f"{b2['bytes'] / 1e6:.1f} MB)")
-        if b2["max_rel_err"] > BWD_RTOL:
+            f"{b2['bytes'] / 1e6:.1f} MB); the whole backward's bound "
+            f"{b2['function_bound_ms']:.4f}")
+        if b2["max_rel_err"] > (0.0 if exact else BWD_RTOL):
             raise AssertionError(
-                f"dense_bwd_v4 disagrees with its plain version at d_in={d}, "
-                f"H={h}: {errs}")
+                f"{kern.bwd_name} disagrees with its plain version at "
+                f"d_in={d}, H={h}: {errs}")
         if not same:
             raise AssertionError(f"two backward runs differ at d_in={d}")
         proj_rows.append(p_row)
@@ -1644,7 +1726,7 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
         f"{summary['host_batch_s']:.2f} s")
     tiling = loader[0].flat_tiling()
     with torch.no_grad():
-        proj_rows, fwd_rows, bwd_rows = check_dense_kernels(
+        proj_rows, fwd_rows, bwd_rows = check_routed_kernels(
             tiling, shapes, seed, reps, out)
     dense = ("dense_proj_v4", "dense_fwd_v4")
     summary.update(_serve_phase(
@@ -1674,23 +1756,25 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
     out(f"kNN batch under the windowed tiling (run cap 4): "
         f"{int((knn_tiling.win[4] >= 0).sum())} overflow edges")
     with torch.no_grad():
-        radius["per_shape_fwd"] = check_fwd_kernel(r_tiling, shapes, seed,
-                                                   reps, out)
-        radius["per_shape_bwd"], radius["per_shape_segsum"] = \
-            check_bwd_kernels(r_tiling, shapes, seed, reps, out, exact=True)
-        radius["knn_per_shape_fwd"] = check_fwd_kernel(knn_tiling, shapes,
+        (radius["per_shape_proj"], radius["per_shape_fwd"],
+         radius["per_shape_bwd"]) = check_routed_kernels(
+            r_tiling, shapes, seed, reps, out, exact=True)
+        (_, radius["knn_per_shape_fwd"],
+         radius["knn_per_shape_bwd"]) = check_routed_kernels(
+            knn_tiling, shapes, seed, reps, out, exact=True)
+        # B3 left the windowed path; its layout check and timing stay here
+        radius["knn_per_shape_segsum"] = check_landing(knn_tiling, shapes,
                                                        seed, reps, out)
-        radius["knn_per_shape_bwd"], radius["knn_per_shape_segsum"] = \
-            check_bwd_kernels(knn_tiling, shapes, seed, reps, out,
-                              exact=True)
+    windowed = ("dense_proj_v4", "windowed_fwd_v3")
     radius.update(_serve_phase(
         dev, r_arch, r_model, r_loader, graphs, points,
-        _expect({"windowed_fwd_v3": layers * batches}, on_card), "radius",
+        _expect({n: layers * batches for n in windowed}, on_card), "radius",
         out))
     radius.update(_train_phase(
         dev, r_arch, r_loader[0], seed, train_steps,
-        _expect({n: layers * train_steps for n in KERNEL_NAMES[2:5]},
-                on_card), "radius", out))
+        _expect({n: layers * train_steps
+                 for n in windowed + ("windowed_bwd_v3",)}, on_card),
+        "radius", out))
     summary["radius"] = radius
 
     # -- the kNN graph, CSR tiling ------------------------------------------
@@ -1777,16 +1861,18 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
     r_fwd, r_bwd = radius["per_shape_fwd"], radius["per_shape_bwd"]
     c_fwd, c_bwd = csr["per_shape_fwd"], csr["per_shape_bwd"]
     seg_rows = radius["knn_per_shape_segsum"]
-    segs = radius["per_shape_segsum"] + seg_rows + csr["per_shape_segsum"] \
-        + csr["radius_per_shape_segsum"]
-    # launches: the training runs of each path (B3 lands d_x on the
-    # windowed and CSR paths; the dense backward sums by sender itself);
-    # no single PyTorch call computes gather + GEMM + segmented max, nor the
-    # routed backward; the projection's is torch.mm, the landing's
-    # index_add_ (timed on the kNN batch under the windowed tiling)
+    segs = seg_rows + csr["per_shape_segsum"] + csr["radius_per_shape_segsum"]
+    # launches: the training runs of each path (the projection runs on the
+    # dense and windowed paths and in the CSR backward; B3 lands on the CSR
+    # path); no single PyTorch call computes gather + GEMM + segmented max,
+    # nor the routed backward; the projection's is torch.mm, the landing's
+    # index_add_ (timed on the kNN batch under the windowed tiling). The
+    # windowed gather-max is held in VJP mode, the mode of its training
+    # launches (with the bits); the dense one in serving mode.
     summary["kernels"] = [
-        entry("dense_proj_v4", "dense_fwd_v4.cu", 2279, dense_l[11],
-              proj_rows, proj_rows, True),
+        entry("dense_proj_v4", "dense_fwd_v4.cu", 2279,
+              dense_l[11] + radius_l[11] + csr_l[11], proj_rows, proj_rows,
+              True),
         entry("dense_fwd_v4", "dense_fwd_v4.cu", 2279, dense_l[0], fwd_rows,
               fwd_rows, False),
         entry("dense_bwd_v4", "dense_bwd_v4.cu", 2340, dense_l[1], bwd_rows,
@@ -1794,7 +1880,8 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
         entry("segment_sum_csr", "segment_sum_csr.cu", 854,
               dense_l[2] + radius_l[2] + csr_l[2], seg_rows, segs, True),
         entry("windowed_fwd_v3", "windowed_fwd_v3.cu", 1275, radius_l[3],
-              r_fwd, r_fwd + radius["knn_per_shape_fwd"], False),
+              [r["vjp"] for r in r_fwd], r_fwd + radius["knn_per_shape_fwd"],
+              False),
         entry("windowed_bwd_v3", "windowed_bwd_v3.cu", 1387, radius_l[4],
               r_bwd, r_bwd + radius["knn_per_shape_bwd"], False),
         entry("csr_fwd_v2", "csr_fwd_v2.cu", 943, csr_l[5], c_fwd,

@@ -48,24 +48,25 @@ from radargnn_tpu_torch.trace_serving import by_name, device_profile
 from radargnn_tpu_torch.train.trainer import Trainer, set_seeds
 
 # kernel kinds, first match wins (lower-case substrings of the kernel name);
-# the slot-gradient passes are one code in the windowed and CSR backward
-# kernels
+# the dense and windowed backward run the same passes (csrc/routed_bwd.cuh),
+# told apart by their receivers' type in the kernel's name
 _KINDS = (
-    ("dense_proj_v4 (projection: B1, B5 backward)", ("dense_proj",)),
+    ("dense_proj_v4 (projection: B1, B4, B5 backward)", ("dense_proj",)),
     ("dense_fwd_v4 (B1 gather-max)", ("dense_fwd_v4",)),
+    ("windowed_bwd_v3 dW_e pass (B4)", ("dwe_pass_kernel<radargnn::window",)),
+    ("windowed_bwd_v3 d_e pass (B4)", ("de_pass_kernel<radargnn::window",)),
+    ("windowed_bwd_v3 sender sums (B4)",
+     ("send_pass_kernel<radargnn::window",)),
     ("dense_bwd_v4 dW_e pass (B2)", ("dwe_pass",)),
     ("dense_bwd_v4 d_e pass (B2)", ("de_pass",)),
     ("dense_bwd_v4 sender sums (B2)", ("send_pass",)),
-    ("dense_bwd_v4 dW_e reduce (B2)", ("reduce_pass",)),
-    ("windowed_fwd_v3 (B4)", ("windowed_fwd_v3",)),
+    ("dW_e reduce (B2, B4)", ("reduce_pass",)),
+    ("windowed_fwd_v3 (B4 gather-max)", ("windowed_fwd_v3",)),
     ("csr_fwd_v2 (B5)", ("csr_fwd_v2",)),
-    ("windowed_bwd_v3 route (B4)", ("windowed_route",)),
     ("csr_bwd_v2 route + edge side (B5)", ("csr_route",)),
     ("csr_bwd_v2 dW_s partials (B5)", ("csr_dws",)),
     ("csr_bwd_v2 dW_e, dW_s reduce (B5)", ("csr_reduce",)),
-    ("slot products (B4 / B5)", ("slot_products",)),
-    ("weight partials + reduce (B4)",
-     ("weight_partials", "reduce_partials")),
+    ("csr_bwd_v2 slot products (B5)", ("slot_products",)),
     ("segment_sum_csr (B3)", ("segment_sum_csr",)),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "ampere", "sm80_",
                         "sm90_", "splitk")),

@@ -156,7 +156,7 @@ _VARIANTS = [
     ("RADARGNN_FUSED_STREAM_M", "1", "windowed", True),
     ("RADARGNN_FUSED_BF16_LANDING", "1", "windowed", True),
     ("RADARGNN_FUSED_PRECOMP_LAND", "1", "csr", True),
-    ("RADARGNN_FUSED_SENDER_DX", "1", "windowed", True),
+    ("RADARGNN_FUSED_SENDER_DX", "1", "windowed", False),
     ("RADARGNN_FUSED_SENDER_DX", "1", "dense", False),
     ("RADARGNN_FUSED_PRECOMP_EQ", "0", "windowed", False),
     ("RADARGNN_FUSED_PRECOMP_EQT", "1", "windowed", False),
@@ -175,7 +175,8 @@ def variant_results():
 def test_variant_knobs_raise_where_not_ported(variant_results, case):
     """An unported variant raises NotImplementedError naming its knob; the
     TPU-only stream knobs, BF16_MAX=0 (strict, the port's routing) and
-    SENDER_DX=1 on the dense path (its backward's form) are accepted."""
+    SENDER_DX=1 on the dense and windowed paths (their backward's form)
+    are accepted."""
     knob, _, _, raises = _VARIANTS[case]
     line = variant_results[case]
     if raises:

@@ -369,10 +369,14 @@ _WSHAPES = [
 ]
 
 
-def _w_inner_o(c):
-    return da.dense_overflow_inner(c["x"], c["w_s"], c["e_ovf"], c["w_e"],
-                                   c["ovf_s"], c["ovf_r"],
-                                   c["offset"].shape[0])
+def _w_fwd_args(c):
+    """The windowed gather-max's inputs for case `c` on the kernel path:
+    the projection, the overflow maxima from it, the layout, the offset."""
+    y_s = da.dense_proj(c["x"], c["w_s"])
+    inner_o = da.overflow_maxima(
+        da.dense_overflow_operand(y_s, c["e_ovf"], c["w_e"], c["ovf_s"]),
+        c["ovf_r"], c["offset"].shape[0])
+    return (y_s, c["e_t"], c["w_e"], *c["layout"], inner_o, c["offset"])
 
 
 @pytest.mark.gpu
@@ -380,82 +384,127 @@ def _w_inner_o(c):
 @pytest.mark.parametrize("shape", _WSHAPES)
 def test_windowed_fwd_kernel_matches_plain(shape, run_cap):
     """Contiguous and spread runs, hubs spanning tiles, serving and VJP
-    mode; the empty receivers agree exactly."""
+    mode; the empty receivers agree exactly and the routing bits all but
+    exactly (real-valued inputs)."""
     _need_card()
     c = _wcase(20, *shape, run_cap=run_cap)
-    args = (c["x"], c["w_s"], c["e_t"], c["w_e"], *c["layout"],
-            _w_inner_o(c), c["offset"])
+    args = _w_fwd_args(c)
     before = wa.windowed_fwd_cuda.launches
     got = wa.windowed_fwd(*args, **c["kw"])
-    got_vjp, inner = wa.windowed_fwd(*args, emit_inner=True, **c["kw"])
+    got_vjp, inner, bits = wa.windowed_fwd(*args, emit_inner=True,
+                                           **c["kw"])
     torch.cuda.synchronize()
     assert wa.windowed_fwd_cuda.launches == before + 2
-    want, want_inner = wa.windowed_fwd_plain(*args, emit_inner=True,
-                                             **c["kw"])
+    want, want_inner, want_bits = wa.windowed_fwd_plain(
+        *args, emit_inner=True, **c["kw"])
     assert torch.isfinite(got).all() and torch.equal(got, got_vjp)
     assert _rel_err(got, want) <= RTOL
     assert torch.equal(got == 0, want == 0)
     has = want_inner > da._NEG / 2
     assert torch.equal(inner > da._NEG / 2, has)
     assert _rel_err(inner[has], want_inner[has]) <= RTOL
+    flips = smoke._popcount(bits ^ want_bits)
+    assert flips <= smoke.BITS_FLIP_FRAC * bits.numel() * 32
+    assert smoke._popcount(bits) > 0
 
 
 def _w_bwd_inputs(c, seed, dyadic=False):
-    """The windowed backward's inputs: the kernel forward's maxima and a
-    seeded g, zeroed at empty receivers. With `dyadic` every operand is a
-    multiple of 1/8 (exact sums in any order)."""
+    """The windowed backward's inputs: the kernel forward's bits and a
+    seeded g, zeroed at empty receivers, with the overflow rows routed on
+    the forward's operands. With `dyadic` every operand is a multiple of
+    1/8 (exact sums in any order): the bits must then equal the plain
+    version's."""
     gen = torch.Generator().manual_seed(seed)
     if dyadic:
-        for k in ("x", "w_s", "e_t", "w_e"):
+        for k in ("x", "w_s", "e_t", "w_e", "e_ovf"):
             c[k] = (torch.randint(-4, 5, c[k].shape, generator=gen)
                     * 0.125).to(c[k])
-    _, inner = wa.windowed_fwd(c["x"], c["w_s"], c["e_t"], c["w_e"],
-                               *c["layout"], _w_inner_o(c), c["offset"],
-                               emit_inner=True, **c["kw"])
+    args = _w_fwd_args(c)
+    _, inner, bits = wa.windowed_fwd(*args, emit_inner=True, **c["kw"])
+    if dyadic:
+        _, want_inner, want_bits = wa.windowed_fwd_plain(
+            *args, emit_inner=True, **c["kw"])
+        assert torch.equal(inner, want_inner)
+        assert torch.equal(bits, want_bits)
     g = torch.randn(inner.shape, generator=gen)
     if dyadic:
         g = (g * 8).round() / 8
     has = inner > da._NEG / 2
-    return (c["x"], c["w_s"], c["e_t"], c["w_e"], *c["layout"],
-            torch.where(has, inner, 0.0), torch.where(has, g.cuda(), 0.0))
+    g_pass = torch.where(has, g.cuda(), 0.0)
+    op_o = da.dense_overflow_operand(args[0], c["e_ovf"], c["w_e"],
+                                     c["ovf_s"])
+    mask = c["ovf_r"] >= 0
+    recv = torch.where(mask, c["ovf_r"], 0).long()
+    d_op_o = torch.where(
+        mask[:, None] & da._routes(op_o, torch.where(has, inner, 0.0)[recv]),
+        g_pass[recv], 0.0)
+    return (bits, g_pass, c["e_t"], c["w_e"], d_op_o, c["layout"][0],
+            *c["landing"])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", _WSHAPES[:2] + _WSHAPES[3:])
 def test_windowed_bwd_kernel_matches_plain(shape):
-    """On dyadic inputs the kernels and the plain version form the same
-    exact sums: all four outputs agree bitwise."""
+    """On dyadic inputs the forward's bits equal the plain version's and
+    the backward kernels form the same exact sums: all four outputs agree
+    bitwise."""
     _need_card()
     c = _wcase(21, *shape)
     args = _w_bwd_inputs(c, 22, dyadic=True)
+    et = dict(edge_tile=c["kw"]["edge_tile"])
     before = wa.windowed_bwd_cuda.launches
-    got = wa.windowed_bwd(*args, **c["kw"])
+    got = wa.windowed_bwd(*args, **et)
     torch.cuda.synchronize()
     assert wa.windowed_bwd_cuda.launches == before + 1
-    want = wa.windowed_bwd_plain(*args, **c["kw"])
-    for name, u, v in zip(("d_xg", "d_e", "dW_s", "dW_e"), got, want):
+    want = wa.windowed_bwd_plain(*args, **et)
+    for name, u, v in zip(("d_e", "dW_e", "d_ys", "d_yo"), got, want):
         assert u.dtype == v.dtype and u.shape == v.shape, name
         assert torch.equal(u, v), name
-    assert got[1].abs().max() > 0
+    assert got[0].abs().max() > 0 and got[2].abs().max() > 0
 
 
 @pytest.mark.gpu
 def test_windowed_backward_is_bitwise_deterministic():
-    """Two runs of the windowed backward kernels and the landing on the
-    same real-valued inputs give the same bits."""
+    """Two runs of the windowed backward kernels on the same real-valued
+    inputs give the same bits."""
     _need_card()
     c = _wcase(23, 2048, 40000, 256, 512, 224, 16, 464, run_cap=4)
     args = _w_bwd_inputs(c, 24)
-    order, row_ptr = c["landing"]
-    ovf_rows = torch.ones((c["ovf_s"].shape[0], 224), device="cuda")
-    runs = []
-    for _ in range(2):
-        d_xg, d_e, dw_s, dw_e = wa.windowed_bwd(*args, **c["kw"])
-        d_x = ss.segment_sum_csr(d_xg, order, row_ptr, ovf_rows)
-        runs.append((d_x, d_e, dw_s, dw_e))
+    runs = [wa.windowed_bwd(*args, edge_tile=c["kw"]["edge_tile"])
+            for _ in range(2)]
     torch.cuda.synchronize()
     for u, v in zip(*runs):
         assert torch.equal(u, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["radius", "knn"])
+def test_windowed_kernels_on_the_flagship_batches(layout):
+    """The smoke's checks of the windowed kernels at the flagship's five
+    layer shapes, on the radius batch and on the kNN batch under the
+    windowed tiling (run cap 4: spread runs, hubs that span tiles): the
+    projection and the gather-max on real-valued inputs (routing bits
+    within BITS_FLIP_FRAC), then on dyadic inputs the bits equal and the
+    backward exact, and two backward runs bitwise equal."""
+    _need_card()
+    dev = torch.device("cuda")
+    if layout == "radius":
+        _, model, loader = smoke.flagship_serving(dev, 2816, 5, 1, 0,
+                                                  graph="radius")
+        tiling = loader[0].flat_tiling()
+    else:
+        model = smoke.flagship_serving(dev, 2816, 5, 1, 0)[1]
+        tiling = smoke.knn_windowed_tiling(dev, 2816, 5, 0)
+    shapes = smoke._layer_shapes(model)
+    assert len(shapes) == 5
+    with torch.no_grad():
+        _, fwd, bwd = smoke.check_routed_kernels(tiling, shapes, 0, 1,
+                                                 out=lambda *_: None,
+                                                 exact=True)
+    assert all(r["bits_flipped"] <= smoke.BITS_FLIP_FRAC * r["bits"]
+               for r in fwd)
+    assert all(r["max_abs_err"] == 0.0 and r["bitwise_repeat"]
+               and r["routed"] > 0 for r in bwd)
 
 
 @pytest.mark.gpu
@@ -485,15 +534,19 @@ def test_windowed_aggregate_gradients_match_plain_path():
 def test_windowed_kernels_refuse_what_they_do_not_take():
     _need_card()
     c = _wcase(26, 200, 3000, 32, 32, 24, 8, 40)
-    args = list(_w_bwd_inputs(c, 27))
-    with pytest.raises(ValueError, match="bf16"):
-        wa.windowed_fwd(args[0].float(), *args[1:], **c["kw"])
-    with pytest.raises(ValueError, match="int32"):
-        wa.windowed_bwd(*args[:4], args[4].long(), *args[5:], **c["kw"])
+    fwd = list(_w_fwd_args(c))
+    bwd = list(_w_bwd_inputs(c, 27))
+    et = dict(edge_tile=c["kw"]["edge_tile"])
     with pytest.raises(ValueError, match="float32"):
-        wa.windowed_bwd(*args[:9], args[9].bfloat16(), **c["kw"])
+        wa.windowed_fwd(fwd[0].bfloat16(), *fwd[1:], **c["kw"])
+    with pytest.raises(ValueError, match="bf16"):
+        wa.windowed_fwd(fwd[0], fwd[1].float(), *fwd[2:], **c["kw"])
+    with pytest.raises(ValueError, match="int32"):
+        wa.windowed_bwd(*bwd[:5], bwd[5].long(), *bwd[6:], **et)
+    with pytest.raises(ValueError, match="float32"):
+        wa.windowed_bwd(bwd[0], bwd[1].bfloat16(), *bwd[2:], **et)
     with pytest.raises(ValueError, match="slots do not match"):
-        wa.windowed_fwd(*args, node_block=32, edge_tile=64)
+        wa.windowed_fwd(*fwd, node_block=32, edge_tile=64)
 
 
 def _ccase(seed, n, e, nb, et, d, de, h, dtype=torch.bfloat16):
@@ -1121,9 +1174,10 @@ def test_kernel_entry_points_on_card():
 def test_smoke_on_card():
     """The smoke at a small size: the kernels build and match their plain
     versions at the model's layer shapes, every conv layer of each of the
-    three requests launches its forward (the dense path its projection
-    too), and every conv layer of each of the two train steps launches the
-    path's kernels (B3 on the windowed and CSR paths). Two steps keep it
+    three requests launches its forward (the dense and windowed paths
+    their projection too), and every conv layer of each of the two train
+    steps launches the path's kernels (the projection on all three paths,
+    B3 on the CSR path). Two steps keep it
     short; each is held to the plain path at its own parameters, with the
     smoke's limits."""
     _need_card()
@@ -1133,10 +1187,11 @@ def test_smoke_on_card():
     # kernel_bench's check, warm-up and 2 timed calls), the forward through
     # both v1 factories and the kernel backward
     assert [k["launches"] for k in summary["kernels"]] == \
-        [5 * 2, 5 * 2, 5 * 2, 3 * 5 * 2, 5 * 2, 5 * 2, 5 * 2, 5 * 2, 1,
+        [3 * 5 * 2, 5 * 2, 5 * 2, 2 * 5 * 2, 5 * 2, 5 * 2, 5 * 2, 5 * 2, 1,
          1 + 3 + 1, 2, 1]
     assert summary["serve_launches"] == [5 * 3] + [0] * 10 + [5 * 3]
-    assert summary["radius"]["serve_launches"] == [0, 0, 0, 5 * 3] + [0] * 8
+    assert summary["radius"]["serve_launches"] == \
+        [0, 0, 0, 5 * 3] + [0] * 7 + [5 * 3]
     assert summary["csr"]["serve_launches"] == [0] * 5 + [5 * 3] + [0] * 6
     for kernel in summary["kernels"]:
         assert kernel["ms"] > 0 and kernel["plain_ms"] > 0

@@ -328,23 +328,39 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 def test_trace_train_sorts_kernels_into_kinds():
+    """Kernel names as the profiler gives them; the dense and windowed
+    backward's passes are one template, told apart by its receivers."""
     from radargnn_tpu_torch.trace_train import kind_of
+
+    def routed(name, recv):
+        return (f"void radargnn::{name}<radargnn::{recv}>(radargnn::{recv}, "
+                "unsigned int const*, float const*)")
+
     assert kind_of("dense_proj_kernel") == \
-        "dense_proj_v4 (projection: B1, B5 backward)"
+        "dense_proj_v4 (projection: B1, B4, B5 backward)"
     assert kind_of("dense_fwd_v4_kernel") == "dense_fwd_v4 (B1 gather-max)"
-    assert kind_of("de_pass_kernel") == "dense_bwd_v4 d_e pass (B2)"
-    assert kind_of("dwe_pass_kernel") == "dense_bwd_v4 dW_e pass (B2)"
-    assert kind_of("send_pass_kernel") == "dense_bwd_v4 sender sums (B2)"
-    assert kind_of("reduce_pass_kernel") == "dense_bwd_v4 dW_e reduce (B2)"
-    assert kind_of("windowed_route_kernel") == "windowed_bwd_v3 route (B4)"
-    assert kind_of("windowed_fwd_v3_kernel") == "windowed_fwd_v3 (B4)"
-    assert kind_of("slot_products_kernel") == "slot products (B4 / B5)"
+    assert kind_of(routed("de_pass_kernel", "DenseReceivers")) == \
+        "dense_bwd_v4 d_e pass (B2)"
+    assert kind_of(routed("dwe_pass_kernel", "DenseReceivers")) == \
+        "dense_bwd_v4 dW_e pass (B2)"
+    assert kind_of(routed("send_pass_kernel", "DenseReceivers")) == \
+        "dense_bwd_v4 sender sums (B2)"
+    for name, kind in (("de_pass_kernel", "d_e pass"),
+                       ("dwe_pass_kernel", "dW_e pass"),
+                       ("send_pass_kernel", "sender sums")):
+        assert kind_of(routed(name, "WindowReceivers")) == \
+            f"windowed_bwd_v3 {kind} (B4)"
+    assert kind_of("radargnn::reduce_pass_kernel(float const*)") == \
+        "dW_e reduce (B2, B4)"
+    assert kind_of("windowed_fwd_v3_kernel") == \
+        "windowed_fwd_v3 (B4 gather-max)"
     assert kind_of("csr_fwd_v2_kernel") == "csr_fwd_v2 (B5)"
     assert kind_of("csr_route_kernel") == "csr_bwd_v2 route + edge side (B5)"
     assert kind_of("csr_reduce_kernel") == "csr_bwd_v2 dW_e, dW_s reduce (B5)"
     assert kind_of("csr_dws_partials_kernel") == \
         "csr_bwd_v2 dW_s partials (B5)"
-    assert kind_of("csr_slot_products_kernel") == "slot products (B4 / B5)"
+    assert kind_of("csr_slot_products_kernel") == \
+        "csr_bwd_v2 slot products (B5)"
     assert kind_of("segment_sum_csr_kernel") == "segment_sum_csr (B3)"
     assert kind_of("sm90_xmma_gemm_f32f32_f32f32") == "GEMMs (cuBLAS)"
     assert kind_of("vectorized_elementwise_kernel<FillFunctor<float>>") \

@@ -37,6 +37,7 @@ from radargnn_tpu_torch.data.synthetic import make_samples as t_make_samples
 from radargnn_tpu_torch.graph import batch as tbatch
 from radargnn_tpu_torch.models import layers as tlayers
 from radargnn_tpu_torch.models.detnet import DetNet
+from radargnn_tpu_torch.ops import dense_aggregate as da
 from radargnn_tpu_torch.ops import segment_sum as ss
 from radargnn_tpu_torch.ops import windowed_aggregate as wa
 from radargnn_tpu_torch.ops import windowed_tiles as wt
@@ -250,10 +251,10 @@ def _agg_setup(seed=31, run_cap=None, widths=None, h=32):
 _LAYOUT = ("recv", "blocks", "tile_win", "sloc")
 
 
-def _jax_fused(geo):
+def _jax_fused(geo, sender_dx=False):
     return jpk.make_fused_hoisted_aggregate_v3(
         geo["n"], geo["node_block"], geo["edge_tile"], geo["wb"],
-        roll_passes=geo["roll"])
+        roll_passes=geo["roll"], sender_dx=sender_dx)
 
 
 def _jax_consts(a):
@@ -288,8 +289,8 @@ def _port_grads(geo, a):
     return [g.numpy() for g in torch.autograd.grad((out ** 2).sum(), leaves)]
 
 
-def _jax_grads(geo, a):
-    fused, consts = _jax_fused(geo), _jax_consts(a)
+def _jax_grads(geo, a, sender_dx=False):
+    fused, consts = _jax_fused(geo, sender_dx), _jax_consts(a)
     grads = jax.grad(lambda *ar: (fused(*ar, *consts) ** 2).sum(),
                      argnums=tuple(range(6)))(
         *(jnp.asarray(a[k]) for k in _DIFF))
@@ -314,34 +315,42 @@ def test_windowed_aggregate_matches_jax_interpret(run_cap, widths):
     np.testing.assert_array_equal(got.numpy() == 0, want == 0)
 
 
+def _launches():
+    return (da.dense_proj_cuda.launches, wa.windowed_fwd_cuda.launches,
+            wa.windowed_bwd_cuda.launches, ss.segment_sum_csr_cuda.launches)
+
+
+@pytest.mark.parametrize("sender_dx", [False, True])
 @pytest.mark.parametrize("run_cap", [None, 2])
 @pytest.mark.parametrize("widths", [None, (21, 5)])
-def test_windowed_aggregate_gradients_match_jax(run_cap, widths):
+def test_windowed_aggregate_gradients_match_jax(run_cap, widths, sender_dx):
     """The six gradients of (out**2).sum() through WindowedAggregateFn and
-    through the JAX package's custom VJP (interpret mode)."""
+    through the JAX package's custom VJP (interpret mode), the JAX backward
+    with its per-slot d_x or its sender sums (`sender_dx`): the port's
+    sender-sum form agrees with both."""
     geo, a = _agg_setup(seed=37, run_cap=run_cap, widths=widths)
-    launches = (wa.windowed_fwd_cuda.launches, wa.windowed_bwd_cuda.launches,
-                ss.segment_sum_csr_cuda.launches)
+    launches = _launches()
     got = _port_grads(geo, a)
-    assert launches == (wa.windowed_fwd_cuda.launches,
-                        wa.windowed_bwd_cuda.launches,
-                        ss.segment_sum_csr_cuda.launches)
-    for name, u, v in zip(_DIFF, got, _jax_grads(geo, a)):
+    assert launches == _launches()                       # CPU: none
+    for name, u, v in zip(_DIFF, got, _jax_grads(geo, a, sender_dx)):
         assert u.dtype == np.float32 and u.shape == v.shape, name
         np.testing.assert_allclose(u, v, rtol=RTOL, atol=ATOL, err_msg=name)
     assert np.abs(got[5]).max() > 0, "the overflow path should take g"
 
 
-def test_windowed_aggregate_at_a_conv_width_of_450():
+@pytest.mark.parametrize("sender_dx", [False, True])
+def test_windowed_aggregate_at_a_conv_width_of_450(sender_dx):
     """H = 450, not a multiple of 8 (the card's backward pads it): the
-    forward and the six gradients against the JAX package."""
+    forward and the six gradients against the JAX package, with and
+    without its `sender_dx` backward."""
     geo, a = _agg_setup(seed=41, widths=(21, 2), h=450)
-    want = np.asarray(_jax_fused(geo)(*(jnp.asarray(a[k]) for k in _DIFF),
-                                      *_jax_consts(a)))
+    want = np.asarray(_jax_fused(geo, sender_dx)(
+        *(jnp.asarray(a[k]) for k in _DIFF), *_jax_consts(a)))
     got = _port_call(geo, a)
     assert got.shape == want.shape == (geo["n"], 450)
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
-    for name, u, v in zip(_DIFF, _port_grads(geo, a), _jax_grads(geo, a)):
+    for name, u, v in zip(_DIFF, _port_grads(geo, a),
+                          _jax_grads(geo, a, sender_dx)):
         assert u.shape == v.shape, name
         np.testing.assert_allclose(u, v, rtol=RTOL, atol=ATOL, err_msg=name)
 
@@ -373,6 +382,50 @@ def test_windowed_aggregate_gives_tied_slots_the_full_g():
                                    rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("run_cap", [None, 2])
+def test_windowed_fwd_plain_bits_are_the_strict_routing(run_cap):
+    """The plain forward's routing bits (VJP mode) against a direct
+    `_routes` of every slot's operand x[sender] @ w_s + e @ w_e against its
+    receiver's maximum, on dyadic inputs (exact in any order): set exactly
+    where the slot counts and routes, none past H; contiguous runs, and run
+    cap 2, whose receivers' slots span tiles. Every non-empty (receiver,
+    column) whose maximum no overflow edge reaches routes a slot."""
+    geo, a = _agg_setup(seed=43, run_cap=run_cap, h=40)
+    rng = np.random.default_rng(9)
+    for k in _DIFF:
+        a[k] = (rng.integers(-4, 5, a[k].shape) * 0.125).astype(np.float32)
+    t = {k: torch.from_numpy(np.ascontiguousarray(a[k]))
+         for k in _DIFF + _LAYOUT + ("ovf_s", "ovf_r")}
+    nb, et, n, h = geo["node_block"], geo["edge_tile"], geo["n"], 40
+    recv = t["recv"].long()
+    tile_of = torch.arange(recv.shape[0]) // et
+    if run_cap is not None:
+        spans = [len(set(tile_of[recv == r].tolist())) for r in range(n)]
+        assert max(spans) > 1, "want receivers whose slots span tiles"
+    y_s, op_o, inner_o, e_p, w_e_p = da.project_operands(
+        t["x"], t["w_s"], t["e_t"], t["w_e"], t["e_ovf"], t["ovf_s"],
+        t["ovf_r"], n)
+    _, inner, bits = wa.windowed_fwd_plain(
+        y_s, e_p, w_e_p, t["recv"], t["sloc"], t["tile_win"], t["blocks"],
+        inner_o, t["offset"], node_block=nb, edge_tile=et, emit_inner=True)
+    assert bits.dtype == torch.int32 and bits.shape == (recv.shape[0], 2)
+    sloc = t["sloc"].long()
+    sender = t["tile_win"].long()[tile_of] * nb + sloc.clamp(min=0)
+    x_g = torch.where((sloc >= 0)[:, None], t["x"][sender], 0.0)
+    op = x_g @ t["w_s"] + t["e_t"] @ t["w_e"]
+    base = t["blocks"].long()[tile_of] * nb
+    counts = (recv >= base) & (recv < base + nb)
+    want = counts[:, None] & da._routes(op, inner[recv.clamp(min=0)])
+    assert want.any() and (~want).any()
+    np.testing.assert_array_equal(da.unpack_bits(bits, 64)[:, :h].numpy(),
+                                  want.numpy())
+    assert not da.unpack_bits(bits, 64)[:, h:].any()
+    routed = torch.zeros((n, h), dtype=torch.bool)
+    routed.index_put_((recv[counts],), want[counts], accumulate=True)
+    from_slots = inner > inner_o
+    assert routed[from_slots].all()
+
+
 def test_windowed_fwd_plain_masks_empty_slots_by_receiver():
     """Empty slots point at edge 0 (real features): only the receiver -1
     marks them. A huge edge feature there must not leak into the max."""
@@ -399,16 +452,22 @@ def test_windowed_wrappers_refuse_cpu_tensors():
     """The kernels' wrappers check their inputs before they build or
     launch: they never fall back to the plain versions."""
     geo, a = _agg_setup()
-    bf = [torch.from_numpy(np.ascontiguousarray(a[k])).bfloat16()
-          for k in ("x", "w_s", "e_t", "w_e")]
+    h = a["w_s"].shape[1]
+    e_t, w_e = (torch.from_numpy(np.ascontiguousarray(a[k])).bfloat16()
+                for k in ("e_t", "w_e"))
     lay = [torch.from_numpy(a[k]) for k in ("recv", "sloc", "tile_win",
                                             "blocks")]
-    node = torch.zeros((geo["n"], a["w_s"].shape[1]))
+    node = torch.zeros((geo["n"], h))
+    y_s = torch.zeros((geo["n"], da.col_pad(h)))
+    bits = torch.zeros((e_t.shape[0], da.col_pad(h) // 32),
+                       dtype=torch.int32)
+    land = _landing(geo, a)
     kw = dict(node_block=geo["node_block"], edge_tile=geo["edge_tile"])
     with pytest.raises(ValueError, match="CUDA"):
-        wa.windowed_fwd_cuda(*bf, *lay, node, node, **kw)
+        wa.windowed_fwd_cuda(y_s, e_t, w_e, *lay, node, node, **kw)
     with pytest.raises(ValueError, match="CUDA"):
-        wa.windowed_bwd_cuda(*bf, *lay, node, node, **kw)
+        wa.windowed_bwd_cuda(bits, node, e_t, w_e, torch.zeros((3, h)),
+                             lay[0], *land, edge_tile=geo["edge_tile"])
 
 
 def test_chunk_rows_divides_the_tile():
