@@ -7,7 +7,8 @@
 // What it computes (layout as in csr_fwd_v2.cu; inner_z and g_pass are
 // [num_nodes, h] f32, 0 at empty receivers; a slot is valid when its
 // receiver lies in its tile's block):
-//   op[s]      = x[senders[s]] @ W_s + e_t[s] @ W_e       (as the forward)
+//   op[s]      = x[senders[s]] @ W_s + e_t[s] @ W_e       (as the forward:
+//                y_s[senders[s]] + the edge chain, csr_slot.cuh)
 //   d_op[s]    = g_pass[recv[s]] where s is valid and
 //                |op - inner_z[recv]| <= 1e-5 |inner_z[recv]| + 1e-5,
 //                else 0, in float32. Every tied slot takes the full g.
@@ -34,20 +35,19 @@
 // Design: a node projection, the launches below and B3's landing, on one
 // stream, no atomics and fixed summation orders, so two runs on the same
 // inputs are bitwise equal:
-//  0. projection (the caller, ops/csr_aggregate.py: dense_proj_v4 of
-//     dense_fwd_v4.cu): y_s = x @ W_s, [n_x, hp] f32 (hp = h rounded up to
-//     64). Its mma.sync m16n8k16 steps run in ascending k from a zero
-//     accumulator on the same fragments as the forward's slot-row loop
-//     (dense_tile.cuh: warp_gemm), so y_s[sender] is bitwise the x part
-//     of the forward's op, and no slot multiplies x @ W_s again (the
-//     earlier routing pass ran the forward's whole loop per slot).
+//  0. projection: y_s = x @ W_s, [n_x, hp] f32 (hp = h rounded up to 64),
+//     the node projection the forward gathered (dense_proj_v4 of
+//     dense_fwd_v4.cu), which the caller (ops/csr_aggregate.py) saved from
+//     the forward or, without one, projects anew: the same kernel on the
+//     same inputs, the same bits. So the routing pass sees the forward's
+//     op bit for bit (csr_slot.cuh), and no slot multiplies x @ W_s.
 //  1. route: one block of 256 threads per 256 slots (not per tile x
 //     column slice), 2 blocks an SM; W_e and the block's edge rows stay in
 //     shared memory. A thread owns one slot and walks all its columns, 8
 //     at a time (the next 8's loads of y_s, inner_z and g_pass in flight
 //     while these compute): it rebuilds op = y_s[sender] + the float32
-//     edge chain (fmaf over the edge features in ascending order, then
-//     added to the x part: csr_tile.cuh, EdgeF32), routes it against
+//     edge chain (fmaf over the edge features in ascending order from 0,
+//     then added to the x part: csr_slot.cuh), routes it against
 //     inner_z with the strict test rounded as torch rounds it, and adds
 //     d_op @ W_e^T into its slot's d_e in registers, the columns in order
 //     (no [hp/64, n_slots, de] partial buffer and no pass to reduce it).
@@ -76,6 +76,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "csr_slot.cuh"
 #include "tile_walk.cuh"
 
 namespace {
@@ -170,15 +171,15 @@ __global__ void __launch_bounds__(kRouteThreads, 2) csr_route_kernel(
         *reinterpret_cast<float4*>(e_s + s * lde + c) = v;
     }
     // the thread's slot: its receiver (-1 where it does not count) and its
-    // sender (-1 where it does not count or lies past n_x: its x part is
-    // 0, as the forward's zero-filled row gives)
+    // sender (-1 where its x part is 0; csr_slot.cuh)
     int rc = -1, sn = -1;
     if (slot < n_slots) {
-        const int base = __ldg(tile_blocks + slot / edge_tile) * node_block;
-        rc = __ldg(recv + slot);
-        if (!receiver_in_block(rc, base, node_block, num_nodes)) rc = -1;
-        sn = __ldg(senders + slot);
-        if (rc < 0 || sn < 0 || sn >= n_x) sn = -1;
+        const CsrSlot S = csr_slot(
+            __ldg(recv + slot), __ldg(senders + slot),
+            __ldg(tile_blocks + slot / edge_tile) * node_block, node_block,
+            num_nodes, n_x);
+        rc = S.rc;
+        sn = S.sn;
     }
     const float* e_row = e_s + t * lde;
     // dW_e: slot group sg (the warp) x feature group kg x column group cg
@@ -228,7 +229,7 @@ __global__ void __launch_bounds__(kRouteThreads, 2) csr_route_kernel(
                 float dop[kChunk];
 #pragma unroll
                 for (int j = 0; j < kChunk; ++j) {
-                    const float op = at(cur.y, j) + ep[j];
+                    const float op = csr_op(at(cur.y, j), ep[j]);
                     dop[j] = rc >= 0 && col + j < h &&
                                      routes(op, at(cur.in, j))
                                  ? at(cur.g, j)

@@ -9,16 +9,19 @@
 // the flagship: 16 fma per output), then the gathered row and the bias are
 // added in the TPU kernel's order (`add + e @ W_e + b`).
 //
-// A thread forms the operands of four slots at one column at once: per k it
-// reads one W_e value and one float4 of the four slots' edge features, so
-// four fma cost two shared-memory loads (one fma per load pair would leave
-// the kernels bound by shared-memory loads).
+// Both kernels form the chain from 0.0f in ascending k and finish with
+// v1_op, however they lay out their loads. The forward's v1_operands forms
+// the operands of four slots at one column at once: per k it reads one W_e
+// value and one float4 of the four slots' edge features, so four fma cost
+// two shared-memory loads (one fma per load pair would leave the kernel
+// bound by shared-memory loads).
 //
-// Shared-memory layouts: a 64-column slice of W_e stored transposed,
-// we_t[c * (de + 1) + k] (the 64 threads that own the slice's columns read
-// 64 different banks); the edge features k-major, eT[k * ld + s], with ld a
-// multiple of 4 so the four slots' values are one 16-byte load (the same
-// address for every lane of a warp: a broadcast).
+// The forward's shared-memory layouts: a 64-column slice of W_e stored
+// transposed, we_t[c * (de + 1) + k] (the 64 threads that own the slice's
+// columns read 64 different banks); the edge features k-major,
+// eT[k * ld + s], with ld a multiple of 4 so the four slots' values are
+// one 16-byte load (the same address for every lane of a warp: a
+// broadcast).
 #pragma once
 
 #include <stdint.h>
@@ -27,6 +30,12 @@ namespace radargnn {
 
 constexpr int kV1Cols = 64;              // columns of a slice
 constexpr int kV1Slots = 4;              // slots a thread carries at once
+
+// The operand from the gathered row, the finished edge chain and the bias,
+// in the TPU kernel's order, each add rounded once (never contracted).
+__device__ __forceinline__ float v1_op(float add, float ep, float bias) {
+    return __fadd_rn(__fadd_rn(add, ep), bias);
+}
 
 // op[j] for the slots s0 + j (j < 4) at one column: eT points at eT[s0]
 // (k-major, row stride ld), we_col at the column's W_e values (stride 1).
@@ -46,7 +55,7 @@ __device__ __forceinline__ void v1_operands(const float (&add)[kV1Slots],
         ep[3] = fmaf(e.w, w, ep[3]);
     }
 #pragma unroll
-    for (int j = 0; j < kV1Slots; ++j) op[j] = (add[j] + ep[j]) + bias;
+    for (int j = 0; j < kV1Slots; ++j) op[j] = v1_op(add[j], ep[j], bias);
 }
 
 // Stages the slice [col0, col0 + 64) of W_e (transposed, zero past h) and

@@ -1,10 +1,10 @@
 // The walk over a node block's tiles that the block-per-node-block forward
 // kernels share (windowed_fwd_v3.cu, csr_fwd_v2.cu): the block's tile range
 // by binary search over the non-decreasing tile_blocks, and the landing of
-// a slot row's op in a shared-memory accumulator by an exact float atomic
-// max; and the strict routing test and the packing of its bits, which the
-// VJP-mode forwards (dense_fwd_v4.cu, windowed_fwd_v3.cu) save for their
-// backward.
+// a warp's group of ops in a shared-memory accumulator by an exact atomic
+// max of ordered keys; and the strict routing test and the packing of its
+// bits, which the VJP-mode forwards (dense_fwd_v4.cu, windowed_fwd_v3.cu)
+// save for their backward.
 #pragma once
 
 #include <stdint.h>
@@ -51,29 +51,6 @@ __device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
         atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
     } else {
         atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
-    }
-}
-
-// Lands this thread's part of a slot row's op (the slot-row loop's acc:
-// the slots at row0 and row0 + 8, columns nt * 8 + tq * 2 + {0, 1}) in the
-// block's [node_block x 64] accumulator acc_s (row stride ld) by atomic
-// max, where the slot's receiver lies in the block at `base`.
-__device__ __forceinline__ void land_max(float* acc_s, int ld,
-                                         const float (*acc)[4],
-                                         const int32_t* __restrict__ recv,
-                                         size_t row0, int base,
-                                         int node_block, int num_nodes,
-                                         int tq) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-        const int rc = recv[row0 + half * 8];
-        if (!receiver_in_block(rc, base, node_block, num_nodes)) continue;
-        float* row = acc_s + (rc - base) * ld + tq * 2;
-#pragma unroll
-        for (int nt = 0; nt < kColTiles; ++nt) {
-            atomic_max_f32(row + nt * 8, acc[nt][half * 2]);
-            atomic_max_f32(row + nt * 8 + 1, acc[nt][half * 2 + 1]);
-        }
     }
 }
 

@@ -20,26 +20,29 @@ keeps two forms of d_op: the float32 one drives d_e and dW_e, the
 bf16-rounded one d_xg (bf16) and dW_s. Where the JAX package runs its
 kernels in interpret mode (the CPU) everything is float32.
 
-On the card the two passes run in the hand-written kernels
-`csrc/csr_fwd_v2.cu` (replaces `_fused_fwd_kernel_v2`) and
-`csrc/csr_bwd_v2.cu` (replaces `_fused_bwd_kernel_v2`). The gradient is
-`CsrAggregateFn`, the custom VJP of the JAX package: the forward runs in
-VJP mode and saves `inner`; the backward routes g to every valid slot
-whose recomputed operand lies within 1e-5 |inner| + 1e-5 of its
-receiver's max (a tied slot takes the full g), and lands d_x by sender in
-one deterministic pass of `ops.segment_sum` over the batch's landing,
-which `graph/batch.py` builds from the sender-sorted second tiling
-(`ssum_*`), as `pallas_segment_sum_csr` lands it on the TPU. On the card
-the backward rebuilds the operand from the node projection, y_s = x @ w_s
-once per node (`dense_proj_v4`), as y_s[sender] + e_t @ w_e: bitwise the
-forward kernel's operand (`csr_bwd_projected_plain` is that form in plain
-torch).
+On the card the forward is two launches: the node projection y_s = x @ w_s
+once per node (`dense_aggregate.dense_proj`, `csrc/dense_fwd_v4.cu`), since
+x[s] @ w_s = y_s[s], then the gather-max of `csrc/csr_fwd_v2.cu` (replaces
+`_fused_fwd_kernel_v2`) over op = y_s[sender] + e_t @ w_e, the edge side
+in float32; the backward runs `csrc/csr_bwd_v2.cu` (replaces
+`_fused_bwd_kernel_v2`). The gradient is `CsrAggregateFn`, the custom VJP
+of the JAX package: the forward runs in VJP mode and saves `inner` and
+y_s; the backward routes g to every valid slot whose recomputed operand
+lies within 1e-5 |inner| + 1e-5 of its receiver's max (a tied slot takes
+the full g), and lands d_x by sender in one deterministic pass of
+`ops.segment_sum` over the batch's landing, which `graph/batch.py` builds
+from the sender-sorted second tiling (`ssum_*`), as
+`pallas_segment_sum_csr` lands it on the TPU. The backward rebuilds the
+operand from the forward's y_s by the forward's fma chain, so it sees the
+forward's operand bit for bit. `csr_fwd_plain` and
+`csr_bwd_projected_plain` are that projected form in plain torch;
+`csr_bwd_plain` keeps the TPU kernel's per-slot form, x[sender] @ w_s for
+every slot.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -49,16 +52,6 @@ from radargnn_tpu_torch.ops import dense_aggregate as da
 from radargnn_tpu_torch.ops import segment_sum
 from radargnn_tpu_torch.ops.dense_aggregate import _NEG, _check, _routes
 from radargnn_tpu_torch.ops.windowed_aggregate import slot_counts
-
-
-def _slot_rows(edge_tile: int, smem_bytes) -> int:
-    """Slots per mma row block (R of the slot-row loop): 64, or the largest
-    of 32 / 16 that divides a smaller tile, halved (down to 16) while
-    `smem_bytes(R)` exceeds a block's shared memory (wide edge features)."""
-    r = math.gcd(edge_tile, 64)
-    while r > 16 and smem_bytes(r) > da._MAX_SMEM:
-        r //= 2
-    return r
 
 
 def _slot_operands(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
@@ -76,14 +69,17 @@ def _slot_operands(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
 
 def csr_fwd_plain(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
                   offset, *, node_block: int, edge_tile: int,
-                  emit_inner: bool = False):
-    """Plain torch version of the CSR forward kernel: the same function on
-    the same inputs (x_c, w_s_c in the gather dtype; e_c, w_e_c, offset
-    float32). Returns out, or (out, inner) with `emit_inner`."""
+                  emit_inner: bool = False, y_s=None):
+    """Plain torch version of the CSR forward kernels (the projection and
+    the gather-max): the same function on the same inputs (x_c, w_s_c in
+    the gather dtype; e_c, w_e_c, offset float32), on the operand of
+    `projected_operands` (`y_s`, where given, is
+    `dense_aggregate.dense_proj(x_c, w_s_c)`). Returns out, or (out, inner)
+    with `emit_inner`."""
     num_nodes, h = offset.shape
-    _, op, rc, valid = _slot_operands(x_c, w_s_c, e_c, w_e_c, senders, recv,
-                                      tile_blocks, num_nodes, node_block,
-                                      edge_tile)
+    _, op, rc, valid = projected_operands(x_c, w_s_c, e_c, w_e_c, senders,
+                                          recv, tile_blocks, num_nodes,
+                                          node_block, edge_tile, y_s)
     op = torch.where(valid[:, None], op, _NEG)
     inner = torch.full((num_nodes, h), _NEG, dtype=torch.float32,
                        device=op.device)
@@ -94,27 +90,39 @@ def csr_fwd_plain(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
 
 def projected_operands(x_c, w_s_c, e_c, w_e_c, senders, recv,
                        tile_blocks, num_nodes: int, node_block: int,
-                       edge_tile: int):
-    """What `_slot_operands` returns, with op rebuilt as the backward kernel
-    rebuilds it: the node projection y_s = x @ w_s once per node
-    (`dense_aggregate.dense_proj_plain`), then y_s[sender] + e_t @ w_e
-    (the edge part in float32)."""
+                       edge_tile: int, y_s=None):
+    """What `_slot_operands` returns, with op formed as the kernels form
+    it: the node projection y_s = x @ w_s once per node
+    (`dense_aggregate.dense_proj_plain`, or `y_s` where given), then
+    y_s[sender] + e_t @ w_e (the edge part in float32; the x part 0 where
+    the sender is not a row of x)."""
     valid = slot_counts(recv, tile_blocks, num_nodes, node_block, edge_tile)
     h = w_s_c.shape[1]
     snd = senders.long()
-    y_s = da.dense_proj_plain(x_c, w_s_c)[:, :h]
-    x_g = torch.where(valid[:, None], x_c[snd], 0)
-    op = torch.where(valid[:, None], y_s[snd], 0.0) \
+    if y_s is None:
+        y_s = da.dense_proj_plain(x_c, w_s_c)
+    has = valid & (snd >= 0) & (snd < x_c.shape[0])
+    snd = torch.where(has, snd, 0)
+    x_g = torch.where(has[:, None], x_c[snd], 0)
+    op = torch.where(has[:, None], y_s[snd, :h], 0.0) \
         + matmul_f32(e_c, w_e_c, torch.float32)
     return x_g, op, torch.where(valid, recv.long(), 0), valid
+
+
+def routed_d_op(operands, inner_z, g_pass) -> torch.Tensor:
+    """d_op [E_pad, H] float32 from (x_g, op, receiver, valid): the
+    receiver's g where the slot counts and its op routes against the
+    receiver's max (`_routes`; a tied slot takes the full g), else 0."""
+    _, op, rc, valid = operands
+    return torch.where(valid[:, None] & _routes(op, inner_z[rc]),
+                       g_pass[rc], 0.0)
 
 
 def _bwd_from_operands(operands, x_c, w_s_c, e_c, w_e_c, inner_z, g_pass):
     """The CSR backward's products from (x_g, op, receiver, valid)."""
     cd = x_c.dtype
-    x_g, op, rc, valid = operands
-    d_op = torch.where(valid[:, None] & _routes(op, inner_z[rc]),
-                       g_pass[rc], 0.0)
+    x_g = operands[0]
+    d_op = routed_d_op(operands, inner_z, g_pass)
     d_op_c = d_op.to(cd)
     f32 = torch.float32
     return (matmul_f32(d_op_c, w_s_c.t(), cd).to(cd),
@@ -139,14 +147,14 @@ def csr_bwd_plain(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
 
 def csr_bwd_projected_plain(x_c, w_s_c, e_c, w_e_c, senders, recv,
                             tile_blocks, inner_z, g_pass, *,
-                            node_block: int, edge_tile: int):
+                            node_block: int, edge_tile: int, y_s=None):
     """`csr_bwd_plain` on the operand the backward kernel rebuilds from the
-    node projection (`projected_operands`): the kernel's steps in plain
-    torch, the same function."""
+    node projection (`projected_operands`; `y_s` the forward's, where
+    given): the kernel's steps in plain torch, the same function."""
     return _bwd_from_operands(
         projected_operands(x_c, w_s_c, e_c, w_e_c, senders, recv,
                            tile_blocks, inner_z.shape[0], node_block,
-                           edge_tile),
+                           edge_tile, y_s),
         x_c, w_s_c, e_c, w_e_c, inner_z, g_pass)
 
 
@@ -161,9 +169,9 @@ DWS_PARTIALS = 32
 
 def _bind_fwd(lib: ctypes.CDLL) -> None:
     lib.csr_fwd_v2.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.csr_fwd_v2.restype = ctypes.c_int
-    lib.csr_fwd_v2_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.csr_fwd_v2_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.csr_fwd_v2_smem_bytes.restype = ctypes.c_size_t
 
 
@@ -178,6 +186,14 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.csr_bwd_v2_dws.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                                    + [ctypes.c_void_p])
     lib.csr_bwd_v2_dws.restype = ctypes.c_int
+
+
+def fwd_smem_bytes(de: int, node_block: int) -> int:
+    """Shared memory of the gather-max kernel, in bytes: the [node_block x
+    64] accumulator of ordered keys (row stride 65, padded to 16 bytes) and
+    the float32 W_e slice [de x 68]; `csr_fwd_v2_smem_bytes` of the
+    source."""
+    return (4 * node_block * 65 + 15) // 16 * 16 + 4 * de * 68
 
 
 def load_fwd_kernel() -> ctypes.CDLL:
@@ -214,40 +230,52 @@ def _check_operands(kernel: str, x_c, w_s_c, e_c, w_e_c, senders, recv,
            f"edge_tile must be a multiple of 16 (got {edge_tile})", kernel)
 
 
+def _check_projection(kernel: str, y_s, x_c, hp: int) -> None:
+    """A given y_s is x @ w_s as `dense_aggregate.dense_proj` returns it:
+    float32 [n_x, hp] on x's device, contiguous and 16-byte aligned."""
+    da._check_tensors(kernel, dict(y_s=torch.float32), y_s=y_s)
+    _check(y_s.shape == (x_c.shape[0], hp) and y_s.device == x_c.device,
+           f"y_s {tuple(y_s.shape)} is not x @ w_s [{x_c.shape[0]}, {hp}] "
+           f"on {x_c.device}", kernel)
+    da._check_aligned(kernel, y_s=y_s)
+
+
 def csr_fwd_cuda(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
                  offset, *, node_block: int, edge_tile: int,
-                 emit_inner: bool = False):
-    """Launches `csrc/csr_fwd_v2.cu` on the current stream (VJP mode with
-    `emit_inner`: it also writes `inner`); raises on inputs the kernel does
-    not take. Counts its launches in `csr_fwd_cuda.launches`."""
+                 emit_inner: bool = False, y_s=None):
+    """Launches the CSR forward on the current stream: the node projection
+    (`dense_proj_v4`, unless `y_s` is given: `dense_aggregate.dense_proj(
+    x_c, w_s_c)`, as `CsrAggregateFn` keeps it for the backward), then the
+    gather-max of `csrc/csr_fwd_v2.cu` (VJP mode with `emit_inner`: it also
+    writes `inner`); raises on inputs the kernels do not take, before any
+    launch. Counts the gather-max's launches in `csr_fwd_cuda.launches`
+    (the projection counts in its own)."""
     kernel = "csr_fwd_v2"
+    de = e_c.shape[1]
+    # the accumulator holds the whole node block (RADARGNN_FUSED_NODE_BLOCK)
+    _check(fwd_smem_bytes(de, node_block) <= da._MAX_SMEM,
+           f"de={de}, node_block={node_block} need more shared memory than "
+           "a block has", kernel)
     _check_operands(kernel, x_c, w_s_c, e_c, w_e_c, senders, recv,
                     tile_blocks, dict(offset=offset), edge_tile=edge_tile)
-    dev = x_c.device
-    n_x, d = x_c.shape
-    de = e_c.shape[1]
+    n_x = x_c.shape[0]
     num_nodes, h = offset.shape
-    t = tile_blocks.shape[0]
+    hp = da.col_pad(h)
+    if y_s is not None:
+        _check_projection(kernel, y_s, x_c, hp)
     lib = load_fwd_kernel()
-
-    def smem(r):
-        return lib.csr_fwd_v2_smem_bytes(d, de, r, node_block)
-
-    r_chunk = _slot_rows(edge_tile, smem)
-    _check(smem(r_chunk) <= da._MAX_SMEM,
-           f"d={d}, de={de}, node_block={node_block} need more shared "
-           "memory than a block has", kernel)
-    out = torch.empty((num_nodes, h), dtype=torch.float32, device=dev)
+    if y_s is None:
+        y_s = da.dense_proj(x_c, w_s_c)
+    out = torch.empty((num_nodes, h), dtype=torch.float32, device=y_s.device)
     inner = torch.empty_like(out) if emit_inner else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(y_s.device):
         err = lib.csr_fwd_v2(
-            x_c.data_ptr(), w_s_c.data_ptr(), e_c.data_ptr(),
-            w_e_c.data_ptr(), senders.data_ptr(), recv.data_ptr(),
-            tile_blocks.data_ptr(), offset.data_ptr(), out.data_ptr(),
-            None if inner is None else inner.data_ptr(),
-            n_x, d, de, h, t, num_nodes, node_block, edge_tile, r_chunk,
-            stream)
+            y_s.data_ptr(), e_c.data_ptr(), w_e_c.data_ptr(),
+            senders.data_ptr(), recv.data_ptr(), tile_blocks.data_ptr(),
+            offset.data_ptr(), out.data_ptr(),
+            None if inner is None else inner.data_ptr(), n_x, de, h, hp,
+            tile_blocks.shape[0], num_nodes, node_block, edge_tile,
+            da._stream(y_s.device))
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
     csr_fwd_cuda.launches += 1
@@ -258,37 +286,40 @@ csr_fwd_cuda.launches = 0
 
 
 def csr_fwd(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks, offset, *,
-            node_block: int, edge_tile: int, emit_inner: bool = False):
-    """The CSR forward kernel's wrapper: a CUDA tensor launches the kernel
-    (or raises), a CPU tensor takes the plain version."""
+            node_block: int, edge_tile: int, emit_inner: bool = False,
+            y_s=None):
+    """The CSR forward kernels' wrapper: a CUDA tensor launches them (or
+    raises), a CPU tensor takes the plain version."""
     fn = csr_fwd_cuda if x_c.is_cuda else csr_fwd_plain
     return fn(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks, offset,
               node_block=node_block, edge_tile=edge_tile,
-              emit_inner=emit_inner)
+              emit_inner=emit_inner, y_s=y_s)
 
 
 def csr_bwd_cuda(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
                  inner_z, g_pass, *, node_block: int, edge_tile: int,
-                 landing=None):
+                 landing=None, y_s=None):
     """Launches the CSR backward on the current stream: the node
-    projection (`dense_proj_v4`, `csrc/dense_fwd_v4.cu`), the routing pass,
-    slot products and dW_e reduce of `csrc/csr_bwd_v2.cu`, the sender sums
-    of bf16(d_op) over `landing` (the batch's `SenderLanding`, by the B3
-    kernel `csrc/segment_sum_csr.cu`) and dW_s from them (`csr_bwd_v2`'s
-    dW_s passes); raises on inputs the kernels do not take. Returns what
-    `csr_bwd_plain` returns. Scratch: y_s [N, hp] and the sender sums
-    [N, hp] float32, d_op [E_pad, hp] bf16, the routing blocks' dW_e
-    partials and the dW_s partials [n_part, d, hp] float32, hp = H rounded
-    up to 64. Counts its
+    projection (`dense_proj_v4`, `csrc/dense_fwd_v4.cu`; none where `y_s`,
+    the forward's, is given: the same kernel on the same inputs gives the
+    same bits), the routing pass, slot products and dW_e reduce of
+    `csrc/csr_bwd_v2.cu`, the sender sums of bf16(d_op) over `landing` (the
+    batch's `SenderLanding`, by the B3 kernel `csrc/segment_sum_csr.cu`)
+    and dW_s from them (`csr_bwd_v2`'s dW_s passes); raises on inputs the
+    kernels do not take. Returns what `csr_bwd_plain` returns. Scratch: y_s
+    [N, hp] (where not given) and the sender sums [N, hp] float32, d_op
+    [E_pad, hp] bf16, the routing blocks' dW_e partials and the dW_s
+    partials [n_part, d, hp] float32, hp = H rounded up to 64. Counts its
     launches in `csr_bwd_cuda.launches` (one per backward; the projection
     and the sender sums count in their own kernels' counters)."""
     return _csr_bwd_launch(x_c, w_s_c, e_c, w_e_c, senders, recv,
                            tile_blocks, inner_z, g_pass, node_block,
-                           edge_tile, landing)[:4]
+                           edge_tile, landing, y_s)[:4]
 
 
 def _csr_bwd_launch(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
-                    inner_z, g_pass, node_block, edge_tile, landing):
+                    inner_z, g_pass, node_block, edge_tile, landing,
+                    y_s=None):
     """`csr_bwd_cuda`'s launches; returns its outputs and the routed
     bf16(d_op) [E_pad, H] (nonzero where a slot took its receiver's g)."""
     kernel = "csr_bwd_v2"
@@ -313,8 +344,11 @@ def _csr_bwd_launch(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
     _check(lib.csr_bwd_v2_smem_bytes(de, hw) <= da._MAX_SMEM,
            f"de={de}, H={hw} need more shared memory than a block has",
            kernel)
-    y_s = da.dense_proj(x_c, w_s_c)
-    hp = y_s.shape[1]
+    hp = da.col_pad(hw)
+    if y_s is None:
+        y_s = da.dense_proj(x_c, w_s_c)
+    else:
+        _check_projection(kernel, y_s, x_c, hp)
     bf16, f32 = torch.bfloat16, torch.float32
     d_op = torch.empty((e_pad, hp), dtype=bf16, device=dev)
     we_part = torch.empty((lib.csr_bwd_v2_we_part_floats(e_pad, de, hp),),
@@ -352,15 +386,17 @@ csr_bwd_cuda.launches = 0
 
 
 def csr_bwd(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks, inner_z,
-            g_pass, *, node_block: int, edge_tile: int, landing=None):
+            g_pass, *, node_block: int, edge_tile: int, landing=None,
+            y_s=None):
     """The CSR backward kernels' wrapper: a CUDA tensor launches them (or
-    raises; they need the batch's sender `landing`), a CPU tensor takes the
-    plain version."""
+    raises; they need the batch's sender `landing`, and take the forward's
+    `y_s` where given), a CPU tensor takes the plain version (the TPU
+    kernel's per-slot form, which needs neither)."""
     args = (x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks, inner_z,
             g_pass)
     if x_c.is_cuda:
         return csr_bwd_cuda(*args, node_block=node_block,
-                            edge_tile=edge_tile, landing=landing)
+                            edge_tile=edge_tile, landing=landing, y_s=y_s)
     return csr_bwd_plain(*args, node_block=node_block, edge_tile=edge_tile)
 
 
@@ -387,19 +423,22 @@ class CsrAggregateFn(torch.autograd.Function):
         node_block, edge_tile = geo
         padded = csr_operands(x, w_s, e_t, w_e)
         layout = (senders, recv, tile_blocks)
+        # the node projection, gathered by the forward and rebuilt from by
+        # the backward
+        y_s = da.dense_proj(*padded[:2])
         out, inner = csr_fwd(*padded, *layout, offset.float().contiguous(),
                              node_block=node_block, edge_tile=edge_tile,
-                             emit_inner=True)
+                             emit_inner=True, y_s=y_s)
         ctx.geo = geo
         ctx.dtypes = (x.dtype, w_s.dtype, e_t.dtype, w_e.dtype, offset.dtype)
         ctx.widths = (x.shape[1], e_t.shape[1])
-        ctx.save_for_backward(*padded, *layout, order, row_ptr, inner)
+        ctx.save_for_backward(*padded, *layout, order, row_ptr, inner, y_s)
         return out
 
     @staticmethod
     def backward(ctx, g):
         (x_p, w_s_p, e_p, w_e_p, senders, recv, blocks, order, row_ptr,
-         inner) = ctx.saved_tensors
+         inner, y_s) = ctx.saved_tensors
         node_block, edge_tile = ctx.geo
         x_dtype, w_s_dtype, e_dtype, w_e_dtype, offset_dtype = ctx.dtypes
         d, de = ctx.widths
@@ -409,7 +448,8 @@ class CsrAggregateFn(torch.autograd.Function):
         landing = segment_sum.SenderLanding(order, row_ptr)
         d_xg, d_e, d_ws, d_we = csr_bwd(
             x_p, w_s_p, e_p, w_e_p, senders, recv, blocks, inner_z, g_pass,
-            node_block=node_block, edge_tile=edge_tile, landing=landing)
+            node_block=node_block, edge_tile=edge_tile, landing=landing,
+            y_s=y_s)
         d_x = segment_sum.segment_sum_csr(d_xg, *landing)[:, :d]
         return (d_x.to(x_dtype), d_ws[:d].to(w_s_dtype),
                 d_e[:, :de].to(e_dtype), d_we[:de].to(w_e_dtype),

@@ -107,8 +107,8 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.hoisted_bwd_v1.restype = ctypes.c_int
     lib.hoisted_bwd_v1_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.hoisted_bwd_v1_smem_bytes.restype = ctypes.c_size_t
-    lib.hoisted_bwd_v1_max_entries.argtypes = []
-    lib.hoisted_bwd_v1_max_entries.restype = ctypes.c_int
+    lib.hoisted_bwd_v1_max_de.argtypes = []
+    lib.hoisted_bwd_v1_max_de.restype = ctypes.c_int
 
 
 def load_fwd_kernel() -> ctypes.CDLL:
@@ -218,9 +218,9 @@ def hoisted_bwd_cuda(y_s, e_t, w_e, b, senders_t, recv, tile_blocks,
     check(edge_tile % 4 == 0,
           f"edge_tile must be a multiple of 4 (got {edge_tile})")
     check(lib.hoisted_bwd_v1_smem_bytes(de, edge_tile) <= _MAX_SMEM
-          and edge_tile // 4 * de <= lib.hoisted_bwd_v1_max_entries(),
+          and de <= lib.hoisted_bwd_v1_max_de(),
           f"d_e={de}, edge_tile={edge_tile} need more shared memory or "
-          "registers than a block has")
+          "threads than a block has")
     f32 = torch.float32
     d_op = torch.empty((e_pad, h), dtype=f32, device=dev)
     d_e = torch.empty((e_pad, de), dtype=f32, device=dev)

@@ -172,8 +172,8 @@ def _kernel_bound(d: int, de: int, h: int, n: int, e_pad: int, t: int,
     float32). `index_arrays` int32 arrays per slot and per tile describe
     the layout (dense: senders_local, tile_win; windowed: also receivers
     and tile_blocks; CSR: senders and receivers, tile_blocks). `slot_flops`
-    is the work of the current kernels, which run both products per valid
-    slot as the TPU kernels do; it is not the bound."""
+    is the work of a kernel that runs both products per valid slot, as the
+    TPU kernels do; it is not the bound."""
     eb = 4 if edge_f32 else 2
     nbytes = (n * d * 2 + d * h * 2 + e_pad * de * eb + de * h * eb
               + index_arrays * (e_pad + t) * 4 + 3 * n * h * 4)
@@ -216,7 +216,7 @@ class _CsrKernels(NamedTuple):
     """How the CSR layout calls its forward and backward kernels (B5) and
     their plain versions, on the operands alone."""
 
-    fwd: Callable           # (x, w_s, e_t, w_e, offset, emit_inner)
+    fwd: Callable           # (x, w_s, e_t, w_e, offset, emit_inner, y_s)
     fwd_plain: Callable
     bwd: Callable           # (x, w_s, e_t, w_e, inner_z, g_pass)
     bwd_plain: Callable
@@ -228,8 +228,9 @@ def _csr_kernels(tiling) -> _CsrKernels:
     layout = (tiling.senders, tiling.receivers, tiling.blocks)
 
     def fwd(fn):
-        return lambda x, w_s, e_t, w_e, offset, emit_inner=False: fn(
-            x, w_s, e_t, w_e, *layout, offset, emit_inner=emit_inner, **kw)
+        return lambda x, w_s, e_t, w_e, offset, emit_inner=False, y_s=None: \
+            fn(x, w_s, e_t, w_e, *layout, offset, emit_inner=emit_inner,
+               y_s=y_s, **kw)
 
     def bwd(fn):
         return lambda x, w_s, e_t, w_e, inner_z, g_pass: fn(
@@ -249,13 +250,29 @@ def _valid_slots(tiling) -> int:
     return int((flags >= 0).sum())
 
 
+def _csr_gather_bound(de: int, h: int, n: int, e_pad: int, t: int,
+                      valid_slots: int, vjp: bool = False) -> Dict:
+    """Least time for the CSR gather-max given y_s: e @ W_e once per valid
+    slot in float32 and a max per element; y_s, e_t and W_e (float32),
+    the senders, receivers and tile_blocks, and offset read once, out
+    written once (in VJP mode also inner)."""
+    nbytes = (n * h * 4 + e_pad * de * 4 + de * h * 4 + 2 * (e_pad + t) * 4
+              + 2 * n * h * 4 + (n * h * 4 if vjp else 0))
+    return _bound(0.0, nbytes, PEAK_BF16_FLOPS,
+                  2.0 * valid_slots * de * h + valid_slots * h)
+
+
 def check_fwd_kernel(tiling, layer_shapes: List[tuple], seed: int, reps: int,
                      out: Callable = print) -> List[Dict]:
-    """Holds the CSR forward kernel (B5) against its plain version at each
+    """Holds the CSR forward (B5: the node projection `dense_proj_v4`, then
+    the gather-max of `csr_fwd_v2`) against its plain version at each
     (d_in, d_e, H) of the model, on the batch's real layout and seeded
     inputs (x, W_s bf16; e_t and W_e float32, v2's contract), in serving
-    and in VJP mode (`inner`); times both on the card. Raises beyond
-    CSR_FWD_RTOL."""
+    mode and, given the projection (as the training path gives it), in VJP
+    mode (`inner`). Times on the card the whole forward (`ms`, the
+    function's bound `bound_ms`), the gather-max alone given y_s in
+    serving and VJP mode (`gather`, beside its own bound) and the plain
+    version. Raises beyond CSR_FWD_RTOL."""
     kern = _csr_kernels(tiling)
     dev = tiling.receivers.device
     cd = da.gather_dtype(dev)
@@ -275,9 +292,10 @@ def check_fwd_kernel(tiling, layer_shapes: List[tuple], seed: int, reps: int,
         w_e = rand(de, h, scale=de ** -0.5)
         offset = rand(n, h)
         args = (x, w_s, e_t, w_e, offset)
+        y_s = da.dense_proj(x, w_s)
         got = kern.fwd(*args)
         ref = kern.fwd_plain(*args)
-        got_vjp, inner = kern.fwd(*args, emit_inner=True)
+        got_vjp, inner = kern.fwd(*args, emit_inner=True, y_s=y_s)
         _, ref_inner = kern.fwd_plain(*args, emit_inner=True)
         if on_card:
             torch.cuda.synchronize()
@@ -291,20 +309,28 @@ def check_fwd_kernel(tiling, layer_shapes: List[tuple], seed: int, reps: int,
         err = max(float((got - ref).abs().max()),
                   float((inner[has] - ref_inner[has]).abs().max()))
         scale = max(float(ref.abs().max()), 1.0)
+        gather = dict(de=de, h=h, n=n, e_pad=e_pad, t=t,
+                      valid_slots=valid_slots)
         row = {"d_in": d, "d_e": de, "h": h, "max_abs_err": err,
-               "max_rel_err": err / scale}
+               "max_rel_err": err / scale,
+               "gather": _csr_gather_bound(**gather),
+               "gather_vjp": _csr_gather_bound(vjp=True, **gather)}
         row.update(_kernel_bound(d, de, h, n, e_pad, t, valid_slots, 2,
                                  True))
-        if on_card:
-            row["ms"] = _time_ms(lambda: kern.fwd(*args), reps)
-            row["plain_ms"] = _time_ms(lambda: kern.fwd_plain(*args), reps)
-        else:
-            row["ms"] = row["plain_ms"] = None
+        _timed(row, on_card, reps, ms=lambda: kern.fwd(*args),
+               plain_ms=lambda: kern.fwd_plain(*args))
+        _timed(row["gather"], on_card, reps,
+               ms=lambda: kern.fwd(*args, y_s=y_s))
+        _timed(row["gather_vjp"], on_card, reps,
+               ms=lambda: kern.fwd(*args, emit_inner=True, y_s=y_s))
+        gb, gv = row["gather"], row["gather_vjp"]
         out(f"kernel csr_fwd_v2 d_in={d} H={h}: max_abs_err={err:.3e} "
-            f"max_rel_err={row['max_rel_err']:.3e} ms={row['ms']} "
-            f"plain_ms={row['plain_ms']} bound_ms={row['bound_ms']:.4f} "
-            f"({row['bound_by']}; {row['flops'] / 1e9:.2f} GFLOP needed, "
-            f"{row['slot_flops'] / 1e9:.2f} GFLOP as the kernel does it)")
+            f"max_rel_err={row['max_rel_err']:.3e} ms={row['ms']} (the "
+            f"projection and the gather-max) plain_ms={row['plain_ms']} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; "
+            f"{row['flops'] / 1e9:.2f} GFLOP); the gather-max given y_s "
+            f"ms={gb['ms']} bound_ms={gb['bound_ms']:.4f} ({gb['bound_by']}),"
+            f" VJP mode ms={gv['ms']} bound_ms={gv['bound_ms']:.4f}")
         if row["max_rel_err"] > CSR_FWD_RTOL:
             raise AssertionError(
                 f"csr_fwd_v2 disagrees with its plain version at d_in={d}, "
@@ -977,8 +1003,9 @@ def _plain_kernels() -> ExitStack:
 
 def without_landing(plain: Callable) -> Callable:
     """A plain CSR backward in `csr_bwd`'s place: it sums dW_s over the
-    slots, so it drops the sender `landing` the kernels take."""
-    return lambda *args, landing=None, **kw: plain(*args, **kw)
+    slots and projects for itself, so it drops the sender `landing` and
+    the forward's `y_s` the kernels take."""
+    return lambda *args, landing=None, y_s=None, **kw: plain(*args, **kw)
 
 
 def _plain_reference(trainer, batch) -> Tuple[List[float], Dict]:
@@ -1805,16 +1832,17 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
                                                        seed, reps, out)
         csr["radius_per_shape_bwd"], csr["radius_per_shape_segsum"] = \
             check_bwd_kernels(rc_tiling, shapes, seed, reps, out, exact=True)
+    csr_fwd = ("dense_proj_v4", "csr_fwd_v2")
     csr.update(_serve_phase(
         dev, c_arch, c_model, c_loader, graphs, points,
-        _expect({"csr_fwd_v2": layers * batches}, on_card), "CSR", out))
+        _expect({n: layers * batches for n in csr_fwd}, on_card), "CSR",
+        out))
     csr.update(_train_phase(
         dev, c_arch, c_loader[0], seed, train_steps,
-        # the CSR backward's operand comes from the node projection, its
-        # dW_s from the sender sums of d_op (a second landing a layer)
-        _expect(dict({n: layers * train_steps for n in ("csr_fwd_v2",
-                                                        "csr_bwd_v2",
-                                                        "dense_proj_v4")},
+        # the forward's node projection, which the backward reuses; dW_s
+        # from the sender sums of d_op (a second landing a layer)
+        _expect(dict({n: layers * train_steps
+                      for n in csr_fwd + ("csr_bwd_v2",)},
                      segment_sum_csr=2 * layers * train_steps), on_card),
         "CSR", out))
     summary["csr"] = csr
@@ -1862,13 +1890,15 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
     c_fwd, c_bwd = csr["per_shape_fwd"], csr["per_shape_bwd"]
     seg_rows = radius["knn_per_shape_segsum"]
     segs = seg_rows + csr["per_shape_segsum"] + csr["radius_per_shape_segsum"]
-    # launches: the training runs of each path (the projection runs on the
-    # dense and windowed paths and in the CSR backward; B3 lands on the CSR
-    # path); no single PyTorch call computes gather + GEMM + segmented max,
-    # nor the routed backward; the projection's is torch.mm, the landing's
-    # index_add_ (timed on the kNN batch under the windowed tiling). The
-    # windowed gather-max is held in VJP mode, the mode of its training
-    # launches (with the bits); the dense one in serving mode.
+    # launches: the training runs of each path (the projection runs in
+    # every path's forward; B3 lands on the CSR path); no single PyTorch
+    # call computes gather + GEMM + segmented max, nor the routed backward;
+    # the projection's is torch.mm, the landing's index_add_ (timed on the
+    # kNN batch under the windowed tiling). The windowed gather-max is held
+    # in VJP mode, the mode of its training launches (with the bits); the
+    # dense one in serving mode; the CSR forward as its wrapper runs it in
+    # serving mode (the projection and the gather-max), against the whole
+    # function's bound.
     summary["kernels"] = [
         entry("dense_proj_v4", "dense_fwd_v4.cu", 2279,
               dense_l[11] + radius_l[11] + csr_l[11], proj_rows, proj_rows,

@@ -51,7 +51,7 @@ from radargnn_tpu_torch.train.trainer import Trainer, set_seeds
 # the dense and windowed backward run the same passes (csrc/routed_bwd.cuh),
 # told apart by their receivers' type in the kernel's name
 _KINDS = (
-    ("dense_proj_v4 (projection: B1, B4, B5 backward)", ("dense_proj",)),
+    ("dense_proj_v4 (projection: B1, B4, B5)", ("dense_proj",)),
     ("dense_fwd_v4 (B1 gather-max)", ("dense_fwd_v4",)),
     ("windowed_bwd_v3 dW_e pass (B4)", ("dwe_pass_kernel<radargnn::window",)),
     ("windowed_bwd_v3 d_e pass (B4)", ("de_pass_kernel<radargnn::window",)),
@@ -144,10 +144,11 @@ def trace(steps: int = 3, points: int = 2816, graphs: int = 5,
 _csr_fwd_plain, _csr_bwd_plain = ca.csr_fwd_plain, ca.csr_bwd_plain
 
 
-def reassociated_fwd(x, w_s, e_t, w_e, *layout, **kw):
+def reassociated_fwd(x, w_s, e_t, w_e, *layout, y_s=None, **kw):
     """The drift witness's forward: the CSR plain forward with the depth of
     both products reversed (the columns of x and e_t, the rows of W_s and
-    W_e), the same sums in another float32 order, as the kernel's are."""
+    W_e), the same sums in another float32 order, as the kernel's are (so
+    it projects the reversed operands itself, in place of `y_s`)."""
     return _csr_fwd_plain(x.flip(1), w_s.flip(0), e_t.flip(1), w_e.flip(0),
                           *layout, **kw)
 

@@ -361,7 +361,8 @@ def test_csr_aggregate_gives_tied_slots_the_full_g():
 
 def _operands(fn, a, geo, dyadic_seed=None):
     """`fn` (ca._slot_operands or ca.projected_operands) on case `a`, on
-    dyadic inputs (multiples of 1/8) when `dyadic_seed` is given."""
+    dyadic inputs (multiples of 1/8) when `dyadic_seed` is given, and the
+    plain forward's maxima."""
     if dyadic_seed is not None:
         rng = np.random.default_rng(dyadic_seed)
         a = dict(a, **{k: (rng.integers(-4, 5, a[k].shape) * 0.125
@@ -486,10 +487,124 @@ def test_csr_operands_keep_the_edge_side_float32():
     assert e_t.dtype == w_e.dtype == x.dtype == torch.float32
 
 
-def test_slot_rows_shrink_to_fit_shared_memory():
-    assert ca._slot_rows(512, lambda r: 0) == 64
-    assert ca._slot_rows(32, lambda r: 0) == 32
-    assert ca._slot_rows(512, lambda r: r * 10 ** 4) == 16
+def test_csr_fwd_smem_at_the_flagship_geometry():
+    """The gather-max's shared memory at the flagship CSR geometry (256-node
+    blocks, d_e 16): the [256 x 65] accumulator of ordered keys and the
+    float32 W_e slice [16 x 68], one block an SM."""
+    assert ca.fwd_smem_bytes(16, 256) == 256 * 65 * 4 + 16 * 68 * 4
+    assert ca.fwd_smem_bytes(16, 256) <= da._MAX_SMEM
+
+
+@pytest.mark.parametrize("node_block,fits", [(256, True), (512, True),
+                                             (885, True), (886, False),
+                                             (1024, False)])
+def test_csr_fwd_refuses_a_node_block_past_shared_memory(node_block, fits):
+    """The forward's wrapper refuses, before it builds or launches
+    anything, a node block (RADARGNN_FUSED_NODE_BLOCK) whose accumulator
+    does not fit a block's shared memory (at d_e 8: 885 nodes fit, 886 do
+    not); one that fits goes on to the device checks (a CPU tensor is
+    refused there)."""
+    geo, a = _agg_setup()
+    x, w_s, e_t, w_e = ca.csr_operands(
+        *(torch.from_numpy(a[k]) for k in ("x", "w_s", "e_t", "w_e")))
+    lay = [torch.from_numpy(a[k]) for k in ("senders", "recv", "blocks")]
+    node = torch.zeros((geo["n"], a["w_s"].shape[1]))
+    match = "CUDA" if fits else "shared memory"
+    assert (ca.fwd_smem_bytes(e_t.shape[1], node_block)
+            <= da._MAX_SMEM) == fits
+    with pytest.raises(ValueError, match=match):
+        ca.csr_fwd_cuda(x.bfloat16(), w_s.bfloat16(), e_t, w_e, *lay, node,
+                        node_block=node_block, edge_tile=geo["edge_tile"])
+
+
+def _case(case, seed):
+    return _agg_setup(seed=seed, hub=case == "hub",
+                      widths=None if case in ("random", "hub") else (21, 5),
+                      h=450 if case == "h450" else 32)
+
+
+@pytest.mark.parametrize("case", ["random", "hub", "odd_widths", "h450"])
+def test_per_slot_and_projected_operands_agree(case):
+    """On real-valued inputs the projected operand (y_s[sender] + e_t @
+    w_e, which the forward and the backward kernels form) and the TPU
+    kernel's per-slot operand (x[sender] @ w_s + e_t @ w_e) are the same
+    function: they agree to float32 summation order, 1e-6 of the scale,
+    and so do the forwards on them."""
+    geo, a = _case(case, 61)
+    (x_g, op, rc, valid), inner = _operands(ca._slot_operands, a, geo)
+    (x_p, op_p, rc_p, valid_p), inner_p = _operands(ca.projected_operands,
+                                                    a, geo)
+    assert torch.equal(valid, valid_p) and torch.equal(rc, rc_p)
+    assert torch.equal(x_g, x_p)
+    scale = float(op.abs().max())
+    assert float((op_p - op)[valid].abs().max()) <= 1e-6 * scale
+    has = inner > da._NEG / 2
+    assert torch.equal(has, inner_p > da._NEG / 2)
+    assert float((inner_p - inner)[has].abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("case", ["random", "hub", "odd_widths", "h450"])
+def test_projected_backward_routes_every_nonempty_receiver(case):
+    """On real-valued inputs, against the maxima of the plain forward
+    (`csr_fwd_plain`, the projected form), the backward's routing on the
+    projected operand gives every non-empty (receiver, column) at least
+    one slot: no gradient is lost."""
+    geo, a = _case(case, 62)
+    ops, inner = _operands(ca.projected_operands, a, geo)
+    has = inner > da._NEG / 2
+    d_op = ca.routed_d_op(ops, torch.where(has, inner, 0.0), has.float())
+    _, _, rc, valid = ops
+    assert not d_op[~valid].any()
+    hits = torch.zeros_like(inner).index_add_(0, rc, (d_op != 0).float())
+    assert bool((hits[has] >= 1).all())
+    assert not hits[~has].any()
+
+
+@pytest.mark.parametrize("case", ["random", "hub", "odd_widths", "h450"])
+def test_projected_backward_with_the_forwards_projection(case):
+    """The projected backward and forward given the forward's node
+    projection y_s return, bit for bit, what they return when they project
+    for themselves."""
+    geo, a = _case(case, 63)
+    x, w_s, e_t, w_e = ca.csr_operands(
+        *(torch.from_numpy(np.ascontiguousarray(a[k]))
+          for k in ("x", "w_s", "e_t", "w_e")))
+    lay = [torch.from_numpy(a[k]) for k in ("senders", "recv", "blocks")]
+    kw = dict(node_block=geo["node_block"], edge_tile=geo["edge_tile"])
+    y_s = da.dense_proj(x, w_s)
+    offset = torch.from_numpy(a["offset"])
+    out, inner = ca.csr_fwd_plain(x, w_s, e_t, w_e, *lay, offset,
+                                  emit_inner=True, **kw)
+    out_y, inner_y = ca.csr_fwd_plain(x, w_s, e_t, w_e, *lay, offset,
+                                      emit_inner=True, y_s=y_s, **kw)
+    assert torch.equal(out, out_y) and torch.equal(inner, inner_y)
+    has = inner > da._NEG / 2
+    g = torch.from_numpy(np.random.default_rng(64).normal(
+        size=inner.shape).astype(np.float32))
+    args = (x, w_s, e_t, w_e, *lay, torch.where(has, inner, 0.0),
+            torch.where(has, g, 0.0))
+    for u, v in zip(ca.csr_bwd_projected_plain(*args, **kw),
+                    ca.csr_bwd_projected_plain(*args, y_s=y_s, **kw)):
+        assert torch.equal(u, v)
+
+
+def test_csr_aggregate_hands_its_projection_to_the_backward():
+    """CsrAggregateFn projects once: its forward gathers y_s = x @ w_s and
+    its backward receives that same tensor (the card's backward launches
+    no projection of its own)."""
+    geo, a = _agg_setup(seed=65)
+    seen = {}
+    plain = ca.csr_bwd
+
+    def spy(x_c, w_s_c, *args, y_s=None, **kw):
+        seen["y_s"], seen["x"], seen["w_s"] = y_s, x_c, w_s_c
+        return plain(x_c, w_s_c, *args, y_s=y_s, **kw)
+
+    with mock.patch.object(ca, "csr_bwd", spy):
+        _port_grads(geo, a)
+    assert seen["y_s"] is not None
+    assert torch.equal(seen["y_s"],
+                       da.dense_proj_plain(seen["x"], seen["w_s"]))
 
 
 def _arch_kw(dtype="float32", bn=False, conv="MPNNConv"):

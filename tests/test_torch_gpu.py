@@ -594,18 +594,21 @@ _CSHAPES = [
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", _CSHAPES)
 def test_csr_fwd_kernel_matches_plain(shape):
-    """B5's forward, serving and VJP mode, hubs spanning tiles, against its
-    plain version to smoke.CSR_FWD_RTOL (1e-5) of the output's scale: e_t
-    and W_e stay float32, so only the summation order differs; the empty
-    receivers agree exactly."""
+    """B5's forward (the projection, then the gather-max), serving mode and
+    VJP mode given the projection, hubs spanning tiles, against its plain
+    version to smoke.CSR_FWD_RTOL (1e-5) of the output's scale: e_t and
+    W_e stay float32, so only the summation order differs; the two modes
+    give the same out, and the empty receivers agree exactly."""
     _need_card()
     c = _ccase(30, *shape)
     args = (c["x"], c["w_s"], c["e_t"], c["w_e"], *c["layout"], c["offset"])
-    before = ca.csr_fwd_cuda.launches
+    before = (ca.csr_fwd_cuda.launches, da.dense_proj_cuda.launches)
     got = ca.csr_fwd(*args, **c["kw"])
-    got_vjp, inner = ca.csr_fwd(*args, emit_inner=True, **c["kw"])
+    y_s = da.dense_proj(c["x"], c["w_s"])
+    got_vjp, inner = ca.csr_fwd(*args, emit_inner=True, y_s=y_s, **c["kw"])
     torch.cuda.synchronize()
-    assert ca.csr_fwd_cuda.launches == before + 2
+    assert (ca.csr_fwd_cuda.launches, da.dense_proj_cuda.launches) == (
+        before[0] + 2, before[1] + 2)
     want, want_inner = ca.csr_fwd_plain(*args, emit_inner=True, **c["kw"])
     assert torch.isfinite(got).all() and torch.equal(got, got_vjp)
     assert _rel_err(got, want) <= smoke.CSR_FWD_RTOL
@@ -723,22 +726,24 @@ def test_csr_projection_is_the_forwards_x_part(shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", _CSHAPES)
 def test_csr_bwd_routes_as_the_forward(shape):
-    """On real-valued inputs the routing pass marks, on its operand rebuilt
-    from y_s, the slots the plain version's per-slot operand marks, up to
-    flips at the tolerance's edge (their operands differ by float32
-    summation order; at most smoke.BITS_FLIP_FRAC of the (slot, column)
-    pairs), and every non-empty (receiver, column) routes at least one
-    slot: the forward's maximum itself."""
+    """On real-valued inputs, against the kernel forward's maxima, the
+    routing pass marks, on its operand rebuilt from the forward's y_s, the
+    slots the plain version's per-slot operand marks, up to flips at the
+    tolerance's edge (their operands differ by float32 summation order; at
+    most smoke.BITS_FLIP_FRAC of the (slot, column) pairs), and every
+    non-empty (receiver, column) routes at least one slot: the forward's
+    maximum itself, rebuilt bit for bit."""
     _need_card()
     c = _ccase(53, *shape)
     x, w_s, e_t, w_e = c["x"], c["w_s"], c["e_t"], c["w_e"]
+    y_s = da.dense_proj(x, w_s)
     _, inner = ca.csr_fwd(x, w_s, e_t, w_e, *c["layout"], c["offset"],
-                          emit_inner=True, **c["kw"])
+                          emit_inner=True, y_s=y_s, **c["kw"])
     has = inner > da._NEG / 2
     inner_z = torch.where(has, inner, 0.0)
     d_op = ca._csr_bwd_launch(x, w_s, e_t, w_e, *c["layout"], inner_z,
                               has.float(), c["kw"]["node_block"],
-                              c["kw"]["edge_tile"], c["landing"])[-1]
+                              c["kw"]["edge_tile"], c["landing"], y_s)[-1]
     n, h = inner.shape
     _, op, rc, valid = ca._slot_operands(x, w_s, e_t, w_e, *c["layout"], n,
                                          **c["kw"])
@@ -750,6 +755,53 @@ def test_csr_bwd_routes_as_the_forward(shape):
     assert not got[~valid].any()
     hits = torch.zeros((n, h), device="cuda").index_add_(0, rc, got.float())
     assert bool((hits[has] >= 1).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _CSHAPES)
+def test_csr_bwd_with_the_forwards_projection(shape):
+    """The backward given the forward's y_s (as CsrAggregateFn gives it)
+    and the backward that projects for itself launch the same kernels on
+    the same bits: their four outputs are bitwise equal, and the first
+    launches no projection."""
+    _need_card()
+    c = _ccase(54, *shape)
+    args = _c_bwd_inputs(c, 55)
+    y_s = da.dense_proj(c["x"], c["w_s"])
+    before = da.dense_proj_cuda.launches
+    got = ca.csr_bwd(*args, landing=c["landing"], y_s=y_s, **c["kw"])
+    assert da.dense_proj_cuda.launches == before
+    want = ca.csr_bwd(*args, landing=c["landing"], **c["kw"])
+    torch.cuda.synchronize()
+    for name, u, v in zip(("d_xg", "d_e", "dW_s", "dW_e"), got, want):
+        assert torch.equal(u, v), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["knn", "radius"])
+def test_csr_kernels_on_the_flagship_batches(layout):
+    """The smoke's checks of B5 at the flagship's five layer shapes, on the
+    kNN batch and on the radius batch under the CSR tiling (a dense region
+    gives a node block several times the mean tiles): the forward in both
+    modes to CSR_FWD_RTOL, the backward exact on dyadic inputs and bitwise
+    repeatable, d_e and dW_e with a real g to CSR_EDGE_GRAD_RTOL."""
+    _need_card()
+    dev = torch.device("cuda")
+    _, model, loader = smoke.flagship_serving(dev, 2816, 5, 1, 0,
+                                              tiling="csr")
+    if layout == "knn":
+        tiling = loader[0].flat_tiling()
+    else:
+        tiling = smoke.radius_csr_tiling(dev, 2816, 5, 0).flat_tiling()
+    shapes = smoke._layer_shapes(model)
+    assert len(shapes) == 5
+    quiet = dict(out=lambda *_: None)
+    with torch.no_grad():
+        fwd = smoke.check_fwd_kernel(tiling, shapes, 0, 1, **quiet)
+        bwd, _ = smoke.check_bwd_kernels(tiling, shapes, 0, 1, exact=True,
+                                         **quiet)
+    assert all(r["max_rel_err"] <= smoke.CSR_FWD_RTOL for r in fwd)
+    assert all(r["max_abs_err"] == 0.0 and r["bitwise_repeat"] for r in bwd)
 
 
 @pytest.mark.gpu
@@ -790,6 +842,18 @@ def test_csr_kernels_refuse_what_they_do_not_take():
                    **c["kw"])
     with pytest.raises(ValueError, match="slots do not match"):
         ca.csr_fwd(*fwd_args, node_block=32, edge_tile=64)
+    with pytest.raises(ValueError, match="shared memory"):
+        ca.csr_fwd(*fwd_args, node_block=1024, edge_tile=32)
+    # the wrapper's check holds the kernel's own shared-memory size
+    lib = ca.load_fwd_kernel()
+    for de, nb in ((8, 32), (16, 256), (24, 885)):
+        assert ca.fwd_smem_bytes(de, nb) == lib.csr_fwd_v2_smem_bytes(de, nb)
+    y_s = da.dense_proj(args[0], args[1])
+    with pytest.raises(ValueError, match="y_s"):
+        ca.csr_fwd(*fwd_args, y_s=y_s[:-1], **c["kw"])
+    with pytest.raises(ValueError, match="y_s"):
+        ca.csr_bwd(*args, landing=c["landing"], y_s=y_s.bfloat16(),
+                   **c["kw"])
     with pytest.raises(ValueError, match="int32"):
         ca.csr_bwd(*args[:4], args[4].long(), *args[5:], **c["kw"])
     with pytest.raises(ValueError, match="float32"):
@@ -1059,6 +1123,26 @@ def test_hoisted_bwd_kernel_with_a_real_valued_g(shape):
 
 
 @pytest.mark.gpu
+def test_v1_kernels_on_the_flagship_batch():
+    """The smoke's checks of the v1 pair at the flagship's five layer
+    shapes on the kNN batch under the v1 tiles: B6 to F32_RTOL in both
+    modes; B7 exact on dyadic inputs, bitwise repeatable, and within
+    F32_RTOL of each output's scale with a real-valued g."""
+    _need_card()
+    dev = torch.device("cuda")
+    _, model, loader = smoke.flagship_serving(dev, 2816, 5, 1, 0)
+    shapes = smoke._layer_shapes(model)
+    assert len(shapes) == 5
+    with torch.no_grad():
+        fwd, bwd = smoke.check_v1_kernels(smoke.v1_tiling(loader[0]),
+                                          shapes, 0, 1, out=lambda *_: None)
+    assert all(r["max_rel_err"] <= smoke.F32_RTOL for r in fwd)
+    assert all(r["max_abs_err"] == 0.0 and r["bitwise_repeat"]
+               and max(r["real_g_rel_err"].values()) <= smoke.F32_RTOL
+               for r in bwd)
+
+
+@pytest.mark.gpu
 def test_hoisted_bwd_kernel_gates_padding_slots():
     """A padding slot (receiver -1) whose operand equals receiver 0's
     inner_z takes no gradient: the has_recv gate of the TPU kernel."""
@@ -1174,10 +1258,10 @@ def test_kernel_entry_points_on_card():
 def test_smoke_on_card():
     """The smoke at a small size: the kernels build and match their plain
     versions at the model's layer shapes, every conv layer of each of the
-    three requests launches its forward (the dense and windowed paths
-    their projection too), and every conv layer of each of the two train
-    steps launches the path's kernels (the projection on all three paths,
-    B3 on the CSR path). Two steps keep it
+    three requests launches its forward (on all three paths the projection
+    too), and every conv layer of each of the two train steps launches the
+    path's kernels (the projection on all three paths, once a layer: the
+    CSR backward reuses the forward's; B3 on the CSR path). Two steps keep it
     short; each is held to the plain path at its own parameters, with the
     smoke's limits."""
     _need_card()
@@ -1192,7 +1276,8 @@ def test_smoke_on_card():
     assert summary["serve_launches"] == [5 * 3] + [0] * 10 + [5 * 3]
     assert summary["radius"]["serve_launches"] == \
         [0, 0, 0, 5 * 3] + [0] * 7 + [5 * 3]
-    assert summary["csr"]["serve_launches"] == [0] * 5 + [5 * 3] + [0] * 6
+    assert summary["csr"]["serve_launches"] == \
+        [0] * 5 + [5 * 3] + [0] * 5 + [5 * 3]
     for kernel in summary["kernels"]:
         assert kernel["ms"] > 0 and kernel["plain_ms"] > 0
     assert summary["kernels"][0]["library_ms"] > 0

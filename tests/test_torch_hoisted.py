@@ -208,6 +208,35 @@ def test_backward_gates_padding_slots():
     assert ungated.all()
 
 
+@pytest.mark.parametrize("factory", FACTORIES)
+def test_hoisted_gradients_match_jax_at_odd_widths(factory):
+    """d_e 3 and H 40, the odd widths of the card's v1 tests (features
+    padded to eight and a partial 64-column slice in the card's backward):
+    the output and the five gradients against the JAX factory."""
+    c = _case(16, de=3, h=40)
+    j_out, j_grads = _jax_run(c, factory)
+    t_out, t_grads = _torch_run(c, factory)
+    np.testing.assert_allclose(t_out, j_out, rtol=RTOL, atol=ATOL)
+    for name, u, v in zip(("y_s", "e_t", "w_e", "b", "offset"), t_grads,
+                          j_grads):
+        assert u.shape == v.shape, name
+        np.testing.assert_allclose(u, v, rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("kernel", ["hoisted_fwd_cuda", "hoisted_bwd_cuda"])
+def test_kernel_wrappers_refuse_cpu_tensors(kernel):
+    """The v1 kernels' wrappers check their inputs before they build or
+    launch: a CPU tensor never falls back to the plain version there."""
+    c = _case(17)
+    node = _t(np.zeros((c["n"], c["y_s"].shape[1]), np.float32))
+    nodes = (node,) if kernel == "hoisted_fwd_cuda" else (node, node)
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(ha, kernel)(*(_t(c[k]) for k in ("y_s", "e_t", "w_e", "b")),
+                            *_layout(c, _t), *nodes,
+                            node_block=c["node_block"],
+                            edge_tile=c["edge_tile"])
+
+
 def test_factories_refuse_a_mismatched_offset():
     c = _case(15)
     fused = ha.make_fused_hoisted_aggregate(c["n"] + 1, c["node_block"],

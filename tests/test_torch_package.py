@@ -337,7 +337,7 @@ def test_trace_train_sorts_kernels_into_kinds():
                 "unsigned int const*, float const*)")
 
     assert kind_of("dense_proj_kernel") == \
-        "dense_proj_v4 (projection: B1, B4, B5 backward)"
+        "dense_proj_v4 (projection: B1, B4, B5)"
     assert kind_of("dense_fwd_v4_kernel") == "dense_fwd_v4 (B1 gather-max)"
     assert kind_of(routed("de_pass_kernel", "DenseReceivers")) == \
         "dense_bwd_v4 d_e pass (B2)"
@@ -434,7 +434,7 @@ def test_bf16_model_hands_the_csr_backward_a_bf16_exact_g():
     from radargnn_tpu_torch.ops import csr_aggregate as ca
     seen = []
 
-    def spy(*args, landing=None, **kw):
+    def spy(*args, landing=None, y_s=None, **kw):
         g = args[-1]
         seen.append(bool(g.abs().max() > 0)
                     and torch.equal(g, g.bfloat16().float()))
