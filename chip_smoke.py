@@ -28,8 +28,8 @@ v1 pair at the five layer shapes under 128 x 256 receiver-CSR tiles, its
 backward exact on dyadic inputs and bitwise repeatable; the message
 segment-max at 464 -> 464, on seeded and on wide-range messages; the fused
 linear at 4096 x 256 -> 512 and over the batch's nodes at 224 -> 464,
-timed against torch.addmm in alternating rounds), then drives their entry
-points,
+timed against torch.addmm in alternating rounds by a child process with
+cuBLAS's default workspace), then drives their entry points,
 radargnn_tpu_torch.benchmarks.kernel_check (prints KERNEL CHECK OK) and
 kernel_bench (two JSON lines at 450,560 edges), and checks that each of the
 four launched. It prints the kernels' times beside their bounds. The last

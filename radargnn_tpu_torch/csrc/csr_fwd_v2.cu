@@ -24,31 +24,12 @@
 // card (the TPU kernel's contract), and it has no overflow list: every
 // valid edge sits in a tile.
 //
-// Design (windowed_fwd_v3.cu's walk). One block = one node block
-// (blockIdx.x) x one 64-column slice (blockIdx.y), 16 warps (one block an
-// SM). It finds its tiles by binary search in tile_blocks and splits their
-// slots into groups of 16 (the block's tiles one after the other); warp w
-// walks groups w, w + 16, ... on its own, with no barrier between groups,
-// so a node block with many tiles (a hub, or a dense region of a radius
-// graph under this tiling) keeps every warp busy. For a group, each lane
-// holds fragment rows g and g + 8 (g = lane / 4) over columns
-// nt * 8 + tq * 2 + {0, 1} (tq = lane % 4), with the next group's indices
-// already in flight; a group of padding slots is skipped. The lane loads
-// its slots' 64-column slices of y_s[sender] (y_s stays in L2), reads its
-// two edge rows where they lie, and forms the float32 edge chain on the
-// CUDA cores against the W_e slice in shared memory (float32, k-major);
-// then adds the y_s slices. Each op lands in a [node_block x 64]
-// accumulator in shared memory by an exact atomic max of ordered keys, a
-// half-group of one receiver folded by shuffles first (tile_walk.cuh:
-// land_max_runs; a kNN receiver's slots are consecutive, so most halves
-// fold); so one block combines a receiver's slots across tiles, and the
-// result does not depend on the atomics' order. The epilogue applies the
-// hoisted offset and the empty-receiver rule, and covers receivers no slot
-// reaches (dummy tiles, the static budget's tiles of recv -1). The TPU
-// kernel multiplies x[sender] @ W_s once per slot and lands the maxima with
-// a segmented log-roll max and an exact one-hot selection matmul; on the
-// card the projection is formed once per node and the landing is a
-// shared-memory max.
+// Design: the gather-max walk of csr_walk.cuh (windowed_fwd_v3.cu's walk:
+// 16 warps a node block, each on its own 16-slot groups, the float32 edge
+// chain on the CUDA cores, ordered-key atomics in shared memory) with B5's
+// operand (CsrOperand); the v1 hoisted forward (hoisted_fwd_v1.cu) runs the
+// same walk with its own operand. The TPU kernel multiplies x[sender] @
+// W_s once per slot; on the card the projection is formed once per node.
 //
 // What bounds it on the card. Given y_s, the function needs e @ W_e once
 // per valid slot in float32 (~4.2 GFLOP at the flagship's wide layer,
@@ -61,48 +42,43 @@
 #include <stdint.h>
 
 #include "csr_slot.cuh"
-#include "mma_bf16.cuh"
-#include "tile_walk.cuh"
+#include "csr_walk.cuh"
 
 namespace {
 
 using namespace radargnn;
 
-constexpr float kNeg = -3.0e38f;         // finite -inf stand-in
-constexpr int kAccLd = kBlockCols + 1;   // accumulator row stride
-constexpr int kWeLd = kBlockCols + 4;    // float32 W_e slice row stride
-constexpr int kWarps = 16;               // warps of a block
-constexpr int kGroup = 16;               // slots of a warp's group
+// B5's operand (csr_slot.cuh): a slot counts where its receiver lies in
+// its node block, its x part is 0 where its sender is no row of y_s, and
+// op = y + ep. y_s has hp columns (h rounded up to 64, zero past h), so no
+// column is masked.
+struct CsrOperand {
+    static constexpr bool kBias = false;
+    static constexpr bool kMaskCols = false;
 
-__host__ __device__ inline size_t acc_bytes(int node_block) {
-    return (sizeof(int) * static_cast<size_t>(node_block) * kAccLd + 15) &
-           ~static_cast<size_t>(15);
-}
+    __device__ __forceinline__ static WalkSlot slot(int rc, int sn, int base,
+                                                    int node_block,
+                                                    int num_nodes, int n_y) {
+        const CsrSlot s = csr_slot(rc, sn, base, node_block, num_nodes, n_y);
+        return WalkSlot{s.rc, s.sn};
+    }
 
-__host__ __device__ inline size_t fwd_smem_bytes(int de, int node_block) {
-    return acc_bytes(node_block) +
-           sizeof(float) * static_cast<size_t>(de) * kWeLd;
-}
-
-// A group's slots as one lane sees them: its rows g and g + 8.
-struct GroupSlots {
-    int sn[2];                 // senders (raw)
-    int rc[2];                 // receivers (raw; -1: empty)
+    // ep[half * 4 + c] (row g + half * 8, column c0 + c) += y[half]
+    __device__ __forceinline__ static void finish(float (&ep)[8],
+                                                  const float4 (&y)[2],
+                                                  const float*, int) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const float yv[4] = {y[half].x, y[half].y, y[half].z, y[half].w};
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                ep[half * 4 + c] = csr_op(yv[c], ep[half * 4 + c]);
+            }
+        }
+    }
 };
 
-__device__ __forceinline__ GroupSlots load_group(
-    const int32_t* __restrict__ senders, const int32_t* __restrict__ recv,
-    size_t slot0, int g) {
-    GroupSlots G;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-        G.sn[half] = __ldg(senders + slot0 + g + half * 8);
-        G.rc[half] = __ldg(recv + slot0 + g + half * 8);
-    }
-    return G;
-}
-
-__global__ void __launch_bounds__(kWarps * 32, 1) csr_fwd_v2_kernel(
+__global__ void __launch_bounds__(kWalkWarps * 32, 1) csr_fwd_v2_kernel(
     const float* __restrict__ y_s,             // [n_x, hp]
     const float* __restrict__ e_t,             // [T*TE, de]
     const float* __restrict__ w_e,             // [de, h]
@@ -114,121 +90,9 @@ __global__ void __launch_bounds__(kWarps * 32, 1) csr_fwd_v2_kernel(
     float* __restrict__ inner_out,             // [num_nodes, h] or null
     int n_x, int de, int h, int hp, int num_tiles, int num_nodes,
     int node_block, int edge_tile) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    int* keys = reinterpret_cast<int*>(smem_raw);   // ordered keys
-    float* we_s = reinterpret_cast<float*>(smem_raw + acc_bytes(node_block));
-    const int blk = blockIdx.x;
-    const int col0 = blockIdx.y * kBlockCols;
-    const int tid = threadIdx.x;
-    const int nthreads = blockDim.x;
-    const int warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, tq = lane & 3;
-    const int base = blk * node_block;
-
-    for (int i = tid; i < node_block * kAccLd; i += nthreads) {
-        keys[i] = ordered_key(kNeg);
-    }
-    // the W_e slice [col0, col0 + 64), k-major, zero past h
-    for (int i = tid; i < de * kBlockCols; i += nthreads) {
-        const int kk = i / kBlockCols, n = i % kBlockCols;
-        const int col = col0 + n;
-        we_s[kk * kWeLd + n] =
-            col < h ? w_e[static_cast<size_t>(kk) * h + col] : 0.0f;
-    }
-    const int lo = lower_bound(tile_blocks, num_tiles, blk);
-    const int hi = lower_bound(tile_blocks, num_tiles, blk + 1);
-    const int groups = (hi - lo) * (edge_tile / kGroup);
-    const size_t slot_lo = static_cast<size_t>(lo) * edge_tile;
-    __syncthreads();
-
-    GroupSlots next{};
-    if (warp < groups) {
-        next = load_group(senders, recv,
-                          slot_lo + static_cast<size_t>(warp) * kGroup, g);
-    }
-    for (int q = warp; q < groups; q += kWarps) {
-        const size_t slot0 = slot_lo + static_cast<size_t>(q) * kGroup;
-        const GroupSlots G = next;
-        if (q + kWarps < groups) {
-            next = load_group(senders, recv,
-                              slot0 + kWarps * static_cast<size_t>(kGroup),
-                              g);
-        }
-        CsrSlot S[2];
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            S[half] = csr_slot(G.rc[half], G.sn[half], base, node_block,
-                               num_nodes, n_x);
-        }
-        // a group of padding slots lands nothing
-        if (!__any_sync(0xffffffffu, S[0].rc >= 0 || S[1].rc >= 0)) continue;
-        // the senders' y_s slices (0 where the x part is 0; a slot that
-        // does not count is never landed)
-        float2 y[2][kColTiles];
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            const int s = S[half].sn;
-            const float* yr = y_s + static_cast<size_t>(s >= 0 ? s : 0) * hp
-                + col0 + tq * 2;
-#pragma unroll
-            for (int nt = 0; nt < kColTiles; ++nt) {
-                y[half][nt] = s >= 0
-                    ? __ldg(reinterpret_cast<const float2*>(yr + nt * 8))
-                    : make_float2(0.0f, 0.0f);
-            }
-        }
-        // the edge chain (csr_slot.cuh): ep[nt][q] at row g + (q >> 1) * 8
-        // and column col0 + nt * 8 + tq * 2 + (q & 1), k ascending from 0
-        float ep[kColTiles][4];
-#pragma unroll
-        for (int nt = 0; nt < kColTiles; ++nt)
-#pragma unroll
-            for (int k = 0; k < 4; ++k) ep[nt][k] = 0.0f;
-        const float* e0 = e_t + (slot0 + g) * de;
-        const float* e8 = e0 + 8 * de;
-        for (int k0 = 0; k0 < de; k0 += 4) {
-            const float4 a4 = __ldg(reinterpret_cast<const float4*>(e0 + k0));
-            const float4 b4 = __ldg(reinterpret_cast<const float4*>(e8 + k0));
-            const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-            const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-                const float* wr = we_s + (k0 + kk) * kWeLd + tq * 2;
-#pragma unroll
-                for (int nt = 0; nt < kColTiles; ++nt) {
-                    const float2 w =
-                        *reinterpret_cast<const float2*>(wr + nt * 8);
-                    ep[nt][0] = fmaf(av[kk], w.x, ep[nt][0]);
-                    ep[nt][1] = fmaf(av[kk], w.y, ep[nt][1]);
-                    ep[nt][2] = fmaf(bv[kk], w.x, ep[nt][2]);
-                    ep[nt][3] = fmaf(bv[kk], w.y, ep[nt][3]);
-                }
-            }
-        }
-#pragma unroll
-        for (int nt = 0; nt < kColTiles; ++nt) {
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                ep[nt][half * 2] = csr_op(y[half][nt].x, ep[nt][half * 2]);
-                ep[nt][half * 2 + 1] =
-                    csr_op(y[half][nt].y, ep[nt][half * 2 + 1]);
-            }
-        }
-        land_max_runs(keys, kAccLd, ep, G.rc, base, node_block, num_nodes,
-                      g, tq);
-    }
-    __syncthreads();
-
-    // epilogue: hoisted offset, empty receivers -> 0
-    for (int i = tid; i < node_block * kBlockCols; i += nthreads) {
-        const int rr = i / kBlockCols, c = i % kBlockCols;
-        const int n = base + rr, col = col0 + c;
-        if (n >= num_nodes || col >= h) continue;
-        const size_t idx = static_cast<size_t>(n) * h + col;
-        const float inner = ordered_float(keys[rr * kAccLd + c]);
-        if (inner_out != nullptr) inner_out[idx] = inner;
-        out[idx] = inner > kNeg / 2 ? offset[idx] + inner : 0.0f;
-    }
+    csr_walk<CsrOperand>(y_s, e_t, w_e, nullptr, senders, recv, tile_blocks,
+                         offset, out, inner_out, n_x, de, h, hp, num_tiles,
+                         num_nodes, node_block, edge_tile);
 }
 
 }  // namespace
@@ -238,7 +102,7 @@ extern "C" {
 // Shared memory the kernel needs for these shapes, in bytes: the
 // [node_block x 64] accumulator and the float32 W_e slice.
 size_t csr_fwd_v2_smem_bytes(int de, int node_block) {
-    return fwd_smem_bytes(de, node_block);
+    return walk_smem_bytes(de, node_block, false);
 }
 
 // Launches the gather-max on `stream`; returns the cudaError_t of the
@@ -251,26 +115,16 @@ int csr_fwd_v2(const void* y_s, const void* e_t, const void* w_e,
                const void* tile_blocks, const void* offset, void* out,
                void* inner, int n_x, int de, int h, int hp, int num_tiles,
                int num_nodes, int node_block, int edge_tile, void* stream) {
-    const size_t smem = fwd_smem_bytes(de, node_block);
-    cudaError_t err = cudaFuncSetAttribute(
-        csr_fwd_v2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((num_nodes + node_block - 1) / node_block,
-                    hp / kBlockCols);
-    if (grid.x > 0) {
-        csr_fwd_v2_kernel<<<grid, kWarps * 32, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const float*>(y_s), static_cast<const float*>(e_t),
-            static_cast<const float*>(w_e),
-            static_cast<const int32_t*>(senders),
-            static_cast<const int32_t*>(recv),
-            static_cast<const int32_t*>(tile_blocks),
-            static_cast<const float*>(offset), static_cast<float*>(out),
-            static_cast<float*>(inner), n_x, de, h, hp, num_tiles, num_nodes,
-            node_block, edge_tile);
-    }
-    return static_cast<int>(cudaGetLastError());
+    return launch_walk(
+        csr_fwd_v2_kernel, walk_smem_bytes(de, node_block, false), num_nodes,
+        node_block, h, stream, static_cast<const float*>(y_s),
+        static_cast<const float*>(e_t), static_cast<const float*>(w_e),
+        static_cast<const int32_t*>(senders),
+        static_cast<const int32_t*>(recv),
+        static_cast<const int32_t*>(tile_blocks),
+        static_cast<const float*>(offset), static_cast<float*>(out),
+        static_cast<float*>(inner), n_x, de, h, hp, num_tiles, num_nodes,
+        node_block, edge_tile);
 }
 
 }  // extern "C"

@@ -41,9 +41,10 @@
 //    nearest: float32 accuracy, where one TF32 product keeps ~3 digits.
 //    8 warps of 64 rows x 32 columns; depth chunks of 32 staged as they
 //    lie by 16-byte cp.async (4-byte where a row is not 16-byte aligned),
-//    double-buffered. A float32 SIMT tile (128 x 128, 8 x 8 a thread)
-//    measured 4.23 ms at the shape above (PERF.md), above the 2.8 ms this
-//    design was to reach without the tensor cores;
+//    double-buffered (tf32x3.cuh, which the fused linear shares). A
+//    float32 SIMT tile (128 x 128, 8 x 8 a thread) measured 4.23 ms at
+//    the shape above (PERF.md), above the 2.8 ms this design was to reach
+//    without the tensor cores;
 //  - the row chunk's products m_in @ W go through shared memory (over the
 //    product's buffers), and each thread walks one column over 64
 //    receiver-sorted rows, keeping the max of each run of one receiver in
@@ -60,6 +61,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
 #include "tile_walk.cuh"
 
 namespace {
@@ -67,130 +69,22 @@ namespace {
 using namespace radargnn;
 
 constexpr float kNeg = -3.0e38f;         // finite -inf stand-in
-constexpr int kRows = 128;               // slots per row chunk
-constexpr int kCols = 128;               // columns per block
-constexpr int kDepth = 32;               // depth chunk
-constexpr int kThreads = 256;            // 8 warps of 64 x 32
+constexpr int kRows = kTf32Rows;         // slots per row chunk
+constexpr int kCols = kTf32Cols;         // columns per block
+constexpr int kDepth = kTf32Depth;       // depth chunk
+constexpr int kThreads = kTf32Threads;   // 8 warps of 64 x 32
 constexpr int kMt = 4;                   // m16 tiles a warp
 constexpr int kRun = kRows * kCols / kThreads;   // landing rows a thread
-constexpr int kALd = kDepth + 4;         // m_in chunk row stride
-constexpr int kBLd = kCols + 8;          // W chunk row stride
 constexpr int kCLd = kCols + 4;          // staged product row stride
 constexpr int kAccLd = kCols + 1;        // accumulator row stride
 
 struct Smem {
     union {
-        struct {
-            float a[2][kRows][kALd];     // m_in chunk as it lies
-            float b[2][kDepth][kBLd];    // W chunk as it lies
-        } g;
+        Tf32Stage g;                     // m_in and W chunks as they lie
         float c[kRows][kCLd];            // the row chunk's products
     };
     int recv[kRows];                     // the row chunk's receivers
 };
-
-// 3xTF32: x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), both TF32
-// values (x - hi is exact in float32), so that a b ~ lo_a hi_b + hi_a lo_b
-// + hi_a hi_b to ~2^-22 of |a b| (the dropped lo_a lo_b and the rounding
-// of lo): float32 accuracy from three TF32 products.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-    const float rest = x - __uint_as_float(hi);
-    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-}
-
-// c += a @ b (mma.sync m16n8k8, TF32 in, float32 accumulator). A (16 x 8,
-// row): a0 (g, tq), a1 (g+8, tq), a2 (g, tq+4), a3 (g+8, tq+4); B (8 x 8,
-// col): b0 (tq, g), b1 (tq+4, g); C: c0 (g, 2tq), c1 (g, 2tq+1), c2 (g+8,
-// 2tq), c3 (g+8, 2tq+1), with g = lane / 4, tq = lane % 4.
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// acc += the three TF32 products of one 8-deep step (a and b split by
-// split_tf32), formed from zero and added rounded to nearest: the tensor
-// cores' float32 sums truncate, so an output takes that error once per
-// step rather than once per product.
-__device__ __forceinline__ void mma_3xtf32(float* acc, const uint32_t* a_hi,
-                                           const uint32_t* a_lo,
-                                           const uint32_t* b_hi,
-                                           const uint32_t* b_lo) {
-    float p[4];
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-        : "=f"(p[0]), "=f"(p[1]), "=f"(p[2]), "=f"(p[3])
-        : "r"(a_lo[0]), "r"(a_lo[1]), "r"(a_lo[2]), "r"(a_lo[3]),
-          "r"(b_hi[0]), "r"(b_hi[1]), "f"(0.0f));
-    mma_tf32(p, a_hi, b_lo);
-    mma_tf32(p, a_hi, b_hi);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[q] += p[q];
-}
-
-// 4-byte async copy global -> shared (a row that is not 16-byte aligned);
-// copies zero when !pred
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          bool pred) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(s), "l"(gmem), "r"(pred ? 4 : 0));
-}
-
-// Issues the copies of depth chunk k0 of rows row0 .. row0 + 127 of m_in and
-// of W's columns col0 .. col0 + 127 into buffer buf; zero past the ends.
-__device__ __forceinline__ void issue(Smem& S, int buf,
-                                      const float* __restrict__ m_in,
-                                      int64_t row0, int64_t rows_end,
-                                      int d_in, const float* __restrict__ w,
-                                      int h, int col0, int k0, bool vec_a,
-                                      bool vec_w) {
-    const int tid = threadIdx.x;
-#pragma unroll
-    for (int q = 0; q < kRows * kDepth / 4 / kThreads; ++q) {
-        const int i = tid + q * kThreads;
-        const int r = i / (kDepth / 4), kc = (i % (kDepth / 4)) * 4;
-        const int64_t row = row0 + r;
-        const int k = k0 + kc;
-        float* dst = &S.g.a[buf][r][kc];
-        const float* src = m_in + row * d_in + k;
-        if (vec_a) {
-            const bool ok = row < rows_end && k < d_in;
-            cp_async16(dst, ok ? src : m_in, ok);
-        } else {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const bool ok = row < rows_end && k + j < d_in;
-                cp_async4(dst + j, ok ? src + j : m_in, ok);
-            }
-        }
-    }
-#pragma unroll
-    for (int q = 0; q < kDepth * kCols / 4 / kThreads; ++q) {
-        const int i = tid + q * kThreads;
-        const int k = k0 + i / (kCols / 4), c = (i % (kCols / 4)) * 4;
-        const int col = col0 + c;
-        float* dst = &S.g.b[buf][i / (kCols / 4)][c];
-        const float* src = w + static_cast<int64_t>(k) * h + col;
-        if (vec_w) {
-            const bool ok = k < d_in && col < h;
-            cp_async16(dst, ok ? src : w, ok);
-        } else {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const bool ok = k < d_in && col + j < h;
-                cp_async4(dst + j, ok ? src + j : w, ok);
-            }
-        }
-    }
-    cp_async_commit();
-}
 
 __global__ void __launch_bounds__(kThreads, 1) msg_segmax_kernel(
     const float* __restrict__ m_in,            // [T*TE, d_in]
@@ -242,12 +136,13 @@ __global__ void __launch_bounds__(kThreads, 1) msg_segmax_kernel(
             for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
                 for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.0f;
-        issue(S, 0, m_in, row0, hi, d_in, w, h, col0, 0, vec_a, vec_w);
+        tf32_load_chunk(S.g, 0, m_in, row0, hi, d_in, w, h, col0, 0, vec_a,
+                        vec_w);
         for (int c = 0; c < chunks; ++c) {
             const int buf = c & 1;
             if (c + 1 < chunks) {
-                issue(S, buf ^ 1, m_in, row0, hi, d_in, w, h, col0,
-                      (c + 1) * kDepth, vec_a, vec_w);
+                tf32_load_chunk(S.g, buf ^ 1, m_in, row0, hi, d_in, w, h,
+                                col0, (c + 1) * kDepth, vec_a, vec_w);
                 cp_async_wait<1>();
             } else {
                 cp_async_wait<0>();

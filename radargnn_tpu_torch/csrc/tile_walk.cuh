@@ -1,5 +1,6 @@
 // The walk over a node block's tiles that the block-per-node-block forward
-// kernels share (windowed_fwd_v3.cu, csr_fwd_v2.cu): the block's tile range
+// kernels share (windowed_fwd_v3.cu; csr_walk.cuh, the walk of
+// csr_fwd_v2.cu and hoisted_fwd_v1.cu): the block's tile range
 // by binary search over the non-decreasing tile_blocks, and the landing of
 // a warp's group of ops in a shared-memory accumulator by an exact atomic
 // max of ordered keys; and the strict routing test and the packing of its

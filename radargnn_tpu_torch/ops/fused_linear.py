@@ -2,10 +2,11 @@
 
 Port of `fused_linear` / `fused_linear_reference`
 (`radargnn_tpu/ops/pallas_kernels.py`). On the card it is the hand-written
-kernel `csrc/fused_linear.cu` (replaces `_linear_kernel`): a float32 SIMT
-GEMM with a bias/ReLU epilogue. On the CPU the wrapper takes the plain
-version. The JAX package runs Mosaic's default float32 dot on a TPU, one
-bf16 pass; the port keeps float32 products and sums, which is the JAX
+kernel `csrc/fused_linear.cu` (replaces `_linear_kernel`): a 3xTF32 GEMM
+on the tensor cores (float32 accuracy from three TF32 products, the
+message segment-max's) with a bias/ReLU epilogue. On the CPU the wrapper
+takes the plain version. The JAX package runs Mosaic's default float32 dot
+on a TPU, one bf16 pass; the port keeps float32 accuracy, which is the JAX
 function's contract wherever it is exact (interpret mode).
 """
 
@@ -31,7 +32,7 @@ fused_linear_reference = fused_linear_plain
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.fused_linear.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+    lib.fused_linear.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     lib.fused_linear.restype = ctypes.c_int
 
@@ -54,13 +55,17 @@ def check_float32_operands(check, floats: dict,
     the device."""
     ints = ints or {}
     dev = next(iter(floats.values())).device
+    # each message is formatted only where its check fails: these checks
+    # run on every launch, and B9 takes microseconds on the card
     for names, dtype, label in ((floats, torch.float32, "float32"),
                                 (ints, torch.int32, "int32")):
         for name, ten in names.items():
-            check(ten.device == dev and dev.type == "cuda",
-                  f"{name} must be on {dev} (a CUDA device)")
-            check(ten.is_contiguous(), f"{name} must be contiguous")
-            check(ten.dtype == dtype, f"{name} must be {label}")
+            if not (ten.device == dev and dev.type == "cuda"):
+                check(False, f"{name} must be on {dev} (a CUDA device)")
+            if not ten.is_contiguous():
+                check(False, f"{name} must be contiguous")
+            if ten.dtype != dtype:
+                check(False, f"{name} must be {label}")
     return dev
 
 
@@ -74,15 +79,19 @@ def fused_linear_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            "x and w must be matrices and b a vector")
     m, k = x.shape
     n = w.shape[1]
-    _check(w.shape[0] == k and b.shape == (n,),
-           f"w {tuple(w.shape)} / b {tuple(b.shape)} do not match x "
-           f"{tuple(x.shape)}")
+    if w.shape[0] != k or b.shape != (n,):
+        _check(False, f"w {tuple(w.shape)} / b {tuple(b.shape)} do not "
+               f"match x {tuple(x.shape)}")
     y = torch.empty((m, n), dtype=torch.float32, device=dev)
     lib = load_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        # rows copied 16 bytes at a time where they are 16-byte aligned
         err = lib.fused_linear(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                               y.data_ptr(), m, k, n, int(relu), stream)
+                               y.data_ptr(), m, k, n, int(relu),
+                               int(k % 4 == 0 and x.data_ptr() % 16 == 0),
+                               int(n % 4 == 0 and w.data_ptr() % 16 == 0),
+                               stream)
     if err != 0:
         raise RuntimeError(f"fused_linear launch failed: cudaError {err}")
     fused_linear_cuda.launches += 1

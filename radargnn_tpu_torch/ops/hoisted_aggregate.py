@@ -16,13 +16,14 @@ Unlike v2-v4, v1 puts b inside the operand, so the backward's routing
 compares the operand with the bias against `inner`.
 
 The forward of both factories is the hand-written kernel
-`csrc/hoisted_fwd_v1.cu` (replaces `_hoisted_scan_kernel`); it gathers the
-rows of y_s itself, where the JAX package gathers them in XLA, and lands
-the exact max, where the TPU kernel lands a mean of equal maxima (about
-1e-7 relative from it). The backward of `make_fused_hoisted_aggregate` is
-the JAX package's XLA backward in torch ops; that of
-`make_fused_hoisted_aggregate_pallas_bwd` is the hand-written kernel
-`csrc/hoisted_bwd_v1.cu` (replaces `_hoisted_bwd_kernel`), with d_y_s
+`csrc/hoisted_fwd_v1.cu` (replaces `_hoisted_scan_kernel`), the CSR
+forward's gather-max walk (`csrc/csr_walk.cuh`) with v1's operand; it
+gathers the rows of y_s itself, where the JAX package gathers them in XLA,
+and lands the exact max, where the TPU kernel lands a mean of equal maxima
+(about 1e-7 relative from it). The backward of
+`make_fused_hoisted_aggregate` is the JAX package's XLA backward in torch
+ops; that of `make_fused_hoisted_aggregate_pallas_bwd` is the hand-written
+kernel `csrc/hoisted_bwd_v1.cu` (replaces `_hoisted_bwd_kernel`), with d_y_s
 landed by sender through `ops.segment_sum` (B3), deterministically. Both
 route g to every slot within 1e-5 |inner| + 1e-5 of its receiver's max
 (a tied slot takes the full g), gated to slots with a receiver.
@@ -41,6 +42,7 @@ import ctypes
 import torch
 
 from radargnn_tpu_torch.build import load_library
+from radargnn_tpu_torch.ops import csr_aggregate as ca
 from radargnn_tpu_torch.ops import segment_sum
 from radargnn_tpu_torch.ops.dense_aggregate import _MAX_SMEM, _NEG, _routes
 from radargnn_tpu_torch.ops.fused_linear import check_float32_operands
@@ -95,7 +97,7 @@ def hoisted_bwd_plain(y_s, e_t, w_e, b, senders_t, recv, tile_blocks,
 
 def _bind_fwd(lib: ctypes.CDLL) -> None:
     lib.hoisted_fwd_v1.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.hoisted_fwd_v1.restype = ctypes.c_int
     lib.hoisted_fwd_v1_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.hoisted_fwd_v1_smem_bytes.restype = ctypes.c_size_t
@@ -153,24 +155,68 @@ def _check_operands(check, y_s, e_t, w_e, b, senders_t, recv, tile_blocks,
     return dev
 
 
+def fwd_smem_bytes(de: int, node_block: int) -> int:
+    """Shared memory of the forward kernel, in bytes (d_e as the kernel
+    takes it, a multiple of 4): the CSR forward's walk
+    (`csr_aggregate.fwd_smem_bytes`) and the 64-column bias slice;
+    `hoisted_fwd_v1_smem_bytes` of the source."""
+    return ca.fwd_smem_bytes(de, node_block) + 4 * 64
+
+
+def walk_operands(y_s, e_t, w_e, senders_t, recv, edge_tile: int):
+    """The forward's operands as the walk takes them: y_s with a row stride
+    that is a multiple of 4 (zero columns past H, whose operands the kernel
+    never writes out), d_e padded to a multiple of 4 with zero features
+    (each adds an exact zero to the edge chain, so the operand keeps its
+    bits), and every tile padded to a multiple of 16 slots with empty ones.
+    Returns (y_s, e_t, w_e, senders_t, recv, edge_tile); the inputs where
+    nothing is padded."""
+    pad = torch.nn.functional.pad
+    if y_s.shape[1] % 4:
+        y_s = pad(y_s, (0, -y_s.shape[1] % 4))
+    de_pad = -e_t.shape[1] % 4
+    if de_pad:
+        e_t, w_e = pad(e_t, (0, de_pad)), pad(w_e, (0, 0, 0, de_pad))
+    slot_pad = -edge_tile % 16
+    if slot_pad:
+        t = recv.shape[0] // edge_tile
+
+        def tiles(a, fill):
+            a = a.view(t, edge_tile, -1)
+            return pad(a, (0, 0, 0, slot_pad), value=fill).view(
+                t * (edge_tile + slot_pad), -1)
+
+        e_t = tiles(e_t, 0.0)
+        senders_t = tiles(senders_t, 0).view(-1)
+        recv = tiles(recv, -1).view(-1)
+        edge_tile += slot_pad
+    return y_s, e_t, w_e, senders_t, recv, edge_tile
+
+
 def hoisted_fwd_cuda(y_s, e_t, w_e, b, senders_t, recv, tile_blocks, offset,
                      *, node_block: int, edge_tile: int,
                      emit_inner: bool = False):
     """Launches `csrc/hoisted_fwd_v1.cu` on the current stream (VJP mode
-    with `emit_inner`: it also writes `inner`); raises on inputs the kernel
-    does not take. Counts its launches in `hoisted_fwd_cuda.launches`."""
+    with `emit_inner`: it also writes `inner`), on `walk_operands`; raises
+    on inputs the kernel does not take. Counts its launches in
+    `hoisted_fwd_cuda.launches`."""
     check = _checker("hoisted_fwd_v1")
     dev = _check_operands(check, y_s, e_t, w_e, b, senders_t, recv,
                           tile_blocks, dict(offset=offset),
                           edge_tile=edge_tile)
     n_y, h = y_s.shape
-    de = e_t.shape[1]
     num_nodes = offset.shape[0]
     t = tile_blocks.shape[0]
+    de4 = -(-e_t.shape[1] // 4) * 4
+    # the accumulator holds the whole node block
+    check(fwd_smem_bytes(de4, node_block) <= _MAX_SMEM,
+          f"d_e={e_t.shape[1]}, node_block={node_block} need more shared "
+          "memory than a block has")
+    y_s, e_t, w_e, senders_t, recv, edge_tile = walk_operands(
+        y_s, e_t, w_e, senders_t, recv, edge_tile)
+    check(y_s.data_ptr() % 16 == 0 and e_t.data_ptr() % 16 == 0,
+          "y_s and e_t must be 16-byte aligned")
     lib = load_fwd_kernel()
-    check(lib.hoisted_fwd_v1_smem_bytes(de, node_block) <= _MAX_SMEM,
-          f"d_e={de}, node_block={node_block} need more shared memory than "
-          "a block has")
     out = torch.empty((num_nodes, h), dtype=torch.float32, device=dev)
     inner = torch.empty_like(out) if emit_inner else None
     with torch.cuda.device(dev):
@@ -179,8 +225,8 @@ def hoisted_fwd_cuda(y_s, e_t, w_e, b, senders_t, recv, tile_blocks, offset,
             y_s.data_ptr(), e_t.data_ptr(), w_e.data_ptr(), b.data_ptr(),
             senders_t.data_ptr(), recv.data_ptr(), tile_blocks.data_ptr(),
             offset.data_ptr(), out.data_ptr(),
-            None if inner is None else inner.data_ptr(), n_y, de, h, t,
-            num_nodes, node_block, edge_tile, stream)
+            None if inner is None else inner.data_ptr(), n_y, de4, h,
+            y_s.shape[1], t, num_nodes, node_block, edge_tile, stream)
     if err != 0:
         raise RuntimeError(f"hoisted_fwd_v1 launch failed: cudaError {err}")
     hoisted_fwd_cuda.launches += 1

@@ -22,6 +22,7 @@ import json
 import math
 import os
 import subprocess
+import sys
 import time
 from contextlib import ExitStack
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -30,7 +31,8 @@ from unittest import mock
 import numpy as np
 import torch
 
-from radargnn_tpu_torch.benchmarks import kernel_bench, kernel_check
+from radargnn_tpu_torch.benchmarks import kernel_bench, kernel_check, \
+    linear_bench
 from radargnn_tpu_torch.benchmarks.kernel_bench import time_ms as _time_ms
 from radargnn_tpu_torch.build import nvcc_all
 from radargnn_tpu_torch.configs import UserConfigurationReader
@@ -104,9 +106,10 @@ CSR_EDGE_GRAD_RTOL = 1e-5
 # the float32 kernels of the fourth phase (fused linear, message
 # segment-max, the v1 forward; the v1 backward's d_e, dW_e and d_b with a
 # real-valued g) against their plain versions, relative to the output's
-# scale: float32 products and sums on both sides, in other orders (an fma
-# chain against a matmul), about 1e-6; a bf16 or TF32 product would be
-# about 1e-3
+# scale: float32 accuracy on both sides (float32 products, or three TF32
+# products on the tensor cores, 3xTF32), in other orders (an fma chain
+# against a matmul), about 1e-6; a bf16 or TF32 product would be about
+# 1e-3
 F32_RTOL = 1e-5
 # whole model, kernel path vs plain path on the card: a different f32
 # summation order can move an activation across a bf16 rounding boundary
@@ -1340,11 +1343,6 @@ def v1_tiling(batch, node_block: int = 128, edge_tile: int = 256
                     edge_tile, int((padded >= 0).sum()))
 
 
-# the fused linear against torch.addmm: rounds of timed calls, alternating
-# which runs first (their spread between calls is ~2x, PERF.md)
-LINEAR_ROUNDS = 6
-
-
 def _f32_bound(flops: float, nbytes: float) -> Dict:
     """The bound of a float32 kernel: its operations at the float32 peak
     outside the tensor cores, its bytes at the HBM rate."""
@@ -1357,22 +1355,43 @@ def _timed(row: Dict, on_card: bool, reps: int, **fns: Callable) -> None:
         row[name] = _time_ms(fn, reps) if on_card else None
 
 
+def _linear_bench(cases: List[tuple], seed: int, reps: int) -> List[Dict]:
+    """`benchmarks.linear_bench` on `cases` in a process of its own with
+    cuBLAS's default workspace (this process limits it for the
+    deterministic training phases, which slows torch.addmm: PERF.md)."""
+    env = {k: v for k, v in os.environ.items()
+           if k != "CUBLAS_WORKSPACE_CONFIG"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "radargnn_tpu_torch.benchmarks.linear_bench",
+         "--cases", json.dumps(cases), "--seed", str(seed), "--reps",
+         str(reps)], env=env, cwd=_REPO,
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"linear_bench failed:\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()[-len(cases):]
+    return [json.loads(line) for line in lines]
+
+
 def check_linear_kernel(dev, cases: List[tuple], seed: int, reps: int,
                         out: Callable = print) -> List[Dict]:
     """Holds the fused linear kernel against its plain version on seeded
     float32 inputs, for each (rows, d_in, d_out, relu, weight scale), to
-    F32_RTOL of the output's scale; times on the card the plain version
-    and, in LINEAR_ROUNDS rounds that alternate which runs first, the
-    kernel, torch.addmm + ReLU and torch.addmm alone at every shape (the
-    library call for the case's function is the one with ReLU where the
-    case has one); the rows keep each time's median and its rounds."""
+    F32_RTOL of the output's scale, beside its bound (3xTF32, the float32
+    floor beside it); times on the card the plain version and, by
+    `benchmarks.linear_bench` in a process with cuBLAS's default workspace
+    on the same inputs, the kernel, torch.addmm + ReLU and torch.addmm
+    alone in rounds that alternate which runs first (the library call for
+    the case's function is the one with ReLU where the case has one). Each
+    is read back to back (`ms`, the timer of every other kernel's row: the
+    host's launch time included where it exceeds the device time) and
+    queued behind a sleep kernel (`device_ms`, the device alone; `host_ms`,
+    the host's time to issue a call); the rows keep each time's median and
+    its rounds."""
     gen = torch.Generator().manual_seed(seed)
     on_card = dev.type == "cuda"
     rows = []
     for m, k, n, relu, scale in cases:
-        x = torch.randn((m, k), generator=gen).to(dev)
-        w = (torch.randn((k, n), generator=gen) * scale).to(dev)
-        b = torch.randn((n,), generator=gen).to(dev)
+        x, w, b = linear_bench.linear_inputs(gen, m, k, n, scale, dev)
         got = fl.fused_linear(x, w, b, relu=relu)
         ref = fl.fused_linear_plain(x, w, b, relu=relu)
         if on_card:
@@ -1382,35 +1401,36 @@ def check_linear_kernel(dev, cases: List[tuple], seed: int, reps: int,
                 or rel > F32_RTOL:
             raise AssertionError(f"fused_linear disagrees with its plain "
                                  f"version at {m} x {k} -> {n}: {rel:.3e}")
-
-        fns = {"ms": lambda: fl.fused_linear(x, w, b, relu=relu),
-               "addmm_relu_ms": lambda: torch.addmm(b, x, w).relu_(),
-               "addmm_ms": lambda: torch.addmm(b, x, w)}
         row = {"rows": m, "d_in": k, "d_out": n, "relu": relu,
                "max_abs_err": err, "max_rel_err": rel,
-               **_f32_bound(2.0 * m * k * n,
-                            4.0 * (m * k + k * n + n + m * n))}
+               **_tf32x3_bound(2.0 * m * k * n,
+                               4.0 * (m * k + k * n + n + m * n))}
         _timed(row, on_card, reps,
                plain_ms=lambda: fl.fused_linear_plain(x, w, b, relu=relu))
-        for name in fns:
-            row[name] = None
-        if on_card:
-            times = {name: [] for name in fns}
-            for r in range(LINEAR_ROUNDS):
-                for name in (fns if r % 2 == 0 else reversed(list(fns))):
-                    times[name].append(_time_ms(fns[name], reps))
-            for name, ts in times.items():
-                row[name] = float(np.median(ts))
-                row[f"{name}_rounds"] = ts
-        row["library_ms"] = row["addmm_relu_ms" if relu else "addmm_ms"]
-        out(f"kernel fused_linear {m} x {k} -> {n} (relu {relu}): "
-            f"max_abs_err={err:.3e} max_rel_err={rel:.3e} ms={row['ms']} "
-            f"plain_ms={row['plain_ms']} addmm + ReLU ms="
-            f"{row['addmm_relu_ms']} addmm ms={row['addmm_ms']} (medians of "
-            f"{LINEAR_ROUNDS} alternating rounds) bound_ms="
-            f"{row['bound_ms']:.4f} "
-            f"({row['bound_by']})")
         rows.append(row)
+    bench = _linear_bench(cases, seed, reps) if on_card else [{}] * len(rows)
+    for row, timed in zip(rows, bench):
+        for prefix in ("", "addmm_relu_", "addmm_"):
+            for timer in ("ms", "device_ms", "host_ms"):
+                name = prefix + timer
+                row[name] = timed.get(name)
+                row[f"{name}_rounds"] = timed.get(f"{name}_rounds")
+        row["cublas_workspace_config"] = timed.get("cublas_workspace_config")
+        lib = "addmm_relu_" if row["relu"] else "addmm_"
+        row["library_ms"] = row[f"{lib}ms"]
+        row["library_device_ms"] = row[f"{lib}device_ms"]
+        out(f"kernel fused_linear {row['rows']} x {row['d_in']} -> "
+            f"{row['d_out']} (relu {row['relu']}): max_abs_err="
+            f"{row['max_abs_err']:.3e} max_rel_err={row['max_rel_err']:.3e} "
+            f"plain_ms={row['plain_ms']}; medians of {linear_bench.ROUNDS} "
+            f"alternating rounds (cuBLAS's default workspace), back to back "
+            f"/ device alone / host per call: kernel {row['ms']} / "
+            f"{row['device_ms']} / {row['host_ms']} ms, addmm + ReLU "
+            f"{row['addmm_relu_ms']} / {row['addmm_relu_device_ms']} / "
+            f"{row['addmm_relu_host_ms']}, addmm {row['addmm_ms']} / "
+            f"{row['addmm_device_ms']} / {row['addmm_host_ms']}; bound_ms="
+            f"{row['bound_ms']:.4f} ({row['bound_by']}, 3xTF32; float32 "
+            f"floor {row['f32_bound_ms']:.4f})")
     return rows
 
 
@@ -1460,21 +1480,26 @@ def segmax_wide_range(rng: np.random.Generator, e: int, d_in: int,
             b.astype(np.float32))
 
 
-def _segmax_bound(valid_slots: int, e_pad: int, d_in: int, h: int, t: int,
-                  n: int) -> Dict:
-    """B8's bound: 2 E d_in H product operations over the valid slots, and
-    m_in, W, b, the receivers, the tiles' blocks and the output each moved
-    once. The kernel forms each product as three TF32 products on the tensor
-    cores (3xTF32, float32 accuracy), so the bound is the lesser of that
-    floor and the float32 floor outside the tensor cores; both floors stand
-    beside it (`tf32x3_bound_ms`, `f32_bound_ms`)."""
-    flops = 2.0 * valid_slots * d_in * h
-    nbytes = 4.0 * (e_pad * d_in + d_in * h + h + e_pad + t + n * h)
+def _tf32x3_bound(flops: float, nbytes: float) -> Dict:
+    """The bound of a float32 kernel that forms each product as three TF32
+    products on the tensor cores (3xTF32, float32 accuracy: B8, B9): the
+    lesser of that floor and the float32 floor outside the tensor cores;
+    both floors stand beside it (`tf32x3_bound_ms`, `f32_bound_ms`)."""
     f32 = _f32_bound(flops, nbytes)
     tf32x3 = _bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
     return {**min(f32, tf32x3, key=lambda b: b["bound_ms"]),
             "product_flops": flops, "f32_bound_ms": f32["bound_ms"],
             "tf32x3_bound_ms": tf32x3["bound_ms"]}
+
+
+def _segmax_bound(valid_slots: int, e_pad: int, d_in: int, h: int, t: int,
+                  n: int) -> Dict:
+    """B8's bound (`_tf32x3_bound`): 2 E d_in H product operations over the
+    valid slots, and m_in, W, b, the receivers, the tiles' blocks and the
+    output each moved once."""
+    return _tf32x3_bound(
+        2.0 * valid_slots * d_in * h,
+        4.0 * (e_pad * d_in + d_in * h + h + e_pad + t + n * h))
 
 
 def check_segmax_kernel(v1: V1Tiling, d_in: int, h: int, seed: int,
@@ -1577,6 +1602,60 @@ def _v1_bounds(v1: V1Tiling, de: int, h: int) -> Tuple[Dict, Dict]:
     return fwd, bwd
 
 
+# shapes at which the v1 forward's wrapper pads its operands: d_e 3 (e_t and
+# W_e padded to 4 features), with H 464 and 450 (y_s's row stride padded to
+# 452)
+V1_PADDED_SHAPES = ((3, 464), (3, 450))
+
+
+def check_v1_padding(v1: V1Tiling, layer_shapes: List[tuple], seed: int,
+                     reps: int, out: Callable = print) -> List[Dict]:
+    """What the v1 forward's operand padding (`walk_operands`) costs. At
+    the model's layer shapes it pads nothing: the operands come back as
+    they were given. At V1_PADDED_SHAPES the forward, which pads, is held
+    to its plain version (F32_RTOL of the output's scale) and timed on the
+    card beside `walk_operands` alone (the copies)."""
+    dev = v1.recv.device
+    on_card = dev.type == "cuda"
+    gen = torch.Generator().manual_seed(seed)
+    n, e_pad = v1.num_nodes, v1.recv.shape[0]
+    kw = dict(node_block=v1.node_block, edge_tile=v1.edge_tile)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    for _, de, h in layer_shapes:
+        given = (torch.empty((n, h), device=dev),
+                 torch.empty((e_pad, de), device=dev),
+                 torch.empty((de, h), device=dev), v1.senders, v1.recv)
+        got = ha.walk_operands(*given, v1.edge_tile)
+        if any(a is not b for a, b in zip(got, given)) \
+                or got[-1] != v1.edge_tile:
+            raise AssertionError(f"walk_operands pads at d_e={de}, H={h}, "
+                                 f"edge_tile={v1.edge_tile}")
+    rows = []
+    for de, h in V1_PADDED_SHAPES:
+        y_s, e_t, w_e = rand(n, h), rand(e_pad, de), rand(de, h)
+        args = (y_s, e_t, w_e, rand(h), v1.senders, v1.recv, v1.blocks,
+                rand(n, h))
+        err, rel = _rel_err(ha.hoisted_fwd(*args, **kw),
+                            ha.hoisted_fwd_plain(*args, **kw))
+        if rel > F32_RTOL:
+            raise AssertionError(f"hoisted_fwd_v1 disagrees with its plain "
+                                 f"version at d_e={de}, H={h}: {rel:.3e}")
+        row = {"d_e": de, "h": h, "max_abs_err": err, "max_rel_err": rel}
+        _timed(row, on_card, reps,
+               ms=lambda: ha.hoisted_fwd(*args, **kw),
+               pad_ms=lambda: ha.walk_operands(y_s, e_t, w_e, v1.senders,
+                                               v1.recv, v1.edge_tile))
+        out(f"kernel hoisted_fwd_v1 padded operands, d_e={de} H={h}: "
+            f"max_rel_err={rel:.3e} ms={row['ms']} of which walk_operands "
+            f"ms={row['pad_ms']}; the model's {len(layer_shapes)} layer "
+            "shapes pad nothing")
+        rows.append(row)
+    return rows
+
+
 def check_v1_kernels(v1: V1Tiling, layer_shapes: List[tuple], seed: int,
                      reps: int, out: Callable = print
                      ) -> Tuple[List[Dict], List[Dict]]:
@@ -1585,11 +1664,11 @@ def check_v1_kernels(v1: V1Tiling, layer_shapes: List[tuple], seed: int,
     node-level projection x @ W_s.
 
     The forward runs on seeded real-valued inputs, in serving and in VJP
-    mode, to F32_RTOL of the output's scale. The backward runs on dyadic
-    operands (x, e in multiples of 1/2, the weights of 1/4, b and g of
-    1/8): every sum is exact in float32 in any order, the routing compares
-    equal operands, ties are frequent, and its four outputs must agree
-    bitwise; then on the same operands with a real-valued g, which only the
+    mode (both timed), to F32_RTOL of the output's scale. The backward runs
+    on dyadic operands (x, e in multiples of 1/2, the weights of 1/4, b and
+    g of 1/8): every sum is exact in float32 in any order, the routing
+    compares equal operands, ties are frequent, and its four outputs must
+    agree bitwise; then on the same operands with a real-valued g, which only the
     summation order of d_e, dW_e and d_b can tell apart (F32_RTOL of each
     output's scale); two runs must give the same bits."""
     dev = v1.recv.device
@@ -1631,6 +1710,7 @@ def check_v1_kernels(v1: V1Tiling, layer_shapes: List[tuple], seed: int,
                  **fwd_bound}
         _timed(f_row, on_card, reps,
                ms=lambda: ha.hoisted_fwd(*args, **kw),
+               vjp_ms=lambda: ha.hoisted_fwd(*args, **kw, emit_inner=True),
                plain_ms=lambda: ha.hoisted_fwd_plain(*args, **kw))
 
         # the backward on dyadic operands
@@ -1664,8 +1744,8 @@ def check_v1_kernels(v1: V1Tiling, layer_shapes: List[tuple], seed: int,
                plain_ms=lambda: ha.hoisted_bwd_plain(*bargs, **kw))
         out(f"kernel hoisted_fwd_v1 d_in={d} H={h}: max_abs_err={err:.3e} "
             f"max_rel_err={f_row['max_rel_err']:.3e} ms={f_row['ms']} "
-            f"plain_ms={f_row['plain_ms']} bound_ms="
-            f"{f_row['bound_ms']:.4f} ({f_row['bound_by']})")
+            f"(VJP mode {f_row['vjp_ms']}) plain_ms={f_row['plain_ms']} "
+            f"bound_ms={f_row['bound_ms']:.4f} ({f_row['bound_by']})")
         out(f"kernel hoisted_bwd_v1 d_in={d} H={h}: dyadic errors (abs) "
             + ", ".join(f"{nm} {e[0]:.3e}" for nm, e in zip(names, errs))
             + "; real-valued g, relative to each output's scale "
@@ -1864,6 +1944,8 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
                                              reps, out)
     last["v1_fwd"], last["v1_bwd"] = check_v1_kernels(v1, shapes, seed, reps,
                                                       out)
+    with torch.no_grad():
+        last["v1_padding"] = check_v1_padding(v1, shapes, seed, reps, out)
     last.update(kernel_entry_points(dev, bench, reps, out))
     summary["last_four"] = last
 
@@ -1951,5 +2033,5 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
                                              "tiling", "radius_tiling"))},
                     "last_four": {k: last[k] for k in (
                         "linear", "segmax", "v1_fwd", "v1_bwd",
-                        "kernel_bench")}}))
+                        "v1_padding", "kernel_bench")}}))
     return summary

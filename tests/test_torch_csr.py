@@ -48,6 +48,11 @@ from radargnn_tpu_torch.ops import windowed_tiles as wt
 from radargnn_tpu_torch.postprocess.inference import Predictor
 from radargnn_tpu_torch.train.trainer import Trainer
 
+from host_backends import host_pair, native_cache  # noqa: F401
+
+# the host arrays of both packages from one pair of host backends
+pytestmark = pytest.mark.usefixtures("host_pair")
+
 _DIFF = ("x", "w_s", "e_t", "w_e", "offset")
 RTOL = ATOL = 1e-4
 SPEC = (32, 64)          # (node_block, edge_tile) of the model-size tests

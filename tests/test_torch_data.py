@@ -2,10 +2,15 @@
 configuration loading, synthetic frames, graph construction, box geometry and
 the padded dense-tiled batch. These are numpy paths in both packages, so the
 port must give identical arrays (exact equality, NaN == NaN), except where a
-float computation is stated with its tolerance."""
+float computation is stated with its tolerance.
+
+Both packages have a compiled host helper and a numpy fallback that do not
+agree with each other, so every test here runs with both packages on one
+backend (`host_backends.host_pair`: both compiled, or both numpy)."""
 
 import dataclasses
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -23,6 +28,11 @@ from radargnn_tpu_torch.graph import batch as tbatch
 from radargnn_tpu_torch.ops import knn as tknn
 from radargnn_tpu_torch.postprocess import boxes as tboxes
 from radargnn_tpu_torch.utils import geometry as tgeo
+
+import host_backends
+from host_backends import host_pair, native_cache  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("host_pair")
 
 _CFG_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "configurations")
@@ -102,16 +112,33 @@ def test_make_samples_flagship_graph_config_match_jax():
                           graph_config=jg))
 
 
+def test_host_backends_are_one_pair(host_pair):
+    """The host-parity tests run both packages on one backend: states which
+    pair ran (-s shows it), and fails on a mixed pair. Where g++ is present
+    the pair must be the compiled one: a helper that fails to build or load
+    there is a fault, not a reason to compare numpy with numpy."""
+    ran = host_backends.backends()
+    print(f"host backends: {ran}")
+    assert set(ran.values()) == {host_pair}, (
+        f"mixed pair of host backends: {ran}; the packages' arrays would "
+        "differ by backend, not by port")
+    if shutil.which("g++"):
+        assert host_pair == "native", (
+            f"g++ is present, yet a compiled host helper did not load: "
+            f"{ran}")
+
+
 @pytest.mark.parametrize("native", [True, False])
 def test_host_knn_matches_jax(native, monkeypatch):
     """Edge lists, including the tie order (duplicated points), are the same
-    from the compiled helper and from the numpy fallback."""
+    from the compiled helpers and from the numpy fallbacks; where g++ is
+    present, the native case runs both compiled helpers."""
     if not native:
-        import radargnn_tpu.native as jn
-        import radargnn_tpu_torch.native as tn
-        for mod in (jn, tn):
-            monkeypatch.setattr(mod, "_LIB", None)
-            monkeypatch.setattr(mod, "_TRIED", True)
+        assert host_backends.pin(monkeypatch.setattr, native=False) == \
+            "numpy"
+    elif shutil.which("g++"):
+        assert set(host_backends.backends().values()) == {"native"}, \
+            host_backends.backends()
     rng = np.random.default_rng(0)
     x = rng.normal(size=(120, 2))
     x[10] = x[11] = x[12]                       # ties

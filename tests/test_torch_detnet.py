@@ -28,6 +28,11 @@ from radargnn_tpu_torch.models.mlp import MaskedBatchNorm, running_stats_frozen
 from radargnn_tpu_torch.ops import dense_aggregate as da
 from radargnn_tpu_torch.postprocess.inference import Predictor
 
+from host_backends import host_pair, native_cache  # noqa: F401
+
+# the host arrays of both packages from one pair of host backends
+pytestmark = pytest.mark.usefixtures("host_pair")
+
 K = 20
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -21,13 +21,17 @@ from radargnn_tpu_torch.graph import batch as tbatch
 from radargnn_tpu_torch.models import layers as tlayers
 from radargnn_tpu_torch.train import checkpoint as tckpt
 
+from host_backends import native_cache  # noqa: F401
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # Both packages' layers modules are reloaded after each knob is set (one
 # subprocess for every case); for each geometry knob, one small frame pair
 # is stacked in both packages under each fused tiling the knob reaches.
-# Prints one JSON object: per knob, per mode, the two tilings and whether
-# every array agrees.
+# Both packages run one host backend (tests/host_backends.py), the JAX
+# package's helper built in this worker's own directory. Prints one JSON
+# object: per knob, per mode, the two tilings and whether every array
+# agrees.
 _COMPARE = r"""
 import importlib, json, math, os, sys
 import jax
@@ -41,6 +45,9 @@ from radargnn_tpu_torch import configs as tcfg
 from radargnn_tpu_torch.data import synthetic as tsyn
 from radargnn_tpu_torch.graph import batch as tbatch
 from radargnn_tpu_torch.models import layers as tlayers
+sys.path.insert(0, "tests")
+import host_backends
+host_backends.pin(setattr)      # both packages on one host backend
 
 base = dict(node_feature_dimension=5, edge_feature_dimension=2,
             conv_layer_dimensions=[8],
@@ -106,8 +113,10 @@ def _subprocess(code: str, *args: str, env=None) -> str:
 
 
 @pytest.fixture(scope="module")
-def geometry_reports():
-    return json.loads(_subprocess(_COMPARE, json.dumps(_GEOMETRY)))
+def geometry_reports(native_cache):
+    return json.loads(_subprocess(
+        _COMPARE, json.dumps(_GEOMETRY),
+        env=dict(RADARGNN_NATIVE_CACHE=str(native_cache))))
 
 
 @pytest.mark.parametrize("knob,value", _GEOMETRY)

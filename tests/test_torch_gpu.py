@@ -17,6 +17,7 @@ to the smoke's float32 limits."""
 
 import contextlib
 import functools
+import hashlib
 import json
 from unittest import mock
 
@@ -912,10 +913,16 @@ def _cuda(arr, dtype=torch.float32):
     (14080, 224, 464, False),     # the flagship's nodes, 224 -> 464
     (4096, 256, 512, True),       # kernel_check's shape
     (333, 37, 71, True),          # no dimension a multiple of a tile
+    (14080, 224, 464, True),
+    (4096, 256, 512, False),
+    (333, 37, 71, False),
+    (129, 5, 3, True),            # depth and width under one 8-deep step
+    (4097, 224, 130, False),      # one row and two columns past a tile
 ])
 def test_fused_linear_kernel_matches_plain(shape):
     """B9 against its plain version to smoke.F32_RTOL of the output's
-    scale: float32 products and sums on both sides."""
+    scale: float32 accuracy on both sides (3xTF32 on the tensor cores in
+    the kernel, float32 products in cuBLAS)."""
     _need_card()
     m, k, n, relu = shape
     rng = np.random.default_rng(40)
@@ -931,6 +938,88 @@ def test_fused_linear_kernel_matches_plain(shape):
     assert _rel_err(got, want) <= smoke.F32_RTOL
     if relu:
         assert (got >= 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scales", [(1e-30, 1e30), (1e30, 1e-30),
+                                    (1e-36, 1e36), (1e18, 1e-18)])
+def test_fused_linear_kernel_at_extreme_scales(scales):
+    """B9's TF32 split over float32's exponent range: x and W at scales
+    whose products are O(1), the rest of a tiny x (1e-36) below the normal
+    range, against the plain version to smoke.F32_RTOL of the output's
+    scale."""
+    _need_card()
+    sx, sw = scales
+    rng = np.random.default_rng(41)
+    x = _cuda(rng.normal(size=(1000, 224)) * sx)
+    w = _cuda(rng.normal(size=(224, 464)) * 224 ** -0.5 * sw)
+    b = _cuda(rng.normal(size=(464,)))
+    got = fl.fused_linear(x, w, b)
+    want = fl.fused_linear_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, want) <= smoke.F32_RTOL
+
+
+def _bits(*tensors) -> str:
+    """A digest of the tensors' bits."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _csr_fwd_bits() -> str:
+    """B5's forward given y_s, in VJP mode (out and inner), on fixed seeded
+    inputs at the small-tile shape and the flagship's widest: y_s drawn
+    directly (zero past H), so no other kernel feeds it."""
+    outs = []
+    for seed, shape in ((60, _CSHAPES[0]), (61, _CSHAPES[1])):
+        c = _ccase(seed, *shape)
+        n, h = c["offset"].shape
+        rng = np.random.default_rng(seed + 100)
+        y_s = np.zeros((c["x"].shape[0], da.col_pad(h)))
+        y_s[:, :h] = rng.normal(size=(c["x"].shape[0], h))
+        outs += ca.csr_fwd(c["x"], c["w_s"], c["e_t"], c["w_e"],
+                           *c["layout"], c["offset"], emit_inner=True,
+                           y_s=_cuda(y_s), **c["kw"])
+    torch.cuda.synchronize()
+    return _bits(*outs)
+
+
+def _segmax_bits() -> str:
+    """B8's output on fixed seeded inputs: odd widths and the flagship's."""
+    outs = []
+    for seed, shape in ((62, (6000, 1000, 37, 71, 128, 128)),
+                        (63, (40000, 2048, 464, 464, 128, 256))):
+        args, kw = _segmax_inputs(seed, *shape)
+        outs.append(msm.msg_segmax(*args, **kw))
+    torch.cuda.synchronize()
+    return _bits(*outs)
+
+
+# the digests of _csr_fwd_bits and _segmax_bits from the kernels before
+# the CSR forward's walk moved into csrc/csr_walk.cuh and the segment-max's
+# TF32 products into csrc/tf32x3.cuh (the parent tree's kernels, on an
+# NVIDIA H100 80GB HBM3)
+CSR_FWD_BITS = "d49732e07da603a7"
+SEGMAX_BITS = "b36938123656a277"
+
+
+@pytest.mark.gpu
+def test_csr_fwd_bits_are_the_parents():
+    """B5's forward on the shared walk gives the bits the kernel gave
+    before the walk was shared, on fixed inputs."""
+    _need_card()
+    assert _csr_fwd_bits() == CSR_FWD_BITS
+
+
+@pytest.mark.gpu
+def test_segmax_bits_are_the_parents():
+    """B8 gives the bits it gave before its TF32 products moved into the
+    shared header, on fixed inputs."""
+    _need_card()
+    assert _segmax_bits() == SEGMAX_BITS
 
 
 def _segmax_inputs(seed, e, n, d_in, h, nb, et, mask_frac=0.9):
@@ -1070,6 +1159,31 @@ def test_hoisted_fwd_kernel_matches_plain(shape):
     assert _rel_err(inner[has], want_inner[has]) <= smoke.F32_RTOL
 
 
+@pytest.mark.gpu
+def test_hoisted_fwd_kernel_skips_senders_outside_y_s():
+    """A slot whose sender is no row of y_s does not count (v1's slot
+    rule, which the plain version and the backward share): with a tenth
+    of the valid slots' senders set to -1 or n_y, the kernel still agrees
+    with its plain version, empty receivers included."""
+    _need_card()
+    ops, layout, offset, kw = _v1_inputs(55, 2816, 56320, 16, 144)
+    n = ops[0].shape[0]
+    senders = layout[0].clone()
+    rng = np.random.default_rng(56)
+    bad = torch.from_numpy(rng.random(senders.shape[0]) < 0.1).cuda()
+    senders[bad] = torch.where(
+        torch.from_numpy(rng.random(senders.shape[0]) < 0.5).cuda()[bad],
+        -1, n).to(torch.int32)
+    layout = (senders,) + layout[1:]
+    got, inner = ha.hoisted_fwd(*ops, *layout, offset, emit_inner=True, **kw)
+    want, want_inner = ha.hoisted_fwd_plain(*ops, *layout, offset,
+                                            emit_inner=True, **kw)
+    torch.cuda.synchronize()
+    has = want_inner > da._NEG / 2
+    assert torch.equal(inner > da._NEG / 2, has)
+    assert _rel_err(got, want) <= smoke.F32_RTOL
+
+
 def _v1_bwd_args(ops, layout, kw, seed, real_g=False):
     n, h = ops[0].shape[0], ops[0].shape[1]
     _, inner = ha.hoisted_fwd(*ops, *layout, torch.zeros(
@@ -1140,6 +1254,53 @@ def test_v1_kernels_on_the_flagship_batch():
     assert all(r["max_abs_err"] == 0.0 and r["bitwise_repeat"]
                and max(r["real_g_rel_err"].values()) <= smoke.F32_RTOL
                for r in bwd)
+
+
+# the flagship DetNet's five conv layers: (d_in, d_e, H)
+_FLAGSHIP_LAYERS = [(224, 16, 464)] * 3 + [(128, 16, 272), (64, 16, 144)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layer", range(5))
+def test_v1_pair_on_the_flagship_shapes(layer):
+    """At each of the flagship's five layer shapes on the kNN batch under
+    the v1 tiles, real-valued inputs: B6 in serving and VJP mode against
+    its plain version to smoke.F32_RTOL of the output's scale (the same
+    output in both modes, the same empty receivers); then B7 on B6's maxima
+    with g = 1 at every non-empty receiver routes at least one slot of
+    every non-empty (receiver, column), the forward's maximum rebuilt bit
+    for bit, and no slot that does not count."""
+    _need_card()
+    v1 = _knn_v1()
+    d, de, h = _FLAGSHIP_LAYERS[layer]
+    rng = np.random.default_rng(70 + layer)
+    n, e_pad = v1.num_nodes, v1.recv.shape[0]
+    x, w_s = rng.normal(size=(n, d)), rng.normal(size=(d, h)) * d ** -0.5
+    ops = (_cuda(x @ w_s), _cuda(rng.normal(size=(e_pad, de))),
+           _cuda(rng.normal(size=(de, h)) * de ** -0.5),
+           _cuda(rng.normal(size=h)))
+    layout = (v1.senders, v1.recv, v1.blocks)
+    kw = dict(node_block=v1.node_block, edge_tile=v1.edge_tile)
+    offset = _cuda(rng.normal(size=(n, h)))
+    got = ha.hoisted_fwd(*ops, *layout, offset, **kw)
+    got_vjp, inner = ha.hoisted_fwd(*ops, *layout, offset, emit_inner=True,
+                                    **kw)
+    want, want_inner = ha.hoisted_fwd_plain(*ops, *layout, offset,
+                                            emit_inner=True, **kw)
+    has = inner > da._NEG / 2
+    d_op = ha.hoisted_bwd(*ops, *layout, torch.where(has, inner, 0.0),
+                          has.float(), **kw)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, got_vjp) and torch.isfinite(got).all()
+    assert _rel_err(got, want) <= smoke.F32_RTOL
+    assert torch.equal(has, want_inner > da._NEG / 2)
+    assert _rel_err(inner[has], want_inner[has]) <= smoke.F32_RTOL
+    _, rc, valid = ha._slot_operands(*ops, *layout, n, **kw)
+    routed = d_op != 0
+    assert not routed[~valid].any()
+    hits = torch.zeros((n, h), device="cuda").index_add_(
+        0, rc, routed.float())
+    assert bool((hits[has] >= 1).all())
 
 
 @pytest.mark.gpu
@@ -1227,6 +1388,11 @@ def test_float32_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         ha.hoisted_bwd(*ops, *layout, offset, offset.t().contiguous().t(),
                        **vkw)
+    # the wrapper's check holds the forward's own shared-memory size
+    lib = ha.load_fwd_kernel()
+    for de, nb in ((4, 32), (16, 128), (16, 256)):
+        assert ha.fwd_smem_bytes(de, nb) == \
+            lib.hoisted_fwd_v1_smem_bytes(de, nb)
     ops, layout, offset, vkw = _v1_inputs(52, 100, 1000, 8, 40, nb=32, et=30)
     fwd_launches = ha.hoisted_fwd_cuda.launches
     args = _v1_bwd_args(ops, layout, vkw, 53)   # the forward takes 30 slots

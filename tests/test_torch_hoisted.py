@@ -20,6 +20,8 @@ import torch
 
 from radargnn_tpu.ops import pallas_kernels as jpk
 from radargnn_tpu_torch.benchmarks import kernel_check
+from radargnn_tpu_torch.ops import csr_aggregate as ca
+from radargnn_tpu_torch.ops import dense_aggregate as da
 from radargnn_tpu_torch.ops import hoisted_aggregate as ha
 from radargnn_tpu_torch.ops import windowed_tiles as wt
 
@@ -235,6 +237,58 @@ def test_kernel_wrappers_refuse_cpu_tensors(kernel):
                             *_layout(c, _t), *nodes,
                             node_block=c["node_block"],
                             edge_tile=c["edge_tile"])
+
+
+def test_forward_shared_memory_at_both_tilings():
+    """The forward's shared memory, as its wrapper checks it: the CSR
+    forward's (the accumulator of the whole node block and the W_e slice)
+    plus the 64-column bias slice; it fits at the v1 tiles (128-node
+    blocks) and at the CSR tiling's (256), not at 1024 nodes."""
+    for de, nb in ((16, 128), (16, 256), (4, 32)):
+        assert ha.fwd_smem_bytes(de, nb) == \
+            ca.fwd_smem_bytes(de, nb) + 64 * 4
+        assert ha.fwd_smem_bytes(de, nb) <= da._MAX_SMEM
+    assert ha.fwd_smem_bytes(16, 128) == 128 * 65 * 4 + 16 * 68 * 4 + 256
+    assert ha.fwd_smem_bytes(16, 1024) > da._MAX_SMEM
+
+
+@pytest.mark.parametrize("h,de,edge_tile", [(40, 16, 32), (41, 3, 30)])
+def test_walk_operands_keep_the_forward(h, de, edge_tile):
+    """What the forward's wrapper hands the walk: y_s with a row stride
+    that is a multiple of 4 (zero columns past H), d_e padded to a multiple
+    of 4 with zero features and W_e rows, tiles padded to a multiple of 16
+    slots with empty ones; the inputs themselves where nothing needs it.
+    The plain forward on the padded layout gives the same output."""
+    c = _case(18, de=de, h=h, edge_tile=edge_tile)
+    ops = [_t(c[k]) for k in ("y_s", "e_t", "w_e")]
+    layout = _layout(c, _t)
+    y_s, e_t, w_e, send, recv, et = ha.walk_operands(*ops, *layout[:2],
+                                                     edge_tile)
+    assert y_s.shape == (c["n"], -(-h // 4) * 4) and e_t.shape[1] % 4 == 0
+    assert et % 16 == 0 and et - edge_tile < 16
+    t = layout[2].shape[0]
+    assert e_t.shape[0] == send.shape[0] == recv.shape[0] == t * et
+    assert torch.equal(y_s[:, :h], ops[0]) and not y_s[:, h:].any()
+    assert torch.equal(w_e[:de], ops[2]) and not w_e[de:].any()
+    tiles = e_t.view(t, et, -1)
+    assert torch.equal(tiles[:, :edge_tile, :de],
+                       ops[1].view(t, edge_tile, de))
+    assert not tiles[:, edge_tile:].any() and not tiles[..., de:].any()
+    assert torch.equal(recv.view(t, et)[:, :edge_tile],
+                       layout[1].view(t, edge_tile))
+    assert (recv.view(t, et)[:, edge_tile:] == -1).all()
+    if (h % 4, de % 4, edge_tile % 16) == (0, 0, 0):
+        assert all(u is v for u, v in zip((y_s, e_t, w_e, send, recv),
+                                          (*ops, *layout[:2])))
+    b, offset = _t(c["b"]), _t(c["offset"])
+    kw = dict(node_block=c["node_block"], emit_inner=True)
+    want = ha.hoisted_fwd_plain(*ops, b, *layout, offset,
+                                edge_tile=edge_tile, **kw)
+    got = ha.hoisted_fwd_plain(y_s[:, :h], e_t, w_e, b, send, recv,
+                               layout[2], offset, edge_tile=et, **kw)
+    for u, v in zip(got, want):
+        np.testing.assert_allclose(u.numpy(), v.numpy(), rtol=1e-6,
+                                   atol=1e-6)
 
 
 def test_factories_refuse_a_mismatched_offset():

@@ -48,6 +48,22 @@ def test_fused_linear_matches_jax(relu):
         assert (got >= 0).all()
 
 
+@pytest.mark.parametrize("relu", [False, True])
+def test_fused_linear_matches_jax_at_odd_shapes(relu):
+    """333 x 37 -> 71: no dimension a multiple of a tile of either
+    package (the JAX rows padded to its tile of 256; the card's 128 x 128
+    tiles and 8-deep steps ragged in m, k and n)."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(333, 37)).astype(np.float32)
+    w = (rng.normal(size=(37, 71)) * 37 ** -0.5).astype(np.float32)
+    b = rng.normal(size=(71,)).astype(np.float32)
+    want = np.asarray(jpk.fused_linear(jnp.asarray(x), jnp.asarray(w),
+                                       jnp.asarray(b), relu=relu, tile=256))
+    got = fl.fused_linear(_t(x), _t(w), _t(b), relu=relu, tile=256)
+    assert got.dtype == torch.float32 and got.shape == (333, 71)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
 def _segmax_case(rng, e, n, din, h, mask_frac=0.85, node_block=32,
                  edge_tile=32, total_tiles=None):
     m_in = rng.normal(size=(e, din)).astype(np.float32)

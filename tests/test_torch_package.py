@@ -280,6 +280,87 @@ def test_segmax_bound_is_the_3xtf32_floor():
                                 + n * 464)
 
 
+def test_linear_bound_is_the_3xtf32_floor():
+    """B9 forms its products as B8 does, three TF32 products on the tensor
+    cores: at 14,080 x 224 -> 464 its bound is 3 x 2.93 GFLOP at 495
+    TFLOP/s, 0.0178 ms, bound by operations (its 39 MB take 0.0117 ms);
+    the float32 floor outside the tensor cores, 0.0437 ms, stands beside
+    it. At 4096 x 256 -> 512 the floors are 6.5 us against 3.9 us of
+    bytes."""
+    rows = smoke.check_linear_kernel(
+        torch.device("cpu"), [(14080, 224, 464, False, 224 ** -0.5),
+                              (4096, 256, 512, True, 0.05)], 0, 1,
+        out=lambda *_: None)
+    wide, small = rows
+    assert wide["product_flops"] == 2.0 * 14080 * 224 * 464
+    assert wide["bound_by"] == "operations"
+    assert wide["bound_ms"] == wide["tf32x3_bound_ms"]
+    assert 0.0177 < wide["bound_ms"] < 0.0179
+    assert 0.0116 < wide["bytes_ms"] < 0.0118
+    assert 0.0436 < wide["f32_bound_ms"] < 0.0438
+    assert 0.0064 < small["bound_ms"] < 0.0066
+    assert 0.0038 < small["bytes_ms"] < 0.0040
+    assert wide["library_ms"] is None and wide["ms"] is None
+
+
+def _includes(name):
+    with open(os.path.join(_PKG, "csrc", name)) as f:
+        return re.findall(r'^#include "([^"]+)"', f.read(), re.MULTILINE)
+
+
+def test_kernel_sources_and_their_shared_headers():
+    """The port's CUDA sources: every include resolves, every header is
+    reached by some kernel source, and the shared headers reach the
+    kernels that share them, and no other: the gather-max walk
+    (csr_walk.cuh) B5 and B6, each with the operand policy it defines; the
+    CSR slot rule (csr_slot.cuh) B5's forward and backward; the v1 operand
+    (hoisted_v1.cuh) B6 and B7; the 3xTF32 products (tf32x3.cuh) B8 and
+    B9; the float32 SIMT tile B9 left is gone."""
+    csrc = os.path.join(_PKG, "csrc")
+    files = sorted(os.listdir(csrc))
+    sources = [f for f in files if f.endswith(".cu")]
+    headers = {f for f in files if f.endswith(".cuh")}
+    reach = {}
+    for src in sources:
+        seen, todo = set(), [src]
+        while todo:
+            for inc in _includes(todo.pop()):
+                assert inc in headers, (src, inc)
+                if inc not in seen:
+                    seen.add(inc)
+                    todo.append(inc)
+        reach[src] = seen
+    assert set().union(*reach.values()) == headers
+    shared = {"csr_walk.cuh": {"csr_fwd_v2.cu", "hoisted_fwd_v1.cu"},
+              "csr_slot.cuh": {"csr_fwd_v2.cu", "csr_bwd_v2.cu"},
+              "hoisted_v1.cuh": {"hoisted_fwd_v1.cu", "hoisted_bwd_v1.cu"},
+              "tf32x3.cuh": {"msg_segmax.cu", "fused_linear.cu"}}
+    for header, users in shared.items():
+        assert {s for s in sources if header in reach[s]} == users, header
+    assert "sgemm_tile.cuh" not in headers
+    assert sorted(s[:-3] for s in sources) == sorted(
+        set(smoke.KERNEL_NAMES) - {"dense_proj_v4"})
+
+
+def test_walk_phase_cuts_find_their_code():
+    """`benchmarks.walk_phases` cuts each phase out of a copy of the
+    walk's header by replacing its code: every cut finds its code once in
+    csr_walk.cuh as it stands, and the shipped header is untouched."""
+    from radargnn_tpu_torch.benchmarks import walk_phases
+
+    header = os.path.join(_PKG, "csrc", "csr_walk.cuh")
+    with open(header) as f:
+        before = f.read()
+    for cut, edits in walk_phases.CUTS.items():
+        for old, _ in edits:
+            assert before.count(old) == 1, (cut, old)
+        src = walk_phases._variant_source("hoisted_fwd_v1.cu", cut)
+        with open(os.path.join(os.path.dirname(src), "csr_walk.cuh")) as f:
+            assert (f.read() == before) == (not edits), cut
+    with open(header) as f:
+        assert f.read() == before
+
+
 def test_backward_bound_counts_the_sender_sums_once_per_node():
     """B2's bound: d_x and dW_s from the per-sender sums of d_op (N rows),
     d_e and dW_e per valid slot. At the flagship's wide layer that is 13.8

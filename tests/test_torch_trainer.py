@@ -34,6 +34,11 @@ from radargnn_tpu_torch.models.layers import fused_csr_tiling
 from radargnn_tpu_torch.ops import dense_aggregate as da
 from radargnn_tpu_torch.train.trainer import Trainer
 
+from host_backends import host_pair, native_cache  # noqa: F401
+
+# the host arrays of both packages from one pair of host backends
+pytestmark = pytest.mark.usefixtures("host_pair")
+
 K = 20
 LR = 1e-3
 
