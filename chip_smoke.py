@@ -32,9 +32,18 @@ timed against torch.addmm in alternating rounds by a child process with
 cuBLAS's default workspace), then drives their entry points,
 radargnn_tpu_torch.benchmarks.kernel_check (prints KERNEL CHECK OK) and
 kernel_bench (two JSON lines at 450,560 edges), and checks that each of the
-four launched. It prints the kernels' times beside their bounds. The last
-line is one JSON object with "ok" and the device; any failed phase exits
-non-zero.
+four launched. A fifth phase runs the evaluation stage on the card: the kNN
+requests through Predictor.predict, the Postprocessor (NMS) and the
+RadarscenesEvaluator under the flagship configuration's POSTPROCESSING, on
+the real predictions and on oracle predictions built from the frames'
+ground truth (mAP 1.0), each held to the same chain on the CPU (kept
+indices, mAP, F1, confusion matrix), with the rotated IoU of an oracle
+frame's boxes on the card against the CPU's. A sixth runs the port's bench
+(python -m radargnn_tpu_torch.benchmarks.bench, 4 steps, one pair) in child
+processes: train and infer on the dense tiling, train on the CSR and the
+windowed tilings. It prints the kernels' times beside their bounds. The
+last line is one JSON object with "ok" and the device; any failed phase
+exits non-zero.
 """
 
 import json

@@ -147,8 +147,8 @@ class NuScenesSplitConfiguration:
 
     def __init__(self, version: str = "v1.0-mini"):
         raise NotImplementedError(
-            "the nuScenes split tables are not ported yet (ROADMAP.md, "
-            "item A8: data pipelines and CLI)")
+            "the nuScenes split tables are not ported yet (ROADMAP.md §A, "
+            "data pipelines and CLI)")
 
 
 # --------------------------------------------------------------------------

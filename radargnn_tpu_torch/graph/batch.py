@@ -308,7 +308,8 @@ def pad_sample(sample: GraphSample, max_nodes: int, max_edges: int,
         if csr_tiling.get("ovf_ssum", False):
             raise NotImplementedError(
                 "the sender-sorted overflow tiling (ovf_ssum) feeds a "
-                "training kernel that is not ported yet (ROADMAP.md, B3)")
+                "training kernel variant that is not ported yet (ROADMAP.md "
+                "§B (i), ovf_ssum)")
         dense_cfg = dict(csr_tiling)
         sample = morton_sort_sample(sample)
     elif csr_tiling is not None and len(csr_tiling) >= 3:

@@ -51,7 +51,7 @@ class DetNet(nn.Module):
             raise NotImplementedError(
                 "fused_bf16_max (bf16-equality max routing; also "
                 "RADARGNN_FUSED_BF16_MAX=1) is not ported; the kernels route "
-                "strictly (ROADMAP.md item B (i) 1)")
+                "strictly (ROADMAP.md §B (i), bf16_max)")
         dtype = getattr(cfg, "compute_dtype", "float32")
         bn = cfg.batch_norm_in_mlps
 

@@ -54,15 +54,15 @@ _RUN_CAP_ENV = os.environ.get("RADARGNN_FUSED_RUN_CAP")
 # bf16-equality max routing: None follows the config's fused_bf16_max;
 # "0" forces strict routing (the port's), "1" the bf16 variant (not ported)
 BF16_MAX_ENV = os.environ.get("RADARGNN_FUSED_BF16_MAX")
-# kernel-body variants the port has not ported, with the ROADMAP item that
-# holds each: a value other than the default "0" raises where the fused
-# path is set up (check_fused_knobs)
+# kernel-body variants the port has not ported, with the name of the
+# ROADMAP.md §B (i) item that holds each: a value other than the default
+# "0" raises where the fused path is set up (check_fused_knobs)
 _UNPORTED_KNOBS = {
     name: (os.environ.get(name, "0"), item) for name, item in (
-        ("RADARGNN_FUSED_OVF_SSUM", "B (i) 2"),
-        ("RADARGNN_FUSED_STREAM_M", "B (i) 3"),
-        ("RADARGNN_FUSED_BF16_LANDING", "B (i) 3"),
-        ("RADARGNN_FUSED_PRECOMP_LAND", "B (i) 3"))}
+        ("RADARGNN_FUSED_OVF_SSUM", "ovf_ssum"),
+        ("RADARGNN_FUSED_STREAM_M", "stream_m"),
+        ("RADARGNN_FUSED_BF16_LANDING", "bf16_landing"),
+        ("RADARGNN_FUSED_PRECOMP_LAND", "precomp_land"))}
 # RADARGNN_FUSED_SENDER_DX (the sender-sum backward) changes nothing here:
 # the dense and windowed backward have that form always (their d_x and
 # dW_s are node-wide products of the H-wide sender sums), and the CSR
@@ -83,12 +83,12 @@ def check_fused_knobs(mode: str) -> None:
         if value != "0":
             raise NotImplementedError(
                 f"{name}={value} selects a kernel variant that is not "
-                f"ported (ROADMAP.md item {item}); unset it or set 0")
+                f"ported (ROADMAP.md §B (i), {item}); unset it or set 0")
     if BF16_MAX_ENV not in (None, "0"):
         raise NotImplementedError(
             f"RADARGNN_FUSED_BF16_MAX={BF16_MAX_ENV}: bf16-equality max "
-            "routing is not ported (ROADMAP.md item B (i) 1); unset it or "
-            "set 0")
+            "routing is not ported (ROADMAP.md §B (i), bf16_max); unset it "
+            "or set 0")
 
 
 def fused_csr_tiling(model_config, k=None):
@@ -162,7 +162,7 @@ def _check_hoisted(pre_layers: int, aggr: str) -> None:
         raise NotImplementedError(
             "only the hoisted configuration (conv_pre_mlp_layer_number 1, "
             "aggregation 'max') is ported; the SplitPreMLP path waits for "
-            "ROADMAP.md item A3")
+            "ROADMAP.md §A, the rest of the unfused model")
 
 
 class PreMLP(nn.Module):

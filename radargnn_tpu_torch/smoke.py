@@ -6,7 +6,10 @@ under the CSR tiling (`fused_tiling: "csr"`). A fourth phase holds the
 four kernels that no model path runs (fused linear, message segment-max,
 the v1 hoisted forward and backward) against their plain versions at the
 flagship's widths and drives their entry points, `benchmarks.kernel_check`
-and `benchmarks.kernel_bench`.
+and `benchmarks.kernel_bench`. A fifth runs the evaluation stage
+(`postprocess`: NMS, the mAP engine, the evaluator) on the served kNN
+requests and on oracle predictions, against the same chain on the CPU; a
+sixth runs the port's bench (`benchmarks.bench`) in child processes.
 
 `run(device)` is what `chip_smoke.py` calls on the card; the CPU tests call
 it at a tiny size, where the wrappers take their plain versions, nothing is
@@ -23,6 +26,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import ExitStack
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -50,7 +54,14 @@ from radargnn_tpu_torch.ops import message_segment_max as msm
 from radargnn_tpu_torch.ops import segment_sum as ss
 from radargnn_tpu_torch.ops import windowed_aggregate as wa
 from radargnn_tpu_torch.ops.windowed_tiles import prepare_csr_tiles
+from radargnn_tpu_torch.postprocess import (
+    ObjectDetectionMetrics, Postprocessor, PredictionExtractor,
+    RadarscenesEvaluator,
+)
 from radargnn_tpu_torch.postprocess.inference import Predictor
+from radargnn_tpu_torch.postprocess.mean_ap import MeanAveragePrecision
+from radargnn_tpu_torch.postprocess.nms import nms_indices, rotated_iou_matrix
+from radargnn_tpu_torch.train.losses import adapt_bb_orientation_angle
 from radargnn_tpu_torch.train.trainer import Trainer, set_seeds
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -139,6 +150,17 @@ TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_COS = 0.99
 TRAIN_PARAM_COS = 0.95
 TRAIN_PARAM_FLOOR = 1e-3
+# the evaluation phase, card against CPU on the same inputs: the rotated
+# IoU is float32 on both, its sin/cos and clip products in other orders
+# (about 1e-7 apart); mAP and F1 are host numbers downstream of the same
+# kept boxes and the same IoUs up to that noise
+EVAL_IOU_ATOL = 1e-5
+EVAL_METRIC_ATOL = 1e-6
+# the bench phase: the port's bench as child processes, a short run of
+# each (tiling, mode) cell a later benchmark can take
+BENCH_CASES = (("dense", "train"), ("dense", "infer"), ("csr", "train"),
+               ("windowed", "train"))
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "card"}
 
 
 def card_description() -> str:
@@ -1794,6 +1816,241 @@ def kernel_entry_points(dev, bench: Tuple[int, int, int, int], reps: int,
             "kernel_bench": bench_res}
 
 
+def oracle_predictions(ground_truth: Dict, adapt: bool,
+                       num_classes: int) -> Dict:
+    """Perfect predictions from served frames' ground truth, as
+    tests/test_postprocess.py builds them: probability 0.9 on the true
+    class (0.01 on the others), and every object point regressing its
+    object's box (the orientation sin-encoded where the configuration
+    adapts it, the background rows 0)."""
+    boxes, probs = [], []
+    for bb, labels in zip(ground_truth["bounding_box_true"],
+                          ground_truth["class_true"]):
+        if adapt and bb.shape[1] == 5:
+            bb = adapt_bb_orientation_angle(torch.from_numpy(bb)).numpy()
+        boxes.append(np.nan_to_num(bb, nan=0.0))
+        p = np.full((len(labels), num_classes), 0.01)
+        p[np.arange(len(labels)), labels.astype(int)] = 0.9
+        probs.append(p)
+    return {"bounding_box_predictions": boxes,
+            "class_probability_prediction": probs}
+
+
+def _nms_matrix(boxes) -> np.ndarray:
+    return boxes.to_xylwt() if boxes.is_rotated else boxes.to_two_point()
+
+
+def eval_chain(dev: torch.device, config, predictions: Dict,
+               ground_truth: Dict, pos: List, vel: List) -> Dict:
+    """The evaluation stage on `dev`: each frame's boxes before NMS and
+    the indices NMS keeps (timed), `Postprocessor.process`, the mAP engine
+    under the configuration (timed) and in box-IoU mode on the same boxes
+    (timed), and `RadarscenesEvaluator.evaluate`."""
+    pre = [PredictionExtractor.get_absolute_object_bounding_box_predictions(
+        c, b, p, config) for p, b, c in zip(
+            pos, predictions["bounding_box_predictions"],
+            predictions["class_probability_prediction"])]
+
+    def timed(fn):
+        # each timed call ends with its results on the host
+        t0 = time.perf_counter()
+        res = fn()
+        return res, time.perf_counter() - t0
+
+    kept, nms_s = timed(lambda: [
+        nms_indices(_nms_matrix(boxes), scores[:, 0], config.iou_for_nms,
+                    boxes.is_rotated, dev) if len(boxes)
+        else np.zeros((0,), np.int64) for boxes, scores, _ in pre])
+    bb_pred, bb_gt, cls_pred, cls_gt = Postprocessor(dev).process(
+        config, pos, vel, predictions, ground_truth)
+    res, map_s = timed(lambda: ObjectDetectionMetrics.get_map(
+        config, bb_pred, bb_gt, cls_pred, dev))
+
+    def box_iou_map():
+        metric = MeanAveragePrecision([config.iou_for_mAP], device=dev)
+        metric.update(ObjectDetectionMetrics._prediction_dicts(bb_pred),
+                      ObjectDetectionMetrics._ground_truth_dicts(bb_gt),
+                      is_aligned=not any(len(b["boxes"]) and b["boxes"]
+                                         .is_rotated for b in bb_pred))
+        return metric.compute()["map"]
+
+    box_map, box_map_s = timed(box_iou_map)
+    ev = RadarscenesEvaluator(config, device=dev)
+    ev.evaluate(bb_pred, bb_gt, cls_pred,
+                PredictionExtractor().extract(predictions), cls_gt)
+    return {"pre": pre, "kept": kept, "bb_pred": bb_pred, "evaluator": ev,
+            "map": float(res["map"]), "box_iou_map": float(box_map),
+            "boxes_before_nms": [len(b) for b, _, _ in pre],
+            "boxes_after_nms": [len(k) for k in kept],
+            "nms_s": nms_s, "map_s": map_s, "box_iou_map_s": box_map_s}
+
+
+def _chains_agree(card: Dict, cpu: Dict, label: str) -> Dict:
+    """Holds the card's chain to the CPU's: the same kept indices and
+    boxes, mAP (both modes) and F1 within EVAL_METRIC_ATOL, the same
+    confusion matrix."""
+    same_kept = all(np.array_equal(a, b)
+                    for a, b in zip(card["kept"], cpu["kept"]))
+    same_boxes = all(np.array_equal(a["boxes"].corners, b["boxes"].corners)
+                     for a, b in zip(card["bb_pred"], cpu["bb_pred"]))
+    ev_a, ev_b = card["evaluator"], cpu["evaluator"]
+    d_map = max(abs(card["map"] - cpu["map"]),
+                abs(card["box_iou_map"] - cpu["box_iou_map"]),
+                abs(ev_a.mAP - ev_b.mAP))
+    d_f1 = float(np.max(np.abs(np.asarray(ev_a.f1_segmentation)
+                               - np.asarray(ev_b.f1_segmentation))))
+    same_confusion = np.array_equal(ev_a.confusion_absolute,
+                                    ev_b.confusion_absolute)
+    if not (same_kept and same_boxes and same_confusion) \
+            or not d_map <= EVAL_METRIC_ATOL or not d_f1 <= EVAL_METRIC_ATOL:
+        raise AssertionError(
+            f"the {label} evaluation on the card differs from the CPU's: "
+            f"kept indices equal {same_kept}, boxes equal {same_boxes}, "
+            f"max |dmAP| {d_map}, max |dF1| {d_f1}, confusion equal "
+            f"{same_confusion}")
+    return {"max_abs_dmap": d_map, "max_abs_df1": d_f1}
+
+
+def evaluation_phase(dev: torch.device, model: DetNet, loader: List,
+                     out: Callable = print) -> Dict:
+    """The fifth phase: the kNN requests through `Predictor.predict`, then
+    the evaluation stage under the flagship YAML's POSTPROCESSING (rotated
+    boxes, NMS at IoU 0.01, point-IoU mAP at 0.3, translation invariance,
+    the adapted orientation angle) on the real predictions and on oracle
+    predictions built from the same frames' ground truth (mAP 1.0), each on
+    `dev` and on the CPU (they must agree), with the evaluator's artifacts
+    saved into a temporary folder; the rotated IoU of an oracle frame's
+    jittered boxes on `dev` against the CPU's."""
+    cfg = UserConfigurationReader.read_config_file(FLAGSHIP_CONFIG)
+    config = UserConfigurationReader.get_config_object("POSTPROCESSING", cfg)
+    num_classes = len(config.min_object_score) + 1
+    predictions, ground_truth, pos, vel = Predictor(
+        model, loader, verbose=False).predict()
+    oracle = oracle_predictions(ground_truth, config.adapt_orientation_angle,
+                                num_classes)
+    cpu = torch.device("cpu")
+    # the card's kernels load at their first call: a small NMS first
+    nms_indices(np.asarray([[0, 0, 1, 1, 0.0]]), np.ones(1), 0.5, True, dev)
+    res: Dict = {"card": card_description() if dev.type == "cuda" else None}
+    with tempfile.TemporaryDirectory() as folder:
+        for label, preds in (("real", predictions), ("oracle", oracle)):
+            got = eval_chain(dev, config, preds, ground_truth, pos, vel)
+            ref = eval_chain(cpu, config, preds, ground_truth, pos, vel)
+            agree = _chains_agree(got, ref, label)
+            saved = got["evaluator"].save_results(folder)
+            files = sorted(os.listdir(saved))
+            row = {k: got[k] for k in (
+                "map", "box_iou_map", "boxes_before_nms", "boxes_after_nms",
+                "nms_s", "map_s", "box_iou_map_s")}
+            row.update(agree, artifacts=files,
+                       f1=np.asarray(got["evaluator"].f1_segmentation)
+                       .tolist())
+            res[label] = row
+            pre = got["pre"]
+            out(f"evaluation ({label} predictions, {config.bb_invariance} "
+                f"boxes, NMS at IoU {config.iou_for_nms}, point-IoU mAP at "
+                f"{config.iou_for_mAP}) on {dev}: boxes before NMS "
+                f"{row['boxes_before_nms']}, after {row['boxes_after_nms']}; "
+                f"mAP {row['map']}, box-IoU mAP {row['box_iou_map']}; F1 "
+                f"{row['f1']}; host s: NMS {row['nms_s']:.4f}, mAP engine "
+                f"{row['map_s']:.4f}, box-IoU mAP engine "
+                f"{row['box_iou_map_s']:.4f}; card vs CPU: kept indices and "
+                f"confusion equal, max |dmAP| {agree['max_abs_dmap']:.2e}, "
+                f"max |dF1| {agree['max_abs_df1']:.2e}; artifacts {files}; "
+                f"card {res['card']}")
+            for name in ("eval_configs.json", "eval_results.json",
+                         "confusion_abs.npy", "confusion_rel.npy"):
+                if name not in files:
+                    raise AssertionError(f"save_results wrote no {name}")
+    if res["oracle"]["map"] != 1.0:
+        raise AssertionError(f"the oracle predictions give mAP "
+                             f"{res['oracle']['map']}, not 1.0")
+    # the oracle's boxes before NMS (at most 256), and the same jittered
+    xylwt = np.concatenate([b.to_xylwt() for b, _, _ in pre if len(b)])[:256]
+    jitter = np.random.default_rng(0).normal(
+        scale=[0.5, 0.5, 0.2, 0.2, 20.0], size=xylwt.shape)
+    boxes = np.concatenate([xylwt, xylwt + jitter]).astype(np.float32)
+    boxes[:, 2:4] = np.abs(boxes[:, 2:4])
+    t = torch.from_numpy(boxes)
+    iou_card = rotated_iou_matrix(t.to(dev), t.to(dev)).cpu()
+    iou_cpu = rotated_iou_matrix(t, t)
+    d_iou = float((iou_card - iou_cpu).abs().max())
+    res["rotated_iou"] = {"boxes": len(boxes), "max_abs_diff": d_iou,
+                          "overlapping_pairs": int((iou_cpu > 0).sum())}
+    out(f"rotated IoU of {len(boxes)} boxes (an oracle frame's, and the "
+        f"same jittered) on {dev} vs the CPU: max |d| {d_iou:.2e} (limit "
+        f"{EVAL_IOU_ATOL}), {res['rotated_iou']['overlapping_pairs']} "
+        "overlapping pairs")
+    if not d_iou <= EVAL_IOU_ATOL:
+        raise AssertionError(f"the rotated IoU on {dev} differs from the "
+                             f"CPU's by {d_iou}")
+    return res
+
+
+def _finish(proc: subprocess.Popen, timeout: float) -> Tuple[int, str, str]:
+    """Waits for a child (killed past `timeout`); its code and output."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{proc.args} ran past {timeout} s")
+    return proc.returncode, out, err
+
+
+def bench_phase(dev: torch.device, points: int, graphs: int,
+                out: Callable = print) -> List[Dict]:
+    """The sixth phase: `python -m radargnn_tpu_torch.benchmarks.bench` as
+    a child process for each (tiling, mode) of BENCH_CASES, 4 steps and one
+    pair, one child at a time on the card. Off it (the rehearsal, which
+    times nothing) the children run at once, one thread each, on
+    `points` x `graphs` frames, one step, the windowed tiling's overflow
+    budget raised to 0.5 (the spread tiler overflows ~40 % of a tiny
+    frame's edges). Each child must exit 0 with a last line of the bench's
+    keys and a finite value > 0."""
+    on_card = dev.type == "cuda"
+
+    def start(tiling: str, mode: str) -> subprocess.Popen:
+        env = dict(os.environ, BENCH_TILING=tiling, BENCH_MODE=mode,
+                   BENCH_STEPS="4", BENCH_PAIRS="1")
+        if not on_card:
+            env.update(BENCH_DEVICE="cpu", BENCH_POINTS=str(points),
+                       BENCH_GRAPHS=str(graphs), BENCH_STEPS="1",
+                       OMP_NUM_THREADS="1")
+            if tiling == "windowed":
+                env["BENCH_OVF_FRAC"] = "0.5"
+        return subprocess.Popen(
+            [sys.executable, "-m", "radargnn_tpu_torch.benchmarks.bench"],
+            env=env, cwd=_REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    groups = [[c] for c in BENCH_CASES] if on_card else [list(BENCH_CASES)]
+    lines = []
+    for group in groups:
+        children = [(case, start(*case)) for case in group]
+        try:
+            results = [(case, _finish(proc, 900)) for case, proc in children]
+        finally:
+            for _, proc in children:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        for (tiling, mode), (code, stdout, stderr) in results:
+            if code != 0:
+                raise AssertionError(f"the bench ({tiling}, {mode}) exited "
+                                     f"{code}:\n{stderr[-3000:]}")
+            stdout = stdout.strip().splitlines()
+            last = json.loads(stdout[-1])
+            if set(last) != BENCH_KEYS or not math.isfinite(last["value"]) \
+                    or not last["value"] > 0:
+                raise AssertionError(f"the bench ({tiling}, {mode}) ended "
+                                     f"with {stdout[-1]!r}")
+            out(f"bench ({tiling}, {mode}): " + " | ".join(stdout[-4:]))
+            lines.append(dict(last, tiling=tiling, mode=mode,
+                              runs=[json.loads(x) for x in stdout[-4:-2]]))
+    return lines
+
+
 BENCH_SIZE = (450_560, 22_528, 464, 464)   # kernel_bench's defaults
 
 
@@ -1948,6 +2205,10 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
         last["v1_padding"] = check_v1_padding(v1, shapes, seed, reps, out)
     last.update(kernel_entry_points(dev, bench, reps, out))
     summary["last_four"] = last
+
+    # -- the evaluation stage on the kNN requests, then the bench ------------
+    summary["evaluation"] = evaluation_phase(dev, model, loader, out)
+    summary["bench"] = bench_phase(dev, points, graphs, out)
 
     def entry(name, source, replaces, launches, rows, checked, library):
         return {

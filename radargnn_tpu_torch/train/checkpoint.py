@@ -13,8 +13,8 @@ Flax encodes a numpy array as the msgpack extension type 1 holding the
 packed (shape, dtype name, C-order bytes) and a numpy scalar as type 3;
 this module writes and reads that encoding with `msgpack` alone, so files
 cross between the two packages both ways. `msgpack` is imported where it
-is used. The orbax backend (multi-host, `RADARGNN_CKPT_BACKEND=orbax`) is ROADMAP
-item A6 and raises.
+is used. The orbax backend (multi-host, `RADARGNN_CKPT_BACKEND=orbax`)
+belongs to ROADMAP.md §A, multi-GPU, and raises.
 """
 
 from __future__ import annotations
@@ -98,7 +98,7 @@ def save_train_state(folder: str, *, params, batch_stats, opt_state,
     if os.environ.get("RADARGNN_CKPT_BACKEND") == "orbax":
         raise NotImplementedError(
             "RADARGNN_CKPT_BACKEND=orbax: only the msgpack backend is ported "
-            "(orbax: ROADMAP.md item A6)")
+            "(orbax: ROADMAP.md §A, multi-GPU)")
     os.makedirs(folder, exist_ok=True)
     meta = {"epoch": epoch, "scheduler_lr": float(scheduler_lr),
             "losses": {k: [float(x) for x in v] for k, v in losses.items()}}
@@ -116,7 +116,7 @@ def load_train_state(folder: str):
     either package's `save_train_state` wrote with the msgpack backend."""
     if os.path.isdir(os.path.join(folder, "orbax")):
         raise NotImplementedError("orbax checkpoints are not ported yet "
-                                  "(ROADMAP.md item A6)")
+                                  "(ROADMAP.md §A, multi-GPU)")
     model = load_variables(os.path.join(folder, "model.msgpack"))
     opt_sd = load_variables(os.path.join(folder, "opt_state.msgpack"))
     with open(os.path.join(folder, "meta.json")) as f:

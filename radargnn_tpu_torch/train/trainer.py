@@ -2,14 +2,14 @@
 checkpoints, on one device.
 
 Port of `radargnn_tpu/train/trainer.py` (single device; the sharded batch
-and the halo paths are ROADMAP item A10). As there: Adam with L2 weight
-decay added to the gradient before the moments, the three learning-rate
-schedules, weighted cross entropy with separate validation weights, a
-Huber box loss on non-background nodes, the orientation-angle adaption,
-early stopping on validation-loss minima, the best-validation snapshot,
-numbered `model_NN` result folders (config JSONs, loss .npy arrays, the
-loss-curve PNG) and a resumable checkpoint every `checkpoint_every_epochs`
-in the JAX package's files.
+and the halo paths wait for ROADMAP.md §A, multi-GPU). As there: Adam with
+L2 weight decay added to the gradient before the moments, the three
+learning-rate schedules, weighted cross entropy with separate validation
+weights, a Huber box loss on non-background nodes, the orientation-angle
+adaption, early stopping on validation-loss minima, the best-validation
+snapshot, numbered `model_NN` result folders (config JSONs, loss .npy
+arrays, the loss-curve PNG) and a resumable checkpoint every
+`checkpoint_every_epochs` in the JAX package's files.
 
 The reference never calls `model.eval()`, so validation runs BatchNorm in
 train mode and keeps its running-statistic updates; here that step runs

@@ -1,7 +1,8 @@
 """Step timing with edges/s, the throughput unit of training.
 
 Port of `StepStats` from `radargnn_tpu/utils/profiling.py`; the trace hooks
-there wait for the port's profiling item (ROADMAP A8).
+there wait for the data pipelines and CLI item (ROADMAP.md §A, data
+pipelines and CLI).
 """
 
 from __future__ import annotations

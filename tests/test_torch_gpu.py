@@ -1448,3 +1448,72 @@ def test_smoke_on_card():
         assert kernel["ms"] > 0 and kernel["plain_ms"] > 0
     assert summary["kernels"][0]["library_ms"] > 0
     assert summary["kernels"][3]["library_ms"] > 0
+
+
+# -- the evaluation stage on the card (postprocess.nms, postprocess.mean_ap)
+
+def _eval_boxes(rng, n, rotated):
+    if rotated:
+        return np.stack([rng.uniform(-8, 8, n), rng.uniform(-8, 8, n),
+                         rng.uniform(0.5, 4, n), rng.uniform(0.5, 3, n),
+                         rng.uniform(0, 180, n)], 1).astype(np.float32)
+    lo = rng.uniform(-8, 8, (n, 2))
+    return np.concatenate([lo, lo + rng.uniform(0.5, 4, (n, 2))],
+                          1).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rotated", [False, True])
+def test_iou_and_nms_on_the_card_match_the_cpu(rotated):
+    """The IoU matrix (float32 on both, within smoke.EVAL_IOU_ATOL) and the
+    kept indices of `nms_indices` on the card against the CPU, on seeded
+    boxes at the oracle load (800 boxes, 640,000 pairs); the kept indices
+    are compared where no IoU lies within 1e-4 of the threshold."""
+    _need_card()
+    from radargnn_tpu_torch.postprocess import nms
+
+    rng = np.random.default_rng(0)
+    boxes = _eval_boxes(rng, 800, rotated)
+    scores = rng.random(800).astype(np.float32)
+    f = nms.rotated_iou_matrix if rotated else nms.aligned_iou_matrix
+    t = torch.from_numpy(boxes)
+    cpu = f(t, t)
+    card = f(t.cuda(), t.cuda()).cpu()
+    assert float((card - cpu).abs().max()) <= smoke.EVAL_IOU_ATOL
+    for thr in (0.01, 0.3):
+        if float((cpu - thr).abs().min()) < 1e-4:
+            continue
+        got = nms.nms_indices(boxes, scores, thr, rotated, device="cuda")
+        want = nms.nms_indices(boxes, scores, thr, rotated, device="cpu")
+        assert got.tolist() == want.tolist() and 1 < len(got) < 800
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rotated", [False, True])
+def test_mean_ap_on_the_card_matches_the_cpu(rotated):
+    """The mAP engine in box-IoU mode, its batched IoU on the card against
+    the CPU: the same numbers within smoke.EVAL_METRIC_ATOL."""
+    _need_card()
+    from radargnn_tpu_torch.postprocess import MeanAveragePrecision
+
+    rng = np.random.default_rng(1)
+    preds, target = [], []
+    for _ in range(12):
+        gt = _eval_boxes(rng, int(rng.integers(1, 30)), rotated)
+        det = np.concatenate([gt + rng.normal(scale=0.2, size=gt.shape),
+                              _eval_boxes(rng, 10, rotated)])
+        if not rotated:
+            det[:, 2:] = np.maximum(det[:, 2:], det[:, :2] + 0.1)
+        preds.append({"boxes": det, "scores": rng.random(len(det)),
+                      "labels": rng.integers(0, 3, len(det))})
+        target.append({"boxes": gt, "labels": rng.integers(0, 3, len(gt))})
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m = MeanAveragePrecision([0.3, 0.5, 0.75], device=dev)
+        m.update(preds, target, is_aligned=not rotated)
+        res[dev] = m.compute()
+    assert 0.0 < res["cpu"]["map"] < 1.0
+    for key, want in res["cpu"].items():
+        np.testing.assert_allclose(np.asarray(res["cuda"][key], float),
+                                   np.asarray(want, float), rtol=0,
+                                   atol=smoke.EVAL_METRIC_ATOL, err_msg=key)

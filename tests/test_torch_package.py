@@ -204,6 +204,51 @@ def test_smoke_rehearses_on_cpu():
     assert [b["metric"] for b in bench_lines] == ["segmax_library_ms",
                                                   "segmax_kernel_ms"]
     assert last["last_four"]["v1_fwd"] == last4["v1_fwd"]
+    # the fifth phase: the evaluation stage on the served kNN requests and
+    # on oracle predictions, each against the same chain on the CPU
+    ev = summary["evaluation"]
+    assert ev["oracle"]["map"] == 1.0 and ev["oracle"]["box_iou_map"] == 1.0
+    assert all(b > a for a, b in zip(ev["oracle"]["boxes_after_nms"],
+                                     ev["oracle"]["boxes_before_nms"]))
+    for label in ("real", "oracle"):
+        assert ev[label]["max_abs_dmap"] == 0.0
+        assert {"eval_configs.json", "eval_results.json", "confusion_abs.npy",
+                "confusion_rel.npy"} <= set(ev[label]["artifacts"])
+    assert ev["rotated_iou"]["max_abs_diff"] == 0.0
+    assert ev["rotated_iou"]["overlapping_pairs"] > ev["rotated_iou"]["boxes"]
+    # the sixth phase: the bench's four cells as child processes
+    assert [(b["tiling"], b["mode"]) for b in summary["bench"]] == list(
+        smoke.BENCH_CASES)
+    for b in summary["bench"]:
+        assert b["metric"] == f"{b['mode']}_edges_per_s" and b["value"] > 0
+        assert [r["path"] for r in b["runs"]] == ["fused", "unfused"]
+
+
+def test_postprocess_and_bench_import_no_jax_sklearn_or_matplotlib():
+    """A fresh interpreter imports the evaluation stage and the bench:
+    neither jax, the JAX package, scikit-learn nor matplotlib is loaded
+    (the card's machine has neither of the last two)."""
+    code = (
+        "import sys\n"
+        "import radargnn_tpu_torch.postprocess as p\n"
+        "import radargnn_tpu_torch.benchmarks.bench\n"
+        "from radargnn_tpu_torch.postprocess import evaluation, extraction, "
+        "mean_ap, nms, segmentation_metrics, visualization\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
+        "'jaxlib', 'flax', 'radargnn_tpu', 'sklearn', 'matplotlib')]\n"
+        "assert not bad, bad\n"
+        "for name in ('BoxArray', 'Postprocessor', 'PredictionExtractor', "
+        "'GroundTruthExtractor', 'BoxSuppressor', 'decode_boxes_to_corners', "
+        "'Predictor', 'MeanAveragePrecision', 'ObjectDetectionMetrics', "
+        "'SegmentationMetrics', 'Evaluator', 'RadarscenesEvaluator', "
+        "'evaluation_selector', 'get_new_evaluation_folder_path'):\n"
+        "    assert hasattr(p, name), name\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
 
 
 def test_radius_configuration_replaces_three_fields():
