@@ -41,9 +41,18 @@ indices, mAP, F1, confusion matrix), with the rotated IoU of an oracle
 frame's boxes on the card against the CPU's. A sixth runs the port's bench
 (python -m radargnn_tpu_torch.benchmarks.bench, 4 steps, one pair) in child
 processes: train and infer on the dense tiling, train on the CSR and the
-windowed tilings. It prints the kernels' times beside their bounds. The
-last line is one JSON object with "ok" and the device; any failed phase
-exits non-zero.
+windowed tilings. A seventh runs the command-line pipeline,
+radargnn_tpu_torch.cli.main, under the flagship configuration with epochs 2
+and a checkpoint every epoch (printed): create_dataset from raw
+RadarScenes sequences it writes (where h5py is installed; without it, it
+writes the processed splits of synthetic 2816-point frames itself and says
+so), train and evaluate, checking that train launched the dense path's
+three kernels and evaluate its two, exactly as often as the batches ask,
+and nothing else; then python -m radargnn_tpu_torch.cli.evaluate as a
+child process, and the model folder evaluated on the CPU against the
+card. It prints the kernels' times beside their bounds. The last line is
+one JSON object with "ok" and the device; any failed phase exits
+non-zero.
 """
 
 import json

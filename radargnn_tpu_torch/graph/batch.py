@@ -243,6 +243,18 @@ class GraphSample:
     def num_edges(self) -> int:
         return self.senders.shape[0]
 
+    def save_npz(self, path: str) -> None:
+        """One compressed npz of the eight arrays, under their field names
+        (the JAX package's file: each package reads the other's)."""
+        np.savez_compressed(path, **{f.name: getattr(self, f.name)
+                                     for f in dataclasses.fields(self)})
+
+    @staticmethod
+    def load_npz(path: str) -> "GraphSample":
+        with np.load(path) as z:
+            return GraphSample(**{f.name: z[f.name]
+                                  for f in dataclasses.fields(GraphSample)})
+
 
 def morton_sort_sample(sample: GraphSample) -> GraphSample:
     """Reorders a sample's nodes along a Morton (Z-order) curve of their
@@ -471,18 +483,33 @@ def _csr_tiling(out: dict, senders, receivers, edge_mask, max_nodes: int,
 def stack_samples(samples: List[GraphSample], max_nodes: int, bg_index: int,
                   max_edges: Optional[int] = None,
                   sort_edges_by_receiver: bool = True,
-                  csr_tiling=None, device: DeviceLike = None) -> GraphBatch:
+                  csr_tiling=None, pad_cache: Optional[dict] = None,
+                  roll_passes: Optional[int] = None,
+                  device: DeviceLike = None) -> GraphBatch:
     """Pads and stacks host samples into a GraphBatch on `device` (the CUDA
     card by default; raises when there is none and no device was given).
     A windowed batch records its roll bound as the JAX package does: log2
-    of the run cap under spread tiling, else `roll_passes_bound` of these
-    samples; a CSR batch records (node_block, edge_tile)."""
+    of the run cap under spread tiling, else `roll_passes` where the caller
+    gives one (a loader's bound, the same for all its batches), else
+    `roll_passes_bound` of these samples; a CSR batch records (node_block,
+    edge_tile).
+
+    `pad_cache` (id(sample) -> padded arrays) keeps each sample's padding
+    and tiling across calls: a loader pads a sample once, whatever batch a
+    shuffle puts it in."""
     device = resolve_device(device)
     if max_edges is None:
         max_edges = max(s.num_edges for s in samples)
-    padded = [pad_sample(s, max_nodes, max_edges, bg_index,
-                         sort_edges_by_receiver, csr_tiling)
-              for s in samples]
+    padded = []
+    for s in samples:
+        if pad_cache is not None and id(s) in pad_cache:
+            padded.append(pad_cache[id(s)])
+            continue
+        p = pad_sample(s, max_nodes, max_edges, bg_index,
+                       sort_edges_by_receiver, csr_tiling)
+        if pad_cache is not None:
+            pad_cache[id(s)] = p
+        padded.append(p)
     arrays = {k: np.stack([p[k] for p in padded]) for k in padded[0]}
     geometry = landing = None
     if isinstance(csr_tiling, dict):
@@ -499,7 +526,7 @@ def stack_samples(samples: List[GraphSample], max_nodes: int, bg_index: int,
         if len(csr_tiling) >= 5 and csr_tiling[4] is not None:
             # spread tiling caps the runs by construction
             roll_passes = (int(csr_tiling[4]) - 1).bit_length()
-        else:
+        elif roll_passes is None:
             roll_passes = roll_passes_bound(samples, slots)
         geometry = (node_block, slots, roll_passes)
     if csr_tiling is not None:

@@ -9,7 +9,12 @@ flagship's widths and drives their entry points, `benchmarks.kernel_check`
 and `benchmarks.kernel_bench`. A fifth runs the evaluation stage
 (`postprocess`: NMS, the mAP engine, the evaluator) on the served kNN
 requests and on oracle predictions, against the same chain on the CPU; a
-sixth runs the port's bench (`benchmarks.bench`) in child processes.
+sixth runs the port's bench (`benchmarks.bench`) in child processes; a
+seventh runs the command-line pipeline (`cli.main`: create_dataset from
+raw RadarScenes sequences it writes, train, evaluate) under the flagship
+YAML, with each stage's launches counted, then the evaluate CLI as a
+child process, and the model folder evaluated on the CPU against the
+card.
 
 `run(device)` is what `chip_smoke.py` calls on the card; the CPU tests call
 it at a tiny size, where the wrappers take their plain versions, nothing is
@@ -21,9 +26,11 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import importlib.util
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -39,7 +46,13 @@ from radargnn_tpu_torch.benchmarks import kernel_bench, kernel_check, \
     linear_bench
 from radargnn_tpu_torch.benchmarks.kernel_bench import time_ms as _time_ms
 from radargnn_tpu_torch.build import nvcc_all
-from radargnn_tpu_torch.configs import UserConfigurationReader
+from radargnn_tpu_torch.configs import (
+    RadarScenesSplitConfiguration, UserConfigurationReader,
+)
+from radargnn_tpu_torch.data.radarscenes.dataset_creation import (
+    RadarScenesGraphDataset,
+)
+from radargnn_tpu_torch.data.radarscenes.reader import SENSOR_MOUNTING
 from radargnn_tpu_torch.data.synthetic import make_samples
 from radargnn_tpu_torch.device import DeviceLike, resolve_device
 from radargnn_tpu_torch.graph.batch import stack_samples
@@ -2051,6 +2064,411 @@ def bench_phase(dev: torch.device, points: int, graphs: int,
     return lines
 
 
+# -- the seventh phase: the command-line pipeline ----------------------------
+
+# RadarScenes' on-disk tables (the layout `tests/test_radarscenes_pipeline.py`
+# writes): one row per detection, one per odometry pose
+RADAR_DTYPE = np.dtype([
+    ("timestamp", np.int64), ("sensor_id", np.uint8),
+    ("range_sc", np.float32), ("azimuth_sc", np.float32),
+    ("rcs", np.float32), ("vr", np.float32), ("vr_compensated", np.float32),
+    ("x_cc", np.float32), ("y_cc", np.float32),
+    ("x_seq", np.float32), ("y_seq", np.float32),
+    ("uuid", "S32"), ("track_id", "S32"), ("label_id", np.uint8),
+])
+ODO_DTYPE = np.dtype([
+    ("timestamp", np.int64), ("x_seq", np.float64), ("y_seq", np.float64),
+    ("yaw_seq", np.float64), ("vx", np.float64), ("yaw_rate", np.float64),
+])
+# the moving objects of a raw sequence, one class each of the five:
+# (raw label, name, length m, width m, speed m/s, points a scan, rcs dBsm)
+RAW_OBJECTS = ((0, "car", 4.5, 1.8, 8.0, 6, 10.0),
+               (7, "pedestrian", 0.6, 0.6, 1.4, 2, -8.0),
+               (8, "pedestrian_group", 2.0, 1.5, 1.2, 4, -3.0),
+               (5, "bicycle", 1.8, 0.6, 4.0, 3, 0.0),
+               (2, "truck", 9.0, 2.5, 6.0, 10, 15.0))
+SCAN_US = 70_000            # 70 ms between scans, over the 4 sensors
+EGO_SPEED = 5.0             # m/s along x
+# the CLI phase's raw data: three train sequences (indices 0-2, none of
+# them in RADARSCENES_TEST_SPLIT_INDICES) and one validation sequence
+CLI_SEQUENCES = (("sequence_1", "train"), ("sequence_2", "train"),
+                 ("sequence_3", "train"), ("sequence_val_1", "validation"))
+# the flagship YAML's fields the CLI phase replaces (a short run that
+# checkpoints)
+CLI_REPLACED = {"epochs": 2, "checkpoint_every_epochs": 1}
+
+
+def _raw_scan(rng, i: int, ts: int, objects: list, static: int,
+              name: str) -> np.ndarray:
+    """One scan of sensor i % 4 + 1: static clutter drawn in the car frame
+    (a few points past the crop), each object's points inside its moving
+    box, and one animal and one other point (dropped by the reduced
+    labels). Radial velocities are along the sensor's line of sight."""
+    t = i * SCAN_US * 1e-6
+    ego = EGO_SPEED * t
+    sensor = i % 4 + 1
+    mount = SENSOR_MOUNTING[sensor]
+    parts = []                                     # (x, y, v, label, track)
+    xy = np.stack([rng.uniform(-2, 102, static),
+                   rng.uniform(-51, 51, static)], axis=1)
+    parts.append((xy, np.zeros((static, 2)), np.full(static, 11), b"",
+                  rng.normal(-5, 5, static)))
+    for k, (label, cls, length, width, speed, pts, rcs) in enumerate(
+            RAW_OBJECTS):
+        for j, (start, heading) in enumerate(objects[k]):
+            d = np.array([np.cos(heading), np.sin(heading)])
+            o = np.array([-d[1], d[0]])
+            center = start + speed * t * d - [ego, 0.0]
+            local = (rng.uniform(-0.5, 0.5, (pts, 1)) * length * d
+                     + rng.uniform(-0.5, 0.5, (pts, 1)) * width * o)
+            parts.append((center + local, np.tile(speed * d, (pts, 1)),
+                          np.full(pts, label), f"{cls}_{j}".encode(),
+                          rng.normal(rcs, 3, pts)))
+    parts.append((np.array([[20.0, 5.0], [30.0, -5.0]]), np.zeros((2, 2)),
+                  np.array([9, 10]), b"", rng.normal(0, 1, 2)))
+    rows = np.zeros(sum(len(p[0]) for p in parts), RADAR_DTYPE)
+    at = 0
+    for xy, v, label, track, rcs in parts:
+        sl = slice(at, at + len(xy))
+        rel = xy - [mount["x"], mount["y"]]
+        direction = np.arctan2(rel[:, 1], rel[:, 0])
+        los = np.stack([np.cos(direction), np.sin(direction)], axis=1)
+        vr_comp = (v * los).sum(1) + rng.normal(0, 0.05, len(xy))
+        rows["x_cc"][sl], rows["y_cc"][sl] = xy[:, 0], xy[:, 1]
+        rows["x_seq"][sl], rows["y_seq"][sl] = xy[:, 0] + ego, xy[:, 1]
+        rows["range_sc"][sl] = np.hypot(rel[:, 0], rel[:, 1])
+        rows["azimuth_sc"][sl] = direction - mount["yaw"]
+        rows["vr_compensated"][sl] = vr_comp
+        rows["vr"][sl] = vr_comp - EGO_SPEED * los[:, 0]
+        rows["rcs"][sl] = rcs
+        rows["label_id"][sl] = label
+        rows["track_id"][sl] = track
+        at += len(xy)
+    rows["timestamp"] = ts
+    rows["sensor_id"] = sensor
+    rows["uuid"] = [f"{name}_{i}_{n}".encode() for n in range(len(rows))]
+    return rows
+
+
+def write_radarscenes(root: str, scans: int, points_per_scan: int,
+                      seed: int = 0) -> None:
+    """A RadarScenes-format dataset under `root`/raw/data: sequences.json,
+    and a scenes.json and radar_data.h5 for each of CLI_SEQUENCES, with
+    `scans` scans of about `points_per_scan` detections each. Every
+    sequence has moving objects of all five classes (two of each at 300 or
+    more points a scan, else one), each object with its own track id."""
+    import h5py
+
+    data = os.path.join(root, "raw", "data")
+    per_class = 2 if points_per_scan >= 300 else 1
+    object_points = per_class * sum(o[5] for o in RAW_OBJECTS)
+    static = max(points_per_scan - object_points - 2, 0)
+    sequences = {}
+    for s, (name, category) in enumerate(CLI_SEQUENCES):
+        rng = np.random.default_rng(seed + s)
+        objects = [[(np.array([rng.uniform(15, 85), rng.uniform(-35, 35)]),
+                     rng.uniform(0, 2 * np.pi)) for _ in range(per_class)]
+                   for _ in RAW_OBJECTS]
+        timestamps = 1_000_000 + np.arange(scans) * SCAN_US
+        scenes, tables = {}, []
+        odometry = np.zeros(scans, ODO_DTYPE)
+        at = 0
+        for i, ts in enumerate(timestamps):
+            odometry[i] = (ts, EGO_SPEED * i * SCAN_US * 1e-6, 0.0, 0.0,
+                           EGO_SPEED, 0.0)
+            rows = _raw_scan(rng, i, int(ts), objects, static, name)
+            scenes[str(int(ts))] = {"sensor_id": int(rows["sensor_id"][0]),
+                                    "radar_indices": [at, at + len(rows)],
+                                    "odometry_index": i}
+            tables.append(rows)
+            at += len(rows)
+        folder = os.path.join(data, name)
+        os.makedirs(folder)
+        with h5py.File(os.path.join(folder, "radar_data.h5"), "w") as f:
+            f.create_dataset("radar_data", data=np.concatenate(tables))
+            f.create_dataset("odometry", data=odometry)
+        with open(os.path.join(folder, "scenes.json"), "w") as f:
+            json.dump({"sequence_name": name, "category": category,
+                       "scenes": scenes}, f)
+        sequences[name] = {"category": category}
+    with open(os.path.join(data, "sequences.json"), "w") as f:
+        json.dump({"sequences": sequences}, f)
+
+
+def write_processed(root: str, train: int, validate: int, points: int,
+                    seed: int = 0) -> None:
+    """The processed splits without raw data (where h5py is missing):
+    `data.synthetic.make_samples` frames of `points` points under the
+    flagship's graph construction, saved as `graph_<i>.npz` into
+    `root`/processed/{train,validate}, with the dataset creation's
+    config.json."""
+    cfg = UserConfigurationReader.read_config_file(FLAGSHIP_CONFIG)
+    graph_cfg = UserConfigurationReader.get_config_object(
+        "GRAPH_CONSTRUCTION", cfg)
+    dataset_cfg = UserConfigurationReader.get_config_object(
+        "DATASET_PROCESSING", cfg)
+    dataset = RadarScenesGraphDataset(root, graph_cfg, dataset_cfg,
+                                      process=False)
+    for i, (split, frames) in enumerate((("train", train),
+                                         ("validate", validate))):
+        folder = os.path.join(dataset.processed_dir, split)
+        os.makedirs(folder)
+        for j, sample in enumerate(make_samples(
+                frames, points, seed=seed + i, graph_config=graph_cfg)):
+            sample.save_npz(os.path.join(folder, f"graph_{j}.npz"))
+    dataset.write_description(RadarScenesSplitConfiguration(
+        standard_split=False,
+        train_sequences=[n for n, c in CLI_SEQUENCES if c == "train"],
+        validate_sequences=[n for n, c in CLI_SEQUENCES
+                            if c == "validation"]))
+
+
+def cli_config(folder: str) -> str:
+    """The flagship YAML with CLI_REPLACED's fields replaced, in `folder`."""
+    with open(FLAGSHIP_CONFIG) as f:
+        text = f.read()
+    for key, value in CLI_REPLACED.items():
+        text, n = re.subn(rf"^(\s+{key}:) \S+", rf"\g<1> {value}", text,
+                          flags=re.MULTILINE)
+        if n != 1:
+            raise AssertionError(f"the flagship YAML has {n} {key} fields")
+    path = os.path.join(folder, "config.yml")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def cli_phase(dev: torch.device, points: int = RADIUS_POINTS,
+              scans: Optional[int] = None, out: Callable = print) -> Dict:
+    """The seventh phase: the command-line pipeline under the flagship YAML
+    (CLI_REPLACED). It writes raw RadarScenes sequences (`scans` scans
+    each, 80 on the card, sized so a 0.5 s frame holds about `points`
+    points), then runs `cli.main.main` in this process: create_dataset
+    with the YAML's spawned workers, train, evaluate. The kernel launches
+    of train and of evaluate are counted apart (the counters set to 0
+    just before each and read just after) and must be exactly the dense
+    path's. Then `python -m radargnn_tpu_torch.cli.evaluate` runs as a
+    child process (evaluation_02), and the model folder is evaluated on
+    the CPU: its class probabilities and boxes must match the card's
+    within the serving phase's tolerances. Where h5py is missing, raw data
+    can be neither written nor read: the phase writes the processed splits
+    itself (`write_processed`) and runs train and evaluate through the
+    CLI, and says so."""
+    from radargnn_tpu_torch.cli import main as cli_main
+    from radargnn_tpu_torch.data.radarscenes import reader
+
+    on_card = dev.type == "cuda"
+    scans = scans or (80 if on_card else 24)
+    # a frame takes 9 scans (the 0.5 s window and the scan past it); the
+    # crop keeps ~94 % of the clutter
+    per_scan = max(points * 10 // 85, 40)
+    res: Dict = {"replaced": CLI_REPLACED,
+                 "card": card_description() if on_card else None,
+                 "create_dataset": reader.h5py is not None}
+    stages: Dict = {}
+    epoch_s: List[float] = []
+    train_epoch = Trainer._train_epoch
+
+    def counted(name: str, fn: Callable) -> Callable:
+        def stage(*args, **kw):
+            for c in _counters():
+                c.launches = 0
+            t0 = time.perf_counter()
+            result = fn(*args, **kw)
+            stages[name] = {"seconds": time.perf_counter() - t0,
+                            "launches": [c.launches for c in _counters()],
+                            "result": result}
+            return result
+        return stage
+
+    def timed_epoch(self, *args, **kw):
+        t0 = time.perf_counter()
+        result = train_epoch(self, *args, **kw)
+        epoch_s.append(time.perf_counter() - t0)
+        return result
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "radarscenes")
+        results = os.path.join(tmp, "results")
+        os.makedirs(results)
+        config = cli_config(tmp)
+        out(f"CLI phase: the flagship configuration with "
+            f"{json.dumps(CLI_REPLACED)} replaced")
+        model = os.path.join(results, "model_01")
+        t0 = time.perf_counter()
+        with ExitStack() as stack:
+            train = counted("train", cli_main.train)
+            evaluate = counted("evaluate", cli_main.evaluate)
+            stack.enter_context(mock.patch.object(cli_main, "train", train))
+            stack.enter_context(mock.patch.object(cli_main, "evaluate",
+                                                  evaluate))
+            stack.enter_context(mock.patch.object(Trainer, "_train_epoch",
+                                                  timed_epoch))
+            if res["create_dataset"]:
+                write_radarscenes(root, scans, per_scan)
+                res["raw_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                cli_main.main(root, results, config, device=dev)
+                res["create_dataset_s"] = (time.perf_counter() - t0
+                                           - stages["train"]["seconds"]
+                                           - stages["evaluate"]["seconds"])
+            else:
+                out("CLI phase: create_dataset did not run: h5py is not "
+                    "installed here, so raw RadarScenes sequences can be "
+                    "neither written nor read; the processed splits are "
+                    f"synthetic frames of {points} points "
+                    "(smoke.write_processed)")
+                # the raw path's frame count: a frame every 8 scans
+                frames = -(-(scans - 1) // 8)
+                write_processed(root, 3 * frames, frames, points)
+                res["raw_s"] = time.perf_counter() - t0
+                train(os.path.join(root, "processed"), results, config,
+                      device=dev)
+                evaluate(root, model, config, device=dev)
+        res.update(_check_cli_run(dev, root, results, config, stages,
+                                  epoch_s, out))
+    res["phase_s"] = time.perf_counter() - start
+    created = (f"create_dataset {res['create_dataset_s']:.2f} s (raw "
+               f"sequences written in {res['raw_s']:.2f} s)"
+               if res["create_dataset"] else "create_dataset did not run "
+               "(no h5py)")
+    out(f"CLI phase on {dev}: frames train {res['frames']['train']}, "
+        f"validate {res['frames']['validate']}; points per frame "
+        f"{res['points'][0]}-{res['points'][1]}; valid edges per train "
+        f"batch {res['train_batch_edges']}; {created}; train s per epoch "
+        f"{[round(t, 3) for t in res['train_epoch_s']]} (train stage "
+        f"{res['train_s']:.2f} s); evaluate {res['evaluate_s']:.2f} s "
+        f"(child process {res['child_evaluate_s']:.2f} s); the phase "
+        f"{res['phase_s']:.2f} s; mAP {res['map']}, F1 {res['f1']}; card "
+        f"{res['card']}")
+    return res
+
+
+CLI_MODEL_FILES = ("gnn_configs.json", "dataset_configs.json",
+                   "trained_model.msgpack", "loss_train.npy",
+                   "loss_validation.npy", "loss_train_cls.npy",
+                   "loss_train_bb.npy")
+CLI_EVAL_BATCH = 8          # the evaluate CLI's default batch size
+
+
+def _check_cli_run(dev: torch.device, root: str, results: str, config: str,
+                   stages: Dict, epoch_s: List[float],
+                   out: Callable) -> Dict:
+    """The CLI phase's checks after cli.main: each stage's launches, the
+    model folder's files and losses, the checkpoint, eval_results.json;
+    then the evaluate CLI as a child process, and the model folder
+    evaluated on the CPU against the card's predictions."""
+    from radargnn_tpu_torch.cli import evaluate as cli_evaluate
+    from radargnn_tpu_torch.data.loader import load_split_samples
+
+    on_card = dev.type == "cuda"
+    cfg = UserConfigurationReader.read_config_file(config)
+    arch = UserConfigurationReader.get_config_object("MODEL_ARCHITECTURE", cfg)
+    train_cfg = UserConfigurationReader.get_config_object("TRAINING", cfg)
+    layers = len(arch.conv_layer_dimensions)
+    samples = {s: load_split_samples(os.path.join(root, "processed"), s)
+               for s in ("train", "validate")}
+    n_train, n_val = len(samples["train"]), len(samples["validate"])
+    if not n_train or not n_val:
+        raise AssertionError(f"the CLI phase made {n_train} train and "
+                             f"{n_val} validate frames")
+    steps = train_cfg.epochs * -(-n_train // train_cfg.batch_size)
+    forwards = steps + train_cfg.epochs * -(-n_val // train_cfg.batch_size)
+    served = -(-n_val // CLI_EVAL_BATCH)
+    expected = {
+        "train": _expect({"dense_proj_v4": layers * forwards,
+                          "dense_fwd_v4": layers * forwards,
+                          "dense_bwd_v4": layers * steps}, on_card),
+        "evaluate": _expect({"dense_proj_v4": layers * served,
+                             "dense_fwd_v4": layers * served}, on_card)}
+    res: Dict = {}
+    for name, want in expected.items():
+        got = stages[name]["launches"]
+        res[f"{name}_launches"] = got
+        out(f"launches in the CLI's {name} ({', '.join(KERNEL_NAMES)}): "
+            f"{got} (expected {want})")
+        if got != want:
+            raise AssertionError(f"the CLI's {name} launched {got}, "
+                                 f"expected {want}")
+
+    model = os.path.join(results, "model_01")
+    files = set(os.listdir(model))
+    want_files = set(CLI_MODEL_FILES)
+    if importlib.util.find_spec("matplotlib") is not None:
+        want_files.add("loss_curves.png")
+    low_val = [f for f in files if f.startswith("trained_model_low_val_ep")]
+    if not want_files <= files or len(low_val) != 1:
+        raise AssertionError(f"the model folder holds {sorted(files)}")
+    losses = {name: np.load(os.path.join(model, f"{name}.npy"))
+              for name in ("loss_train", "loss_validation")}
+    for name, value in losses.items():
+        if value.shape != (1, train_cfg.epochs) or \
+                not np.isfinite(value).all():
+            raise AssertionError(f"{name}: {value}")
+    with open(os.path.join(results, "_checkpoint", "meta.json")) as f:
+        meta = json.load(f)
+    if meta["epoch"] != train_cfg.epochs:
+        raise AssertionError(f"the checkpoint is of epoch {meta['epoch']}")
+    with open(os.path.join(model, "evaluation_01", "eval_results.json")) as f:
+        metrics = json.load(f)
+    card_map = metrics["OBJECT_DETECTION_METRICS"]["mAP"]
+    card_f1 = metrics["SEMANTIC_SEGMENTATION_METRICS"]["f1"]
+    if not (np.isfinite(card_map) and np.isfinite(card_f1).all()):
+        raise AssertionError(f"eval_results.json: {metrics}")
+
+    # the evaluate CLI as a user runs it, in a child process
+    cmd = [sys.executable, "-m", "radargnn_tpu_torch.cli.evaluate",
+           "--data", root, "--model", model, "--config", config]
+    t0 = time.perf_counter()
+    code, _, stderr = _finish(subprocess.Popen(
+        cmd + ([] if on_card else ["--device", "cpu"]), cwd=_REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), 600)
+    child_s = time.perf_counter() - t0
+    if code != 0 or not os.path.isfile(os.path.join(
+            model, "evaluation_02", "eval_results.json")):
+        raise AssertionError(f"{' '.join(cmd)} exited {code} and wrote "
+                             f"{sorted(os.listdir(model))}:\n{stderr[-3000:]}")
+
+    # the same model folder on the CPU
+    card = stages["evaluate"]["result"]
+    cpu = cli_evaluate.main(root, model, config, device="cpu")
+    worst_p = worst_b = 0.0
+    pred, ref = card["predictions"], cpu["predictions"]
+    for p, q, b, c in zip(pred["class_probability_prediction"],
+                          ref["class_probability_prediction"],
+                          pred["bounding_box_predictions"],
+                          ref["bounding_box_predictions"]):
+        worst_p = max(worst_p, float(np.abs(p - q).max()))
+        worst_b = max(worst_b, float((np.abs(b - c) / (1 + np.abs(c))).max()))
+    maps = (card["evaluator"].mAP, cpu["evaluator"].mAP)
+    f1s = [np.asarray(r["evaluator"].f1_segmentation).tolist()
+           for r in (card, cpu)]
+    out(f"CLI evaluation on {dev} vs the CPU over {n_val} validate frames: "
+        f"max |dprob| {worst_p:.3e} (atol {MODEL_ATOL_PROB}), max "
+        f"|dbox|/(1+|box|) {worst_b:.3e} (rtol {MODEL_RTOL_BOX}); mAP "
+        f"{maps[0]} / {maps[1]}, F1 {f1s[0]} / {f1s[1]}")
+    if len(pred["class_probability_prediction"]) != n_val \
+            or worst_p > MODEL_ATOL_PROB or worst_b > MODEL_RTOL_BOX:
+        raise AssertionError("the card's evaluation of the model folder "
+                             "disagrees with the CPU's")
+
+    nodes = [s.num_nodes for ss in samples.values() for s in ss]
+    size = train_cfg.batch_size
+    edges = [sum(s.num_edges for s in samples["train"][i:i + size])
+             for i in range(0, n_train, size)]
+    res.update(frames={"train": n_train, "validate": n_val},
+               points=(min(nodes), max(nodes)), train_batch_edges=edges,
+               train_epoch_s=epoch_s,
+               train_s=stages["train"]["seconds"],
+               evaluate_s=stages["evaluate"]["seconds"],
+               child_evaluate_s=child_s, map=maps[0], f1=f1s[0],
+               cpu_map=maps[1], cpu_f1=f1s[1], max_abs_dprob=worst_p,
+               max_rel_dbox=worst_b, losses={k: v[0].tolist()
+                                             for k, v in losses.items()})
+    return res
+
+
 BENCH_SIZE = (450_560, 22_528, 464, 464)   # kernel_bench's defaults
 
 
@@ -2068,7 +2486,9 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
     under the CSR tiling, then the fourth phase: the four kernels no model
     path runs, held against their plain versions at the flagship's widths
     on the kNN batch, then their entry points `kernel_check` and
-    `kernel_bench` (at `bench` = (edges, nodes, d_in, H))."""
+    `kernel_bench` (at `bench` = (edges, nodes, d_in, H)); then the
+    evaluation stage, the bench and the CLI pipeline (frames of about
+    `points` points)."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     summary: Dict = {"device": str(dev)}
@@ -2206,9 +2626,10 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
     last.update(kernel_entry_points(dev, bench, reps, out))
     summary["last_four"] = last
 
-    # -- the evaluation stage on the kNN requests, then the bench ------------
+    # -- the evaluation stage on the kNN requests, the bench, the CLI --------
     summary["evaluation"] = evaluation_phase(dev, model, loader, out)
     summary["bench"] = bench_phase(dev, points, graphs, out)
+    summary["cli"] = cli_phase(dev, points, out=out)
 
     def entry(name, source, replaces, launches, rows, checked, library):
         return {
@@ -2229,12 +2650,15 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
 
     dense_l, radius_l = summary["train_launches"], radius["train_launches"]
     csr_l = csr["train_launches"]
+    cli_l = [a + b for a, b in zip(summary["cli"]["train_launches"],
+                                   summary["cli"]["evaluate_launches"])]
     r_fwd, r_bwd = radius["per_shape_fwd"], radius["per_shape_bwd"]
     c_fwd, c_bwd = csr["per_shape_fwd"], csr["per_shape_bwd"]
     seg_rows = radius["knn_per_shape_segsum"]
     segs = seg_rows + csr["per_shape_segsum"] + csr["radius_per_shape_segsum"]
     # launches: the training runs of each path (the projection runs in
-    # every path's forward; B3 lands on the CSR path); no single PyTorch
+    # every path's forward; B3 lands on the CSR path), and the CLI's train
+    # and evaluate on the dense path; no single PyTorch
     # call computes gather + GEMM + segmented max, nor the routed backward;
     # the projection's is torch.mm, the landing's index_add_ (timed on the
     # kNN batch under the windowed tiling). The windowed gather-max is held
@@ -2244,12 +2668,12 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
     # function's bound.
     summary["kernels"] = [
         entry("dense_proj_v4", "dense_fwd_v4.cu", 2279,
-              dense_l[11] + radius_l[11] + csr_l[11], proj_rows, proj_rows,
-              True),
-        entry("dense_fwd_v4", "dense_fwd_v4.cu", 2279, dense_l[0], fwd_rows,
-              fwd_rows, False),
-        entry("dense_bwd_v4", "dense_bwd_v4.cu", 2340, dense_l[1], bwd_rows,
-              bwd_rows, False),
+              dense_l[11] + radius_l[11] + csr_l[11] + cli_l[11], proj_rows,
+              proj_rows, True),
+        entry("dense_fwd_v4", "dense_fwd_v4.cu", 2279, dense_l[0] + cli_l[0],
+              fwd_rows, fwd_rows, False),
+        entry("dense_bwd_v4", "dense_bwd_v4.cu", 2340, dense_l[1] + cli_l[1],
+              bwd_rows, bwd_rows, False),
         entry("segment_sum_csr", "segment_sum_csr.cu", 854,
               dense_l[2] + radius_l[2] + csr_l[2], seg_rows, segs, True),
         entry("windowed_fwd_v3", "windowed_fwd_v3.cu", 1275, radius_l[3],

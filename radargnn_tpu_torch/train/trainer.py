@@ -8,8 +8,8 @@ learning-rate schedules, weighted cross entropy with separate validation
 weights, a Huber box loss on non-background nodes, the orientation-angle
 adaption, early stopping on validation-loss minima, the best-validation
 snapshot, numbered `model_NN` result folders (config JSONs, loss .npy
-arrays, the loss-curve PNG) and a resumable checkpoint every
-`checkpoint_every_epochs` in the JAX package's files.
+arrays, the loss-curve PNG where matplotlib imports) and a resumable
+checkpoint every `checkpoint_every_epochs` in the JAX package's files.
 
 The reference never calls `model.eval()`, so validation runs BatchNorm in
 train mode and keeps its running-statistic updates; here that step runs
@@ -22,6 +22,7 @@ package's several steps per jitted dispatch) has nothing to select here.
 from __future__ import annotations
 
 import copy
+import importlib.util
 import json
 import os
 import time
@@ -292,8 +293,12 @@ class Trainer:
             with open(f"{folder_path}/{name}.npy", "wb") as f:
                 np.save(f, np.array([data]))
 
-        fig, _ = self.show_learning_curves()
-        fig.savefig(f"{folder_path}/loss_curves.png")
+        if importlib.util.find_spec("matplotlib") is None:
+            print(f"{folder_path}/loss_curves.png not drawn: matplotlib is "
+                  "not installed (the losses are in the loss_*.npy files)")
+        else:
+            fig, _ = self.show_learning_curves()
+            fig.savefig(f"{folder_path}/loss_curves.png")
 
     def show_learning_curves(self):
         import matplotlib

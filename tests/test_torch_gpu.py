@@ -1429,16 +1429,23 @@ def test_smoke_on_card():
     path's kernels (the projection on all three paths, once a layer: the
     CSR backward reuses the forward's; B3 on the CSR path). Two steps keep it
     short; each is held to the plain path at its own parameters, with the
-    smoke's limits."""
+    smoke's limits. The CLI phase's train and evaluate launch the dense
+    path's kernels too, and the kernels line counts them."""
     _need_card()
     summary = smoke.run("cuda", points=512, graphs=2, batches=3, reps=2,
                         train_steps=2, bench=(45_056, 2_253, 464, 464))
+    # the CLI's train (2 epochs of 6 train and 2 validate batches) and
+    # evaluate (2 batches) on the dense path, in KERNEL_NAMES' order
+    cli = [a + b for a, b in zip(summary["cli"]["train_launches"],
+                                 summary["cli"]["evaluate_launches"])]
+    assert cli == [5 * 2 * 8 + 5 * 2, 5 * 2 * 6] + [0] * 9 + [5 * 2 * 8
+                                                              + 5 * 2]
     # the fourth phase's kernels: kernel_check's linear, segment-max (and
     # kernel_bench's check, warm-up and 2 timed calls), the forward through
     # both v1 factories and the kernel backward
     assert [k["launches"] for k in summary["kernels"]] == \
-        [3 * 5 * 2, 5 * 2, 5 * 2, 2 * 5 * 2, 5 * 2, 5 * 2, 5 * 2, 5 * 2, 1,
-         1 + 3 + 1, 2, 1]
+        [3 * 5 * 2 + cli[11], 5 * 2 + cli[0], 5 * 2 + cli[1], 2 * 5 * 2,
+         5 * 2, 5 * 2, 5 * 2, 5 * 2, 1, 1 + 3 + 1, 2, 1]
     assert summary["serve_launches"] == [5 * 3] + [0] * 10 + [5 * 3]
     assert summary["radius"]["serve_launches"] == \
         [0, 0, 0, 5 * 3] + [0] * 7 + [5 * 3]
@@ -1517,3 +1524,92 @@ def test_mean_ap_on_the_card_matches_the_cpu(rotated):
         np.testing.assert_allclose(np.asarray(res["cuda"][key], float),
                                    np.asarray(want, float), rtol=0,
                                    atol=smoke.EVAL_METRIC_ATOL, err_msg=key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiling", [None, "dense"])
+def test_loader_batches_on_the_card_are_the_cpus(tmp_path, tiling):
+    """The loader's batches on the card (the default device) hold the same
+    arrays as on the CPU, over two shuffled epochs, the padded last batch
+    included."""
+    _need_card()
+    from radargnn_tpu_torch.data import loader
+    from radargnn_tpu_torch.data.synthetic import make_samples
+    from radargnn_tpu_torch.models.layers import fused_csr_tiling
+
+    arch, graph_cfg, _, _ = smoke.flagship_configs("knn")
+    spec = fused_csr_tiling(arch, k=graph_cfg.k) if tiling else None
+    for split, n in (("train", 7), ("validate", 3)):
+        (tmp_path / split).mkdir()
+        for i, sample in enumerate(make_samples(n, 300, seed=len(split))):
+            sample.save_npz(str(tmp_path / split / f"graph_{i}.npz"))
+    kw = dict(batch_size=3, shuffle=True, seed=5, csr_tiling=spec)
+    card, _ = loader.get_data_loaders(["train", "validate"], str(tmp_path),
+                                      **kw)
+    cpu, _ = loader.get_data_loaders(["train", "validate"], str(tmp_path),
+                                     device="cpu", **kw)
+    for split in ("train", "validate"):
+        for _ in range(2):
+            for a, b in zip(card[split], cpu[split], strict=True):
+                assert a.device.type == "cuda"
+                for name, t in a.tensors().items():
+                    # exact, NaN (a background node's box) equal to NaN
+                    torch.testing.assert_close(t.cpu(), getattr(b, name),
+                                               rtol=0, atol=0,
+                                               equal_nan=True, msg=name)
+                assert a.tile_geometry == b.tile_geometry
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", ["knn", "radius"])
+def test_online_graph_on_the_card_matches_the_host(algorithm):
+    """The device graph builder on the card: per receiver the host
+    pipeline's edges, and its edge and node features within float32
+    rounding (1e-6), at a flagship-size frame."""
+    _need_card()
+    from radargnn_tpu_torch.configs import GraphConstructionConfiguration
+    from radargnn_tpu_torch.data.synthetic import synthetic_frame
+    from radargnn_tpu_torch.graph import online
+    from radargnn_tpu_torch.graph.build import build_geometric_graph
+
+    config = GraphConstructionConfiguration(
+        algorithm, {"k": 20, "r": 3.0},
+        ["rcs", "velocity_vector", "time_index", "degree"],
+        ["relative_position", "point_pair_features"], "directed", "X")
+    rng = np.random.default_rng(7)
+    n, pad = 2816, 2880
+    frames = [synthetic_frame(rng, n) for _ in range(2)]
+
+    def stacked(i, width):
+        out = np.zeros((2, pad, width), np.float32)
+        for g, f in enumerate(frames):
+            out[g, :n] = np.asarray(f[i], np.float32).reshape(n, width)
+        return torch.from_numpy(out).cuda()
+
+    pos, vel = stacked(0, 2), stacked(1, 2)
+    rcs, ts = stacked(2, 1)[..., 0], stacked(3, 1)[..., 0]
+    valid = (torch.arange(pad) < n).expand(2, pad).cuda()
+    # more than any point's neighbors within 3 m (a synthetic object holds
+    # ~70 points), so the radius graph is not cut
+    batch = online.build_graph_batch_on_device(config, pos, vel, rcs, ts,
+                                               valid, max_degree=256)
+    assert batch.node_feat.device.type == "cuda"
+    for g in range(2):
+        host = build_geometric_graph(
+            config, pos[g, :n].double().cpu().numpy(),
+            vel[g, :n].double().cpu().numpy(),
+            rcs=rcs[g, :n].cpu().numpy(), timestamps=ts[g, :n].cpu().numpy())
+        m = batch.edge_mask[g].cpu().numpy()
+        if algorithm == "radius":
+            assert m.reshape(pad, -1).sum(1).max() < 256
+        s = batch.senders[g].cpu().numpy()[m]
+        r = batch.receivers[g].cpu().numpy()[m]
+        feat = batch.edge_feat[g].cpu().numpy()[m]
+        dev = dict(zip(zip(s.tolist(), r.tolist()), feat))
+        host_edges = list(map(tuple, host.edges.tolist()))
+        assert set(dev) == set(host_edges)
+        got = np.stack([dev[e] for e in host_edges])
+        np.testing.assert_allclose(got, host.edge_feat, rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(batch.node_feat[g, :n].cpu().numpy(),
+                                   host.node_feat, rtol=1e-6, atol=1e-6)

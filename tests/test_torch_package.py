@@ -71,14 +71,18 @@ def test_every_submodule_imports_without_jax():
         "assert not bad, bad\n"
         "for m in ('ops.csr_aggregate', 'ops.fused_linear', "
         "'ops.message_segment_max', 'ops.hoisted_aggregate', "
-        "'benchmarks.kernel_check', 'benchmarks.kernel_bench'):\n"
+        "'benchmarks.kernel_check', 'benchmarks.kernel_bench', "
+        "'data.point_cloud', 'data.loader', 'data.radarscenes.reader', "
+        "'data.radarscenes.scene_collection', "
+        "'data.radarscenes.dataset_creation', 'graph.online', "
+        "'cli.create_dataset', 'cli.train', 'cli.evaluate', 'cli.main'):\n"
         "    assert 'radargnn_tpu_torch.' + m in names, m\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 46   # every module of five slices
+    assert int(proc.stdout.strip()) >= 68   # every module of twelve slices
     for path in (("ops", "csr_aggregate.py"), ("ops", "hoisted_aggregate.py"),
                  ("benchmarks", "kernel_check.py")):
         assert os.path.join(_PKG, *path) in _port_sources()
@@ -243,6 +247,39 @@ def test_postprocess_and_bench_import_no_jax_sklearn_or_matplotlib():
         "'SegmentationMetrics', 'Evaluator', 'RadarscenesEvaluator', "
         "'evaluation_selector', 'get_new_evaluation_folder_path'):\n"
         "    assert hasattr(p, name), name\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_pipeline_and_cli_import_without_h5py_or_matplotlib():
+    """A fresh interpreter where h5py and matplotlib cannot be imported
+    (the card's machine lacks them) imports the RadarScenes pipeline, the
+    loader, the online builder and the CLI; the reader then holds no
+    h5py, and reading a sequence is what raises."""
+    code = (
+        "import sys\n"
+        "sys.modules['h5py'] = None\n"
+        "sys.modules['matplotlib'] = None\n"
+        "from radargnn_tpu_torch.data.radarscenes import reader\n"
+        "import radargnn_tpu_torch.data.radarscenes\n"
+        "from radargnn_tpu_torch.data import loader, point_cloud\n"
+        "from radargnn_tpu_torch.graph import online\n"
+        "from radargnn_tpu_torch.cli import create_dataset, evaluate, "
+        "main, train\n"
+        "assert reader.h5py is None\n"
+        "try:\n"
+        "    reader.Sequence.from_json('scenes.json')\n"
+        "except ImportError as e:\n"
+        "    assert 'h5py' in str(e)\n"
+        "else:\n"
+        "    raise AssertionError('read without h5py')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
+        "'jaxlib', 'flax', 'radargnn_tpu') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
