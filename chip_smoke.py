@@ -50,7 +50,20 @@ so), train and evaluate, checking that train launched the dense path's
 three kernels and evaluate its two, exactly as often as the batches ask,
 and nothing else; then python -m radargnn_tpu_torch.cli.evaluate as a
 child process, and the model folder evaluated on the CPU against the
-card. It prints the kernels' times beside their bounds. The last line is
+card. An eighth runs the nuScenes pipeline the same way, under the nuScenes
+configuration with epochs 2 (printed), on nuScenes-format tables and
+multisweep radar sweeps it writes (two train scenes of 32 samples, one
+validation scene of 16; batches of 32 frames of about 1,900 points):
+create_dataset, train and evaluate (the NuscenesEvaluator: submission.json
+and the native detection eval's mAP and NDS), the launches of the dense
+path's kernels counted as above; then the evaluate CLI as a child
+process, the model folder evaluated on the CPU against the card, oracle
+predictions through the card's and the CPU's NMS and evaluator (equal
+metrics, AP above 0.9 for every class present), the dense path's kernels
+held against their plain versions on the train CLI's first batch of 32
+frames, and last radargnn_tpu_torch.benchmarks.nuscenes_e2e as a child
+process, alone. It prints the kernels' times beside
+their bounds. The last line is
 one JSON object with "ok" and the device; any failed phase exits
 non-zero.
 """

@@ -24,9 +24,10 @@ def dataset_selector(dataset: str):
         )
         return RadarScenesGraphDataset
     if dataset == "nuscenes":
-        raise NotImplementedError(
-            "the nuScenes dataset creation is not ported yet (ROADMAP.md §A, "
-            "data pipelines and CLI)")
+        from radargnn_tpu_torch.data.nuscenes.dataset_creation import (
+            NuScenesGraphDataset,
+        )
+        return NuScenesGraphDataset
     raise KeyError(dataset)
 
 

@@ -140,15 +140,30 @@ class NuScenesDatasetConfiguration:
 
 @dataclass
 class NuScenesSplitConfiguration:
-    """Scene-name split for nuScenes: needs the vendored split tables, which
-    arrive with the port's data pipelines."""
+    """Scene split for nuScenes by version: mini, trainval (train_detect +
+    train_track against val) or test; each list sorted, without repeats."""
 
     sequence_dict: dict
 
     def __init__(self, version: str = "v1.0-mini"):
-        raise NotImplementedError(
-            "the nuScenes split tables are not ported yet (ROADMAP.md §A, "
-            "data pipelines and CLI)")
+        from radargnn_tpu_torch.data.nuscenes import splits
+        if version == "v1.0-mini":
+            self.sequence_dict = {
+                "train": list(sorted(set(splits.mini_train))),
+                "validate": list(sorted(set(splits.mini_val))),
+            }
+        elif version == "v1.0-trainval":
+            self.sequence_dict = {
+                "train": list(sorted(set(splits.train_detect
+                                         + splits.train_track))),
+                "validate": list(sorted(set(splits.val))),
+            }
+        elif version == "v1.0-test":
+            self.sequence_dict = {"test": list(sorted(set(splits.test)))}
+        else:
+            raise ValueError(
+                f"The given dataset version {version} is not a valid version "
+                f"of the nuScenes Dataset!")
 
 
 # --------------------------------------------------------------------------

@@ -3,7 +3,7 @@
 Port of `radargnn_tpu/postprocess/evaluation.py` (parity:
 `postprocessor/evaluation.py:8-61`, the abstract Evaluator and the folder
 numbering, and `postprocessor/radarscenes/evaluation.py:12-97` of the
-reference). The nuScenes evaluator is not ported yet.
+reference); the nuScenes evaluator is `data.nuscenes.evaluation`.
 
 `save_results` writes the JAX package's artifacts. `confusion.png` needs
 matplotlib: where it does not import, the figure is not drawn, one line
@@ -137,7 +137,8 @@ def evaluation_selector(dataset: str):
     if dataset == "radarscenes":
         return RadarscenesEvaluator
     if dataset == "nuscenes":
-        raise NotImplementedError(
-            "the nuScenes evaluator is not ported yet; it comes with the "
-            "nuScenes data pipeline (ROADMAP.md §A, data pipelines and CLI)")
+        from radargnn_tpu_torch.data.nuscenes.evaluation import (
+            NuscenesEvaluator,
+        )
+        return NuscenesEvaluator
     raise KeyError(dataset)

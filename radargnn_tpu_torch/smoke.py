@@ -14,7 +14,11 @@ seventh runs the command-line pipeline (`cli.main`: create_dataset from
 raw RadarScenes sequences it writes, train, evaluate) under the flagship
 YAML, with each stage's launches counted, then the evaluate CLI as a
 child process, and the model folder evaluated on the CPU against the
-card.
+card. An eighth runs the same pipeline under the nuScenes YAML, on
+nuScenes-format tables and multisweep radar sweeps it writes, the same
+way, then the nuScenes e2e (`benchmarks.nuscenes_e2e`) as a child process,
+and oracle predictions through the card's and the CPU's NMS and
+NuscenesEvaluator.
 
 `run(device)` is what `chip_smoke.py` calls on the card; the CPU tests call
 it at a tiny size, where the wrappers take their plain versions, nothing is
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import glob
 import importlib.util
 import json
 import math
@@ -2223,19 +2228,59 @@ def write_processed(root: str, train: int, validate: int, points: int,
                             if c == "validation"]))
 
 
-def cli_config(folder: str) -> str:
-    """The flagship YAML with CLI_REPLACED's fields replaced, in `folder`."""
-    with open(FLAGSHIP_CONFIG) as f:
+def cli_config(folder: str, source: str = FLAGSHIP_CONFIG,
+               replaced: Optional[Dict] = None,
+               name: str = "config.yml") -> str:
+    """The YAML `source` (the flagship's) with the fields of `replaced`
+    (CLI_REPLACED) replaced, each field's whole value, written to
+    `folder`/`name`."""
+    with open(source) as f:
         text = f.read()
-    for key, value in CLI_REPLACED.items():
-        text, n = re.subn(rf"^(\s+{key}:) \S+", rf"\g<1> {value}", text,
+    for key, value in (CLI_REPLACED if replaced is None else replaced).items():
+        # the value (as JSON, which YAML reads) replaces the rest of the line
+        text, n = re.subn(rf"^(\s+{key}:) .*$",
+                          lambda m: f"{m.group(1)} {json.dumps(value)}", text,
                           flags=re.MULTILINE)
         if n != 1:
-            raise AssertionError(f"the flagship YAML has {n} {key} fields")
-    path = os.path.join(folder, "config.yml")
+            raise AssertionError(f"{source} has {n} {key} fields")
+    path = os.path.join(folder, name)
     with open(path, "w") as f:
         f.write(text)
     return path
+
+
+def _count_stages(stack: ExitStack, cli_main, names: Tuple[str, ...],
+                  stages: Dict, epoch_s: List[float]) -> None:
+    """Patches the stages `names` of `cli_main` so that each run of one
+    leaves its seconds, its launches (the counters set to 0 just before it
+    and read just after) and its result in `stages`[name], and
+    `Trainer._train_epoch` so that each epoch's seconds land in
+    `epoch_s`."""
+    def counted(name: str, fn: Callable) -> Callable:
+        def stage(*args, **kw):
+            for c in _counters():
+                c.launches = 0
+            t0 = time.perf_counter()
+            result = fn(*args, **kw)
+            stages[name] = {"seconds": time.perf_counter() - t0,
+                            "launches": [c.launches for c in _counters()],
+                            "result": result}
+            return result
+        return stage
+
+    train_epoch = Trainer._train_epoch
+
+    def timed_epoch(self, *args, **kw):
+        t0 = time.perf_counter()
+        result = train_epoch(self, *args, **kw)
+        epoch_s.append(time.perf_counter() - t0)
+        return result
+
+    for name in names:
+        stack.enter_context(mock.patch.object(
+            cli_main, name, counted(name, getattr(cli_main, name))))
+    stack.enter_context(mock.patch.object(Trainer, "_train_epoch",
+                                          timed_epoch))
 
 
 def cli_phase(dev: torch.device, points: int = RADIUS_POINTS,
@@ -2267,26 +2312,6 @@ def cli_phase(dev: torch.device, points: int = RADIUS_POINTS,
                  "create_dataset": reader.h5py is not None}
     stages: Dict = {}
     epoch_s: List[float] = []
-    train_epoch = Trainer._train_epoch
-
-    def counted(name: str, fn: Callable) -> Callable:
-        def stage(*args, **kw):
-            for c in _counters():
-                c.launches = 0
-            t0 = time.perf_counter()
-            result = fn(*args, **kw)
-            stages[name] = {"seconds": time.perf_counter() - t0,
-                            "launches": [c.launches for c in _counters()],
-                            "result": result}
-            return result
-        return stage
-
-    def timed_epoch(self, *args, **kw):
-        t0 = time.perf_counter()
-        result = train_epoch(self, *args, **kw)
-        epoch_s.append(time.perf_counter() - t0)
-        return result
-
     start = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "radarscenes")
@@ -2298,13 +2323,8 @@ def cli_phase(dev: torch.device, points: int = RADIUS_POINTS,
         model = os.path.join(results, "model_01")
         t0 = time.perf_counter()
         with ExitStack() as stack:
-            train = counted("train", cli_main.train)
-            evaluate = counted("evaluate", cli_main.evaluate)
-            stack.enter_context(mock.patch.object(cli_main, "train", train))
-            stack.enter_context(mock.patch.object(cli_main, "evaluate",
-                                                  evaluate))
-            stack.enter_context(mock.patch.object(Trainer, "_train_epoch",
-                                                  timed_epoch))
+            _count_stages(stack, cli_main, ("train", "evaluate"), stages,
+                          epoch_s)
             if res["create_dataset"]:
                 write_radarscenes(root, scans, per_scan)
                 res["raw_s"] = time.perf_counter() - t0
@@ -2323,11 +2343,11 @@ def cli_phase(dev: torch.device, points: int = RADIUS_POINTS,
                 frames = -(-(scans - 1) // 8)
                 write_processed(root, 3 * frames, frames, points)
                 res["raw_s"] = time.perf_counter() - t0
-                train(os.path.join(root, "processed"), results, config,
-                      device=dev)
-                evaluate(root, model, config, device=dev)
+                cli_main.train(os.path.join(root, "processed"), results,
+                               config, device=dev)
+                cli_main.evaluate(root, model, config, device=dev)
         res.update(_check_cli_run(dev, root, results, config, stages,
-                                  epoch_s, out))
+                                  epoch_s, RADARSCENES_OUTPUTS, out))
     res["phase_s"] = time.perf_counter() - start
     created = (f"create_dataset {res['create_dataset_s']:.2f} s (raw "
                f"sequences written in {res['raw_s']:.2f} s)"
@@ -2352,13 +2372,29 @@ CLI_MODEL_FILES = ("gnn_configs.json", "dataset_configs.json",
 CLI_EVAL_BATCH = 8          # the evaluate CLI's default batch size
 
 
+class EvalOutputs(NamedTuple):
+    """What a dataset's evaluator adds to the CLI checks both phases share:
+    the files it writes beside eval_results.json and the confusion
+    matrices, a check of those files (given the evaluation folder), and
+    its scores beside F1 (given the evaluator)."""
+
+    files: Tuple[str, ...]
+    check: Callable[[str], None]
+    scores: Callable[[object], Dict]
+
+
+RADARSCENES_OUTPUTS = EvalOutputs((), lambda folder: None,
+                                  lambda ev: {"map": ev.mAP})
+
+
 def _check_cli_run(dev: torch.device, root: str, results: str, config: str,
-                   stages: Dict, epoch_s: List[float],
+                   stages: Dict, epoch_s: List[float], outputs: EvalOutputs,
                    out: Callable) -> Dict:
     """The CLI phase's checks after cli.main: each stage's launches, the
-    model folder's files and losses, the checkpoint, eval_results.json;
-    then the evaluate CLI as a child process, and the model folder
-    evaluated on the CPU against the card's predictions."""
+    model folder's files and losses, the checkpoint, the evaluation
+    folder's files (`outputs`); then the evaluate CLI as a child process,
+    and the model folder evaluated on the CPU against the card's
+    predictions."""
     from radargnn_tpu_torch.cli import evaluate as cli_evaluate
     from radargnn_tpu_torch.data.loader import load_split_samples
 
@@ -2406,16 +2442,13 @@ def _check_cli_run(dev: torch.device, root: str, results: str, config: str,
         if value.shape != (1, train_cfg.epochs) or \
                 not np.isfinite(value).all():
             raise AssertionError(f"{name}: {value}")
-    with open(os.path.join(results, "_checkpoint", "meta.json")) as f:
-        meta = json.load(f)
-    if meta["epoch"] != train_cfg.epochs:
-        raise AssertionError(f"the checkpoint is of epoch {meta['epoch']}")
-    with open(os.path.join(model, "evaluation_01", "eval_results.json")) as f:
-        metrics = json.load(f)
-    card_map = metrics["OBJECT_DETECTION_METRICS"]["mAP"]
-    card_f1 = metrics["SEMANTIC_SEGMENTATION_METRICS"]["f1"]
-    if not (np.isfinite(card_map) and np.isfinite(card_f1).all()):
-        raise AssertionError(f"eval_results.json: {metrics}")
+    if train_cfg.checkpoint_every_epochs:
+        with open(os.path.join(results, "_checkpoint", "meta.json")) as f:
+            meta = json.load(f)
+        if meta["epoch"] != train_cfg.epochs:
+            raise AssertionError(f"the checkpoint is of epoch "
+                                 f"{meta['epoch']}")
+    _check_eval_folder(os.path.join(model, "evaluation_01"), outputs)
 
     # the evaluate CLI as a user runs it, in a child process
     cmd = [sys.executable, "-m", "radargnn_tpu_torch.cli.evaluate",
@@ -2441,13 +2474,13 @@ def _check_cli_run(dev: torch.device, root: str, results: str, config: str,
                           ref["bounding_box_predictions"]):
         worst_p = max(worst_p, float(np.abs(p - q).max()))
         worst_b = max(worst_b, float((np.abs(b - c) / (1 + np.abs(c))).max()))
-    maps = (card["evaluator"].mAP, cpu["evaluator"].mAP)
-    f1s = [np.asarray(r["evaluator"].f1_segmentation).tolist()
-           for r in (card, cpu)]
+    scores = [dict(outputs.scores(r["evaluator"]), f1=np.asarray(
+        r["evaluator"].f1_segmentation).tolist()) for r in (card, cpu)]
     out(f"CLI evaluation on {dev} vs the CPU over {n_val} validate frames: "
         f"max |dprob| {worst_p:.3e} (atol {MODEL_ATOL_PROB}), max "
-        f"|dbox|/(1+|box|) {worst_b:.3e} (rtol {MODEL_RTOL_BOX}); mAP "
-        f"{maps[0]} / {maps[1]}, F1 {f1s[0]} / {f1s[1]}")
+        f"|dbox|/(1+|box|) {worst_b:.3e} (rtol {MODEL_RTOL_BOX}); "
+        + "; ".join(f"{k} {scores[0][k]} / {scores[1][k]}"
+                    for k in scores[0]))
     if len(pred["class_probability_prediction"]) != n_val \
             or worst_p > MODEL_ATOL_PROB or worst_b > MODEL_RTOL_BOX:
         raise AssertionError("the card's evaluation of the model folder "
@@ -2462,10 +2495,269 @@ def _check_cli_run(dev: torch.device, root: str, results: str, config: str,
                train_epoch_s=epoch_s,
                train_s=stages["train"]["seconds"],
                evaluate_s=stages["evaluate"]["seconds"],
-               child_evaluate_s=child_s, map=maps[0], f1=f1s[0],
-               cpu_map=maps[1], cpu_f1=f1s[1], max_abs_dprob=worst_p,
+               child_evaluate_s=child_s, **scores[0],
+               **{f"cpu_{k}": v for k, v in scores[1].items()},
+               max_abs_dprob=worst_p,
                max_rel_dbox=worst_b, losses={k: v[0].tolist()
                                              for k, v in losses.items()})
+    return res
+
+
+def _check_eval_folder(folder: str, outputs: EvalOutputs) -> None:
+    """An evaluation folder holds the evaluator's files with finite
+    numbers (confusion.png only where matplotlib imports): eval_results.json
+    (mAP where the configuration asks for it, F1), and the dataset's own
+    files (`outputs`), which its check reads."""
+    want = {"eval_configs.json", "eval_results.json", "confusion_abs.npy",
+            "confusion_rel.npy", *outputs.files}
+    if importlib.util.find_spec("matplotlib") is not None:
+        want.add("confusion.png")
+    files = set(os.listdir(folder))
+    if not want <= files:
+        raise AssertionError(f"{folder} holds {sorted(files)}, not "
+                             f"{sorted(want)}")
+    with open(os.path.join(folder, "eval_results.json")) as f:
+        metrics = json.load(f)
+    det = metrics["OBJECT_DETECTION_METRICS"]
+    f1 = metrics["SEMANTIC_SEGMENTATION_METRICS"]["f1"]
+    if not (np.isfinite(det.get("mAP", 0.0)) and np.isfinite(f1).all()):
+        raise AssertionError(f"eval_results.json: {metrics}")
+    outputs.check(folder)
+
+
+# -- the eighth phase: the nuScenes pipeline ---------------------------------
+
+NUSCENES_CONFIG = os.path.join(_REPO, "configurations",
+                               "configuration_nuscenes.yml")
+# the nuScenes YAML's field the phase replaces (a short run)
+NUSCENES_REPLACED = {"epochs": 2}
+# the phase's scenes: (split, index in it, samples); two train scenes of
+# 32 samples (two train batches of the YAML's 32) and one val scene of 16
+NUSCENES_SCENES = (("train_detect", 0, 32), ("train_detect", 1, 32),
+                   ("val", 0, 16))
+NUSCENES_SWEEP_POINTS = 64  # returns a radar sweep; 5 radars x 6 sweeps
+# the oracle's chains on the card and on the CPU: the same kept boxes, and
+# metrics within this
+NUSCENES_METRIC_ATOL = 1e-6
+NUSCENES_ORACLE_MIN_AP = 0.9
+
+
+def _check_nuscenes_metrics(folder: str) -> None:
+    """nuscenes_metrics.json holds mean_ap and nd_score in [0, 1]."""
+    with open(os.path.join(folder, "nuscenes_metrics.json")) as f:
+        nusc = json.load(f)
+    if not all(0.0 <= nusc[k] <= 1.0 for k in ("mean_ap", "nd_score")):
+        raise AssertionError(f"nuscenes_metrics.json: {nusc}")
+
+
+NUSCENES_OUTPUTS = EvalOutputs(
+    ("submission.json", "nuscenes_metrics.json"), _check_nuscenes_metrics,
+    lambda ev: {"map": ev.metrics_summary["mean_ap"],
+                "nds": ev.metrics_summary["nd_score"]})
+
+
+def nuscenes_scenes(scale: float = 1.0) -> List[Tuple[str, str, int]]:
+    """NUSCENES_SCENES as write_nuscenes_tables takes them: the scene
+    tokens from the split tables the dataset creation reads (the vendored
+    tokens on an install without the devkit), so that the YAML's
+    v1.0-trainval splits find them; `scale` cuts the samples."""
+    from radargnn_tpu_torch.data.nuscenes import splits
+    return [(getattr(splits, split)[i], f"scene-{9001 + n}",
+             max(int(samples * scale), 2))
+            for n, (split, i, samples) in enumerate(NUSCENES_SCENES)]
+
+
+def _nuscenes_oracle(dev: torch.device, root: str, config_path: str,
+                     folder: str, out: Callable) -> Dict:
+    """Predictions built from the validate frames' stored ground truth
+    (probability 0.9 on the true class, each object point regressing its
+    box), through the Postprocessor (NMS) and the NuscenesEvaluator on
+    `dev` and on the CPU: the same kept boxes, and label_aps, mean_ap,
+    nd_score and tp_errors within NUSCENES_METRIC_ATOL; every class in the
+    validate split scores AP > NUSCENES_ORACLE_MIN_AP."""
+    from radargnn_tpu_torch.data.nuscenes.evaluation import NuscenesEvaluator
+    from radargnn_tpu_torch.data.nuscenes.submission import DETECTION_NAMES
+    from radargnn_tpu_torch.graph.batch import GraphSample
+
+    cfg = UserConfigurationReader.read_config_file(config_path)
+    config = UserConfigurationReader.get_config_object("POSTPROCESSING", cfg)
+    version = cfg["CREATE_DATASET"]["DATASET_PROCESSING"]["version"]
+    names = sorted(glob.glob(os.path.join(root, "processed", config.split,
+                                          "*.npz")))
+    samples = [GraphSample.load_npz(n) for n in names]
+    ground_truth = {"bounding_box_true": [s.boxes.astype(np.float64)
+                                          for s in samples],
+                    "class_true": [s.labels.astype(np.float64)
+                                   for s in samples]}
+    pos = [s.pos.astype(np.float64) for s in samples]
+    vel = [s.vel.astype(np.float64) for s in samples]
+    preds = oracle_predictions(ground_truth, config.adapt_orientation_angle,
+                               len(config.min_object_score) + 1)
+    runs = []
+    for i, d in enumerate((dev, torch.device("cpu"))):
+        bb_pred, bb_gt, cls_pred, cls_gt = Postprocessor(d).process(
+            config, pos, vel, preds, ground_truth)
+        model = os.path.join(folder, f"oracle_{i}")
+        os.makedirs(model)
+        ev = NuscenesEvaluator(config=config, version=version,
+                               dataset_path=os.path.join(root, "raw"),
+                               model_path=model, device=d)
+        ev.evaluate(bb_pred, bb_gt, cls_pred,
+                    PredictionExtractor().extract(preds), cls_gt, vel,
+                    graph_names=names)
+        runs.append((bb_pred, ev.metrics_summary))
+    (card_boxes, got), (cpu_boxes, want) = runs
+    same_boxes = all(np.array_equal(a["boxes"].corners, b["boxes"].corners)
+                     for a, b in zip(card_boxes, cpu_boxes))
+    diffs = [abs(got[k] - want[k]) for k in ("mean_ap", "nd_score")]
+    for k in ("label_aps", "tp_errors"):
+        diffs += [abs(got[k][c] - want[k][c]) for c in want[k]
+                  if not (np.isnan(got[k][c]) and np.isnan(want[k][c]))]
+    present = sorted({DETECTION_NAMES[int(c)] for s in samples
+                      for c in np.unique(s.labels) if c > 0})
+    aps = {c: got["label_aps"][c] for c in present}
+    res = {"kept_boxes": [len(b["boxes"]) for b in card_boxes],
+           "max_abs_dmetric": max(diffs), "label_aps": aps,
+           "mean_ap": got["mean_ap"], "nd_score": got["nd_score"]}
+    out(f"nuScenes oracle on {dev} vs the CPU over {len(samples)} validate "
+        f"frames: kept boxes {res['kept_boxes']} (equal {same_boxes}); "
+        f"max |dmetric| {res['max_abs_dmetric']:.2e} (atol "
+        f"{NUSCENES_METRIC_ATOL}); AP of the classes present {aps}; mAP "
+        f"{got['mean_ap']}, NDS {got['nd_score']}")
+    if not same_boxes or not res["max_abs_dmetric"] <= NUSCENES_METRIC_ATOL:
+        raise AssertionError("the nuScenes oracle on the card differs from "
+                             "the CPU's")
+    low = {c: ap for c, ap in aps.items() if not ap > NUSCENES_ORACLE_MIN_AP}
+    if len(present) < 5 or low:
+        raise AssertionError(f"the nuScenes oracle: classes {present}, AP "
+                             f"at or below {NUSCENES_ORACLE_MIN_AP}: {low}")
+    return res
+
+
+def nuscenes_phase(dev: torch.device, scale: float = 1.0,
+                   points_per_sweep: int = NUSCENES_SWEEP_POINTS,
+                   replaced: Optional[Dict] = None, seed: int = 0,
+                   reps: int = 20, out: Callable = print) -> Dict:
+    """The eighth phase: the nuScenes pipeline under the nuScenes YAML with
+    the fields of `replaced` (NUSCENES_REPLACED) replaced. It writes
+    nuScenes-format tables and multisweep radar sweeps
+    (`benchmarks.nuscenes_e2e.write_nuscenes_tables`: NUSCENES_SCENES,
+    their samples cut by `scale` off the card), then runs `cli.main.main`
+    in this process: create_dataset, train, evaluate, each stage's
+    launches counted apart, train's and evaluate's exactly the dense
+    path's and create_dataset's none. Then the evaluate CLI runs as a
+    child process, the model folder is evaluated on the CPU against the
+    card, and oracle predictions go through the card's and the CPU's NMS
+    and NuscenesEvaluator (`_nuscenes_oracle`). B1 and B2 are then held
+    against their plain versions at the model's layer shapes on the
+    train CLI's first batch (`check_routed_kernels`: the YAML's batch of
+    multisweep frames, its dense tiling and overflow list). Last,
+    `python -m radargnn_tpu_torch.benchmarks.nuscenes_e2e` runs as a
+    child process, alone, and must exit 0 with its final line."""
+    from radargnn_tpu_torch.benchmarks.nuscenes_e2e import (
+        write_nuscenes_tables,
+    )
+    from radargnn_tpu_torch.cli import main as cli_main
+    from radargnn_tpu_torch.cli.evaluate import load_model
+    from radargnn_tpu_torch.cli.train import resolve_tiling
+    from radargnn_tpu_torch.data.loader import get_data_loaders
+
+    on_card = dev.type == "cuda"
+    replaced = NUSCENES_REPLACED if replaced is None else replaced
+    res: Dict = {"replaced": replaced,
+                 "card": card_description() if on_card else None}
+    stages: Dict = {}
+    epoch_s: List[float] = []
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "nuscenes")
+        results = os.path.join(tmp, "results")
+        os.makedirs(results)
+        config = cli_config(tmp, NUSCENES_CONFIG, replaced, "nuscenes.yml")
+        cfg = UserConfigurationReader.read_config_file(config)
+        dataset_cfg = UserConfigurationReader.get_config_object(
+            "DATASET_PROCESSING", cfg)
+        train_cfg = UserConfigurationReader.get_config_object("TRAINING", cfg)
+        out(f"nuScenes phase: the nuScenes configuration with "
+            f"{json.dumps(replaced)} replaced")
+        t0 = time.perf_counter()
+        write_nuscenes_tables(root, nuscenes_scenes(scale),
+                              version=dataset_cfg.version,
+                              sweeps=dataset_cfg.nsweeps,
+                              points_per_sweep=points_per_sweep)
+        res["raw_s"] = time.perf_counter() - t0
+        with ExitStack() as stack:
+            _count_stages(stack, cli_main,
+                          ("create_dataset", "train", "evaluate"), stages,
+                          epoch_s)
+            cli_main.main(root, results, config, device=dev)
+        if stages["create_dataset"]["launches"] != [0] * len(KERNEL_NAMES):
+            raise AssertionError(f"create_dataset launched "
+                                 f"{stages['create_dataset']['launches']}")
+        res["create_dataset_s"] = stages["create_dataset"]["seconds"]
+        res.update(_check_cli_run(dev, root, results, config, stages,
+                                  epoch_s, NUSCENES_OUTPUTS, out))
+        res["oracle"] = _nuscenes_oracle(dev, root, config, tmp, out)
+
+        # B1 and B2 on the train CLI's first batch, as its loader makes it
+        loaders, _ = get_data_loaders(
+            ["train", "validate"], os.path.join(root, "processed"),
+            train_cfg.batch_size, train_cfg.shuffle,
+            bg_index=train_cfg.bg_index, seed=train_cfg.seed,
+            csr_tiling=resolve_tiling(
+                UserConfigurationReader.get_config_object(
+                    "MODEL_ARCHITECTURE", cfg), cfg), device=dev)
+        batch = next(iter(loaders["train"]))
+        res["train_tiling"] = _tiling_report(batch)
+        res["validate_tiling"] = _tiling_report(next(iter(
+            loaders["validate"])))
+        tiling = batch.flat_tiling()
+        out(f"nuScenes phase: B1 and B2 on the first train batch "
+            f"({len(res['train_tiling']['valid_edges'])} frames, "
+            f"{tiling.landing[1].shape[0] - 1} nodes, "
+            f"{sum(res['train_tiling']['valid_edges'])} valid edges, "
+            f"overflow edges per frame max "
+            f"{max(res['train_tiling']['overflow_edges'])} of "
+            f"{res['train_tiling']['overflow_budget']})")
+        shapes = _layer_shapes(load_model(os.path.join(results, "model_01"),
+                                          dev))
+        with torch.no_grad():
+            (res["per_shape_proj"], res["per_shape"],
+             res["per_shape_bwd"]) = check_routed_kernels(
+                tiling, shapes, seed, reps, out)
+
+    # the e2e as a user runs it, alone on the card and the host
+    cmd = [sys.executable, "-m", "radargnn_tpu_torch.benchmarks.nuscenes_e2e"]
+    env = dict(os.environ)
+    if not on_card:
+        cmd += ["--device", "cpu"]
+        env["OMP_NUM_THREADS"] = "1"
+    t0 = time.perf_counter()
+    code, stdout, stderr = _finish(subprocess.Popen(
+        cmd, cwd=_REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True), 600)
+    res["e2e_s"] = time.perf_counter() - t0
+    last = stdout.strip().splitlines()[-1:] or [""]
+    if code != 0 or not last[0].startswith("NUSC-TORCH ok:"):
+        raise AssertionError(f"{' '.join(cmd)} exited {code}:\n"
+                             f"{stdout[-2000:]}\n{stderr[-3000:]}")
+    res["e2e"] = last[0]
+    res["phase_s"] = time.perf_counter() - start
+    ovf = res["validate_tiling"].get("overflow_edges")
+    out(f"nuScenes phase on {dev}: samples train {res['frames']['train']}, "
+        f"validate {res['frames']['validate']}; points per sample "
+        f"{res['points'][0]}-{res['points'][1]}; valid edges per train "
+        f"batch {res['train_batch_edges']}; dense tiling overflow edges per "
+        f"validate frame max {max(ovf) if ovf else None} of "
+        f"{res['validate_tiling'].get('overflow_budget')}; create_dataset "
+        f"{res['create_dataset_s']:.2f} s (tables and sweeps written in "
+        f"{res['raw_s']:.2f} s); train s per epoch "
+        f"{[round(t, 3) for t in res['train_epoch_s']]} (train stage "
+        f"{res['train_s']:.2f} s); evaluate {res['evaluate_s']:.2f} s "
+        f"(child process {res['child_evaluate_s']:.2f} s); e2e child "
+        f"{res['e2e_s']:.2f} s; the phase {res['phase_s']:.2f} s; mAP "
+        f"{res['map']}, NDS {res['nds']}, F1 {res['f1']}; e2e child: "
+        f"{res['e2e']}; card {res['card']}")
     return res
 
 
@@ -2487,8 +2779,8 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
     path runs, held against their plain versions at the flagship's widths
     on the kNN batch, then their entry points `kernel_check` and
     `kernel_bench` (at `bench` = (edges, nodes, d_in, H)); then the
-    evaluation stage, the bench and the CLI pipeline (frames of about
-    `points` points)."""
+    evaluation stage, the bench, the CLI pipeline (frames of about
+    `points` points) and the nuScenes pipeline (`nuscenes_phase`)."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     summary: Dict = {"device": str(dev)}
@@ -2630,6 +2922,13 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
     summary["evaluation"] = evaluation_phase(dev, model, loader, out)
     summary["bench"] = bench_phase(dev, points, graphs, out)
     summary["cli"] = cli_phase(dev, points, out=out)
+    # off the card: a few samples of few returns, at the YAML's widths in
+    # batches of 4 (the plain versions pad each batch to its graphs)
+    summary["nuscenes"] = nuscenes_phase(dev, seed=seed, reps=reps,
+                                         out=out) if on_card else \
+        nuscenes_phase(dev, scale=0.125, points_per_sweep=8,
+                       replaced=dict(NUSCENES_REPLACED, batch_size=4),
+                       seed=seed, reps=reps, out=out)
 
     def entry(name, source, replaces, launches, rows, checked, library):
         return {
@@ -2650,30 +2949,34 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
 
     dense_l, radius_l = summary["train_launches"], radius["train_launches"]
     csr_l = csr["train_launches"]
-    cli_l = [a + b for a, b in zip(summary["cli"]["train_launches"],
-                                   summary["cli"]["evaluate_launches"])]
+    cli_l = [sum(x) for x in zip(
+        *(summary[p][f"{stage}_launches"] for p in ("cli", "nuscenes")
+          for stage in ("train", "evaluate")))]
     r_fwd, r_bwd = radius["per_shape_fwd"], radius["per_shape_bwd"]
     c_fwd, c_bwd = csr["per_shape_fwd"], csr["per_shape_bwd"]
     seg_rows = radius["knn_per_shape_segsum"]
     segs = seg_rows + csr["per_shape_segsum"] + csr["radius_per_shape_segsum"]
     # launches: the training runs of each path (the projection runs in
-    # every path's forward; B3 lands on the CSR path), and the CLI's train
-    # and evaluate on the dense path; no single PyTorch
-    # call computes gather + GEMM + segmented max, nor the routed backward;
+    # every path's forward; B3 lands on the CSR path), and the train and
+    # evaluate stages of the RadarScenes and the nuScenes CLI runs on the
+    # dense path; the dense errors also cover the nuScenes train batch; no
+    # single PyTorch call computes gather + GEMM + segmented max, nor the
+    # routed backward;
     # the projection's is torch.mm, the landing's index_add_ (timed on the
     # kNN batch under the windowed tiling). The windowed gather-max is held
     # in VJP mode, the mode of its training launches (with the bits); the
     # dense one in serving mode; the CSR forward as its wrapper runs it in
     # serving mode (the projection and the gather-max), against the whole
     # function's bound.
+    nus = summary["nuscenes"]
     summary["kernels"] = [
         entry("dense_proj_v4", "dense_fwd_v4.cu", 2279,
               dense_l[11] + radius_l[11] + csr_l[11] + cli_l[11], proj_rows,
-              proj_rows, True),
+              proj_rows + nus["per_shape_proj"], True),
         entry("dense_fwd_v4", "dense_fwd_v4.cu", 2279, dense_l[0] + cli_l[0],
-              fwd_rows, fwd_rows, False),
+              fwd_rows, fwd_rows + nus["per_shape"], False),
         entry("dense_bwd_v4", "dense_bwd_v4.cu", 2340, dense_l[1] + cli_l[1],
-              bwd_rows, bwd_rows, False),
+              bwd_rows, bwd_rows + nus["per_shape_bwd"], False),
         entry("segment_sum_csr", "segment_sum_csr.cu", 854,
               dense_l[2] + radius_l[2] + csr_l[2], seg_rows, segs, True),
         entry("windowed_fwd_v3", "windowed_fwd_v3.cu", 1275, radius_l[3],
@@ -2718,5 +3021,8 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
                                              "tiling", "radius_tiling"))},
                     "last_four": {k: last[k] for k in (
                         "linear", "segmax", "v1_fwd", "v1_bwd",
-                        "v1_padding", "kernel_bench")}}))
+                        "v1_padding", "kernel_bench")},
+                    "nuscenes": {k: v for k, v in nus.items()
+                                 if k.startswith(("per_shape", "train_tiling"))
+                                 }}))
     return summary

@@ -60,8 +60,15 @@ def test_config_sections_load_like_jax(name, section):
 
 
 def test_nuscenes_split_lookup_waits_for_the_data_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcfg.NuScenesSplitConfiguration()
+    """The nuScenes split tables arrived with the nuScenes slice: each
+    version's split equals the JAX package's, and another version raises
+    the same ValueError."""
+    for version in ("v1.0-mini", "v1.0-trainval", "v1.0-test"):
+        assert tcfg.NuScenesSplitConfiguration(version).sequence_dict == \
+            jcfg.NuScenesSplitConfiguration(version).sequence_dict
+    for pkg in (tcfg, jcfg):
+        with pytest.raises(ValueError, match="not a valid version"):
+            pkg.NuScenesSplitConfiguration("v2.0")
 
 
 def test_arch_config_auto_fused_rule_matches_jax():

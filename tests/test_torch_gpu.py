@@ -1429,8 +1429,9 @@ def test_smoke_on_card():
     path's kernels (the projection on all three paths, once a layer: the
     CSR backward reuses the forward's; B3 on the CSR path). Two steps keep it
     short; each is held to the plain path at its own parameters, with the
-    smoke's limits. The CLI phase's train and evaluate launch the dense
-    path's kernels too, and the kernels line counts them."""
+    smoke's limits. The CLI phases' train and evaluate (under the flagship
+    and the nuScenes YAML) launch the dense path's kernels too, and the
+    kernels line counts them."""
     _need_card()
     summary = smoke.run("cuda", points=512, graphs=2, batches=3, reps=2,
                         train_steps=2, bench=(45_056, 2_253, 464, 464))
@@ -1440,6 +1441,20 @@ def test_smoke_on_card():
                                  summary["cli"]["evaluate_launches"])]
     assert cli == [5 * 2 * 8 + 5 * 2, 5 * 2 * 6] + [0] * 9 + [5 * 2 * 8
                                                               + 5 * 2]
+    # the nuScenes CLI's train (2 epochs of 2 train and 1 validate batches)
+    # and evaluate (2 batches), which the kernels line adds in too
+    nus = [a + b for a, b in zip(summary["nuscenes"]["train_launches"],
+                                 summary["nuscenes"]["evaluate_launches"])]
+    assert nus == [5 * 2 * 3 + 5 * 2, 5 * 2 * 2] + [0] * 9 + [5 * 2 * 3
+                                                              + 5 * 2]
+    cli = [a + b for a, b in zip(cli, nus)]
+    # B1 and B2 held on the nuScenes train CLI's first batch of 32 frames
+    checked = summary["nuscenes"]
+    assert len(checked["train_tiling"]["valid_edges"]) == 32
+    assert [r["d_in"] for r in checked["per_shape_bwd"]] == [224, 224, 224,
+                                                              128, 64]
+    assert all(r["ms"] > 0 and r["plain_ms"] > 0
+               for r in checked["per_shape"] + checked["per_shape_bwd"])
     # the fourth phase's kernels: kernel_check's linear, segment-max (and
     # kernel_bench's check, warm-up and 2 timed calls), the forward through
     # both v1 factories and the kernel backward
@@ -1613,3 +1628,46 @@ def test_online_graph_on_the_card_matches_the_host(algorithm):
                                    atol=1e-6)
         np.testing.assert_allclose(batch.node_feat[g, :n].cpu().numpy(),
                                    host.node_feat, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_nuscenes_e2e_on_the_card(tmp_path):
+    """`benchmarks.nuscenes_e2e` on the card (its default device), in a
+    process of its own as a user runs it: training launches B1 (the
+    projection and the gather-max) and B2 on every conv layer of every
+    batch, evaluation B1, nothing else launches; losses and metrics are
+    finite."""
+    _need_card()
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import json, sys\n"
+        "from radargnn_tpu_torch import smoke\n"
+        "from radargnn_tpu_torch.benchmarks import nuscenes_e2e\n"
+        "res = nuscenes_e2e.run(None, sys.argv[1])\n"
+        "print(json.dumps({'launches': [c.launches for c in "
+        "smoke._counters()], 'loss': res['train_loss'], "
+        "'metrics': res['metrics'], 'device': res['device']}))\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=repo, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["device"] == "cuda"
+    processed = tmp_path / "nuscenes" / "processed"
+    n_train = len(os.listdir(processed / "train"))
+    n_val = len(os.listdir(processed / "validate"))
+    epochs, batch, layers = 4, 2, 2
+    steps = epochs * -(-n_train // batch)
+    forwards = steps + epochs * -(-n_val // batch) + -(-n_val // batch)
+    want = dict.fromkeys(smoke.KERNEL_NAMES, 0)
+    want.update(dense_proj_v4=layers * forwards,
+                dense_fwd_v4=layers * forwards,
+                dense_bwd_v4=layers * steps)
+    assert dict(zip(smoke.KERNEL_NAMES, out["launches"])) == want
+    assert len(out["loss"]) == epochs and np.isfinite(out["loss"]).all()
+    assert 0.0 <= out["metrics"]["mean_ap"] <= 1.0
+    assert 0.0 <= out["metrics"]["nd_score"] <= 1.0

@@ -75,14 +75,19 @@ def test_every_submodule_imports_without_jax():
         "'data.point_cloud', 'data.loader', 'data.radarscenes.reader', "
         "'data.radarscenes.scene_collection', "
         "'data.radarscenes.dataset_creation', 'graph.online', "
-        "'cli.create_dataset', 'cli.train', 'cli.evaluate', 'cli.main'):\n"
+        "'cli.create_dataset', 'cli.train', 'cli.evaluate', 'cli.main', "
+        "'data.nuscenes', 'data.nuscenes.quaternion', 'data.nuscenes.db', "
+        "'data.nuscenes.splits', 'data.nuscenes.splits_vendored', "
+        "'data.nuscenes.conversion', 'data.nuscenes.dataset_creation', "
+        "'data.nuscenes.detection_eval', 'data.nuscenes.submission', "
+        "'data.nuscenes.evaluation', 'benchmarks.nuscenes_e2e'):\n"
         "    assert 'radargnn_tpu_torch.' + m in names, m\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 68   # every module of twelve slices
+    assert int(proc.stdout.strip()) >= 79   # every module of 13 slices
     for path in (("ops", "csr_aggregate.py"), ("ops", "hoisted_aggregate.py"),
                  ("benchmarks", "kernel_check.py")):
         assert os.path.join(_PKG, *path) in _port_sources()
@@ -226,6 +231,32 @@ def test_smoke_rehearses_on_cpu():
     for b in summary["bench"]:
         assert b["metric"] == f"{b['mode']}_edges_per_s" and b["value"] > 0
         assert [r["path"] for r in b["runs"]] == ["fused", "unfused"]
+    # the eighth phase: the nuScenes pipeline at a tiny size (the YAML's
+    # widths, batches of 4): 4 + 4 train and 2 validate samples of about
+    # 300 points, its checks, the oracle and the e2e child
+    nus = summary["nuscenes"]
+    assert nus["replaced"] == {"epochs": 2, "batch_size": 4}
+    assert nus["frames"] == {"train": 8, "validate": 2}
+    assert nus["train_launches"] == nus["evaluate_launches"] == [0] * 12
+    assert len(nus["train_epoch_s"]) == 2 and len(nus["train_batch_edges"]) \
+        == 2
+    assert nus["max_abs_dprob"] == nus["max_rel_dbox"] == 0.0
+    assert 0.0 <= nus["map"] <= 1.0 and 0.0 <= nus["nds"] <= 1.0
+    assert np.isfinite(nus["f1"]).all() and len(nus["f1"]) == 11
+    assert nus["oracle"]["max_abs_dmetric"] == 0.0
+    assert len(nus["oracle"]["label_aps"]) == 8
+    assert all(ap > 0.9 for ap in nus["oracle"]["label_aps"].values())
+    assert nus["e2e"].startswith("NUSC-TORCH ok: mAP=")
+    assert nus["validate_tiling"]["overflow_budget"] > 0
+    # B1 and B2 held against their plain versions on the train CLI's first
+    # batch (4 frames here, the YAML's 32 on the card)
+    assert len(nus["train_tiling"]["valid_edges"]) == 4
+    assert max(nus["train_tiling"]["overflow_edges"]) > 0
+    assert [r["d_in"] for r in nus["per_shape"]] == [224, 224, 224, 128, 64]
+    assert all(r["bits_flipped"] == 0 for r in nus["per_shape"])
+    assert all(r["bitwise_repeat"] and r["routed"] > 0
+               for r in nus["per_shape_bwd"])
+    assert last["nuscenes"]["per_shape_bwd"] == nus["per_shape_bwd"]
 
 
 def test_postprocess_and_bench_import_no_jax_sklearn_or_matplotlib():
@@ -282,6 +313,48 @@ def test_pipeline_and_cli_import_without_h5py_or_matplotlib():
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_nuscenes_pipeline_imports_without_h5py_matplotlib_or_devkit():
+    """A fresh interpreter where h5py, matplotlib and the nuScenes devkit
+    cannot be imported (the card's machine has none of them) imports every
+    module of the nuScenes pipeline, the e2e and the CLI, selects the
+    nuScenes dataset creation and evaluator, and reads the vendored split
+    tables; neither JAX nor the JAX package is loaded."""
+    code = (
+        "import sys\n"
+        "for m in ('h5py', 'matplotlib', 'nuscenes'):\n"
+        "    sys.modules[m] = None\n"
+        "import importlib\n"
+        "for m in ('quaternion', 'db', 'splits', 'splits_vendored', "
+        "'conversion', 'dataset_creation', 'detection_eval', 'submission', "
+        "'evaluation'):\n"
+        "    importlib.import_module('radargnn_tpu_torch.data.nuscenes.' + m)\n"
+        "from radargnn_tpu_torch.benchmarks import nuscenes_e2e\n"
+        "from radargnn_tpu_torch.cli import create_dataset, evaluate, main\n"
+        "from radargnn_tpu_torch.configs import NuScenesSplitConfiguration\n"
+        "from radargnn_tpu_torch.data.nuscenes import splits, "
+        "splits_vendored\n"
+        "from radargnn_tpu_torch.postprocess.evaluation import "
+        "evaluation_selector\n"
+        "assert create_dataset.dataset_selector('nuscenes').__name__ == "
+        "'NuScenesGraphDataset'\n"
+        "assert evaluation_selector('nuscenes').__name__ == "
+        "'NuscenesEvaluator'\n"
+        "assert splits.val == splits_vendored.val and len(splits.val) == 150\n"
+        "split = NuScenesSplitConfiguration('v1.0-trainval').sequence_dict\n"
+        "assert (len(split['train']), len(split['validate'])) == (700, 150)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
+        "'jaxlib', 'flax', 'radargnn_tpu', 'h5py', 'matplotlib', "
+        "'nuscenes') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    env.pop("NUSCENES_SPLITS_JSON", None)
     proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -637,8 +637,8 @@ def test_evaluator_without_matplotlib_writes_every_number(tmp_path, capsys,
 
 def test_evaluation_selector():
     assert pp.evaluation_selector("radarscenes") is pp.RadarscenesEvaluator
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pp.evaluation_selector("nuscenes")
+    from radargnn_tpu_torch.data.nuscenes.evaluation import NuscenesEvaluator
+    assert pp.evaluation_selector("nuscenes") is NuscenesEvaluator
     with pytest.raises(KeyError):
         pp.evaluation_selector("kitti")
 

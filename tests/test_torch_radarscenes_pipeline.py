@@ -261,8 +261,9 @@ def test_reader_without_h5py_raises(raw_root, monkeypatch):
 def test_dataset_selector():
     assert tcreate.dataset_selector("radarscenes") is \
         tdc.RadarScenesGraphDataset
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md §A, data pipelines and CLI"):
-        tcreate.dataset_selector("nuscenes")
+    from radargnn_tpu_torch.data.nuscenes.dataset_creation import (
+        NuScenesGraphDataset,
+    )
+    assert tcreate.dataset_selector("nuscenes") is NuScenesGraphDataset
     with pytest.raises(KeyError):
         tcreate.dataset_selector("kitti")
