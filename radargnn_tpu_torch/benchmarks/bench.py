@@ -22,8 +22,9 @@ torch gathers and a segment max, as bench.py's XLA path), BENCH_TILING
 (dense: the dense tiling with BENCH_OVF_FRAC 0.06; windowed: run cap
 BENCH_RUN_CAP 4 (0: contiguous runs) and 0.04, or 0.03 without the cap;
 csr), BENCH_MODE (train or infer), BENCH_PAIRS (3) and BENCH_DEVICE (the
-card; `cpu` only for the tests' rehearsal). BENCH_BF16_MAX=1 raises: the
-port has no bf16-equality routing.
+card; `cpu` only for the tests' rehearsal) and BENCH_BF16_MAX (1: the
+fused path's backward routes by bf16 equality, `fused_bf16_max: True`;
+bench.py's opt-in, off by default as there).
 
 Timing: one warm-up run of the whole loop per path first (the kernels are
 built there), then BENCH_PAIRS alternating runs of the fused and the
@@ -99,16 +100,13 @@ class BenchConfig:
     mode: str = "train"
     pairs: int = 3
     device: Optional[str] = None
+    bf16_max: bool = False
 
 
 def config_from_env(env=os.environ, device: Optional[str] = None
                     ) -> BenchConfig:
     """The bench's configuration from bench.py's env knobs (`device`, or
     BENCH_DEVICE, names the device: None is the card)."""
-    if env.get("BENCH_BF16_MAX", "0") == "1":
-        raise NotImplementedError(
-            "BENCH_BF16_MAX=1: bf16-equality max routing is not ported; the "
-            "kernels route strictly (ROADMAP.md §B (i), bf16_max)")
     tiling = env.get("BENCH_TILING", "dense")
     if tiling not in ("dense", "windowed", "csr"):
         raise ValueError(f"BENCH_TILING={tiling!r}: dense, windowed or csr")
@@ -125,11 +123,13 @@ def config_from_env(env=os.environ, device: Optional[str] = None
         fused=env.get("BENCH_FUSED", "1") == "1",
         tiling=tiling, ovf_frac=float(env.get("BENCH_OVF_FRAC", ovf)),
         run_cap=run_cap, mode=mode, pairs=int(env.get("BENCH_PAIRS", 3)),
-        device=device or env.get("BENCH_DEVICE") or None)
+        device=device or env.get("BENCH_DEVICE") or None,
+        bf16_max=env.get("BENCH_BF16_MAX", "0") == "1")
 
 
-def architecture(dtype: str, fused: bool) -> GNNArchitectureConfig:
-    """The architecture of `bench.py:150-160`."""
+def architecture(dtype: str, fused: bool,
+                 bf16_max: bool = False) -> GNNArchitectureConfig:
+    """The architecture of `bench.py:150-161`."""
     return GNNArchitectureConfig(
         node_feature_dimension=5, edge_feature_dimension=2,
         conv_layer_dimensions=[224, 224, 128, 64, 32],
@@ -141,7 +141,7 @@ def architecture(dtype: str, fused: bool) -> GNNArchitectureConfig:
         edge_feature_embedding_layer_dimensions=[4, 8, 16],
         conv_layer_type="MPNNConv", batch_norm_in_mlps=False,
         compute_dtype=dtype, assume_sorted_edges=True,
-        use_fused_aggregation=fused)
+        use_fused_aggregation=fused, fused_bf16_max=bf16_max)
 
 
 def training_config(graphs: int) -> TrainingConfig:
@@ -156,7 +156,7 @@ def tiling_spec(cfg: BenchConfig):
     """The `stack_samples` tiling of `bench.py:171-189`, with the port's
     geometry constants (the JAX package's env knobs); an unported variant
     knob raises (`layers.check_fused_knobs`)."""
-    layers.check_fused_knobs(cfg.tiling)
+    layers.check_fused_knobs()
     if cfg.tiling == "dense":
         return {"mode": "dense", "node_block": layers.FUSED_NODE_BLOCK,
                 "r_tile": layers.FUSED_DENSE_R_TILE,
@@ -192,7 +192,8 @@ class BenchPath:
     def __init__(self, cfg: BenchConfig, fused: bool, dev: torch.device):
         self.name = "fused" if fused else "unfused"
         self.mode = cfg.mode
-        model = DetNet(architecture(cfg.dtype, fused), device=dev, seed=0)
+        model = DetNet(architecture(cfg.dtype, fused, cfg.bf16_max),
+                       device=dev, seed=0)
         if cfg.mode == "train":
             self.trainer = Trainer(training_config(cfg.graphs), model)
         else:

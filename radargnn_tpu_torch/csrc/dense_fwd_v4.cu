@@ -16,10 +16,11 @@
 // emit_inner) it also writes inner[n] and one routing bit per (slot,
 // column), set where the slot holds an edge and |op - inner| <= 1e-5
 // |inner| + 1e-5 (the strict routing of the TPU kernel's backward, under
-// which every tied slot takes the full g): bits[slot][w] holds columns
-// 32w .. 32w+31. The backward (dense_bwd_v4.cu) routes on these bits, so
-// it sees this op bit for bit without recomputing it. Serving passes null
-// and skips both writes.
+// which every tied slot takes the full g; with `bf16_max`, where
+// bf16(op) == bf16(inner), the TPU kernel's bf16_cmp branch): bits[slot][w]
+// holds columns 32w .. 32w+31. The backward (dense_bwd_v4.cu) routes on
+// these bits, so it sees this op bit for bit without recomputing it.
+// Serving passes null and skips both writes.
 //
 // What bounds it on the card. The function needs x @ W_s once per node
 // (x[s] @ W_s = y_s[s]; 2.9 GFLOP at the flagship's wide layer, N =
@@ -143,7 +144,8 @@ __global__ void __launch_bounds__(256) dense_fwd_v4_kernel(
     float* __restrict__ out,                   // [T*R, h]
     float* __restrict__ inner_out,             // [T*R, h] or null
     uint32_t* __restrict__ bits,               // [T*TE, hp/32] or null
-    int n_x, int de, int h, int hp, int r_tile, int k, int node_block) {
+    int n_x, int de, int h, int hp, int r_tile, int k, int node_block,
+    bool bf16_max) {
     const int t = blockIdx.x;
     const int col0 = blockIdx.y * kBlockCols;
     const int lane = threadIdx.x & 31;
@@ -205,7 +207,7 @@ __global__ void __launch_bounds__(256) dense_fwd_v4_kernel(
             for (int q = 0; q < 4; ++q) {
                 const int col = col0 + nt * 8 + tq * 2 + (q & 1);
                 sel[nt][q] = ((q >> 1) ? v1 : v0) && col < h &&
-                             routes(acc[nt][q], mx[nt][q]);
+                             routes(acc[nt][q], mx[nt][q], bf16_max);
             }
         }
         uint32_t w[2][2];
@@ -265,12 +267,13 @@ size_t dense_fwd_v4_smem_bytes(int de, int r_tile, int k) {
 // launch. The caller checks shapes, types and alignment: de a multiple of
 // 8, r_tile a multiple of 16 and at most 128, y_s [n_x, hp] with hp = h
 // rounded up to 64, 16-byte aligned e_t. `inner` and `bits` are both null
-// (serving) or both set (VJP mode; bits zeroed by the caller).
+// (serving) or both set (VJP mode; bits zeroed by the caller); `bf16_max`
+// non-zero sets the bits by the bf16 test (tile_walk.cuh, routes_bf16).
 int dense_fwd_v4(const void* y_s, const void* e_t, const void* w_e,
                  const void* sloc, const void* tile_win, const void* inner_o,
                  const void* offset, void* out, void* inner, void* bits,
                  int n_x, int de, int h, int hp, int num_tiles, int r_tile,
-                 int k, int node_block, void* stream) {
+                 int k, int node_block, int bf16_max, void* stream) {
     const size_t smem = gather_smem_bytes(de, r_tile, k);
     cudaError_t err = cudaFuncSetAttribute(
         dense_fwd_v4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -289,7 +292,7 @@ int dense_fwd_v4(const void* y_s, const void* e_t, const void* w_e,
             static_cast<const float*>(inner_o),
             static_cast<const float*>(offset), static_cast<float*>(out),
             static_cast<float*>(inner), static_cast<uint32_t*>(bits), n_x,
-            de, h, hp, r_tile, k, node_block);
+            de, h, hp, r_tile, k, node_block, bf16_max != 0);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -3,9 +3,9 @@
 // csr_fwd_v2.cu and hoisted_fwd_v1.cu): the block's tile range
 // by binary search over the non-decreasing tile_blocks, and the landing of
 // a warp's group of ops in a shared-memory accumulator by an exact atomic
-// max of ordered keys; and the strict routing test and the packing of its
-// bits, which the VJP-mode forwards (dense_fwd_v4.cu, windowed_fwd_v3.cu)
-// save for their backward.
+// max of ordered keys; and the routing tests (strict, and bf16 under
+// bf16_max) and the packing of their bits, which the VJP-mode forwards
+// (dense_fwd_v4.cu, windowed_fwd_v3.cu) save for their backward.
 #pragma once
 
 #include <stdint.h>
@@ -42,6 +42,21 @@ __device__ __forceinline__ bool receiver_in_block(int rc, int base,
 __device__ __forceinline__ bool routes(float op, float inner) {
     return fabsf(__fsub_rn(op, inner)) <=
            __fadd_rn(__fmul_rn(1e-5f, fabsf(inner)), 1e-5f);
+}
+
+// The bf16 routing of the TPU kernels' bf16_max variant (the bf16_cmp
+// branches of _fused_bwd_kernel_v4 and _fused_bwd_kernel_v3): both sides
+// rounded to bf16 to nearest even, as astype(bfloat16) rounds, then
+// compared exactly, so every slot within a bf16 rounding of the max routes
+// (k ties take k g).
+__device__ __forceinline__ bool routes_bf16(float op, float inner) {
+    return __bfloat162float(__float2bfloat16_rn(op)) ==
+           __bfloat162float(__float2bfloat16_rn(inner));
+}
+
+// The forwards' routing test: bf16 with `bf16_max`, else strict.
+__device__ __forceinline__ bool routes(float op, float inner, bool bf16_max) {
+    return bf16_max ? routes_bf16(op, inner) : routes(op, inner);
 }
 
 // *addr = max(*addr, v) for floats, atomically: a float with the sign bit

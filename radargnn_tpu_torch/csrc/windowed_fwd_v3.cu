@@ -22,8 +22,9 @@
 // emit_inner) it also writes inner[n] and one routing bit per (slot,
 // column), set where the slot counts and |op - inner[recv]| <= 1e-5
 // |inner| + 1e-5 (the strict routing of the TPU kernel's backward, under
-// which every tied slot takes the full g): bits[slot][w] holds columns
-// 32w .. 32w+31, as dense_fwd_v4.cu writes them. The backward
+// which every tied slot takes the full g; with `bf16_max`, where
+// bf16(op) == bf16(inner), the TPU kernel's bf16_cmp branch): bits[slot][w]
+// holds columns 32w .. 32w+31, as dense_fwd_v4.cu writes them. The backward
 // (windowed_bwd_v3.cu) routes on these bits, so it sees this op bit for
 // bit without recomputing it. Serving passes null and skips both writes.
 //
@@ -142,7 +143,7 @@ __global__ void __launch_bounds__(kWarps * 32, 1) windowed_fwd_v3_kernel(
     float* __restrict__ inner_out,             // [num_nodes, h] or null
     uint32_t* __restrict__ bits,               // [T*TE, hp/32] or null
     int n_x, int de, int h, int hp, int num_tiles, int num_nodes,
-    int node_block, int edge_tile) {
+    int node_block, int edge_tile, bool bf16_max) {
     const FwdSmem S = fwd_smem(de, node_block);
     const int blk = blockIdx.x;
     const int col0 = blockIdx.y * kBlockCols;
@@ -298,7 +299,8 @@ __global__ void __launch_bounds__(kWarps * 32, 1) windowed_fwd_v3_kernel(
                 const int half = k >> 1;
                 const int col = col0 + nt * 8 + tq * 2 + (k & 1);
                 sel[nt][k] = in[half] && col < h &&
-                             routes(acc[nt][k], at[half][nt * 8 + (k & 1)]);
+                             routes(acc[nt][k], at[half][nt * 8 + (k & 1)],
+                                    bf16_max);
             }
         }
         uint32_t w[2][2];
@@ -331,14 +333,15 @@ size_t windowed_fwd_v3_smem_bytes(int de, int node_block) {
 // 8, edge_tile a multiple of 16, y_s [n_x, hp] with hp = h rounded up to
 // 64, 16-byte aligned y_s and e_t, tile_blocks non-decreasing (the tiler's
 // order). `inner` and `bits` are both null (serving) or both set (VJP
-// mode; bits zeroed by the caller).
+// mode; bits zeroed by the caller); `bf16_max` non-zero sets the bits by
+// the bf16 test (tile_walk.cuh, routes_bf16).
 int windowed_fwd_v3(const void* y_s, const void* e_t, const void* w_e,
                     const void* recv, const void* sloc, const void* tile_win,
                     const void* tile_blocks, const void* inner_o,
                     const void* offset, void* out, void* inner, void* bits,
                     int n_x, int de, int h, int hp, int num_tiles,
                     int num_nodes, int node_block, int edge_tile,
-                    void* stream) {
+                    int bf16_max, void* stream) {
     const size_t smem = fwd_smem_bytes(de, node_block);
     cudaError_t err = cudaFuncSetAttribute(
         windowed_fwd_v3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -359,7 +362,8 @@ int windowed_fwd_v3(const void* y_s, const void* e_t, const void* w_e,
             static_cast<const float*>(inner_o),
             static_cast<const float*>(offset), static_cast<float*>(out),
             static_cast<float*>(inner), static_cast<uint32_t*>(bits), n_x,
-            de, h, hp, num_tiles, num_nodes, node_block, edge_tile);
+            de, h, hp, num_tiles, num_nodes, node_block, edge_tile,
+            bf16_max != 0);
     }
     return static_cast<int>(cudaGetLastError());
 }

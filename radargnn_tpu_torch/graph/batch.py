@@ -28,7 +28,10 @@ slot and overflow row grouped by sender, built once per batch on the host
 backward lands d_x through it in one deterministic segment sum, for all
 conv layers. `win_part_mask`, which the TPU backward needs to
 combine its window parts, is then unused by the port; it is kept so the
-batch stays array-for-array the JAX package's.
+batch stays array-for-array the JAX package's. A dense tiling asked for
+with `"ovf_ssum": True` also carries the JAX package's sender-sorted tiling
+of the overflow list (`ossum_*`) and its landing (`ovf_landing`), over
+which the dense backward lands the overflow part of d_x under that flag.
 """
 
 from __future__ import annotations
@@ -60,10 +63,13 @@ class FlatTiling(NamedTuple):
     dense layout and None otherwise; `roll_passes` the windowed layout's
     static bound (2**roll_passes >= the longest same-receiver run in a
     tile); `ssum` = (ssum_perm, ssum_senders, ssum_blocks), the CSR
-    tiling's sender-sorted second tiling, as in the JAX package. The port
-    reads every field of `win` but part_mask; its kernels need no roll
-    bound, and the CSR backward reads `ssum` through `landing`, the batch's
-    sender landing for the backward (module docstring)."""
+    tiling's sender-sorted second tiling, as in the JAX package; `ovft` =
+    (ossum_perm, ossum_send, ossum_blocks), the dense tiling's
+    sender-sorted tiling of its overflow list under `ovf_ssum`, which the
+    dense backward reads through `ovf_landing`. The port reads every field
+    of `win` but part_mask; its kernels need no roll bound, and the CSR
+    backward reads `ssum` through `landing`, the batch's sender landing for
+    the backward (module docstring)."""
 
     senders: torch.Tensor
     receivers: torch.Tensor
@@ -76,6 +82,8 @@ class FlatTiling(NamedTuple):
     landing: Optional[SenderLanding] = None
     roll_passes: Optional[int] = None
     ssum: Optional[tuple] = None
+    ovft: Optional[tuple] = None
+    ovf_landing: Optional[SenderLanding] = None
 
 
 @dataclasses.dataclass
@@ -111,6 +119,12 @@ class GraphBatch:
     ovf_senders: Optional[torch.Tensor] = None        # [G, Eo] int32 (local)
     ovf_receivers: Optional[torch.Tensor] = None      # [G, Eo] int32, -1 pad
     ovf_edge_feat: Optional[torch.Tensor] = None      # [G, Eo, De] float32
+    # the dense tiling's sender-sorted tiling of the overflow list (under
+    # ovf_ssum): overflow index per sender-sorted slot, its sender (-1
+    # pad), tile blocks
+    ossum_perm: Optional[torch.Tensor] = None         # [G, Eot] int32
+    ossum_send: Optional[torch.Tensor] = None         # [G, Eot] int32
+    ossum_blocks: Optional[torch.Tensor] = None       # [G, To] int32 (local)
 
     # (node_block, edge_tile, None, ("dense", r_tile, k)) for a dense
     # tiling, (node_block, edge_tile, roll_passes) for a windowed one,
@@ -118,6 +132,8 @@ class GraphBatch:
     tile_geometry: Optional[tuple] = None
     # the fused backward's d_x landing (flat global layout), with a tiling
     sender_landing: Optional[SenderLanding] = None
+    # the overflow rows by sender (flat global layout), under ovf_ssum
+    ovf_landing: Optional[SenderLanding] = None
     # number of valid edges, known on the host (for edges/s reporting)
     host_valid_edges: int = 0
 
@@ -128,11 +144,14 @@ class GraphBatch:
     def to(self, device: DeviceLike) -> "GraphBatch":
         """A copy of the batch with every tensor on `device`."""
         device = torch.device(device)
-        landing = self.sender_landing
-        if landing is not None:
-            landing = SenderLanding(*(t.to(device) for t in landing))
+        landings = {}
+        for name in ("sender_landing", "ovf_landing"):
+            landing = getattr(self, name)
+            if landing is not None:
+                landings[name] = SenderLanding(*(t.to(device)
+                                                 for t in landing))
         return dataclasses.replace(
-            self, sender_landing=landing,
+            self, **landings,
             **{k: v.to(device) for k, v in self.tensors().items()})
 
     @property
@@ -216,9 +235,19 @@ class GraphBatch:
                             -1).reshape(-1)
         ovf_e = self.ovf_edge_feat.reshape(-1, self.ovf_edge_feat.shape[-1])
         win = (sloc, t_win, pmask, ovf_s, ovf_r, ovf_e)
+        ovft = None
+        if self.ossum_perm is not None:
+            # the perm indexes this graph's overflow list, so it offsets
+            # by the overflow rows per graph
+            eo_off = self._offsets(self.ovf_senders.shape[1])
+            ovft = ((self.ossum_perm + eo_off).reshape(-1),
+                    torch.where(self.ossum_send >= 0,
+                                self.ossum_send + n_off, -1).reshape(-1),
+                    (self.ossum_blocks + b_off).reshape(-1))
         return FlatTiling(senders, recv, blocks, edge_feat, win,
                           node_block, edge_tile, dense,
-                          self.sender_landing, roll_passes)
+                          self.sender_landing, roll_passes, None, ovft,
+                          self.ovf_landing)
 
 
 @dataclasses.dataclass
@@ -305,8 +334,11 @@ def pad_sample(sample: GraphSample, max_nodes: int, max_edges: int,
     invariant, so results are unchanged).
 
     `csr_tiling={"mode": "dense", "node_block", "r_tile", "k",
-    "window_blocks", "ovf_frac"}` Morton-orders the nodes and adds the dense
-    fixed-degree tiling and its overflow list (ops.dense_tiles);
+    "window_blocks", "ovf_frac"[, "ovf_ssum", "ovf_edge_tile"]}`
+    Morton-orders the nodes and adds the dense fixed-degree tiling and its
+    overflow list (ops.dense_tiles), and with "ovf_ssum" the overflow
+    list's sender-sorted tiling (`ossum_*`, tiles of "ovf_edge_tile" slots,
+    256 by default);
     `csr_tiling=(node_block, edge_tile, window_blocks[, ovf_frac[,
     run_cap]])` Morton-orders them and adds the windowed tiling and its
     overflow list (ops.windowed_tiles); `csr_tiling=(node_block,
@@ -317,11 +349,6 @@ def pad_sample(sample: GraphSample, max_nodes: int, max_edges: int,
     if isinstance(csr_tiling, dict):
         if csr_tiling.get("mode") != "dense":
             raise ValueError(f"unknown tiling dict mode: {csr_tiling}")
-        if csr_tiling.get("ovf_ssum", False):
-            raise NotImplementedError(
-                "the sender-sorted overflow tiling (ovf_ssum) feeds a "
-                "training kernel variant that is not ported yet (ROADMAP.md "
-                "§B (i), ovf_ssum)")
         dense_cfg = dict(csr_tiling)
         sample = morton_sort_sample(sample)
     elif csr_tiling is not None and len(csr_tiling) >= 3:
@@ -423,6 +450,16 @@ def pad_sample(sample: GraphSample, max_nodes: int, max_edges: int,
         ovf_edge_feat=np.where(ovf_valid[:, None], out["edge_feat"][ovf_c],
                                0.0).astype(np.float32))
     check_overflow_sorted(out["ovf_receivers"], "prepare_dense_knn_tiles plan")
+    if dense_cfg.get("ovf_ssum", False):
+        # the JAX package's sender-sorted tiling of the overflow list: its
+        # perm indexes the overflow list as out["ovf_senders"] orders it
+        te_o = dense_cfg.get("ovf_edge_tile", 256)
+        total_o = -(-budget // te_o) + max_nodes // node_block
+        s_perm, s_blocks, s_send = prepare_csr_tiles(
+            out["ovf_senders"], ovf_valid, max_nodes, node_block, te_o,
+            total_o)
+        out.update(ossum_perm=s_perm, ossum_send=s_send,
+                   ossum_blocks=s_blocks)
     return out
 
 
@@ -529,13 +566,25 @@ def stack_samples(samples: List[GraphSample], max_nodes: int, bg_index: int,
         elif roll_passes is None:
             roll_passes = roll_passes_bound(samples, slots)
         geometry = (node_block, slots, roll_passes)
+    ovf_landing = None
     if csr_tiling is not None:
         landing = SenderLanding(*(
             torch.from_numpy(a).to(device) for a in _flat_sender_landing(
                 arrays, max_nodes, node_block, slots)))
+    if "ossum_perm" in arrays:
+        graph = np.arange(len(samples), dtype=np.int64)[:, None]
+        send = arrays["ossum_send"]
+        ovf_landing = SenderLanding(*(
+            torch.from_numpy(a).to(device) for a in csr_landing(
+                (arrays["ossum_perm"]
+                 + graph * arrays["ovf_senders"].shape[1]).reshape(-1),
+                np.where(send >= 0, send + graph * max_nodes,
+                         -1).reshape(-1),
+                len(samples) * max_nodes)))
     return GraphBatch(
         **{k: torch.from_numpy(v).to(device) for k, v in arrays.items()},
         tile_geometry=geometry, sender_landing=landing,
+        ovf_landing=ovf_landing,
         host_valid_edges=int(sum(s.num_edges for s in samples)))
 
 

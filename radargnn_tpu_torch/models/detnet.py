@@ -7,13 +7,17 @@ logits and box regression). The model runs on the flattened padded
 GraphBatch ([G·N, Dn] nodes, [G·E, De] edges, global edge indices) with
 validity masks.
 
-With a tiling, dense, windowed or CSR (`batch.flat_tiling()`), the edge
-features arrive in slot order and the embedding runs in that layout; the
+With a tiling, dense, windowed or CSR (`batch.flat_tiling()`), and the
+hoisted configuration (a single linear pre-MLP, max aggregation, either
+conv type), the edge features arrive in slot order and the embedding runs
+in that layout; the
 overflow edge features of the dense and windowed tilings ride the same
 embedding, with their own mask (and so their own BatchNorm statistics, as
 in the JAX package). Those two tilings round the edge features to the
 compute dtype once; the CSR tiling keeps them float32, as its kernels take
-them.
+them. Any other configuration takes the unfused path, tiled batch or not,
+as in the JAX package. `fused_bf16_max` (or RADARGNN_FUSED_BF16_MAX) makes
+the dense and windowed backwards route by bf16 equality.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from radargnn_tpu_torch.configs import GNNArchitectureConfig
 from radargnn_tpu_torch.device import DeviceLike, resolve_device
 from radargnn_tpu_torch.graph.batch import GraphBatch
 from radargnn_tpu_torch.models.layers import (
-    BF16_MAX_ENV, MPNNConv, RadarPointGNNConv,
+    MPNNConv, RadarPointGNNConv, is_hoisted,
 )
 from radargnn_tpu_torch.models.mlp import MLP, MaskedBatchNorm, compute_dtype
 
@@ -45,13 +49,7 @@ class DetNet(nn.Module):
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         cfg = self.config = config
-        bf16_max = getattr(cfg, "fused_bf16_max", False) \
-            if BF16_MAX_ENV is None else BF16_MAX_ENV == "1"
-        if bf16_max:
-            raise NotImplementedError(
-                "fused_bf16_max (bf16-equality max routing; also "
-                "RADARGNN_FUSED_BF16_MAX=1) is not ported; the kernels route "
-                "strictly (ROADMAP.md §B (i), bf16_max)")
+        bf16_max = getattr(cfg, "fused_bf16_max", False)
         dtype = getattr(cfg, "compute_dtype", "float32")
         bn = cfg.batch_norm_in_mlps
 
@@ -74,14 +72,15 @@ class DetNet(nn.Module):
                                 pre_layers=cfg.conv_pre_mlp_layer_number,
                                 post_layers=cfg.conv_post_mlp_layer_number,
                                 use_edge_encoder=cfg.conv_use_edge_encoder,
-                                dtype=dtype, generator=gen)
+                                dtype=dtype, bf16_max=bf16_max,
+                                generator=gen)
                 x_dim = layer_dim
             elif cfg.conv_layer_type == "RadarPointGNNConv":
                 conv = RadarPointGNNConv(
                     x_dim, e_dim, aggr=cfg.aggregation_function,
                     pre_layers=cfg.conv_pre_mlp_layer_number,
                     post_layers=cfg.conv_post_mlp_layer_number,
-                    dtype=dtype, generator=gen)
+                    dtype=dtype, bf16_max=bf16_max, generator=gen)
             else:
                 raise ValueError(
                     f"{cfg.conv_layer_type} is invalid GNN conv layer type. "
@@ -97,6 +96,16 @@ class DetNet(nn.Module):
                                    dtype, gen)
         self.to(device)
 
+    @property
+    def fused(self) -> bool:
+        """Whether the model takes a tiled batch's fused path: the config
+        asks for it and is the hoisted configuration (any other takes the
+        unfused path even where the loader tiled the batch)."""
+        cfg = self.config
+        return bool(getattr(cfg, "use_fused_aggregation", False)) \
+            and is_hoisted(cfg.conv_pre_mlp_layer_number,
+                           cfg.aggregation_function)
+
     def forward(self, node_feat, edge_feat, senders, receivers,
                 node_mask: Optional[torch.Tensor] = None,
                 edge_mask: Optional[torch.Tensor] = None, tiling=None
@@ -105,7 +114,7 @@ class DetNet(nn.Module):
         cfg = self.config
         dtype = getattr(cfg, "compute_dtype", "float32")
         x, e = node_feat, edge_feat
-        if not getattr(cfg, "use_fused_aggregation", False):
+        if not self.fused:
             tiling = None
 
         if cfg.initial_node_feature_embedding:
@@ -145,8 +154,7 @@ class DetNet(nn.Module):
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Runs on a GraphBatch (its tiling when the config asks for the
         fused path); returns flat [G·N, ...] outputs."""
-        tiling = batch.flat_tiling() \
-            if getattr(self.config, "use_fused_aggregation", False) else None
+        tiling = batch.flat_tiling() if self.fused else None
         return self(batch.flat_nodes(), batch.flat_edges(),
                     batch.flat_senders(), batch.flat_receivers(),
                     batch.node_mask.reshape(-1), batch.edge_mask.reshape(-1),

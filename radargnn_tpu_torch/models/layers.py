@@ -1,10 +1,11 @@
 """Message-passing convolution layers (MPNNConv, RadarPointGNNConv).
 
-Port of `radargnn_tpu/models/layers.py` on its hoisted path. Message order
-follows PyG flow="source_to_target": for an edge (s, r) the message is
+Port of `radargnn_tpu/models/layers.py`. Message order follows PyG
+flow="source_to_target": for an edge (s, r) the message is
 pre_mlp([x_r ‖ x_s ‖ e]) and it aggregates at the receiver r. With a single
-linear pre-MLP and max aggregation the receiver projection and the bias are
-constant per receiver and commute with the max:
+linear pre-MLP and max aggregation (the hoisted configuration) the
+receiver projection and the bias are constant per receiver and commute
+with the max:
 
     aggr_r = (x @ W_r)[r] + b + max_e((x @ W_s)[s] + e @ W_e)
 
@@ -14,10 +15,16 @@ tiling (radius graphs, or any graph under `fused_tiling: "windowed"`) in
 the windowed aggregation (`ops.windowed_aggregate`), with the CSR tiling
 (`fused_tiling: "csr"`) in the CSR aggregation (`ops.csr_aggregate`),
 each a pair of CUDA kernels on the card; without a tiling it is a masked
-segment max over the edge list.
+segment max over the edge list. The dense and windowed backwards route by
+bf16 equality under `bf16_max` (the config's `fused_bf16_max`, or
+RADARGNN_FUSED_BF16_MAX); the CSR path routes strictly, as the JAX
+package's v2 kernels take no such flag.
 
-The multi-layer pre-MLP (`SplitPreMLP`) and halo partitioning are not
-ported yet and raise (ROADMAP.md).
+Any other configuration (a pre-MLP of several layers, or a mean, add or
+sum aggregation) computes every message with `SplitPreMLP` and reduces it
+with the segment family (`ops.segment`, `_AggregationMixin`), as the JAX
+package does. Halo partitioning is not ported yet (ROADMAP.md §A,
+multi-GPU).
 """
 
 from __future__ import annotations
@@ -31,9 +38,11 @@ from torch import nn
 from radargnn_tpu_torch.models.mlp import (
     LinearReluStack, TorchLinear, compute_dtype, matmul_f32,
 )
+from radargnn_tpu_torch.models.split_mlp import PreMLPParams, SplitPreMLP
 from radargnn_tpu_torch.ops.csr_aggregate import csr_aggregate
 from radargnn_tpu_torch.ops.dense_aggregate import dense_aggregate
-from radargnn_tpu_torch.ops.segment import hoisted_segment_max
+from radargnn_tpu_torch.ops.segment import hoisted_segment_max, \
+    segment_reduce
 from radargnn_tpu_torch.ops.windowed_aggregate import windowed_aggregate
 
 # The JAX package's env knobs (radargnn_tpu/models/layers.py), read at
@@ -51,15 +60,20 @@ FUSED_DENSE_R_TILE = int(os.environ.get("RADARGNN_FUSED_DENSE_R_TILE", 64))
 FUSED_DENSE_EXTRA_SLOTS = int(
     os.environ.get("RADARGNN_FUSED_DENSE_EXTRA_SLOTS", 4))
 _RUN_CAP_ENV = os.environ.get("RADARGNN_FUSED_RUN_CAP")
-# bf16-equality max routing: None follows the config's fused_bf16_max;
-# "0" forces strict routing (the port's), "1" the bf16 variant (not ported)
+# bf16-equality max routing of the dense and windowed backwards: None
+# follows the config's fused_bf16_max, "1" forces it on, any other value
+# off (strict routing)
 BF16_MAX_ENV = os.environ.get("RADARGNN_FUSED_BF16_MAX")
+# the dense backward lands the overflow part of d_x through the segment-sum
+# kernel over the batch's sender-sorted overflow tiling, which
+# fused_csr_tiling then asks the batch to carry (the JAX package's
+# ovf_ssum; off by default, as there)
+OVF_SSUM = os.environ.get("RADARGNN_FUSED_OVF_SSUM", "0") == "1"
 # kernel-body variants the port has not ported, with the name of the
 # ROADMAP.md §B (i) item that holds each: a value other than the default
 # "0" raises where the fused path is set up (check_fused_knobs)
 _UNPORTED_KNOBS = {
     name: (os.environ.get(name, "0"), item) for name, item in (
-        ("RADARGNN_FUSED_OVF_SSUM", "ovf_ssum"),
         ("RADARGNN_FUSED_STREAM_M", "stream_m"),
         ("RADARGNN_FUSED_BF16_LANDING", "bf16_landing"),
         ("RADARGNN_FUSED_PRECOMP_LAND", "precomp_land"))}
@@ -75,20 +89,23 @@ _UNPORTED_KNOBS = {
 # of them (ROADMAP.md B (iii)).
 
 
-def check_fused_knobs(mode: str) -> None:
+def check_fused_knobs() -> None:
     """Raises NotImplementedError, naming the knob, where an env knob asks
-    for a kernel variant the port does not have; `mode` is the fused
-    tiling ("dense", "windowed" or "csr")."""
+    for a kernel variant the port does not have."""
     for name, (value, item) in _UNPORTED_KNOBS.items():
         if value != "0":
             raise NotImplementedError(
-                f"{name}={value} selects a kernel variant that is not "
-                f"ported (ROADMAP.md §B (i), {item}); unset it or set 0")
-    if BF16_MAX_ENV not in (None, "0"):
-        raise NotImplementedError(
-            f"RADARGNN_FUSED_BF16_MAX={BF16_MAX_ENV}: bf16-equality max "
-            "routing is not ported (ROADMAP.md §B (i), bf16_max); unset it "
-            "or set 0")
+                f"{name}={value} selects a variant of the windowed kernels "
+                "that is not ported: it measured neutral to -1.5 % on the "
+                "TPU and waits until the H100 shows a need (ROADMAP.md §B "
+                f"(i), {item}); unset it or set 0")
+
+
+def bf16_max_routing(flag: bool) -> bool:
+    """Whether the fused backwards route by bf16 equality: the config's
+    `fused_bf16_max` (`flag`), unless RADARGNN_FUSED_BF16_MAX overrides
+    it."""
+    return flag if BF16_MAX_ENV is None else BF16_MAX_ENV == "1"
 
 
 def fused_csr_tiling(model_config, k=None):
@@ -98,8 +115,9 @@ def fused_csr_tiling(model_config, k=None):
     without `k`: radius graphs) the windowed tuple (node_block, edge_tile,
     window_blocks, fused_overflow_fraction[, fused_run_cap]); "csr" the
     CSR tuple (node_block, edge_tile), for any graph. The geometry follows
-    the env knobs as in the JAX package; an unported variant knob raises
-    (`check_fused_knobs`)."""
+    the env knobs as in the JAX package (RADARGNN_FUSED_OVF_SSUM asks the
+    dense tiling for its sender-sorted overflow tiling); an unported
+    variant knob raises (`check_fused_knobs`)."""
     if not getattr(model_config, "use_fused_aggregation", False):
         return None
     mode = getattr(model_config, "fused_tiling", "windowed")
@@ -108,7 +126,7 @@ def fused_csr_tiling(model_config, k=None):
     if mode not in ("dense", "windowed", "csr"):
         raise ValueError(f'unknown fused_tiling "{mode}": "auto", "dense", '
                          '"windowed" or "csr"')
-    check_fused_knobs(mode)
+    check_fused_knobs()
     if mode == "csr":
         return (FUSED_NODE_BLOCK, FUSED_EDGE_TILE)
     if mode == "windowed":
@@ -127,16 +145,20 @@ def fused_csr_tiling(model_config, k=None):
     return {"mode": "dense", "node_block": FUSED_NODE_BLOCK,
             "r_tile": FUSED_DENSE_R_TILE,
             "k": int(k) + FUSED_DENSE_EXTRA_SLOTS,
-            "window_blocks": FUSED_WINDOW_BLOCKS, "ovf_ssum": False,
+            "window_blocks": FUSED_WINDOW_BLOCKS, "ovf_ssum": OVF_SSUM,
             "ovf_frac": getattr(model_config, "fused_overflow_fraction",
                                 0.05) + 0.03}
 
 
-def _fused_hoisted_max(x, w_s, w_e, offset, tiling) -> torch.Tensor:
+def _fused_hoisted_max(x, w_s, w_e, offset, tiling,
+                       bf16_max: bool) -> torch.Tensor:
     """Hoisted max aggregation over the batch's tiling: the dense
     aggregation for a dense tiling, the windowed one for a tiling with
     sender windows, the CSR one otherwise (each backward lands d_x through
-    the batch's sender landing)."""
+    the batch's sender landing). The dense and windowed backwards route
+    by bf16 equality with `bf16_max`; the dense one lands its overflow d_x
+    through the batch's overflow landing where the batch has one and
+    OVF_SSUM is on."""
     if tiling.win is None:
         return csr_aggregate(x, w_s, tiling.edge_feat, w_e, tiling.senders,
                              tiling.receivers, tiling.blocks, offset,
@@ -146,49 +168,53 @@ def _fused_hoisted_max(x, w_s, w_e, offset, tiling) -> torch.Tensor:
     sloc, t_win, _, ovf_s, ovf_r, ovf_e = tiling.win
     if tiling.dense is not None:
         r_tile, k = tiling.dense
-        return dense_aggregate(x, w_s, tiling.edge_feat, w_e, offset, ovf_e,
-                               t_win, sloc, ovf_s, ovf_r, r_tile=r_tile, k=k,
-                               node_block=tiling.node_block,
-                               landing=tiling.landing)
+        return dense_aggregate(
+            x, w_s, tiling.edge_feat, w_e, offset, ovf_e, t_win, sloc,
+            ovf_s, ovf_r, r_tile=r_tile, k=k, node_block=tiling.node_block,
+            landing=tiling.landing, bf16_max=bf16_max,
+            ovf_landing=tiling.ovf_landing if OVF_SSUM else None)
     return windowed_aggregate(x, w_s, tiling.edge_feat, w_e, offset, ovf_e,
                               tiling.receivers, tiling.blocks, t_win, sloc,
                               ovf_s, ovf_r, node_block=tiling.node_block,
                               edge_tile=tiling.edge_tile,
-                              landing=tiling.landing)
+                              landing=tiling.landing, bf16_max=bf16_max)
 
 
-def _check_hoisted(pre_layers: int, aggr: str) -> None:
-    if pre_layers != 1 or aggr != "max":
-        raise NotImplementedError(
-            "only the hoisted configuration (conv_pre_mlp_layer_number 1, "
-            "aggregation 'max') is ported; the SplitPreMLP path waits for "
-            "ROADMAP.md §A, the rest of the unfused model")
+def is_hoisted(pre_layers: int, aggr: str) -> bool:
+    """Whether a conv takes the hoisted max path (and the fused kernels
+    where the batch is tiled): one linear pre-MLP and max aggregation."""
+    return pre_layers == 1 and aggr == "max"
 
 
-class PreMLP(nn.Module):
-    """Holds the single pre-MLP Linear under the `pre_mlp.lin_0` name."""
+class _AggregationMixin:
+    """The masked aggregation of full messages: max in the compute dtype
+    (exact in bf16), sum and mean in float32; a float32 result."""
 
-    def __init__(self, fan_in: int, features: int,
-                 generator: Optional[torch.Generator]):
-        super().__init__()
-        self.lin_0 = TorchLinear(fan_in, features, generator=generator)
+    def _aggregate(self, m, receivers, num_nodes, edge_mask):
+        data = m
+        if self.dtype != torch.float32 and self.aggr == "max":
+            data = m.to(self.dtype)
+        return segment_reduce(self.aggr, data, receivers, num_nodes,
+                              edge_mask).float()
 
 
-class MPNNConv(nn.Module):
+class MPNNConv(_AggregationMixin, nn.Module):
     """General MPNN layer with edge features.
 
     message  m_sr = pre_mlp([x_r ‖ x_s ‖ e_sr])   (edge encoder optional)
-    aggregate     = max over incoming edges
+    aggregate     = perm-invariant reduce (default max) over incoming edges
     update   h_r  = post_mlp([x_r ‖ aggr_r])
     """
 
     def __init__(self, in_channels: int, edge_dim: int, out_channels: int,
                  aggr: str = "max", pre_layers: int = 1,
                  post_layers: int = 1, use_edge_encoder: bool = False,
-                 dtype: str = "float32",
+                 dtype: str = "float32", bf16_max: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_hoisted(pre_layers, aggr)
+        self.aggr = aggr
+        self.hoisted = is_hoisted(pre_layers, aggr)
+        self.bf16_max = bf16_max
         self.in_channels = in_channels
         # width of the edge features the aggregation reads
         self.edge_feat_dim = in_channels if use_edge_encoder else edge_dim
@@ -200,7 +226,12 @@ class MPNNConv(nn.Module):
         else:
             self.edge_encoder = None
             pre_mlp_dim = 2 * in_channels + edge_dim
-        self.pre_mlp = PreMLP(pre_mlp_dim, pre_mlp_dim, generator)
+        if self.hoisted:
+            self.pre_mlp = PreMLPParams(pre_mlp_dim, pre_mlp_dim, generator)
+        else:
+            self.pre_mlp = SplitPreMLP(
+                [pre_mlp_dim] * pre_layers, in_channels, self.edge_feat_dim,
+                include_receiver=True, dtype=dtype, generator=generator)
         self.post_mlp = LinearReluStack(in_channels + pre_mlp_dim,
                                         [out_channels] * post_layers, dtype,
                                         generator)
@@ -210,20 +241,25 @@ class MPNNConv(nn.Module):
         num_nodes = x.shape[0]
         if self.edge_encoder is not None:
             edge_attr = self.edge_encoder(edge_attr)
-            if tiling is not None:
+            if tiling is not None and self.hoisted:
                 win = tiling.win
                 if win is not None:
                     # the overflow edges ride the same encoder
                     win = win[:5] + (self.edge_encoder(win[5]),)
                 tiling = tiling._replace(
                     edge_feat=self.edge_encoder(tiling.edge_feat), win=win)
+        if not self.hoisted:
+            m = self.pre_mlp(x, senders, receivers, edge_attr)
+            aggr = self._aggregate(m, receivers, num_nodes, edge_mask)
+            return self.post_mlp(torch.cat([x, aggr], dim=-1))
         lin = self.pre_mlp.lin_0
         d = self.in_channels
         w = lin.weight.t()                          # [in, out], flax layout
         w_r, w_s, w_e = w[:d], w[d:2 * d], w[2 * d:]
         y_r = matmul_f32(x, w_r, self.dtype)
         if tiling is not None:
-            aggr = _fused_hoisted_max(x, w_s, w_e, y_r + lin.bias, tiling)
+            aggr = _fused_hoisted_max(x, w_s, w_e, y_r + lin.bias, tiling,
+                                      bf16_max_routing(self.bf16_max))
         else:
             y_s = matmul_f32(x, w_s, self.dtype).to(self.dtype)
             y_e = matmul_f32(edge_attr, w_e, self.dtype).to(self.dtype)
@@ -232,21 +268,28 @@ class MPNNConv(nn.Module):
         return self.post_mlp(torch.cat([x, aggr], dim=-1))
 
 
-class RadarPointGNNConv(nn.Module):
+class RadarPointGNNConv(_AggregationMixin, nn.Module):
     """Residual Radar-PointGNN variant: message pre_mlp([x_s ‖ e]); update
     post_mlp([x ‖ m]) + x. Output dim equals input dim."""
 
     def __init__(self, node_dim: int, edge_dim: int, aggr: str = "max",
                  pre_layers: int = 1, post_layers: int = 1,
-                 dtype: str = "float32",
+                 dtype: str = "float32", bf16_max: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_hoisted(pre_layers, aggr)
+        self.aggr = aggr
+        self.hoisted = is_hoisted(pre_layers, aggr)
+        self.bf16_max = bf16_max
         self.in_channels = self.node_dim = node_dim
         self.edge_feat_dim = edge_dim
         self.dtype = compute_dtype(dtype)
         pre_mlp_dim = node_dim + edge_dim
-        self.pre_mlp = PreMLP(pre_mlp_dim, pre_mlp_dim, generator)
+        if self.hoisted:
+            self.pre_mlp = PreMLPParams(pre_mlp_dim, pre_mlp_dim, generator)
+        else:
+            self.pre_mlp = SplitPreMLP(
+                [pre_mlp_dim] * pre_layers, node_dim, edge_dim,
+                include_receiver=False, dtype=dtype, generator=generator)
         self.post_mlp = LinearReluStack(node_dim + pre_mlp_dim,
                                         [node_dim] * post_layers, dtype,
                                         generator)
@@ -254,13 +297,18 @@ class RadarPointGNNConv(nn.Module):
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 tiling=None):
         num_nodes = x.shape[0]
+        if not self.hoisted:
+            m = self.pre_mlp(x, senders, receivers, edge_attr)
+            aggr = self._aggregate(m, receivers, num_nodes, edge_mask)
+            return self.post_mlp(torch.cat([x, aggr], dim=-1)) + x
         lin = self.pre_mlp.lin_0
         w = lin.weight.t()
         w_s, w_e = w[:self.node_dim], w[self.node_dim:]
         # no receiver term: the bias alone is the hoisted offset
         offset = lin.bias.expand(num_nodes, -1)
         if tiling is not None:
-            aggr = _fused_hoisted_max(x, w_s, w_e, offset, tiling)
+            aggr = _fused_hoisted_max(x, w_s, w_e, offset, tiling,
+                                      bf16_max_routing(self.bf16_max))
         else:
             operand = matmul_f32(x, w_s, self.dtype).to(self.dtype)[
                 senders.long()] \

@@ -19,7 +19,9 @@ gathers and per-slot products are not carried over:
     maxima, the offset epilogue. In VJP mode it also writes `inner` and one
     routing bit per (slot, column), set where the slot is valid and
     |op - inner| <= 1e-5 |inner| + 1e-5: the strict routing of the TPU
-    kernel, under which every tied slot takes the full g;
+    kernel, under which every tied slot takes the full g (with `bf16_max`,
+    where bf16(op) == bf16(inner): the TPU kernel's bf16_cmp branch, under
+    which every slot within a bf16 rounding of the max takes the full g);
   * the backward (`dense_bwd`, `csrc/dense_bwd_v4.cu`): d_op[slot] =
     bf16(g[receiver]) where the slot's bit is set, else 0; d_e = d_op @
     w_e^T and dW_e in a receiver-major pass over the tiles, and the H-wide
@@ -31,7 +33,11 @@ gathers and per-slot products are not carried over:
 d_x = bf16(d_ys) @ w_s^T + d_yo @ w_s^T and dW_s = bf16(x)^T @ bf16(d_ys)
 + x^T @ d_yo are then node-wide products, the JAX package's `sender_dx`
 form (its wrapper :2742-2754, the overflow part in float32 as at
-:2787-2789). The routing comes from the forward's bits, so the backward
+:2787-2789). Under `ovf_ssum` (`ovf_landing` given: the batch's
+sender-sorted overflow tiling) the overflow part of d_x is the JAX
+package's instead (:2770-2781): each overflow row's bf16(bf16(d_op_o) @
+bf16(w_s)^T), summed at its sender by the segment-sum kernel
+(`ops.segment_sum`, B3) over that tiling. The routing comes from the forward's bits, so the backward
 sees the forward's op bit for bit without recomputing it. The overflow
 edges' operand is y_s[ovf_s] + e_ovf @ w_e, scatter-maxed in torch (XLA in
 the JAX package); the forward saves it for the overflow backward. As in
@@ -86,9 +92,14 @@ def _sender_index(senders_local: torch.Tensor, tile_win: torch.Tensor,
     return win + senders_local.long().clamp(min=0)
 
 
-def _routes(op: torch.Tensor, inner: torch.Tensor) -> torch.Tensor:
+def _routes(op: torch.Tensor, inner: torch.Tensor,
+            bf16_max: bool = False) -> torch.Tensor:
     """Which operands take their receiver's gradient: within the strict
-    tolerance of the receiver's max."""
+    tolerance of the receiver's max, or with `bf16_max` equal to it once
+    both are rounded to bf16 (to nearest even, as the TPU kernel's
+    astype(bfloat16))."""
+    if bf16_max:
+        return op.to(torch.bfloat16) == inner.to(torch.bfloat16)
     return (op - inner).abs() <= _ROUTE_RTOL * inner.abs() + _ROUTE_ATOL
 
 
@@ -121,12 +132,13 @@ def dense_proj_plain(x_c, w_s_c) -> torch.Tensor:
 
 def dense_fwd_plain(y_s, e_t_c, w_e_c, senders_local, tile_win, inner_o,
                     offset, *, r_tile: int, k: int, node_block: int,
-                    emit_inner: bool = False):
+                    emit_inner: bool = False, bf16_max: bool = False):
     """Plain torch version of the gather-max kernel: the same function on
     the same inputs (y_s [N, hp] float32; e_t_c, w_e_c in the gather dtype;
     inner_o, offset float32 [N, H]). Returns out, or (out, inner, bits)
     with `emit_inner`: bits [E_pad, hp / 32] int32, one per (slot,
-    column), set where the slot is valid and its op routes (`_routes`)."""
+    column), set where the slot is valid and its op routes (`_routes`,
+    bf16 with `bf16_max`)."""
     te = r_tile * k
     h = offset.shape[1]
     sender = _sender_index(senders_local, tile_win, te, node_block)
@@ -139,7 +151,8 @@ def dense_fwd_plain(y_s, e_t_c, w_e_c, senders_local, tile_win, inner_o,
     if not emit_inner:
         return out
     inner3 = inner.reshape(-1, 1, r_tile, h)
-    sel = _routes(op.reshape(-1, k, r_tile, h), inner3).reshape(-1, h)
+    sel = _routes(op.reshape(-1, k, r_tile, h), inner3,
+                  bf16_max).reshape(-1, h)
     return out, inner, pack_bits(valid & sel)
 
 
@@ -186,7 +199,7 @@ def _bind_fwd(lib: ctypes.CDLL) -> None:
     lib.dense_proj_v4_smem_bytes.argtypes = [ctypes.c_int]
     lib.dense_proj_v4_smem_bytes.restype = ctypes.c_size_t
     lib.dense_fwd_v4.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.dense_fwd_v4.restype = ctypes.c_int
     lib.dense_fwd_v4_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.dense_fwd_v4_smem_bytes.restype = ctypes.c_size_t
@@ -315,11 +328,12 @@ def dense_proj(x_c, w_s_c) -> torch.Tensor:
 
 def dense_fwd_cuda(y_s, e_t_c, w_e_c, senders_local, tile_win, inner_o,
                    offset, *, r_tile: int, k: int, node_block: int,
-                   emit_inner: bool = False):
+                   emit_inner: bool = False, bf16_max: bool = False):
     """Launches the gather-max of `csrc/dense_fwd_v4.cu` on the current
     stream (VJP mode with `emit_inner`: it also writes `inner` and the
-    routing bits); raises on inputs the kernel does not take. Counts its
-    launches in `dense_fwd_cuda.launches`."""
+    routing bits, by the bf16 test with `bf16_max`); raises on inputs the
+    kernel does not take. Counts its launches in `dense_fwd_cuda.launches`,
+    and those with `bf16_max` in `dense_fwd_cuda.bf16_launches` too."""
     kernel = "dense_fwd_v4"
     f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
     _check_tensors(kernel, dict(y_s=f32, e_t=bf16, w_e=bf16,
@@ -363,25 +377,28 @@ def dense_fwd_cuda(y_s, e_t_c, w_e_c, senders_local, tile_win, inner_o,
             inner_o.data_ptr(), offset.data_ptr(), out.data_ptr(),
             None if inner is None else inner.data_ptr(),
             None if bits is None else bits.data_ptr(),
-            y_s.shape[0], de, h, hp, t, r_tile, k, node_block, _stream(dev))
+            y_s.shape[0], de, h, hp, t, r_tile, k, node_block,
+            int(bf16_max), _stream(dev))
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
     dense_fwd_cuda.launches += 1
+    dense_fwd_cuda.bf16_launches += int(bf16_max)
     return (out, inner, bits) if emit_inner else out
 
 
 dense_fwd_cuda.launches = 0
+dense_fwd_cuda.bf16_launches = 0
 
 
 def dense_fwd(y_s, e_t_c, w_e_c, senders_local, tile_win, inner_o, offset,
               *, r_tile: int, k: int, node_block: int,
-              emit_inner: bool = False):
+              emit_inner: bool = False, bf16_max: bool = False):
     """The gather-max kernel's wrapper: a CUDA tensor launches the kernel
     (or raises), a CPU tensor takes the plain version."""
     fn = dense_fwd_cuda if y_s.is_cuda else dense_fwd_plain
     return fn(y_s, e_t_c, w_e_c, senders_local, tile_win, inner_o, offset,
               r_tile=r_tile, k=k, node_block=node_block,
-              emit_inner=emit_inner)
+              emit_inner=emit_inner, bf16_max=bf16_max)
 
 
 def routed_bwd_launch(kernel: str, load, bits, g_pass, e_t_c, w_e_c, d_op_o,
@@ -555,29 +572,36 @@ def _forward(x, w_s, e_t, w_e, offset, e_ovf, tile_win, senders_local,
     """The forward on gather-dtype operands: the projection, the overflow
     operands and maxima, the gather-max. Returns (the gather-max wrapper's
     result, the overflow operands, the depth-padded (e_t, w_e))."""
-    r_tile, k, node_block = geo
+    r_tile, k, node_block, bf16_max = geo
     y_s, op_o, inner_o, e_p, w_e_p = project_operands(
         x, w_s, e_t, w_e, e_ovf, ovf_s, ovf_r, offset.shape[0])
     res = dense_fwd(y_s, e_p, w_e_p, senders_local.contiguous(),
                     tile_win.contiguous(), inner_o,
                     offset.float().contiguous(), r_tile=r_tile, k=k,
-                    node_block=node_block, emit_inner=emit_inner)
+                    node_block=node_block, emit_inner=emit_inner,
+                    bf16_max=bf16_max)
     return res, op_o, (e_p, w_e_p)
 
 
 def routed_backward(g, inner, op_o, ovf_r, x, w_s, w_e, e_ovf, dtypes,
-                    slot_backward, round_sums: bool) -> tuple:
+                    slot_backward, round_sums: bool, bf16_max: bool = False,
+                    ovf_landing=None) -> tuple:
     """The custom VJP body of a bits-routed aggregation (dense and
     windowed): g and inner zeroed at empty receivers; the overflow rows
-    routed on the forward's own operands; the kernels' part
-    `slot_backward(g_pass, d_op_o) -> (d_e_t, dW_e, d_ys, d_yo)` (padded
-    depth, d_e_t in the gather dtype); then d_x and dW_s as node-wide
-    products of the sender sums. With `round_sums` (the dense path) the
-    slots' sums meet W_s and x in the gather dtype and the overflow's in
-    float32, as the JAX package's dense `sender_dx` wrapper forms them;
-    without (the windowed path), (d_ys + d_yo) @ W_s^T and x^T (d_ys +
-    d_yo) in float32, as its windowed wrapper does. Returns the gradients
-    of (x, w_s, e_t, w_e, offset, e_ovf) in their inputs' dtypes."""
+    routed on the forward's own operands (bf16 with `bf16_max`, as the
+    slots' bits); the kernels' part `slot_backward(g_pass, d_op_o) ->
+    (d_e_t, dW_e, d_ys, d_yo)` (padded depth, d_e_t in the gather dtype);
+    then d_x and dW_s as node-wide products of the sender sums. With
+    `round_sums` (the dense path) the slots' sums meet W_s and x in the
+    gather dtype and the overflow's in float32, as the JAX package's dense
+    `sender_dx` wrapper forms them, or with `ovf_landing` (the dense
+    path's `ovf_ssum`: (order, row_ptr) of the overflow rows by sender)
+    the overflow part of d_x is each row's bf16(bf16(d_op_o) @
+    bf16(w_s)^T) landed by the segment-sum kernel, as its wrapper forms it
+    under that flag; without `round_sums` (the windowed path), (d_ys +
+    d_yo) @ W_s^T and x^T (d_ys + d_yo) in float32, as its windowed
+    wrapper does. Returns the gradients of (x, w_s, e_t, w_e, offset,
+    e_ovf) in their inputs' dtypes."""
     x_dtype, e_dtype, e_ovf_dtype, offset_dtype = dtypes
     de = w_e.shape[0]
     has = inner > _NEG / 2
@@ -585,12 +609,18 @@ def routed_backward(g, inner, op_o, ovf_r, x, w_s, w_e, e_ovf, dtypes,
     inner_z = torch.where(has, inner, 0.0)
     mask = ovf_r >= 0
     recv = torch.where(mask, ovf_r, 0).long()
-    d_op_o = torch.where(mask[:, None] & _routes(op_o, inner_z[recv]),
-                         g_pass[recv], 0.0)
+    d_op_o = torch.where(
+        mask[:, None] & _routes(op_o, inner_z[recv], bf16_max),
+        g_pass[recv], 0.0)
     d_e_t, d_we, d_ys, d_yo = slot_backward(g_pass, d_op_o)
     if round_sums:
         cd = d_e_t.dtype
-        d_x = matmul_f32(d_ys, w_s.t(), cd) + d_yo @ w_s.float().t()
+        d_x = matmul_f32(d_ys, w_s.t(), cd)
+        if ovf_landing is None:
+            d_x = d_x + d_yo @ w_s.float().t()
+        else:
+            d_xo = matmul_f32(d_op_o, w_s.t(), cd).to(cd)
+            d_x = d_x + segment_sum.segment_sum_csr(d_xo, *ovf_landing)
         d_ws = matmul_f32(x.t(), d_ys, cd) + x.float().t() @ d_yo
     else:
         d_y = d_ys + d_yo
@@ -607,44 +637,54 @@ class DenseAggregateFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w_s, e_t, w_e, offset, e_ovf, tile_win,
-                senders_local, ovf_s, ovf_r, order, row_ptr, geo):
+                senders_local, ovf_s, ovf_r, order, row_ptr, geo,
+                ovf_order=None, ovf_row_ptr=None):
         (out, inner, bits), op_o, padded = _forward(
             x, w_s, e_t, w_e, offset, e_ovf, tile_win, senders_local, ovf_s,
             ovf_r, geo, emit_inner=True)
         ctx.geo = geo
         ctx.dtypes = (x.dtype, e_t.dtype, e_ovf.dtype, offset.dtype)
+        ctx.ovf_ssum = ovf_order is not None
+        ovf_landing = (ovf_order, ovf_row_ptr) if ctx.ovf_ssum else ()
         ctx.save_for_backward(x, w_s, w_e, e_ovf, *padded, bits, op_o,
-                              ovf_r, order, row_ptr, inner)
+                              ovf_r, order, row_ptr, inner, *ovf_landing)
         return out
 
     @staticmethod
     def backward(ctx, g):
         (x, w_s, w_e, e_ovf, e_p, w_e_p, bits, op_o, ovf_r, order, row_ptr,
-         inner) = ctx.saved_tensors
-        r_tile, k, _ = ctx.geo
+         inner, *ovf_landing) = ctx.saved_tensors
+        r_tile, k, _, bf16_max = ctx.geo
 
         def slot_backward(g_pass, d_op_o):
             return dense_bwd(bits, g_pass, e_p, w_e_p, d_op_o, order,
                              row_ptr, r_tile=r_tile, k=k)
 
         return routed_backward(g, inner, op_o, ovf_r, x, w_s, w_e, e_ovf,
-                               ctx.dtypes, slot_backward,
-                               round_sums=True) + (None,) * 7
+                               ctx.dtypes, slot_backward, round_sums=True,
+                               bf16_max=bf16_max,
+                               ovf_landing=ovf_landing or None) \
+            + (None,) * 9
 
 
 def dense_aggregate(x, w_s, e_t, w_e, offset, e_ovf, tile_win,
                     senders_local, ovf_s, ovf_r, *, r_tile: int, k: int,
-                    node_block: int, landing=None) -> torch.Tensor:
+                    node_block: int, landing=None, bf16_max: bool = False,
+                    ovf_landing=None) -> torch.Tensor:
     """The dense fused aggregation (module docstring), with the argument
     order of the JAX package's fused function (less part_mask: the landing
     replaces it). Differentiable in x, w_s, e_t, w_e, offset and e_ovf;
     the backward needs `landing` (an `ops.segment_sum.SenderLanding`, the
-    batch's `FlatTiling.landing`)."""
+    batch's `FlatTiling.landing`). `bf16_max` routes the backward by bf16
+    equality (the forward is unchanged); `ovf_landing` (the batch's
+    `FlatTiling.ovf_landing`, built under `ovf_ssum`) lands the overflow
+    part of d_x through the segment-sum kernel, as the JAX package's
+    `ovf_ssum` does."""
     num_nodes = offset.shape[0]
     if num_nodes % r_tile:
         raise ValueError(f"num_nodes {num_nodes} not divisible by "
                          f"r_tile {r_tile}")
-    geo = (r_tile, k, node_block)
+    geo = (r_tile, k, node_block, bool(bf16_max))
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, w_s, e_t, w_e, offset, e_ovf))
     if not needs_grad:
@@ -658,4 +698,5 @@ def dense_aggregate(x, w_s, e_t, w_e, offset, e_ovf, tile_win,
                          "stack_samples)")
     return DenseAggregateFn.apply(x, w_s, e_t, w_e, offset, e_ovf, tile_win,
                                   senders_local, ovf_s, ovf_r, landing.order,
-                                  landing.row_ptr, geo)
+                                  landing.row_ptr, geo,
+                                  *(ovf_landing or ()))

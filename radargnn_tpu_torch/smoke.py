@@ -18,7 +18,12 @@ card. An eighth runs the same pipeline under the nuScenes YAML, on
 nuScenes-format tables and multisweep radar sweeps it writes, the same
 way, then the nuScenes e2e (`benchmarks.nuscenes_e2e`) as a child process,
 and oracle predictions through the card's and the CPU's NMS and
-NuscenesEvaluator.
+NuscenesEvaluator. A ninth (`smoke_variants.variants_phase`) holds B1's and
+B4's bf16 routing test and B3 on the dense overflow rows (`ovf_ssum`) to
+their plain versions, trains the flagship under `fused_bf16_max` (dense,
+windowed, CSR) and `ovf_ssum`, trains it with a pre-MLP of two layers and
+the mean and add aggregations against the CPU, and runs the convergence
+and preprocessing tools as child processes.
 
 `run(device)` is what `chip_smoke.py` calls on the card; the CPU tests call
 it at a tiny size, where the wrappers take their plain versions, nothing is
@@ -90,11 +95,14 @@ KERNEL_SOURCES = ("dense_fwd_v4.cu", "dense_bwd_v4.cu", "segment_sum_csr.cu",
                   "csr_bwd_v2.cu", "fused_linear.cu", "msg_segmax.cu",
                   "hoisted_fwd_v1.cu", "hoisted_bwd_v1.cu")
 # the kernels' names, in the order of `_counters()`; dense_proj_v4 (the
-# node projection, csrc/dense_fwd_v4.cu) is B1's first launch
+# node projection, csrc/dense_fwd_v4.cu) is B1's first launch; the last two
+# count the gather-max launches of B1 and B4 that set their bits by the
+# bf16 test (`fused_bf16_max`), which their own counts include
 KERNEL_NAMES = ("dense_fwd_v4", "dense_bwd_v4", "segment_sum_csr",
                 "windowed_fwd_v3", "windowed_bwd_v3", "csr_fwd_v2",
                 "csr_bwd_v2", "fused_linear", "msg_segmax", "hoisted_fwd_v1",
-                "hoisted_bwd_v1", "dense_proj_v4")
+                "hoisted_bwd_v1", "dense_proj_v4", "dense_fwd_v4_bf16_max",
+                "windowed_fwd_v3_bf16_max")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
@@ -648,7 +656,8 @@ class _Routed(NamedTuple):
 
     fwd_name: str
     bwd_name: str
-    fwd: Callable           # (y_s, e_t, w_e, inner_o, offset, emit_inner)
+    # (y_s, e_t, w_e, inner_o, offset, emit_inner, bf16_max)
+    fwd: Callable
     fwd_plain: Callable
     bwd: Callable           # (bits, g_pass, e_t, w_e, d_op_o)
     bwd_plain: Callable
@@ -676,9 +685,10 @@ def _routed_of(tiling) -> _Routed:
     stem = names[0][:names[0].index("_")]
 
     def fwd(fn):
-        return lambda y_s, e_t, w_e, inner_o, offset, emit_inner=False: fn(
-            y_s, e_t, w_e, *layout, inner_o, offset, emit_inner=emit_inner,
-            **fwd_kw)
+        return lambda y_s, e_t, w_e, inner_o, offset, emit_inner=False, \
+            bf16_max=False: fn(y_s, e_t, w_e, *layout, inner_o, offset,
+                               emit_inner=emit_inner, bf16_max=bf16_max,
+                               **fwd_kw)
 
     def bwd(fn):
         return lambda bits, g_pass, e_t, w_e, d_op_o: fn(
@@ -1021,12 +1031,30 @@ def radius_csr_tiling(dev: DeviceLike, points: int, graphs: int,
     return loader[0]
 
 
+class _Bf16Launches:
+    """A wrapper's count of its bf16-routing launches (`bf16_launches`),
+    read and set as `launches`, as the other counters are."""
+
+    def __init__(self, wrapper: Callable):
+        self.wrapper = wrapper
+
+    @property
+    def launches(self) -> int:
+        return self.wrapper.bf16_launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.wrapper.bf16_launches = value
+
+
 def _counters():
     """The launch counters of the kernels, in the order of KERNEL_NAMES."""
     return (da.dense_fwd_cuda, da.dense_bwd_cuda, ss.segment_sum_csr_cuda,
             wa.windowed_fwd_cuda, wa.windowed_bwd_cuda, ca.csr_fwd_cuda,
             ca.csr_bwd_cuda, fl.fused_linear_cuda, msm.msg_segmax_cuda,
-            ha.hoisted_fwd_cuda, ha.hoisted_bwd_cuda, da.dense_proj_cuda)
+            ha.hoisted_fwd_cuda, ha.hoisted_bwd_cuda, da.dense_proj_cuda,
+            _Bf16Launches(da.dense_fwd_cuda),
+            _Bf16Launches(wa.windowed_fwd_cuda))
 
 
 def _plain_kernels() -> ExitStack:
@@ -2780,7 +2808,8 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
     on the kNN batch, then their entry points `kernel_check` and
     `kernel_bench` (at `bench` = (edges, nodes, d_in, H)); then the
     evaluation stage, the bench, the CLI pipeline (frames of about
-    `points` points) and the nuScenes pipeline (`nuscenes_phase`)."""
+    `points` points), the nuScenes pipeline (`nuscenes_phase`) and the
+    ninth phase (`smoke_variants.variants_phase`)."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     summary: Dict = {"device": str(dev)}
@@ -2930,6 +2959,16 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
                        replaced=dict(NUSCENES_REPLACED, batch_size=4),
                        seed=seed, reps=reps, out=out)
 
+    # -- the ninth phase: bf16 routing, ovf_ssum, the unfused model, tools --
+    # (its training runs take two steps off the card: a rehearsal)
+    from radargnn_tpu_torch.smoke_variants import variants_phase
+    variants = summary["variants"] = variants_phase(
+        dev, arch, loader[0], r_arch, r_loader[0], c_arch, c_loader[0],
+        shapes, points, graphs, seed, reps,
+        train_steps if on_card else min(train_steps, 2),
+        {"dense": summary["train_losses"],
+         "windowed": radius["train_losses"]}, out)
+
     def entry(name, source, replaces, launches, rows, checked, library):
         return {
             "name": name, "route": "cuda",
@@ -3007,6 +3046,22 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
               entry_l["hoisted_bwd_v1"], last["v1_bwd"], last["v1_bwd"],
               False),
     ]
+    # the ninth phase: B1's and B4's gather-max with the bf16 test (VJP
+    # mode, the mode of their training launches; they replace the bf16_cmp
+    # branch of the TPU backward kernels), launched by the fused_bf16_max
+    # training runs; B3 on the dense overflow rows (`ovf_ssum`), launched by
+    # that training run, against index_add_
+    b1, b4 = variants["dense_bits"], variants["windowed_bits"]
+    summary["kernels"] += [
+        entry("dense_fwd_v4_bf16_max", "dense_fwd_v4.cu", 2340,
+              variants["dense_train"]["train_launches"][12], b1, b1, False),
+        entry("windowed_fwd_v3_bf16_max", "windowed_fwd_v3.cu", 1387,
+              variants["windowed_train"]["train_launches"][13], b4, b4,
+              False),
+        entry("segment_sum_csr_ovf_ssum", "segment_sum_csr.cu", 854,
+              variants["ovf_ssum_train"]["train_launches"][2],
+              variants["ovf_landing"], variants["ovf_landing"], True),
+    ]
     summary["per_shape_proj"] = proj_rows
     summary["per_shape"] = fwd_rows
     summary["per_shape_bwd"] = bwd_rows
@@ -3024,5 +3079,7 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
                         "v1_padding", "kernel_bench")},
                     "nuscenes": {k: v for k, v in nus.items()
                                  if k.startswith(("per_shape", "train_tiling"))
-                                 }}))
+                                 },
+                    "variants": {k: variants[k] for k in (
+                        "dense_bits", "windowed_bits", "ovf_landing")}}))
     return summary

@@ -279,14 +279,44 @@ def test_stack_samples_match_jax(tiled):
 
 
 def test_stack_samples_refuses_unported_tilings():
-    """The sender-sorted overflow tiling of the dense layout (ovf_ssum)
-    waits for its kernel variant; the windowed tuple and the CSR 2-tuple
-    are ported (tests/test_torch_windowed.py, tests/test_torch_csr.py)."""
-    samples = tsyn.make_samples(num_frames=1, num_points=64, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbatch.stack_samples(samples, max_nodes=128, bg_index=5,
-                             csr_tiling=dict(_dense_spec(), ovf_ssum=True),
-                             device="cpu")
+    """The sender-sorted overflow tiling of the dense layout (ovf_ssum,
+    once refused here) is the JAX package's array for array, per graph and
+    in the flat layout (`ovft`), and the overflow landing lists each
+    sender's overflow rows in the order of that tiling's slots."""
+    k = 20
+    spec = dict(_dense_spec(k=k + 4), ovf_ssum=True)
+    kw = dict(max_nodes=256, bg_index=5, max_edges=256 * k, csr_tiling=spec)
+    jb = jbatch.stack_samples(
+        jsyn.make_samples(num_frames=2, num_points=200, seed=0), **kw)
+    tb = tbatch.stack_samples(
+        tsyn.make_samples(num_frames=2, num_points=200, seed=0),
+        device="cpu", **kw)
+    names = ("ossum_perm", "ossum_send", "ossum_blocks")
+    for name in names:
+        t, j = getattr(tb, name).numpy(), np.asarray(getattr(jb, name))
+        assert t.dtype == j.dtype, name
+        np.testing.assert_array_equal(t, j, err_msg=name)
+    jt, tt = jb.flat_tiling(64), tb.flat_tiling()
+    for name, a, b in zip(names, tt.ovft, jt.ovft):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                      err_msg=f"flat {name}")
+    perm, send = (a.numpy() for a in tt.ovft[:2])
+    order, row_ptr = (a.numpy() for a in tt.ovf_landing)
+    np.testing.assert_array_equal(order, perm[send >= 0])
+    np.testing.assert_array_equal(np.diff(row_ptr),
+                                  np.bincount(send[send >= 0],
+                                              minlength=2 * 256))
+    ovf_s, ovf_r = (a.numpy() for a in tt.win[3:5])
+    valid = ovf_r >= 0
+    assert int(valid.sum()) == order.size > 0
+    np.testing.assert_array_equal(np.sort(order), np.flatnonzero(valid))
+    np.testing.assert_array_equal(ovf_s[order], send[send >= 0])
+    # without the flag the batch carries neither
+    plain = tbatch.stack_samples(
+        tsyn.make_samples(num_frames=2, num_points=200, seed=0),
+        device="cpu", **dict(kw, csr_tiling=_dense_spec(k=k + 4)))
+    assert plain.ossum_perm is None and plain.flat_tiling().ovft is None \
+        and plain.flat_tiling().ovf_landing is None
 
 
 def test_batch_to_moves_every_tensor():

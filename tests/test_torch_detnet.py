@@ -23,8 +23,10 @@ from radargnn_tpu_torch import weights
 from radargnn_tpu_torch.data.synthetic import make_samples as t_make_samples
 from radargnn_tpu_torch.graph.batch import stack_samples as t_stack
 from radargnn_tpu_torch.models.detnet import DetNet
+from radargnn_tpu_torch.models import layers as tlayers
 from radargnn_tpu_torch.models.layers import fused_csr_tiling
 from radargnn_tpu_torch.models.mlp import MaskedBatchNorm, running_stats_frozen
+from radargnn_tpu_torch.models.split_mlp import SplitPreMLP
 from radargnn_tpu_torch.ops import dense_aggregate as da
 from radargnn_tpu_torch.postprocess.inference import Predictor
 
@@ -213,19 +215,36 @@ def test_entry_points_default_to_the_card():
         t_stack(samples, max_nodes=128, bg_index=5)
 
 
-def test_unported_configurations_raise():
+def test_unported_configurations_raise(monkeypatch):
+    """The settings that raised before the port had them now build: a
+    pre-MLP of two layers and the mean / add aggregations (SplitPreMLP on
+    the unfused path, even with use_fused_aggregation set) and
+    fused_bf16_max (tests/test_torch_unfused_model.py and
+    tests/test_torch_bf16_max.py hold them to the JAX package); the
+    windowed kernels' variant knobs still raise, naming ROADMAP."""
     kw = _arch_kw(fused=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DetNet(tcfg.GNNArchitectureConfig(
-            **dict(kw, conv_pre_mlp_layer_number=2)), device="cpu")
+    for extra in (dict(conv_pre_mlp_layer_number=2),
+                  dict(aggregation_function="mean"),
+                  dict(aggregation_function="add", use_fused_aggregation=True,
+                       conv_layer_type="RadarPointGNNConv")):
+        model = DetNet(tcfg.GNNArchitectureConfig(**dict(kw, **extra)),
+                       device="cpu")
+        assert isinstance(model.conv_0.pre_mlp, SplitPreMLP) \
+            and not model.fused, extra
     # the CSR tiling is ported (tests/test_torch_csr.py)
     assert fused_csr_tiling(tcfg.GNNArchitectureConfig(
         **dict(kw, use_fused_aggregation=True, fused_tiling="csr"))) == \
         (256, 512)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DetNet(tcfg.GNNArchitectureConfig(**dict(kw, fused_bf16_max=True)),
-               device="cpu")
+    model = DetNet(tcfg.GNNArchitectureConfig(
+        **dict(kw, use_fused_aggregation=True, fused_bf16_max=True)),
+        device="cpu")
+    assert model.fused and model.conv_0.bf16_max and model.conv_1.bf16_max
     assert fused_csr_tiling(tcfg.GNNArchitectureConfig(**kw), k=K) is None
     spec = fused_csr_tiling(tcfg.GNNArchitectureConfig(
         **dict(kw, use_fused_aggregation=True, fused_tiling="auto")), k=K)
     assert spec["mode"] == "dense" and spec["k"] == K + 4
+    monkeypatch.setitem(tlayers._UNPORTED_KNOBS, "RADARGNN_FUSED_STREAM_M",
+                        ("1", "stream_m"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*stream_m"):
+        fused_csr_tiling(tcfg.GNNArchitectureConfig(
+            **dict(kw, use_fused_aggregation=True)), k=K)

@@ -5,7 +5,8 @@ Both packages read the knobs when their layers module is imported, so
 each case runs in a subprocess with the knob set: the geometry knobs give
 the same `fused_csr_tiling` in both packages and the same stacked, tiled
 batch; a knob whose kernel variant is not ported raises
-NotImplementedError naming itself; a knob that only chooses how the TPU
+NotImplementedError naming itself; the bf16 routing and the overflow
+segment-sum knobs are accepted; a knob that only chooses how the TPU
 streams its gathers changes nothing."""
 
 import json
@@ -159,9 +160,9 @@ print(json.dumps(results))
 """
 
 _VARIANTS = [
-    ("RADARGNN_FUSED_BF16_MAX", "1", "dense", True),
+    ("RADARGNN_FUSED_BF16_MAX", "1", "dense", False),
     ("RADARGNN_FUSED_BF16_MAX", "0", "dense", False),
-    ("RADARGNN_FUSED_OVF_SSUM", "1", "dense", True),
+    ("RADARGNN_FUSED_OVF_SSUM", "1", "dense", False),
     ("RADARGNN_FUSED_STREAM_M", "1", "windowed", True),
     ("RADARGNN_FUSED_BF16_LANDING", "1", "windowed", True),
     ("RADARGNN_FUSED_PRECOMP_LAND", "1", "csr", True),
@@ -183,7 +184,8 @@ def variant_results():
 @pytest.mark.parametrize("case", range(len(_VARIANTS)))
 def test_variant_knobs_raise_where_not_ported(variant_results, case):
     """An unported variant raises NotImplementedError naming its knob; the
-    TPU-only stream knobs, BF16_MAX=0 (strict, the port's routing) and
+    TPU-only stream knobs, BF16_MAX=1 and 0 (bf16 and strict routing),
+    OVF_SSUM=1 (the dense overflow d_x through the segment sum) and
     SENDER_DX=1 on the dense and windowed paths (their backward's form)
     are accepted."""
     knob, _, _, raises = _VARIANTS[case]
@@ -251,15 +253,40 @@ def test_orbax_checkpoint_backend_raises(tmp_path, monkeypatch):
     assert (tmp_path / "meta.json").exists()
 
 
-def test_bf16_max_config_still_raises_in_process():
-    """The config field raises as before (the knob unset here)."""
+def test_bf16_max_config_still_raises_in_process(monkeypatch):
+    """The config field routes the dense backward by bf16 (the knob unset
+    here): a train-mode step of a DetNet with fused_bf16_max asks the
+    gather-max for the bf16 bits at every layer, and the knob, where set,
+    overrides the field either way."""
+    import torch
     from radargnn_tpu_torch import configs as tcfg
     from radargnn_tpu_torch.models.detnet import DetNet
+    from radargnn_tpu_torch.ops import dense_aggregate as da
     assert tlayers.BF16_MAX_ENV is None
-    with pytest.raises(NotImplementedError, match="bf16"):
-        DetNet(tcfg.GNNArchitectureConfig(
-            node_feature_dimension=5, edge_feature_dimension=2,
-            conv_layer_dimensions=[8],
-            classification_head_layer_dimensions=[6],
-            regression_head_layer_dimensions=[5], fused_bf16_max=True),
-            device="cpu")
+    arch = tcfg.GNNArchitectureConfig(
+        node_feature_dimension=5, edge_feature_dimension=2,
+        conv_layer_dimensions=[8, 8],
+        classification_head_layer_dimensions=[6],
+        regression_head_layer_dimensions=[5], use_fused_aggregation=True,
+        fused_tiling="dense", fused_overflow_fraction=0.3,
+        fused_bf16_max=True)
+    batch = tbatch.stack_samples(
+        tsyn.make_samples(num_frames=2, num_points=200, seed=0),
+        max_nodes=256, bg_index=5, max_edges=256 * 20,
+        csr_tiling=tlayers.fused_csr_tiling(arch, k=20), device="cpu")
+    seen = []
+    plain = da.dense_fwd
+
+    def spy(*args, **kw):
+        seen.append((kw["emit_inner"], kw["bf16_max"]))
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(da, "dense_fwd", spy)
+    cls, _ = DetNet(arch, device="cpu").forward_batch(batch)
+    cls.square().sum().backward()
+    assert seen == [(True, True)] * 2
+    assert torch.isfinite(cls).all()
+    monkeypatch.setattr(tlayers, "BF16_MAX_ENV", "0")
+    assert not tlayers.bf16_max_routing(True)
+    monkeypatch.setattr(tlayers, "BF16_MAX_ENV", "1")
+    assert tlayers.bf16_max_routing(False)

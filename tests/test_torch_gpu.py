@@ -1440,13 +1440,13 @@ def test_smoke_on_card():
     cli = [a + b for a, b in zip(summary["cli"]["train_launches"],
                                  summary["cli"]["evaluate_launches"])]
     assert cli == [5 * 2 * 8 + 5 * 2, 5 * 2 * 6] + [0] * 9 + [5 * 2 * 8
-                                                              + 5 * 2]
+                                                              + 5 * 2, 0, 0]
     # the nuScenes CLI's train (2 epochs of 2 train and 1 validate batches)
     # and evaluate (2 batches), which the kernels line adds in too
     nus = [a + b for a, b in zip(summary["nuscenes"]["train_launches"],
                                  summary["nuscenes"]["evaluate_launches"])]
     assert nus == [5 * 2 * 3 + 5 * 2, 5 * 2 * 2] + [0] * 9 + [5 * 2 * 3
-                                                              + 5 * 2]
+                                                              + 5 * 2, 0, 0]
     cli = [a + b for a, b in zip(cli, nus)]
     # B1 and B2 held on the nuScenes train CLI's first batch of 32 frames
     checked = summary["nuscenes"]
@@ -1458,14 +1458,17 @@ def test_smoke_on_card():
     # the fourth phase's kernels: kernel_check's linear, segment-max (and
     # kernel_bench's check, warm-up and 2 timed calls), the forward through
     # both v1 factories and the kernel backward
+    # the ninth phase: B1's and B4's bf16 test in the fused_bf16_max
+    # trainings (two steps), B3 on the overflow rows in the ovf_ssum one
     assert [k["launches"] for k in summary["kernels"]] == \
         [3 * 5 * 2 + cli[11], 5 * 2 + cli[0], 5 * 2 + cli[1], 2 * 5 * 2,
-         5 * 2, 5 * 2, 5 * 2, 5 * 2, 1, 1 + 3 + 1, 2, 1]
-    assert summary["serve_launches"] == [5 * 3] + [0] * 10 + [5 * 3]
+         5 * 2, 5 * 2, 5 * 2, 5 * 2, 1, 1 + 3 + 1, 2, 1, 5 * 2, 5 * 2,
+         5 * 2]
+    assert summary["serve_launches"] == [5 * 3] + [0] * 10 + [5 * 3, 0, 0]
     assert summary["radius"]["serve_launches"] == \
-        [0, 0, 0, 5 * 3] + [0] * 7 + [5 * 3]
+        [0, 0, 0, 5 * 3] + [0] * 7 + [5 * 3, 0, 0]
     assert summary["csr"]["serve_launches"] == \
-        [0] * 5 + [5 * 3] + [0] * 5 + [5 * 3]
+        [0] * 5 + [5 * 3] + [0] * 5 + [5 * 3, 0, 0]
     for kernel in summary["kernels"]:
         assert kernel["ms"] > 0 and kernel["plain_ms"] > 0
     assert summary["kernels"][0]["library_ms"] > 0
@@ -1671,3 +1674,59 @@ def test_nuscenes_e2e_on_the_card(tmp_path):
     assert len(out["loss"]) == epochs and np.isfinite(out["loss"]).all()
     assert 0.0 <= out["metrics"]["mean_ap"] <= 1.0
     assert 0.0 <= out["metrics"]["nd_score"] <= 1.0
+
+
+# -- the bf16 routing test of B1 and B4, B3 under ovf_ssum (ninth phase) -----
+
+@pytest.mark.gpu
+def test_bf16_bits_on_the_flagship_batches():
+    """B1's and B4's gather-max with the bf16 test against their plain
+    versions at the five flagship shapes, on the kNN batch (dense) and the
+    radius batch (windowed): real-valued inputs within the smoke's limits,
+    and bits equal on inputs with bf16 ties (`check_bf16_bits` raises
+    otherwise)."""
+    _need_card()
+    from radargnn_tpu_torch import smoke_variants as sv
+    _, model, loader = smoke.flagship_serving("cuda", 2816, 5, 1, 0)
+    _, _, r_loader = smoke.flagship_serving("cuda", 2816, 5, 1, 0,
+                                            graph="radius")
+    shapes = smoke._layer_shapes(model)
+    with torch.no_grad():
+        rows = sv.check_bf16_bits(loader[0].flat_tiling(), shapes, 0, 2,
+                                  "kNN, dense")
+        rows += sv.check_bf16_bits(r_loader[0].flat_tiling(), shapes, 0, 2,
+                                   "radius, windowed")
+    assert len(rows) == 10 and all(r["ties_bits_equal"] for r in rows)
+    assert all(r["ms"] > 0 and r["strict_ms"] > 0 for r in rows)
+
+
+@pytest.mark.gpu
+def test_ovf_ssum_lands_the_overflow_through_b3_on_the_card():
+    """B3 on the kNN batch's overflow landing (exact on dyadic rows), and
+    one train step's gradients under ovf_ssum against the default landing's
+    (float32 summation order and bf16 rounding of the per-row d_xo apart:
+    cosine 0.9999 or more), with B3 launched once a layer."""
+    _need_card()
+    from radargnn_tpu_torch.models import layers
+    from radargnn_tpu_torch import smoke_variants as sv
+    with mock.patch.object(layers, "OVF_SSUM", True):
+        arch, model, loader = smoke.flagship_serving("cuda", 2816, 5, 1, 0)
+        batch = loader[0]
+        shapes = smoke._layer_shapes(model)
+        with torch.no_grad():
+            sv.check_ovf_landing(batch.flat_tiling(), shapes, 0, 2)
+
+        def grads(ssum):
+            with mock.patch.object(layers, "OVF_SSUM", ssum):
+                m = smoke.DetNet(arch, device="cuda", seed=0)
+                cls, bb = m.forward_batch(batch)
+                (cls.square().sum() + bb.square().sum()).backward()
+                return torch.cat([p.grad.flatten() for p in m.parameters()])
+
+        launches = ss.segment_sum_csr_cuda.launches
+        got = grads(True)
+        assert ss.segment_sum_csr_cuda.launches == launches + len(shapes)
+        base = grads(False)
+    cos = torch.nn.functional.cosine_similarity(got.double(), base.double(),
+                                                dim=0)
+    assert float(cos) >= 0.9999

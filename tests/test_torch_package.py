@@ -103,9 +103,10 @@ def test_smoke_rehearses_on_cpu():
     on the kernel path, again and on the plain path (here all plain); the
     fourth phase (the other four kernels against their plain versions at
     the flagship's widths, then kernel_check and kernel_bench, the latter
-    at a tiny size); and the kernels line with every key the chip run
-    reports, each of the twelve entries pointing at the TPU kernel it
-    replaces. Nothing is timed and nothing launches here."""
+    at a tiny size); the ninth phase (bf16 routing, ovf_ssum, the unfused
+    configurations, the tools); and the kernels line with every key the
+    chip run reports, each of the fifteen entries pointing at the TPU
+    kernel it replaces. Nothing is timed and nothing launches here."""
     lines = []
     before = torch.are_deterministic_algorithms_enabled()
     summary = smoke.run("cpu", points=200, graphs=2, batches=3, reps=1,
@@ -116,7 +117,9 @@ def test_smoke_rehearses_on_cpu():
         "dense_proj_v4", "dense_fwd_v4", "dense_bwd_v4", "segment_sum_csr",
         "windowed_fwd_v3",
         "windowed_bwd_v3", "csr_fwd_v2", "csr_bwd_v2", "fused_linear",
-        "msg_segmax", "hoisted_fwd_v1", "hoisted_bwd_v1"]
+        "msg_segmax", "hoisted_fwd_v1", "hoisted_bwd_v1",
+        "dense_fwd_v4_bf16_max", "windowed_fwd_v3_bf16_max",
+        "segment_sum_csr_ovf_ssum"]
     replaced = {"dense_proj_v4": "def _fused_fwd_kernel_v4",
                 "dense_fwd_v4": "def _fused_fwd_kernel_v4",
                 "dense_bwd_v4": "def _fused_bwd_kernel_v4",
@@ -128,7 +131,10 @@ def test_smoke_rehearses_on_cpu():
                 "fused_linear": "def _linear_kernel",
                 "msg_segmax": "def _msg_segmax_scan_kernel",
                 "hoisted_fwd_v1": "def _hoisted_scan_kernel",
-                "hoisted_bwd_v1": "def _hoisted_bwd_kernel"}
+                "hoisted_bwd_v1": "def _hoisted_bwd_kernel",
+                "dense_fwd_v4_bf16_max": "def _fused_bwd_kernel_v4",
+                "windowed_fwd_v3_bf16_max": "def _fused_bwd_kernel_v3",
+                "segment_sum_csr_ovf_ssum": "def _segsum_kernel"}
     for kernel in kernels:
         assert set(kernel) == {"name", "route", "source", "replaces",
                                "launches", "max_abs_err", "ms", "plain_ms",
@@ -237,7 +243,7 @@ def test_smoke_rehearses_on_cpu():
     nus = summary["nuscenes"]
     assert nus["replaced"] == {"epochs": 2, "batch_size": 4}
     assert nus["frames"] == {"train": 8, "validate": 2}
-    assert nus["train_launches"] == nus["evaluate_launches"] == [0] * 12
+    assert nus["train_launches"] == nus["evaluate_launches"] == [0] * len(smoke.KERNEL_NAMES)
     assert len(nus["train_epoch_s"]) == 2 and len(nus["train_batch_edges"]) \
         == 2
     assert nus["max_abs_dprob"] == nus["max_rel_dbox"] == 0.0
@@ -257,6 +263,35 @@ def test_smoke_rehearses_on_cpu():
     assert all(r["bitwise_repeat"] and r["routed"] > 0
                for r in nus["per_shape_bwd"])
     assert last["nuscenes"]["per_shape_bwd"] == nus["per_shape_bwd"]
+    # the ninth phase: bf16 routing, ovf_ssum, the unfused model, the tools
+    var = summary["variants"]
+    for key in ("dense_bits", "windowed_bits"):
+        assert [r["d_in"] for r in var[key]] == [224, 224, 224, 128, 64]
+        assert all(r["bits_flipped"] == 0 and r["ties_bits_equal"]
+                   and r["ties_routed"] > r["ties_routed_strict"]
+                   for r in var[key])
+    assert [r["d"] for r in var["ovf_landing"]] == [224, 224, 224, 128, 64]
+    for key in ("dense_train", "windowed_train", "ovf_ssum_train"):
+        assert var[key]["train_max_rel_loss_diff"] == 0.0
+        assert np.isfinite(var[key]["train_losses"]).all()
+    # bf16 routing: the first step's forward as the strict run's, the
+    # second step's parameters moved by other gradients
+    for key, strict in (("dense_train", summary["train_losses"]),
+                        ("windowed_train", radius["train_losses"])):
+        assert len(var[key]["train_losses"]) == 2
+        assert var[key]["train_losses"][0] == strict[0]
+        assert var[key]["train_losses"][1] != strict[1]
+    assert np.isfinite(var["csr_train"]["losses"]).all()
+    assert [u["case"] for u in var["unfused"]] == [
+        "MPNNConv, pre-MLP 2 layers, mean",
+        "RadarPointGNNConv, pre-MLP 2 layers, add"]
+    assert all(u["bitwise_repeat"] and len(u["losses"]) == 2
+               for u in var["unfused"])
+    tools = var["tools"]
+    assert [m["metric"] for m in tools["convergence"][-2:]] == [
+        "synthetic_map", "synthetic_f1_macro"]
+    assert tools["preprocessing"][1].startswith("2-process pool: ")
+    assert last["variants"]["dense_bits"] == var["dense_bits"]
 
 
 def test_postprocess_and_bench_import_no_jax_sklearn_or_matplotlib():
@@ -494,7 +529,8 @@ def test_kernel_sources_and_their_shared_headers():
         assert {s for s in sources if header in reach[s]} == users, header
     assert "sgemm_tile.cuh" not in headers
     assert sorted(s[:-3] for s in sources) == sorted(
-        set(smoke.KERNEL_NAMES) - {"dense_proj_v4"})
+        set(smoke.KERNEL_NAMES) - {"dense_proj_v4", "dense_fwd_v4_bf16_max",
+                                   "windowed_fwd_v3_bf16_max"})
 
 
 def test_walk_phase_cuts_find_their_code():
