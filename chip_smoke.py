@@ -62,8 +62,15 @@ predictions through the card's and the CPU's NMS and evaluator (equal
 metrics, AP above 0.9 for every class present), the dense path's kernels
 held against their plain versions on the train CLI's first batch of 32
 frames, and last radargnn_tpu_torch.benchmarks.nuscenes_e2e as a child
-process, alone. It prints the kernels' times beside
-their bounds. The last line is
+process, alone. A tenth trains across ranks: two gloo ranks share the
+card on a {"model": 2} mesh and train the flagship DetNet through halo x
+dense on the kNN batch and halo x windowed on the radius batch (B1, B2
+and B4 per rank, the boundary exchange between them), each run's
+aggregate, steps and request held to the single card, each rank's
+launches counted (over NCCL too where the machine has two or four cards);
+then the scaling tool, the multi-rank dry run and the train CLI under
+torchrun (mesh_axes {"model": 2}) run as child processes. It prints the
+kernels' times beside their bounds. The last line is
 one JSON object with "ok" and the device; any failed phase exits
 non-zero.
 """

@@ -1,44 +1,86 @@
 """CLI: model training. Port of `radargnn_tpu/cli/train.py`.
 
     python -m radargnn_tpu_torch.cli.train --data D --results R --config C
-        [--resume] [--device cpu]
+        [--resume] [--device cpu] [--backend nccl|gloo]
+
+    torchrun --nproc-per-node N -m radargnn_tpu_torch.cli.train ...
 
 The fused tiling resolves as in the JAX package ("auto" is the dense tiling
 on a kNN graph, the windowed one otherwise), and the kernels of that tiling
-run on the card. The port trains on one card: a `mesh_axes` that asks for
-more waits for ROADMAP.md §A, multi-GPU.
+run on the card. TRAINING's `mesh_axes` lays the ranks out as the JAX
+package lays out its devices (-1: every remaining rank): under `torchrun`
+each process is one rank (NCCL by default, one card each; `--backend gloo`
+lets ranks share a card, and is the CPU's), and a `model` axis of more than
+one rank partitions every graph's edges with halo exchange
+(`halo_partition_from_configs`). A mesh the processes cannot fill raises;
+nothing trains on one device in its place. Only rank 0 prints the epochs
+and writes the results and checkpoints; every rank resumes.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from radargnn_tpu_torch.configs import UserConfigurationReader
 from radargnn_tpu_torch.data.loader import get_data_loaders
 from radargnn_tpu_torch.device import DeviceLike, resolve_device
 from radargnn_tpu_torch.models.detnet import DetNet
 from radargnn_tpu_torch.models.layers import fused_csr_tiling
+from radargnn_tpu_torch.parallel.mesh import (
+    Mesh, init_distributed, make_mesh, resolve_axes,
+)
 from radargnn_tpu_torch.train.trainer import Trainer, set_seeds
 
 
-def halo_partition_from_configs(mesh_axes: Optional[dict],
-                                device: torch.device) -> None:
-    """The loader's halo partition for `mesh_axes`: None on one device.
-    An axis of -1 takes every card of the machine, as the JAX package's
-    mesh does; a mesh of more than one device raises, since the sharded
-    batch and the halo paths are not ported."""
-    cards = torch.cuda.device_count() if device.type == "cuda" else 1
-    for axis, size in (mesh_axes or {}).items():
-        if (cards if size == -1 else size) > 1:
-            raise NotImplementedError(
-                f"mesh_axes {mesh_axes} spreads training over several "
-                f"devices (axis {axis!r}); the port trains on one "
-                "(ROADMAP.md §A, multi-GPU)")
-    return None
+def halo_partition_from_configs(model_config, mesh: Optional[Mesh],
+                                csr_tiling=None) -> Optional[dict]:
+    """The loader's `halo_partition` for a mesh with a model axis of more
+    than one rank (None otherwise), as the JAX package's: its data and
+    model sizes and the MODEL_ARCHITECTURE's `halo_overflow_fraction`. The
+    halo path runs the fused kernels per shard, so it needs the dense or
+    the windowed tiling (SystemExit otherwise; `csr_tiling` is the
+    already-resolved tiling, else it is derived)."""
+    if mesh is None or mesh.shape.get("model", 1) <= 1:
+        return None
+    if csr_tiling is None:
+        csr_tiling = fused_csr_tiling(model_config)
+    if csr_tiling is None or (not isinstance(csr_tiling, dict)
+                              and len(csr_tiling) < 3):
+        raise SystemExit(
+            "mesh_axes with model>1 requires use_fused_aggregation with "
+            "windowed or dense tiling (the halo path runs the fused "
+            "kernels per shard)")
+    return {"dp": mesh.shape.get("data", 1),
+            "mp": mesh.shape["model"],
+            "ovf_frac": getattr(model_config, "halo_overflow_fraction", 0.5)}
+
+
+def mesh_from_configs(mesh_axes: Optional[dict], device: torch.device,
+                      backend: Optional[str] = None
+                      ) -> Tuple[Optional[Mesh], torch.device]:
+    """The mesh of `mesh_axes` over this run's processes, and this rank's
+    device. One process (no WORLD_SIZE above 1 in the environment, no
+    process group) runs a mesh of one device, which is no mesh; a mesh of
+    more devices than processes raises. Several processes join the process
+    group `torchrun` describes (unless the caller already has one) and
+    must fill the mesh exactly (all of them on `data` without
+    mesh_axes)."""
+    initialised = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if initialised \
+        else int(os.environ.get("WORLD_SIZE", "1"))
+    axes = resolve_axes(mesh_axes, world) if mesh_axes else {"data": world}
+    if world == 1:
+        return None, device
+    if not initialised:
+        device = init_distributed(backend, device)
+    elif device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return make_mesh(axes, device=device), device
 
 
 def resolve_tiling(model_config, config_dict: dict):
@@ -61,16 +103,27 @@ def resolve_tiling(model_config, config_dict: dict):
 
 def main(path_to_graph_data: str, path_to_results: str,
          path_to_config: str, resume: bool = False,
-         device: DeviceLike = None) -> None:
+         device: DeviceLike = None, backend: Optional[str] = None) -> None:
     device = resolve_device(device)
     config_dict = UserConfigurationReader.read_config_file(path_to_config)
     model_config = UserConfigurationReader.get_config_object(
         "MODEL_ARCHITECTURE", config_dict)
     training_config = UserConfigurationReader.get_config_object(
         "TRAINING", config_dict)
+    joined = dist.is_available() and dist.is_initialized()
+    mesh, device = mesh_from_configs(training_config.mesh_axes, device,
+                                     backend)
+    main_rank = mesh is None or mesh.rank == 0
 
-    print("Train device: " + (torch.cuda.get_device_name(device)
-                              if device.type == "cuda" else str(device)))
+    def say(*args) -> None:
+        if main_rank:
+            print(*args)
+
+    say("Train device: " + (torch.cuda.get_device_name(device)
+                            if device.type == "cuda" else str(device)))
+    if mesh is not None:
+        say(f">>> mesh {mesh.shape} over {mesh.world_size} ranks "
+            f"({dist.get_backend()})")
 
     was_deterministic = torch.are_deterministic_algorithms_enabled()
     try:
@@ -79,44 +132,53 @@ def main(path_to_graph_data: str, path_to_results: str,
             seed = training_config.seed
             set_seeds(seed, deterministic=True)
 
-        print(">>> loading data")
+        say(">>> loading data")
         csr_tiling = resolve_tiling(model_config, config_dict)
         if csr_tiling is None:
-            print(">>> fused aggregation: off (unfused aggregation path)")
+            say(">>> fused aggregation: off (unfused aggregation path)")
         elif isinstance(csr_tiling, dict):
-            print(f">>> fused aggregation: dense (v4) kernels, "
-                  f"{csr_tiling['k']} slots/receiver")
+            say(f">>> fused aggregation: dense (v4) kernels, "
+                f"{csr_tiling['k']} slots/receiver")
         elif len(csr_tiling) == 2:
-            print(f">>> fused aggregation: CSR (v2) kernels, "
-                  f"tiling {csr_tiling}")
+            say(f">>> fused aggregation: CSR (v2) kernels, "
+                f"tiling {csr_tiling}")
         else:
-            print(f">>> fused aggregation: windowed (v3) kernels, "
-                  f"tiling {csr_tiling}")
-        halo_partition_from_configs(training_config.mesh_axes, device)
+            say(f">>> fused aggregation: windowed (v3) kernels, "
+                f"tiling {csr_tiling}")
+        halo_partition = halo_partition_from_configs(model_config, mesh,
+                                                     csr_tiling)
+        if halo_partition is not None:
+            say(f">>> halo edge partitioning: {halo_partition}")
+        # over a mesh each loader yields this rank's part of its batches
         data_loaders, dataset_config_dict = get_data_loaders(
             ["train", "validate"], path_to_graph_data,
             training_config.batch_size, training_config.shuffle,
             bg_index=training_config.bg_index, seed=training_config.seed,
-            csr_tiling=csr_tiling, device=device)
+            csr_tiling=csr_tiling, halo_partition=halo_partition,
+            device=device, mesh=mesh)
 
-        print(">>> creating model")
+        say(">>> creating model")
         model = DetNet(model_config, device=device, seed=seed)
 
-        print(">>> starting training")
-        trainer = Trainer(training_config, model)
+        say(">>> starting training")
+        trainer = Trainer(training_config, model, mesh=mesh)
         ckpt_dir = os.path.join(path_to_results, "_checkpoint") \
             if training_config.checkpoint_every_epochs else None
         resume_from = ckpt_dir if (resume and ckpt_dir and os.path.exists(
             os.path.join(ckpt_dir, "meta.json"))) else None
         if resume_from:
-            print(f">>> resuming from {resume_from}")
+            say(f">>> resuming from {resume_from}")
         trainer.fit(data_loaders, resume_from=resume_from,
                     checkpoint_dir=ckpt_dir)
 
-        trainer.save_results(path_to_results, model_config,
-                             dataset_config_dict)
+        if main_rank:
+            trainer.save_results(path_to_results, model_config,
+                                 dataset_config_dict)
+        trainer.barrier()
     finally:
         torch.use_deterministic_algorithms(was_deterministic)
+        if mesh is not None and not joined:
+            dist.destroy_process_group()
 
 
 def cli(argv=None) -> None:
@@ -128,6 +190,10 @@ def cli(argv=None) -> None:
                         help="resume from the _checkpoint folder if present")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the CUDA card)")
+    parser.add_argument("--backend", type=str, default=None,
+                        choices=("nccl", "gloo"),
+                        help="torch.distributed backend under torchrun "
+                             "(default: nccl on the card, gloo on the CPU)")
     args = parser.parse_args(argv)
     if not os.path.isdir(args.data):
         raise SystemExit("Invalid path for graph data folder")
@@ -136,7 +202,7 @@ def cli(argv=None) -> None:
     if not os.path.isfile(args.config):
         raise SystemExit("Invalid path to config file")
     main(args.data, args.results, args.config, resume=args.resume,
-         device=args.device)
+         device=args.device, backend=args.backend)
 
 
 if __name__ == "__main__":

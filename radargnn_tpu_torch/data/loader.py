@@ -13,7 +13,16 @@ Port of `radargnn_tpu/data/loader.py`:
     device; a shuffle then permutes the batches' order, not their members.
 
 Batches land on `device`: the CUDA card by default, the CPU only where the
-caller asks for it. Halo partitioning waits for ROADMAP.md §A, multi-GPU.
+caller asks for it. With `halo_partition` (training over a data × model
+mesh of ranks: {"dp", "mp", "ovf_frac"}) the bucket also aligns to the mp
+node shards, the batch size must split over dp, and every batch carries
+per-graph halo plans under one dataset-wide set of budgets
+(`graph.batch.halo_dataset_budgets`, the batch-padding empty graph
+included), so every batch has one shape. With `mesh` (this rank's
+`parallel.mesh.Mesh`) each batch is stacked on the host and the loader
+yields the rank's part of it on the rank's device (`shard_batch`: its
+graphs, node shard, plan and sender landing); with `cache_batches` that
+part is built once and kept.
 """
 
 from __future__ import annotations
@@ -27,34 +36,34 @@ import numpy as np
 
 from radargnn_tpu_torch.device import DeviceLike, resolve_device
 from radargnn_tpu_torch.graph.batch import (
-    GraphBatch, GraphSample, roll_passes_bound, stack_samples,
+    GraphBatch, GraphSample, halo_dataset_budgets, roll_passes_bound,
+    stack_samples,
 )
+from radargnn_tpu_torch.parallel.mesh import Mesh, shard_batch
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _pad_align(csr_tiling, pad_align: int = 64) -> int:
+def _pad_align(csr_tiling, pad_align: int = 64,
+               halo_partition: Optional[dict] = None) -> int:
     """The bucket's alignment under a tiling: the dense tiling's node block
-    and receiver tile, the windowed and CSR tilings' node block."""
+    and receiver tile, the windowed and CSR tilings' node block; under a
+    halo partition also the mp node shards."""
     if isinstance(csr_tiling, dict):
-        return max(pad_align, int(np.lcm(csr_tiling["node_block"],
-                                         csr_tiling["r_tile"])))
-    if csr_tiling is not None:
-        return max(pad_align, csr_tiling[0])
+        pad_align = max(pad_align, int(np.lcm(csr_tiling["node_block"],
+                                              csr_tiling["r_tile"])))
+    elif csr_tiling is not None:
+        pad_align = max(pad_align, csr_tiling[0])
+    if halo_partition is not None:
+        pad_align = int(np.lcm(pad_align, halo_partition["mp"]))
     return pad_align
 
 
-def _no_halo(halo_partition: Optional[dict]) -> None:
-    if halo_partition is not None:
-        raise NotImplementedError(
-            "halo edge partitioning spreads a graph over several cards and "
-            "is not ported yet (ROADMAP.md §A, multi-GPU)")
-
-
 class GraphDataLoader:
-    """Iterates GraphBatches of `batch_size` padded graphs on `device`."""
+    """Iterates GraphBatches of `batch_size` padded graphs on `device`
+    (with `mesh`, this rank's part of each on the mesh's device)."""
 
     def __init__(self, samples: List[GraphSample], batch_size: int,
                  shuffle: bool, bg_index: int, seed: int = 0,
@@ -63,18 +72,23 @@ class GraphDataLoader:
                  pad_align: int = 64, drop_last: bool = False,
                  csr_tiling=None, cache_batches: bool = False,
                  halo_partition: Optional[dict] = None,
-                 device: DeviceLike = None):
-        _no_halo(halo_partition)
+                 device: DeviceLike = None, mesh: Optional[Mesh] = None):
         if not samples:
             raise ValueError("empty sample list")
-        self.device = resolve_device(device)
+        if halo_partition is not None \
+                and batch_size % max(halo_partition.get("dp", 1), 1):
+            raise ValueError("batch_size must divide evenly over the mesh "
+                             "data axis for halo training")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         self.samples = samples
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.bg_index = bg_index
         self.drop_last = drop_last
         self.csr_tiling = csr_tiling
-        pad_align = _pad_align(csr_tiling, pad_align)
+        pad_align = _pad_align(csr_tiling, pad_align, halo_partition)
         self._rng = np.random.default_rng(seed)
         self._pad_cache: dict = {}
         self._empty: Optional[GraphSample] = None
@@ -95,6 +109,19 @@ class GraphDataLoader:
         e_max = max(s.num_edges for s in samples)
         self.max_nodes = max_nodes or _round_up(n_max, pad_align)
         self.max_edges = max_edges or _round_up(e_max, pad_align)
+
+        self.halo_partition: Optional[dict] = None
+        if halo_partition is not None and halo_partition.get("budgets"):
+            # the caller's dataset-wide budgets (get_data_loaders merges
+            # them across splits)
+            self.halo_partition = dict(halo_partition)
+        elif halo_partition is not None:
+            if self.max_nodes % halo_partition["mp"]:
+                raise ValueError("bucket size not divisible by mp")
+            self.halo_partition = dict(halo_partition)
+            self.halo_partition["budgets"] = halo_dataset_budgets(
+                samples + [_empty_like(samples[0])], self.max_nodes,
+                self.max_edges, bg_index, csr_tiling, halo_partition)
 
     def __len__(self) -> int:
         n = len(self.samples)
@@ -128,11 +155,13 @@ class GraphDataLoader:
                     self._empty = _empty_like(batch_samples[0])
                 while len(batch_samples) < self.batch_size:
                     batch_samples.append(self._empty)
-            yield stack_samples(batch_samples, self.max_nodes, self.bg_index,
-                                self.max_edges, csr_tiling=self.csr_tiling,
-                                pad_cache=self._pad_cache,
-                                roll_passes=self.roll_passes,
-                                device=self.device)
+            batch = stack_samples(
+                batch_samples, self.max_nodes, self.bg_index, self.max_edges,
+                csr_tiling=self.csr_tiling, pad_cache=self._pad_cache,
+                roll_passes=self.roll_passes,
+                device=self.device if self.mesh is None else "cpu",
+                halo_partition=self.halo_partition)
+            yield shard_batch(batch, self.mesh)
 
 
 def _empty_like(sample: GraphSample) -> GraphSample:
@@ -154,24 +183,34 @@ def load_split_samples(root: str, split: str) -> List[GraphSample]:
 def get_data_loaders(splits: List[str], root: str, batch_size: int,
                      shuffle: bool, bg_index: int = 5, seed: int = 0,
                      csr_tiling=None, halo_partition: Optional[dict] = None,
-                     device: DeviceLike = None,
+                     device: DeviceLike = None, mesh: Optional[Mesh] = None,
                      ) -> Tuple[Dict[str, GraphDataLoader], dict]:
     """Reads the graph npz files of each split into a loader (one bucket
-    for all splits; only "train" shuffles), and the dataset's config.json."""
-    _no_halo(halo_partition)
-    device = resolve_device(device)
+    for all splits; only "train" shuffles), and the dataset's config.json.
+    A `halo_partition` gets budgets shared by every split; with `mesh` the
+    loaders yield this rank's parts (`GraphDataLoader`)."""
+    device = mesh.device if mesh is not None else resolve_device(device)
     all_samples = {s: load_split_samples(root, s) for s in splits}
     n_max = max(max((g.num_nodes for g in ss), default=1)
                 for ss in all_samples.values())
     e_max = max(max((g.num_edges for g in ss), default=1)
                 for ss in all_samples.values())
-    align = _pad_align(csr_tiling)
+    align = _pad_align(csr_tiling, halo_partition=halo_partition)
     n_bucket = _round_up(n_max, align)
     e_bucket = _round_up(e_max, align)
+    shared = None
+    if halo_partition is not None:
+        # one budget for every split, so train and validate share a shape
+        everything = [s for ss in all_samples.values() for s in ss]
+        everything.append(_empty_like(everything[0]))
+        shared = dict(halo_partition, budgets=halo_dataset_budgets(
+            everything, n_bucket, e_bucket, bg_index, csr_tiling,
+            halo_partition))
     loaders = {split: GraphDataLoader(
         samples, batch_size, shuffle and split == "train", bg_index,
         seed=seed, max_nodes=n_bucket, max_edges=e_bucket,
-        csr_tiling=csr_tiling, device=device)
+        csr_tiling=csr_tiling, halo_partition=shared, device=device,
+        mesh=mesh)
         for split, samples in all_samples.items()}
 
     config_path = os.path.join(root, "config.json")

@@ -19,7 +19,13 @@ radius graphs need (`csr_tiling=(node_block, edge_tile, window_blocks[,
 ovf_frac[, run_cap]])`, `ops.windowed_tiles`) and the CSR tiling of
 `fused_tiling: "csr"` (`csr_tiling=(node_block, edge_tile)`: receiver-CSR
 tiles without a Morton order, and a second, sender-sorted tiling of the
-same slots, `ssum_*`); halo partitioning is not ported yet (ROADMAP.md).
+same slots, `ssum_*`). With `halo_partition` (a dense or windowed tiling
+over a data × model mesh of ranks) each graph carries a per-shard halo plan
+instead (`halo_*` [G, P, ...], `parallel.halo_dense` /
+`parallel.halo_windowed`), array for array the JAX package's;
+`rank_shard` (through `parallel.mesh.shard_batch`) cuts out one rank's
+graphs, node shard and plan and builds its sender landing, and
+`flat_halo` hands the layers that rank's `HaloBundle`.
 
 With a tiling the batch also carries its sender landing (`sender_landing`,
 an `ops.segment_sum.SenderLanding` in the flat global layout): every valid
@@ -53,6 +59,19 @@ from radargnn_tpu_torch.ops.segment_sum import (
 from radargnn_tpu_torch.ops.windowed_tiles import (
     prepare_csr_tiles, prepare_windowed_csr_tiles,
 )
+from radargnn_tpu_torch.parallel.halo_dense import (
+    build_halo_dense_plan, plan_budgets_dense,
+)
+from radargnn_tpu_torch.parallel.halo_windowed import (
+    HaloBundle, build_halo_windowed_plan, halo_landing, merge_budgets,
+    plan_budgets,
+)
+
+
+# the stacked arrays `_flat_sender_landing` and `_flat_ovf_landing` read
+_LANDING_FIELDS = ("tiled_senders", "ssum_perm", "ssum_senders", "tile_win",
+                   "win_senders_local", "ovf_senders", "ovf_receivers",
+                   "ossum_perm", "ossum_send")
 
 
 class FlatTiling(NamedTuple):
@@ -126,15 +145,39 @@ class GraphBatch:
     ossum_send: Optional[torch.Tensor] = None         # [G, Eot] int32
     ossum_blocks: Optional[torch.Tensor] = None       # [G, To] int32 (local)
 
+    # halo edge partitioning over a (data × model) mesh: per-graph stacked
+    # halo plans, leading axes [G, P] (P = 1 once `rank_shard` cut out one
+    # rank's model shard)
+    halo_send_idx: Optional[torch.Tensor] = None      # [G, P, P, B]
+    halo_e_t: Optional[torch.Tensor] = None           # [G, P, T·TE, De]
+    halo_e_ovf: Optional[torch.Tensor] = None         # [G, P, Eo, De]
+    halo_recv_t: Optional[torch.Tensor] = None        # [G, P, T·TE]
+    halo_tile_blocks: Optional[torch.Tensor] = None   # [G, P, T]
+    halo_tile_win: Optional[torch.Tensor] = None      # [G, P, T]
+    halo_sloc: Optional[torch.Tensor] = None          # [G, P, T·TE]
+    halo_part_mask: Optional[torch.Tensor] = None     # [G, P, WB, NBLK]
+    halo_ovf_s: Optional[torch.Tensor] = None         # [G, P, Eo]
+    halo_ovf_r: Optional[torch.Tensor] = None         # [G, P, Eo]
+
     # (node_block, edge_tile, None, ("dense", r_tile, k)) for a dense
     # tiling, (node_block, edge_tile, roll_passes) for a windowed one,
     # (node_block, edge_tile) for the CSR one
     tile_geometry: Optional[tuple] = None
+    # (node_block, edge_tile, window_blocks, n_aug, roll_passes, dp, mp,
+    # nodes_per_shard, halo_b[, "dense", r_tile, k]) of a halo batch (the
+    # JAX package's halo_geometry), None otherwise
+    halo_geometry: Optional[tuple] = None
+    # one rank's part of a batch (`rank_shard`): (d, dp, m, mp); None for a
+    # whole batch
+    mesh_shard: Optional[tuple] = None
+    # a rank's halo backward landing over its augmented rows (`rank_shard`)
+    halo_landing: Optional[SenderLanding] = None
     # the fused backward's d_x landing (flat global layout), with a tiling
     sender_landing: Optional[SenderLanding] = None
     # the overflow rows by sender (flat global layout), under ovf_ssum
     ovf_landing: Optional[SenderLanding] = None
-    # number of valid edges, known on the host (for edges/s reporting)
+    # number of valid edges, known on the host (for edges/s reporting; a
+    # rank's shard keeps the whole batch's)
     host_valid_edges: int = 0
 
     def tensors(self) -> Dict[str, torch.Tensor]:
@@ -145,7 +188,7 @@ class GraphBatch:
         """A copy of the batch with every tensor on `device`."""
         device = torch.device(device)
         landings = {}
-        for name in ("sender_landing", "ovf_landing"):
+        for name in ("sender_landing", "ovf_landing", "halo_landing"):
             landing = getattr(self, name)
             if landing is not None:
                 landings[name] = SenderLanding(*(t.to(device)
@@ -250,6 +293,89 @@ class GraphBatch:
                           self.ovf_landing)
 
 
+    # ---- halo partitioning and rank shards ---------------------------------
+    @property
+    def is_halo(self) -> bool:
+        return self.halo_geometry is not None
+
+    def flat_halo(self, mesh):
+        """This rank's `parallel.halo_windowed.HaloBundle` for
+        halo-partitioned training (None when the batch carries no halo
+        plan). The batch must be a rank's shard (`rank_shard`, through
+        `parallel.mesh.shard_batch`): the plan arrays lose their model axis
+        and the landing is the rank's."""
+        if not self.is_halo:
+            return None
+        if self.mesh_shard is None and self.halo_send_idx.shape[1] > 1:
+            raise ValueError("flat_halo takes one rank's shard of a halo "
+                             "batch: pass the batch through "
+                             "parallel.mesh.shard_batch first")
+        return HaloBundle(
+            send_idx=self.halo_send_idx[:, 0], e_t=self.halo_e_t[:, 0],
+            e_ovf=self.halo_e_ovf[:, 0], recv_t=self.halo_recv_t[:, 0],
+            tile_blocks=self.halo_tile_blocks[:, 0],
+            tile_win=self.halo_tile_win[:, 0], sloc=self.halo_sloc[:, 0],
+            part_mask=self.halo_part_mask[:, 0],
+            ovf_s=self.halo_ovf_s[:, 0], ovf_r=self.halo_ovf_r[:, 0],
+            landing=self.halo_landing, geometry=self.halo_geometry,
+            mesh=mesh)
+
+    def rank_shard(self, d: int, dp: int, m: int = 0,
+                   mp: int = 1) -> "GraphBatch":
+        """The part of this batch that rank (d, m) of a dp × mp mesh holds:
+        graphs [d·G/dp, (d+1)·G/dp); for a halo batch also node shard m
+        of each (its rows of `parallel.halo_windowed.shard_major_nodes`)
+        and the plan of shard m, with the rank's sender landing over its
+        augmented rows. A batch without halo plans keeps every node (the
+        model axis replicates it) and gets the sender landing of its
+        graphs. Built on the host; tensors stay on the batch's device."""
+        g = self.num_graphs
+        if g % dp:
+            raise ValueError(f"{g} graphs do not split over a data axis of "
+                             f"{dp}")
+        gl = g // dp
+        rows = slice(d * gl, (d + 1) * gl)
+        fields = {k: v[rows] for k, v in self.tensors().items()}
+        if self.is_halo:
+            dp_b, mp_b = self.halo_geometry[5], self.halo_geometry[6]
+            if (dp_b, mp_b) != (dp, mp):
+                raise ValueError(f"the batch's halo plan is for a {dp_b} x "
+                                 f"{mp_b} mesh, the rank's is {dp} x {mp}")
+            ns = self.max_nodes // mp
+            for k in ("node_feat", "node_mask", "labels", "boxes", "pos",
+                      "vel"):
+                fields[k] = fields[k][:, m * ns:(m + 1) * ns]
+            for k in list(fields):
+                if k.startswith("halo_"):
+                    fields[k] = fields[k][:, m:m + 1]
+            geo = self.halo_geometry
+            host = {k: fields[k][:, 0].cpu().numpy() for k in (
+                "halo_sloc", "halo_tile_win", "halo_ovf_s", "halo_ovf_r")}
+            landing = halo_landing(host["halo_sloc"], host["halo_tile_win"],
+                                   host["halo_ovf_s"], host["halo_ovf_r"],
+                                   geo[1], geo[0], geo[3])
+            return dataclasses.replace(
+                self, **fields, mesh_shard=(d, dp, m, mp),
+                halo_landing=SenderLanding(*(t.to(self.device)
+                                             for t in landing)))
+        landings = {}
+        if self.tiled_senders is not None:
+            # the landings read the tiling's index arrays only
+            host = {k: v.cpu().numpy() for k, v in fields.items()
+                    if k in _LANDING_FIELDS}
+            node_block, slots = self.tile_geometry[:2]
+            landings["sender_landing"] = SenderLanding(*(
+                torch.from_numpy(a).to(self.device) for a in
+                _flat_sender_landing(host, self.max_nodes, node_block,
+                                     slots)))
+            if self.ovf_landing is not None:
+                landings["ovf_landing"] = SenderLanding(*(
+                    torch.from_numpy(a).to(self.device)
+                    for a in _flat_ovf_landing(host, self.max_nodes)))
+        return dataclasses.replace(self, **fields, **landings,
+                                   mesh_shard=(d, dp, m, mp))
+
+
 @dataclasses.dataclass
 class GraphSample:
     """One un-padded graph on the host (numpy); `pad_sample` +
@@ -325,7 +451,8 @@ def overflow_budget(max_edges: int, edge_tile: int,
 
 def pad_sample(sample: GraphSample, max_nodes: int, max_edges: int,
                bg_index: int, sort_edges_by_receiver: bool = True,
-               csr_tiling=None) -> dict:
+               csr_tiling=None, halo_partition: Optional[dict] = None
+               ) -> dict:
     """Pads a GraphSample to (max_nodes, max_edges); returns a numpy dict.
 
     Padded nodes get label `bg_index` and NaN boxes; padded edges point at
@@ -344,6 +471,13 @@ def pad_sample(sample: GraphSample, max_nodes: int, max_edges: int,
     overflow list (ops.windowed_tiles); `csr_tiling=(node_block,
     edge_tile)` keeps the node order and adds the CSR tiling and its
     sender-sorted second tiling (`_csr_tiling`).
+
+    `halo_partition` ({"mp", "dp", "ovf_frac", "budgets"[, "run_cap"]})
+    replaces the tiling by a per-graph halo plan for a data × model mesh
+    (`_halo_tiling`): the Morton-ordered nodes split into mp shards, each
+    with its own dense or windowed tiling (the tiling's geometry) and the
+    boundary exchange; it needs a dense or windowed tiling. The padded
+    dict then also holds "_halo_geometry" and "_halo_budgets".
     """
     dense_cfg = windowed = csr = None
     if isinstance(csr_tiling, dict):
@@ -361,6 +495,9 @@ def pad_sample(sample: GraphSample, max_nodes: int, max_edges: int,
         if len(csr_tiling) != 2:
             raise ValueError(f"unknown csr_tiling {csr_tiling!r}")
         csr = tuple(csr_tiling)
+    if halo_partition is not None and windowed is None and dense_cfg is None:
+        raise ValueError("halo_partition requires a windowed (3-tuple) or "
+                         "dense (dict) csr_tiling for the kernel geometry")
 
     n, e = sample.num_nodes, sample.num_edges
     if n > max_nodes or e > max_edges:
@@ -407,6 +544,11 @@ def pad_sample(sample: GraphSample, max_nodes: int, max_edges: int,
         labels=labels, boxes=boxes,
         pos=pad_nodes(sample.pos), vel=pad_nodes(sample.vel),
     )
+    if halo_partition is not None:
+        out.update(_halo_tiling(out, senders, receivers, edge_mask,
+                                max_nodes, halo_partition, dense_cfg,
+                                windowed))
+        return out
     if windowed is not None:
         out.update(_windowed_tiling(out, senders, receivers, edge_mask,
                                     max_nodes, max_edges, *windowed))
@@ -461,6 +603,84 @@ def pad_sample(sample: GraphSample, max_nodes: int, max_edges: int,
         out.update(ossum_perm=s_perm, ossum_send=s_send,
                    ossum_blocks=s_blocks)
     return out
+
+
+def _halo_tiling(out: dict, senders, receivers, edge_mask, max_nodes: int,
+                 halo_partition: dict, dense_cfg: Optional[dict],
+                 windowed: Optional[tuple]) -> dict:
+    """The halo plan's arrays of one padded sample (the JAX package's two
+    halo branches of `pad_sample`): a dense halo plan under a dense tiling
+    (`parallel.halo_dense`; its geometry ends in ("dense", r_tile, k)), a
+    windowed one under a windowed tiling (`parallel.halo_windowed`), the
+    edge features gathered into each shard's slot and overflow order."""
+    mp = halo_partition["mp"]
+    if max_nodes % mp:
+        raise ValueError(f"max_nodes {max_nodes} not divisible by "
+                         f"mp={mp} halo shards")
+    dp = halo_partition.get("dp", 1)
+    ovf_frac = halo_partition.get("ovf_frac", 0.5)
+    ef = out["edge_feat"]
+    if dense_cfg is not None:
+        node_block, r_tile = dense_cfg["node_block"], dense_cfg["r_tile"]
+        kslots = dense_cfg["k"]
+        plan = build_halo_dense_plan(
+            senders, receivers, max_nodes, mp, kslots, r_tile, node_block,
+            dense_cfg.get("window_blocks", 3), edge_mask=edge_mask,
+            ovf_frac=ovf_frac, budgets=halo_partition.get("budgets"))
+        t = plan.n_aug // r_tile
+        recv_t = plan.slot_recv
+        valid_t = plan.sloc >= 0
+        tile_blocks = np.ascontiguousarray(np.broadcast_to(
+            ((np.arange(t) * r_tile) // node_block).astype(np.int32),
+            (mp, t)))
+        geometry = (plan.node_block, r_tile * kslots, plan.window_blocks,
+                    plan.n_aug, -1, dp, mp, plan.halo.nodes_per_shard,
+                    plan.halo.send_idx.shape[-1], "dense", r_tile, kslots)
+        budgets = plan_budgets_dense(plan)
+    else:
+        node_block, edge_tile, window_blocks, _, run_cap = windowed
+        plan = build_halo_windowed_plan(
+            senders, receivers, max_nodes, mp, node_block, edge_tile,
+            window_blocks, edge_mask=edge_mask, ovf_frac=ovf_frac,
+            budgets=halo_partition.get("budgets"),
+            run_cap=halo_partition.get("run_cap", run_cap))
+        recv_t = plan.recv_t
+        valid_t = recv_t >= 0
+        tile_blocks = plan.tile_blocks
+        geometry = (plan.node_block, plan.edge_tile, plan.window_blocks,
+                    plan.n_aug, plan.roll_passes, dp, mp,
+                    plan.halo.nodes_per_shard, plan.halo.send_idx.shape[-1])
+        budgets = plan_budgets(plan)
+    return dict(
+        halo_send_idx=plan.halo.send_idx,
+        halo_e_t=np.where(valid_t[..., None], ef[plan.tile_eperm],
+                          0.0).astype(np.float32),
+        halo_e_ovf=np.where((plan.ovf_r >= 0)[..., None],
+                            ef[plan.ovf_eperm], 0.0).astype(np.float32),
+        halo_recv_t=recv_t, halo_tile_blocks=tile_blocks,
+        halo_tile_win=plan.tile_win, halo_sloc=plan.sloc,
+        halo_part_mask=plan.part_mask, halo_ovf_s=plan.ovf_s,
+        halo_ovf_r=plan.ovf_r, _halo_geometry=geometry,
+        _halo_budgets=budgets)
+
+
+def halo_dataset_budgets(samples: List[GraphSample], max_nodes: int,
+                         max_edges: int, bg_index: int, csr_tiling,
+                         halo_partition: dict) -> dict:
+    """Dataset-wide static halo-plan budgets (two-round probe, as the JAX
+    package's): round 1 finds the largest halo and edge widths, round 2
+    re-plans with those widths fixed (n_aug, and with it the tile count,
+    depends on the halo width). The result gives every sample's plan one
+    shape."""
+    probe = dict(halo_partition, budgets=None)
+    round1 = merge_budgets([
+        pad_sample(s, max_nodes, max_edges, bg_index, csr_tiling=csr_tiling,
+                   halo_partition=probe)["_halo_budgets"] for s in samples])
+    widths = {k: round1[k] for k in ("halo_b", "loc_width", "halo_width")}
+    probe2 = dict(halo_partition, budgets=widths)
+    return merge_budgets([
+        pad_sample(s, max_nodes, max_edges, bg_index, csr_tiling=csr_tiling,
+                   halo_partition=probe2)["_halo_budgets"] for s in samples])
 
 
 def _windowed_tiling(out: dict, senders, receivers, edge_mask,
@@ -522,7 +742,8 @@ def stack_samples(samples: List[GraphSample], max_nodes: int, bg_index: int,
                   sort_edges_by_receiver: bool = True,
                   csr_tiling=None, pad_cache: Optional[dict] = None,
                   roll_passes: Optional[int] = None,
-                  device: DeviceLike = None) -> GraphBatch:
+                  device: DeviceLike = None,
+                  halo_partition: Optional[dict] = None) -> GraphBatch:
     """Pads and stacks host samples into a GraphBatch on `device` (the CUDA
     card by default; raises when there is none and no device was given).
     A windowed batch records its roll bound as the JAX package does: log2
@@ -533,7 +754,13 @@ def stack_samples(samples: List[GraphSample], max_nodes: int, bg_index: int,
 
     `pad_cache` (id(sample) -> padded arrays) keeps each sample's padding
     and tiling across calls: a loader pads a sample once, whatever batch a
-    shuffle puts it in."""
+    shuffle puts it in.
+
+    `halo_partition` (`pad_sample`) stacks per-graph halo plans instead of
+    a tiling, with the JAX package's halo_geometry (every sample's plan
+    must have one shape: pass the loader's shared budgets; the roll bound
+    is the samples' largest); the sender landing is then a rank's, built
+    by `GraphBatch.rank_shard`."""
     device = resolve_device(device)
     if max_edges is None:
         max_edges = max(s.num_edges for s in samples)
@@ -543,11 +770,26 @@ def stack_samples(samples: List[GraphSample], max_nodes: int, bg_index: int,
             padded.append(pad_cache[id(s)])
             continue
         p = pad_sample(s, max_nodes, max_edges, bg_index,
-                       sort_edges_by_receiver, csr_tiling)
+                       sort_edges_by_receiver, csr_tiling, halo_partition)
         if pad_cache is not None:
             pad_cache[id(s)] = p
         padded.append(p)
-    arrays = {k: np.stack([p[k] for p in padded]) for k in padded[0]}
+    arrays = {k: np.stack([p[k] for p in padded])
+              for k in padded[0] if not k.startswith("_")}
+    valid_edges = int(sum(s.num_edges for s in samples))
+    if halo_partition is not None:
+        # every geometry must agree but the roll bound (the largest covers
+        # every batch; the loader's budgets make them equal)
+        geoms = [p["_halo_geometry"] for p in padded]
+        base = geoms[0][:4] + geoms[0][5:]
+        if any(g_[:4] + g_[5:] != base for g_ in geoms[1:]):
+            raise ValueError("halo plan shapes differ across samples; "
+                             "pass shared budgets (the loader does this)")
+        rp = max(g_[4] for g_ in geoms)
+        return GraphBatch(
+            **{k: torch.from_numpy(v).to(device) for k, v in arrays.items()},
+            halo_geometry=geoms[0][:4] + (rp,) + geoms[0][5:],
+            host_valid_edges=valid_edges)
     geometry = landing = None
     if isinstance(csr_tiling, dict):
         # edge_tile = r_tile*k slots; trailing ("dense", r_tile, k) marker
@@ -572,20 +814,26 @@ def stack_samples(samples: List[GraphSample], max_nodes: int, bg_index: int,
             torch.from_numpy(a).to(device) for a in _flat_sender_landing(
                 arrays, max_nodes, node_block, slots)))
     if "ossum_perm" in arrays:
-        graph = np.arange(len(samples), dtype=np.int64)[:, None]
-        send = arrays["ossum_send"]
         ovf_landing = SenderLanding(*(
-            torch.from_numpy(a).to(device) for a in csr_landing(
-                (arrays["ossum_perm"]
-                 + graph * arrays["ovf_senders"].shape[1]).reshape(-1),
-                np.where(send >= 0, send + graph * max_nodes,
-                         -1).reshape(-1),
-                len(samples) * max_nodes)))
+            torch.from_numpy(a).to(device)
+            for a in _flat_ovf_landing(arrays, max_nodes)))
     return GraphBatch(
         **{k: torch.from_numpy(v).to(device) for k, v in arrays.items()},
         tile_geometry=geometry, sender_landing=landing,
-        ovf_landing=ovf_landing,
-        host_valid_edges=int(sum(s.num_edges for s in samples)))
+        ovf_landing=ovf_landing, host_valid_edges=valid_edges)
+
+
+def _flat_ovf_landing(arrays: dict, max_nodes: int):
+    """The overflow rows' landing of stacked arrays under ovf_ssum, read
+    off their sender-sorted overflow tiling in the flat global layout."""
+    g = arrays["ossum_perm"].shape[0]
+    graph = np.arange(g, dtype=np.int64)[:, None]
+    send = arrays["ossum_send"]
+    return csr_landing(
+        (arrays["ossum_perm"]
+         + graph * arrays["ovf_senders"].shape[1]).reshape(-1),
+        np.where(send >= 0, send + graph * max_nodes, -1).reshape(-1),
+        g * max_nodes)
 
 
 def _flat_sender_landing(arrays: dict, max_nodes: int, node_block: int,

@@ -18,6 +18,15 @@ compute dtype once; the CSR tiling keeps them float32, as its kernels take
 them. Any other configuration takes the unfused path, tiled batch or not,
 as in the JAX package. `fused_bf16_max` (or RADARGNN_FUSED_BF16_MAX) makes
 the dense and windowed backwards route by bf16 equality.
+
+Under halo partitioning (`halo=`, a rank's `HaloBundle`; a batch's rank
+shard through `forward_batch(batch, mesh)`) the node arrays are the rank's
+shard-major rows and the edge features arrive in the bundle, in each
+shard's slot and overflow order: the edge embedding runs there (each with
+its mask), the features are rounded to the compute dtype once, and every
+conv layer aggregates through the bundle. The BatchNorm statistics are the
+batch's over the ranks that hold its rows (`models.mlp.batch_stats_over`,
+which the trainer sets).
 """
 
 from __future__ import annotations
@@ -108,14 +117,30 @@ class DetNet(nn.Module):
 
     def forward(self, node_feat, edge_feat, senders, receivers,
                 node_mask: Optional[torch.Tensor] = None,
-                edge_mask: Optional[torch.Tensor] = None, tiling=None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                edge_mask: Optional[torch.Tensor] = None, tiling=None,
+                halo=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Flat forward; BatchNorm uses batch statistics in training mode."""
         cfg = self.config
         dtype = getattr(cfg, "compute_dtype", "float32")
         x, e = node_feat, edge_feat
-        if not self.fused:
+        if not self.fused or halo is not None:
             tiling = None
+
+        if halo is not None:
+            de = halo.e_t.shape[-1]
+            e_t = halo.e_t.reshape(-1, de)
+            e_ovf = halo.e_ovf.reshape(-1, de)
+            if cfg.initial_edge_feature_embedding:
+                e_t = self.edge_emb_mlp(e_t, (halo.recv_t >= 0).reshape(-1))
+                e_ovf = self.edge_emb_mlp(e_ovf,
+                                          (halo.ovf_r >= 0).reshape(-1))
+            if dtype != "float32":
+                cd = compute_dtype(dtype)
+                e_t, e_ovf = e_t.to(cd), e_ovf.to(cd)
+            halo = halo.replace_edge_feat(
+                e_t.reshape(halo.e_t.shape[:-1] + (-1,)),
+                e_ovf.reshape(halo.e_ovf.shape[:-1] + (-1,)))
+            e = e_t
 
         if cfg.initial_node_feature_embedding:
             x = self.node_emb_mlp(x, node_mask)
@@ -137,12 +162,12 @@ class DetNet(nn.Module):
                     e, ovf_e = e.to(cd), ovf_e.to(cd)
                 win = (sloc, t_win, pmask, ovf_s, ovf_r, ovf_e)
             tiling = tiling._replace(edge_feat=e, win=win)
-        elif cfg.initial_edge_feature_embedding:
+        elif cfg.initial_edge_feature_embedding and halo is None:
             e = self.edge_emb_mlp(e, edge_mask)
 
         for i in range(self.num_conv):
             x = getattr(self, f"conv_{i}")(x, senders, receivers, e,
-                                           edge_mask, tiling)
+                                           edge_mask, tiling, halo)
             x = getattr(self, f"bn_{i}")(x, node_mask)
             x = torch.relu(x)
 
@@ -150,10 +175,18 @@ class DetNet(nn.Module):
         bb = self.regression_head(x, node_mask)
         return cls, bb
 
-    def forward_batch(self, batch: GraphBatch
+    def forward_batch(self, batch: GraphBatch, mesh=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Runs on a GraphBatch (its tiling when the config asks for the
-        fused path); returns flat [G·N, ...] outputs."""
+        fused path; a rank's shard of a halo batch through its halo bundle
+        over `mesh`); returns flat [G·N, ...] outputs (a rank's rows for a
+        halo shard)."""
+        if batch.is_halo:
+            return self(batch.flat_nodes(), batch.flat_edges(),
+                        batch.flat_senders(), batch.flat_receivers(),
+                        batch.node_mask.reshape(-1),
+                        batch.edge_mask.reshape(-1),
+                        halo=batch.flat_halo(mesh))
         tiling = batch.flat_tiling() if self.fused else None
         return self(batch.flat_nodes(), batch.flat_edges(),
                     batch.flat_senders(), batch.flat_receivers(),

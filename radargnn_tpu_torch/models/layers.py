@@ -23,8 +23,13 @@ package's v2 kernels take no such flag.
 Any other configuration (a pre-MLP of several layers, or a mean, add or
 sum aggregation) computes every message with `SplitPreMLP` and reduces it
 with the segment family (`ops.segment`, `_AggregationMixin`), as the JAX
-package does. Halo partitioning is not ported yet (ROADMAP.md §A,
-multi-GPU).
+package does.
+
+Under halo partitioning (`halo=`, a rank's `parallel.halo_windowed.
+HaloBundle`) the hoisted max runs through `halo_hoisted_max_batched`: the
+rank's node rows, one exchange of the boundary senders over the mesh's
+model axis, then the dense or the windowed aggregation per rank. It needs
+the hoisted configuration and no conv edge encoder, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -44,6 +49,9 @@ from radargnn_tpu_torch.ops.dense_aggregate import dense_aggregate
 from radargnn_tpu_torch.ops.segment import hoisted_segment_max, \
     segment_reduce
 from radargnn_tpu_torch.ops.windowed_aggregate import windowed_aggregate
+from radargnn_tpu_torch.parallel.halo_windowed import (
+    halo_hoisted_max_batched,
+)
 
 # The JAX package's env knobs (radargnn_tpu/models/layers.py), read at
 # import with its names and defaults, so both packages tile a frame alike
@@ -180,6 +188,13 @@ def _fused_hoisted_max(x, w_s, w_e, offset, tiling,
                               landing=tiling.landing, bf16_max=bf16_max)
 
 
+def _check_halo(conv) -> None:
+    if not conv.hoisted or getattr(conv, "edge_encoder", None) is not None:
+        raise ValueError("halo partitioning requires the hoisted "
+                         "configuration: single linear pre-MLP, max "
+                         "aggregation, no conv edge encoder")
+
+
 def is_hoisted(pre_layers: int, aggr: str) -> bool:
     """Whether a conv takes the hoisted max path (and the fused kernels
     where the batch is tiled): one linear pre-MLP and max aggregation."""
@@ -237,8 +252,10 @@ class MPNNConv(_AggregationMixin, nn.Module):
                                         generator)
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
-                tiling=None):
+                tiling=None, halo=None):
         num_nodes = x.shape[0]
+        if halo is not None:
+            _check_halo(self)
         if self.edge_encoder is not None:
             edge_attr = self.edge_encoder(edge_attr)
             if tiling is not None and self.hoisted:
@@ -256,15 +273,18 @@ class MPNNConv(_AggregationMixin, nn.Module):
         d = self.in_channels
         w = lin.weight.t()                          # [in, out], flax layout
         w_r, w_s, w_e = w[:d], w[d:2 * d], w[2 * d:]
-        y_r = matmul_f32(x, w_r, self.dtype)
-        if tiling is not None:
-            aggr = _fused_hoisted_max(x, w_s, w_e, y_r + lin.bias, tiling,
+        offset = matmul_f32(x, w_r, self.dtype) + lin.bias
+        if halo is not None:
+            aggr = halo_hoisted_max_batched(x, w_s, w_e, offset, halo,
+                                            bf16_max_routing(self.bf16_max))
+        elif tiling is not None:
+            aggr = _fused_hoisted_max(x, w_s, w_e, offset, tiling,
                                       bf16_max_routing(self.bf16_max))
         else:
             y_s = matmul_f32(x, w_s, self.dtype).to(self.dtype)
             y_e = matmul_f32(edge_attr, w_e, self.dtype).to(self.dtype)
             aggr = hoisted_segment_max(y_s[senders.long()] + y_e, receivers,
-                                       num_nodes, edge_mask, y_r + lin.bias)
+                                       num_nodes, edge_mask, offset)
         return self.post_mlp(torch.cat([x, aggr], dim=-1))
 
 
@@ -295,8 +315,10 @@ class RadarPointGNNConv(_AggregationMixin, nn.Module):
                                         generator)
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
-                tiling=None):
+                tiling=None, halo=None):
         num_nodes = x.shape[0]
+        if halo is not None:
+            _check_halo(self)
         if not self.hoisted:
             m = self.pre_mlp(x, senders, receivers, edge_attr)
             aggr = self._aggregate(m, receivers, num_nodes, edge_mask)
@@ -306,7 +328,10 @@ class RadarPointGNNConv(_AggregationMixin, nn.Module):
         w_s, w_e = w[:self.node_dim], w[self.node_dim:]
         # no receiver term: the bias alone is the hoisted offset
         offset = lin.bias.expand(num_nodes, -1)
-        if tiling is not None:
+        if halo is not None:
+            aggr = halo_hoisted_max_batched(x, w_s, w_e, offset, halo,
+                                            bf16_max_routing(self.bf16_max))
+        elif tiling is not None:
             aggr = _fused_hoisted_max(x, w_s, w_e, offset, tiling,
                                       bf16_max_routing(self.bf16_max))
         else:

@@ -14,6 +14,14 @@ running estimates with torch momentum (running <- (1-m)·running
 + m·batch, unbiased variance in the running estimate, biased in the
 normalization), eps 1e-5.
 
+Inside `batch_stats_over(group)` the training statistics are global over
+the ranks of a process group (the ranks that hold distinct rows of one
+batch: `train.trainer.Trainer`): the masked sums, counts and centred
+squares are summed over the group with a differentiable all-reduce, so
+every rank normalises with the batch-wide mean and variance, as the JAX
+package's GSPMD-sharded BatchNorm does, and the running estimates stay the
+same on every rank. Outside it (group None) nothing changes.
+
 Parameters follow torch's layout (`weight` [out, in]); the weight bridge
 (`radargnn_tpu_torch.weights`) maps them to and from the flax tree.
 """
@@ -26,6 +34,26 @@ from typing import Iterator, List, Optional, Sequence
 
 import torch
 from torch import nn
+
+from radargnn_tpu_torch.parallel.comm import all_reduce_sum
+
+
+# the process group over which MaskedBatchNorm's training statistics are
+# summed (batch_stats_over); None: this process's rows alone
+_STATS_GROUP = None
+
+
+@contextlib.contextmanager
+def batch_stats_over(group) -> Iterator[None]:
+    """Within the block every MaskedBatchNorm in training mode takes its
+    statistics over the rows of all ranks of `group` (None: this rank's
+    rows alone, the single-device behaviour)."""
+    global _STATS_GROUP
+    saved, _STATS_GROUP = _STATS_GROUP, group
+    try:
+        yield
+    finally:
+        _STATS_GROUP = saved
 
 
 def compute_dtype(name: str) -> torch.dtype:
@@ -92,7 +120,10 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.training:
+        if self.training and _STATS_GROUP is not None:
+            mean, var, n = _global_stats(x, mask, _STATS_GROUP)
+            self._update_running(mean, var, n)
+        elif self.training:
             if mask is None:
                 n = torch.tensor(float(x.shape[0]), device=x.device)
                 mean = x.mean(0)
@@ -102,17 +133,34 @@ class MaskedBatchNorm(nn.Module):
                 n = m.sum().clamp(min=1.0)
                 mean = (x * m).sum(0) / n
                 var = ((x - mean).square() * m).sum(0) / n
-            if self.update_running_stats:
-                with torch.no_grad():
-                    unbiased = var * n / (n - 1.0).clamp(min=1.0)
-                    self.running_mean.mul_(1 - self.momentum).add_(
-                        self.momentum * mean)
-                    self.running_var.mul_(1 - self.momentum).add_(
-                        self.momentum * unbiased)
+            self._update_running(mean, var, n)
         else:
             mean, var = self.running_mean, self.running_var
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
             + self.bias
+
+    def _update_running(self, mean, var, n) -> None:
+        if self.update_running_stats:
+            with torch.no_grad():
+                unbiased = var * n / (n - 1.0).clamp(min=1.0)
+                self.running_mean.mul_(1 - self.momentum).add_(
+                    self.momentum * mean)
+                self.running_var.mul_(1 - self.momentum).add_(
+                    self.momentum * unbiased)
+
+
+def _global_stats(x: torch.Tensor, mask: Optional[torch.Tensor], group):
+    """The masked mean and (biased) variance of x's rows over every rank of
+    `group`, and the row count, each rank holding its own rows: the sums
+    and the count in one differentiable all-reduce, then the centred
+    squares in a second."""
+    m = torch.ones((x.shape[0], 1), dtype=x.dtype, device=x.device) \
+        if mask is None else mask.to(x.dtype)[:, None]
+    sums = all_reduce_sum(torch.cat([(x * m).sum(0), m.sum(0)]), group)
+    n = sums[-1].detach().clamp(min=1.0)
+    mean = sums[:-1] / n
+    var = all_reduce_sum(((x - mean).square() * m).sum(0), group) / n
+    return mean, var, n
 
 
 @contextlib.contextmanager

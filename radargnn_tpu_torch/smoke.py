@@ -23,7 +23,11 @@ B4's bf16 routing test and B3 on the dense overflow rows (`ovf_ssum`) to
 their plain versions, trains the flagship under `fused_bf16_max` (dense,
 windowed, CSR) and `ovf_ssum`, trains it with a pre-MLP of two layers and
 the mean and add aggregations against the CPU, and runs the convergence
-and preprocessing tools as child processes.
+and preprocessing tools as child processes. A tenth
+(`smoke_parallel.parallel_phase`, on the card) trains across ranks: two
+gloo ranks on the card run halo x dense and halo x windowed on a
+{"model": 2} mesh against the single card, then the scaling tool, the
+multi-rank dry run and the train CLI under torchrun as child processes.
 
 `run(device)` is what `chip_smoke.py` calls on the card; the CPU tests call
 it at a tiny size, where the wrappers take their plain versions, nothing is
@@ -2809,7 +2813,8 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
     `kernel_bench` (at `bench` = (edges, nodes, d_in, H)); then the
     evaluation stage, the bench, the CLI pipeline (frames of about
     `points` points), the nuScenes pipeline (`nuscenes_phase`) and the
-    ninth phase (`smoke_variants.variants_phase`)."""
+    ninth phase (`smoke_variants.variants_phase`) and, on the card, the
+    tenth (`smoke_parallel.parallel_phase`)."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     summary: Dict = {"device": str(dev)}
@@ -2968,6 +2973,13 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
         train_steps if on_card else min(train_steps, 2),
         {"dense": summary["train_losses"],
          "windowed": radius["train_losses"]}, out)
+
+    # -- the tenth phase: training across ranks (halo x dense, halo x
+    # windowed, the children); rehearsed off the card by its own test
+    if on_card:
+        from radargnn_tpu_torch.smoke_parallel import parallel_phase
+        summary["parallel"] = parallel_phase(dev, points, graphs, seed,
+                                             out=out)
 
     def entry(name, source, replaces, launches, rows, checked, library):
         return {

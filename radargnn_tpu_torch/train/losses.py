@@ -12,6 +12,12 @@ Port of `radargnn_tpu/train/losses.py`:
 The class pick is a one-hot product rather than a gather or `NLLLoss`, so
 the backward scatters nothing: under `torch.use_deterministic_algorithms`
 `NLLLoss` refuses CUDA tensors.
+
+Over a mesh of ranks that each hold some rows of a batch,
+`detection_loss(..., group=)` gives a rank its own part of the batch's loss:
+its numerators over the GLOBAL denominators (summed over the ranks outside
+autograd), so the parts sum to the batch's loss and each rank
+backpropagates only its own part.
 """
 
 from __future__ import annotations
@@ -21,6 +27,20 @@ from typing import Optional, Tuple
 
 import torch
 
+from radargnn_tpu_torch.parallel.comm import all_reduce_
+
+
+def _cross_entropy_terms(logits, labels, class_weights, mask):
+    """(sum of w·nll, sum of w) over valid nodes."""
+    logp = torch.log_softmax(logits, dim=-1)
+    classes = torch.arange(logits.shape[-1], device=logits.device)
+    pick = (labels.long()[:, None] == classes).to(logp.dtype)
+    nll = -(logp * pick).sum(dim=-1)
+    w = class_weights[labels.long()]
+    if mask is not None:
+        w = torch.where(mask, w, 0.0)
+    return (w * nll).sum(), w.sum()
+
 
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                            class_weights: torch.Tensor,
@@ -29,14 +49,8 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """torch.nn.CrossEntropyLoss(weight=w) over valid nodes.
 
     logits [N, C], labels [N] int, class_weights [C], mask [N] bool."""
-    logp = torch.log_softmax(logits, dim=-1)
-    classes = torch.arange(logits.shape[-1], device=logits.device)
-    pick = (labels.long()[:, None] == classes).to(logp.dtype)
-    nll = -(logp * pick).sum(dim=-1)
-    w = class_weights[labels.long()]
-    if mask is not None:
-        w = torch.where(mask, w, 0.0)
-    return (w * nll).sum() / w.sum().clamp(min=1e-12)
+    num, den = _cross_entropy_terms(logits, labels, class_weights, mask)
+    return num / den.clamp(min=1e-12)
 
 
 def _huber(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
@@ -51,6 +65,12 @@ def masked_huber_box_loss(bb_pred: torch.Tensor, bb_true: torch.Tensor,
     """Huber loss over non-background valid nodes; NaN-target nodes
     excluded. bb_pred/bb_true [N, B]; a scalar: mean over box dims per
     node, then mean over contributing nodes (0 if none)."""
+    total, num = _huber_terms(bb_pred, bb_true, labels, bg_index, mask)
+    return torch.where(num > 0, total / num.clamp(min=1), 0.0)
+
+
+def _huber_terms(bb_pred, bb_true, labels, bg_index, mask):
+    """(sum of the per-node box losses, count) over contributing nodes."""
     sel = (labels != bg_index) & torch.isfinite(bb_true).all(dim=-1)
     if mask is not None:
         sel = sel & mask
@@ -58,21 +78,29 @@ def masked_huber_box_loss(bb_pred: torch.Tensor, bb_true: torch.Tensor,
     # NaN targets are already zeroed by sel; keep any other non-finite out
     diff = torch.where(torch.isfinite(diff), diff, 0.0)
     per_node = _huber(diff).mean(dim=-1)
-    num = sel.sum()
-    return torch.where(num > 0,
-                       torch.where(sel, per_node, 0.0).sum()
-                       / num.clamp(min=1), 0.0)
+    return torch.where(sel, per_node, 0.0).sum(), sel.sum()
 
 
 def detection_loss(logits, bb_pred, labels, bb_true, class_weights,
                    bg_index: int, cls_loss_weight: float,
                    bb_loss_weight: float,
-                   node_mask: Optional[torch.Tensor] = None
+                   node_mask: Optional[torch.Tensor] = None, group=None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Total loss α·L_cls + β·L_bb; returns (total, cls, bb) scalars."""
-    l_cls = weighted_cross_entropy(logits, labels, class_weights, node_mask)
-    l_bb = masked_huber_box_loss(bb_pred, bb_true, labels, bg_index,
-                                 node_mask)
+    """Total loss α·L_cls + β·L_bb; returns (total, cls, bb) scalars.
+
+    With `group`, the ranks that hold the batch's rows (module docstring),
+    it is this rank's part: its sums over the batch-wide class-weight sum
+    and box-node count. Summed over the ranks, the parts are the whole
+    batch's loss."""
+    cls_num, cls_den = _cross_entropy_terms(logits, labels, class_weights,
+                                            node_mask)
+    bb_num, bb_den = _huber_terms(bb_pred, bb_true, labels, bg_index,
+                                  node_mask)
+    dens = all_reduce_(torch.stack([cls_den.detach(),
+                                    bb_den.detach().to(cls_den.dtype)]),
+                       group)
+    l_cls = cls_num / dens[0].clamp(min=1e-12)
+    l_bb = torch.where(dens[1] > 0, bb_num / dens[1].clamp(min=1), 0.0)
     return cls_loss_weight * l_cls + bb_loss_weight * l_bb, l_cls, l_bb
 
 

@@ -1,8 +1,7 @@
 """Trainer: train and validation steps, the epoch loop, artifacts and
-checkpoints, on one device.
+checkpoints, on one device or over a mesh of ranks.
 
-Port of `radargnn_tpu/train/trainer.py` (single device; the sharded batch
-and the halo paths wait for ROADMAP.md §A, multi-GPU). As there: Adam with
+Port of `radargnn_tpu/train/trainer.py`. As there: Adam with
 L2 weight decay added to the gradient before the moments, the three
 learning-rate schedules, weighted cross entropy with separate validation
 weights, a Huber box loss on non-background nodes, the orientation-angle
@@ -17,6 +16,20 @@ under `torch.no_grad()`, as the JAX eval step takes no gradient.
 
 PyTorch runs one step per call, so `scan_steps_per_dispatch` (the JAX
 package's several steps per jitted dispatch) has nothing to select here.
+
+With `mesh=` (`parallel.mesh.make_mesh`, one process per rank) every step
+first takes the rank's part of the batch (`shard_batch`: its G/dp graphs,
+and under halo partitioning its node shard and halo plan). The JAX
+trainer's global arrays become explicit collectives over the ranks that
+hold DISTINCT rows of the batch (the world for a halo batch; the data axis
+otherwise, since the model axis then holds replicas): the BatchNorm
+statistics (`models.mlp.batch_stats_over`), the losses' denominators (each
+rank backpropagates its own part of the batch's loss,
+`losses.detection_loss(..., group=)`) and the gradient sum before Adam; the
+reported losses are the parts' sum. Every rank starts from rank 0's
+weights and takes identical Adam steps. With `shard_params_over_model` and
+a model axis the weights are column-parallel (`parallel.tensor`). Only
+rank 0 prints and writes checkpoints; every rank resumes.
 """
 
 from __future__ import annotations
@@ -35,6 +48,14 @@ import torch
 from radargnn_tpu_torch import weights
 from radargnn_tpu_torch.configs import GNNArchitectureConfig, TrainingConfig
 from radargnn_tpu_torch.graph.batch import GraphBatch
+from radargnn_tpu_torch.models.mlp import batch_stats_over
+from radargnn_tpu_torch.parallel.comm import (
+    all_reduce_, all_reduce_many_, broadcast_,
+)
+from radargnn_tpu_torch.parallel.mesh import Mesh, shard_batch
+from radargnn_tpu_torch.parallel.tensor import (
+    apply_param_shardings, detnet_param_shardings,
+)
 from radargnn_tpu_torch.train import checkpoint as ckpt
 from radargnn_tpu_torch.train.losses import (
     adapt_bb_orientation_angle, detection_loss,
@@ -76,13 +97,27 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], learning_rate: float,
 
 
 class Trainer:
-    """GNN trainer for a DetNet on its device. `fit(data_loaders)` runs the
-    full training; `train_step` / `eval_step` take one GraphBatch."""
+    """GNN trainer for a DetNet on its device, or on this rank's device of
+    `mesh` (module docstring). `fit(data_loaders)` runs the full training;
+    `train_step` / `eval_step` take one GraphBatch (the whole batch, or
+    this rank's part of it)."""
 
-    def __init__(self, config: TrainingConfig, model: torch.nn.Module):
+    def __init__(self, config: TrainingConfig, model: torch.nn.Module,
+                 mesh: Optional[Mesh] = None):
         self.config = config
         self.model = model
+        self.mesh = mesh
         device = next(model.parameters()).device
+        self._tp = None
+        if mesh is not None:
+            # every rank starts from rank 0's weights and statistics
+            with torch.no_grad():
+                for t in list(model.parameters()) + list(model.buffers()):
+                    broadcast_(t.data, 0, mesh.world_group)
+            if mesh.size("model") > 1 \
+                    and getattr(config, "shard_params_over_model", False):
+                self._tp = apply_param_shardings(
+                    model, mesh, detnet_param_shardings(mesh, model))
 
         self.train_loss = []
         self.train_loss_cls = []
@@ -99,52 +134,95 @@ class Trainer:
         self._weights = torch.tensor(w, dtype=torch.float32, device=device)
         self._val_weights = torch.tensor(vw, dtype=torch.float32,
                                          device=device)
-        self.optimizer = make_optimizer(model.parameters(),
-                                        config.learning_rate,
-                                        config.regularization_strength)
+        self.optimizer = make_optimizer(
+            self._tp.params() if self._tp is not None else model.parameters(),
+            config.learning_rate, config.regularization_strength)
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process prints and writes files (rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     # ------------------------------------------------------------------
     # steps
     # ------------------------------------------------------------------
+
+    def rows_group(self, batch: GraphBatch):
+        """The process group of the ranks that hold distinct rows of
+        `batch` (None without a mesh): the world for a halo batch, else the
+        data axis (the model axis holds replicas)."""
+        if self.mesh is None:
+            return None
+        if batch.is_halo:
+            return self.mesh.world_group
+        return self.mesh.group("data")
 
     def _loss_terms(self, logits, bb, batch: GraphBatch, class_weights):
         cfg = self.config
         boxes = batch.boxes.reshape(-1, batch.boxes.shape[-1])
         if cfg.adapt_orientation_angle and boxes.shape[-1] == 5:
             boxes = adapt_bb_orientation_angle(boxes)
-        return detection_loss(
-            logits, bb, batch.labels.reshape(-1), boxes, class_weights,
-            cfg.bg_index, cfg.cls_loss_weight, cfg.bb_loss_weight,
-            batch.node_mask.reshape(-1))
+        args = (logits, bb, batch.labels.reshape(-1), boxes, class_weights,
+                cfg.bg_index, cfg.cls_loss_weight, cfg.bb_loss_weight,
+                batch.node_mask.reshape(-1))
+        return detection_loss(*args, group=self.rows_group(batch))
+
+    def _forward(self, batch: GraphBatch):
+        self.model.train()
+        with batch_stats_over(self.rows_group(batch)):
+            return self.model.forward_batch(batch, self.mesh)
 
     def losses(self, batch: GraphBatch
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Train-mode forward (running statistics move) and the detection
         loss on `batch`: the (total, cls, bb) 0-d tensors that train_step
-        differentiates, with their graph."""
-        self.model.train()
-        logits, bb = self.model.forward_batch(batch)
+        differentiates, with their graph (over a mesh, this rank's part of
+        the batch's loss)."""
+        batch = shard_batch(batch, self.mesh)
+        logits, bb = self._forward(batch)
         return self._loss_terms(logits, bb, batch, self._weights)
+
+    def _reported(self, losses, group) -> Tuple[torch.Tensor, ...]:
+        """The batch's losses from the ranks' parts (detached)."""
+        out = torch.stack([v.detach().float() for v in losses])
+        return tuple(all_reduce_(out, group))
 
     def train_step(self, batch: GraphBatch
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Train-mode forward (running statistics move), the detection
         loss, backward and one optimizer step; returns the (total, cls, bb)
-        losses as 0-d tensors on the device, without waiting for them."""
+        losses as 0-d tensors on the device, without waiting for them. Over
+        a mesh the gradients are summed over the ranks that hold distinct
+        rows before Adam, and the losses are the batch's."""
+        batch = shard_batch(batch, self.mesh)
         self.optimizer.zero_grad(set_to_none=True)
-        total, l_cls, l_bb = self.losses(batch)
-        total.backward()
+        if self._tp is not None:
+            for p in self.model.parameters():
+                p.grad = None
+        losses = self.losses(batch)
+        losses[0].backward()
+        if self.mesh is None:
+            self.optimizer.step()
+            return tuple(v.detach() for v in losses)
+        group = self.rows_group(batch)
+        all_reduce_many_([p.grad for p in self.model.parameters()], group)
+        if self._tp is not None:
+            self._tp.shard_grads()
         self.optimizer.step()
-        return total.detach(), l_cls.detach(), l_bb.detach()
+        if self._tp is not None:
+            self._tp.gather()
+        return self._reported(losses, group)
 
     @torch.no_grad()
     def eval_step(self, batch: GraphBatch) -> torch.Tensor:
         """The validation loss of one batch. Reference quirk: BatchNorm runs
         in train mode and keeps its running-statistic updates."""
-        self.model.train()
-        logits, bb = self.model.forward_batch(batch)
-        total, _, _ = self._loss_terms(logits, bb, batch, self._val_weights)
-        return total
+        batch = shard_batch(batch, self.mesh)
+        logits, bb = self._forward(batch)
+        total = self._loss_terms(logits, bb, batch, self._val_weights)[0]
+        if self.mesh is None:
+            return total
+        return self._reported((total,), self.rows_group(batch))[0]
 
     def _set_lr(self, lr: float) -> None:
         for group in self.optimizer.param_groups:
@@ -162,11 +240,12 @@ class Trainer:
         scheduler = make_scheduler(cfg)
         start_epoch = 1
 
+        verbose = verbose and self.is_main
         if resume_from:
+            # every rank reads the checkpoint
             model_vars, opt_sd, meta = ckpt.load_train_state(resume_from)
             self.model.load_state_dict(weights.from_jax_variables(model_vars))
-            weights.optimizer_state_from_jax(opt_sd, self.optimizer,
-                                             self.model)
+            self._load_optimizer_state(opt_sd)
             scheduler.lr = meta["scheduler_lr"]
             start_epoch = meta["epoch"] + 1
             for name, dest in (("train", self.train_loss),
@@ -204,6 +283,7 @@ class Trainer:
             if checkpoint_dir and cfg.checkpoint_every_epochs and \
                     epoch % cfg.checkpoint_every_epochs == 0:
                 self._checkpoint(checkpoint_dir, epoch, scheduler.lr)
+                self.barrier()
 
             if loss_valid > min(self.valid_loss):
                 early_stopping_triggers += 1
@@ -245,18 +325,63 @@ class Trainer:
             n += 1
         return total / max(n, 1)
 
+    def barrier(self) -> None:
+        """Waits for every rank of the mesh (no-op without one)."""
+        if self.mesh is not None and self.mesh.world_group is not None:
+            torch.distributed.barrier(self.mesh.world_group)
+
+    def _full_optimizer(self) -> torch.optim.Optimizer:
+        """The optimizer over the model's own parameters: under column
+        parallelism a full-width copy of its state (the moments
+        all-gathered), else the optimizer itself."""
+        if self._tp is None:
+            return self.optimizer
+        full = make_optimizer(self.model.parameters(), 0.0, 0.0)
+        full.load_state_dict(dict(self.optimizer.state_dict(), state={}))
+        names = dict(self.model.named_parameters())
+        for name, p in names.items():
+            leaf = self._tp.shards.get(name, p)
+            st = self.optimizer.state.get(leaf)
+            if st:
+                full.state[p] = {
+                    "step": st["step"].clone(),
+                    "exp_avg": self._tp.full_moments(self.optimizer, name,
+                                                     "exp_avg"),
+                    "exp_avg_sq": self._tp.full_moments(
+                        self.optimizer, name, "exp_avg_sq")}
+        return full
+
+    def _load_optimizer_state(self, opt_sd) -> None:
+        if self._tp is None:
+            weights.optimizer_state_from_jax(opt_sd, self.optimizer,
+                                             self.model)
+            return
+        full = make_optimizer(self.model.parameters(), 0.0, 0.0)
+        weights.optimizer_state_from_jax(opt_sd, full, self.model)
+        for group in self.optimizer.param_groups:
+            group["lr"] = full.param_groups[0]["lr"]
+            group["weight_decay"] = full.param_groups[0]["weight_decay"]
+        self._tp.load_moments(self.optimizer, {
+            name: full.state[p] for name, p in self.model.named_parameters()
+            if p in full.state})
+        self._tp.load_shards()
+
     def _variables(self, state_dict=None) -> Dict:
         """Flax {'params', 'batch_stats'} trees of the model's state."""
         return weights.to_jax_variables(
             self.model.state_dict() if state_dict is None else state_dict)
 
     def _checkpoint(self, folder: str, epoch: int, lr: float) -> None:
+        """The resumable checkpoint, written by rank 0 (every rank takes
+        part in gathering column-parallel moments)."""
+        full = self._full_optimizer()
+        if not self.is_main:
+            return
         variables = self._variables()
         ckpt.save_train_state(
             folder, params=variables["params"],
             batch_stats=variables["batch_stats"],
-            opt_state=weights.optimizer_state_to_jax(self.optimizer,
-                                                     self.model),
+            opt_state=weights.optimizer_state_to_jax(full, self.model),
             epoch=epoch,
             losses={"train": self.train_loss, "train_cls": self.train_loss_cls,
                     "train_bb": self.train_loss_bb, "valid": self.valid_loss},

@@ -269,13 +269,18 @@ def test_entry_points_ask_for_the_card(tmp_path):
 
 
 def test_mesh_axes_of_more_than_one_device_wait_for_multi_gpu():
+    """Multi-GPU training is ported: one process runs a mesh of one device
+    as no mesh (an axis of -1 takes the one rank there is); a mesh of more
+    devices than processes raises instead of training on one device; the
+    halo partition comes from a model axis only (tests/test_torch_halo.py
+    trains under one on two ranks)."""
     cpu = torch.device("cpu")
     for axes in (None, {}, {"data": 1}, {"data": -1}, {"data": 1, "model": 1}):
-        assert ttrain.halo_partition_from_configs(axes, cpu) is None
-    for axes in ({"data": 2}, {"data": 1, "model": 4}):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md §A, multi-GPU"):
-            ttrain.halo_partition_from_configs(axes, cpu)
+        assert ttrain.mesh_from_configs(axes, cpu) == (None, cpu)
+    for axes, n in (({"data": 2}, 2), ({"data": 1, "model": 4}, 4)):
+        with pytest.raises(ValueError, match=f"needs {n} devices, have 1"):
+            ttrain.mesh_from_configs(axes, cpu)
+    assert ttrain.halo_partition_from_configs(None, None) is None
 
 
 def test_save_results_without_matplotlib(tmp_path, capsys, monkeypatch):

@@ -1730,3 +1730,21 @@ def test_ovf_ssum_lands_the_overflow_through_b3_on_the_card():
     cos = torch.nn.functional.cosine_similarity(got.double(), base.double(),
                                                 dim=0)
     assert float(cos) >= 0.9999
+
+
+@pytest.mark.gpu
+def test_halo_dense_aggregate_on_two_gloo_ranks_of_one_card():
+    """The conv-0-shaped aggregate (224 -> 464 over 16 edge features)
+    through halo x dense on 2 gloo ranks that share the card ({"model": 2},
+    2 x 1024-point kNN frames): the ranks' rows, back in node order, within
+    smoke_parallel.AGG_RTOL of the single card's dense aggregation on the
+    same inputs, and each rank launched B1's projection and gather-max
+    once."""
+    _need_card()
+    from radargnn_tpu_torch import smoke_parallel as sp
+    report = sp.aggregate_check("cuda", "knn", {"model": 2}, "gloo",
+                                ["cuda:0"], 1024, 2, 0)
+    assert report["agg_max_abs_err"] <= sp.AGG_RTOL * report["agg_scale"]
+    for launches in report["agg_launches"]:
+        assert {k: v for k, v in launches.items() if v} == {
+            "dense_proj_v4": 1, "dense_fwd_v4": 1}

@@ -144,14 +144,27 @@ def test_pad_cache_pads_each_sample_once(root, monkeypatch):
 
 
 def test_halo_partition_waits_for_multi_gpu(root):
-    samples = tloader.load_split_samples(root, "train")
+    """The halo partition (multi-GPU training) is ported: under the dense
+    tiling both splits' loaders get one set of dataset budgets and every
+    batch equals the JAX loader's, halo plans included; without a dense or
+    windowed tiling it raises as the JAX package does."""
     halo = {"dp": 1, "mp": 2, "ovf_frac": 0.5}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A, multi-GPU"):
+    spec = TILINGS["dense"]
+    t_loaders, _ = tloader.get_data_loaders(
+        ["train", "validate"], root, 2, False, halo_partition=halo,
+        csr_tiling=spec, device="cpu")
+    j_loaders, _ = jloader.get_data_loaders(
+        ["train", "validate"], root, 2, False, halo_partition=halo,
+        csr_tiling=spec)
+    for split in ("train", "validate"):
+        assert t_loaders[split].halo_partition == \
+            j_loaders[split].halo_partition
+        _assert_same_epochs(t_loaders[split], j_loaders[split], epochs=1)
+    assert next(iter(t_loaders["train"])).halo_send_idx.shape[1] == 2
+    samples = tloader.load_split_samples(root, "train")
+    with pytest.raises(ValueError, match="halo_partition requires"):
         tloader.GraphDataLoader(samples, 2, False, 5, halo_partition=halo,
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A, multi-GPU"):
-        tloader.get_data_loaders(["train"], root, 2, False,
-                                 halo_partition=halo, device="cpu")
 
 
 def test_loader_asks_for_the_card(root):

@@ -30,8 +30,11 @@ _FORBIDDEN = re.compile(
 
 
 def _port_sources():
+    # the card tests and the multi-rank tests' workers, which spawned ranks
+    # import afresh, must not import JAX either
     paths = [os.path.join(_REPO, "chip_smoke.py"),
-             os.path.join(_REPO, "tests", "test_torch_gpu.py")]
+             os.path.join(_REPO, "tests", "test_torch_gpu.py"),
+             os.path.join(_REPO, "tests", "torch_parallel_workers.py")]
     for root, _, files in os.walk(_PKG):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return paths
@@ -80,16 +83,22 @@ def test_every_submodule_imports_without_jax():
         "'data.nuscenes.splits', 'data.nuscenes.splits_vendored', "
         "'data.nuscenes.conversion', 'data.nuscenes.dataset_creation', "
         "'data.nuscenes.detection_eval', 'data.nuscenes.submission', "
-        "'data.nuscenes.evaluation', 'benchmarks.nuscenes_e2e'):\n"
+        "'data.nuscenes.evaluation', 'benchmarks.nuscenes_e2e', "
+        "'parallel', 'parallel.mesh', 'parallel.comm', "
+        "'parallel.edge_partition', 'parallel.halo', 'parallel.halo_dense', "
+        "'parallel.halo_windowed', 'parallel.tensor', 'parallel.dryrun', "
+        "'benchmarks.scaling', 'benchmarks.halo_accounting', "
+        "'smoke_parallel'):\n"
         "    assert 'radargnn_tpu_torch.' + m in names, m\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 79   # every module of 13 slices
+    assert int(proc.stdout.strip()) >= 91   # every module of 15 slices
     for path in (("ops", "csr_aggregate.py"), ("ops", "hoisted_aggregate.py"),
-                 ("benchmarks", "kernel_check.py")):
+                 ("benchmarks", "kernel_check.py"), ("parallel", "comm.py"),
+                 ("parallel", "halo_dense.py")):
         assert os.path.join(_PKG, *path) in _port_sources()
 
 
