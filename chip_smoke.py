@@ -62,15 +62,27 @@ predictions through the card's and the CPU's NMS and evaluator (equal
 metrics, AP above 0.9 for every class present), the dense path's kernels
 held against their plain versions on the train CLI's first batch of 32
 frames, and last radargnn_tpu_torch.benchmarks.nuscenes_e2e as a child
-process, alone. A tenth trains across ranks: two gloo ranks share the
-card on a {"model": 2} mesh and train the flagship DetNet through halo x
-dense on the kNN batch and halo x windowed on the radius batch (B1, B2
-and B4 per rank, the boundary exchange between them), each run's
-aggregate, steps and request held to the single card, each rank's
-launches counted (over NCCL too where the machine has two or four cards);
-then the scaling tool, the multi-rank dry run and the train CLI under
-torchrun (mesh_axes {"model": 2}) run as child processes. It prints the
-kernels' times beside their bounds. The last line is
+process, alone. A ninth holds the settings that reach kernel variants:
+B1's and B4's bf16 routing test, B4's forward with its maxima landed in
+bf16 (RADARGNN_FUSED_BF16_LANDING; serving and VJP mode, equal on dyadic
+inputs, within one bf16 ulp of a landed max on real-valued ones) and B1
+and B2 at receiver tiles of 8 and 24 against their plain versions at the
+five layer shapes; trains the flagship under fused_bf16_max (dense,
+windowed, CSR), under the three variant knobs of the windowed kernels
+together (2 steps and 1 request against the plain path), at r_tile 8 and
+under ovf_ssum; trains the unfused configurations against the CPU; runs
+the convergence and preprocessing tools as child processes; and saves and
+restores the kNN trainer's state through the orbax backend bit for bit
+(where tensorstore is missing, checks that the save names it). A tenth
+trains across ranks: two gloo ranks share the card on a {"model": 2} mesh
+and train the flagship DetNet through halo x dense on the kNN batch and
+halo x windowed on the radius batch (B1, B2 and B4 per rank, the boundary
+exchange between them), each run's aggregate, steps and request held to
+the single card, each rank's launches counted (over NCCL too where the
+machine has two or four cards); then the scaling tool, the multi-rank dry
+run (dense receiver tiles of 8, the JAX dry run's) and the train CLI
+under torchrun (mesh_axes {"model": 2}) run as child processes. It prints
+the kernels' times beside their bounds. The last line is
 one JSON object with "ok" and the device; any failed phase exits
 non-zero.
 """

@@ -154,9 +154,7 @@ def training_config(graphs: int) -> TrainingConfig:
 
 def tiling_spec(cfg: BenchConfig):
     """The `stack_samples` tiling of `bench.py:171-189`, with the port's
-    geometry constants (the JAX package's env knobs); an unported variant
-    knob raises (`layers.check_fused_knobs`)."""
-    layers.check_fused_knobs()
+    geometry constants (the JAX package's env knobs)."""
     if cfg.tiling == "dense":
         return {"mode": "dense", "node_block": layers.FUSED_NODE_BLOCK,
                 "r_tile": layers.FUSED_DENSE_R_TILE,

@@ -58,7 +58,7 @@ size_t dense_bwd_v4_smem_bytes(int hp, int r_tile) {
 // Launches the four passes on `stream`; returns the first cudaError_t.
 // Scratch: we_part [T, de16, hp] f32 (de16 = de rounded up to 16). The
 // caller checks shapes, types and alignment: de and hg multiples of 8,
-// hp = H rounded up to 64, r_tile a multiple of 16 and at most 128.
+// hp = H rounded up to 64, r_tile a multiple of 8 and at most 128.
 int dense_bwd_v4(const void* bits, const void* g_pass, const void* e_t,
                  const void* w_e, const void* d_op_o, const void* order,
                  const void* row_ptr, void* d_e, void* we_part, void* dw_e,

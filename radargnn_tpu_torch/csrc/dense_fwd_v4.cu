@@ -183,7 +183,7 @@ __global__ void __launch_bounds__(256) dense_fwd_v4_kernel(
         for (int q = 0; q < 4; ++q) {
             const int row = m0 + g + (q >> 1) * 8;
             const int col = col0 + nt * 8 + tq * 2 + (q & 1);
-            if (col >= h) continue;
+            if (row >= r_tile || col >= h) continue;
             const size_t idx =
                 (static_cast<size_t>(t) * r_tile + row) * h + col;
             const float inner = fmaxf(mx[nt][q], inner_o[idx]);
@@ -265,7 +265,7 @@ size_t dense_fwd_v4_smem_bytes(int de, int r_tile, int k) {
 
 // Launches the gather-max on `stream`; returns the cudaError_t of the
 // launch. The caller checks shapes, types and alignment: de a multiple of
-// 8, r_tile a multiple of 16 and at most 128, y_s [n_x, hp] with hp = h
+// 8, r_tile a multiple of 8 and at most 128, y_s [n_x, hp] with hp = h
 // rounded up to 64, 16-byte aligned e_t. `inner` and `bits` are both null
 // (serving) or both set (VJP mode; bits zeroed by the caller); `bf16_max`
 // non-zero sets the bits by the bf16 test (tile_walk.cuh, routes_bf16).
@@ -280,7 +280,7 @@ int dense_fwd_v4(const void* y_s, const void* e_t, const void* w_e,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(num_tiles, hp / kBlockCols);
-    const dim3 block((r_tile / 16) * 32);
+    const dim3 block((r_tile + 15) / 16 * 32);
     if (grid.x > 0) {
         dense_fwd_v4_kernel<<<grid, block, smem,
                               static_cast<cudaStream_t>(stream)>>>(

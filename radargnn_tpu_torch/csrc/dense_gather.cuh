@@ -11,7 +11,10 @@
 // sender is tile_win[t]*node_block + senders_local[slot] (-1: empty slot).
 // y_s is [n_x, hp] float32 (hp = H rounded up to 64, zero past H).
 //
-// One block = one tile x one 64-column slice, R/16 warps of 16 rows each.
+// One block = one tile x one 64-column slice, ceil(R/16) warps of 16 rows
+// each (R a multiple of 8: where R % 16 == 8 the last warp's upper 8 rows
+// lie past the tile; they read zero edge rows, load no sender slot and
+// hold no edge, so the caller lands and routes nothing for them).
 // A tile's ~1,200 slots read only ~140 distinct sender rows at the
 // flagship's shapes (benchmarks/dense_variants.py). So the block first
 // loads the slots' senders into shared memory, finds the distinct ones (a
@@ -58,7 +61,9 @@ struct GatherSmem {
     int16_t* cidx;             // [r*k]   rank of the slot's sender among the
                                //         range's distinct senders, or -1
     __nv_bfloat16* we_s;       // [64][lde]        W_e slice, transposed
-    __nv_bfloat16* ea;         // kEStages x [r][lde] edge rows
+    __nv_bfloat16* ea;         // kEStages x [r16][lde] edge rows (r16 = r
+                               //         rounded up to 16; rows past r
+                               //         stay zero)
     float* ys;                 // [kGatherRows][kYsLd] staged y_s slices
 };
 
@@ -70,12 +75,19 @@ __host__ __device__ inline size_t gather_index_bytes(int r, int k) {
     return (b + 15) & ~static_cast<size_t>(15);
 }
 
+// The rows of an edge-row buffer: the tile's r rounded up to the warps'
+// 16.
+__host__ __device__ inline int gather_buf_rows(int r) {
+    return (r + 15) & ~15;
+}
+
 // Shared memory the loop needs, in bytes.
 __host__ __device__ inline size_t gather_smem_bytes(int de, int r, int k) {
     const int lde = ((de + 15) & ~15) + 8;
     return gather_index_bytes(r, k) +
            sizeof(__nv_bfloat16) *
-               static_cast<size_t>(kBlockCols + kEStages * r) * lde +
+               static_cast<size_t>(kBlockCols +
+                                   kEStages * gather_buf_rows(r)) * lde +
            sizeof(float) * static_cast<size_t>(kGatherRows) * kYsLd;
 }
 
@@ -93,8 +105,9 @@ __device__ __forceinline__ GatherSmem gather_smem(int de, int r, int k) {
     S.we_s = reinterpret_cast<__nv_bfloat16*>(
         smem_raw + gather_index_bytes(r, k));
     S.ea = S.we_s + kBlockCols * S.lde;
-    // (64 + stages r) lde bf16 is a multiple of 16 bytes (lde % 8 == 0)
-    S.ys = reinterpret_cast<float*>(S.ea + kEStages * r * S.lde);
+    // (64 + stages r16) lde bf16 is a multiple of 16 bytes (lde % 8 == 0)
+    S.ys = reinterpret_cast<float*>(S.ea + kEStages * gather_buf_rows(r) *
+                                               S.lde);
     return S;
 }
 
@@ -114,8 +127,9 @@ struct DenseSenders {
 };
 
 // Stages the W_e slice [col0, col0 + 64), zero past de and h, and zeroes
-// the depth padding [de, kpe) of every edge-row buffer (the mma reads it,
-// the copies never write it). The loop's first barrier publishes it.
+// the depth padding [de, kpe) of every edge-row buffer and its rows past
+// r (the mma reads them, the copies never write them). The loop's first
+// barrier publishes it.
 __device__ __forceinline__ void stage_edge_weights(
     const GatherSmem& S, const __nv_bfloat16* __restrict__ w_e, int de,
     int h, int r, int col0) {
@@ -126,10 +140,17 @@ __device__ __forceinline__ void stage_edge_weights(
         S.we_s[n * S.lde + kk] = (kk < de && col < h)
             ? w_e[static_cast<size_t>(kk) * h + col] : zero;
     }
-    for (int i = threadIdx.x; i < kEStages * r * (S.kpe - de);
+    const int r16 = gather_buf_rows(r);
+    for (int i = threadIdx.x; i < kEStages * r16 * (S.kpe - de);
          i += blockDim.x) {
         const int rr = i / (S.kpe - de), c = i % (S.kpe - de);
         S.ea[rr * S.lde + de + c] = zero;
+    }
+    for (int i = threadIdx.x; i < kEStages * (r16 - r) * de;
+         i += blockDim.x) {
+        const int rr = i / de, c = i % de;
+        const int buf = rr / (r16 - r), row = r + rr % (r16 - r);
+        S.ea[(buf * r16 + row) * S.lde + c] = zero;
     }
 }
 
@@ -219,7 +240,7 @@ __device__ __forceinline__ void stage_sender_rows(
 // m0 + g + (q >> 1) * 8 and column col0 + nt * 8 + tq * 2 + (q & 1)
 // (m0 = 16 * warp, g = lane / 4, tq = lane % 4); v0 / v1 say whether rows
 // m0+g / m0+g+8 hold an edge whose sender is in the chunk (each slot with
-// an edge is in exactly one chunk). With `reuse`, a tile whose senders the
+// an edge is in exactly one chunk; a row past r holds none). With `reuse`, a tile whose senders the
 // previous call staged in one chunk walks its slot rows again without
 // ranking or copying anything. Every thread of the block calls it;
 // stage_edge_weights first.
@@ -236,6 +257,7 @@ __device__ __forceinline__ void gather_rows(
     const int g = lane >> 2, tq = lane & 3;
     const int m0 = (tid >> 5) * 16;
     const int rk = r * k;
+    const int r16 = gather_buf_rows(r);
     const size_t tile_slot0 = static_cast<size_t>(t) * rk;
     const int echunks = de / 8;
 
@@ -244,7 +266,7 @@ __device__ __forceinline__ void gather_rows(
     auto issue = [&](int j) {
         if (j < k) {
             const size_t slot0 = tile_slot0 + static_cast<size_t>(j) * r;
-            __nv_bfloat16* ea = S.ea + (j % kEStages) * r * S.lde;
+            __nv_bfloat16* ea = S.ea + (j % kEStages) * r16 * S.lde;
             for (int i = tid; i < r * echunks; i += nthreads) {
                 const int rr = i / echunks, c = i % echunks;
                 cp_async16(ea + rr * S.lde + c * 8,
@@ -270,12 +292,13 @@ __device__ __forceinline__ void gather_rows(
             for (int nt = 0; nt < kColTiles; ++nt)
 #pragma unroll
                 for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
-            warp_gemm(acc, S.ea + buf * r * S.lde + m0 * S.lde, S.lde,
+            warp_gemm(acc, S.ea + buf * r16 * S.lde + m0 * S.lde, S.lde,
                       S.we_s, S.lde, S.kpe, g, tq);
             bool in[2];
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
-                const int c = S.cidx[j * r + m0 + g + half * 8] - c0;
+                const int row = m0 + g + half * 8;
+                const int c = row < r ? S.cidx[j * r + row] - c0 : -1;
                 in[half] = c >= 0 && c < n;
                 const float* ys = S.ys + (in[half] ? c : 0) * kYsLd;
 #pragma unroll

@@ -19,7 +19,10 @@
 //    slot; a routed slot reads its g row where it lies (kStaged false), and
 //    only where one of its bits is set (about 1 column in 20 routes).
 // Both are walked as tiles of R slots x K slot rows (the windowed layout's
-// edge_tile slots as edge_tile / R rows of R).
+// edge_tile slots as edge_tile / R rows of R), R a multiple of 8 (16 or
+// more on the windowed layout). The warps take 16 slots of a row each;
+// where R % 16 == 8 the last warp's upper 8 lie past the row: they load
+// nothing of another row, contribute nothing and store nothing.
 //
 // Four launches on one stream, no atomics and fixed summation orders, so
 // two runs on the same inputs are bitwise equal:
@@ -147,7 +150,8 @@ __device__ __forceinline__ void stage_g_rows(
 }
 
 // d_e of one tile (blockIdx.x). Warp w owns slots m0 .. m0+15 (m0 = 16 (w %
-// (R/16))) of every second slot row (j = w / (R/16), +2, ...): per slot row
+// G), G = ceil(R/16); those below R) of every second slot row (j = w / G,
+// +2, ...): per slot row
 // and 16-feature chunk, over hp in k-steps of 16 columns, A = d_op built
 // from the slots' g rows and bits (16 words per slot loaded together ahead
 // of use), B = W_e through the read-only cache.
@@ -164,9 +168,11 @@ __global__ void __launch_bounds__(512) de_pass_kernel(
     auto* gs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [r][ld]
     const int t = blockIdx.x;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int groups = r_tile / 16;
+    const int groups = (r_tile + 15) / 16;
     const int m0 = (warp % groups) * 16;
     const int g = lane >> 2, tq = lane & 3;
+    // whether row m0 + g + 8 lies in the tile (row m0 + g always does)
+    const bool upper = m0 + 16 <= r_tile;
     const int words = hp / 32;
     const size_t tile_slot0 = static_cast<size_t>(t) * r_tile * k;
     if constexpr (Recv::kStaged) {
@@ -178,12 +184,13 @@ __global__ void __launch_bounds__(512) de_pass_kernel(
         const size_t slot_a = tile_slot0 + static_cast<size_t>(j) * r_tile +
                               m0 + g;
         GRow<Recv::kStaged> ra{}, rb{};
+        // a row past the tile reads row m0 + g's g under zero bits
         if constexpr (Recv::kStaged) {
             ra.s = gs + (m0 + g) * ld;
-            rb.s = gs + (m0 + g + 8) * ld;
+            rb.s = upper ? gs + (m0 + g + 8) * ld : ra.s;
         } else {
             ra.f = g_pass + recvs(slot_a) * hg;
-            rb.f = g_pass + recvs(slot_a + 8) * hg;
+            rb.f = upper ? g_pass + recvs(slot_a + 8) * hg : ra.f;
         }
         const uint32_t* ba = bits + slot_a * words;
         const uint32_t* bb = bits + (slot_a + 8) * words;
@@ -197,8 +204,9 @@ __global__ void __launch_bounds__(512) de_pass_kernel(
                     const bool ok = w0 + 2 * i < words;
                     wa[i] = ok ? __ldg(reinterpret_cast<const uint2*>(
                                      ba + w0) + i) : make_uint2(0u, 0u);
-                    wb[i] = ok ? __ldg(reinterpret_cast<const uint2*>(
-                                     bb + w0) + i) : make_uint2(0u, 0u);
+                    wb[i] = ok && upper
+                        ? __ldg(reinterpret_cast<const uint2*>(bb + w0) + i)
+                        : make_uint2(0u, 0u);
                 }
 #pragma unroll
                 for (int wi = 0; wi < kDeWords; ++wi) {
@@ -236,7 +244,7 @@ __global__ void __launch_bounds__(512) de_pass_kernel(
 #pragma unroll
                 for (int half = 0; half < 2; ++half) {
                     const int f = f0 + nn * 8 + tq * 2;
-                    if (f >= de) continue;
+                    if (f >= de || (half && !upper)) continue;
                     const size_t slot = slot_a + half * 8;
                     *reinterpret_cast<__nv_bfloat162*>(
                         d_e + slot * de + f) = __floats2bfloat162_rn(
@@ -249,8 +257,8 @@ __global__ void __launch_bounds__(512) de_pass_kernel(
 
 // dW_e's partial of one tile (blockIdx.x) over one 64-column chunk
 // (blockIdx.y): per 16-feature chunk, each warp sums e^T (16 features x
-// its 16 slots) @ d_op (16 slots x 64 columns) over the slot rows, then
-// the warps' sums are added in order.
+// its 16 slots, zero past R) @ d_op (16 slots x 64 columns) over the slot
+// rows, then the warps' sums are added in order.
 template <class Recv>
 __global__ void __launch_bounds__(256) dwe_pass_kernel(
     Recv recvs,
@@ -272,6 +280,8 @@ __global__ void __launch_bounds__(256) dwe_pass_kernel(
     const int nwarps = blockDim.x >> 5;
     const int m0 = warp * 16;
     const int g = lane >> 2, tq = lane & 3;
+    // whether the warp's slots m0 + 8 .. m0 + 15 lie in the tile
+    const bool upper = m0 + 16 <= r_tile;
     const int words = hp / 32;
     const int de16 = (de + 15) & ~15;
     const size_t tile_slot0 = static_cast<size_t>(t) * r_tile * k;
@@ -295,11 +305,12 @@ __global__ void __launch_bounds__(256) dwe_pass_kernel(
 #pragma unroll
             for (int s = 0; s < 4; ++s) {
                 const size_t slot = slot0 + (s >> 1) * 8 + tq * 2 + (s & 1);
+                const bool in = (s >> 1) == 0 || upper;
 #pragma unroll
                 for (int hf = 0; hf < 2; ++hf) {
                     const int f = f0 + g + hf * 8;
-                    ev[s][hf] = f < de ? e_t[slot * de + f]
-                                       : __float2bfloat16(0.0f);
+                    ev[s][hf] = in && f < de ? e_t[slot * de + f]
+                                             : __float2bfloat16(0.0f);
                 }
             }
             const uint32_t a[4] = {pack_bf16(ev[0][0], ev[1][0]),
@@ -314,12 +325,15 @@ __global__ void __launch_bounds__(256) dwe_pass_kernel(
             for (int s = 0; s < 4; ++s) {
                 const int r = m0 + (s >> 1) * 8 + tq * 2 + (s & 1);
                 const size_t slot = slot0 + (s >> 1) * 8 + tq * 2 + (s & 1);
-                wv[s] = __ldg(reinterpret_cast<const uint2*>(
-                    bits + slot * words + c0 / 32));
+                // a slot past the tile: no bits, so its g is never read
+                const bool in = (s >> 1) == 0 || upper;
+                wv[s] = in ? __ldg(reinterpret_cast<const uint2*>(
+                                 bits + slot * words + c0 / 32))
+                           : make_uint2(0u, 0u);
                 if constexpr (Recv::kStaged) {
-                    rows[s].s = gs + r * ld;
+                    rows[s].s = gs + (in ? r : 0) * ld;
                 } else {
-                    rows[s].f = g_pass + recvs(slot) * hg + c0;
+                    rows[s].f = g_pass + (in ? recvs(slot) : 0) * hg + c0;
                 }
             }
             // B = d_op: rows the slots above, column c0 + nt*8 + g
@@ -451,7 +465,7 @@ inline size_t de_pass_smem_bytes(int hp, int r_tile) {
 // Launches the four passes on `stream`; returns the first cudaError_t.
 // Scratch: we_part [T, de16, hp] f32 (de16 = de rounded up to 16). The
 // caller checks shapes, types and alignment: de and hg multiples of 8,
-// hp = H rounded up to 64, r_tile a multiple of 16 and at most 128, the
+// hp = H rounded up to 64, r_tile a multiple of 8 and at most 128, the
 // slots n_slots = T * r_tile * k.
 template <class Recv>
 cudaError_t launch_routed_grads(
@@ -463,13 +477,14 @@ cudaError_t launch_routed_grads(
     const auto* b = static_cast<const uint32_t*>(bits);
     const auto* g = static_cast<const float*>(g_pass);
     const int de16 = (de + 15) & ~15;
-    const int threads = (r_tile / 16) * 32;
+    const int warps = (r_tile + 15) / 16;
+    const int threads = warps * 32;
     const size_t smem_de = de_pass_smem_bytes<Recv>(hp, r_tile);
     const size_t smem_dwe =
         (Recv::kStaged ? sizeof(__nv_bfloat16) *
                              static_cast<size_t>(r_tile) * (kRedCols + 8)
                        : 0) +
-        sizeof(float) * static_cast<size_t>(r_tile / 16) * 16 * kRedCols;
+        sizeof(float) * static_cast<size_t>(warps) * 16 * kRedCols;
     cudaError_t err = cudaFuncSetAttribute(
         de_pass_kernel<Recv>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem_de));

@@ -18,6 +18,11 @@
 //   inner[n]  = max(max over the counting slots s with recv[s] = n of
 //                   op[s], inner_o[n])              (-3e38 if none)
 //   out[n]    = offset[n] + inner[n] where inner[n] > -1.5e38, else 0
+// With `bf16_landing` (the TPU kernel's bf16 landing, its bf16_landing
+// branch) the slots' maximum is rounded to bf16, to nearest even, before
+// inner_o is merged: the overflow maxima stay float32, as the TPU wrapper
+// merges them after its kernel. Rounding is monotone, so rounding the
+// maximum is rounding each run's maximum and landing those.
 // In VJP mode (non-null `inner_out` and `bits`, the TPU kernel's
 // emit_inner) it also writes inner[n] and one routing bit per (slot,
 // column), set where the slot counts and |op - inner[recv]| <= 1e-5
@@ -143,7 +148,7 @@ __global__ void __launch_bounds__(kWarps * 32, 1) windowed_fwd_v3_kernel(
     float* __restrict__ inner_out,             // [num_nodes, h] or null
     uint32_t* __restrict__ bits,               // [T*TE, hp/32] or null
     int n_x, int de, int h, int hp, int num_tiles, int num_nodes,
-    int node_block, int edge_tile, bool bf16_max) {
+    int node_block, int edge_tile, bool bf16_max, bool bf16_landing) {
     const FwdSmem S = fwd_smem(de, node_block);
     const int blk = blockIdx.x;
     const int col0 = blockIdx.y * kBlockCols;
@@ -262,15 +267,19 @@ __global__ void __launch_bounds__(kWarps * 32, 1) windowed_fwd_v3_kernel(
     });
     __syncthreads();
 
-    // epilogue: overflow maxima, hoisted offset, empty receivers -> 0; in
-    // VJP mode the accumulator keeps inner for the bits
+    // epilogue: the landing's bf16 rounding, overflow maxima, hoisted
+    // offset, empty receivers -> 0; in VJP mode the accumulator keeps inner
+    // for the bits
     for (int i = tid; i < node_block * kBlockCols; i += nthreads) {
         const int rr = i / kBlockCols, c = i % kBlockCols;
         const int n = base + rr, col = col0 + c;
         if (n >= num_nodes || col >= h) continue;
         const size_t idx = static_cast<size_t>(n) * h + col;
-        const float inner = fmaxf(ordered_float(keys[rr * kAccLd + c]),
-                                  inner_o[idx]);
+        float landed = ordered_float(keys[rr * kAccLd + c]);
+        if (bf16_landing && landed > kNeg / 2) {
+            landed = __bfloat162float(__float2bfloat16_rn(landed));
+        }
+        const float inner = fmaxf(landed, inner_o[idx]);
         if (bits != nullptr) {
             S.acc[rr * kAccLd + c] = inner;
             inner_out[idx] = inner;
@@ -334,14 +343,15 @@ size_t windowed_fwd_v3_smem_bytes(int de, int node_block) {
 // 64, 16-byte aligned y_s and e_t, tile_blocks non-decreasing (the tiler's
 // order). `inner` and `bits` are both null (serving) or both set (VJP
 // mode; bits zeroed by the caller); `bf16_max` non-zero sets the bits by
-// the bf16 test (tile_walk.cuh, routes_bf16).
+// the bf16 test (tile_walk.cuh, routes_bf16); `bf16_landing` non-zero
+// rounds the slots' maxima to bf16 before inner_o is merged.
 int windowed_fwd_v3(const void* y_s, const void* e_t, const void* w_e,
                     const void* recv, const void* sloc, const void* tile_win,
                     const void* tile_blocks, const void* inner_o,
                     const void* offset, void* out, void* inner, void* bits,
                     int n_x, int de, int h, int hp, int num_tiles,
                     int num_nodes, int node_block, int edge_tile,
-                    int bf16_max, void* stream) {
+                    int bf16_max, int bf16_landing, void* stream) {
     const size_t smem = fwd_smem_bytes(de, node_block);
     cudaError_t err = cudaFuncSetAttribute(
         windowed_fwd_v3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -363,7 +373,7 @@ int windowed_fwd_v3(const void* y_s, const void* e_t, const void* w_e,
             static_cast<const float*>(offset), static_cast<float*>(out),
             static_cast<float*>(inner), static_cast<uint32_t*>(bits), n_x,
             de, h, hp, num_tiles, num_nodes, node_block, edge_tile,
-            bf16_max != 0);
+            bf16_max != 0, bf16_landing != 0);
     }
     return static_cast<int>(cudaGetLastError());
 }

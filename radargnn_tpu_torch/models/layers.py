@@ -35,6 +35,7 @@ the hoisted configuration and no conv edge encoder, as in the JAX package.
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Optional
 
 import torch
@@ -77,14 +78,20 @@ BF16_MAX_ENV = os.environ.get("RADARGNN_FUSED_BF16_MAX")
 # fused_csr_tiling then asks the batch to carry (the JAX package's
 # ovf_ssum; off by default, as there)
 OVF_SSUM = os.environ.get("RADARGNN_FUSED_OVF_SSUM", "0") == "1"
-# kernel-body variants the port has not ported, with the name of the
-# ROADMAP.md §B (i) item that holds each: a value other than the default
-# "0" raises where the fused path is set up (check_fused_knobs)
-_UNPORTED_KNOBS = {
-    name: (os.environ.get(name, "0"), item) for name, item in (
-        ("RADARGNN_FUSED_STREAM_M", "stream_m"),
-        ("RADARGNN_FUSED_BF16_LANDING", "bf16_landing"),
-        ("RADARGNN_FUSED_PRECOMP_LAND", "precomp_land"))}
+# the windowed kernels' variant knobs, read as the JAX package reads them
+# ("1" on, any other value off). They act only on the single-card windowed
+# path under bf16_max (windowed_landing); the dense, CSR and halo paths
+# ignore them. Of the three only bf16_landing changes what is computed
+# (the forward's windowed maxima landed in bf16, a launch flag of B4's
+# gather-max). stream_m streams the TPU forward's bf16 operand into its
+# backward, which then routes on the forward's own values: the port's B4
+# backward routes on the forward's bits and has the sender-sum form
+# always, so it computes that already. precomp_land streams the TPU
+# landing's one-hot from HBM and counts only together with bf16_landing,
+# whose values it gives.
+STREAM_M = os.environ.get("RADARGNN_FUSED_STREAM_M", "0") == "1"
+BF16_LANDING = os.environ.get("RADARGNN_FUSED_BF16_LANDING", "0") == "1"
+PRECOMP_LAND = os.environ.get("RADARGNN_FUSED_PRECOMP_LAND", "0") == "1"
 # RADARGNN_FUSED_SENDER_DX (the sender-sum backward) changes nothing here:
 # the dense and windowed backward have that form always (their d_x and
 # dW_s are node-wide products of the H-wide sender sums), and the CSR
@@ -97,16 +104,19 @@ _UNPORTED_KNOBS = {
 # of them (ROADMAP.md B (iii)).
 
 
-def check_fused_knobs() -> None:
-    """Raises NotImplementedError, naming the knob, where an env knob asks
-    for a kernel variant the port does not have."""
-    for name, (value, item) in _UNPORTED_KNOBS.items():
-        if value != "0":
-            raise NotImplementedError(
-                f"{name}={value} selects a variant of the windowed kernels "
-                "that is not ported: it measured neutral to -1.5 % on the "
-                "TPU and waits until the H100 shows a need (ROADMAP.md §B "
-                f"(i), {item}); unset it or set 0")
+def windowed_landing(bf16_max: bool) -> bool:
+    """Whether the single-card windowed forward lands its maxima in bf16:
+    RADARGNN_FUSED_BF16_LANDING under `bf16_max` routing. A variant knob
+    set without `bf16_max` warns as the JAX package does and runs the
+    baseline kernels."""
+    if (STREAM_M or BF16_LANDING or PRECOMP_LAND) and not bf16_max:
+        warnings.warn(
+            "RADARGNN_FUSED_{STREAM_M,BF16_LANDING,PRECOMP_LAND} require "
+            "bf16_max routing (fused_bf16_max=True or "
+            "RADARGNN_FUSED_BF16_MAX=1); ignoring the variant knobs and "
+            "running the baseline kernels", stacklevel=3)
+        return False
+    return BF16_LANDING
 
 
 def bf16_max_routing(flag: bool) -> bool:
@@ -124,8 +134,7 @@ def fused_csr_tiling(model_config, k=None):
     window_blocks, fused_overflow_fraction[, fused_run_cap]); "csr" the
     CSR tuple (node_block, edge_tile), for any graph. The geometry follows
     the env knobs as in the JAX package (RADARGNN_FUSED_OVF_SSUM asks the
-    dense tiling for its sender-sorted overflow tiling); an unported
-    variant knob raises (`check_fused_knobs`)."""
+    dense tiling for its sender-sorted overflow tiling)."""
     if not getattr(model_config, "use_fused_aggregation", False):
         return None
     mode = getattr(model_config, "fused_tiling", "windowed")
@@ -134,7 +143,6 @@ def fused_csr_tiling(model_config, k=None):
     if mode not in ("dense", "windowed", "csr"):
         raise ValueError(f'unknown fused_tiling "{mode}": "auto", "dense", '
                          '"windowed" or "csr"')
-    check_fused_knobs()
     if mode == "csr":
         return (FUSED_NODE_BLOCK, FUSED_EDGE_TILE)
     if mode == "windowed":
@@ -166,7 +174,8 @@ def _fused_hoisted_max(x, w_s, w_e, offset, tiling,
     the batch's sender landing). The dense and windowed backwards route
     by bf16 equality with `bf16_max`; the dense one lands its overflow d_x
     through the batch's overflow landing where the batch has one and
-    OVF_SSUM is on."""
+    OVF_SSUM is on. The windowed forward lands its maxima in bf16 where
+    `windowed_landing` says so."""
     if tiling.win is None:
         return csr_aggregate(x, w_s, tiling.edge_feat, w_e, tiling.senders,
                              tiling.receivers, tiling.blocks, offset,
@@ -185,7 +194,8 @@ def _fused_hoisted_max(x, w_s, w_e, offset, tiling,
                               tiling.receivers, tiling.blocks, t_win, sloc,
                               ovf_s, ovf_r, node_block=tiling.node_block,
                               edge_tile=tiling.edge_tile,
-                              landing=tiling.landing, bf16_max=bf16_max)
+                              landing=tiling.landing, bf16_max=bf16_max,
+                              bf16_landing=windowed_landing(bf16_max))
 
 
 def _check_halo(conv) -> None:

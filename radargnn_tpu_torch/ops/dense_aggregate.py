@@ -355,8 +355,8 @@ def dense_fwd_cuda(y_s, e_t_c, w_e_c, senders_local, tile_win, inner_o,
            f"y_s {tuple(y_s.shape)}, w_e {tuple(w_e_c.shape)}, inner_o "
            f"{tuple(inner_o.shape)} do not match H={h}, de={de} (a multiple "
            "of 8)", kernel)
-    _check(r_tile % 16 == 0 and 16 <= r_tile <= 128,
-           f"r_tile must be a multiple of 16 in [16, 128] (got {r_tile})",
+    _check(r_tile % 8 == 0 and 8 <= r_tile <= 128,
+           f"r_tile must be a multiple of 8 in [8, 128] (got {r_tile})",
            kernel)
     _check_aligned(kernel, y_s=y_s, e_t=e_t_c)
     lib = load_fwd_kernel()
@@ -431,8 +431,8 @@ def routed_bwd_launch(kernel: str, load, bits, g_pass, e_t_c, w_e_c, d_op_o,
            and de % 8 == 0,
            f"w_e {tuple(w_e_c.shape)}, d_op_o {tuple(d_op_o.shape)} do not "
            f"match H={h}, de={de} (a multiple of 8)", kernel)
-    _check(r_tile % 16 == 0 and 16 <= r_tile <= 128,
-           f"r_tile must be a multiple of 16 in [16, 128] (got {r_tile})",
+    _check(r_tile % 8 == 0 and 8 <= r_tile <= 128,
+           f"r_tile must be a multiple of 8 in [8, 128] (got {r_tile})",
            kernel)
     _check_aligned(kernel, bits=bits, g_pass=g_pass, w_e=w_e_c,
                    d_op_o=d_op_o)

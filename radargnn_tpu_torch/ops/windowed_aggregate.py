@@ -1,9 +1,11 @@
 """Windowed hoisted max aggregation, forward and backward.
 
 Port of `make_fused_hoisted_aggregate_v3` (`radargnn_tpu/ops/pallas_kernels.py`)
-on its strict routing and its `bf16_max` routing (no `stream_m`,
-`bf16_landing` or `precomp_land`; `precomp_eq` streams the TPU's gather
-one-hots and changes nothing here). With the tile layout of `ops.windowed_tiles`
+on its strict routing and its `bf16_max` routing, with or without
+`bf16_landing` (the windowed maxima landed in bf16). Its other variants
+compute nothing new here: `stream_m` streams the forward's bf16 operand
+into the backward, which routes on the forward's bits here anyway;
+`precomp_land` and `precomp_eq` stream the TPU's one-hots. With the tile layout of `ops.windowed_tiles`
 (receiver-sorted tiles of `edge_tile` slots, each in one node block, per-tile
 sender windows, an overflow list),
 
@@ -26,7 +28,11 @@ TPU kernels' one-hot gathers and per-slot products are not carried over:
   * the gather-max (`windowed_fwd`, `csrc/windowed_fwd_v3.cu`): op[slot] =
     y_s[sender] + e_t[slot] @ w_e, the max over a receiver's counting
     slots (in every tile of its node block) and its overflow maxima, the
-    offset epilogue. In VJP mode it also writes `inner` and one routing bit
+    offset epilogue; with `bf16_landing` the slots' maximum is rounded to
+    bf16 (to nearest even) before the overflow maxima, which stay float32,
+    are merged (the TPU kernel's bf16 landing, :1363-1372, then :1925-1929;
+    rounding is monotone, so rounding the maximum is rounding each run's).
+    In VJP mode it also writes `inner` and one routing bit
     per (slot, column), set where the slot counts and |op - inner| <= 1e-5
     |inner| + 1e-5: the strict routing of the TPU kernel, under which every
     tied slot takes the full g (with `bf16_max`, where bf16(op) ==
@@ -83,13 +89,15 @@ def slot_counts(recv, tile_blocks, num_nodes: int, node_block: int,
 
 def windowed_fwd_plain(y_s, e_t_c, w_e_c, recv, sloc, tile_win, tile_blocks,
                        inner_o, offset, *, node_block: int, edge_tile: int,
-                       emit_inner: bool = False, bf16_max: bool = False):
+                       emit_inner: bool = False, bf16_max: bool = False,
+                       bf16_landing: bool = False):
     """Plain torch version of the gather-max kernel: the same function on
     the same inputs (y_s [N, hp] float32; e_t_c, w_e_c in the gather dtype;
     inner_o, offset float32 [num_nodes, H]). Returns out, or (out, inner,
     bits) with `emit_inner`: bits [E_pad, hp / 32] int32, one per (slot,
     column), set where the slot counts and its op routes (`_routes`, bf16
-    with `bf16_max`)."""
+    with `bf16_max`). `bf16_landing` rounds the slots' maxima to bf16
+    before the overflow maxima are merged."""
     num_nodes, h = offset.shape
     win = tile_win.long().repeat_interleave(edge_tile) * node_block
     sender = win + sloc.long().clamp(min=0)
@@ -103,12 +111,20 @@ def windowed_fwd_plain(y_s, e_t_c, w_e_c, recv, sloc, tile_win, tile_blocks,
                      device=op.device)
     acc = acc.scatter_reduce_(0, rc[:, None].expand_as(op),
                               torch.where(valid[:, None], op, _NEG), "amax")
+    if bf16_landing:
+        acc = land_bf16(acc)
     inner = torch.maximum(acc, inner_o)
     out = torch.where(inner > _NEG / 2, offset + inner, 0.0)
     if not emit_inner:
         return out
     sel = valid[:, None] & _routes(op, inner[rc], bf16_max)
     return out, inner, da.pack_bits(sel)
+
+
+def land_bf16(acc: torch.Tensor) -> torch.Tensor:
+    """The bf16 landing of the slots' maxima: each rounded to bf16 (to
+    nearest even) where a slot landed, _NEG where none did."""
+    return torch.where(acc > _NEG / 2, acc.to(torch.bfloat16).float(), acc)
 
 
 def windowed_bwd_plain(bits, g_pass, e_t_c, w_e_c, d_op_o, recv, order,
@@ -130,7 +146,7 @@ def windowed_bwd_plain(bits, g_pass, e_t_c, w_e_c, d_op_o, recv, order,
 
 def _bind_fwd(lib: ctypes.CDLL) -> None:
     lib.windowed_fwd_v3.argtypes = (
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     lib.windowed_fwd_v3.restype = ctypes.c_int
     lib.windowed_fwd_v3_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.windowed_fwd_v3_smem_bytes.restype = ctypes.c_size_t
@@ -168,13 +184,15 @@ def _check_layout(kernel: str, e_pad: int, recv, sloc, tile_win,
 
 def windowed_fwd_cuda(y_s, e_t_c, w_e_c, recv, sloc, tile_win, tile_blocks,
                       inner_o, offset, *, node_block: int, edge_tile: int,
-                      emit_inner: bool = False, bf16_max: bool = False):
+                      emit_inner: bool = False, bf16_max: bool = False,
+                      bf16_landing: bool = False):
     """Launches the gather-max of `csrc/windowed_fwd_v3.cu` on the current
     stream (VJP mode with `emit_inner`: it also writes `inner` and the
-    routing bits, by the bf16 test with `bf16_max`); raises on inputs the
-    kernel does not take. Counts its launches in
-    `windowed_fwd_cuda.launches`, and those with `bf16_max` in
-    `windowed_fwd_cuda.bf16_launches` too."""
+    routing bits, by the bf16 test with `bf16_max`; `bf16_landing` lands
+    the slots' maxima in bf16); raises on inputs the kernel does not take.
+    Counts its launches in `windowed_fwd_cuda.launches`, those with
+    `bf16_max` in `windowed_fwd_cuda.bf16_launches` too and those with
+    `bf16_landing` in `windowed_fwd_cuda.landing_launches`."""
     kernel = "windowed_fwd_v3"
     f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
     da._check_tensors(kernel, dict(y_s=f32, e_t=bf16, w_e=bf16, recv=i32,
@@ -214,27 +232,31 @@ def windowed_fwd_cuda(y_s, e_t_c, w_e_c, recv, sloc, tile_win, tile_blocks,
             out.data_ptr(), None if inner is None else inner.data_ptr(),
             None if bits is None else bits.data_ptr(), y_s.shape[0], de, h,
             hp, tile_win.shape[0], num_nodes, node_block, edge_tile,
-            int(bf16_max), da._stream(dev))
+            int(bf16_max), int(bf16_landing), da._stream(dev))
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
     windowed_fwd_cuda.launches += 1
     windowed_fwd_cuda.bf16_launches += int(bf16_max)
+    windowed_fwd_cuda.landing_launches += int(bf16_landing)
     return (out, inner, bits) if emit_inner else out
 
 
 windowed_fwd_cuda.launches = 0
 windowed_fwd_cuda.bf16_launches = 0
+windowed_fwd_cuda.landing_launches = 0
 
 
 def windowed_fwd(y_s, e_t_c, w_e_c, recv, sloc, tile_win, tile_blocks,
                  inner_o, offset, *, node_block: int, edge_tile: int,
-                 emit_inner: bool = False, bf16_max: bool = False):
+                 emit_inner: bool = False, bf16_max: bool = False,
+                 bf16_landing: bool = False):
     """The gather-max kernel's wrapper: a CUDA tensor launches the kernel
     (or raises), a CPU tensor takes the plain version."""
     fn = windowed_fwd_cuda if y_s.is_cuda else windowed_fwd_plain
     return fn(y_s, e_t_c, w_e_c, recv, sloc, tile_win, tile_blocks, inner_o,
               offset, node_block=node_block, edge_tile=edge_tile,
-              emit_inner=emit_inner, bf16_max=bf16_max)
+              emit_inner=emit_inner, bf16_max=bf16_max,
+              bf16_landing=bf16_landing)
 
 
 def windowed_bwd_cuda(bits, g_pass, e_t_c, w_e_c, d_op_o, recv, order,
@@ -277,13 +299,13 @@ def _forward(x, w_s, e_t, w_e, offset, e_ovf, layout, ovf_s, ovf_r, geo,
     """The forward on gather-dtype operands: the projection, the overflow
     operands and maxima, the gather-max. Returns (the gather-max wrapper's
     result, the overflow operands, the depth-padded (e_t, w_e))."""
-    node_block, edge_tile, bf16_max = geo
+    node_block, edge_tile, bf16_max, bf16_landing = geo
     y_s, op_o, inner_o, e_p, w_e_p = da.project_operands(
         x, w_s, e_t, w_e, e_ovf, ovf_s, ovf_r, offset.shape[0])
     res = windowed_fwd(y_s, e_p, w_e_p, *layout, inner_o,
                        offset.float().contiguous(), node_block=node_block,
                        edge_tile=edge_tile, emit_inner=emit_inner,
-                       bf16_max=bf16_max)
+                       bf16_max=bf16_max, bf16_landing=bf16_landing)
     return res, op_o, (e_p, w_e_p)
 
 
@@ -297,7 +319,7 @@ class WindowedAggregateFn(torch.autograd.Function):
         (out, inner, bits), op_o, padded = _forward(
             x, w_s, e_t, w_e, offset, e_ovf, layout, ovf_s, ovf_r, geo,
             emit_inner=True)
-        ctx.edge_tile, ctx.bf16_max = geo[1:]
+        ctx.edge_tile, ctx.bf16_max = geo[1:3]
         ctx.dtypes = (x.dtype, e_t.dtype, e_ovf.dtype, offset.dtype)
         ctx.save_for_backward(x, w_s, w_e, e_ovf, *padded, bits, op_o, recv,
                               ovf_r, order, row_ptr, inner)
@@ -321,16 +343,19 @@ class WindowedAggregateFn(torch.autograd.Function):
 def windowed_aggregate(x, w_s, e_t, w_e, offset, e_ovf, recv_t, tile_blocks,
                        tile_win, senders_local, ovf_s, ovf_r, *,
                        node_block: int, edge_tile: int, landing=None,
-                       bf16_max: bool = False) -> torch.Tensor:
+                       bf16_max: bool = False,
+                       bf16_landing: bool = False) -> torch.Tensor:
     """The windowed fused aggregation (module docstring), with the argument
     order of the JAX package's fused function (less part_mask: the landing
     replaces it). Differentiable in x, w_s, e_t, w_e, offset and e_ovf; the
     backward needs `landing` (an `ops.segment_sum.SenderLanding` over this
     layout, the batch's `FlatTiling.landing`). `bf16_max` routes the
-    backward by bf16 equality (the forward is unchanged)."""
+    backward by bf16 equality (the forward is unchanged); `bf16_landing`
+    lands the forward's windowed maxima in bf16 (the JAX package allows it
+    only with `bf16_max`, and so does the layer that calls this)."""
     layout = tuple(a.contiguous() for a in (recv_t, senders_local, tile_win,
                                             tile_blocks))
-    geo = (node_block, edge_tile, bool(bf16_max))
+    geo = (node_block, edge_tile, bool(bf16_max), bool(bf16_landing))
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, w_s, e_t, w_e, offset, e_ovf))
     if not needs_grad:

@@ -35,9 +35,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 FLAGSHIP_CONFIG = os.path.join(_REPO, "configurations",
                                "configuration_radarscenes.yml")
-# the JAX dry run's small dense geometry, its receiver tile raised from 8
-# to 16: the card's dense kernels take multiples of 16
-DENSE = {"mode": "dense", "node_block": 16, "r_tile": 16, "k": 12,
+# the JAX dry run's small dense geometry (`__graft_entry__.py`)
+DENSE = {"mode": "dense", "node_block": 16, "r_tile": 8, "k": 12,
          "window_blocks": 2, "ovf_frac": 0.6}
 WINDOWED = (256, 512, 3, 0.5)
 

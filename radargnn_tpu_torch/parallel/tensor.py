@@ -102,32 +102,42 @@ class ColumnParallel:
 
     @torch.no_grad()
     def full_moments(self, optimizer: torch.optim.Optimizer,
-                     name: str, key: str) -> Optional[torch.Tensor]:
+                     name: str, key: str,
+                     gather: bool = True) -> Optional[torch.Tensor]:
         """The full-width Adam moment `key` of parameter `name`, all-gathered
-        from the axis's shards (the replicated ones as they are)."""
+        from the axis's shards (the replicated ones as they are); with
+        `gather` False a sharded parameter's is this rank's rows."""
         leaf = self.shards.get(name, self.full[name])
         state = optimizer.state.get(leaf, {})
         if key not in state:
             return None
-        if name in self.shards:
+        if name in self.shards and gather:
             return all_gather_cat(state[key], self.group)
         return state[key]
+
+    def piece(self, name: str):
+        """Where this rank's shard of sharded parameter `name` lies in the
+        flax leaf (the JAX package's layout): (the leaf's path under the
+        params tree, the dimension the shard splits (a kernel's columns, a
+        bias's entries), its index, the number of shards)."""
+        *mods, _ = name.split(".")
+        p = self.full[name]
+        leaf, dim = ("kernel", 1) if p.ndim == 2 else ("bias", 0)
+        return tuple(mods) + (leaf,), dim, self.coord, self.size
 
     @torch.no_grad()
     def load_moments(self, optimizer: torch.optim.Optimizer,
                      moments: Dict[str, Dict[str, torch.Tensor]]) -> None:
-        """Sets each leaf's Adam state from full-width moments
-        {name: {"step", "exp_avg", "exp_avg_sq"}} (the rank's rows of a
-        sharded parameter's)."""
+        """Sets each leaf's Adam state from its moments {name: {"step",
+        "exp_avg", "exp_avg_sq"}}: a sharded parameter's are this rank's
+        rows already (the checkpoint reads only those), a replicated one's
+        are whole."""
         for name, st in moments.items():
             leaf = self.shards.get(name, self.full[name])
-            rows = self._rows(st["exp_avg"]) if name in self.shards \
-                else slice(None)
             optimizer.state[leaf] = {
                 "step": st["step"].clone(),
-                "exp_avg": st["exp_avg"][rows].clone().to(leaf.device),
-                "exp_avg_sq": st["exp_avg_sq"][rows].clone().to(
-                    leaf.device)}
+                "exp_avg": st["exp_avg"].clone().to(leaf.device),
+                "exp_avg_sq": st["exp_avg_sq"].clone().to(leaf.device)}
 
 
 def apply_param_shardings(model: nn.Module, mesh: Mesh,

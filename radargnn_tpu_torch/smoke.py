@@ -19,19 +19,23 @@ nuScenes-format tables and multisweep radar sweeps it writes, the same
 way, then the nuScenes e2e (`benchmarks.nuscenes_e2e`) as a child process,
 and oracle predictions through the card's and the CPU's NMS and
 NuscenesEvaluator. A ninth (`smoke_variants.variants_phase`) holds B1's and
-B4's bf16 routing test and B3 on the dense overflow rows (`ovf_ssum`) to
-their plain versions, trains the flagship under `fused_bf16_max` (dense,
-windowed, CSR) and `ovf_ssum`, trains it with a pre-MLP of two layers and
-the mean and add aggregations against the CPU, and runs the convergence
-and preprocessing tools as child processes. A tenth
-(`smoke_parallel.parallel_phase`, on the card) trains across ranks: two
-gloo ranks on the card run halo x dense and halo x windowed on a
+B4's bf16 routing test, B4's bf16 landing, B1 and B2 at dense receiver
+tiles of 8 and 24 and B3 on the dense overflow rows (`ovf_ssum`) to their
+plain versions, trains the flagship under `fused_bf16_max` (dense,
+windowed, CSR; windowed also with the three variant knobs) and
+`ovf_ssum`, trains it with a pre-MLP of two layers and the mean and add
+aggregations against the CPU, runs the convergence and preprocessing tools
+as child processes, and saves and restores a training state through the
+orbax backend (or checks that it names tensorstore where that is
+missing). A tenth (`smoke_parallel.parallel_phase`) trains across ranks:
+two gloo ranks on the card run halo x dense and halo x windowed on a
 {"model": 2} mesh against the single card, then the scaling tool, the
 multi-rank dry run and the train CLI under torchrun as child processes.
 
 `run(device)` is what `chip_smoke.py` calls on the card; the CPU tests call
 it at a tiny size, where the wrappers take their plain versions, nothing is
-built and no time is measured. Every phase raises on failure; nothing is
+built and no time is measured, and rehearse the seventh to tenth phases
+each in a test of its own. Every phase raises on failure; nothing is
 caught and continued.
 """
 
@@ -99,14 +103,15 @@ KERNEL_SOURCES = ("dense_fwd_v4.cu", "dense_bwd_v4.cu", "segment_sum_csr.cu",
                   "csr_bwd_v2.cu", "fused_linear.cu", "msg_segmax.cu",
                   "hoisted_fwd_v1.cu", "hoisted_bwd_v1.cu")
 # the kernels' names, in the order of `_counters()`; dense_proj_v4 (the
-# node projection, csrc/dense_fwd_v4.cu) is B1's first launch; the last two
-# count the gather-max launches of B1 and B4 that set their bits by the
-# bf16 test (`fused_bf16_max`), which their own counts include
+# node projection, csrc/dense_fwd_v4.cu) is B1's first launch; the last
+# three count the gather-max launches of B1 and B4 that set their bits by
+# the bf16 test (`fused_bf16_max`) and those of B4 that land its maxima in
+# bf16 (RADARGNN_FUSED_BF16_LANDING), which their own counts include
 KERNEL_NAMES = ("dense_fwd_v4", "dense_bwd_v4", "segment_sum_csr",
                 "windowed_fwd_v3", "windowed_bwd_v3", "csr_fwd_v2",
                 "csr_bwd_v2", "fused_linear", "msg_segmax", "hoisted_fwd_v1",
                 "hoisted_bwd_v1", "dense_proj_v4", "dense_fwd_v4_bf16_max",
-                "windowed_fwd_v3_bf16_max")
+                "windowed_fwd_v3_bf16_max", "windowed_fwd_v3_bf16_landing")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
@@ -660,7 +665,8 @@ class _Routed(NamedTuple):
 
     fwd_name: str
     bwd_name: str
-    # (y_s, e_t, w_e, inner_o, offset, emit_inner, bf16_max)
+    # (y_s, e_t, w_e, inner_o, offset, emit_inner, bf16_max, the windowed
+    # forward's bf16_landing)
     fwd: Callable
     fwd_plain: Callable
     bwd: Callable           # (bits, g_pass, e_t, w_e, d_op_o)
@@ -690,9 +696,9 @@ def _routed_of(tiling) -> _Routed:
 
     def fwd(fn):
         return lambda y_s, e_t, w_e, inner_o, offset, emit_inner=False, \
-            bf16_max=False: fn(y_s, e_t, w_e, *layout, inner_o, offset,
-                               emit_inner=emit_inner, bf16_max=bf16_max,
-                               **fwd_kw)
+            bf16_max=False, **kw: fn(y_s, e_t, w_e, *layout, inner_o,
+                                     offset, emit_inner=emit_inner,
+                                     bf16_max=bf16_max, **fwd_kw, **kw)
 
     def bwd(fn):
         return lambda bits, g_pass, e_t, w_e, d_op_o: fn(
@@ -1035,20 +1041,22 @@ def radius_csr_tiling(dev: DeviceLike, points: int, graphs: int,
     return loader[0]
 
 
-class _Bf16Launches:
-    """A wrapper's count of its bf16-routing launches (`bf16_launches`),
-    read and set as `launches`, as the other counters are."""
+class _VariantLaunches:
+    """A wrapper's count of its launches of one variant (`attr`: the
+    bf16-routing ones, `bf16_launches`, by default), read and set as
+    `launches`, as the other counters are."""
 
-    def __init__(self, wrapper: Callable):
+    def __init__(self, wrapper: Callable, attr: str = "bf16_launches"):
         self.wrapper = wrapper
+        self.attr = attr
 
     @property
     def launches(self) -> int:
-        return self.wrapper.bf16_launches
+        return getattr(self.wrapper, self.attr)
 
     @launches.setter
     def launches(self, value: int) -> None:
-        self.wrapper.bf16_launches = value
+        setattr(self.wrapper, self.attr, value)
 
 
 def _counters():
@@ -1057,8 +1065,9 @@ def _counters():
             wa.windowed_fwd_cuda, wa.windowed_bwd_cuda, ca.csr_fwd_cuda,
             ca.csr_bwd_cuda, fl.fused_linear_cuda, msm.msg_segmax_cuda,
             ha.hoisted_fwd_cuda, ha.hoisted_bwd_cuda, da.dense_proj_cuda,
-            _Bf16Launches(da.dense_fwd_cuda),
-            _Bf16Launches(wa.windowed_fwd_cuda))
+            _VariantLaunches(da.dense_fwd_cuda),
+            _VariantLaunches(wa.windowed_fwd_cuda),
+            _VariantLaunches(wa.windowed_fwd_cuda, "landing_launches"))
 
 
 def _plain_kernels() -> ExitStack:
@@ -2796,6 +2805,33 @@ def nuscenes_phase(dev: torch.device, scale: float = 1.0,
 BENCH_SIZE = (450_560, 22_528, 464, 464)   # kernel_bench's defaults
 
 
+# the ninth phase's per-shape rows the smoke's JSON line carries
+VARIANT_ROWS = ("dense_bits", "windowed_bits", "ovf_landing",
+                "windowed_landing", "r_tile_8", "r_tile_24")
+
+
+def kernel_entry(name, source, replaces, launches, rows, checked, library,
+                 on_card: bool) -> Dict:
+    """One kernel's entry of the kernels line: `rows` one step's launches
+    (one per layer shape) whose times and bounds it sums, `checked` every
+    row whose error it reports, `library` whether the rows time a library
+    call."""
+    return {
+        "name": name, "route": "cuda",
+        "source": f"radargnn_tpu_torch/csrc/{source}",
+        "replaces": f"radargnn_tpu/ops/pallas_kernels.py:{replaces}",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in checked),
+        "ms": sum(r["ms"] for r in rows) if on_card else None,
+        "plain_ms": sum(r["plain_ms"] for r in rows) if on_card else None,
+        "bound_ms": sum(r["bound_ms"] for r in rows),
+        "bound_by": ("operations" if sum(r["ops_ms"] for r in rows)
+                     >= sum(r["bytes_ms"] for r in rows) else "bytes"),
+        "library_ms": (sum(r["library_ms"] for r in rows)
+                       if library and on_card else None),
+    }
+
+
 def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
         batches: int = 3, seed: int = 0, reps: int = 20,
         train_steps: int = 4, bench: Tuple[int, int, int, int] = BENCH_SIZE,
@@ -2811,10 +2847,11 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
     path runs, held against their plain versions at the flagship's widths
     on the kNN batch, then their entry points `kernel_check` and
     `kernel_bench` (at `bench` = (edges, nodes, d_in, H)); then the
-    evaluation stage, the bench, the CLI pipeline (frames of about
-    `points` points), the nuScenes pipeline (`nuscenes_phase`) and the
-    ninth phase (`smoke_variants.variants_phase`) and, on the card, the
-    tenth (`smoke_parallel.parallel_phase`)."""
+    evaluation stage and the bench; then, on the card, the CLI pipeline
+    (frames of about `points` points), the nuScenes pipeline
+    (`nuscenes_phase`), the ninth phase (`smoke_variants.variants_phase`)
+    and the tenth (`smoke_parallel.parallel_phase`), each rehearsed off the
+    card by a test of its own."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     summary: Dict = {"device": str(dev)}
@@ -2952,57 +2989,40 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
     last.update(kernel_entry_points(dev, bench, reps, out))
     summary["last_four"] = last
 
-    # -- the evaluation stage on the kNN requests, the bench, the CLI --------
+    # -- the evaluation stage on the kNN requests, the bench ----------------
     summary["evaluation"] = evaluation_phase(dev, model, loader, out)
     summary["bench"] = bench_phase(dev, points, graphs, out)
-    summary["cli"] = cli_phase(dev, points, out=out)
-    # off the card: a few samples of few returns, at the YAML's widths in
-    # batches of 4 (the plain versions pad each batch to its graphs)
-    summary["nuscenes"] = nuscenes_phase(dev, seed=seed, reps=reps,
-                                         out=out) if on_card else \
-        nuscenes_phase(dev, scale=0.125, points_per_sweep=8,
-                       replaced=dict(NUSCENES_REPLACED, batch_size=4),
-                       seed=seed, reps=reps, out=out)
 
-    # -- the ninth phase: bf16 routing, ovf_ssum, the unfused model, tools --
-    # (its training runs take two steps off the card: a rehearsal)
-    from radargnn_tpu_torch.smoke_variants import variants_phase
-    variants = summary["variants"] = variants_phase(
-        dev, arch, loader[0], r_arch, r_loader[0], c_arch, c_loader[0],
-        shapes, points, graphs, seed, reps,
-        train_steps if on_card else min(train_steps, 2),
-        {"dense": summary["train_losses"],
-         "windowed": radius["train_losses"]}, out)
-
-    # -- the tenth phase: training across ranks (halo x dense, halo x
-    # windowed, the children); rehearsed off the card by its own test
+    # -- the seventh to tenth phases: the CLI, the nuScenes pipeline, the
+    # settings that reach kernel variants (bf16 routing and landing,
+    # ovf_ssum, dense receiver tiles of 8 and 24, the unfused model, the
+    # tools, orbax) and training across ranks; each is rehearsed off the
+    # card by a test of its own (tests/test_torch_smoke_cli.py,
+    # test_torch_nuscenes_smoke.py, test_torch_smoke_variants.py and
+    # test_torch_smoke_settings.py, test_torch_halo.py)
     if on_card:
+        summary["cli"] = cli_phase(dev, points, out=out)
+        summary["nuscenes"] = nuscenes_phase(dev, seed=seed, reps=reps,
+                                             out=out)
+        from radargnn_tpu_torch.smoke_variants import variants_phase
+        summary["variants"] = variants_phase(
+            dev, arch, loader[0], r_arch, r_loader[0], c_arch, c_loader[0],
+            shapes, points, graphs, seed, reps, train_steps,
+            {"dense": summary["train_losses"],
+             "windowed": radius["train_losses"]}, out)
         from radargnn_tpu_torch.smoke_parallel import parallel_phase
         summary["parallel"] = parallel_phase(dev, points, graphs, seed,
                                              out=out)
 
-    def entry(name, source, replaces, launches, rows, checked, library):
-        return {
-            "name": name, "route": "cuda",
-            "source": f"radargnn_tpu_torch/csrc/{source}",
-            "replaces": f"radargnn_tpu/ops/pallas_kernels.py:{replaces}",
-            "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in checked),
-            # times and bound: one step's launches, one per layer shape
-            "ms": sum(r["ms"] for r in rows) if on_card else None,
-            "plain_ms": sum(r["plain_ms"] for r in rows) if on_card else None,
-            "bound_ms": sum(r["bound_ms"] for r in rows),
-            "bound_by": ("operations" if sum(r["ops_ms"] for r in rows)
-                         >= sum(r["bytes_ms"] for r in rows) else "bytes"),
-            "library_ms": (sum(r["library_ms"] for r in rows)
-                           if library and on_card else None),
-        }
+    def entry(*args):
+        return kernel_entry(*args, on_card=on_card)
 
     dense_l, radius_l = summary["train_launches"], radius["train_launches"]
     csr_l = csr["train_launches"]
     cli_l = [sum(x) for x in zip(
+        [0] * len(KERNEL_NAMES),
         *(summary[p][f"{stage}_launches"] for p in ("cli", "nuscenes")
-          for stage in ("train", "evaluate")))]
+          if p in summary for stage in ("train", "evaluate")))]
     r_fwd, r_bwd = radius["per_shape_fwd"], radius["per_shape_bwd"]
     c_fwd, c_bwd = csr["per_shape_fwd"], csr["per_shape_bwd"]
     seg_rows = radius["knn_per_shape_segsum"]
@@ -3019,15 +3039,15 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
     # dense one in serving mode; the CSR forward as its wrapper runs it in
     # serving mode (the projection and the gather-max), against the whole
     # function's bound.
-    nus = summary["nuscenes"]
+    nus = summary.get("nuscenes", {})
     summary["kernels"] = [
         entry("dense_proj_v4", "dense_fwd_v4.cu", 2279,
               dense_l[11] + radius_l[11] + csr_l[11] + cli_l[11], proj_rows,
-              proj_rows + nus["per_shape_proj"], True),
+              proj_rows + nus.get("per_shape_proj", []), True),
         entry("dense_fwd_v4", "dense_fwd_v4.cu", 2279, dense_l[0] + cli_l[0],
-              fwd_rows, fwd_rows + nus["per_shape"], False),
+              fwd_rows, fwd_rows + nus.get("per_shape", []), False),
         entry("dense_bwd_v4", "dense_bwd_v4.cu", 2340, dense_l[1] + cli_l[1],
-              bwd_rows, bwd_rows + nus["per_shape_bwd"], False),
+              bwd_rows, bwd_rows + nus.get("per_shape_bwd", []), False),
         entry("segment_sum_csr", "segment_sum_csr.cu", 854,
               dense_l[2] + radius_l[2] + csr_l[2], seg_rows, segs, True),
         entry("windowed_fwd_v3", "windowed_fwd_v3.cu", 1275, radius_l[3],
@@ -3058,22 +3078,9 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
               entry_l["hoisted_bwd_v1"], last["v1_bwd"], last["v1_bwd"],
               False),
     ]
-    # the ninth phase: B1's and B4's gather-max with the bf16 test (VJP
-    # mode, the mode of their training launches; they replace the bf16_cmp
-    # branch of the TPU backward kernels), launched by the fused_bf16_max
-    # training runs; B3 on the dense overflow rows (`ovf_ssum`), launched by
-    # that training run, against index_add_
-    b1, b4 = variants["dense_bits"], variants["windowed_bits"]
-    summary["kernels"] += [
-        entry("dense_fwd_v4_bf16_max", "dense_fwd_v4.cu", 2340,
-              variants["dense_train"]["train_launches"][12], b1, b1, False),
-        entry("windowed_fwd_v3_bf16_max", "windowed_fwd_v3.cu", 1387,
-              variants["windowed_train"]["train_launches"][13], b4, b4,
-              False),
-        entry("segment_sum_csr_ovf_ssum", "segment_sum_csr.cu", 854,
-              variants["ovf_ssum_train"]["train_launches"][2],
-              variants["ovf_landing"], variants["ovf_landing"], True),
-    ]
+    if "variants" in summary:
+        from radargnn_tpu_torch.smoke_variants import variants_kernels
+        summary["kernels"] += variants_kernels(summary["variants"], on_card)
     summary["per_shape_proj"] = proj_rows
     summary["per_shape"] = fwd_rows
     summary["per_shape_bwd"] = bwd_rows
@@ -3092,6 +3099,6 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
                     "nuscenes": {k: v for k, v in nus.items()
                                  if k.startswith(("per_shape", "train_tiling"))
                                  },
-                    "variants": {k: variants[k] for k in (
-                        "dense_bits", "windowed_bits", "ovf_landing")}}))
+                    "variants": {k: v for k, v in summary.get(
+                        "variants", {}).items() if k in VARIANT_ROWS}}))
     return summary

@@ -29,7 +29,10 @@ rank backpropagates its own part of the batch's loss,
 reported losses are the parts' sum. Every rank starts from rank 0's
 weights and takes identical Adam steps. With `shard_params_over_model` and
 a model axis the weights are column-parallel (`parallel.tensor`). Only
-rank 0 prints and writes checkpoints; every rank resumes.
+rank 0 prints. Rank 0 writes a msgpack checkpoint, from the moments
+gathered to full width; under the orbax backend (RADARGNN_CKPT_BACKEND=
+orbax) every rank writes its own column slices, and every rank resumes
+reading its own.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from radargnn_tpu_torch.parallel.tensor import (
     apply_param_shardings, detnet_param_shardings,
 )
 from radargnn_tpu_torch.train import checkpoint as ckpt
+from radargnn_tpu_torch.train import orbax_format
 from radargnn_tpu_torch.train.losses import (
     adapt_bb_orientation_angle, detection_loss,
 )
@@ -242,10 +246,7 @@ class Trainer:
 
         verbose = verbose and self.is_main
         if resume_from:
-            # every rank reads the checkpoint
-            model_vars, opt_sd, meta = ckpt.load_train_state(resume_from)
-            self.model.load_state_dict(weights.from_jax_variables(model_vars))
-            self._load_optimizer_state(opt_sd)
+            meta = self.resume(resume_from)
             scheduler.lr = meta["scheduler_lr"]
             start_epoch = meta["epoch"] + 1
             for name, dest in (("train", self.train_loss),
@@ -330,10 +331,11 @@ class Trainer:
         if self.mesh is not None and self.mesh.world_group is not None:
             torch.distributed.barrier(self.mesh.world_group)
 
-    def _full_optimizer(self) -> torch.optim.Optimizer:
+    def _full_optimizer(self, gather: bool = True) -> torch.optim.Optimizer:
         """The optimizer over the model's own parameters: under column
-        parallelism a full-width copy of its state (the moments
-        all-gathered), else the optimizer itself."""
+        parallelism a copy of its state with the moments all-gathered to
+        full width (with `gather` False, this rank's rows of them), else
+        the optimizer itself."""
         if self._tp is None:
             return self.optimizer
         full = make_optimizer(self.model.parameters(), 0.0, 0.0)
@@ -343,19 +345,58 @@ class Trainer:
             leaf = self._tp.shards.get(name, p)
             st = self.optimizer.state.get(leaf)
             if st:
-                full.state[p] = {
-                    "step": st["step"].clone(),
-                    "exp_avg": self._tp.full_moments(self.optimizer, name,
-                                                     "exp_avg"),
-                    "exp_avg_sq": self._tp.full_moments(
-                        self.optimizer, name, "exp_avg_sq")}
+                full.state[p] = {"step": st["step"].clone(), **{
+                    key: self._tp.full_moments(self.optimizer, name, key,
+                                               gather)
+                    for key in ("exp_avg", "exp_avg_sq")}}
         return full
+
+    def _pieces(self):
+        """{path in the checkpoint tree: (the weight's path, dimension,
+        index, parts)} of this rank's column slice of every column-parallel
+        leaf: the weights and their Adam moments (none without column
+        parallelism)."""
+        if self._tp is None:
+            return {}
+        pieces = {}
+        for name in self._tp.shards:
+            path, *where = self._tp.piece(name)
+            weight = ("params",) + path
+            pieces[weight] = (weight, *where)
+            for moment in ("mu", "nu"):
+                pieces[("opt_state", "inner_state", "1", moment) + path] = \
+                    (weight, *where)
+        return pieces
+
+    def _moment_rows(self, path, shape):
+        """`load_train_state`'s `select`: this rank's slice of a
+        column-parallel Adam moment, None for every other leaf (the
+        weights are read whole: each rank holds them in full)."""
+        if path[0] != "opt_state":
+            return None
+        where = self._pieces().get(tuple(path))
+        if where is None:
+            return None
+        _, dim, index, parts = where
+        return orbax_format.part_region(shape, dim, index, parts)
+
+    def resume(self, folder: str) -> Dict:
+        """Loads a checkpoint folder (either backend, either package's):
+        every rank reads the full weights and its own rows of the
+        column-parallel moments. Returns its meta (epoch, losses, lr)."""
+        model_vars, opt_sd, meta = ckpt.load_train_state(folder,
+                                                         self._moment_rows)
+        self.model.load_state_dict(weights.from_jax_variables(model_vars))
+        self._load_optimizer_state(opt_sd)
+        return meta
 
     def _load_optimizer_state(self, opt_sd) -> None:
         if self._tp is None:
             weights.optimizer_state_from_jax(opt_sd, self.optimizer,
                                              self.model)
             return
+        # the column-parallel moments are this rank's rows already
+        # (`_moment_rows`)
         full = make_optimizer(self.model.parameters(), 0.0, 0.0)
         weights.optimizer_state_from_jax(opt_sd, full, self.model)
         for group in self.optimizer.param_groups:
@@ -372,20 +413,49 @@ class Trainer:
             self.model.state_dict() if state_dict is None else state_dict)
 
     def _checkpoint(self, folder: str, epoch: int, lr: float) -> None:
-        """The resumable checkpoint, written by rank 0 (every rank takes
-        part in gathering column-parallel moments)."""
-        full = self._full_optimizer()
-        if not self.is_main:
+        """The resumable checkpoint. msgpack: written by rank 0 (every rank
+        takes part in gathering column-parallel moments). orbax: every
+        rank writes its own column slices (`_pieces`) and rank 0 the rest,
+        with nothing gathered."""
+        orbax = ckpt.backend_name() == "orbax"
+        full = self._full_optimizer(gather=not orbax)
+        if not (orbax or self.is_main):
             return
         variables = self._variables()
+        tree = {"params": variables["params"],
+                "opt_state": weights.optimizer_state_to_jax(full,
+                                                            self.model)}
+        mesh_kw = {}
+        if orbax and self.mesh is not None:
+            writer = self.mesh.coord("data") == 0
+
+            def node_of(path):
+                node = tree
+                for key in path[:-1]:
+                    node = node[key]
+                return node
+
+            pieces = self._pieces()
+            for path, (weight, dim, index, parts) in pieces.items():
+                node = node_of(path)
+                local = node[path[-1]]
+                # the weight's full shape (an array, or its Piece by now)
+                shape = tuple(node_of(weight)[weight[-1]].shape)
+                piece = orbax_format.Piece(local, shape, dim, index, parts,
+                                           "model", writer)
+                # the weights (and a moment not yet stepped) are whole here
+                if local.shape == shape:
+                    piece.data = local[piece.region()]
+                node[path[-1]] = piece
+            mesh_kw = dict(process=self.mesh.rank, barrier=self.barrier,
+                           mesh_axes=self.mesh.axes)
         ckpt.save_train_state(
-            folder, params=variables["params"],
+            folder, params=tree["params"],
             batch_stats=variables["batch_stats"],
-            opt_state=weights.optimizer_state_to_jax(full, self.model),
-            epoch=epoch,
+            opt_state=tree["opt_state"], epoch=epoch,
             losses={"train": self.train_loss, "train_cls": self.train_loss_cls,
                     "train_bb": self.train_loss_bb, "valid": self.valid_loss},
-            scheduler_lr=lr)
+            scheduler_lr=lr, **mesh_kw)
 
     # ------------------------------------------------------------------
     # artifacts

@@ -2,7 +2,7 @@
 pipeline) rehearsed on the CPU: its raw RadarScenes writer, its
 configuration, and the phase itself where h5py is missing (as on the
 card's machine), where it writes the processed splits itself. The phase
-with h5py runs inside `test_torch_package.py::test_smoke_rehearses_on_cpu`."""
+with h5py is tests/test_torch_smoke_cli.py's."""
 
 import json
 import os
@@ -19,6 +19,7 @@ from radargnn_tpu_torch.data.radarscenes import reader
 from radargnn_tpu_torch.data.radarscenes.dataset_creation import (
     create_point_cloud_frames,
 )
+from torch_threads import few_threads  # noqa: F401
 
 
 def test_cli_configuration_replaces_two_fields(tmp_path):
@@ -69,6 +70,7 @@ def test_raw_sequences_hold_every_class(tmp_path):
             assert np.isfinite(pc.V_cc_compensated).all()
 
 
+@pytest.mark.usefixtures("few_threads")
 def test_cli_phase_without_h5py(monkeypatch):
     """Where h5py is missing the phase says create_dataset did not run,
     writes the processed splits itself and still trains and evaluates

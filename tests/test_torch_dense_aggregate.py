@@ -34,13 +34,15 @@ _DIFF = ("x", "w_s", "e_t", "w_e", "offset", "e_ovf")
 RTOL = ATOL = 1e-4
 
 
-def _dense_setup(seed=7, K=7, variable_degree=True, h=32):
+def _dense_setup(seed=7, K=7, variable_degree=True, h=32, r_tile=8,
+                 node_block=16):
     """tests/test_pallas.py's `_dense_setup`: a small graph and its dense
     tiling from the JAX package's host tiler. Variable in-degree exercises
-    the over-degree spill and window overflow; `h` is the conv width."""
+    the over-degree spill and window overflow; `h` is the conv width,
+    `r_tile` the receivers of a tile."""
     rng = np.random.default_rng(seed)
     n, d_in, de = 96, 24, 8
-    r_tile, node_block, wb = 8, 16, 2
+    wb = 2
     if variable_degree:
         e = 400
         send = rng.integers(0, 80, e).astype(np.int32)
@@ -537,3 +539,44 @@ def test_segment_max_matches_jax(masked):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
 
+
+
+@pytest.mark.parametrize("r_tile", [8, 24])
+def test_receiver_tiles_of_8_match_jax(r_tile):
+    """Receiver tiles that are multiples of 8 but not of 16 (the card's
+    kernels mask the last warp's 8 rows past the tile there): the forward
+    and its six gradients against the JAX v4 factory in interpret mode."""
+    geo, a = _dense_setup(seed=11, r_tile=r_tile, node_block=48)
+    fused = jpk.make_fused_dense_aggregate(
+        geo["n"], geo["K"], geo["r_tile"], geo["node_block"], geo["wb"])
+    consts = tuple(map(jnp.asarray, (a["tile_win"], a["sloc"], a["pmask"],
+                                     a["ovf_s"], a["ovf_r"])))
+    want = np.asarray(fused(*(jnp.asarray(a[k]) for k in _DIFF), *consts))
+    got = da.dense_aggregate(*_port_args(a), r_tile=r_tile, k=geo["K"],
+                             node_block=geo["node_block"])
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    for name, u, v in zip(_DIFF, _port_grads(geo, a), _jax_grads(geo, a)):
+        np.testing.assert_allclose(u, v, rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def test_dry_run_geometry_is_the_jax_packages():
+    """The port's multi-rank dry run tiles its dense batches as the JAX
+    package's dry run (`__graft_entry__.py`: its dense x halo step,
+    `_dryrun_dense_halo`) does."""
+    import ast
+    import os
+
+    from radargnn_tpu_torch.parallel import dryrun
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "__graft_entry__.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    entry = next(node for node in ast.walk(tree)
+                 if isinstance(node, ast.FunctionDef)
+                 and node.name == "_dryrun_dense_halo")
+    dense = next(ast.literal_eval(node.value) for node in ast.walk(entry)
+                 if isinstance(node, ast.Assign)
+                 and getattr(node.targets[0], "id", None) == "dense")
+    assert dryrun.DENSE == dense
+    assert dryrun.DENSE["r_tile"] == 8

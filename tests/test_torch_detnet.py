@@ -220,8 +220,8 @@ def test_unported_configurations_raise(monkeypatch):
     pre-MLP of two layers and the mean / add aggregations (SplitPreMLP on
     the unfused path, even with use_fused_aggregation set) and
     fused_bf16_max (tests/test_torch_unfused_model.py and
-    tests/test_torch_bf16_max.py hold them to the JAX package); the
-    windowed kernels' variant knobs still raise, naming ROADMAP."""
+    tests/test_torch_bf16_max.py hold them to the JAX package); so do the
+    windowed kernels' variant knobs."""
     kw = _arch_kw(fused=False)
     for extra in (dict(conv_pre_mlp_layer_number=2),
                   dict(aggregation_function="mean"),
@@ -243,8 +243,8 @@ def test_unported_configurations_raise(monkeypatch):
     spec = fused_csr_tiling(tcfg.GNNArchitectureConfig(
         **dict(kw, use_fused_aggregation=True, fused_tiling="auto")), k=K)
     assert spec["mode"] == "dense" and spec["k"] == K + 4
-    monkeypatch.setitem(tlayers._UNPORTED_KNOBS, "RADARGNN_FUSED_STREAM_M",
-                        ("1", "stream_m"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*stream_m"):
-        fused_csr_tiling(tcfg.GNNArchitectureConfig(
-            **dict(kw, use_fused_aggregation=True)), k=K)
+    # a variant knob of the windowed kernels is accepted (its gating is
+    # tests/test_torch_env_knobs.py's)
+    monkeypatch.setattr(tlayers, "STREAM_M", True)
+    assert fused_csr_tiling(tcfg.GNNArchitectureConfig(
+        **dict(kw, use_fused_aggregation=True)), k=K) == spec

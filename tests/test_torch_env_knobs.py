@@ -4,15 +4,19 @@ train.checkpoint).
 Both packages read the knobs when their layers module is imported, so
 each case runs in a subprocess with the knob set: the geometry knobs give
 the same `fused_csr_tiling` in both packages and the same stacked, tiled
-batch; a knob whose kernel variant is not ported raises
-NotImplementedError naming itself; the bf16 routing and the overflow
-segment-sum knobs are accepted; a knob that only chooses how the TPU
-streams its gathers changes nothing."""
+batch; every variant knob is accepted on every tiling and read as the
+JAX package reads it ("1" on, anything else off), and the windowed
+kernels' variant knobs act where the JAX package's do (the single-card
+windowed path under bf16_max: the landing; the same path without it: the
+JAX package's warning, and the baseline; elsewhere nothing); a knob that
+only chooses how the TPU streams its gathers changes nothing; the orbax
+checkpoint backend needs tensorstore and says so where it is missing."""
 
 import json
 import os
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -20,7 +24,6 @@ import pytest
 from radargnn_tpu_torch.data import synthetic as tsyn
 from radargnn_tpu_torch.graph import batch as tbatch
 from radargnn_tpu_torch.models import layers as tlayers
-from radargnn_tpu_torch.train import checkpoint as tckpt
 
 from host_backends import native_cache  # noqa: F401
 
@@ -135,9 +138,11 @@ def test_geometry_knob_tiles_alike_in_both_packages(geometry_reports, knob,
 
 
 # each case: set the knob, reload the port's layers module, ask for the
-# tiling; prints one JSON list of "ACCEPTED" / "RAISED <message>"
-_RAISES = r"""
-import importlib, json, os, sys
+# tiling; prints one JSON list of ["ACCEPTED" / "RAISED <message>", the
+# windowed landing under bf16_max, whether the windowed path without
+# bf16_max warns]
+_ACCEPTS = r"""
+import importlib, json, os, sys, warnings
 from radargnn_tpu_torch import configs as tcfg
 from radargnn_tpu_torch.models import layers as tlayers
 results = []
@@ -151,49 +156,137 @@ for knob, value, mode in json.loads(sys.argv[1]):
         fused_tiling=mode)
     try:
         tlayers.fused_csr_tiling(arch, k=20)
-    except NotImplementedError as err:
-        results.append(f"RAISED {err}")
+    except Exception as err:
+        line = f"RAISED {err}"
     else:
-        results.append("ACCEPTED")
+        line = "ACCEPTED"
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        baseline = tlayers.windowed_landing(False)
+    results.append([line, tlayers.windowed_landing(True),
+                    bool(caught) and not baseline])
     del os.environ[knob]
 print(json.dumps(results))
 """
 
+# (knob, value, fused tiling, the windowed landing under bf16_max, whether
+# the windowed path warns without bf16_max)
 _VARIANTS = [
-    ("RADARGNN_FUSED_BF16_MAX", "1", "dense", False),
-    ("RADARGNN_FUSED_BF16_MAX", "0", "dense", False),
-    ("RADARGNN_FUSED_OVF_SSUM", "1", "dense", False),
-    ("RADARGNN_FUSED_STREAM_M", "1", "windowed", True),
-    ("RADARGNN_FUSED_BF16_LANDING", "1", "windowed", True),
-    ("RADARGNN_FUSED_PRECOMP_LAND", "1", "csr", True),
-    ("RADARGNN_FUSED_SENDER_DX", "1", "windowed", False),
-    ("RADARGNN_FUSED_SENDER_DX", "1", "dense", False),
-    ("RADARGNN_FUSED_PRECOMP_EQ", "0", "windowed", False),
-    ("RADARGNN_FUSED_PRECOMP_EQT", "1", "windowed", False),
-    ("RADARGNN_FUSED_EQ_MIN_WIDTH", "64", "dense", False),
-    ("RADARGNN_FUSED_DENSE_XLA_MAX_WIDTH", "64", "dense", False),
+    ("RADARGNN_FUSED_BF16_MAX", "1", "dense", False, False),
+    ("RADARGNN_FUSED_BF16_MAX", "0", "dense", False, False),
+    ("RADARGNN_FUSED_OVF_SSUM", "1", "dense", False, False),
+    ("RADARGNN_FUSED_STREAM_M", "1", "windowed", False, True),
+    ("RADARGNN_FUSED_BF16_LANDING", "1", "windowed", True, True),
+    ("RADARGNN_FUSED_PRECOMP_LAND", "1", "csr", False, True),
+    ("RADARGNN_FUSED_BF16_LANDING", "2", "windowed", False, False),
+    ("RADARGNN_FUSED_STREAM_M", "true", "dense", False, False),
+    ("RADARGNN_FUSED_SENDER_DX", "1", "windowed", False, False),
+    ("RADARGNN_FUSED_SENDER_DX", "1", "dense", False, False),
+    ("RADARGNN_FUSED_PRECOMP_EQ", "0", "windowed", False, False),
+    ("RADARGNN_FUSED_PRECOMP_EQT", "1", "windowed", False, False),
+    ("RADARGNN_FUSED_EQ_MIN_WIDTH", "64", "dense", False, False),
+    ("RADARGNN_FUSED_DENSE_XLA_MAX_WIDTH", "64", "dense", False, False),
 ]
 
 
 @pytest.fixture(scope="module")
 def variant_results():
     return json.loads(_subprocess(
-        _RAISES, json.dumps([case[:3] for case in _VARIANTS])))
+        _ACCEPTS, json.dumps([case[:3] for case in _VARIANTS])))
 
 
 @pytest.mark.parametrize("case", range(len(_VARIANTS)))
 def test_variant_knobs_raise_where_not_ported(variant_results, case):
-    """An unported variant raises NotImplementedError naming its knob; the
-    TPU-only stream knobs, BF16_MAX=1 and 0 (bf16 and strict routing),
-    OVF_SSUM=1 (the dense overflow d_x through the segment sum) and
-    SENDER_DX=1 on the dense and windowed paths (their backward's form)
-    are accepted."""
-    knob, _, _, raises = _VARIANTS[case]
-    line = variant_results[case]
-    if raises:
-        assert line.startswith("RAISED") and knob in line, line
-    else:
-        assert line == "ACCEPTED", line
+    """Every variant knob is accepted on every tiling (none is left
+    unported) and read as the JAX package reads it: BF16_LANDING=1 lands
+    the windowed maxima in bf16 under bf16_max, any value but "1" is off,
+    PRECOMP_LAND alone is ignored, and STREAM_M, BF16_LANDING or
+    PRECOMP_LAND set without bf16_max warn and run the baseline; the
+    TPU-only stream knobs, BF16_MAX, OVF_SSUM and SENDER_DX are
+    accepted."""
+    _, _, _, landing, warns = _VARIANTS[case]
+    line, got_landing, got_warns = variant_results[case]
+    assert line == "ACCEPTED", line
+    assert (got_landing, got_warns) == (landing, warns)
+
+
+def _knob_tilings():
+    """The port's three single-card tilings of one small frame pair
+    (geometry shrunk to fit 256 nodes)."""
+    from radargnn_tpu_torch import configs as tcfg
+
+    tilings = {}
+    for mode in ("dense", "windowed", "csr"):
+        arch = tcfg.GNNArchitectureConfig(
+            node_feature_dimension=5, edge_feature_dimension=2,
+            conv_layer_dimensions=[8],
+            classification_head_layer_dimensions=[6],
+            regression_head_layer_dimensions=[5],
+            use_fused_aggregation=True, fused_tiling=mode,
+            fused_overflow_fraction=0.3)
+        spec = tlayers.fused_csr_tiling(arch, k=20)
+        spec = dict(spec, node_block=64, r_tile=16) \
+            if isinstance(spec, dict) else (64, 64) + tuple(spec[2:])
+        b = tbatch.stack_samples(
+            tsyn.make_samples(num_frames=2, num_points=200, seed=0),
+            max_nodes=256, bg_index=5, max_edges=256 * 20, csr_tiling=spec,
+            device="cpu")
+        tilings[mode] = b.flat_tiling()
+    return tilings
+
+
+@pytest.mark.parametrize("bf16_max", [False, True])
+def test_variant_knobs_act_only_on_the_windowed_path(monkeypatch, bf16_max):
+    """With all three knobs set (the module constants the env sets), the
+    windowed aggregation is asked for the landing under bf16_max and warns
+    without it (the JAX package's message, the baseline run); the dense
+    and CSR aggregations neither warn nor change; the halo path never
+    reads the knobs."""
+    import torch
+
+    for name in ("STREAM_M", "BF16_LANDING", "PRECOMP_LAND"):
+        monkeypatch.setattr(tlayers, name, True)
+    asked = []
+    windowed = tlayers.windowed_aggregate
+
+    def spy(*args, **kw):
+        asked.append(kw["bf16_landing"])
+        return windowed(*args, **kw)
+
+    monkeypatch.setattr(tlayers, "windowed_aggregate", spy)
+    gen = torch.Generator().manual_seed(0)
+    for mode, tiling in _knob_tilings().items():
+        n = tiling.landing.row_ptr.shape[0] - 1
+        de = tiling.edge_feat.shape[1]
+        args = (torch.randn(n, 8, generator=gen),
+                torch.randn(8, 8, generator=gen),
+                torch.randn(de, 8, generator=gen),
+                torch.randn(n, 8, generator=gen), tiling, bf16_max)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = tlayers._fused_hoisted_max(*args)
+        assert torch.isfinite(out).all()
+        msgs = [str(w.message) for w in caught]
+        if mode == "windowed" and not bf16_max:
+            assert len(msgs) == 1 and "require bf16_max routing" in msgs[0]
+        else:
+            assert msgs == [], (mode, msgs)
+    assert asked == [bf16_max]
+
+    # the halo path: the conv hands the bundle to the halo aggregation,
+    # which never asks for the landing
+    from radargnn_tpu_torch.models.layers import MPNNConv
+
+    monkeypatch.setattr(tlayers, "windowed_landing", lambda *a: 1 / 0)
+    seen = []
+    monkeypatch.setattr(
+        tlayers, "halo_hoisted_max_batched",
+        lambda x, w_s, w_e, offset, halo, bf16: seen.append(bf16) or offset)
+    conv = MPNNConv(8, 2, 8, bf16_max=bf16_max)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        conv(torch.randn(6, 8), None, None, torch.randn(4, 2), halo=object())
+    assert seen == [bf16_max] and not caught
 
 
 def test_tpu_only_knob_changes_nothing(tmp_path):
@@ -240,17 +333,35 @@ print(json.dumps(repr(spec)))
         np.testing.assert_array_equal(got[k], v.numpy(), err_msg=k)
 
 
-def test_orbax_checkpoint_backend_raises(tmp_path, monkeypatch):
-    monkeypatch.setenv("RADARGNN_CKPT_BACKEND", "orbax")
-    with pytest.raises(NotImplementedError, match="RADARGNN_CKPT_BACKEND"):
-        tckpt.save_train_state(str(tmp_path), params={}, batch_stats={},
-                               opt_state={}, epoch=0, losses={},
-                               scheduler_lr=1e-3)
-    monkeypatch.setenv("RADARGNN_CKPT_BACKEND", "msgpack")
-    tckpt.save_train_state(str(tmp_path), params={}, batch_stats={},
-                           opt_state={}, epoch=0, losses={},
-                           scheduler_lr=1e-3)
-    assert (tmp_path / "meta.json").exists()
+def test_orbax_backend_without_tensorstore_raises(tmp_path):
+    """With tensorstore hidden (as on a machine without it), the orbax
+    save (RADARGNN_CKPT_BACKEND=orbax) and the load of an orbax/ folder
+    each raise ImportError naming tensorstore and the orbax backend; the
+    msgpack backend still writes."""
+    code = r"""
+import os, sys
+sys.modules["tensorstore"] = None
+from radargnn_tpu_torch.train import checkpoint as ckpt
+folder = sys.argv[1]
+kw = dict(params={"w": __import__("numpy").ones(2)}, batch_stats={},
+          opt_state={}, epoch=0, losses={}, scheduler_lr=1e-3)
+os.environ["RADARGNN_CKPT_BACKEND"] = "orbax"
+raised = []
+for call in (lambda: ckpt.save_train_state(folder, **kw),
+             lambda: ckpt.load_train_state(folder)):
+    try:
+        call()
+    except ImportError as err:
+        raised.append(str(err))
+    os.makedirs(os.path.join(folder, "orbax"), exist_ok=True)
+ckpt.save_train_state(folder, backend="msgpack", **kw)
+print(json.dumps([raised, sorted(os.listdir(folder))]))
+"""
+    raised, files = json.loads(_subprocess(
+        "import json\n" + code, str(tmp_path)))
+    assert len(raised) == 2, raised
+    assert all("tensorstore" in m and "orbax" in m for m in raised), raised
+    assert {"model.msgpack", "opt_state.msgpack", "meta.json"} <= set(files)
 
 
 def test_bf16_max_config_still_raises_in_process(monkeypatch):

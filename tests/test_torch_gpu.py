@@ -167,9 +167,24 @@ def test_kernel_refuses_what_it_does_not_take():
         da.dense_fwd(args[0].bfloat16(), *args[1:], **c["kw"])
     with pytest.raises(ValueError, match="bf16"):
         da.dense_fwd(args[0], args[1].float(), *args[2:], **c["kw"])
-    c = _case(3, 128, 7, 8, 32, 24, 8, 40)          # 8 receivers per tile
-    with pytest.raises(ValueError, match="r_tile"):
+    c = _case(3, 96, 7, 12, 48, 24, 8, 40)        # 12 receivers per tile
+    with pytest.raises(ValueError, match="multiple of 8"):
         da.dense_fwd(*_fwd_args(c), **c["kw"])
+    b_args = _bwd_inputs(_case(3, 96, 7, 16, 48, 24, 8, 40), 3)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        da.dense_bwd(*b_args, r_tile=12, k=7)
+
+
+# (n, K, R, node_block, d_in, d_e, H) at receiver tiles of 8 and 24, where
+# the last warp of 16 rows holds 8 past the tile: a small tile with H not a
+# multiple of 64, then the flagship's widths
+_RSHAPES = [
+    (96, 7, 8, 32, 24, 8, 40),
+    (96, 7, 24, 32, 24, 8, 40),
+    (1024, 24, 8, 256, 224, 16, 464),
+    (1536, 24, 24, 256, 224, 16, 464),
+    (1536, 24, 24, 256, 64, 16, 144),
+]
 
 
 def _bwd_inputs(c, seed, dyadic=False):
@@ -228,6 +243,79 @@ def test_dense_bwd_kernel_matches_plain(shape, dyadic):
         if dyadic and name != "dW_e":
             assert torch.equal(u, v), name
     assert float(got[2].abs().max()) > 0 and float(got[3].abs().max()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _RSHAPES)
+def test_dense_kernels_at_receiver_tiles_of_8(shape):
+    """B1 and B2 where r_tile % 16 == 8: the gather-max against its plain
+    version (serving and VJP mode, real-valued inputs, the dense forward's
+    limits), then on dyadic inputs the bits and the backward's outputs
+    bitwise, and two backward runs equal."""
+    _need_card()
+    c = _case(6, *shape)
+    args = _fwd_args(c)
+    got = da.dense_fwd(*args, **c["kw"])
+    got_vjp, inner, bits = da.dense_fwd(*args, emit_inner=True, **c["kw"])
+    want, want_inner, want_bits = da.dense_fwd_plain(*args, emit_inner=True,
+                                                     **c["kw"])
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, got_vjp)
+    assert _rel_err(got, want) <= RTOL
+    assert torch.equal(got == 0, want == 0)
+    assert torch.equal(inner > da._NEG / 2, want_inner > da._NEG / 2)
+    assert smoke._popcount(bits ^ want_bits) <= \
+        smoke.BITS_FLIP_FRAC * bits.numel() * 32
+    b_args = _bwd_inputs(c, 7, dyadic=True)
+    _, _, want_bits = da.dense_fwd_plain(*_fwd_args(c), emit_inner=True,
+                                         **c["kw"])
+    assert torch.equal(b_args[0], want_bits)
+    got = da.dense_bwd(*b_args, **_bkw(c))
+    again = da.dense_bwd(*b_args, **_bkw(c))
+    want = da.dense_bwd_plain(*b_args, **_bkw(c))
+    torch.cuda.synchronize()
+    for name, u, v, w in zip(("d_e", "dW_e", "d_ys", "d_yo"), got, want,
+                             again):
+        assert torch.equal(u, w), name
+        assert _rel_err(u.float(), v.float()) <= RTOL, name
+        if name != "dW_e":
+            assert torch.equal(u, v), name
+    assert smoke._popcount(b_args[0]) > 0
+
+
+@pytest.mark.gpu
+def test_dense_shared_memory_at_receiver_tiles_of_8():
+    """The gather-max's and the backward's shared memory at r_tile 8 and
+    24 (the edge-row buffers take 16 rows a warp), and the wrappers'
+    refusal where a block's would not fit."""
+    _need_card()
+    fwd, bwd = da.load_fwd_kernel(), da.load_bwd_kernel()
+    for r, de, k in ((8, 16, 24), (24, 16, 24), (24, 8, 7), (16, 16, 24)):
+        r16, lde = -(-r // 16) * 16, -(-de // 16) * 16 + 8
+        index = 4 * (r * k + 192 + 2 * 128 + 4) + 2 * r * k
+        want = -(-index // 16) * 16 + 2 * (64 + 2 * r16) * lde \
+            + 4 * 192 * 72
+        assert fwd.dense_fwd_v4_smem_bytes(de, r, k) == want, (r, de, k)
+        assert bwd.dense_bwd_v4_smem_bytes(512, r) == 2 * r * 520
+    # 24 receivers x 1,200 slot rows: the index arrays pass a block's limit
+    n, k, de, h = 24, 1200, 16, 64
+    dev = torch.device("cuda")
+    z = functools.partial(torch.zeros, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        da.dense_fwd(z((n, 64)), z((n * k, de), dtype=torch.bfloat16),
+                     z((de, h), dtype=torch.bfloat16),
+                     z((n * k,), dtype=torch.int32),
+                     z((1,), dtype=torch.int32), z((n, h)), z((n, h)),
+                     r_tile=24, k=k, node_block=32)
+    # the backward stages the tile's g rows over every column: 4,864 wide
+    k, h = 2, 4864
+    hp = da.col_pad(h)
+    with pytest.raises(ValueError, match="shared memory"):
+        da.dense_bwd(z((n * k, hp // 32), dtype=torch.int32), z((n, h)),
+                     z((n * k, de), dtype=torch.bfloat16),
+                     z((de, h), dtype=torch.bfloat16), z((0, h)),
+                     z((0,), dtype=torch.int32),
+                     z((n + 1,), dtype=torch.int32), r_tile=24, k=k)
 
 
 @pytest.mark.gpu
@@ -407,6 +495,63 @@ def test_windowed_fwd_kernel_matches_plain(shape, run_cap):
     flips = smoke._popcount(bits ^ want_bits)
     assert flips <= smoke.BITS_FLIP_FRAC * bits.numel() * 32
     assert smoke._popcount(bits) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _WSHAPES)
+def test_windowed_fwd_landing_matches_plain(shape):
+    """B4's gather-max with bf16_max and the bf16 landing against its plain
+    version: on real-valued inputs the landing adds at most one bf16 ulp
+    of a landed max to the two sums' own difference, on at most
+    smoke_variants.BF16_BITS_FLIP_FRAC of the entries, and moves maxima
+    off bf16_max alone's; on dyadic
+    inputs (the same sums in any order) out, inner and the bits
+    bitwise."""
+    from radargnn_tpu_torch.smoke_variants import (
+        BF16_BITS_FLIP_FRAC, _bf16_ulp,
+    )
+
+    _need_card()
+    kw = dict(bf16_max=True, bf16_landing=True)
+    for dyadic in (False, True):
+        c = _wcase(21, *shape)
+        if dyadic:
+            gen = torch.Generator().manual_seed(22)
+            for name, scale in (("x", 1.0), ("w_s", 0.25), ("e_t", 1.0),
+                                ("w_e", 0.25), ("e_ovf", 1.0)):
+                c[name] = (torch.randint(-4, 5, c[name].shape, generator=gen)
+                           * scale / 2).to(c[name])
+        args = _w_fwd_args(c)
+        before = (wa.windowed_fwd_cuda.launches,
+                  wa.windowed_fwd_cuda.landing_launches)
+        got = wa.windowed_fwd(*args, **c["kw"], **kw)
+        got_vjp, inner, bits = wa.windowed_fwd(*args, emit_inner=True,
+                                               **c["kw"], **kw)
+        torch.cuda.synchronize()
+        assert (wa.windowed_fwd_cuda.launches,
+                wa.windowed_fwd_cuda.landing_launches) == (
+            before[0] + 2, before[1] + 2)
+        want, want_inner, want_bits = wa.windowed_fwd_plain(
+            *args, emit_inner=True, **c["kw"], **kw)
+        assert torch.isfinite(got).all() and torch.equal(got, got_vjp)
+        has = want_inner > da._NEG / 2
+        assert torch.equal(inner > da._NEG / 2, has)
+        if dyadic:
+            assert torch.equal(got, want) and torch.equal(inner, want_inner)
+            assert torch.equal(bits, want_bits)
+            continue
+        _, unlanded, _ = wa.windowed_fwd_plain(
+            *args, emit_inner=True, bf16_max=True, **c["kw"])
+        _, k_unlanded, _ = wa.windowed_fwd(
+            *args, emit_inner=True, bf16_max=True, **c["kw"])
+        assert bool((unlanded != want_inner).any())
+        d = torch.where(has, (inner - want_inner).abs(), 0.0)
+        d_sums = torch.where(has, (k_unlanded - unlanded).abs(), 0.0)
+        ulp = _bf16_ulp(torch.where(has, want_inner, 1.0))
+        assert bool((d <= ulp + d_sums).all())
+        assert int((d > 0).sum()) <= BF16_BITS_FLIP_FRAC * d.numel()
+        assert smoke._popcount(bits ^ want_bits) <= \
+            BF16_BITS_FLIP_FRAC * bits.numel() * 32
 
 
 def _w_bwd_inputs(c, seed, dyadic=False):
@@ -1440,13 +1585,15 @@ def test_smoke_on_card():
     cli = [a + b for a, b in zip(summary["cli"]["train_launches"],
                                  summary["cli"]["evaluate_launches"])]
     assert cli == [5 * 2 * 8 + 5 * 2, 5 * 2 * 6] + [0] * 9 + [5 * 2 * 8
-                                                              + 5 * 2, 0, 0]
+                                                              + 5 * 2, 0, 0,
+                                                              0]
     # the nuScenes CLI's train (2 epochs of 2 train and 1 validate batches)
     # and evaluate (2 batches), which the kernels line adds in too
     nus = [a + b for a, b in zip(summary["nuscenes"]["train_launches"],
                                  summary["nuscenes"]["evaluate_launches"])]
     assert nus == [5 * 2 * 3 + 5 * 2, 5 * 2 * 2] + [0] * 9 + [5 * 2 * 3
-                                                              + 5 * 2, 0, 0]
+                                                              + 5 * 2, 0, 0,
+                                                              0]
     cli = [a + b for a, b in zip(cli, nus)]
     # B1 and B2 held on the nuScenes train CLI's first batch of 32 frames
     checked = summary["nuscenes"]
@@ -1459,16 +1606,19 @@ def test_smoke_on_card():
     # kernel_bench's check, warm-up and 2 timed calls), the forward through
     # both v1 factories and the kernel backward
     # the ninth phase: B1's and B4's bf16 test in the fused_bf16_max
-    # trainings (two steps), B3 on the overflow rows in the ovf_ssum one
+    # trainings (two steps), B3 on the overflow rows in the ovf_ssum one,
+    # B4's landing in the variant knobs' training, B1 and B2 in the
+    # training at r_tile 8 (two steps each)
     assert [k["launches"] for k in summary["kernels"]] == \
         [3 * 5 * 2 + cli[11], 5 * 2 + cli[0], 5 * 2 + cli[1], 2 * 5 * 2,
          5 * 2, 5 * 2, 5 * 2, 5 * 2, 1, 1 + 3 + 1, 2, 1, 5 * 2, 5 * 2,
-         5 * 2]
-    assert summary["serve_launches"] == [5 * 3] + [0] * 10 + [5 * 3, 0, 0]
+         5 * 2, 5 * 2, 5 * 2, 5 * 2]
+    assert summary["serve_launches"] == [5 * 3] + [0] * 10 + [5 * 3, 0, 0,
+                                                              0]
     assert summary["radius"]["serve_launches"] == \
-        [0, 0, 0, 5 * 3] + [0] * 7 + [5 * 3, 0, 0]
+        [0, 0, 0, 5 * 3] + [0] * 7 + [5 * 3, 0, 0, 0]
     assert summary["csr"]["serve_launches"] == \
-        [0] * 5 + [5 * 3] + [0] * 5 + [5 * 3, 0, 0]
+        [0] * 5 + [5 * 3] + [0] * 5 + [5 * 3, 0, 0, 0]
     for kernel in summary["kernels"]:
         assert kernel["ms"] > 0 and kernel["plain_ms"] > 0
     assert summary["kernels"][0]["library_ms"] > 0

@@ -56,6 +56,7 @@ from tests.test_halo_dense import DENSE
 from tests.test_halo_training import CSR, HALO, _arch, _samples
 
 import torch_parallel_workers as W
+from torch_threads import few_threads  # noqa: F401
 
 TILINGS = {"dense": DENSE, "windowed": CSR}
 LR = 1e-3
@@ -481,6 +482,7 @@ def test_cli_trains_under_mesh_axes_on_two_gloo_ranks(tmp_path):
         ttrain.main(data, str(results), config, device="cpu")
 
 
+@pytest.mark.usefixtures("few_threads")
 def test_parallel_phase_rehearses_on_cpu():
     """The smoke's tenth phase (`smoke_parallel.parallel_phase`) at a tiny
     size with gloo ranks on the CPU, where the wrappers take their plain

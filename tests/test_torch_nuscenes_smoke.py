@@ -1,7 +1,7 @@
 """The nuScenes e2e (`python -m radargnn_tpu_torch.benchmarks.nuscenes_e2e`)
 on the CPU, and the on-card smoke's eighth phase (`smoke.nuscenes_phase`)
-rehearsed: its configuration and its table writer at a tiny size. The
-phase itself runs inside `test_torch_package.py::test_smoke_rehearses_on_cpu`."""
+rehearsed: its configuration, its table writer and the phase itself at a
+tiny size."""
 
 import os
 import re
@@ -23,6 +23,7 @@ from radargnn_tpu_torch.data.nuscenes.dataset_creation import (
     CLASS_NAME_TO_ID, NuScenesGraphDataset,
 )
 from radargnn_tpu_torch.graph.batch import GraphSample
+from torch_threads import few_threads  # noqa: F401
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -158,3 +159,37 @@ def test_phase_objects_move_and_are_seen(phase_tables, tmp_path):
             assert set(np.unique(sample.labels[sample.labels > 0])) == want
             assert 200 < sample.num_nodes < 400
             assert len(np.unique(sample.node_feat[:, 3])) == 6  # time index
+
+
+@pytest.mark.usefixtures("few_threads")
+def test_nuscenes_phase_rehearses_on_cpu():
+    """The eighth phase at a tiny size (the YAML's widths, batches of 4): 4
+    + 4 train and 2 validate samples of about 300 points, its checks, the
+    oracle and the e2e child; B1 and B2 held against their plain versions
+    on the train CLI's first batch (4 frames here, the YAML's 32 on the
+    card)."""
+    lines = []
+    nus = smoke.nuscenes_phase(
+        torch.device("cpu"), scale=0.125, points_per_sweep=8,
+        replaced=dict(smoke.NUSCENES_REPLACED, batch_size=4), seed=0,
+        reps=1, out=lines.append)
+    assert nus["replaced"] == {"epochs": 2, "batch_size": 4}
+    assert nus["frames"] == {"train": 8, "validate": 2}
+    assert nus["train_launches"] == nus["evaluate_launches"] == \
+        [0] * len(smoke.KERNEL_NAMES)
+    assert len(nus["train_epoch_s"]) == 2 and len(nus["train_batch_edges"]) \
+        == 2
+    assert nus["max_abs_dprob"] == nus["max_rel_dbox"] == 0.0
+    assert 0.0 <= nus["map"] <= 1.0 and 0.0 <= nus["nds"] <= 1.0
+    assert np.isfinite(nus["f1"]).all() and len(nus["f1"]) == 11
+    assert nus["oracle"]["max_abs_dmetric"] == 0.0
+    assert len(nus["oracle"]["label_aps"]) == 8
+    assert all(ap > 0.9 for ap in nus["oracle"]["label_aps"].values())
+    assert nus["e2e"].startswith("NUSC-TORCH ok: mAP=")
+    assert nus["validate_tiling"]["overflow_budget"] > 0
+    assert len(nus["train_tiling"]["valid_edges"]) == 4
+    assert max(nus["train_tiling"]["overflow_edges"]) > 0
+    assert [r["d_in"] for r in nus["per_shape"]] == [224, 224, 224, 128, 64]
+    assert all(r["bits_flipped"] == 0 for r in nus["per_shape"])
+    assert all(r["bitwise_repeat"] and r["routed"] > 0
+               for r in nus["per_shape_bwd"])

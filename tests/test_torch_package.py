@@ -16,6 +16,7 @@ import torch
 
 import radargnn_tpu_torch
 from radargnn_tpu_torch import smoke
+from torch_threads import few_threads  # noqa: F401
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.dirname(os.path.abspath(radargnn_tpu_torch.__file__))
@@ -102,48 +103,31 @@ def test_every_submodule_imports_without_jax():
         assert os.path.join(_PKG, *path) in _port_sources()
 
 
-def test_smoke_rehearses_on_cpu():
-    """The on-card smoke, at a tiny size on the CPU: the flagship config on
-    the kNN graph (dense tiling), on the radius graph (windowed tiling, r
-    scaled as 3.0·sqrt(2816/points) so the mean degree stays near 20) and
-    on the kNN graph under the CSR tiling, the seven kernels' checks
-    against their plain versions at the model's layer shapes (the windowed
-    and the CSR ones on two layouts each), three requests, four train steps
-    on the kernel path, again and on the plain path (here all plain); the
-    fourth phase (the other four kernels against their plain versions at
-    the flagship's widths, then kernel_check and kernel_bench, the latter
-    at a tiny size); the ninth phase (bf16 routing, ovf_ssum, the unfused
-    configurations, the tools); and the kernels line with every key the
-    chip run reports, each of the fifteen entries pointing at the TPU
-    kernel it replaces. Nothing is timed and nothing launches here."""
-    lines = []
-    before = torch.are_deterministic_algorithms_enabled()
-    summary = smoke.run("cpu", points=200, graphs=2, batches=3, reps=1,
-                        bench=(2000, 96, 24, 40), out=lines.append)
-    assert torch.are_deterministic_algorithms_enabled() == before
-    kernels = summary["kernels"]
-    assert [k["name"] for k in kernels] == [
-        "dense_proj_v4", "dense_fwd_v4", "dense_bwd_v4", "segment_sum_csr",
-        "windowed_fwd_v3",
-        "windowed_bwd_v3", "csr_fwd_v2", "csr_bwd_v2", "fused_linear",
-        "msg_segmax", "hoisted_fwd_v1", "hoisted_bwd_v1",
-        "dense_fwd_v4_bf16_max", "windowed_fwd_v3_bf16_max",
-        "segment_sum_csr_ovf_ssum"]
-    replaced = {"dense_proj_v4": "def _fused_fwd_kernel_v4",
-                "dense_fwd_v4": "def _fused_fwd_kernel_v4",
-                "dense_bwd_v4": "def _fused_bwd_kernel_v4",
-                "segment_sum_csr": "def _segsum_kernel",
-                "windowed_fwd_v3": "def _fused_fwd_kernel_v3",
-                "windowed_bwd_v3": "def _fused_bwd_kernel_v3",
-                "csr_fwd_v2": "def _fused_fwd_kernel_v2",
-                "csr_bwd_v2": "def _fused_bwd_kernel_v2",
-                "fused_linear": "def _linear_kernel",
-                "msg_segmax": "def _msg_segmax_scan_kernel",
-                "hoisted_fwd_v1": "def _hoisted_scan_kernel",
-                "hoisted_bwd_v1": "def _hoisted_bwd_kernel",
-                "dense_fwd_v4_bf16_max": "def _fused_bwd_kernel_v4",
-                "windowed_fwd_v3_bf16_max": "def _fused_bwd_kernel_v3",
-                "segment_sum_csr_ovf_ssum": "def _segsum_kernel"}
+# the TPU kernel (the line's start) each entry of the kernels line replaces
+_REPLACED = {"dense_proj_v4": "def _fused_fwd_kernel_v4",
+             "dense_fwd_v4": "def _fused_fwd_kernel_v4",
+             "dense_bwd_v4": "def _fused_bwd_kernel_v4",
+             "segment_sum_csr": "def _segsum_kernel",
+             "windowed_fwd_v3": "def _fused_fwd_kernel_v3",
+             "windowed_bwd_v3": "def _fused_bwd_kernel_v3",
+             "csr_fwd_v2": "def _fused_fwd_kernel_v2",
+             "csr_bwd_v2": "def _fused_bwd_kernel_v2",
+             "fused_linear": "def _linear_kernel",
+             "msg_segmax": "def _msg_segmax_scan_kernel",
+             "hoisted_fwd_v1": "def _hoisted_scan_kernel",
+             "hoisted_bwd_v1": "def _hoisted_bwd_kernel",
+             "dense_fwd_v4_bf16_max": "def _fused_bwd_kernel_v4",
+             "windowed_fwd_v3_bf16_max": "def _fused_bwd_kernel_v3",
+             "segment_sum_csr_ovf_ssum": "def _segsum_kernel",
+             "windowed_fwd_v3_bf16_landing": "        if bf16_landing:",
+             "dense_fwd_v4_r_tile_8": "def _fused_fwd_kernel_v4",
+             "dense_bwd_v4_r_tile_8": "def _fused_bwd_kernel_v4"}
+
+
+def check_kernel_entries(kernels):
+    """Every entry of the kernels line as the CPU rehearsal gives it: the
+    chip run's keys, no launch and no time, exact agreement, a bound, its
+    source in the repo, and the line of the TPU kernel it replaces."""
     for kernel in kernels:
         assert set(kernel) == {"name", "route", "source", "replaces",
                                "launches", "max_abs_err", "ms", "plain_ms",
@@ -157,7 +141,40 @@ def test_smoke_rehearses_on_cpu():
         path, line = kernel["replaces"].split(":")
         with open(os.path.join(_REPO, path)) as f:
             assert f.readlines()[int(line) - 1].startswith(
-                replaced[kernel["name"]])
+                _REPLACED[kernel["name"]])
+
+
+@pytest.mark.usefixtures("few_threads")
+def test_smoke_rehearses_on_cpu():
+    """The on-card smoke, at a tiny size on the CPU: the flagship config on
+    the kNN graph (dense tiling), on the radius graph (windowed tiling, r
+    scaled as 3.0·sqrt(2816/points) so the mean degree stays near 20) and
+    on the kNN graph under the CSR tiling, the seven kernels' checks
+    against their plain versions at the model's layer shapes (the windowed
+    and the CSR ones on two layouts each), three requests, four train steps
+    on the kernel path, again and on the plain path (here all plain); the
+    fourth phase (the other four kernels against their plain versions at
+    the flagship's widths, then kernel_check and kernel_bench, the latter
+    at a tiny size); the fifth and sixth (evaluation, bench); and the
+    kernels line with every key the chip run reports, each of the twelve
+    entries of these phases pointing at the TPU kernel it replaces. The
+    seventh to tenth phases run on the card only; each is rehearsed here
+    by a test of its own (tests/test_torch_smoke_cli.py,
+    test_torch_nuscenes_smoke.py, test_torch_smoke_variants.py and
+    test_torch_smoke_settings.py, test_torch_halo.py). Nothing is timed and nothing launches here."""
+    lines = []
+    before = torch.are_deterministic_algorithms_enabled()
+    summary = smoke.run("cpu", points=200, graphs=2, batches=3, reps=1,
+                        bench=(2000, 96, 24, 40), out=lines.append)
+    assert torch.are_deterministic_algorithms_enabled() == before
+    kernels = summary["kernels"]
+    assert [k["name"] for k in kernels] == [
+        "dense_proj_v4", "dense_fwd_v4", "dense_bwd_v4", "segment_sum_csr",
+        "windowed_fwd_v3",
+        "windowed_bwd_v3", "csr_fwd_v2", "csr_bwd_v2", "fused_linear",
+        "msg_segmax", "hoisted_fwd_v1", "hoisted_bwd_v1"]
+    assert not {"cli", "nuscenes", "variants", "parallel"} & set(summary)
+    check_kernel_entries(kernels)
     assert [r["d_in"] for r in summary["per_shape"]] == [224, 224, 224, 128,
                                                           64]
     assert [r["h"] for r in summary["per_shape_proj"]] == [464, 464, 464,
@@ -246,61 +263,6 @@ def test_smoke_rehearses_on_cpu():
     for b in summary["bench"]:
         assert b["metric"] == f"{b['mode']}_edges_per_s" and b["value"] > 0
         assert [r["path"] for r in b["runs"]] == ["fused", "unfused"]
-    # the eighth phase: the nuScenes pipeline at a tiny size (the YAML's
-    # widths, batches of 4): 4 + 4 train and 2 validate samples of about
-    # 300 points, its checks, the oracle and the e2e child
-    nus = summary["nuscenes"]
-    assert nus["replaced"] == {"epochs": 2, "batch_size": 4}
-    assert nus["frames"] == {"train": 8, "validate": 2}
-    assert nus["train_launches"] == nus["evaluate_launches"] == [0] * len(smoke.KERNEL_NAMES)
-    assert len(nus["train_epoch_s"]) == 2 and len(nus["train_batch_edges"]) \
-        == 2
-    assert nus["max_abs_dprob"] == nus["max_rel_dbox"] == 0.0
-    assert 0.0 <= nus["map"] <= 1.0 and 0.0 <= nus["nds"] <= 1.0
-    assert np.isfinite(nus["f1"]).all() and len(nus["f1"]) == 11
-    assert nus["oracle"]["max_abs_dmetric"] == 0.0
-    assert len(nus["oracle"]["label_aps"]) == 8
-    assert all(ap > 0.9 for ap in nus["oracle"]["label_aps"].values())
-    assert nus["e2e"].startswith("NUSC-TORCH ok: mAP=")
-    assert nus["validate_tiling"]["overflow_budget"] > 0
-    # B1 and B2 held against their plain versions on the train CLI's first
-    # batch (4 frames here, the YAML's 32 on the card)
-    assert len(nus["train_tiling"]["valid_edges"]) == 4
-    assert max(nus["train_tiling"]["overflow_edges"]) > 0
-    assert [r["d_in"] for r in nus["per_shape"]] == [224, 224, 224, 128, 64]
-    assert all(r["bits_flipped"] == 0 for r in nus["per_shape"])
-    assert all(r["bitwise_repeat"] and r["routed"] > 0
-               for r in nus["per_shape_bwd"])
-    assert last["nuscenes"]["per_shape_bwd"] == nus["per_shape_bwd"]
-    # the ninth phase: bf16 routing, ovf_ssum, the unfused model, the tools
-    var = summary["variants"]
-    for key in ("dense_bits", "windowed_bits"):
-        assert [r["d_in"] for r in var[key]] == [224, 224, 224, 128, 64]
-        assert all(r["bits_flipped"] == 0 and r["ties_bits_equal"]
-                   and r["ties_routed"] > r["ties_routed_strict"]
-                   for r in var[key])
-    assert [r["d"] for r in var["ovf_landing"]] == [224, 224, 224, 128, 64]
-    for key in ("dense_train", "windowed_train", "ovf_ssum_train"):
-        assert var[key]["train_max_rel_loss_diff"] == 0.0
-        assert np.isfinite(var[key]["train_losses"]).all()
-    # bf16 routing: the first step's forward as the strict run's, the
-    # second step's parameters moved by other gradients
-    for key, strict in (("dense_train", summary["train_losses"]),
-                        ("windowed_train", radius["train_losses"])):
-        assert len(var[key]["train_losses"]) == 2
-        assert var[key]["train_losses"][0] == strict[0]
-        assert var[key]["train_losses"][1] != strict[1]
-    assert np.isfinite(var["csr_train"]["losses"]).all()
-    assert [u["case"] for u in var["unfused"]] == [
-        "MPNNConv, pre-MLP 2 layers, mean",
-        "RadarPointGNNConv, pre-MLP 2 layers, add"]
-    assert all(u["bitwise_repeat"] and len(u["losses"]) == 2
-               for u in var["unfused"])
-    tools = var["tools"]
-    assert [m["metric"] for m in tools["convergence"][-2:]] == [
-        "synthetic_map", "synthetic_f1_macro"]
-    assert tools["preprocessing"][1].startswith("2-process pool: ")
-    assert last["variants"]["dense_bits"] == var["dense_bits"]
 
 
 def test_postprocess_and_bench_import_no_jax_sklearn_or_matplotlib():
@@ -539,7 +501,8 @@ def test_kernel_sources_and_their_shared_headers():
     assert "sgemm_tile.cuh" not in headers
     assert sorted(s[:-3] for s in sources) == sorted(
         set(smoke.KERNEL_NAMES) - {"dense_proj_v4", "dense_fwd_v4_bf16_max",
-                                   "windowed_fwd_v3_bf16_max"})
+                                   "windowed_fwd_v3_bf16_max",
+                                   "windowed_fwd_v3_bf16_landing"})
 
 
 def test_walk_phase_cuts_find_their_code():

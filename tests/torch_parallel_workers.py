@@ -238,3 +238,48 @@ def raises_on_rank_one(rank, world, device):
         raise RuntimeError("rank one gives up")
     torch.distributed.barrier()
     return rank
+
+
+def orbax_worker(rank, world, device, payload):
+    """The orbax backend over `payload["mesh"]` (None: one rank alone).
+    "save": train steps from the payload's weights, then write the
+    checkpoint with both backends (`folders`: {"orbax": ..., "msgpack":
+    ...}); returns the weights and the full-width Adam moments. "resume":
+    resume from `folder` and take one more step; returns its losses and
+    the weights after it."""
+    import os
+    from unittest import mock
+
+    mesh = make_mesh(payload["mesh"], device=device) \
+        if payload.get("mesh") else None
+    arch = tcfg.GNNArchitectureConfig(**payload["arch"])
+    train_cfg = tcfg.TrainingConfig(**payload["train"])
+    loader = GraphDataLoader(
+        samples_of(payload["samples"]), payload["batch_size"], False, 5,
+        pad_align=16, max_nodes=payload.get("max_nodes"),
+        max_edges=payload.get("max_edges"), device="cpu")
+    model = DetNet(arch, device=device)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in payload["state"].items()})
+    trainer = trainer_mod.Trainer(train_cfg, model, mesh=mesh)
+    batches = list(loader)
+    if payload["mode"] == "save":
+        for batch in batches[:payload["steps"]]:
+            trainer.train_step(batch)
+        trainer.train_loss = [1.5]
+        for backend, folder in payload["folders"].items():
+            with mock.patch.dict(os.environ,
+                                 RADARGNN_CKPT_BACKEND=backend):
+                trainer._checkpoint(folder, 1, 1e-3)
+        full = trainer._full_optimizer()
+        return dict(
+            state={k: v.detach().cpu().numpy()
+                   for k, v in model.state_dict().items()},
+            moments={name: full.state[p]["exp_avg"].detach().cpu().numpy()
+                     for name, p in model.named_parameters()
+                     if p in full.state})
+    meta = trainer.resume(payload["folder"])
+    losses = [float(v) for v in trainer.train_step(batches[0])]
+    return dict(losses=losses, epoch=meta["epoch"],
+                state={k: v.detach().cpu().numpy()
+                       for k, v in model.state_dict().items()})
