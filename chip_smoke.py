@@ -12,7 +12,10 @@ of the flagship RadarScenes DetNet (the dense kernels on the kNN batch, the
 windowed kernels on the radius batch and on the kNN batch under the
 windowed tiling: the forward's routing bits on real-valued inputs and,
 with the backward, exactly on dyadic ones; the CSR kernels on the kNN
-batch and on the radius batch under the CSR tiling), and checks that two
+batch and on the radius batch under the CSR tiling; the segment-sum
+landing at each of its call sites, the CSR backward's d_x and the H
+columns of its d_op sums among them, also on real-valued bf16 and float32
+rows, bitwise the float32 sum in listed order), and checks that two
 backward runs give the same bits. Then, for three paths, the kNN graph (dense
 tiling), the radius graph (windowed tiling; the flagship configuration with
 three fields replaced, printed) and the kNN graph under the CSR tiling (the

@@ -64,8 +64,8 @@
 //     depth from a zero accumulator); then dW_e = the
 //     routing blocks' partials summed in order (csr_reduce_kernel).
 //  3. dW_s (csr_bwd_v2_dws, after the caller's landing): the B3 kernel
-//     sums bf16(d_op) at the senders over the batch's sender landing (s
-//     [n_x, hp] f32), then x^T s in float32 (128 x 128 SIMT tiles over
+//     sums the h columns of bf16(d_op) at the senders over the batch's
+//     sender landing (s [n_x, hp] f32, zero past h), then x^T s in float32 (128 x 128 SIMT tiles over
 //     fixed node chunks, the partials summed in order): the TPU kernel's
 //     sum over slots of x[sender]^T bf16(d_op) up to float32 summation
 //     order, over n_x nodes instead of the slots (slot-by-slot weight

@@ -367,7 +367,10 @@ def _csr_bwd_launch(x_c, w_s_c, e_c, w_e_c, senders, recv, tile_blocks,
             node_block, edge_tile, e_pad, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
-    sums = segment_sum.segment_sum_csr(d_op, landing.order, landing.row_ptr)
+    # the H columns of d_op (zero past them); the sums' columns past H are
+    # written 0
+    sums = segment_sum.segment_sum_csr(d_op, landing.order, landing.row_ptr,
+                                       width=hw)
     n_part = DWS_PARTIALS
     partial = torch.empty((n_part, d, hp), dtype=f32, device=dev)
     dw_s = torch.empty((d, hw), dtype=f32, device=dev)

@@ -13,9 +13,13 @@ overflow rows in one pass (the dense plain backward sums its H-wide rows
 the same way).
 
 On the card this is the hand-written kernel `csrc/segment_sum_csr.cu`
-(replaces `_segsum_kernel`): one warp per segment, sums in a fixed order,
-no atomics, so a run is bitwise repeatable. On the CPU it is the plain
-version (`index_add_`, sequential there).
+(replaces `_segsum_kernel`): width / 8 lanes per segment, packed across
+the warps, several rows in flight a lane, each segment's adds in listed
+order and no atomics, so its sums are bitwise a sequential float32 sum
+(`segment_sum_csr_listed`) and every run the same. The columns summed
+(`width`) may be fewer than the rows' pitch: the CSR backward sums H of
+its hp-wide rows. On the CPU it is the plain version (`index_add_`,
+sequential there).
 """
 
 from __future__ import annotations
@@ -95,21 +99,57 @@ def segment_ids(row_ptr: torch.Tensor) -> torch.Tensor:
         (row_ptr[1:] - row_ptr[:-1]).long())
 
 
+def _width(a: torch.Tensor, width: Optional[int]) -> int:
+    return a.shape[1] if width is None else width
+
+
+def _rows(a: torch.Tensor, b: Optional[torch.Tensor], w: int):
+    """The rows of both sources, their first w columns, in float32."""
+    rows = a[:, :w].float()
+    return rows if b is None else torch.cat([rows, b[:, :w].float()])
+
+
 def segment_sum_csr_plain(a: torch.Tensor, order: torch.Tensor,
                           row_ptr: torch.Tensor,
-                          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          b: Optional[torch.Tensor] = None,
+                          width: Optional[int] = None) -> torch.Tensor:
     """Plain torch version of the kernel: the same function on the same
-    inputs, float32 [N, d]."""
-    rows = a.float() if b is None else torch.cat([a.float(), b.float()])
-    out = torch.zeros((row_ptr.numel() - 1, rows.shape[1]),
+    inputs, float32 [N, pitch] (the first `width` columns summed, the rest
+    0). On the CPU `index_add_` adds in listed order, so its sums are the
+    kernel's bit for bit; on the card it adds with atomics, in any order."""
+    w = _width(a, width)
+    rows = _rows(a, b, w)
+    out = torch.zeros((row_ptr.numel() - 1, w), dtype=torch.float32,
+                      device=rows.device)
+    out.index_add_(0, segment_ids(row_ptr), rows[order.long()])
+    return torch.nn.functional.pad(out, (0, a.shape[1] - w))
+
+
+def segment_sum_csr_listed(a: torch.Tensor, order: torch.Tensor,
+                           row_ptr: torch.Tensor,
+                           b: Optional[torch.Tensor] = None,
+                           width: Optional[int] = None) -> torch.Tensor:
+    """The kernel's function as a float32 sum in listed order on any
+    device: the j-th rows of all segments added at once, j = 0, 1, ...
+    (as many steps as the longest segment). The yardstick the kernel is
+    held to bit for bit on the card, where `index_add_` is not ordered."""
+    w = _width(a, width)
+    rows = _rows(a, b, w)
+    out = torch.zeros((row_ptr.numel() - 1, a.shape[1]),
                       dtype=torch.float32, device=rows.device)
-    return out.index_add_(0, segment_ids(row_ptr), rows[order.long()])
+    begin = row_ptr[:-1].long()
+    counts = row_ptr[1:].long() - begin
+    order = order.long()
+    for j in range(int(counts.max()) if counts.numel() else 0):
+        seg = torch.nonzero(counts > j).squeeze(1)
+        out[seg, :w] += rows[order[begin[seg] + j]]
+    return out
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.segment_sum_csr.argtypes = (
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong]
-        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.segment_sum_csr.restype = ctypes.c_int
 
 
@@ -126,7 +166,8 @@ def _check(cond: bool, msg: str) -> None:
 
 def segment_sum_csr_cuda(a: torch.Tensor, order: torch.Tensor,
                          row_ptr: torch.Tensor,
-                         b: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         b: Optional[torch.Tensor] = None,
+                         width: Optional[int] = None) -> torch.Tensor:
     """Launches `csrc/segment_sum_csr.cu` on the current stream; raises on
     inputs the kernel does not take. Counts its launches in
     `segment_sum_csr_cuda.launches`."""
@@ -143,23 +184,26 @@ def segment_sum_csr_cuda(a: torch.Tensor, order: torch.Tensor,
     _check(b is None or b.dtype == torch.float32, "b must be float32")
     _check(order.dtype == torch.int32 and row_ptr.dtype == torch.int32,
            "order and row_ptr must be int32")
-    d = a.shape[1]
-    _check(a.ndim == 2 and (b is None or b.shape[1] == d),
+    pitch = a.shape[1]
+    _check(a.ndim == 2 and (b is None or b.shape[1] == pitch),
            "a and b must be [rows, d] with one d")
-    _check(d % 8 == 0, f"d must be a multiple of 8 (got {d})")
+    w = _width(a, width)
+    _check(pitch % 8 == 0 and w % 8 == 0 and 0 <= w <= pitch,
+           f"the row pitch and the width must be multiples of 8, the width "
+           f"at most the pitch (got {pitch} and {w})")
     for name in ("a", "b"):
         if name in tensors:
             _check(tensors[name].data_ptr() % 16 == 0,
                    f"{name} must be 16-byte aligned")
     n_seg = row_ptr.numel() - 1
-    out = torch.empty((n_seg, d), dtype=torch.float32, device=dev)
+    out = torch.empty((n_seg, pitch), dtype=torch.float32, device=dev)
     lib = load_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.segment_sum_csr(
             a.data_ptr(), int(a.dtype == torch.bfloat16), a.shape[0],
             None if b is None else b.data_ptr(), order.data_ptr(),
-            row_ptr.data_ptr(), out.data_ptr(), n_seg, d, stream)
+            row_ptr.data_ptr(), out.data_ptr(), n_seg, w, pitch, stream)
     if err != 0:
         raise RuntimeError(f"segment_sum_csr launch failed: cudaError {err}")
     segment_sum_csr_cuda.launches += 1
@@ -171,8 +215,11 @@ segment_sum_csr_cuda.launches = 0
 
 def segment_sum_csr(a: torch.Tensor, order: torch.Tensor,
                     row_ptr: torch.Tensor,
-                    b: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    b: Optional[torch.Tensor] = None,
+                    width: Optional[int] = None) -> torch.Tensor:
     """The kernel's wrapper: a CUDA tensor launches the kernel (or raises),
-    a CPU tensor takes the plain version."""
+    a CPU tensor takes the plain version. Sums the first `width` columns
+    (all by default) of rows `pitch` = a.shape[1] wide; returns float32
+    [N, pitch], the columns past `width` 0."""
     fn = segment_sum_csr_cuda if a.is_cuda else segment_sum_csr_plain
-    return fn(a, order, row_ptr, b)
+    return fn(a, order, row_ptr, b, width)

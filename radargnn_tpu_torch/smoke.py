@@ -420,33 +420,50 @@ def _dyadic(gen: torch.Generator, dev):
 
 
 def _landing_row(rows, d_xo, order, row_ptr, n: int, reps: int,
-                 on_card: bool) -> Tuple[Dict, torch.Tensor]:
+                 on_card: bool, width: Optional[int] = None
+                 ) -> Tuple[Dict, torch.Tensor]:
     """The landing (B3) of `rows` (slot rows, bf16 or float32) and `d_xo`
-    (overflow rows, float32, or None) against its plain version: errors,
-    a bitwise repeat, times of the kernel, the plain version and
-    `index_add_` (the library call) on the card. Returns (row, d_x)."""
+    (overflow rows, float32, or None), their first `width` columns (all by
+    default), against its plain version: errors, a bitwise repeat, times
+    of the kernel, the plain version and `index_add_` (the library call)
+    on the card. Then the same landing of seeded real-valued rows of the
+    same shapes, in bf16 and in float32 (`d_xo` float32): bitwise the
+    float32 sum in listed order (`segment_sum_csr_listed`). Returns (row,
+    d_x)."""
     dev = rows.device
-    d = rows.shape[1]
+    pitch = rows.shape[1]
+    d = pitch if width is None else width
     n_rows = rows.shape[0] + (0 if d_xo is None else d_xo.shape[0])
     # sender of every landed row, and a dummy segment n for the rest, for
     # the library call
     seg = torch.full((n_rows,), n, dtype=torch.long, device=dev)
     seg[order.long()] = ss.segment_ids(row_ptr)
     land = (rows, order, row_ptr, d_xo)
-    d_x = ss.segment_sum_csr(*land)
-    d_x_ref = ss.segment_sum_csr_plain(*land)
-    same = torch.equal(d_x, ss.segment_sum_csr(*land))
+    d_x = ss.segment_sum_csr(*land, width=width)
+    d_x_ref = ss.segment_sum_csr_plain(*land, width=width)
+    same = torch.equal(d_x, ss.segment_sum_csr(*land, width=width))
     err = _rel_err(d_x, d_x_ref)
+    gen = torch.Generator(device=dev).manual_seed(n_rows)
+    listed = []
+    for dtype in (torch.bfloat16, torch.float32):
+        real = (torch.randn(rows.shape, generator=gen, device=dev).to(dtype),
+                order, row_ptr, None if d_xo is None else torch.randn(
+                    d_xo.shape, generator=gen, device=dev))
+        listed.append(torch.equal(
+            ss.segment_sum_csr(*real, width=width),
+            ss.segment_sum_csr_listed(*real, width=width)))
     n_ovf = int((order >= rows.shape[0]).sum())
-    row = {"d": d, "rows": int(order.shape[0]), "max_abs_err": err[0],
-           "max_rel_err": err[1], "bitwise_repeat": same,
+    row = {"d": d, "pitch": pitch, "rows": int(order.shape[0]),
+           "max_abs_err": err[0], "max_rel_err": err[1],
+           "bitwise_repeat": same, "bitwise_listed": all(listed),
            **_segsum_bound(d, int(order.shape[0]) - n_ovf, n_ovf, n)}
     if on_card:
-        row["ms"] = _time_ms(lambda: ss.segment_sum_csr(*land), reps)
-        row["plain_ms"] = _time_ms(lambda: ss.segment_sum_csr_plain(*land),
-                                   reps)
-        src = rows.float() if d_xo is None else torch.cat([rows.float(),
-                                                           d_xo])
+        row["ms"] = _time_ms(lambda: ss.segment_sum_csr(*land, width=width),
+                             reps)
+        row["plain_ms"] = _time_ms(
+            lambda: ss.segment_sum_csr_plain(*land, width=width), reps)
+        src = rows[:, :d].float() if d_xo is None else torch.cat(
+            [rows[:, :d].float(), d_xo[:, :d]])
         acc = torch.zeros((n + 1, d), dtype=torch.float32, device=dev)
         row["library_ms"] = _time_ms(lambda: acc.index_add_(0, seg, src),
                                      reps)
@@ -455,15 +472,36 @@ def _landing_row(rows, d_xo, order, row_ptr, n: int, reps: int,
     return row, d_x
 
 
+def _landing_line(name: str, row: Dict) -> str:
+    """One landing row as the smoke prints it."""
+    width = "" if row["pitch"] == row["d"] else f" of {row['pitch']}"
+    return (f"kernel segment_sum_csr{name} d={row['d']}{width} rows="
+            f"{row['rows']}: max_abs_err={row['max_abs_err']:.3e} bitwise "
+            f"repeat {row['bitwise_repeat']}, real-valued rows bitwise the "
+            f"listed-order sum {row['bitwise_listed']}; ms={row['ms']} "
+            f"plain_ms={row['plain_ms']} index_add_ ms={row['library_ms']} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+
+
+def _held_landing(row: Dict, limit: float, where: str) -> None:
+    """Raises unless the landing row agrees with its plain version within
+    `limit` of its scale, repeats bitwise and gives the listed-order sum
+    bit for bit on real-valued rows."""
+    if row["max_rel_err"] > limit or not row["bitwise_repeat"] \
+            or not row["bitwise_listed"]:
+        raise AssertionError(f"the landing (B3) at {where}: {row}")
+
+
 def check_landing(tiling, layer_shapes: List[tuple], seed: int, reps: int,
                   out: Callable = print) -> List[Dict]:
     """Holds the landing (B3, `segment_sum_csr`) against its plain version
     on a windowed layout's landing: seeded dyadic bf16 slot rows of each
     layer's width d_in (a per-slot d_xg, as the TPU kernel's backward
     forms it) and float32 overflow rows, exact in any order, so the two
-    must agree exactly and two runs bitwise; times it against
-    `index_add_` on the card. (The windowed backward sums by sender itself
-    since the bits-routed design; the CSR backward lands with B3.)"""
+    must agree exactly and two runs bitwise, and on real-valued rows
+    bitwise the listed-order sum; times it against `index_add_` on the
+    card. (The windowed backward sums by sender itself since the
+    bits-routed design; the CSR backward lands with B3.)"""
     order, row_ptr = tiling.landing
     dev = order.device
     cd = da.gather_dtype(dev)
@@ -476,14 +514,8 @@ def check_landing(tiling, layer_shapes: List[tuple], seed: int, reps: int,
         row, _ = _landing_row(dyadic(e_pad, d).to(cd),
                               dyadic(n_ovf, d, lo=-8, hi=8, step=0.125),
                               order, row_ptr, n, reps, on_card)
-        out(f"kernel segment_sum_csr d={d} rows={row['rows']}: max_abs_err="
-            f"{row['max_abs_err']:.3e} bitwise repeat "
-            f"{row['bitwise_repeat']} ms={row['ms']} plain_ms="
-            f"{row['plain_ms']} index_add_ ms={row['library_ms']} bound_ms="
-            f"{row['bound_ms']:.4f} ({row['bound_by']})")
-        if row["max_abs_err"] > 0.0 or not row["bitwise_repeat"]:
-            raise AssertionError(f"the landing disagrees with its plain "
-                                 f"version at d={d}: {row}")
+        out(_landing_line("", row))
+        _held_landing(row, 0.0, f"the windowed layout, d={d}")
         rows.append(row)
     return rows
 
@@ -495,7 +527,10 @@ def check_bwd_kernels(tiling, layer_shapes: List[tuple], seed: int,
     their plain versions at each (d_in, d_e, H) of the model, on the
     batch's real layout and landing; checks that two runs give the same
     bits; times kernels, plain versions and, for the landing,
-    `index_add_` (the library call) on the card.
+    `index_add_` (the library call) on the card. The landing runs at both
+    of the backward's call sites: d_x (d_xg at d_in) and the sender sums
+    of bf16(d_op) at H of its hp columns (dW_s); returns (the backward's
+    rows, the landing's: the d_x rows, then the d_op rows).
 
     The inputs are seeded dyadic values (x, e, g in multiples of 1/2 or
     1/8, the weights in multiples of 1/4), so every product and every sum
@@ -520,7 +555,7 @@ def check_bwd_kernels(tiling, layer_shapes: List[tuple], seed: int,
     gen = torch.Generator().manual_seed(seed)
     dyadic = _dyadic(gen, dev)
 
-    bwd_rows, seg_rows = [], []
+    bwd_rows, seg_rows, op_rows = [], [], []
     for d, de, h in layer_shapes:
         x = dyadic(n, d).to(cd)
         w_s = dyadic(d, h, step=0.25).to(cd)
@@ -540,9 +575,20 @@ def check_bwd_kernels(tiling, layer_shapes: List[tuple], seed: int,
             has, torch.randn((n, h), generator=gen).to(dev), 0.0),)
         real_g = [_own_scale_err(u, v) for u, v in
                   zip(kern.bwd(*args_g), kern.bwd_plain(*args_g))]
-        # the landing of the kernel's slot rows (d_xg, the gather dtype)
+        # the backward's two landings: the kernel's slot rows (d_xg, the
+        # gather dtype) at d_in, and the sender sums of bf16(d_op) (dW_s)
+        # at H of its hp columns, on the routed d_op (plain torch: on
+        # dyadic inputs the kernel's own, bit for bit)
         b3, d_x = _landing_row(got[0], None, order, row_ptr, n, reps,
                                on_card)
+        d_op = ca.routed_d_op(ca.projected_operands(
+            x, w_s, e_t, w_e, tiling.senders, tiling.receivers,
+            tiling.blocks, n, tiling.node_block, tiling.edge_tile),
+            args[4], args[5]).to(cd)
+        b3_op, _ = _landing_row(
+            torch.nn.functional.pad(d_op, (0, da.col_pad(h) - h)), None,
+            order, row_ptr, n, reps, on_card, width=h)
+        b3["site"], b3_op["site"] = "d_xg", "d_op"
         d_x_again = ss.segment_sum_csr(again[0], order, row_ptr)
         if on_card:
             torch.cuda.synchronize()
@@ -576,15 +622,16 @@ def check_bwd_kernels(tiling, layer_shapes: List[tuple], seed: int,
             "relative to each output's scale " + ", ".join(
                 f"{nm} {e:.3e}" for nm, e in zip(names, real_g))
             + f" (d_e, dW_e held to {CSR_EDGE_GRAD_RTOL})")
-        out(f"kernel segment_sum_csr d={d} rows={b3['rows']}: max_abs_err="
-            f"{b3['max_abs_err']:.3e} ms={b3['ms']} plain_ms="
-            f"{b3['plain_ms']} index_add_ ms={b3['library_ms']} bound_ms="
-            f"{b3['bound_ms']:.4f} ({b3['bound_by']})")
+        out(_landing_line(" (d_x)", b3))
+        out(_landing_line(" (d_op sums)", b3_op))
         limit = 0.0 if exact else BWD_RTOL
-        if b2["max_rel_err"] > limit or b3["max_rel_err"] > BWD_RTOL:
+        if b2["max_rel_err"] > limit:
             raise AssertionError(
                 f"backward kernels disagree with their plain versions at "
-                f"d_in={d}, H={h}: {errs}, landing {b3['max_rel_err']}")
+                f"d_in={d}, H={h}: {errs}")
+        for row in (b3, b3_op):
+            _held_landing(row, BWD_RTOL, f"the CSR backward's {row['site']}"
+                          f" landing, d_in={d}, H={h}")
         if max(real_g[1], real_g[3]) > CSR_EDGE_GRAD_RTOL:
             raise AssertionError(
                 f"csr_bwd_v2's d_e or dW_e disagrees with its plain "
@@ -593,7 +640,8 @@ def check_bwd_kernels(tiling, layer_shapes: List[tuple], seed: int,
             raise AssertionError(f"two backward runs differ at d_in={d}")
         bwd_rows.append(b2)
         seg_rows.append(b3)
-    return bwd_rows, seg_rows
+        op_rows.append(b3_op)
+    return bwd_rows, seg_rows + op_rows
 
 
 def _proj_bound(d: int, h: int, n: int) -> Dict:
@@ -3025,16 +3073,19 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
           if p in summary for stage in ("train", "evaluate")))]
     r_fwd, r_bwd = radius["per_shape_fwd"], radius["per_shape_bwd"]
     c_fwd, c_bwd = csr["per_shape_fwd"], csr["per_shape_bwd"]
-    seg_rows = radius["knn_per_shape_segsum"]
-    segs = seg_rows + csr["per_shape_segsum"] + csr["radius_per_shape_segsum"]
+    # B3: one CSR training step's ten landings (d_x at d_in, the d_op sums
+    # at H, each layer); its errors also on the windowed layout and the
+    # radius batch under CSR
+    seg_rows = csr["per_shape_segsum"]
+    segs = (radius["knn_per_shape_segsum"] + seg_rows
+            + csr["radius_per_shape_segsum"])
     # launches: the training runs of each path (the projection runs in
     # every path's forward; B3 lands on the CSR path), and the train and
     # evaluate stages of the RadarScenes and the nuScenes CLI runs on the
     # dense path; the dense errors also cover the nuScenes train batch; no
     # single PyTorch call computes gather + GEMM + segmented max, nor the
-    # routed backward;
-    # the projection's is torch.mm, the landing's index_add_ (timed on the
-    # kNN batch under the windowed tiling). The windowed gather-max is held
+    # routed backward; the projection's is torch.mm, the landing's
+    # index_add_. The windowed gather-max is held
     # in VJP mode, the mode of its training launches (with the bits); the
     # dense one in serving mode; the CSR forward as its wrapper runs it in
     # serving mode (the projection and the gather-max), against the whole

@@ -468,7 +468,8 @@ def check_ovf_landing(tiling, layer_shapes: List[tuple], seed: int,
     dyadic bf16 rows of each layer's width d_in (a per-row d_xo, as the
     dense backward forms it under the flag), exact in any order, so the
     kernel and its plain version must agree exactly and two runs
-    bitwise; timed against `index_add_` on the card."""
+    bitwise, and on real-valued bf16 and float32 rows bitwise the
+    listed-order sum; timed against `index_add_` on the card."""
     order, row_ptr = tiling.ovf_landing
     dev = order.device
     cd = da.gather_dtype(dev)
@@ -479,14 +480,8 @@ def check_ovf_landing(tiling, layer_shapes: List[tuple], seed: int,
     for d, _, _ in layer_shapes:
         row, _ = sm._landing_row(dyadic(n_ovf, d).to(cd), None, order,
                                  row_ptr, n, reps, dev.type == "cuda")
-        out(f"kernel segment_sum_csr (ovf_ssum) d={d} rows={row['rows']} of "
-            f"{n_ovf}: max_abs_err={row['max_abs_err']:.3e} bitwise repeat "
-            f"{row['bitwise_repeat']} ms={row['ms']} plain_ms="
-            f"{row['plain_ms']} index_add_ ms={row['library_ms']} bound_ms="
-            f"{row['bound_ms']:.4f} ({row['bound_by']})")
-        if row["max_abs_err"] > 0.0 or not row["bitwise_repeat"]:
-            raise AssertionError(f"B3 on the overflow landing disagrees "
-                                 f"with its plain version at d={d}: {row}")
+        out(sm._landing_line(f" (ovf_ssum, {n_ovf} overflow rows)", row))
+        sm._held_landing(row, 0.0, f"the overflow landing, d={d}")
         rows.append(row)
     return rows
 

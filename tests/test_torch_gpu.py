@@ -318,30 +318,135 @@ def test_dense_shared_memory_at_receiver_tiles_of_8():
                      z((n + 1,), dtype=torch.int32), r_tile=24, k=k)
 
 
-@pytest.mark.gpu
-def test_segment_sum_kernel_matches_plain():
-    """Both sources (bf16 rows, then f32 rows), skipped rows and empty
-    segments, at the flagship's widest landing."""
-    _need_card()
-    rng = np.random.default_rng(6)
-    n_a, n_b, n_seg, d = 60000, 5000, 4000, 224
-    seg = np.where(rng.random(n_a + n_b) < 0.9,
-                   rng.integers(0, n_seg - 500, n_a + n_b), -1)
+def _landing_case(rng, n_rows, n_seg, empty=0, hub=0, keep=0.9):
+    """A sender-sorted landing over `n_rows` rows: each kept row at a
+    random segment of the first n_seg - empty, `hub` more rows at segment
+    0; the last `empty` segments empty. Returns (order, row_ptr) int32 on
+    the card."""
+    seg = np.where(rng.random(n_rows) < keep,
+                   rng.integers(0, n_seg - empty, n_rows), -1)
+    if hub:
+        seg[rng.choice(np.flatnonzero(seg >= 0), hub, replace=False)] = 0
     rows = np.flatnonzero(seg >= 0)
     order = rows[np.argsort(seg[rows], kind="stable")].astype(np.int32)
     row_ptr = np.concatenate(
         [[0], np.cumsum(np.bincount(seg[rows], minlength=n_seg))])
-    order = torch.from_numpy(order).cuda()
-    row_ptr = torch.from_numpy(row_ptr.astype(np.int32)).cuda()
-    a = torch.from_numpy(rng.normal(size=(n_a, d))).float().cuda().bfloat16()
-    b = torch.from_numpy(rng.normal(size=(n_b, d))).float().cuda()
+    return (torch.from_numpy(order).cuda(),
+            torch.from_numpy(row_ptr.astype(np.int32)).cuda())
+
+
+def _check_listed(a, order, row_ptr, b=None, width=None):
+    """The kernel's sums: one launch, bitwise the listed-order float32 sum
+    (the columns past the width 0) and bitwise again on a second run."""
     before = ss.segment_sum_csr_cuda.launches
-    got = ss.segment_sum_csr(a, order, row_ptr, b)
+    got = ss.segment_sum_csr(a, order, row_ptr, b, width=width)
+    again = ss.segment_sum_csr(a, order, row_ptr, b, width=width)
     torch.cuda.synchronize()
-    assert ss.segment_sum_csr_cuda.launches == before + 1
-    want = ss.segment_sum_csr_plain(a, order, row_ptr, b)
+    assert ss.segment_sum_csr_cuda.launches == before + 2
+    want = ss.segment_sum_csr_listed(a, order, row_ptr, b, width=width)
+    assert got.shape == (row_ptr.numel() - 1, a.shape[1])
+    assert torch.equal(got, want) and torch.equal(got, again)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,pitch", [(224, 224), (464, 512), (64, 64)])
+def test_segment_sum_kernel_matches_plain(d, pitch):
+    """Both sources (bf16 rows, then f32 rows), skipped rows and empty
+    segments, at the flagship's widest landings (d_in 224; H 464 of d_op's
+    512 columns) and a narrow one; within 1e-5 of the plain version and
+    bitwise the listed-order sum."""
+    _need_card()
+    rng = np.random.default_rng(6)
+    n_a, n_b, n_seg = 60000, 5000, 4000
+    order, row_ptr = _landing_case(rng, n_a + n_b, n_seg, empty=500)
+    a = torch.from_numpy(rng.normal(size=(n_a, pitch))).float().cuda()
+    a = a.bfloat16()
+    b = torch.from_numpy(rng.normal(size=(n_b, pitch))).float().cuda()
+    got = _check_listed(a, order, row_ptr, b, width=d)
+    want = ss.segment_sum_csr_plain(a, order, row_ptr, b, width=d)
     assert _rel_err(got, want) <= 1e-5
     assert torch.equal(got[-500:], torch.zeros_like(got[-500:]))
+    assert not got[:, d:].any()
+
+
+# (width, pitch) of every B3 call site at the flagship's shapes: the CSR
+# d_op landing (H of hp), the d_x landings (d_in), the v1 backward's d_y_s
+# (H rounded up to 8), and the narrowest segment (one lane)
+_SITE_WIDTHS = [(8, 8), (64, 64), (128, 128), (144, 192), (224, 224),
+                (272, 320), (464, 512), (464, 464)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "f32", "bf16+f32"])
+@pytest.mark.parametrize("d,pitch", _SITE_WIDTHS)
+def test_segment_sum_kernel_is_the_listed_sum(d, pitch, dtype):
+    """Real-valued rows at each call site's width, width / 8 lanes a
+    segment packed across the warps (several segments a warp below 256
+    columns, segments straddling warps at 144, 272 and 464) and ragged
+    segment lengths (0 to ~40 rows): bitwise the float32 sum in listed
+    order."""
+    _need_card()
+    rng = np.random.default_rng(d + pitch)
+    n_a, n_seg = 30000, 1500
+    n_b = 3000 if dtype == "bf16+f32" else 0
+    order, row_ptr = _landing_case(rng, n_a + n_b, n_seg, empty=100,
+                                   keep=0.7)
+    a = torch.from_numpy(rng.normal(size=(n_a, pitch))).float().cuda()
+    if dtype != "f32":
+        a = a.bfloat16()
+    b = torch.from_numpy(rng.normal(size=(n_b, pitch))).float().cuda() \
+        if n_b else None
+    _check_listed(a, order, row_ptr, b, width=d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,pitch", [(64, 64), (224, 224), (464, 512)])
+def test_segment_sum_kernel_hub_and_empty_segments(d, pitch):
+    """A 1,000-row hub segment among 90 % empty ones (the overflow
+    landing's shape, with a longer tail), bf16 rows of `pitch` columns
+    summed over `d`: bitwise the listed-order sum; the wrapper refuses a
+    width that is not a multiple of 8 or exceeds the pitch."""
+    _need_card()
+    rng = np.random.default_rng(7)
+    n_rows, n_seg = 6000, 14080
+    order, row_ptr = _landing_case(rng, n_rows, n_seg,
+                                   empty=n_seg * 9 // 10, hub=1000)
+    assert int(row_ptr[1] - row_ptr[0]) >= 1000
+    a = torch.from_numpy(rng.normal(size=(n_rows, pitch))).float().cuda()
+    got = _check_listed(a.bfloat16(), order, row_ptr, width=d)
+    assert not got[n_seg // 10:].any()
+    for width in (d - 4, pitch + 8):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            ss.segment_sum_csr(a, order, row_ptr, width=width)
+
+
+@pytest.mark.gpu
+def test_segsum_sites_phase_cuts_build():
+    """`benchmarks.segsum_sites --phases` cuts each phase out of a copy of
+    the kernel: every copy builds and launches (a cut's sums are not sums),
+    and the kernel with no cut gives the listed-order sum through the same
+    build."""
+    _need_card()
+    from radargnn_tpu_torch import build
+    from radargnn_tpu_torch.benchmarks import segsum_sites
+
+    with open(build.source_path("csrc", "segment_sum_csr.cu")) as f:
+        text = f.read()
+    texts = {"whole": text, **segsum_sites.phase_cuts(text)}
+    assert list(texts) == ["whole", "no_rows", "no_index", "stores"]
+    libs = segsum_sites.build_variants(texts)
+    rng = np.random.default_rng(8)
+    order, row_ptr = _landing_case(rng, 3000, 400, empty=40)
+    a = torch.from_numpy(rng.normal(size=(3000, 144))).float().cuda()
+    for name, lib in libs.items():
+        with mock.patch.object(ss, "load_kernel", lambda lib=lib: lib):
+            got = ss.segment_sum_csr(a.bfloat16(), order, row_ptr)
+        torch.cuda.synchronize()
+        assert got.shape == (400, 144), name
+        if name == "whole":
+            assert torch.equal(got, ss.segment_sum_csr_listed(
+                a.bfloat16(), order, row_ptr)), name
 
 
 @pytest.mark.gpu

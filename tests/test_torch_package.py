@@ -215,6 +215,15 @@ def test_smoke_rehearses_on_cpu():
         assert [r["d_in"] for r in csr[key]] == [224, 224, 224, 128, 64]
         assert all(r["bitwise_repeat"] and r["max_abs_err"] == 0.0
                    for r in csr[key])
+    # B3 at the CSR backward's two landings: d_x at d_in, then the sender
+    # sums of d_op at H of its hp columns
+    for key in ("per_shape_segsum", "radius_per_shape_segsum"):
+        assert [(r["site"], r["d"], r["pitch"]) for r in csr[key]] == [
+            ("d_xg", d, d) for d in (224, 224, 224, 128, 64)] + [
+            ("d_op", h, hp) for h, hp in ((464, 512), (464, 512),
+                                          (464, 512), (272, 320), (144, 192))]
+        assert all(r["bitwise_repeat"] and r["bitwise_listed"]
+                   and r["max_abs_err"] == 0.0 for r in csr[key])
     # the float32 edge products bound the CSR kernels at the wide layers
     assert csr["per_shape_fwd"][0]["bound_by"] == "operations"
     assert csr["model_max_dprob"] == 0.0
