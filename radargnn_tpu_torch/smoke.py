@@ -60,6 +60,7 @@ from unittest import mock
 import numpy as np
 import torch
 
+from radargnn_tpu_torch import witness as reassociated
 from radargnn_tpu_torch.benchmarks import kernel_bench, kernel_check, \
     linear_bench
 from radargnn_tpu_torch.benchmarks.kernel_bench import time_ms as _time_ms
@@ -178,9 +179,13 @@ MODEL_RTOL_BOX = 2e-2
 # about twice the small size's distance from 1; a missing or garbage
 # gradient sits near 0. A free-running plain run drifts from the kernel
 # run by chaos, not by the kernels: Adam's early steps are nearly sign
-# steps, so re-associating the CSR products moves the 4-step losses by up
-# to 2.2e-2 on the plain path alone (`trace_train --drift`, PERF.md); the
-# gap is reported, not held to a limit.
+# steps, so the witness (the plain path with its float32 sums
+# re-associated, `radargnn_tpu_torch.witness`) drifts from the plain path
+# as far as the kernel path does. Over 24 weight seeds and four steps the
+# median gaps are 8.6e-3 / 4.0e-2 / 7.1e-3 for the witness against 9.1e-3
+# / 4.2e-2 / 8.6e-3 for the kernels, kNN / radius / CSR (H100,
+# `trace_train --drift 24`, PERF.md); both gaps are reported, not held to
+# a limit.
 TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_COS = 0.99
 TRAIN_PARAM_COS = 0.95
@@ -1118,19 +1123,35 @@ def _counters():
             _VariantLaunches(wa.windowed_fwd_cuda, "landing_launches"))
 
 
+# the kernel wrappers of the model paths, which the plain path and the
+# witness replace (and `csr_bwd`, whose replacements drop the landing)
+KERNEL_WRAPPERS = ((da, "dense_proj"), (da, "dense_fwd"), (da, "dense_bwd"),
+                   (ss, "segment_sum_csr"), (wa, "windowed_fwd"),
+                   (wa, "windowed_bwd"), (ca, "csr_fwd"))
+
+
+def _replace_kernels(version: Callable) -> ExitStack:
+    """Patches every kernel wrapper of the model paths to `version(module,
+    name)`, its replacement."""
+    stack = ExitStack()
+    for mod, name in KERNEL_WRAPPERS:
+        stack.enter_context(mock.patch.object(mod, name, version(mod, name)))
+    stack.enter_context(mock.patch.object(
+        ca, "csr_bwd", without_landing(version(ca, "csr_bwd"))))
+    return stack
+
+
 def _plain_kernels() -> ExitStack:
     """Patches every kernel wrapper to its plain version (the plain path
     on the same device)."""
-    stack = ExitStack()
-    for mod, name in ((da, "dense_proj"), (da, "dense_fwd"),
-                      (da, "dense_bwd"), (ss, "segment_sum_csr"),
-                      (wa, "windowed_fwd"),
-                      (wa, "windowed_bwd"), (ca, "csr_fwd")):
-        stack.enter_context(mock.patch.object(mod, name,
-                                              getattr(mod, f"{name}_plain")))
-    stack.enter_context(mock.patch.object(
-        ca, "csr_bwd", without_landing(ca.csr_bwd_plain)))
-    return stack
+    return _replace_kernels(lambda mod, name: getattr(mod, f"{name}_plain"))
+
+
+def _witness_kernels() -> ExitStack:
+    """Patches every kernel wrapper to its plain version with its float32
+    sums re-associated (`radargnn_tpu_torch.witness`): the plain path with
+    its sums added in other orders, the drift witness."""
+    return _replace_kernels(lambda mod, name: getattr(reassociated, name))
 
 
 def without_landing(plain: Callable) -> Callable:
@@ -1185,22 +1206,26 @@ def _step_agreement(losses: List[float], grads: Dict[str, torch.Tensor],
 
 
 def flagship_training(dev: DeviceLike, arch, batch, seed: int, steps: int,
-                      plain: bool = False, reference: bool = False) -> Dict:
+                      plain: bool = False, reference: bool = False,
+                      witness: bool = False) -> Dict:
     """The training path: a `Trainer` from the flagship configuration's
     TRAINING section on a DetNet of `arch` with weights from `seed`,
-    `steps` train steps on `batch`. Returns the per-step (total, cls, bb)
-    losses, the per-step wall seconds (each step ends when its losses reach
-    the host), the first step's gradients by parameter name, and the kernel
-    launches of the run (the counters are set to 0 just before it and read
-    just after). With `reference`, before each step the plain path's losses
-    and gradients at that step's parameters (`_plain_reference`, untimed)
-    are held against the step's own, in `agreement`."""
+    `steps` train steps on `batch` (on the plain path with `plain`, on the
+    witness, the plain path re-associated, with `witness`). Returns the
+    per-step (total, cls, bb) losses, the per-step wall seconds (each step
+    ends when its losses reach the host), the first step's gradients by
+    parameter name, and the kernel launches of the run (the counters are
+    set to 0 just before it and read just after). With `reference`, before
+    each step the plain path's losses and gradients at that step's
+    parameters (`_plain_reference`, untimed) are held against the step's
+    own, in `agreement`."""
     cfg = UserConfigurationReader.read_config_file(FLAGSHIP_CONFIG)
     train_cfg = UserConfigurationReader.get_config_object("TRAINING", cfg)
     trainer = Trainer(train_cfg, DetNet(arch, device=dev, seed=seed))
     on_card = torch.device(dev).type == "cuda"
     losses, seconds, grads, agreement = [], [], {}, []
-    with _plain_kernels() if plain else ExitStack():
+    with _witness_kernels() if witness else _plain_kernels() if plain \
+            else ExitStack():
         for c in _counters():
             c.launches = 0
         for step in range(steps):
@@ -1336,8 +1361,15 @@ def _serve_phase(dev, arch, model, loader, graphs: int, points: int,
     return res
 
 
+def loss_drift(losses, ref) -> float:
+    """The largest relative difference of two runs' per-step losses."""
+    u, v = np.asarray(losses), np.asarray(ref)
+    return float((np.abs(u - v) / np.maximum(np.abs(v), 1e-12)).max())
+
+
 def _train_phase(dev, arch, batch, seed: int, steps: int,
-                 expected: List[int], label: str, out: Callable) -> Dict:
+                 expected: List[int], label: str, out: Callable,
+                 witness: bool = False) -> Dict:
     """Three training runs of `steps` steps from the same seeded weights on
     `batch`, with the configuration's deterministic setting: the kernel
     path (launches counted, steps timed); the kernel path again (the same
@@ -1345,7 +1377,9 @@ def _train_phase(dev, arch, batch, seed: int, steps: int,
     parameters (losses within TRAIN_LOSS_RTOL, gradient cosines at least
     TRAIN_GRAD_COS overall and TRAIN_PARAM_COS per parameter); and the
     plain path on its own (its step time, and its drift from the kernel
-    run, reported)."""
+    run, reported). With `witness`, a fourth: the plain path re-associated
+    (`_witness_kernels`), whose drift from the plain path, reported beside
+    the kernel run's, is what re-association alone produces."""
     on_card = torch.device(dev).type == "cuda"
     cfg = UserConfigurationReader.read_config_file(FLAGSHIP_CONFIG)
     train_cfg = UserConfigurationReader.get_config_object("TRAINING", cfg)
@@ -1359,6 +1393,8 @@ def _train_phase(dev, arch, batch, seed: int, steps: int,
         again = flagship_training(dev, arch, batch, seed, steps,
                                   reference=True)
         plain = flagship_training(dev, arch, batch, seed, steps, plain=True)
+        wit = flagship_training(dev, arch, batch, seed, steps,
+                                witness=True) if witness else None
     finally:
         torch.use_deterministic_algorithms(was_deterministic)
     out(f"launches on the {label} training path ({steps} steps; "
@@ -1370,9 +1406,9 @@ def _train_phase(dev, arch, batch, seed: int, steps: int,
     losses = np.asarray(kern["losses"])
     if not np.isfinite(losses).all():
         raise AssertionError(f"training losses not finite: {losses}")
-    ref = np.asarray(plain["losses"])
-    drift = float((np.abs(losses - ref)
-                   / np.maximum(np.abs(ref), 1e-12)).max())
+    drift = loss_drift(losses, plain["losses"])
+    wit_drift = None if wit is None else loss_drift(wit["losses"],
+                                                     plain["losses"])
     steps_agree = again["agreement"]
     worst = max(a["loss_rel"] for a in steps_agree)
     out(f"{label} training losses (total, cls, bb) per step: kernels "
@@ -1384,7 +1420,10 @@ def _train_phase(dev, arch, batch, seed: int, steps: int,
             f"({a['min_param']})" for i, a in enumerate(steps_agree))
         + f" (limits: loss {TRAIN_LOSS_RTOL}, cosine {TRAIN_GRAD_COS}, "
         f"parameter {TRAIN_PARAM_COS}); the plain path on its own "
-        f"{plain['losses']}, drift {drift:.3e} (reported)")
+        f"{plain['losses']}, drift {drift:.3e} (reported)"
+        + ("" if wit is None else
+           f"; the witness (the plain path re-associated) {wit['losses']}, "
+           f"drift from the plain path {wit_drift:.3e} (reported)"))
     grads = _grad_agreement(kern["grads"], plain["grads"])
     out(f"{label} first step's gradients, kernel vs plain path: cosine "
         f"{grads['cosine']:.6f}, norm ratio {grads['norm_ratio']:.6f}, "
@@ -1403,7 +1442,8 @@ def _train_phase(dev, arch, batch, seed: int, steps: int,
         "train_launches": kern["launches"], "train_losses": kern["losses"],
         "train_plain_losses": plain["losses"],
         "train_max_rel_loss_diff": worst, "train_step_agreement": steps_agree,
-        "train_free_running_drift": drift, "train_grad_agreement": grads,
+        "train_free_running_drift": drift,
+        "train_witness_drift": wit_drift, "train_grad_agreement": grads,
         "train_step_ms": [t * 1e3 for t in kern["seconds"]],
         "train_plain_step_ms": [t * 1e3 for t in plain["seconds"]],
         "train_edges_per_s": (batch.host_valid_edges * len(timed)
@@ -2930,7 +2970,7 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
     summary.update(_train_phase(
         dev, arch, loader[0], seed, train_steps,
         _expect({n: layers * train_steps for n in dense + ("dense_bwd_v4",)},
-                on_card), "kNN", out))
+                on_card), "kNN", out, witness=True))
 
     # -- the radius graph, windowed tiling ----------------------------------
     t0 = time.perf_counter()
@@ -2969,7 +3009,7 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
         dev, r_arch, r_loader[0], seed, train_steps,
         _expect({n: layers * train_steps
                  for n in windowed + ("windowed_bwd_v3",)}, on_card),
-        "radius", out))
+        "radius", out, witness=True))
     summary["radius"] = radius
 
     # -- the kNN graph, CSR tiling ------------------------------------------
@@ -3012,7 +3052,7 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
         _expect(dict({n: layers * train_steps
                       for n in csr_fwd + ("csr_bwd_v2",)},
                      segment_sum_csr=2 * layers * train_steps), on_card),
-        "CSR", out))
+        "CSR", out, witness=True))
     summary["csr"] = csr
 
     # -- the kernels no model path runs: fused linear, segment-max, v1 ------

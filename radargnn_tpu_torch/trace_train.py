@@ -19,9 +19,12 @@ configuration with three fields replaced, `smoke.flagship_configs`);
 `--tiling csr` trains on either under the CSR tiling (fused_tiling "csr").
 `--trace` also writes the Chrome trace of the profiled window to FILE.
 
-`--drift SEEDS` profiles nothing: it measures how far two free-running
-training runs drift apart (`drift`), which is why the on-card smoke holds
-each step to the plain path at the same parameters instead.
+`--drift SEEDS` profiles nothing: it measures how far free-running
+training runs drift apart (`drift`): the kernel path and the witness (the
+plain path with its float32 sums re-associated, `witness`) each from the
+plain path, over SEEDS weight seeds, on the path `--graph` and `--tiling`
+select. The drift is why the on-card smoke holds each step to the plain
+path at the same parameters instead.
 """
 
 from __future__ import annotations
@@ -32,7 +35,6 @@ import os
 import time
 from collections import defaultdict
 from typing import Dict, List, Optional
-from unittest import mock
 
 import numpy as np
 import torch
@@ -40,9 +42,9 @@ import torch
 from radargnn_tpu_torch.configs import UserConfigurationReader
 from radargnn_tpu_torch.device import DeviceLike, resolve_device
 from radargnn_tpu_torch.models.detnet import DetNet
-from radargnn_tpu_torch.ops import csr_aggregate as ca
 from radargnn_tpu_torch.smoke import (
-    FLAGSHIP_CONFIG, card_description, flagship_serving, flagship_training,
+    FLAGSHIP_CONFIG, _grad_agreement, card_description, flagship_serving,
+    flagship_training, loss_drift,
 )
 from radargnn_tpu_torch.trace_serving import by_name, device_profile
 from radargnn_tpu_torch.train.trainer import Trainer, set_seeds
@@ -140,41 +142,28 @@ def trace(steps: int = 3, points: int = 2816, graphs: int = 5,
     }
 
 
-# the CSR plain versions, kept before the drift witness takes their names
-_csr_fwd_plain, _csr_bwd_plain = ca.csr_fwd_plain, ca.csr_bwd_plain
+_GAPS = ("kernel_vs_plain", "witness_vs_plain")
 
 
-def reassociated_fwd(x, w_s, e_t, w_e, *layout, y_s=None, **kw):
-    """The drift witness's forward: the CSR plain forward with the depth of
-    both products reversed (the columns of x and e_t, the rows of W_s and
-    W_e), the same sums in another float32 order, as the kernel's are (so
-    it projects the reversed operands itself, in place of `y_s`)."""
-    return _csr_fwd_plain(x.flip(1), w_s.flip(0), e_t.flip(1), w_e.flip(0),
-                          *layout, **kw)
-
-
-def reassociated_bwd(x, w_s, e_t, w_e, *layout, **kw):
-    """The drift witness's backward, to match `reassociated_fwd`."""
-    d_xg, d_e, dw_s, dw_e = _csr_bwd_plain(
-        x.flip(1), w_s.flip(0), e_t.flip(1), w_e.flip(0), *layout, **kw)
-    return d_xg.flip(1), d_e.flip(1), dw_s.flip(0), dw_e.flip(0)
-
-
-def _loss_gap(a: Dict, b: Dict) -> float:
-    u, v = np.asarray(a["losses"]), np.asarray(b["losses"])
-    return float((np.abs(u - v) / np.abs(v)).max())
+def _spread(gaps: List[float]) -> Dict:
+    return {"median": float(np.median(gaps)),
+            "p90": float(np.percentile(gaps, 90)), "max": float(max(gaps))}
 
 
 def drift(seeds: int, steps: int = 4, points: int = 2816, graphs: int = 5,
           graph: str = "knn", tiling: Optional[str] = None,
           device: DeviceLike = None) -> Dict:
     """For weight seeds 0..seeds-1, `steps` free-running train steps on
-    the first batch of seed 0, on the kernel path and on the plain path
-    (`smoke.flagship_training`): their largest relative loss difference.
-    Under the CSR tiling also the plain path against the witness: the plain
-    path with its aggregation's products re-associated (`reassociated_fwd`,
-    `reassociated_bwd`), a change of float32 summation order only, the one
-    way in which the kernels differ from their plain versions."""
+    the first batch of seed 0 on three paths (`smoke.flagship_training`):
+    the kernel path, the plain path, and the witness, the plain path with
+    its float32 sums re-associated (`smoke._witness_kernels`, `witness`),
+    a change of summation order only, the one way in which the kernels
+    differ from their plain versions. Per seed, the largest relative loss
+    difference of the kernel path and of the witness from the plain path;
+    over the seeds, the median, 90th percentile and largest of each, the
+    ratio of the medians, and by layer the median relative difference of
+    the first step's gradients from the plain path's (`smoke.
+    _grad_agreement`), where a fault in one layer's kernels would show."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = resolve_device(device)
     cfg = UserConfigurationReader.read_config_file(FLAGSHIP_CONFIG)
@@ -184,23 +173,35 @@ def drift(seeds: int, steps: int = 4, points: int = 2816, graphs: int = 5,
         set_seeds(train_cfg.seed, train_cfg.deterministic)
         arch, _, loader = flagship_serving(dev, points, graphs, 1, 0,
                                            graph=graph, tiling=tiling)
-        rows = []
+        rows, layers = [], defaultdict(list)
         for seed in range(seeds):
-            def train(plain):
+            def train(**path):
                 return flagship_training(dev, arch, loader[0], seed, steps,
-                                         plain=plain)
-            plain = train(True)
-            row = {"seed": seed, "kernel_vs_plain": _loss_gap(train(False),
-                                                              plain)}
-            if tiling == "csr":
-                with mock.patch.multiple(ca, csr_fwd_plain=reassociated_fwd,
-                                         csr_bwd_plain=reassociated_bwd):
-                    row["witness_vs_plain"] = _loss_gap(train(True), plain)
+                                         **path)
+            plain = train(plain=True)
+            row = {"seed": seed}
+            for gap, run in (("kernel_vs_plain", train()),
+                             ("witness_vs_plain", train(witness=True))):
+                row[gap] = loss_drift(run["losses"], plain["losses"])
+                for layer, rel in _grad_agreement(
+                        run["grads"], plain["grads"])["rel_diff"].items():
+                    layers[layer, gap].append(rel)
             rows.append(row)
     finally:
         torch.use_deterministic_algorithms(was_deterministic)
+    spread = {gap: _spread([r[gap] for r in rows]) for gap in _GAPS}
+    witness_median = spread["witness_vs_plain"]["median"]
     return {"card": card_description() if dev.type == "cuda" else None,
-            "graph": graph, "tiling": tiling, "steps": steps, "runs": rows}
+            "graph": graph, "tiling": tiling, "steps": steps,
+            "points": points, "graphs": graphs,
+            "valid_edges": loader[0].host_valid_edges, **spread,
+            "median_ratio": (spread["kernel_vs_plain"]["median"]
+                             / witness_median if witness_median else None),
+            "step0_grad_rel_diff_median": {
+                layer: {gap: float(np.median(layers[layer, gap]))
+                        for gap in _GAPS}
+                for layer in dict.fromkeys(k for k, _ in layers)},
+            "runs": rows}
 
 
 def main(argv=None) -> int:

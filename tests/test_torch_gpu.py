@@ -1728,6 +1728,29 @@ def test_smoke_on_card():
         assert kernel["ms"] > 0 and kernel["plain_ms"] > 0
     assert summary["kernels"][0]["library_ms"] > 0
     assert summary["kernels"][3]["library_ms"] > 0
+    # the plain path re-associated (the witness) on each path, reported
+    for res in (summary, summary["radius"], summary["csr"]):
+        assert np.isfinite(res["train_free_running_drift"])
+        assert 0.0 < res["train_witness_drift"] < 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("graph,tiling", [("knn", None), ("radius", None),
+                                          ("knn", "csr")])
+def test_drift_on_the_card(graph, tiling):
+    """trace_train's drift mode on each path (dense, windowed, CSR) at a
+    small size: the kernel path's and the witness's gaps from the plain
+    path are finite, and the witness, the plain path with its float32 sums
+    re-associated, moves the losses."""
+    _need_card()
+    from radargnn_tpu_torch import trace_train
+    got = trace_train.drift(1, steps=2, points=512, graphs=2, graph=graph,
+                            tiling=tiling)
+    (run,) = got["runs"]
+    assert np.isfinite(run["kernel_vs_plain"])
+    assert np.isfinite(run["witness_vs_plain"])
+    assert run["witness_vs_plain"] > 0.0
+    assert got["card"] and got["steps"] == 2
 
 
 # -- the evaluation stage on the card (postprocess.nms, postprocess.mean_ap)

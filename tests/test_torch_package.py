@@ -152,7 +152,8 @@ def test_smoke_rehearses_on_cpu():
     on the kNN graph under the CSR tiling, the seven kernels' checks
     against their plain versions at the model's layer shapes (the windowed
     and the CSR ones on two layouts each), three requests, four train steps
-    on the kernel path, again and on the plain path (here all plain); the
+    on the kernel path, again, on the plain path (here all plain) and on
+    the witness (the plain path re-associated); the
     fourth phase (the other four kernels against their plain versions at
     the flagship's widths, then kernel_check and kernel_bench, the latter
     at a tiny size); the fifth and sixth (evaluation, bench); and the
@@ -230,6 +231,12 @@ def test_smoke_rehearses_on_cpu():
     assert csr["train_max_rel_loss_diff"] == 0.0
     c_losses = np.asarray(csr["train_losses"])
     assert c_losses.shape == (4, 3) and c_losses[-1, 0] < c_losses[0, 0]
+    # each path's plain run re-associated (the witness) drifts from the
+    # plain run (reported, not bounded); the kernel run is the plain run
+    # here
+    for res in (summary, radius, csr):
+        assert res["train_free_running_drift"] == 0.0
+        assert 0.0 < res["train_witness_drift"] < 1.0
     # the radius batch under the CSR tiling: 256-node blocks of 512 slots
     assert all(v > 0 for v in csr["radius_tiling"]["valid_edges"])
     assert csr["radius_tiling"]["tiles_per_graph"] > 1
@@ -628,53 +635,43 @@ def test_trace_busy_time_is_the_union_of_kernel_intervals():
     assert _busy_us([(3, 4), (0, 10)]) == 10.0
 
 
-def test_drift_witness_reassociates_the_csr_plain_path():
-    """trace_train's drift mode at a tiny size on the CPU, where the kernel
-    path is the plain path: their gap is 0, and the witness (the CSR plain
-    path with the depth of its products reversed) moves the losses by
-    rounding only."""
+# the three training paths: (graph, tiling) as trace_train takes them
+_DRIFT_PATHS = {"dense": ("knn", None), "windowed": ("radius", None),
+                "csr": ("knn", "csr")}
+
+
+@pytest.mark.usefixtures("few_threads")
+@pytest.mark.parametrize("path", list(_DRIFT_PATHS))
+def test_drift_witness_reassociates_the_csr_plain_path(path):
+    """trace_train's drift mode at a tiny size on the CPU, on each path
+    (the dense, the windowed and the CSR one), where the kernel path is the
+    plain path: their gap is 0, and the witness (the plain path with its
+    float32 sums re-associated) moves the losses by rounding only. The
+    wrappers are put back after it, and the line carries the spread of
+    both gaps and the first step's gradients by layer."""
     from radargnn_tpu_torch import trace_train
     from radargnn_tpu_torch.ops import csr_aggregate as ca
+    wrappers = {(m, n): getattr(m, n) for m, n in smoke.KERNEL_WRAPPERS
+                + ((ca, "csr_bwd"),)}
     before = torch.are_deterministic_algorithms_enabled()
-    got = trace_train.drift(1, steps=2, points=200, graphs=2, tiling="csr",
-                            device="cpu")
+    graph, tiling = _DRIFT_PATHS[path]
+    got = trace_train.drift(1, steps=2, points=200, graphs=2, graph=graph,
+                            tiling=tiling, device="cpu")
     assert torch.are_deterministic_algorithms_enabled() == before
-    assert ca.csr_fwd_plain is trace_train._csr_fwd_plain
-    assert ca.csr_bwd_plain is trace_train._csr_bwd_plain
+    assert all(getattr(m, n) is f for (m, n), f in wrappers.items())
     (run,) = got["runs"]
     assert run["kernel_vs_plain"] == 0.0
     assert 0.0 < run["witness_vs_plain"] < 1e-2
-
-
-def test_drift_witness_is_the_same_function():
-    """The witness's forward and backward reverse the depth of the CSR
-    products and undo it on the outputs: the same values as the plain
-    versions to float32 rounding."""
-    from radargnn_tpu_torch import trace_train
-    from radargnn_tpu_torch.ops import csr_aggregate as ca
-    gen = torch.Generator().manual_seed(0)
-    n, d, de, h, nb, et = 64, 24, 16, 40, 32, 32
-    x = torch.randn(n, d, generator=gen)
-    w_s = torch.randn(d, h, generator=gen)
-    e_t = torch.randn(128, de, generator=gen)
-    w_e = torch.randn(de, h, generator=gen)
-    senders = torch.randint(0, n, (128,), generator=gen, dtype=torch.int32)
-    recv = torch.sort(torch.randint(0, n, (128,), generator=gen,
-                                    dtype=torch.int32)).values
-    blocks = recv.view(-1, et)[:, 0] // nb
-    layout, kw = (senders, recv, blocks), dict(node_block=nb, edge_tile=et)
-    offset = torch.randn(n, h, generator=gen)
-    out, inner = ca.csr_fwd_plain(x, w_s, e_t, w_e, *layout, offset,
-                                  emit_inner=True, **kw)
-    w_out, w_inner = trace_train.reassociated_fwd(
-        x, w_s, e_t, w_e, *layout, offset, emit_inner=True, **kw)
-    torch.testing.assert_close(w_out, out, rtol=1e-5, atol=1e-5)
-    has = inner > -1e38
-    g = torch.where(has, torch.randn(n, h, generator=gen), 0.0)
-    bwd_args = (x, w_s, e_t, w_e, *layout, torch.where(has, inner, 0.0), g)
-    for got, want in zip(trace_train.reassociated_bwd(*bwd_args, **kw),
-                         ca.csr_bwd_plain(*bwd_args, **kw)):
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert (got["graph"], got["tiling"], got["card"]) == (graph, tiling,
+                                                          None)
+    for gap in ("kernel_vs_plain", "witness_vs_plain"):
+        assert got[gap] == {"median": run[gap], "p90": run[gap],
+                            "max": run[gap]}
+    assert got["median_ratio"] == 0.0
+    layers = got["step0_grad_rel_diff_median"]
+    assert len(layers) == 7 and all(
+        v["kernel_vs_plain"] == 0.0 and v["witness_vs_plain"] > 0.0
+        for v in layers.values())
 
 
 def test_bf16_model_hands_the_csr_backward_a_bf16_exact_g():
