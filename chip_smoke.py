@@ -47,13 +47,15 @@ processes: train and infer on the dense tiling, train on the CSR and the
 windowed tilings. A seventh runs the command-line pipeline,
 radargnn_tpu_torch.cli.main, under the flagship configuration with epochs 2
 and a checkpoint every epoch (printed): create_dataset from raw
-RadarScenes sequences it writes (where h5py is installed; without it, it
-writes the processed splits of synthetic 2816-point frames itself and says
-so), train and evaluate, checking that train launched the dense path's
-three kernels and evaluate its two, exactly as often as the batches ask,
-and nothing else; then python -m radargnn_tpu_torch.cli.evaluate as a
-child process, and the model folder evaluated on the CPU against the
-card. An eighth runs the nuScenes pipeline the same way, under the nuScenes
+RadarScenes sequences it writes and reads with the port's own HDF5 code
+(radargnn_tpu_torch.data.hdf5; no h5py) through the configuration's
+spawned workers, train and evaluate, checking that create_dataset launched
+no kernel, train the dense path's three kernels and evaluate its two,
+exactly as often as the batches ask, and nothing else; then python -m
+radargnn_tpu_torch.cli.evaluate as a child process, the model folder
+evaluated on the CPU against the card, and the HDF5 reader timed on one
+table of 500,000 rows (printed beside create_dataset's seconds and the raw
+bytes it read). An eighth runs the nuScenes pipeline the same way, under the nuScenes
 configuration with epochs 2 (printed), on nuScenes-format tables and
 multisweep radar sweeps it writes (two train scenes of 32 samples, one
 validation scene of 16; batches of 32 frames of about 1,900 points):

@@ -3,13 +3,11 @@
 Port of `radargnn_tpu/data/radarscenes/reader.py` (numpy). Reads the public
 RadarScenes on-disk format directly: per-sequence `scenes.json` (the scene
 index) and `radar_data.h5` (structured `radar_data` and `odometry`
-datasets). Provides what the dataset creation reads from the SDK:
+datasets, read by the port's own HDF5 reader, `data.hdf5`: no h5py).
+Provides what the dataset creation reads from the SDK:
 `Sequence.from_json`, `get_scene` / `next_*`, the sensor mounting poses,
 the sequence-to-car coordinate transform, and the 11-to-5 reduced class
 mapping.
-
-h5py is needed only to read a sequence: the module imports without it, and
-`Sequence.from_json` raises where it is missing.
 """
 
 from __future__ import annotations
@@ -21,10 +19,7 @@ from typing import List, Optional
 
 import numpy as np
 
-try:
-    import h5py
-except ImportError:                                    # pragma: no cover
-    h5py = None
+from radargnn_tpu_torch.data.hdf5 import read_dataset
 
 # Published default mounting poses of the four radar sensors (car frame):
 # x [m], y [m], yaw [rad].
@@ -103,16 +98,12 @@ class Sequence:
 
     @classmethod
     def from_json(cls, scenes_json_path: str) -> "Sequence":
-        if h5py is None:
-            raise ImportError("h5py is required to read RadarScenes data "
-                              "(radar_data.h5); it is not installed")
         with open(scenes_json_path) as f:
             meta = json.load(f)
         directory = os.path.dirname(scenes_json_path)
-        with h5py.File(os.path.join(directory, "radar_data.h5"), "r") as hf:
-            radar_data = hf["radar_data"][:]
-            odometry = hf["odometry"][:]
-        return cls(meta, radar_data, odometry, directory)
+        tables = os.path.join(directory, "radar_data.h5")
+        return cls(meta, read_dataset(tables, "radar_data"),
+                   read_dataset(tables, "odometry"), directory)
 
     def get_scene(self, timestamp: int) -> Scene:
         info = self._scenes[str(int(timestamp))]

@@ -11,7 +11,8 @@ and `benchmarks.kernel_bench`. A fifth runs the evaluation stage
 requests and on oracle predictions, against the same chain on the CPU; a
 sixth runs the port's bench (`benchmarks.bench`) in child processes; a
 seventh runs the command-line pipeline (`cli.main`: create_dataset from
-raw RadarScenes sequences it writes, train, evaluate) under the flagship
+raw RadarScenes sequences it writes and reads with the port's own HDF5
+code, `data.hdf5`, train, evaluate) under the flagship
 YAML, with each stage's launches counted, then the evaluate CLI as a
 child process, and the model folder evaluated on the CPU against the
 card. An eighth runs the same pipeline under the nuScenes YAML, on
@@ -68,6 +69,7 @@ from radargnn_tpu_torch.build import nvcc_all
 from radargnn_tpu_torch.configs import (
     RadarScenesSplitConfiguration, UserConfigurationReader,
 )
+from radargnn_tpu_torch.data import hdf5
 from radargnn_tpu_torch.data.radarscenes.dataset_creation import (
     RadarScenesGraphDataset,
 )
@@ -2230,6 +2232,9 @@ CLI_SEQUENCES = (("sequence_1", "train"), ("sequence_2", "train"),
 # the flagship YAML's fields the CLI phase replaces (a short run that
 # checkpoints)
 CLI_REPLACED = {"epochs": 2, "checkpoint_every_epochs": 1}
+# the CLI phase's reader timing: a table of the order of a long RadarScenes
+# sequence's radar_data (110 bytes a row, ~55 MB)
+READER_ROWS = 500_000
 
 
 def _raw_scan(rng, i: int, ts: int, objects: list, static: int,
@@ -2290,9 +2295,9 @@ def write_radarscenes(root: str, scans: int, points_per_scan: int,
     and a scenes.json and radar_data.h5 for each of CLI_SEQUENCES, with
     `scans` scans of about `points_per_scan` detections each. Every
     sequence has moving objects of all five classes (two of each at 300 or
-    more points a scan, else one), each object with its own track id."""
-    import h5py
-
+    more points a scan, else one), each object with its own track id. The
+    tables are written by the port's HDF5 writer (`data.hdf5`), in the
+    layout h5py writes by default."""
     data = os.path.join(root, "raw", "data")
     per_class = 2 if points_per_scan >= 300 else 1
     object_points = per_class * sum(o[5] for o in RAW_OBJECTS)
@@ -2318,9 +2323,9 @@ def write_radarscenes(root: str, scans: int, points_per_scan: int,
             at += len(rows)
         folder = os.path.join(data, name)
         os.makedirs(folder)
-        with h5py.File(os.path.join(folder, "radar_data.h5"), "w") as f:
-            f.create_dataset("radar_data", data=np.concatenate(tables))
-            f.create_dataset("odometry", data=odometry)
+        hdf5.write_datasets(os.path.join(folder, "radar_data.h5"),
+                            {"radar_data": np.concatenate(tables),
+                             "odometry": odometry})
         with open(os.path.join(folder, "scenes.json"), "w") as f:
             json.dump({"sequence_name": name, "category": category,
                        "scenes": scenes}, f)
@@ -2331,7 +2336,7 @@ def write_radarscenes(root: str, scans: int, points_per_scan: int,
 
 def write_processed(root: str, train: int, validate: int, points: int,
                     seed: int = 0) -> None:
-    """The processed splits without raw data (where h5py is missing):
+    """The processed splits without raw data:
     `data.synthetic.make_samples` frames of `points` points under the
     flagship's graph construction, saved as `graph_<i>.npz` into
     `root`/processed/{train,validate}, with the dataset creation's
@@ -2412,24 +2417,55 @@ def _count_stages(stack: ExitStack, cli_main, names: Tuple[str, ...],
                                           timed_epoch))
 
 
+def time_hdf5_reader(folder: str, rows: int = READER_ROWS) -> Dict:
+    """The port's HDF5 reader (`data.hdf5.read_dataset`) timed on one
+    contiguous table of `rows` rows of RADAR_DTYPE that its writer wrote
+    into `folder` (the file cache warm: the file was just written), five
+    reads; each must give the table back byte for byte."""
+    rng = np.random.default_rng(0)
+    table = np.zeros(rows, RADAR_DTYPE)
+    for name in ("range_sc", "azimuth_sc", "rcs", "vr", "x_cc", "y_cc"):
+        table[name] = rng.normal(0, 20, rows)
+    table["timestamp"] = 1_000_000 + np.arange(rows) // 800 * SCAN_US
+    table["label_id"] = rng.integers(0, 12, rows)
+    table["uuid"] = [f"{i:032x}".encode() for i in range(rows)]
+    path = os.path.join(folder, "reader_table.h5")
+    hdf5.write_datasets(path, {"radar_data": table})
+    seconds = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        got = hdf5.read_dataset(path, "radar_data")
+        seconds.append(time.perf_counter() - t0)
+        if got.dtype != table.dtype or got.tobytes() != table.tobytes():
+            raise AssertionError("the HDF5 reader did not give back the "
+                                 "table its writer wrote")
+    median = float(np.median(seconds))
+    return {"rows": rows, "bytes": table.nbytes, "read_s": seconds,
+            "median_s": median, "mb_per_s": table.nbytes / 1e6 / median}
+
+
+def _tree_bytes(folder: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(folder) for f in files)
+
+
 def cli_phase(dev: torch.device, points: int = RADIUS_POINTS,
               scans: Optional[int] = None, out: Callable = print) -> Dict:
     """The seventh phase: the command-line pipeline under the flagship YAML
-    (CLI_REPLACED). It writes raw RadarScenes sequences (`scans` scans
-    each, 80 on the card, sized so a 0.5 s frame holds about `points`
-    points), then runs `cli.main.main` in this process: create_dataset
-    with the YAML's spawned workers, train, evaluate. The kernel launches
-    of train and of evaluate are counted apart (the counters set to 0
-    just before each and read just after) and must be exactly the dense
-    path's. Then `python -m radargnn_tpu_torch.cli.evaluate` runs as a
-    child process (evaluation_02), and the model folder is evaluated on
-    the CPU: its class probabilities and boxes must match the card's
-    within the serving phase's tolerances. Where h5py is missing, raw data
-    can be neither written nor read: the phase writes the processed splits
-    itself (`write_processed`) and runs train and evaluate through the
-    CLI, and says so."""
+    (CLI_REPLACED). It writes raw RadarScenes sequences through the port's
+    HDF5 writer (`scans` scans each, 80 on the card, sized so a 0.5 s
+    frame holds about `points` points), then runs `cli.main.main` in this
+    process: create_dataset with the YAML's spawned workers, which read
+    the sequences through the port's HDF5 reader and must launch no
+    kernel, then train and evaluate. The kernel launches of each stage are
+    counted apart (the counters set to 0 just before each and read just
+    after); train's and evaluate's must be exactly the dense path's. Then
+    `python -m radargnn_tpu_torch.cli.evaluate` runs as a child process
+    (evaluation_02), and the model folder is evaluated on the CPU: its
+    class probabilities and boxes must match the card's within the serving
+    phase's tolerances. Last, the HDF5 reader is timed on one table of
+    READER_ROWS rows (`time_hdf5_reader`)."""
     from radargnn_tpu_torch.cli import main as cli_main
-    from radargnn_tpu_torch.data.radarscenes import reader
 
     on_card = dev.type == "cuda"
     scans = scans or (80 if on_card else 24)
@@ -2437,8 +2473,7 @@ def cli_phase(dev: torch.device, points: int = RADIUS_POINTS,
     # crop keeps ~94 % of the clutter
     per_scan = max(points * 10 // 85, 40)
     res: Dict = {"replaced": CLI_REPLACED,
-                 "card": card_description() if on_card else None,
-                 "create_dataset": reader.h5py is not None}
+                 "card": card_description() if on_card else None}
     stages: Dict = {}
     epoch_s: List[float] = []
     start = time.perf_counter()
@@ -2449,48 +2484,42 @@ def cli_phase(dev: torch.device, points: int = RADIUS_POINTS,
         config = cli_config(tmp)
         out(f"CLI phase: the flagship configuration with "
             f"{json.dumps(CLI_REPLACED)} replaced")
-        model = os.path.join(results, "model_01")
         t0 = time.perf_counter()
+        write_radarscenes(root, scans, per_scan)
+        res["raw_s"] = time.perf_counter() - t0
+        res["raw_bytes"] = _tree_bytes(os.path.join(root, "raw"))
         with ExitStack() as stack:
-            _count_stages(stack, cli_main, ("train", "evaluate"), stages,
+            _count_stages(stack, cli_main,
+                          ("create_dataset", "train", "evaluate"), stages,
                           epoch_s)
-            if res["create_dataset"]:
-                write_radarscenes(root, scans, per_scan)
-                res["raw_s"] = time.perf_counter() - t0
-                t0 = time.perf_counter()
-                cli_main.main(root, results, config, device=dev)
-                res["create_dataset_s"] = (time.perf_counter() - t0
-                                           - stages["train"]["seconds"]
-                                           - stages["evaluate"]["seconds"])
-            else:
-                out("CLI phase: create_dataset did not run: h5py is not "
-                    "installed here, so raw RadarScenes sequences can be "
-                    "neither written nor read; the processed splits are "
-                    f"synthetic frames of {points} points "
-                    "(smoke.write_processed)")
-                # the raw path's frame count: a frame every 8 scans
-                frames = -(-(scans - 1) // 8)
-                write_processed(root, 3 * frames, frames, points)
-                res["raw_s"] = time.perf_counter() - t0
-                cli_main.train(os.path.join(root, "processed"), results,
-                               config, device=dev)
-                cli_main.evaluate(root, model, config, device=dev)
+            cli_main.main(root, results, config, device=dev)
+        if stages["create_dataset"]["launches"] != [0] * len(KERNEL_NAMES):
+            raise AssertionError(f"create_dataset launched "
+                                 f"{stages['create_dataset']['launches']}")
+        res["create_dataset_s"] = stages["create_dataset"]["seconds"]
         res.update(_check_cli_run(dev, root, results, config, stages,
                                   epoch_s, RADARSCENES_OUTPUTS, out))
+        res["reader"] = time_hdf5_reader(tmp)
     res["phase_s"] = time.perf_counter() - start
-    created = (f"create_dataset {res['create_dataset_s']:.2f} s (raw "
-               f"sequences written in {res['raw_s']:.2f} s)"
-               if res["create_dataset"] else "create_dataset did not run "
-               "(no h5py)")
+    reader = res["reader"]
     out(f"CLI phase on {dev}: frames train {res['frames']['train']}, "
         f"validate {res['frames']['validate']}; points per frame "
         f"{res['points'][0]}-{res['points'][1]}; valid edges per train "
-        f"batch {res['train_batch_edges']}; {created}; train s per epoch "
-        f"{[round(t, 3) for t in res['train_epoch_s']]} (train stage "
+        f"batch {res['train_batch_edges']}; create_dataset "
+        f"{res['create_dataset_s']:.2f} s on {res['raw_bytes']} raw bytes "
+        f"(raw sequences written in {res['raw_s']:.2f} s); train s per "
+        f"epoch {[round(t, 3) for t in res['train_epoch_s']]} (train stage "
         f"{res['train_s']:.2f} s); evaluate {res['evaluate_s']:.2f} s "
         f"(child process {res['child_evaluate_s']:.2f} s); the phase "
         f"{res['phase_s']:.2f} s; mAP {res['map']}, F1 {res['f1']}; card "
         f"{res['card']}")
+    out(f"CLI phase: the HDF5 reader on {reader['rows']} rows of "
+        f"RADAR_DTYPE ({reader['bytes']} bytes, contiguous, written by "
+        f"data.hdf5.write_datasets, file cache warm): median "
+        f"{reader['median_s'] * 1e3:.2f} ms of {len(reader['read_s'])} "
+        f"reads ({reader['mb_per_s']:.0f} MB/s); create_dataset "
+        f"{res['create_dataset_s']:.2f} s, {res['raw_bytes']} raw bytes "
+        f"read; card {res['card']}")
     return res
 
 

@@ -1,11 +1,13 @@
 """The on-card smoke's seventh phase (`smoke.cli_phase`, the command-line
 pipeline) rehearsed on the CPU: its raw RadarScenes writer, its
-configuration, and the phase itself where h5py is missing (as on the
-card's machine), where it writes the processed splits itself. The phase
-with h5py is tests/test_torch_smoke_cli.py's."""
+configuration, and the phase itself with h5py blocked (the card's machine
+has none): the port writes and reads the raw sequences with its own HDF5
+code (`data.hdf5`). The phase at the rehearsal's size is
+tests/test_torch_smoke_cli.py's."""
 
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -37,7 +39,6 @@ def test_raw_sequences_hold_every_class(tmp_path):
     sequences (three train sequences outside the test split, one
     validation), frames of about the asked-for points after the crop,
     and every one of the five classes with a track id of its own."""
-    pytest.importorskip("h5py")
     root = str(tmp_path)
     smoke.write_radarscenes(root, scans=24, points_per_scan=340)
     with open(os.path.join(root, "raw", "data", "sequences.json")) as f:
@@ -72,21 +73,27 @@ def test_raw_sequences_hold_every_class(tmp_path):
 
 @pytest.mark.usefixtures("few_threads")
 def test_cli_phase_without_h5py(monkeypatch):
-    """Where h5py is missing the phase says create_dataset did not run,
-    writes the processed splits itself and still trains and evaluates
-    through the CLI, with every check (here the kernels' plain versions
-    run, so no launch is counted)."""
-    monkeypatch.setattr(reader, "h5py", None)
+    """With h5py blocked the phase writes raw sequences, runs create_dataset
+    on them (the YAML's spawned workers) and trains and evaluates through
+    the CLI, with every check (here the kernels' plain versions run, so no
+    launch is counted), and times the HDF5 reader."""
+    monkeypatch.setitem(sys.modules, "h5py", None)
     before = torch.are_deterministic_algorithms_enabled()
     lines = []
     res = smoke.cli_phase(torch.device("cpu"), points=120, scans=17,
                           out=lines.append)
     assert torch.are_deterministic_algorithms_enabled() == before
-    assert res["create_dataset"] is False
-    assert any("create_dataset did not run: h5py is not installed" in line
-               for line in lines)
+    assert not any("did not run" in line for line in lines)
+    assert res["create_dataset_s"] > 0
+    assert res["raw_bytes"] > 17 * 4 * 40 * smoke.RADAR_DTYPE.itemsize
+    # 17 scans a sequence: frames of 8 scans, three train sequences
     assert res["frames"] == {"train": 6, "validate": 2}
-    assert res["points"] == (120, 120)
+    assert 0 < res["points"][0] <= res["points"][1]
+    reader_line = lines[-1]
+    assert reader_line.startswith("CLI phase: the HDF5 reader on 500000 "
+                                  "rows")
+    assert res["reader"]["bytes"] == 500_000 * 110
+    assert len(res["reader"]["read_s"]) == 5
     assert res["train_launches"] == res["evaluate_launches"] == [0] * len(smoke.KERNEL_NAMES)
     assert len(res["train_epoch_s"]) == 2
     assert res["max_abs_dprob"] == res["max_rel_dbox"] == 0.0

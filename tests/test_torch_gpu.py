@@ -2026,3 +2026,37 @@ def test_halo_dense_aggregate_on_two_gloo_ranks_of_one_card():
     for launches in report["agg_launches"]:
         assert {k: v for k, v in launches.items() if v} == {
             "dense_proj_v4": 1, "dense_fwd_v4": 1}
+
+
+@pytest.mark.gpu
+def test_radarscenes_sequences_without_h5py_on_the_card(tmp_path,
+                                                        monkeypatch):
+    """On the card's machine, which has no h5py (blocked here all the
+    same): the smoke's raw RadarScenes sequences written and read by the
+    port's HDF5 code (`data.hdf5`), then create_dataset on them under the
+    flagship YAML (its spawned workers) with the card as the device, which
+    launches no kernel; last the reader on a 50,000-row table."""
+    _need_card()
+    import os
+    import sys
+
+    from radargnn_tpu_torch.cli import create_dataset
+    from radargnn_tpu_torch.data.radarscenes import reader
+
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    root = str(tmp_path)
+    smoke.write_radarscenes(root, scans=17, points_per_scan=300)
+    for name, _ in smoke.CLI_SEQUENCES:
+        seq = reader.Sequence.from_json(
+            os.path.join(root, "raw", "data", name, "scenes.json"))
+        assert len(seq.timestamps) == 17
+        assert seq.radar_data.dtype == smoke.RADAR_DTYPE
+        assert seq.odometry.dtype == smoke.ODO_DTYPE
+    before = [c.launches for c in smoke._counters()]
+    create_dataset.main(root, smoke.cli_config(root))
+    assert [c.launches for c in smoke._counters()] == before
+    for split, frames in (("train", 6), ("validate", 2)):
+        assert len(os.listdir(os.path.join(root, "processed", split))) == \
+            frames
+    timed = smoke.time_hdf5_reader(root, rows=50_000)
+    assert timed["bytes"] == 50_000 * smoke.RADAR_DTYPE.itemsize

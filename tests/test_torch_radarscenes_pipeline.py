@@ -5,13 +5,17 @@ paths in both packages, so every array must be equal (NaN == NaN), the
 files' keys and dtypes too.
 
 The raw data is `tests/test_radarscenes_pipeline.py`'s miniature
-RadarScenes layout. The dataset creations run with both packages on one
+RadarScenes layout (written by h5py), and the smoke's sequences written by
+the port's own HDF5 writer (`smoke.write_radarscenes`); the port reads both
+with its own HDF5 reader, the JAX package with h5py. The dataset creations run with both packages on one
 pair of host backends (`host_backends.pin`), serially: spawned workers do
 not inherit the pin, so the port's parallel run is held to its own serial
 one."""
 
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -25,6 +29,7 @@ from radargnn_tpu.data.radarscenes import reader as jrd  # noqa: E402
 from radargnn_tpu.data.radarscenes import scene_collection as jsc  # noqa: E402
 from radargnn_tpu.graph import batch as jbatch  # noqa: E402
 from radargnn_tpu_torch import configs as tcfg  # noqa: E402
+from radargnn_tpu_torch import smoke  # noqa: E402
 from radargnn_tpu_torch.cli import create_dataset as tcreate  # noqa: E402
 from radargnn_tpu_torch.data import point_cloud as tpc  # noqa: E402
 from radargnn_tpu_torch.data.radarscenes import dataset_creation as tdc  # noqa: E402
@@ -59,13 +64,18 @@ GRAPH_CASES = {
 }
 
 
-def _configs(pkg, case: str, **over):
+def _config_args(case: str, **over):
     graph_args, dataset_kw = GRAPH_CASES[case]
     kw = dict(time_per_point_cloud_frame=0.2, crop_point_cloud=True,
               crop_settings={"front": 100, "sides": 50},
               create_small_subset=False, subset_settings={},
               deterministic=True, seed=1, parallelize=False)
     kw.update(dataset_kw, **over)
+    return graph_args, kw
+
+
+def _configs(pkg, case: str, **over):
+    graph_args, kw = _config_args(case, **over)
     return (pkg.GraphConstructionConfiguration(*graph_args),
             pkg.RadarScenesDatasetConfiguration(**kw))
 
@@ -251,11 +261,97 @@ def test_each_package_reads_the_others_npz(tmp_path, writer):
 
 
 def test_reader_without_h5py_raises(raw_root, monkeypatch):
-    """The reader imports without h5py; reading a sequence then says what
-    is missing."""
-    monkeypatch.setattr(trd, "h5py", None)
-    with pytest.raises(ImportError, match="h5py"):
-        trd.Sequence.from_json(_scenes_json(raw_root))
+    """With h5py blocked (sys.modules["h5py"] = None, as on the card's
+    machine, which lacks it) the port still reads a sequence, through its
+    own HDF5 reader, equal to what the JAX package reads with h5py."""
+    want = jrd.Sequence.from_json(_scenes_json(raw_root))
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError):
+        import h5py  # noqa: F401
+    got = trd.Sequence.from_json(_scenes_json(raw_root))
+    for table in ("radar_data", "odometry"):
+        assert getattr(got, table).dtype == getattr(want, table).dtype
+        np.testing.assert_array_equal(getattr(got, table),
+                                      getattr(want, table), err_msg=table)
+
+
+@pytest.fixture(scope="module")
+def port_written_root(tmp_path_factory):
+    """The smoke's raw sequences (four of 12 scans of ~60 detections),
+    written by the port's HDF5 writer."""
+    root = str(tmp_path_factory.mktemp("port_raw"))
+    smoke.write_radarscenes(root, scans=12, points_per_scan=60)
+    return root
+
+
+def test_port_written_sequences_read_the_same(port_written_root):
+    """h5py (the JAX package's reader) and the port's reader give the same
+    tables, dtypes and scenes on sequences the port wrote."""
+    for name, _ in smoke.CLI_SEQUENCES:
+        js = jrd.Sequence.from_json(_scenes_json(port_written_root, name))
+        ts = trd.Sequence.from_json(_scenes_json(port_written_root, name))
+        for table in ("radar_data", "odometry"):
+            assert getattr(ts, table).dtype == getattr(js, table).dtype
+            np.testing.assert_array_equal(getattr(ts, table),
+                                          getattr(js, table))
+        assert ts.radar_data.dtype == smoke.RADAR_DTYPE
+        np.testing.assert_array_equal(ts.timestamps, js.timestamps)
+        for t in js.timestamps:
+            np.testing.assert_array_equal(ts.get_scene(t).radar_data,
+                                          js.get_scene(t).radar_data)
+
+
+# the port's dataset creation in a fresh interpreter where h5py cannot be
+# imported, on the host backend the JAX side is pinned to (argv[2])
+_CREATE_WITHOUT_H5PY = """
+import json, sys
+sys.modules["h5py"] = None
+import radargnn_tpu_torch.native as native
+if sys.argv[2] == "numpy":
+    native._LIB, native._TRIED = None, True
+elif native.load() is None:
+    raise SystemExit("the port's compiled host helper did not load")
+from radargnn_tpu_torch import configs
+from radargnn_tpu_torch.data.radarscenes.dataset_creation import (
+    RadarScenesGraphDataset)
+graph_args, kw = json.loads(sys.argv[3])
+RadarScenesGraphDataset(sys.argv[1],
+                        configs.GraphConstructionConfiguration(*graph_args),
+                        configs.RadarScenesDatasetConfiguration(**kw))
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "radargnn_tpu")]
+assert not bad and sys.modules["h5py"] is None, bad
+"""
+
+
+def test_creation_on_port_written_sequences_matches_jax(
+        tmp_path, pinned, port_written_root):
+    """Both packages' dataset creations turn the port-written sequences
+    into the same graph_<i>.npz files, array for array: the JAX package's
+    here (h5py), the port's in a fresh interpreter with h5py blocked."""
+    roots = []
+    for pkg in ("jax", "port"):
+        root = str(tmp_path / pkg)
+        os.makedirs(root)
+        os.symlink(os.path.join(port_written_root, "raw"),
+                   os.path.join(root, "raw"))
+        roots.append(root)
+    jdc.RadarScenesGraphDataset(roots[0], *_configs(jcfg, "knn"))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _CREATE_WITHOUT_H5PY, roots[1], pinned,
+         json.dumps(_config_args("knn"))], cwd=repo,
+        env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    total = 0
+    for split in ("train", "test", "validate"):
+        dirs = [os.path.join(r, "processed", split) for r in roots]
+        names = sorted(os.listdir(dirs[0]))
+        assert sorted(os.listdir(dirs[1])) == names
+        for name in names:
+            _assert_same_npz(*(os.path.join(d, name) for d in dirs))
+        total += len(names)
+    assert total >= 8
 
 
 def test_dataset_selector():
