@@ -78,7 +78,10 @@ together (2 steps and 1 request against the plain path), at r_tile 8 and
 under ovf_ssum; trains the unfused configurations against the CPU; runs
 the convergence and preprocessing tools as child processes; and saves and
 restores the kNN trainer's state through the orbax backend bit for bit
-(where tensorstore is missing, checks that the save names it). A tenth
+(the port's own OCDBT, zarr and zstd code: the card's machine has no
+tensorstore), resumes a fresh trainer from it whose next step's losses
+are the uninterrupted trainer's bit for bit, and reads the JAX package's
+committed orbax checkpoint bit for bit. A tenth
 trains across ranks: two gloo ranks share the card on a {"model": 2} mesh
 and train the flagship DetNet through halo x dense on the kNN batch and
 halo x windowed on the radius batch (B1, B2 and B4 per rank, the boundary

@@ -39,22 +39,23 @@ eighth).
       of 8 and 24 (`r_tile` a multiple of 8) on the kNN batch at the
       model's layer shapes, under the limits of their main-path checks
       (`smoke.check_routed_kernels`), and 2 train steps at 8;
-  (h) the orbax checkpoint backend: the kNN trainer's state saved and
-      restored bit for bit, or, where `tensorstore` is missing, the save
-      refused with an ImportError naming it.
+  (h) the orbax checkpoint backend on the port's own OCDBT, zarr and zstd
+      code: the kNN trainer's state saved and restored bit for bit, a
+      fresh trainer resumed from it stepping to the uninterrupted
+      trainer's losses bit for bit, and the JAX package's committed orbax
+      checkpoint read bit for bit against its seed's state.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
 import json
 import math
 import os
 import subprocess
 import sys
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Tuple
 from unittest import mock
 
 import numpy as np
@@ -70,7 +71,8 @@ from radargnn_tpu_torch.models import layers
 from radargnn_tpu_torch.models.detnet import DetNet
 from radargnn_tpu_torch.ops import dense_aggregate as da
 from radargnn_tpu_torch.train import checkpoint as ckpt
-from radargnn_tpu_torch.train.trainer import Trainer, set_seeds
+from radargnn_tpu_torch.train.trainer import Trainer, make_optimizer, \
+    set_seeds
 
 # the bf16 routing bits on real-valued inputs, kernel against plain
 # version: their operands differ by float32 summation order (about 1e-7
@@ -410,56 +412,179 @@ def _flat_leaves(tree, prefix=()):
         yield prefix, tree
 
 
+# the committed orbax checkpoint the JAX package's save_train_state(backend=
+# "orbax") wrote (tests/test_torch_orbax_fixture.py rebuilds it): a narrow
+# flagship DetNet whose state is drawn from numpy's generator at this seed
+ORBAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "testdata", "orbax_detnet")
+ORBAX_FIXTURE_SEED = 20
+
+
+def orbax_fixture_arch():
+    """The fixture's DetNet: the flagship's architecture at narrow widths."""
+    arch, _, _, _ = sm.flagship_configs("knn")
+    return dataclasses.replace(
+        arch, conv_layer_dimensions=[16],
+        node_feature_embedding_layer_dimensions=[16],
+        edge_feature_embedding_layer_dimensions=[4],
+        regression_head_layer_dimensions=[16, 5])
+
+
+def orbax_fixture_state(seed: int = ORBAX_FIXTURE_SEED, arch=None) -> Dict:
+    """`save_train_state`'s keyword arguments for the fixture: the DetNet's
+    (`arch`, default the fixture's) flax variables and an optax Adam state
+    of its shapes, drawn from numpy's generator at `seed` in sorted key
+    order: kernels, means and first moments normal, biases and second
+    moments on a coarse grid (so zstd finds repeats in them), variances in
+    [0.5, 2], float32; the step count an int32; and the epoch, losses and
+    lr."""
+    rng = np.random.default_rng(seed)
+    model = DetNet(arch or orbax_fixture_arch(), device="cpu")
+    variables = weights.to_jax_variables(model.state_dict())
+    opt = weights.optimizer_state_to_jax(
+        make_optimizer(model.parameters(), 1e-3, 1e-4), model)
+
+    def draw(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: draw(tree[k], path + (k,)) for k in sorted(tree)}
+        shape, name = np.shape(tree), path[-1]
+        if name == "count":
+            return np.asarray(7, np.int32)
+        if name == "bias" or "nu" in path:
+            grid = 1 << 20 if "nu" in path else 8
+            value = rng.integers(0, 9, shape) / grid
+        elif name == "var":
+            value = rng.uniform(0.5, 2.0, shape)
+        elif name in ("learning_rate", "weight_decay"):
+            value = np.asarray(tree)
+        else:
+            value = rng.standard_normal(shape) * (1e-3 if "mu" in path
+                                                   else 0.1)
+        return np.asarray(value, np.float32)
+
+    variables, opt = draw(variables), draw(opt)
+    return {"params": variables["params"],
+            "batch_stats": variables["batch_stats"], "opt_state": opt,
+            "epoch": 3, "losses": {"train": [1.5, 1.25, 1.0],
+                                   "validate": [1.75, 1.5, 1.25]},
+            "scheduler_lr": 1e-3}
+
+
+def _trees_equal(got, want) -> bool:
+    """The same key paths, leaves equal bit for bit with one dtype."""
+    got, want = dict(_flat_leaves(got)), dict(_flat_leaves(want))
+    return sorted(got) == sorted(want) and all(
+        np.asarray(got[k]).dtype == np.asarray(v).dtype
+        and np.asarray(got[k]).shape == np.asarray(v).shape
+        and np.array_equal(np.asarray(got[k]), np.asarray(v))
+        for k, v in want.items())
+
+
+def _folder_files(folder: str) -> Tuple[List[str], int]:
+    files, size = [], 0
+    for root, _, names in os.walk(folder):
+        for name in names:
+            files.append(os.path.relpath(os.path.join(root, name), folder))
+            size += os.path.getsize(os.path.join(root, name))
+    return sorted(files), size
+
+
 def orbax_check(dev, arch, batch, seed: int, out: Callable = print) -> Dict:
-    """(h): one train step of the kNN trainer, its state saved through the
-    orbax backend and restored: the weights, statistics, moments, step
-    count and hyper-parameters bit for bit. Where `tensorstore` is missing
-    the save must raise ImportError naming it and the backend."""
+    """(h): the orbax checkpoint backend, on the port's own OCDBT, zarr and
+    zstd code. The kNN trainer's state after one step is saved and
+    restored bit for bit (weights, statistics, moments, step count,
+    hyper-parameters); a fresh trainer of the same architecture and seed
+    resumes from it, and its next step on the batch gives the losses of
+    the trainer that never stopped, bit for bit (deterministic algorithms;
+    on the card the step launches B1 and B2); the committed checkpoint the
+    JAX package wrote (`ORBAX_FIXTURE`, the one place tensorstore's
+    compressed zstd blocks are read here) is read bit for bit against its
+    state regenerated from its seed, and resumed into a trainer."""
     import tempfile
 
-    cfg = UserConfigurationReader.read_config_file(sm.FLAGSHIP_CONFIG)
-    train_cfg = UserConfigurationReader.get_config_object("TRAINING", cfg)
-    trainer = Trainer(train_cfg, DetNet(arch, device=dev, seed=seed))
-    trainer.train_step(batch)
-    if importlib.util.find_spec("tensorstore") is None:
-        with tempfile.TemporaryDirectory() as folder, \
-                mock.patch.dict(os.environ, RADARGNN_CKPT_BACKEND="orbax"):
-            try:
+    def run(train_cfg):
+        trainer = Trainer(train_cfg, DetNet(arch, device=dev, seed=seed))
+        trainer.train_step(batch)
+        with tempfile.TemporaryDirectory() as folder:
+            with mock.patch.dict(os.environ, RADARGNN_CKPT_BACKEND="orbax"):
+                t0 = time.perf_counter()
                 trainer._checkpoint(folder, 1, 1e-3)
-            except ImportError as err:
-                message = str(err)
-            else:
-                raise AssertionError("the orbax save ran without "
-                                     "tensorstore")
-        if "tensorstore" not in message or "orbax" not in message:
-            raise AssertionError(f"the orbax save's ImportError: {message}")
-        out(f"orbax backend: tensorstore is not installed here; the save "
-            f"raised ImportError: {message}")
-        return {"tensorstore": False, "message": message}
-    with tempfile.TemporaryDirectory() as folder:
-        with mock.patch.dict(os.environ, RADARGNN_CKPT_BACKEND="orbax"):
+                save_s = time.perf_counter() - t0
+            files, nbytes = _folder_files(os.path.join(folder, "orbax"))
             t0 = time.perf_counter()
-            trainer._checkpoint(folder, 1, 1e-3)
-            save_s = time.perf_counter() - t0
-        files = sorted(os.listdir(os.path.join(folder, "orbax")))
-        model, opt_sd, meta = ckpt.load_train_state(folder)
-    want_model = trainer._variables()
-    want_opt = weights.optimizer_state_to_jax(trainer.optimizer,
-                                              trainer.model)
-    flat = dict(_flat_leaves({"m": want_model, "o": want_opt}))
-    got = dict(_flat_leaves({"m": model, "o": opt_sd}))
-    equal = sorted(flat) == sorted(got) and all(
-        np.array_equal(np.asarray(got[k]), np.asarray(v))
-        and np.asarray(got[k]).dtype == np.asarray(v).dtype
-        for k, v in flat.items())
-    out(f"orbax backend: the kNN trainer's state after one step ({len(flat)}"
-        f" leaves) saved in {save_s:.2f} s ({', '.join(files)}) and "
-        f"restored bit for bit: {equal}; epoch {meta['epoch']}")
-    if not equal or meta["epoch"] != 1:
+            model, opt_sd, meta = ckpt.load_train_state(folder)
+            load_s = time.perf_counter() - t0
+            resumed = Trainer(train_cfg, DetNet(arch, device=dev, seed=seed))
+            resumed.resume(folder)
+        want = {"m": trainer._variables(), "o": weights.optimizer_state_to_jax(
+            trainer.optimizer, trainer.model)}
+        equal = _trees_equal({"m": model, "o": opt_sd}, want)
+        kept = torch.stack(trainer.train_step(batch)).cpu().numpy()
+        again = torch.stack(resumed.train_step(batch)).cpu().numpy()
+        return {"leaves": len(dict(_flat_leaves(want))), "files": files,
+                "bytes": nbytes, "save_s": save_s, "load_s": load_s,
+                "bitwise": equal and meta["epoch"] == 1,
+                "losses": kept.tolist(), "resumed_losses": again.tolist(),
+                "resume_bitwise": kept.tobytes() == again.tobytes()}
+
+    res = _deterministic_runs(run)
+    card = sm.card_description() if torch.device(dev).type == "cuda" \
+        else "the CPU"
+    out(f"orbax backend on {card}: the kNN trainer's state after one step "
+        f"({res['leaves']} leaves, {res['bytes']} bytes in "
+        f"{len(res['files'])} files: {', '.join(res['files'])}) saved in "
+        f"save_s {res['save_s']:.3f} s, restored in load_s "
+        f"{res['load_s']:.3f} s, bit for bit: {res['bitwise']}")
+    out(f"orbax backend on {card}: a fresh trainer resumed from it takes "
+        f"the next step with losses {res['resumed_losses']}, the "
+        f"uninterrupted trainer's {res['losses']}: bitwise "
+        f"{res['resume_bitwise']}")
+    if not res["bitwise"]:
         raise AssertionError("the orbax checkpoint did not restore the "
                              "trainer's state bit for bit")
-    return {"tensorstore": True, "leaves": len(flat), "files": files,
-            "save_s": save_s, "bitwise": equal}
+    if not res["resume_bitwise"]:
+        raise AssertionError("the trainer resumed from the orbax checkpoint"
+                             " stepped to other losses than the trainer "
+                             "that never stopped")
+    res["fixture"] = orbax_fixture_check(dev, out)
+    return res
+
+
+def orbax_fixture_check(dev, out: Callable = print) -> Dict:
+    """(h), the JAX package's checkpoint: `ORBAX_FIXTURE` read against its
+    state regenerated from its seed, then resumed into a trainer of its
+    architecture on `dev` whose weights and moments must be that state."""
+    want = orbax_fixture_state()
+    t0 = time.perf_counter()
+    model, opt_sd, meta = ckpt.load_train_state(ORBAX_FIXTURE)
+    load_s = time.perf_counter() - t0
+    equal = _trees_equal(
+        {"params": model["params"], "batch_stats": model["batch_stats"],
+         "opt_state": opt_sd},
+        {k: want[k] for k in ("params", "batch_stats", "opt_state")})
+    meta_equal = meta == {k: want[k] for k in ("epoch", "losses",
+                                               "scheduler_lr")}
+    cfg = UserConfigurationReader.read_config_file(sm.FLAGSHIP_CONFIG)
+    train_cfg = UserConfigurationReader.get_config_object("TRAINING", cfg)
+    trainer = Trainer(train_cfg, DetNet(orbax_fixture_arch(), device=dev))
+    trainer.resume(ORBAX_FIXTURE)
+    resumed = _trees_equal(
+        {"m": trainer._variables(), "o": weights.optimizer_state_to_jax(
+            trainer.optimizer, trainer.model)},
+        {"m": {"params": want["params"],
+               "batch_stats": want["batch_stats"]},
+         "o": want["opt_state"]})
+    files, nbytes = _folder_files(ORBAX_FIXTURE)
+    out(f"orbax backend: the JAX package's checkpoint testdata/"
+        f"{os.path.basename(ORBAX_FIXTURE)} ({nbytes} bytes, {len(files)} "
+        f"files) read in {load_s:.3f} s: bit for bit the state of seed "
+        f"{ORBAX_FIXTURE_SEED}: {equal}, its meta: {meta_equal}; resumed "
+        f"into a trainer on {dev}: {resumed}")
+    if not (equal and meta_equal and resumed):
+        raise AssertionError("the JAX package's orbax checkpoint did not "
+                             "read back as the state of its seed")
+    return {"bitwise": equal, "meta": meta_equal, "resumed": resumed,
+            "bytes": nbytes, "files": len(files), "load_s": load_s}
 
 
 def check_ovf_landing(tiling, layer_shapes: List[tuple], seed: int,

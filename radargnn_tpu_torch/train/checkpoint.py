@@ -20,8 +20,10 @@ Flax encodes a numpy array as the msgpack extension type 1 holding the
 packed (shape, dtype name, C-order bytes) and a numpy scalar as type 3;
 this module writes and reads that encoding with `msgpack` alone, so files
 cross between the two packages both ways. `msgpack` is imported where it
-is used; the orbax backend needs `tensorstore` (not orbax, which imports
-JAX), and raises ImportError where it is missing.
+is used. The orbax backend needs neither orbax (which imports JAX) nor
+tensorstore: the port reads and writes orbax's OCDBT, zarr v2 and zstd
+layout with its own numpy code (`train.orbax_format`, `train.ocdbt`,
+`train.zstd`), the same on every machine.
 """
 
 from __future__ import annotations
@@ -120,8 +122,6 @@ def save_train_state(folder: str, *, params, batch_stats, opt_state,
     if backend not in ("msgpack", "orbax"):
         raise ValueError(f'unknown checkpoint backend "{backend}": '
                          '"msgpack" or "orbax"')
-    if backend == "orbax":
-        orbax_format.tensorstore()
     if process == 0:
         os.makedirs(folder, exist_ok=True)
     meta = {"epoch": epoch, "scheduler_lr": float(scheduler_lr),

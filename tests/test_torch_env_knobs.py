@@ -10,7 +10,8 @@ kernels' variant knobs act where the JAX package's do (the single-card
 windowed path under bf16_max: the landing; the same path without it: the
 JAX package's warning, and the baseline; elsewhere nothing); a knob that
 only chooses how the TPU streams its gathers changes nothing; the orbax
-checkpoint backend needs tensorstore and says so where it is missing."""
+checkpoint backend runs without tensorstore and zstandard (the port's own
+code) and names what it does not read."""
 
 import json
 import os
@@ -334,34 +335,55 @@ print(json.dumps(repr(spec)))
 
 
 def test_orbax_backend_without_tensorstore_raises(tmp_path):
-    """With tensorstore hidden (as on a machine without it), the orbax
-    save (RADARGNN_CKPT_BACKEND=orbax) and the load of an orbax/ folder
-    each raise ImportError naming tensorstore and the orbax backend; the
-    msgpack backend still writes."""
+    """With tensorstore and zstandard hidden (as on the card's machine),
+    the orbax save (RADARGNN_CKPT_BACKEND=orbax) and the load of its
+    orbax/ folder run on the port's own code and give the tree back bit
+    for bit; what raises is what the backend does not read: a zarr3
+    checkpoint (use_zarr3: true, which the JAX package never writes), with
+    an error naming it, and an unknown backend. The msgpack backend still
+    writes."""
     code = r"""
-import os, sys
+import json, os, sys
+import numpy as np
 sys.modules["tensorstore"] = None
+sys.modules["zstandard"] = None
 from radargnn_tpu_torch.train import checkpoint as ckpt
 folder = sys.argv[1]
-kw = dict(params={"w": __import__("numpy").ones(2)}, batch_stats={},
-          opt_state={}, epoch=0, losses={}, scheduler_lr=1e-3)
+kw = dict(params={"w": np.arange(6, dtype=np.float32).reshape(2, 3)},
+          batch_stats={}, opt_state={"count": np.int32(3)}, epoch=2,
+          losses={}, scheduler_lr=1e-3)
 os.environ["RADARGNN_CKPT_BACKEND"] = "orbax"
+ckpt.save_train_state(folder, **kw)
+model, opt, meta = ckpt.load_train_state(folder)
+same = (np.array_equal(model["params"]["w"], kw["params"]["w"])
+        and model["params"]["w"].dtype == np.float32
+        and opt["count"].dtype == np.int32 and int(opt["count"]) == 3
+        and meta["epoch"] == 2)
+path = os.path.join(folder, "orbax", "_METADATA")
+with open(path) as f:
+    tree = json.load(f)
+with open(path, "w") as f:
+    json.dump(dict(tree, use_zarr3=True), f)
 raised = []
-for call in (lambda: ckpt.save_train_state(folder, **kw),
-             lambda: ckpt.load_train_state(folder)):
+for call in (lambda: ckpt.load_train_state(folder),
+             lambda: ckpt.save_train_state(folder, backend="zarr", **kw)):
     try:
         call()
-    except ImportError as err:
+    except ValueError as err:
         raised.append(str(err))
-    os.makedirs(os.path.join(folder, "orbax"), exist_ok=True)
 ckpt.save_train_state(folder, backend="msgpack", **kw)
-print(json.dumps([raised, sorted(os.listdir(folder))]))
+bad = [m for m in sys.modules if m.split(".")[0] in (
+    "tensorstore", "zstandard", "orbax", "jax") and sys.modules[m]]
+print(json.dumps([same, raised, sorted(os.listdir(folder)), bad]))
 """
-    raised, files = json.loads(_subprocess(
+    same, raised, files, bad = json.loads(_subprocess(
         "import json\n" + code, str(tmp_path)))
+    assert same and not bad
     assert len(raised) == 2, raised
-    assert all("tensorstore" in m and "orbax" in m for m in raised), raised
-    assert {"model.msgpack", "opt_state.msgpack", "meta.json"} <= set(files)
+    assert "zarr3" in raised[0] and "use_zarr3" in raised[0], raised
+    assert "zarr" in raised[1] and "msgpack" in raised[1], raised
+    assert {"model.msgpack", "opt_state.msgpack", "meta.json",
+            "orbax"} <= set(files)
 
 
 def test_bf16_max_config_still_raises_in_process(monkeypatch):

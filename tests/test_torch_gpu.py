@@ -2060,3 +2060,29 @@ def test_radarscenes_sequences_without_h5py_on_the_card(tmp_path,
             frames
     timed = smoke.time_hdf5_reader(root, rows=50_000)
     assert timed["bytes"] == 50_000 * smoke.RADAR_DTYPE.itemsize
+
+
+@pytest.mark.gpu
+def test_orbax_backend_resumes_on_the_card(monkeypatch):
+    """The ninth phase's orbax check on the card's machine, where neither
+    tensorstore nor zstandard is installed (blocked here all the same):
+    the kNN trainer's state after one step saved through the port's own
+    OCDBT, zarr and zstd code and restored bit for bit; a fresh trainer
+    resumed from it takes the next step with the uninterrupted trainer's
+    losses bit for bit (B1 and B2 launch); the JAX package's committed
+    checkpoint reads as its seed's state and resumes a trainer."""
+    _need_card()
+    import sys
+
+    from radargnn_tpu_torch import smoke_variants as sv
+    for name in ("tensorstore", "zstandard"):
+        monkeypatch.setitem(sys.modules, name, None)
+    arch, _, loader = smoke.flagship_serving("cuda", 2816, 5, 1, 0)
+    from radargnn_tpu_torch.ops import dense_aggregate as da
+    counters = (da.dense_proj_cuda, da.dense_fwd_cuda, da.dense_bwd_cuda)
+    before = [c.launches for c in counters]
+    res = sv.orbax_check("cuda", arch, loader[0], 0)
+    assert res["bitwise"] and res["resume_bitwise"]
+    assert all(c.launches > b for c, b in zip(counters, before))
+    assert res["fixture"]["bitwise"] and res["fixture"]["resumed"]
+    assert "ocdbt.process_0/manifest.ocdbt" in res["files"]

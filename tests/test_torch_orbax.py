@@ -3,12 +3,16 @@
 JAX package's (`radargnn_tpu/train/checkpoint.py`, orbax-checkpoint) on
 the CPU: checkpoints cross both ways bit for bit, sharded ones included,
 and two gloo ranks of a {"model": 2} mesh each write their own column
-slices. The port reads and writes orbax's layout through tensorstore and
-never imports orbax or JAX; the tests import both to compare."""
+slices. The port reads and writes orbax's layout with its own code
+(`train.ocdbt`, `train.zstd`) and never imports orbax, tensorstore or JAX;
+the tests import them to compare. Each test has a variant where the port
+runs with tensorstore and zstandard blocked (as on the card's machine)."""
 
+import contextlib
 import dataclasses
 import json
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +31,7 @@ from radargnn_tpu.train.trainer import Trainer as JTrainer
 from radargnn_tpu_torch import configs as tcfg
 from radargnn_tpu_torch import weights
 from radargnn_tpu_torch.data.loader import GraphDataLoader
+from radargnn_tpu_torch import smoke_variants as sv
 from radargnn_tpu_torch.models.detnet import DetNet
 from radargnn_tpu_torch.parallel.comm import run_ranks
 from radargnn_tpu_torch.train import checkpoint as tckpt
@@ -37,6 +42,24 @@ from tests.test_tensor_parallel import _samples as _tp_samples
 import torch_parallel_workers as W
 
 LR = 1e-3
+_ABSENT = object()
+
+
+@contextlib.contextmanager
+def _without_tensorstore(blocked=True):
+    """tensorstore and zstandard cannot be imported inside (the JAX
+    package's orbax, outside, still can)."""
+    names = ("tensorstore", "zstandard") if blocked else ()
+    saved = {n: sys.modules.get(n, _ABSENT) for n in names}
+    sys.modules.update({n: None for n in names})
+    try:
+        yield
+    finally:
+        for n, m in saved.items():
+            if m is _ABSENT:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = m
 
 
 def _leaves(tree, prefix=()):
@@ -64,6 +87,15 @@ def test_port_reads_a_sharded_jax_checkpoint(tmp_path):
     """The JAX package writes jax.Arrays sharded over {"data": 8} with
     backend="orbax" (tests/test_parallel.py's case); the port reads the
     full arrays and the meta, and a leaf's slice alone where asked."""
+    _port_reads_a_sharded_jax_checkpoint(tmp_path, blocked=False)
+
+
+def test_port_reads_a_sharded_jax_checkpoint_without_tensorstore(tmp_path):
+    """As above, the port's reads with tensorstore and zstandard blocked."""
+    _port_reads_a_sharded_jax_checkpoint(tmp_path, blocked=True)
+
+
+def _port_reads_a_sharded_jax_checkpoint(tmp_path, blocked):
     mesh = j_make_mesh({"data": 8})
     sh = NamedSharding(mesh, P("data"))
     params = {"w": jax.device_put(jnp.arange(64.0).reshape(8, 8), sh),
@@ -75,15 +107,17 @@ def test_port_reads_a_sharded_jax_checkpoint(tmp_path):
                            opt_state=opt_state, epoch=3,
                            losses={"train": [1.0, 0.5]}, scheduler_lr=1e-3,
                            backend="orbax")
-    model, opt_sd, meta = tckpt.load_train_state(folder)
+    with _without_tensorstore(blocked):
+        model, opt_sd, meta = tckpt.load_train_state(folder)
     _assert_trees_equal(model, {"params": jax.device_get(params),
                                 "batch_stats": {}})
     _assert_trees_equal(opt_sd, jax.device_get(opt_state))
     assert meta == {"epoch": 3, "scheduler_lr": 1e-3,
                     "losses": {"train": [1.0, 0.5]}}
-    model, _, _ = tckpt.load_train_state(
-        folder, lambda path, shape: (slice(None), slice(2, 4))
-        if path == ("params", "w") else None)
+    with _without_tensorstore(blocked):
+        model, _, _ = tckpt.load_train_state(
+            folder, lambda path, shape: (slice(None), slice(2, 4))
+            if path == ("params", "w") else None)
     np.testing.assert_array_equal(model["params"]["w"],
                                   np.arange(64.0).reshape(8, 8)[:, 2:4])
 
@@ -131,11 +165,23 @@ def test_jax_restores_the_ports_checkpoint(tmp_path, monkeypatch):
     (RADARGNN_CKPT_BACKEND=orbax); the JAX package's load_train_state,
     with its trainer's optimizer state as the target, restores the
     weights, statistics and optax state bit for bit."""
+    _jax_restores_the_ports_checkpoint(tmp_path, monkeypatch, blocked=False)
+
+
+def test_jax_restores_the_ports_checkpoint_without_tensorstore(
+        tmp_path, monkeypatch):
+    """As above, the port's trainer and save with tensorstore and
+    zstandard blocked."""
+    _jax_restores_the_ports_checkpoint(tmp_path, monkeypatch, blocked=True)
+
+
+def _jax_restores_the_ports_checkpoint(tmp_path, monkeypatch, blocked):
     jt, payload = _tp_case()
-    trainer, _ = _port_trainer(payload)
     monkeypatch.setenv("RADARGNN_CKPT_BACKEND", "orbax")
     folder = str(tmp_path / "ck")
-    trainer._checkpoint(folder, 1, 1e-3)
+    with _without_tensorstore(blocked):
+        trainer, _ = _port_trainer(payload)
+        trainer._checkpoint(folder, 1, 1e-3)
     assert sorted(os.listdir(folder)) == ["meta.json", "orbax"]
     assert {"_METADATA", "_CHECKPOINT_METADATA", "_sharding", "d",
             "manifest.ocdbt", "array_metadatas", "ocdbt.process_0"} <= set(
@@ -165,8 +211,19 @@ def test_two_ranks_write_their_slices(tmp_path):
     full width) of the same run. Resuming from the orbax checkpoint, on the
     two ranks and on one alone, gives the next step a msgpack resume gives,
     bit for bit."""
+    _two_ranks_write_their_slices(tmp_path, blocked=False)
+
+
+def test_two_ranks_write_their_slices_without_tensorstore(tmp_path):
+    """As above, with tensorstore and zstandard blocked on both ranks and
+    in the single-rank resumes."""
+    _two_ranks_write_their_slices(tmp_path, blocked=True)
+
+
+def _two_ranks_write_their_slices(tmp_path, blocked):
     _, payload = _tp_case()
     payload["train"] = dict(payload["train"], shard_params_over_model=True)
+    payload["without_tensorstore"] = blocked
     folders = {b: str(tmp_path / b) for b in ("orbax", "msgpack")}
     mesh = {"model": 2}
     jobs = [("orbax_worker", dict(payload, mesh=mesh, mode="save", steps=1,
@@ -212,8 +269,40 @@ def test_two_ranks_write_their_slices(tmp_path):
                                           err_msg=k)
     single = dict(payload, train=dict(payload["train"],
                                       shard_params_over_model=False))
-    lo, eo, so = _resume_here(single, folders["orbax"])
-    lm, em, sm = _resume_here(single, folders["msgpack"])
+    with _without_tensorstore(blocked):
+        lo, eo, so = _resume_here(single, folders["orbax"])
+        lm, em, sm = _resume_here(single, folders["msgpack"])
     assert lo == lm and eo == em == 1
     for k in so:
         np.testing.assert_array_equal(so[k], sm[k], err_msg=k)
+
+
+def test_resume_from_a_jax_orbax_checkpoint_is_the_msgpack_resume(
+        tmp_path, monkeypatch):
+    """The JAX trainer checkpoints its state with both backends (its own
+    `_checkpoint` under RADARGNN_CKPT_BACKEND); the port's Trainer.resume
+    from the orbax folder, with tensorstore and zstandard blocked, takes
+    the next step to the losses and weights of its resume from the
+    msgpack folder, bit for bit."""
+    jt, payload = _tp_case()
+    folders = {b: str(tmp_path / b) for b in ("orbax", "msgpack")}
+    for backend, folder in folders.items():
+        monkeypatch.setenv("RADARGNN_CKPT_BACKEND", backend)
+        jt._checkpoint(folder, 2, LR)
+    assert os.path.isdir(os.path.join(folders["orbax"], "orbax"))
+    with _without_tensorstore():
+        lo, eo, so = _resume_here(payload, folders["orbax"])
+        lm, em, sm = _resume_here(payload, folders["msgpack"])
+    assert lo == lm and eo == em == 2 and np.isfinite(lo).all()
+    for k in so:
+        np.testing.assert_array_equal(so[k], sm[k], err_msg=k)
+
+
+def test_read_time_script_at_a_small_size():
+    """tests/orbax_read_time.py (the flagship-size host-CPU read time in
+    PERF.md) at the fixture's narrow DetNet: the JAX package's checkpoint
+    read back as its state, the port's save and read timed."""
+    from orbax_read_time import measure
+    res = measure(sv.orbax_fixture_arch(), repeats=1)
+    assert res["leaves"] > 40 and res["array_bytes"] > 30_000
+    assert res["read_s"] > 0 and res["port_read_s"] > 0

@@ -23,11 +23,14 @@ _PKG = os.path.dirname(os.path.abspath(radargnn_tpu_torch.__file__))
 
 # an import of JAX, flax, the JAX package itself (`radargnn_tpu.x` or
 # `from radargnn_tpu import x`) — but not of `radargnn_tpu_torch` — or of
-# h5py (the card's machine has none: the port reads HDF5 with `data.hdf5`)
+# h5py, orbax, tensorstore, zstandard or a crc32c package (the card's
+# machine has none of them: the port reads HDF5 with `data.hdf5` and
+# orbax's layout with `train.orbax_format`, `train.ocdbt`, `train.zstd`)
+_NAMES = r"jax|jaxlib|flax|h5py|orbax|tensorstore|zstandard|crc32c|google_crc32c"
 _FORBIDDEN = re.compile(
-    r"^\s*(?:from|import)\s+(?:jax|jaxlib|flax|h5py)\b"
+    rf"^\s*(?:from|import)\s+(?:{_NAMES})\b"
     r"|^\s*(?:from|import)\s+radargnn_tpu(?:\.|\s)"
-    r"|import_module\(\s*['\"](?:jax|flax|h5py|radargnn_tpu(?:\.|['\"]))",
+    rf"|import_module\(\s*['\"](?:{_NAMES}|radargnn_tpu(?:\.|['\"]))",
     re.MULTILINE)
 
 
@@ -48,6 +51,14 @@ def test_forbidden_import_pattern():
     assert _FORBIDDEN.search("    from radargnn_tpu import configs")
     assert _FORBIDDEN.search("    import h5py")
     assert _FORBIDDEN.search("from h5py import File")
+    assert _FORBIDDEN.search("    import tensorstore as ts")
+    assert _FORBIDDEN.search("import zstandard")
+    assert _FORBIDDEN.search("from google_crc32c import value")
+    assert _FORBIDDEN.search("    import crc32c")
+    assert _FORBIDDEN.search("import orbax.checkpoint as ocp")
+    assert _FORBIDDEN.search("importlib.import_module('tensorstore')")
+    assert not _FORBIDDEN.search("from radargnn_tpu_torch.train import zstd")
+    assert not _FORBIDDEN.search("import tensorstore_like")
     assert not _FORBIDDEN.search("from radargnn_tpu_torch.ops import knn")
     assert not _FORBIDDEN.search("import radargnn_tpu_torch")
     assert not _FORBIDDEN.search("from radargnn_tpu_torch.data import hdf5")
@@ -75,7 +86,8 @@ def test_every_submodule_imports_without_jax():
         "    importlib.import_module(n)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'radargnn_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'radargnn_tpu', 'orbax', 'tensorstore', "
+        "'zstandard', 'crc32c', 'google_crc32c')]\n"
         "assert not bad, bad\n"
         "for m in ('ops.csr_aggregate', 'ops.fused_linear', "
         "'ops.message_segment_max', 'ops.hoisted_aggregate', "
@@ -94,7 +106,8 @@ def test_every_submodule_imports_without_jax():
         "'parallel.edge_partition', 'parallel.halo', 'parallel.halo_dense', "
         "'parallel.halo_windowed', 'parallel.tensor', 'parallel.dryrun', "
         "'benchmarks.scaling', 'benchmarks.halo_accounting', "
-        "'smoke_parallel'):\n"
+        "'smoke_parallel', 'train.zstd', 'train.ocdbt', "
+        "'train.orbax_format'):\n"
         "    assert 'radargnn_tpu_torch.' + m in names, m\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=_REPO)

@@ -4,10 +4,14 @@ points), its second half (`settings_phase`): the unfused configurations
 against the CPU, the tools as child processes, B4's bf16 landing against
 its plain version and the radius configuration under the three variant
 knobs, B1 and B2 at receiver tiles of 8 and 24 and two steps at 8, the
-orbax backend, and the half's entries of the kernels line. The first half
+orbax backend (with tensorstore and zstandard blocked: a save and restore,
+a resumed step, the JAX package's committed checkpoint), and the half's
+entries of the kernels line. The first half
 (`routing_phase`) is tests/test_torch_smoke_variants.py's. Off the card
 the wrappers take their plain versions, so nothing is timed and nothing
 launches."""
+
+import sys
 
 import numpy as np
 import pytest
@@ -23,7 +27,11 @@ POINTS, GRAPHS, SEED = 200, 2, 0
 
 
 @pytest.mark.usefixtures("few_threads")
-def test_settings_phase_rehearses_on_cpu():
+def test_settings_phase_rehearses_on_cpu(monkeypatch):
+    # the card's machine has neither tensorstore nor zstandard: the orbax
+    # backend runs on the port's own code
+    for name in ("tensorstore", "zstandard"):
+        monkeypatch.setitem(sys.modules, name, None)
     dev = torch.device("cpu")
     lines = []
     arch, model, loader = smoke.flagship_serving(dev, POINTS, GRAPHS, 1,
@@ -73,9 +81,20 @@ def test_settings_phase_rehearses_on_cpu():
         assert any(f"at r_tile {r_tile}: " in s for s in lines)
     assert var["r_tile_8_train"]["train_max_rel_loss_diff"] == 0.0
     assert np.isfinite(var["r_tile_8_train"]["train_losses"]).all()
-    # orbax: tensorstore is installed here
-    assert var["orbax"]["bitwise"] and var["orbax"]["leaves"] > 100
-    assert "ocdbt.process_0" in var["orbax"]["files"]
+    # orbax, on the port's own code: the state restored bit for bit, a
+    # fresh trainer resumed from it stepping to the uninterrupted one's
+    # losses bit for bit, and the JAX package's checkpoint read as its
+    # seed's state
+    orbax = var["orbax"]
+    assert orbax["bitwise"] and orbax["leaves"] > 100
+    assert "ocdbt.process_0/manifest.ocdbt" in orbax["files"]
+    assert orbax["resume_bitwise"]
+    assert orbax["resumed_losses"] == orbax["losses"]
+    assert np.isfinite(orbax["losses"]).all()
+    assert orbax["fixture"]["bitwise"] and orbax["fixture"]["meta"]
+    assert orbax["fixture"]["resumed"]
+    assert any(s.startswith("orbax backend: the JAX package's checkpoint")
+               for s in lines)
 
     kernels = sv.settings_kernels(var, on_card=False)
     assert [k["name"] for k in kernels] == [

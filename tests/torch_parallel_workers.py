@@ -246,9 +246,15 @@ def orbax_worker(rank, world, device, payload):
     checkpoint with both backends (`folders`: {"orbax": ..., "msgpack":
     ...}); returns the weights and the full-width Adam moments. "resume":
     resume from `folder` and take one more step; returns its losses and
-    the weights after it."""
+    the weights after it. `payload["without_tensorstore"]`: tensorstore and
+    zstandard cannot be imported on the rank (as on the card's
+    machine)."""
     import os
+    import sys
     from unittest import mock
+
+    if payload.get("without_tensorstore"):
+        sys.modules.update(tensorstore=None, zstandard=None)
 
     mesh = make_mesh(payload["mesh"], device=device) \
         if payload.get("mesh") else None
