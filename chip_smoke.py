@@ -52,17 +52,24 @@ RadarScenes sequences it writes and reads with the port's own HDF5 code
 spawned workers, train and evaluate, checking that create_dataset launched
 no kernel, train the dense path's three kernels and evaluate its two,
 exactly as often as the batches ask, and nothing else; then python -m
-radargnn_tpu_torch.cli.evaluate as a child process, the model folder
-evaluated on the CPU against the card, and the HDF5 reader timed on one
-table of 500,000 rows (printed beside create_dataset's seconds and the raw
-bytes it read). An eighth runs the nuScenes pipeline the same way, under the nuScenes
-configuration with epochs 2 (printed), on nuScenes-format tables and
-multisweep radar sweeps it writes (two train scenes of 32 samples, one
-validation scene of 16; batches of 32 frames of about 1,900 points):
+radargnn_tpu_torch.cli.evaluate --plot 2 as a child process, the model
+folder evaluated on the CPU against the card (its two prediction plots
+drawn too), and the HDF5 reader timed on one table of 500,000 rows
+(printed beside create_dataset's seconds and the raw bytes it read). Every
+figure the run writes (loss_curves.png, each evaluation's confusion.png,
+the prediction plots) is drawn by the port's own rasteriser and PNG writer
+(radargnn_tpu_torch.postprocess.figure; no matplotlib), read back with its
+PNG reader, and must have its size and ink on more than 1 % of its
+pixels; their bytes and the host's draw seconds are printed. An eighth
+runs the nuScenes pipeline the same way, under the nuScenes configuration
+with epochs 2 (printed), on nuScenes-format tables and multisweep radar
+sweeps it writes (two train scenes of 32 samples, one validation scene of
+16; batches of 32 frames of about 1,900 points):
 create_dataset, train and evaluate (the NuscenesEvaluator: submission.json
 and the native detection eval's mAP and NDS), the launches of the dense
 path's kernels counted as above; then the evaluate CLI as a child
-process, the model folder evaluated on the CPU against the card, oracle
+process, the model folder evaluated on the CPU against the card, its
+figures checked as above, oracle
 predictions through the card's and the CPU's NMS and evaluator (equal
 metrics, AP above 0.9 for every class present), the dense path's kernels
 held against their plain versions on the train CLI's first batch of 32

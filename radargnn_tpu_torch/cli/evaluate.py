@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import argparse
 import glob
-import importlib.util
 import json
 import os
 from typing import Dict
@@ -32,6 +31,7 @@ from radargnn_tpu_torch.postprocess.extraction import (
     Postprocessor, PredictionExtractor,
 )
 from radargnn_tpu_torch.postprocess.inference import Predictor
+from radargnn_tpu_torch.postprocess.visualization import PredictionVisualizer
 from radargnn_tpu_torch.train import checkpoint as ckpt
 
 
@@ -99,20 +99,12 @@ def main(path_to_data: str, path_to_model_folder: str,
     eval_folder = evaluator.save_results(path_to_model_folder)
 
     if plot_predictions and eval_folder:
-        if importlib.util.find_spec("matplotlib") is None:
-            print(f"{eval_folder}/prediction_*.png not drawn: matplotlib is "
-                  "not installed")
-        else:
-            from radargnn_tpu_torch.postprocess.visualization import (
-                PredictionVisualizer,
-            )
-            names = list(config.min_object_score.keys())
-            names.insert(config.bg_index, "background")
-            for i in range(min(plot_predictions, len(bb_pred))):
-                fig, _ = PredictionVisualizer.plot_detections(
-                    bb_pred[i], cls_pred[i], label_names=names)
-                fig.savefig(os.path.join(eval_folder,
-                                         f"prediction_{i:03d}.png"))
+        names = list(config.min_object_score.keys())
+        names.insert(config.bg_index, "background")
+        for i in range(min(plot_predictions, len(bb_pred))):
+            fig, _ = PredictionVisualizer.plot_detections(
+                bb_pred[i], cls_pred[i], label_names=names)
+            fig.savefig(os.path.join(eval_folder, f"prediction_{i:03d}.png"))
     return {"predictions": predictions, "evaluator": evaluator,
             "eval_folder": eval_folder}
 

@@ -5,13 +5,11 @@ Port of `radargnn_tpu/data/nuscenes/evaluation.py`. The detection metrics
 come from the nuScenes devkit's `DetectionEval` where the devkit imports,
 else from the native protocol (`detection_eval`). The mAP engine's box IoU
 runs on `device` (None: the card), as in `RadarscenesEvaluator`.
-`confusion.png` needs matplotlib: where it does not import, the figure is
-not drawn, one line says so, and every other file is still written.
+`confusion.png` is drawn by the port's own figure code.
 """
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import os
 from dataclasses import asdict
@@ -141,13 +139,8 @@ class NuscenesEvaluator(Evaluator):
                 np.save(f, self.confusion_absolute)
             with open(f"{folder}/confusion_rel.npy", "wb") as f:
                 np.save(f, self.confusion_relative)
-            if importlib.util.find_spec("matplotlib") is None:
-                print(f"{folder}/confusion.png not drawn: matplotlib is not "
-                      "installed (the confusion matrices are in "
-                      "confusion_abs.npy and confusion_rel.npy)")
-            else:
-                conf_perc = np.round(self.confusion_relative * 100, 2)
-                fig = plot_confusion_matrix(conf_perc, self.names,
-                                            normalize=False)
-                fig.savefig(f"{folder}/confusion.png")
+            conf_perc = np.round(self.confusion_relative * 100, 2)
+            fig = plot_confusion_matrix(conf_perc, self.names,
+                                        normalize=False)
+            fig.savefig(f"{folder}/confusion.png")
         return folder

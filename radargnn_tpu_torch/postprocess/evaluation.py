@@ -5,16 +5,14 @@ Port of `radargnn_tpu/postprocess/evaluation.py` (parity:
 numbering, and `postprocessor/radarscenes/evaluation.py:12-97` of the
 reference); the nuScenes evaluator is `data.nuscenes.evaluation`.
 
-`save_results` writes the JAX package's artifacts. `confusion.png` needs
-matplotlib: where it does not import, the figure is not drawn, one line
-says so, and every number is still written.
+`save_results` writes the JAX package's artifacts, `confusion.png` among
+them, drawn by the port's own figure code (`postprocess.visualization`).
 """
 
 from __future__ import annotations
 
 import abc
 import glob
-import importlib.util
 import json
 import os
 from dataclasses import asdict
@@ -120,15 +118,10 @@ class RadarscenesEvaluator(Evaluator):
                 np.save(f, self.confusion_absolute)
             with open(f"{folder}/confusion_rel.npy", "wb") as f:
                 np.save(f, self.confusion_relative)
-            if importlib.util.find_spec("matplotlib") is None:
-                print(f"{folder}/confusion.png not drawn: matplotlib is not "
-                      "installed (the confusion matrices are in "
-                      "confusion_abs.npy and confusion_rel.npy)")
-            else:
-                conf_perc = np.round(self.confusion_relative * 100, 2)
-                fig = plot_confusion_matrix(conf_perc, self.names,
-                                            normalize=False)
-                fig.savefig(f"{folder}/confusion.png")
+            conf_perc = np.round(self.confusion_relative * 100, 2)
+            fig = plot_confusion_matrix(conf_perc, self.names,
+                                        normalize=False)
+            fig.savefig(f"{folder}/confusion.png")
         return folder
 
 

@@ -2,9 +2,10 @@
 
 Port of `radargnn_tpu/postprocess/visualization.py` (parity:
 `postprocessor/visualization.py:10-159` of the reference: prediction plots
-with boxes, labels and scores; the confusion heatmap). matplotlib is
-imported by each plotting function when it is called, never when this
-module is imported, so the port imports on a machine without it.
+with boxes, labels and scores; the confusion heatmap). The JAX package
+draws these with matplotlib; the port lays the same figures out and draws
+them with its own code (`postprocess.figure`), on every machine: each
+function returns a figure whose `savefig(path)` writes the PNG.
 """
 
 from __future__ import annotations
@@ -13,16 +14,8 @@ import itertools
 
 import numpy as np
 
+from radargnn_tpu_torch.postprocess.figure import BLUES, Figure
 from radargnn_tpu_torch.utils.properties import Colors
-
-
-def _pyplot():
-    """matplotlib's pyplot on the Agg backend (raises ImportError where
-    matplotlib is not installed)."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-    return plt
 
 
 class Visualizer:
@@ -31,11 +24,11 @@ class Visualizer:
     @staticmethod
     def plot_point_cloud(pos: np.ndarray, labels: np.ndarray, ax=None):
         if ax is None:
-            _, ax = _pyplot().subplots()
+            ax = Figure().ax
         colors = [Colors.label_id_to_color.get(int(l), Colors.gray)
                   for l in np.asarray(labels).reshape(-1)]
         ax.scatter(pos[:, 0], pos[:, 1], c=colors, s=4)
-        ax.axis("equal")
+        ax.axis_equal()
         return ax
 
 
@@ -45,7 +38,8 @@ class PredictionVisualizer:
     @staticmethod
     def plot_detections(detection_result: dict, segmentation_result: dict,
                         label_names=None, show_scores: bool = True):
-        fig, ax = _pyplot().subplots()
+        fig = Figure()
+        ax = fig.ax
         Visualizer.plot_point_cloud(segmentation_result["pos"],
                                     segmentation_result["labels"], ax)
         boxes = detection_result["boxes"]
@@ -54,7 +48,7 @@ class PredictionVisualizer:
         for i in range(len(boxes)):
             corners = boxes.corners[i]
             order = [0, 1, 2, 3, 0]
-            ax.plot(corners[order, 0], corners[order, 1], c="black", lw=1)
+            ax.plot(corners[order, 0], corners[order, 1], color="black", lw=1)
             if show_scores and scores.size:
                 name = (label_names[int(labels[i])] if label_names
                         else str(int(labels[i])))
@@ -69,16 +63,15 @@ def plot_graph(pos: np.ndarray, senders: np.ndarray, receivers: np.ndarray,
     """Plots a geometric graph at its spatial coordinates (edges as segments,
     optional velocity quiver). Parity: `GeometricGraph.show`
     (`graph_constructor/graph.py:277-302` of the reference)."""
-    fig, ax = _pyplot().subplots()
+    fig = Figure()
+    ax = fig.ax
     segs = np.stack([pos[senders], pos[receivers]], axis=1)
-    from matplotlib.collections import LineCollection
-    ax.add_collection(LineCollection(segs, colors="gray", linewidths=0.4))
+    ax.add_segments(segs, color="gray", linewidth=0.4)
     ax.scatter(pos[:, 0], pos[:, 1], s=node_size, c=Colors.blue, zorder=2)
     if vel is not None:
         ax.quiver(pos[:, 0], pos[:, 1], vel[:, 0], vel[:, 1],
                   scale=vec_scale, color="red")
-    ax.axis("equal")
-    ax.tick_params(left=True, bottom=True, labelleft=True, labelbottom=True)
+    ax.axis_equal()
     return fig, ax
 
 
@@ -89,9 +82,9 @@ def plot_confusion_matrix(cm: np.ndarray, class_names, normalize: bool = False):
         sums[sums == 0] = 1e-8
         cm = cm / sums
 
-    plt = _pyplot()
-    fig, ax = plt.subplots(figsize=(6, 6))
-    im = ax.imshow(cm, interpolation="nearest", cmap=plt.colormaps["Blues"])
+    fig = Figure(figsize=(6, 6))
+    ax = fig.ax
+    im = ax.imshow(cm, cmap=BLUES)
     fig.colorbar(im)
     ticks = np.arange(len(class_names))
     ax.set_xticks(ticks, class_names, rotation=45, ha="right")

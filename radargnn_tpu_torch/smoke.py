@@ -46,7 +46,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import glob
-import importlib.util
 import json
 import math
 import os
@@ -2477,6 +2476,7 @@ def cli_phase(dev: torch.device, points: int = RADIUS_POINTS,
                  "card": card_description() if on_card else None}
     stages: Dict = {}
     epoch_s: List[float] = []
+    drawn: Dict = {}
     start = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "radarscenes")
@@ -2493,13 +2493,14 @@ def cli_phase(dev: torch.device, points: int = RADIUS_POINTS,
             _count_stages(stack, cli_main,
                           ("create_dataset", "train", "evaluate"), stages,
                           epoch_s)
+            _time_figures(stack, drawn)
             cli_main.main(root, results, config, device=dev)
         if stages["create_dataset"]["launches"] != [0] * len(KERNEL_NAMES):
             raise AssertionError(f"create_dataset launched "
                                  f"{stages['create_dataset']['launches']}")
         res["create_dataset_s"] = stages["create_dataset"]["seconds"]
         res.update(_check_cli_run(dev, root, results, config, stages,
-                                  epoch_s, RADARSCENES_OUTPUTS, out))
+                                  epoch_s, drawn, RADARSCENES_OUTPUTS, out))
         res["reader"] = time_hdf5_reader(tmp)
     res["phase_s"] = time.perf_counter() - start
     reader = res["reader"]
@@ -2527,8 +2528,16 @@ def cli_phase(dev: torch.device, points: int = RADIUS_POINTS,
 CLI_MODEL_FILES = ("gnn_configs.json", "dataset_configs.json",
                    "trained_model.msgpack", "loss_train.npy",
                    "loss_validation.npy", "loss_train_cls.npy",
-                   "loss_train_bb.npy")
+                   "loss_train_bb.npy", "loss_curves.png")
 CLI_EVAL_BATCH = 8          # the evaluate CLI's default batch size
+# the figures the CLI runs draw with the port's own figure code: their
+# sizes as (height, width), the prediction plots the evaluate child and
+# the CPU evaluation draw (`--plot`), and the least share of non-white
+# pixels a figure must have
+FIGURE_SIZES = {"loss_curves.png": (480, 640), "confusion.png": (600, 600),
+                "prediction": (480, 640)}
+CLI_PLOTS = 2
+FIGURE_MIN_INK = 0.01
 
 
 class EvalOutputs(NamedTuple):
@@ -2546,14 +2555,48 @@ RADARSCENES_OUTPUTS = EvalOutputs((), lambda folder: None,
                                   lambda ev: {"map": ev.mAP})
 
 
+def _time_figures(stack: ExitStack, drawn: Dict) -> None:
+    """Patches `Figure.savefig` so that each figure written leaves its
+    seconds (layout, rasterising and the PNG) in `drawn`[path]."""
+    from radargnn_tpu_torch.postprocess.figure import Figure
+    savefig = Figure.savefig
+
+    def timed(fig, path):
+        t0 = time.perf_counter()
+        savefig(fig, path)
+        drawn[os.path.realpath(path)] = time.perf_counter() - t0
+
+    stack.enter_context(mock.patch.object(Figure, "savefig", timed))
+
+
+def check_figure(path: str) -> Dict:
+    """A figure the CLI wrote, read back with the port's PNG reader: its
+    size must be FIGURE_SIZES' for its name and its share of non-white
+    pixels above FIGURE_MIN_INK. Its bytes, size and ink share."""
+    from radargnn_tpu_torch.utils import png
+    name = os.path.basename(path)
+    want = FIGURE_SIZES["prediction" if name.startswith("prediction_")
+                        else name]
+    image = png.read_png(path)
+    ink = float((image[..., :3] < 255).any(axis=-1).mean())
+    if image.shape != (*want, 4) or not ink > FIGURE_MIN_INK:
+        raise AssertionError(f"{path}: a {image.shape} image with "
+                             f"{ink:.4f} of its pixels inked, want "
+                             f"{(*want, 4)} and more than {FIGURE_MIN_INK}")
+    return {"bytes": os.path.getsize(path), "shape": list(image.shape),
+            "ink": ink}
+
+
 def _check_cli_run(dev: torch.device, root: str, results: str, config: str,
-                   stages: Dict, epoch_s: List[float], outputs: EvalOutputs,
-                   out: Callable) -> Dict:
+                   stages: Dict, epoch_s: List[float], drawn: Dict,
+                   outputs: EvalOutputs, out: Callable) -> Dict:
     """The CLI phase's checks after cli.main: each stage's launches, the
     model folder's files and losses, the checkpoint, the evaluation
-    folder's files (`outputs`); then the evaluate CLI as a child process,
-    and the model folder evaluated on the CPU against the card's
-    predictions."""
+    folder's files (`outputs`); then the evaluate CLI as a child process
+    with `--plot CLI_PLOTS`, and the model folder evaluated on the CPU
+    (its prediction plots drawn too) against the card's predictions.
+    Every figure is read back (`check_figure`); those drawn in this
+    process have their seconds in `drawn` (`_time_figures`)."""
     from radargnn_tpu_torch.cli import evaluate as cli_evaluate
     from radargnn_tpu_torch.data.loader import load_split_samples
 
@@ -2565,6 +2608,7 @@ def _check_cli_run(dev: torch.device, root: str, results: str, config: str,
     samples = {s: load_split_samples(os.path.join(root, "processed"), s)
                for s in ("train", "validate")}
     n_train, n_val = len(samples["train"]), len(samples["validate"])
+    nodes = [s.num_nodes for ss in samples.values() for s in ss]
     if not n_train or not n_val:
         raise AssertionError(f"the CLI phase made {n_train} train and "
                              f"{n_val} validate frames")
@@ -2590,8 +2634,6 @@ def _check_cli_run(dev: torch.device, root: str, results: str, config: str,
     model = os.path.join(results, "model_01")
     files = set(os.listdir(model))
     want_files = set(CLI_MODEL_FILES)
-    if importlib.util.find_spec("matplotlib") is not None:
-        want_files.add("loss_curves.png")
     low_val = [f for f in files if f.startswith("trained_model_low_val_ep")]
     if not want_files <= files or len(low_val) != 1:
         raise AssertionError(f"the model folder holds {sorted(files)}")
@@ -2611,7 +2653,8 @@ def _check_cli_run(dev: torch.device, root: str, results: str, config: str,
 
     # the evaluate CLI as a user runs it, in a child process
     cmd = [sys.executable, "-m", "radargnn_tpu_torch.cli.evaluate",
-           "--data", root, "--model", model, "--config", config]
+           "--data", root, "--model", model, "--config", config,
+           "--plot", str(CLI_PLOTS)]
     t0 = time.perf_counter()
     code, _, stderr = _finish(subprocess.Popen(
         cmd + ([] if on_card else ["--device", "cpu"]), cwd=_REPO,
@@ -2621,10 +2664,29 @@ def _check_cli_run(dev: torch.device, root: str, results: str, config: str,
             model, "evaluation_02", "eval_results.json")):
         raise AssertionError(f"{' '.join(cmd)} exited {code} and wrote "
                              f"{sorted(os.listdir(model))}:\n{stderr[-3000:]}")
+    _check_eval_folder(os.path.join(model, "evaluation_02"), outputs,
+                       CLI_PLOTS)
 
-    # the same model folder on the CPU
+    # the same model folder on the CPU, its prediction plots timed here
     card = stages["evaluate"]["result"]
-    cpu = cli_evaluate.main(root, model, config, device="cpu")
+    with ExitStack() as stack:
+        _time_figures(stack, drawn)
+        cpu = cli_evaluate.main(root, model, config,
+                                plot_predictions=CLI_PLOTS, device="cpu")
+    _check_eval_folder(cpu["eval_folder"], outputs, CLI_PLOTS)
+    figures = {}
+    for path in [os.path.join(model, "loss_curves.png"),
+                 *sorted(glob.glob(os.path.join(model, "evaluation_*",
+                                                "*.png")))]:
+        figures[os.path.relpath(path, model)] = dict(
+            check_figure(path), draw_s=drawn.get(os.path.realpath(path)))
+    out(f"figures of the CLI run, drawn and written on the host by the "
+        f"port's figure code (frames of {min(nodes)}-{max(nodes)} points; "
+        f"card {card_description() if on_card else None}): "
+        + "; ".join(f"{k} {v['bytes']} bytes, ink {v['ink']:.4f}, "
+                    + (f"{v['draw_s']:.4f} s" if v["draw_s"] is not None
+                       else "drawn in the child")
+                    for k, v in figures.items()))
     worst_p = worst_b = 0.0
     pred, ref = card["predictions"], cpu["predictions"]
     for p, q, b, c in zip(pred["class_probability_prediction"],
@@ -2645,7 +2707,6 @@ def _check_cli_run(dev: torch.device, root: str, results: str, config: str,
         raise AssertionError("the card's evaluation of the model folder "
                              "disagrees with the CPU's")
 
-    nodes = [s.num_nodes for ss in samples.values() for s in ss]
     size = train_cfg.batch_size
     edges = [sum(s.num_edges for s in samples["train"][i:i + size])
              for i in range(0, n_train, size)]
@@ -2654,7 +2715,7 @@ def _check_cli_run(dev: torch.device, root: str, results: str, config: str,
                train_epoch_s=epoch_s,
                train_s=stages["train"]["seconds"],
                evaluate_s=stages["evaluate"]["seconds"],
-               child_evaluate_s=child_s, **scores[0],
+               child_evaluate_s=child_s, figures=figures, **scores[0],
                **{f"cpu_{k}": v for k, v in scores[1].items()},
                max_abs_dprob=worst_p,
                max_rel_dbox=worst_b, losses={k: v[0].tolist()
@@ -2662,15 +2723,15 @@ def _check_cli_run(dev: torch.device, root: str, results: str, config: str,
     return res
 
 
-def _check_eval_folder(folder: str, outputs: EvalOutputs) -> None:
+def _check_eval_folder(folder: str, outputs: EvalOutputs,
+                       plots: int = 0) -> None:
     """An evaluation folder holds the evaluator's files with finite
-    numbers (confusion.png only where matplotlib imports): eval_results.json
-    (mAP where the configuration asks for it, F1), and the dataset's own
-    files (`outputs`), which its check reads."""
+    numbers: eval_results.json (mAP where the configuration asks for it,
+    F1), confusion.png, the dataset's own files (`outputs`), which its
+    check reads, and `plots` prediction plots."""
     want = {"eval_configs.json", "eval_results.json", "confusion_abs.npy",
-            "confusion_rel.npy", *outputs.files}
-    if importlib.util.find_spec("matplotlib") is not None:
-        want.add("confusion.png")
+            "confusion_rel.npy", "confusion.png", *outputs.files,
+            *(f"prediction_{i:03d}.png" for i in range(plots))}
     files = set(os.listdir(folder))
     if not want <= files:
         raise AssertionError(f"{folder} holds {sorted(files)}, not "
@@ -2827,6 +2888,7 @@ def nuscenes_phase(dev: torch.device, scale: float = 1.0,
                  "card": card_description() if on_card else None}
     stages: Dict = {}
     epoch_s: List[float] = []
+    drawn: Dict = {}
     start = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "nuscenes")
@@ -2849,13 +2911,14 @@ def nuscenes_phase(dev: torch.device, scale: float = 1.0,
             _count_stages(stack, cli_main,
                           ("create_dataset", "train", "evaluate"), stages,
                           epoch_s)
+            _time_figures(stack, drawn)
             cli_main.main(root, results, config, device=dev)
         if stages["create_dataset"]["launches"] != [0] * len(KERNEL_NAMES):
             raise AssertionError(f"create_dataset launched "
                                  f"{stages['create_dataset']['launches']}")
         res["create_dataset_s"] = stages["create_dataset"]["seconds"]
         res.update(_check_cli_run(dev, root, results, config, stages,
-                                  epoch_s, NUSCENES_OUTPUTS, out))
+                                  epoch_s, drawn, NUSCENES_OUTPUTS, out))
         res["oracle"] = _nuscenes_oracle(dev, root, config, tmp, out)
 
         # B1 and B2 on the train CLI's first batch, as its loader makes it

@@ -7,7 +7,7 @@ learning-rate schedules, weighted cross entropy with separate validation
 weights, a Huber box loss on non-background nodes, the orientation-angle
 adaption, early stopping on validation-loss minima, the best-validation
 snapshot, numbered `model_NN` result folders (config JSONs, loss .npy
-arrays, the loss-curve PNG where matplotlib imports) and a resumable
+arrays, the loss-curve PNG) and a resumable
 checkpoint every `checkpoint_every_epochs` in the JAX package's files.
 
 The reference never calls `model.eval()`, so validation runs BatchNorm in
@@ -38,7 +38,6 @@ reading its own.
 from __future__ import annotations
 
 import copy
-import importlib.util
 import json
 import os
 import time
@@ -59,6 +58,7 @@ from radargnn_tpu_torch.parallel.mesh import Mesh, shard_batch
 from radargnn_tpu_torch.parallel.tensor import (
     apply_param_shardings, detnet_param_shardings,
 )
+from radargnn_tpu_torch.postprocess.figure import Figure
 from radargnn_tpu_torch.train import checkpoint as ckpt
 from radargnn_tpu_torch.train import orbax_format
 from radargnn_tpu_torch.train.losses import (
@@ -488,29 +488,25 @@ class Trainer:
             with open(f"{folder_path}/{name}.npy", "wb") as f:
                 np.save(f, np.array([data]))
 
-        if importlib.util.find_spec("matplotlib") is None:
-            print(f"{folder_path}/loss_curves.png not drawn: matplotlib is "
-                  "not installed (the losses are in the loss_*.npy files)")
-        else:
-            fig, _ = self.show_learning_curves()
-            fig.savefig(f"{folder_path}/loss_curves.png")
+        fig, _ = self.show_learning_curves()
+        fig.savefig(f"{folder_path}/loss_curves.png")
 
     def show_learning_curves(self):
-        import matplotlib
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-
-        fig, ax = plt.subplots()
+        """The loss curves as the JAX package plots them, drawn by the
+        port's own figure code: (figure, axes)."""
+        fig = Figure()
+        ax = fig.ax
         ax.plot(range(len(self.train_loss)), self.train_loss)
         ax.plot(range(len(self.valid_loss)), self.valid_loss)
         ax.plot(range(len(self.train_loss_cls)), self.train_loss_cls)
         ax.plot(range(len(self.train_loss_bb)), self.train_loss_bb)
-        plt.legend(["Training loss", "Validation loss",
-                    "Training loss classification", "Training loss bounding box"])
-        plt.title("Training and validation loss")
-        ax.grid("minor")
-        plt.xlabel("epoch")
-        plt.ylabel("loss")
+        ax.legend(["Training loss", "Validation loss",
+                   "Training loss classification",
+                   "Training loss bounding box"])
+        ax.set_title("Training and validation loss")
+        ax.grid()
+        ax.set_xlabel("epoch")
+        ax.set_ylabel("loss")
         return fig, ax
 
 

@@ -4,7 +4,8 @@ configuration (create_dataset -> train -> evaluate) writes the same files
 and resolves the same tiling (dense, from "auto" on the kNN graph); a
 model folder written by either package's train CLI evaluates in the other
 package's evaluate CLI to the same results; the argument checks; and
-`Trainer.save_results` where matplotlib does not import.
+`Trainer.save_results` where matplotlib does not import (the port draws
+loss_curves.png with its own figure code).
 
 One JAX pipeline run and one port pipeline run, each on its own copy of
 the raw data, are shared by the module's tests. The JAX run trains on the
@@ -35,6 +36,7 @@ from radargnn_tpu_torch.cli import train as ttrain  # noqa: E402
 from radargnn_tpu_torch.configs import UserConfigurationReader  # noqa: E402
 from radargnn_tpu_torch.models.detnet import DetNet  # noqa: E402
 from radargnn_tpu_torch.train.trainer import Trainer  # noqa: E402
+from radargnn_tpu_torch.utils import png  # noqa: E402
 from tests.test_cli_e2e import CONFIG_YAML  # noqa: E402
 from tests.test_radarscenes_pipeline import _make_dataset_root  # noqa: E402
 
@@ -284,9 +286,9 @@ def test_mesh_axes_of_more_than_one_device_wait_for_multi_gpu():
 
 
 def test_save_results_without_matplotlib(tmp_path, capsys, monkeypatch):
-    """Where matplotlib does not import, save_results writes every file
-    but loss_curves.png and says in one line that the figure was not
-    drawn and why."""
+    """Where matplotlib does not import, save_results writes every file,
+    loss_curves.png included: a 640 x 480 PNG that the port's reader
+    reads, with ink on it; nothing is printed about the figure."""
     cfg = UserConfigurationReader.read_config_file(_config(tmp_path))
     arch = UserConfigurationReader.get_config_object("MODEL_ARCHITECTURE", cfg)
     train_cfg = UserConfigurationReader.get_config_object("TRAINING", cfg)
@@ -301,10 +303,10 @@ def test_save_results_without_matplotlib(tmp_path, capsys, monkeypatch):
     trainer.save_results(str(tmp_path / "results"), arch, {"d": 1})
     folder = tmp_path / "results" / "model_01"
     assert set(os.listdir(folder)) == (
-        MODEL_FILES - {"loss_curves.png"}
-        | {"trained_model_low_val_ep2.msgpack"})
-    said = capsys.readouterr().out.strip().splitlines()
-    assert len(said) == 1 and "loss_curves.png not drawn" in said[0] \
-        and "matplotlib" in said[0]
+        MODEL_FILES | {"trained_model_low_val_ep2.msgpack"})
+    assert capsys.readouterr().out == ""
+    image = png.read_png(str(folder / "loss_curves.png"))
+    assert image.shape == (480, 640, 4)
+    assert (image[..., :3] < 255).any(axis=-1).mean() > 0.01
     np.testing.assert_array_equal(np.load(folder / "loss_validation.npy"),
                                   [[1.0, 0.5]])

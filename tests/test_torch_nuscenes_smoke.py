@@ -1,7 +1,8 @@
 """The nuScenes e2e (`python -m radargnn_tpu_torch.benchmarks.nuscenes_e2e`)
 on the CPU, and the on-card smoke's eighth phase (`smoke.nuscenes_phase`)
 rehearsed: its configuration, its table writer and the phase itself at a
-tiny size."""
+tiny size, with matplotlib blocked (the port draws and reads back its
+figures on its own)."""
 
 import os
 import re
@@ -23,6 +24,7 @@ from radargnn_tpu_torch.data.nuscenes.dataset_creation import (
     CLASS_NAME_TO_ID, NuScenesGraphDataset,
 )
 from radargnn_tpu_torch.graph.batch import GraphSample
+from test_torch_smoke_cli import _assert_figures
 from torch_threads import few_threads  # noqa: F401
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -162,12 +164,15 @@ def test_phase_objects_move_and_are_seen(phase_tables, tmp_path):
 
 
 @pytest.mark.usefixtures("few_threads")
-def test_nuscenes_phase_rehearses_on_cpu():
+def test_nuscenes_phase_rehearses_on_cpu(monkeypatch):
     """The eighth phase at a tiny size (the YAML's widths, batches of 4): 4
     + 4 train and 2 validate samples of about 300 points, its checks, the
     oracle and the e2e child; B1 and B2 held against their plain versions
     on the train CLI's first batch (4 frames here, the YAML's 32 on the
-    card)."""
+    card). matplotlib is blocked in this process: the loss curves, the
+    confusion matrices and the prediction plots are drawn, read back and
+    sized all the same."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     lines = []
     nus = smoke.nuscenes_phase(
         torch.device("cpu"), scale=0.125, points_per_sweep=8,
@@ -186,6 +191,7 @@ def test_nuscenes_phase_rehearses_on_cpu():
     assert len(nus["oracle"]["label_aps"]) == 8
     assert all(ap > 0.9 for ap in nus["oracle"]["label_aps"].values())
     assert nus["e2e"].startswith("NUSC-TORCH ok: mAP=")
+    _assert_figures(nus["figures"])
     assert nus["validate_tiling"]["overflow_budget"] > 0
     assert len(nus["train_tiling"]["valid_edges"]) == 4
     assert max(nus["train_tiling"]["overflow_edges"]) > 0

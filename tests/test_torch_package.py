@@ -23,10 +23,12 @@ _PKG = os.path.dirname(os.path.abspath(radargnn_tpu_torch.__file__))
 
 # an import of JAX, flax, the JAX package itself (`radargnn_tpu.x` or
 # `from radargnn_tpu import x`) — but not of `radargnn_tpu_torch` — or of
-# h5py, orbax, tensorstore, zstandard or a crc32c package (the card's
-# machine has none of them: the port reads HDF5 with `data.hdf5` and
-# orbax's layout with `train.orbax_format`, `train.ocdbt`, `train.zstd`)
-_NAMES = r"jax|jaxlib|flax|h5py|orbax|tensorstore|zstandard|crc32c|google_crc32c"
+# h5py, orbax, tensorstore, zstandard, a crc32c package, matplotlib or PIL
+# (the card's machine has none of them: the port reads HDF5 with
+# `data.hdf5`, orbax's layout with `train.orbax_format`, `train.ocdbt`,
+# `train.zstd`, and draws its figures with `postprocess.figure`)
+_NAMES = (r"jax|jaxlib|flax|h5py|orbax|tensorstore|zstandard|crc32c"
+          r"|google_crc32c|matplotlib|PIL")
 _FORBIDDEN = re.compile(
     rf"^\s*(?:from|import)\s+(?:{_NAMES})\b"
     r"|^\s*(?:from|import)\s+radargnn_tpu(?:\.|\s)"
@@ -57,6 +59,13 @@ def test_forbidden_import_pattern():
     assert _FORBIDDEN.search("    import crc32c")
     assert _FORBIDDEN.search("import orbax.checkpoint as ocp")
     assert _FORBIDDEN.search("importlib.import_module('tensorstore')")
+    assert _FORBIDDEN.search("    import matplotlib")
+    assert _FORBIDDEN.search("import matplotlib.pyplot as plt")
+    assert _FORBIDDEN.search("from matplotlib.collections import Collection")
+    assert _FORBIDDEN.search("from PIL import Image")
+    assert _FORBIDDEN.search("importlib.import_module('matplotlib')")
+    assert not _FORBIDDEN.search("import matplotlib_like")
+    assert not _FORBIDDEN.search("from radargnn_tpu_torch.utils import png")
     assert not _FORBIDDEN.search("from radargnn_tpu_torch.train import zstd")
     assert not _FORBIDDEN.search("import tensorstore_like")
     assert not _FORBIDDEN.search("from radargnn_tpu_torch.ops import knn")
@@ -300,17 +309,25 @@ def test_smoke_rehearses_on_cpu():
 
 
 def test_postprocess_and_bench_import_no_jax_sklearn_or_matplotlib():
-    """A fresh interpreter imports the evaluation stage and the bench:
-    neither jax, the JAX package, scikit-learn nor matplotlib is loaded
-    (the card's machine has neither of the last two)."""
+    """A fresh interpreter imports the evaluation stage and the bench, and
+    draws a confusion matrix: neither jax, the JAX package, scikit-learn,
+    matplotlib nor PIL is loaded (the card's machine has none of the last
+    three)."""
     code = (
-        "import sys\n"
+        "import os, sys, tempfile\n"
         "import radargnn_tpu_torch.postprocess as p\n"
         "import radargnn_tpu_torch.benchmarks.bench\n"
         "from radargnn_tpu_torch.postprocess import evaluation, extraction, "
         "mean_ap, nms, segmentation_metrics, visualization\n"
+        "from radargnn_tpu_torch.utils import png\n"
+        "path = os.path.join(tempfile.mkdtemp(), 'confusion.png')\n"
+        "import numpy as np\n"
+        "visualization.plot_confusion_matrix(np.array([[3, 1], [0, 4]]), "
+        "['a', 'b'], True).savefig(path)\n"
+        "assert png.read_png(path).shape == (600, 600, 4)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
-        "'jaxlib', 'flax', 'radargnn_tpu', 'sklearn', 'matplotlib')]\n"
+        "'jaxlib', 'flax', 'radargnn_tpu', 'sklearn', 'matplotlib', "
+        "'PIL')]\n"
         "assert not bad, bad\n"
         "for name in ('BoxArray', 'Postprocessor', 'PredictionExtractor', "
         "'GroundTruthExtractor', 'BoxSuppressor', 'decode_boxes_to_corners', "
@@ -331,7 +348,9 @@ def test_pipeline_and_cli_import_without_h5py_or_matplotlib():
     (the card's machine lacks them) imports the RadarScenes pipeline, the
     loader, the online builder and the CLI, writes raw sequences, reads
     one and runs create_dataset on them (the flagship YAML's spawned
-    workers) through the port's HDF5 code; h5py was never imported."""
+    workers) through the port's HDF5 code, and draws the loss curves
+    with the port's own figure code; h5py was never imported, nor
+    matplotlib or PIL."""
     code = (
         "import os, sys, tempfile\n"
         "class NoH5py:\n"
@@ -358,9 +377,19 @@ def test_pipeline_and_cli_import_without_h5py_or_matplotlib():
         "    create_dataset.main(root, smoke.cli_config(root), device='cpu')\n"
         "    made = os.listdir(os.path.join(root, 'processed', 'train'))\n"
         "    assert len(made) == 6, made\n"
+        "    from types import SimpleNamespace\n"
+        "    from radargnn_tpu_torch.train.trainer import Trainer\n"
+        "    from radargnn_tpu_torch.utils import png\n"
+        "    losses = SimpleNamespace(train_loss=[2.0, 1.0], valid_loss=[2.5, "
+        "1.5], train_loss_cls=[1.0, 0.5], train_loss_bb=[1.0, 0.5])\n"
+        "    fig, _ = Trainer.show_learning_curves(losses)\n"
+        "    fig.savefig(os.path.join(root, 'loss_curves.png'))\n"
+        "    image = png.read_png(os.path.join(root, 'loss_curves.png'))\n"
+        "    assert image.shape == (480, 640, 4)\n"
         "    assert 'h5py' not in sys.modules\n"
         "    bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
-        "'jaxlib', 'flax', 'radargnn_tpu') and sys.modules[m] is not None]\n"
+        "'jaxlib', 'flax', 'radargnn_tpu', 'matplotlib', 'PIL') and "
+        "sys.modules[m] is not None]\n"
         "    assert not bad, bad\n"
         "    print('ok')\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
@@ -374,10 +403,11 @@ def test_nuscenes_pipeline_imports_without_h5py_matplotlib_or_devkit():
     """A fresh interpreter where h5py, matplotlib and the nuScenes devkit
     cannot be imported (the card's machine has none of them) imports every
     module of the nuScenes pipeline, the e2e and the CLI, selects the
-    nuScenes dataset creation and evaluator, and reads the vendored split
-    tables; neither JAX nor the JAX package is loaded."""
+    nuScenes dataset creation and evaluator, reads the vendored split
+    tables, and draws a prediction plot with the port's own figure code;
+    neither JAX, the JAX package, matplotlib nor PIL is loaded."""
     code = (
-        "import sys\n"
+        "import os, sys\n"
         "for m in ('h5py', 'matplotlib', 'nuscenes'):\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
@@ -399,8 +429,22 @@ def test_nuscenes_pipeline_imports_without_h5py_matplotlib_or_devkit():
         "assert splits.val == splits_vendored.val and len(splits.val) == 150\n"
         "split = NuScenesSplitConfiguration('v1.0-trainval').sequence_dict\n"
         "assert (len(split['train']), len(split['validate'])) == (700, 150)\n"
+        "import io, numpy as np\n"
+        "from radargnn_tpu_torch.postprocess.extraction import BoxArray\n"
+        "from radargnn_tpu_torch.postprocess.visualization import "
+        "PredictionVisualizer\n"
+        "from radargnn_tpu_torch.utils import png\n"
+        "corners = np.array([[[0, 0], [2, 0], [2, 1], [0, 1]]], float)\n"
+        "fig, _ = PredictionVisualizer.plot_detections("
+        "{'boxes': BoxArray(corners, False), 'scores': np.array([0.9]), "
+        "'labels': np.array([1])}, {'pos': np.random.default_rng(0)"
+        ".uniform(0, 3, (50, 2)), 'labels': np.ones(50)}, "
+        "label_names=['background', 'car'])\n"
+        "path = os.path.join(__import__('tempfile').mkdtemp(), 'p.png')\n"
+        "fig.savefig(path)\n"
+        "assert png.read_png(path).shape == (480, 640, 4)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
-        "'jaxlib', 'flax', 'radargnn_tpu', 'h5py', 'matplotlib', "
+        "'jaxlib', 'flax', 'radargnn_tpu', 'h5py', 'matplotlib', 'PIL', "
         "'nuscenes') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print('ok')\n")

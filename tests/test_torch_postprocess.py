@@ -16,6 +16,7 @@ equal scikit-learn's, which the JAX package calls.
 
 import json
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,7 @@ from radargnn_tpu_torch.postprocess import evaluation as pev
 from radargnn_tpu_torch.postprocess import nms
 from radargnn_tpu_torch.postprocess import segmentation_metrics as psm
 from radargnn_tpu_torch.postprocess import visualization as pvis
+from radargnn_tpu_torch.utils import png
 from radargnn_tpu_torch.utils.geometry import (
     get_box_corners, points_in_rect_mask,
 )
@@ -619,20 +621,20 @@ def test_radarscenes_evaluator_end_to_end(tmp_path):
 
 def test_evaluator_without_matplotlib_writes_every_number(tmp_path, capsys,
                                                           monkeypatch):
-    """Where matplotlib does not import, confusion.png is not drawn, one
-    line says so, and every other artifact is written."""
+    """Where matplotlib does not import, every artifact is written,
+    confusion.png included (the port's own figure code draws it: a
+    600 x 600 PNG its reader reads), and nothing is printed."""
     ev = _evaluate(pp, _config(PostProcessingConfiguration))
-    find_spec = pev.importlib.util.find_spec
-    monkeypatch.setattr(pev.importlib.util, "find_spec",
-                        lambda name, *a: None if name == "matplotlib"
-                        else find_spec(name, *a))
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    capsys.readouterr()
     folder = ev.save_results(str(tmp_path))
     assert sorted(os.listdir(folder)) == [
-        "confusion_abs.npy", "confusion_rel.npy", "eval_configs.json",
-        "eval_results.json"]
-    said = capsys.readouterr().out.strip().splitlines()
-    assert len(said) == 1 and "confusion.png not drawn" in said[0] \
-        and "matplotlib" in said[0]
+        "confusion.png", "confusion_abs.npy", "confusion_rel.npy",
+        "eval_configs.json", "eval_results.json"]
+    assert capsys.readouterr().out == ""
+    image = png.read_png(os.path.join(folder, "confusion.png"))
+    assert image.shape == (600, 600, 4)
+    assert (image[..., :3] < 255).any(axis=-1).mean() > 0.01
 
 
 def test_evaluation_selector():
@@ -643,8 +645,10 @@ def test_evaluation_selector():
         pp.evaluation_selector("kitti")
 
 
-def test_plots_draw(tmp_path):
-    """The plotting functions draw (matplotlib imported at the call)."""
+def test_plots_draw(tmp_path, monkeypatch):
+    """The plotting functions draw with matplotlib blocked: the port's own
+    figure code lays them out and writes PNGs its reader reads."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     rng = np.random.default_rng(6)
     pos, _, labels, boxes = _frame(rng)
     dets = pp.Postprocessor("cpu").process_one_raw_prediction(
@@ -656,6 +660,9 @@ def test_plots_draw(tmp_path):
                                        "bg"])
     fig.savefig(tmp_path / "dets.png")
     fig, _ = pvis.plot_graph(pos, np.arange(10), np.arange(1, 11))
+    fig.savefig(tmp_path / "graph.png")
     fig = pvis.plot_confusion_matrix(np.eye(3) * 4, ["a", "b", "c"], True)
     fig.savefig(tmp_path / "cm.png")
-    assert (tmp_path / "dets.png").exists() and (tmp_path / "cm.png").exists()
+    for name, size in (("dets", (480, 640)), ("graph", (480, 640)),
+                       ("cm", (600, 600))):
+        assert png.read_png(str(tmp_path / f"{name}.png")).shape == (*size, 4)
