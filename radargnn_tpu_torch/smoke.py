@@ -15,7 +15,8 @@ raw RadarScenes sequences it writes and reads with the port's own HDF5
 code, `data.hdf5`, train, evaluate) under the flagship
 YAML, with each stage's launches counted, then the evaluate CLI as a
 child process, and the model folder evaluated on the CPU against the
-card. An eighth runs the same pipeline under the nuScenes YAML, on
+card; then the HDF5 reader on the committed files h5py wrote under
+libver "latest" (`smoke_hdf5`). An eighth runs the same pipeline under the nuScenes YAML, on
 nuScenes-format tables and multisweep radar sweeps it writes, the same
 way, then the nuScenes e2e (`benchmarks.nuscenes_e2e`) as a child process,
 and oracle predictions through the card's and the CPU's NMS and
@@ -61,7 +62,7 @@ from unittest import mock
 import numpy as np
 import torch
 
-from radargnn_tpu_torch import witness as reassociated
+from radargnn_tpu_torch import smoke_hdf5, witness as reassociated
 from radargnn_tpu_torch.benchmarks import kernel_bench, kernel_check, \
     linear_bench
 from radargnn_tpu_torch.benchmarks.kernel_bench import time_ms as _time_ms
@@ -2463,8 +2464,11 @@ def cli_phase(dev: torch.device, points: int = RADIUS_POINTS,
     `python -m radargnn_tpu_torch.cli.evaluate` runs as a child process
     (evaluation_02), and the model folder is evaluated on the CPU: its
     class probabilities and boxes must match the card's within the serving
-    phase's tolerances. Last, the HDF5 reader is timed on one table of
-    READER_ROWS rows (`time_hdf5_reader`)."""
+    phase's tolerances. Then the HDF5 reader reads every committed file
+    h5py wrote under libver "latest" to its manifest, and the dataset
+    creation makes the same graphs from the committed sequence as from its
+    port-written copy (`smoke_hdf5.fixture_check`). Last, the HDF5 reader
+    is timed on one table of READER_ROWS rows (`time_hdf5_reader`)."""
     from radargnn_tpu_torch.cli import main as cli_main
 
     on_card = dev.type == "cuda"
@@ -2501,6 +2505,8 @@ def cli_phase(dev: torch.device, points: int = RADIUS_POINTS,
         res["create_dataset_s"] = stages["create_dataset"]["seconds"]
         res.update(_check_cli_run(dev, root, results, config, stages,
                                   epoch_s, drawn, RADARSCENES_OUTPUTS, out))
+        res["hdf5_fixture"] = smoke_hdf5.fixture_check(
+            FLAGSHIP_CONFIG, res["card"], out)
         res["reader"] = time_hdf5_reader(tmp)
     res["phase_s"] = time.perf_counter() - start
     reader = res["reader"]

@@ -3,7 +3,10 @@ h5py, the oracle: every layout h5py writes under libver "earliest" and
 "latest" for the RadarScenes tables and the other dtypes a table may hold
 must read back with h5py's dtype (names, formats, offsets, itemsize) and
 values; the layouts the reader leaves out raise errors that name them; h5py
-reads back what the writer writes."""
+reads back what the writer writes. The structures only "latest" writes
+(the extensible-array and v2 B-tree chunk indexes, dense link storage) and
+variable-length strings and array datatypes at their sizes are
+tests/test_torch_hdf5_latest.py's."""
 
 import mmap
 import os
@@ -116,14 +119,12 @@ LAYOUTS = {
 }
 
 
-# "latest" with an unlimited maximum writes the extensible array index,
-# which the reader leaves out (test_unsupported_features_name_themselves)
+# "latest" with an unlimited maximum writes the extensible array index
 @pytest.mark.parametrize("libver, layout", [
-    (libver, layout) for libver in LIBVERS for layout in sorted(LAYOUTS)
-    if (libver, layout) != ("latest", "unlimited")])
+    (libver, layout) for libver in LIBVERS for layout in sorted(LAYOUTS)])
 def test_reader_matches_h5py(tmp_path, libver, layout):
-    """Every dtype under one layout, in one file (in two groups: "latest"
-    keeps at most 8 links of a group compact)."""
+    """Every dtype under one layout, in one file, in two groups (under
+    "latest" each holds its 8 links compact)."""
     rng = np.random.default_rng(7)
     path = str(tmp_path / "t.h5")
     names = [f"g{i % 2}/{name}" for i, name in enumerate(DTYPES)]
@@ -197,14 +198,14 @@ def test_null_terminated_strings(tmp_path, libver):
 
 @pytest.mark.parametrize("libver", LIBVERS)
 def test_groups_and_paths(tmp_path, libver):
-    """A group of 40 datasets (several SNOD nodes under "earliest"; 7 and
-    a group, 8 compact links, under "latest"), nested groups walked by
-    path, a dataset whose header grew by attributes after it was written
-    (continuation blocks), and one in a 2-D chunked layout whose maximum
-    shape exceeds its shape (the chunk grid follows the maximum)."""
+    """A group of 40 datasets (several SNOD nodes under "earliest"; dense
+    link storage under "latest"), nested groups walked by path, a dataset
+    whose header grew by attributes after it was written (continuation
+    blocks), and one in a 2-D chunked layout whose maximum shape exceeds
+    its shape (the chunk grid follows the maximum)."""
     path = str(tmp_path / "t.h5")
     rng = np.random.default_rng(2)
-    many = 40 if libver == "earliest" else 7
+    many = 40
     with h5py.File(path, "w", libver=libver) as f:
         for i in range(many):
             f.create_dataset(f"d{i:02d}", data=np.full(3, i, "<i4"))
@@ -297,36 +298,33 @@ def _write(path, libver="earliest", **kw):
 
 
 @pytest.mark.parametrize("case, match", [
-    ("extensible_array", "extensible array chunk index"),
-    ("v2_btree", "version 2 B-tree chunk index"),
-    ("vlen_string", "variable-length datatype"),
-    ("dense_links", "dense link storage"),
     ("lzf", "filter id 32000"),
     ("scaleoffset", "filter id 6"),
-    ("array", "array datatype"),
     ("soft_link", "soft or external link"),
+    ("vlen_sequence", "variable-length sequence"),
+    ("huge_heap_object", "huge fractal heap object"),
 ])
 def test_unsupported_features_name_themselves(tmp_path, case, match):
+    """What h5py writes that the reader refuses, among them a
+    variable-length sequence of numbers (h5py.vlen_dtype) and a link whose
+    message outgrows the link heap's largest managed object (a
+    5,000-character name in a dense group), stored as a huge object."""
     path = str(tmp_path / "t.h5")
     name = "x"
-    if case == "extensible_array":
-        _write(path, "latest", data=np.arange(5.0), maxshape=(None,))
-    elif case == "v2_btree":
-        _write(path, "latest", data=np.ones((3, 3)), maxshape=(None, None))
-    elif case == "vlen_string":
-        _write(path, data=np.array(["a", "bc"], object),
-               dtype=h5py.string_dtype())
-    elif case == "dense_links":
+    if case == "vlen_sequence":
+        _write(path, data=np.array([np.arange(3), np.arange(2)], object),
+               dtype=h5py.vlen_dtype("<i4"))
+    elif case == "huge_heap_object":
+        name = "h" * 5000
         with h5py.File(path, "w", libver="latest") as f:
             for i in range(9):
                 f.create_dataset(f"d{i}", data=np.arange(3))
-        name = "d0"
+            f.create_dataset(name, data=np.arange(3))
+        _check_all(path, ["d0", "d8"])          # the other links read
     elif case == "lzf":
         _write(path, data=np.arange(50), chunks=(10,), compression="lzf")
     elif case == "scaleoffset":
         _write(path, data=np.arange(50), chunks=(10,), scaleoffset=0)
-    elif case == "array":
-        _write(path, data=np.zeros(3, [("v", "<f4", (2,))]))
     elif case == "soft_link":
         with h5py.File(path, "w") as f:
             f.create_dataset("y", data=np.arange(3))

@@ -115,7 +115,7 @@ def test_every_submodule_imports_without_jax():
         "'parallel.edge_partition', 'parallel.halo', 'parallel.halo_dense', "
         "'parallel.halo_windowed', 'parallel.tensor', 'parallel.dryrun', "
         "'benchmarks.scaling', 'benchmarks.halo_accounting', "
-        "'smoke_parallel', 'train.zstd', 'train.ocdbt', "
+        "'smoke_parallel', 'smoke_hdf5', 'train.zstd', 'train.ocdbt', "
         "'train.orbax_format'):\n"
         "    assert 'radargnn_tpu_torch.' + m in names, m\n"
         "print(len(names))\n")

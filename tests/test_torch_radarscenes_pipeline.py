@@ -275,6 +275,67 @@ def test_reader_without_h5py_raises(raw_root, monkeypatch):
                                       getattr(want, table), err_msg=table)
 
 
+def _rewrite_latest(root: str) -> None:
+    """Each sequence's radar_data.h5 under `root` written anew by h5py in
+    what libver="latest" gives an appendable table: radar_data in chunks
+    of 16 rows with an unlimited maximum (the extensible-array chunk
+    index), gzip and shuffle; odometry unlimited too; uuid and track_id as
+    variable-length ASCII strings; all in one dense group (with the
+    sequence's own tables, more than 8 links)."""
+    import h5py
+    data = os.path.join(root, "raw", "data")
+    vlen = h5py.string_dtype("ascii")
+    for name in sorted(os.listdir(data)):
+        path = os.path.join(data, name, "radar_data.h5")
+        if not os.path.isfile(path):
+            continue
+        with h5py.File(path, "r") as f:
+            radar, odometry = f["radar_data"][()], f["odometry"][()]
+        rows = np.empty(len(radar), [
+            (n, vlen if n in ("uuid", "track_id") else radar.dtype[n])
+            for n in radar.dtype.names])
+        for n in radar.dtype.names:
+            rows[n] = radar[n]
+        with h5py.File(path, "w", libver="latest") as f:
+            f.create_dataset("radar_data", data=rows, chunks=(16,),
+                             maxshape=(None,), compression="gzip",
+                             shuffle=True)
+            f.create_dataset("odometry", data=odometry, maxshape=(None,))
+            for i in range(9):
+                f.create_dataset(f"note_{i}", data=np.arange(i + 1))
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_latest_layout_creation_matches_jax(tmp_path, pinned, monkeypatch,
+                                            case):
+    """The miniature sequences in h5py's libver="latest" layout
+    (`_rewrite_latest`): the JAX package's creation (h5py) and the port's
+    (its own reader, h5py blocked) write the same graph_<i>.npz files,
+    array for array, keys and dtypes too; the port reads uuid and track_id
+    as h5py does, objects of bytes."""
+    roots = [_make_dataset_root(tmp_path / p) for p in ("jax", "port")]
+    for root in roots:
+        _rewrite_latest(root)
+    jdc.RadarScenesGraphDataset(roots[0], *_configs(jcfg, case))
+    want = jrd.Sequence.from_json(_scenes_json(roots[0])).radar_data
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    got = trd.Sequence.from_json(_scenes_json(roots[1])).radar_data
+    assert got.dtype == want.dtype and got.dtype["uuid"] == object
+    for name in ("uuid", "track_id"):
+        assert got[name].tolist() == want[name].tolist()
+        assert got.dtype[name].metadata == want.dtype[name].metadata
+    tdc.RadarScenesGraphDataset(roots[1], *_configs(tcfg, case))
+    total = 0
+    for split in ("train", "test", "validate"):
+        dirs = [os.path.join(r, "processed", split) for r in roots]
+        names = sorted(os.listdir(dirs[0]))
+        assert sorted(os.listdir(dirs[1])) == names
+        for name in names:
+            _assert_same_npz(*(os.path.join(d, name) for d in dirs))
+        total += len(names)
+    assert total >= 3
+
+
 @pytest.fixture(scope="module")
 def port_written_root(tmp_path_factory):
     """The smoke's raw sequences (four of 12 scans of ~60 detections),
