@@ -86,9 +86,13 @@ under ovf_ssum; trains the unfused configurations against the CPU; runs
 the convergence and preprocessing tools as child processes; and saves and
 restores the kNN trainer's state through the orbax backend bit for bit
 (the port's own OCDBT, zarr and zstd code: the card's machine has no
-tensorstore), resumes a fresh trainer from it whose next step's losses
-are the uninterrupted trainer's bit for bit, and reads the JAX package's
-committed orbax checkpoint bit for bit. A tenth
+tensorstore; the zstd encoder compresses, Huffman-coded literals and
+long runs as sequences, and the phase prints each store's bytes beside
+its arrays' and fails above 0.95 of them for the trainer's state, 0.75
+for the flagship state of `orbax_fixture_state`, which it also saves and
+restores bit for bit), resumes a fresh trainer from it whose next step's
+losses are the uninterrupted trainer's bit for bit, and reads the JAX
+package's committed orbax checkpoint bit for bit. A tenth
 trains across ranks: two gloo ranks share the card on a {"model": 2} mesh
 and train the flagship DetNet through halo x dense on the kNN batch and
 halo x windowed on the radius batch (B1, B2 and B4 per rank, the boundary

@@ -28,9 +28,10 @@ windowed, CSR; windowed also with the three variant knobs) and
 `ovf_ssum`, trains it with a pre-MLP of two layers and the mean and add
 aggregations against the CPU, runs the convergence and preprocessing tools
 as child processes, and saves and restores a training state through the
-orbax backend (the port's own OCDBT, zarr and zstd code), resumes a fresh
-trainer from it to the uninterrupted trainer's next losses bit for bit,
-and reads the JAX package's committed orbax checkpoint. A tenth (`smoke_parallel.parallel_phase`) trains across ranks:
+orbax backend (the port's own OCDBT, zarr and zstd code, which
+compresses: the stores checked against their arrays' bytes), resumes a
+fresh trainer from it to the uninterrupted trainer's next losses bit for
+bit, and reads the JAX package's committed orbax checkpoint. A tenth (`smoke_parallel.parallel_phase`) trains across ranks:
 two gloo ranks on the card run halo x dense and halo x windowed on a
 {"model": 2} mesh against the single card, then the scaling tool, the
 multi-rank dry run and the train CLI under torchrun as child processes.

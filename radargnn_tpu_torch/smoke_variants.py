@@ -40,9 +40,12 @@ eighth).
       model's layer shapes, under the limits of their main-path checks
       (`smoke.check_routed_kernels`), and 2 train steps at 8;
   (h) the orbax checkpoint backend on the port's own OCDBT, zarr and zstd
-      code: the kNN trainer's state saved and restored bit for bit, a
-      fresh trainer resumed from it stepping to the uninterrupted
-      trainer's losses bit for bit, and the JAX package's committed orbax
+      code: the kNN trainer's state saved and restored bit for bit, its
+      store at most ORBAX_TRAINED_RATIO of its arrays' bytes, a fresh
+      trainer resumed from it stepping to the uninterrupted trainer's
+      losses bit for bit; the flagship state of `orbax_fixture_state`
+      saved and restored bit for bit, its store at most ORBAX_STATE_RATIO
+      of its arrays' bytes; and the JAX package's committed orbax
       checkpoint read bit for bit against its seed's state.
 """
 
@@ -418,6 +421,14 @@ def _flat_leaves(tree, prefix=()):
 ORBAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "testdata", "orbax_detnet")
 ORBAX_FIXTURE_SEED = 20
+# the most a store written with the port's zstd encoder may take of its
+# arrays' bytes: the trainer's state after a step (weights drawn at
+# initialisation and one step's moments, float32 that zstandard level 1
+# takes to 0.914 of its bytes), and the flagship state of
+# `orbax_fixture_state` (its biases and second moments on a grid, which
+# the JAX package's store takes to 0.70); raw blocks take 1.02 of both
+ORBAX_TRAINED_RATIO = 0.95
+ORBAX_STATE_RATIO = 0.75
 
 
 def orbax_fixture_arch():
@@ -522,12 +533,14 @@ def orbax_check(dev, arch, batch, seed: int, out: Callable = print) -> Dict:
         kept = torch.stack(trainer.train_step(batch)).cpu().numpy()
         again = torch.stack(resumed.train_step(batch)).cpu().numpy()
         return {"leaves": len(dict(_flat_leaves(want))), "files": files,
-                "bytes": nbytes, "save_s": save_s, "load_s": load_s,
+                "bytes": nbytes, "array_bytes": _array_bytes(want),
+                "save_s": save_s, "load_s": load_s,
                 "bitwise": equal and meta["epoch"] == 1,
                 "losses": kept.tolist(), "resumed_losses": again.tolist(),
                 "resume_bitwise": kept.tobytes() == again.tobytes()}
 
     res = _deterministic_runs(run)
+    res["ratio"] = res["bytes"] / res["array_bytes"]
     card = sm.card_description() if torch.device(dev).type == "cuda" \
         else "the CPU"
     out(f"orbax backend on {card}: the kNN trainer's state after one step "
@@ -535,6 +548,9 @@ def orbax_check(dev, arch, batch, seed: int, out: Callable = print) -> Dict:
         f"{len(res['files'])} files: {', '.join(res['files'])}) saved in "
         f"save_s {res['save_s']:.3f} s, restored in load_s "
         f"{res['load_s']:.3f} s, bit for bit: {res['bitwise']}")
+    out(f"orbax backend on {card}: the trainer's store of "
+        f"{res['bytes']} bytes for {res['array_bytes']} bytes of arrays: "
+        f"ratio {res['ratio']:.4f} (at most {ORBAX_TRAINED_RATIO})")
     out(f"orbax backend on {card}: a fresh trainer resumed from it takes "
         f"the next step with losses {res['resumed_losses']}, the "
         f"uninterrupted trainer's {res['losses']}: bitwise "
@@ -546,7 +562,58 @@ def orbax_check(dev, arch, batch, seed: int, out: Callable = print) -> Dict:
         raise AssertionError("the trainer resumed from the orbax checkpoint"
                              " stepped to other losses than the trainer "
                              "that never stopped")
+    if res["ratio"] > ORBAX_TRAINED_RATIO:
+        raise AssertionError(f"the trainer's orbax store takes {res['ratio']}"
+                             f" of its arrays' bytes (at most "
+                             f"{ORBAX_TRAINED_RATIO})")
+    res["state"] = orbax_state_check(arch, seed, card, out)
     res["fixture"] = orbax_fixture_check(dev, out)
+    return res
+
+
+def _array_bytes(tree) -> int:
+    return int(sum(np.asarray(v).nbytes for _, v in _flat_leaves(tree)
+                   if not isinstance(v, dict)))
+
+
+def orbax_state_check(arch, seed: int, card: str,
+                      out: Callable = print) -> Dict:
+    """(h), the store's size: `orbax_fixture_state(seed, arch)` (the state
+    tests/orbax_read_time.py times) saved through the orbax backend and
+    read back bit for bit; its checkpoint folder's bytes against its
+    arrays' bytes, at most ORBAX_STATE_RATIO."""
+    import tempfile
+
+    state = orbax_fixture_state(seed, arch)
+    trees = {k: state[k] for k in ("params", "batch_stats", "opt_state")}
+    with tempfile.TemporaryDirectory() as folder:
+        t0 = time.perf_counter()
+        ckpt.save_train_state(folder, epoch=state["epoch"],
+                              losses=state["losses"],
+                              scheduler_lr=state["scheduler_lr"],
+                              backend="orbax", **trees)
+        save_s = time.perf_counter() - t0
+        nbytes = _folder_files(folder)[1]
+        t0 = time.perf_counter()
+        model, opt_sd, _ = ckpt.load_train_state(folder)
+        load_s = time.perf_counter() - t0
+    res = {"bytes": nbytes, "array_bytes": _array_bytes(trees),
+           "save_s": save_s, "load_s": load_s,
+           "bitwise": _trees_equal(dict(model, opt_state=opt_sd), trees)}
+    res["ratio"] = res["bytes"] / res["array_bytes"]
+    out(f"orbax backend on {card}: the flagship state of seed {seed} "
+        f"(orbax_fixture_state) in {res['bytes']} bytes for "
+        f"{res['array_bytes']} bytes of arrays: ratio {res['ratio']:.4f} "
+        f"(at most {ORBAX_STATE_RATIO}), saved in save_s "
+        f"{res['save_s']:.3f} s, restored in load_s {res['load_s']:.3f} s,"
+        f" bit for bit: {res['bitwise']}")
+    if not res["bitwise"]:
+        raise AssertionError("the flagship state did not restore from its "
+                             "orbax checkpoint bit for bit")
+    if res["ratio"] > ORBAX_STATE_RATIO:
+        raise AssertionError(f"the flagship state's orbax store takes "
+                             f"{res['ratio']} of its arrays' bytes (at "
+                             f"most {ORBAX_STATE_RATIO})")
     return res
 
 

@@ -31,9 +31,10 @@ only its own pieces (`Piece`: a column slice of a column-parallel leaf),
 and `load_pytree` reads it (either package's), whole or by slices, reading
 only the chunks a slice touches. The shardings name a mesh of device ids
 0 .. world - 1 with the port's mesh axes, so the JAX package restores the
-arrays on a mesh of that size. Chunks are written as zstd frames of raw
-blocks (`zstd.compress`: no compression, values bit for bit) and read
-whatever zstd frames they hold. The leaves are float32 or int32 (the two
+arrays on a mesh of that size. Chunks are written as zstd frames of
+compressed blocks (`zstd.compress`: Huffman-coded literals and long runs
+as sequences, values bit for bit) and read whatever zstd frames they
+hold. The leaves are float32 or int32 (the two
 packages' trees); another dtype, a compressor other than zstd or none,
 filters, or `use_zarr3: true` (which the JAX package never sets) raises
 ValueError naming it.

@@ -12,9 +12,14 @@ without a dictionary (`decompress`, `decompress_many`):
   three repeat offsets with their `literal_length == 0` rule;
 - the optional XXH64 content checksum, checked where the frame has one.
 
-It writes frames of raw blocks, or RLE blocks where a block is one byte
-repeated (`compress`): any zstd decoder reads them, and the values stay
-bit for bit.
+It writes one frame an input (`compress`), each 32 KiB piece the smallest
+of a raw block, an RLE block (one byte repeated) and a compressed block:
+the literals Huffman-coded (a length-limited code of at most 11 bits,
+its weights FSE-compressed, in four streams; a later block reuses the
+frame's table as treeless literals), the runs of a repeated 4 or 8 bytes
+as a few long sequences under the predefined FSE tables. Matches are
+kept few because the decoder spends a Python step on each sequence. Any
+zstd decoder reads the frames, and the values stay bit for bit.
 
 The Huffman streams of every compressed block of every input are decoded
 together, one numpy step a symbol position across all streams (11-bit
@@ -26,6 +31,7 @@ never returns wrong bytes without raising.
 
 from __future__ import annotations
 
+import heapq
 import struct
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -37,6 +43,7 @@ _SKIPPABLE = 0x184D2A50          # to 0x184D2A5F
 BLOCK_MAX = 1 << 17
 _HUF_BITS = 11                   # Huffman codes are at most 11 bits long
 _RAW, _RLE, _COMPRESSED = 0, 1, 2
+_TREELESS = 3                    # literals under the frame's last table
 
 # literal-length and match-length codes: (baseline, extra bits)
 _LL = [(i, 0) for i in range(16)] + [
@@ -712,26 +719,410 @@ def decompress(data: bytes) -> bytes:
     return decompress_many([data])[0]
 
 
+# -- the encoder ----------------------------------------------------------
+
+# The encoder writes compressed blocks of at most 32 KiB: the decoder
+# steps through the Huffman streams of all blocks together, one literal
+# of each stream a numpy step, so a stream of a 32 KiB block (8 Ki
+# literals) takes a quarter of the steps of one of a 128 KiB block.
+_PIECE = 1 << 15
+_MIN_RUN = 32                    # bytes: shorter repeats stay literals
+_STATE_BITS = 17                 # a sequence's three state updates, about
+
+
+class _Bits:
+    """A bit stream written from its first bit on, to be read backward
+    (`_Backward`); `close` adds the end mark."""
+
+    def __init__(self):
+        self.acc, self.n = 0, 0
+
+    def add(self, value: int, nbits: int):
+        self.acc |= value << self.n
+        self.n += nbits
+
+    def close(self) -> bytes:
+        return (self.acc | 1 << self.n).to_bytes(self.n // 8 + 1, "little")
+
+
+def _cover(table: _Fse) -> Dict[int, List[int]]:
+    """Per symbol, per state the encoder holds (the decoding state of the
+    symbol after it): the decoding state of the symbol whose update leads
+    there."""
+    size = 1 << table.log
+    cover: Dict[int, List[int]] = {}
+    for u in range(size):
+        lo, span = table.base[u], 1 << table.nbits[u]
+        cover.setdefault(table.symbol[u], [0] * size)[lo:lo + span] = \
+            [u] * span
+    return cover
+
+
+_PREDEFINED_COVER = {kind: _cover(table)
+                     for kind, table in _PREDEFINED_TABLES.items()}
+
+
+def _fse_step(table: _Fse, cover, bits: _Bits, state: int,
+              symbol: int) -> int:
+    """Encodes `symbol` from `state`: writes the bits the decoder's update
+    from the returned state reads to reach `state`."""
+    u = cover[symbol][state]
+    bits.add(state - table.base[u], table.nbits[u])
+    return u
+
+
+def _write_ncount(log: int, counts: Sequence[int]) -> bytes:
+    """The FSE table description `_read_ncount` reads."""
+    bits = _Bits()
+    bits.add(log - 5, 4)
+    remaining = (1 << log) + 1
+    threshold = 1 << log
+    nbits = log + 1
+    previous0 = False
+    s = 0
+    while remaining > 1:
+        if previous0:
+            zeros = 0
+            while counts[s + zeros] == 0:
+                zeros += 1
+            for _ in range(zeros // 3):
+                bits.add(3, 2)
+            bits.add(zeros % 3, 2)
+            s += zeros
+        count = counts[s]
+        most = 2 * threshold - 1 - remaining
+        remaining -= abs(count)
+        value = count + 1
+        if value >= threshold:
+            value += most
+        bits.add(value, nbits - (value < most))
+        previous0 = count == 0
+        while remaining < threshold:
+            nbits -= 1
+            threshold >>= 1
+        s += 1
+    return bits.acc.to_bytes((bits.n + 7) // 8, "little")
+
+
+def _fse_weights(weights: List[int]) -> Optional[bytes]:
+    """The Huffman weights FSE-compressed (the table description and the
+    two-state stream `_huffman_weights` reads), or None where one weight
+    value makes up all of them."""
+    n = len(weights)
+    hist = np.bincount(weights, minlength=_HUF_BITS + 1)
+    if n < 2 or hist.max() == n:
+        return None
+    log = 6
+    size = 1 << log
+    norm = np.where(hist > 0, np.maximum(1, hist * size // n), 0)
+    while norm.sum() > size:
+        norm[np.argmax(norm)] -= 1
+    norm[np.argmax(hist)] += size - norm.sum()
+    counts = [int(c) for c in norm[:int(np.flatnonzero(norm)[-1]) + 1]]
+    table = _Fse(log, counts)
+    cover = _cover(table)
+    bits = _Bits()
+    # the first state emits the even weights, the second the odd ones;
+    # the update after the second-to-last weight must read a bit, since
+    # reading past the stream's start is what ends it
+    states = [0, 0]
+    states[(n - 1) % 2] = cover[weights[-1]][0]
+    states[n % 2] = next(u for u in range(size) if table.symbol[u]
+                         == weights[-2] and table.nbits[u])
+    for i in range(n - 3, -1, -1):
+        states[i % 2] = _fse_step(table, cover, bits, states[i % 2],
+                                  weights[i])
+    bits.add(states[1], log)
+    bits.add(states[0], log)
+    return _write_ncount(log, counts) + bits.close()
+
+
+def _huffman_lengths(counts: np.ndarray) -> np.ndarray:
+    """Code lengths of at most 11 bits forming a complete prefix code over
+    the bytes of nonzero count (two or more): Huffman's, with the counts
+    halved until the longest code fits."""
+    present = np.flatnonzero(counts)
+    weight = counts[present].astype(np.int64)
+    n = len(present)
+    while True:
+        heap = [(int(c), i) for i, c in enumerate(weight)]
+        heapq.heapify(heap)
+        parent = [0] * (2 * n - 1)
+        for node in range(n, 2 * n - 1):
+            c1, a = heapq.heappop(heap)
+            c2, b = heapq.heappop(heap)
+            parent[a] = parent[b] = node
+            heapq.heappush(heap, (c1 + c2, node))
+        depth = [0] * (2 * n - 1)
+        for node in range(2 * n - 3, -1, -1):
+            depth[node] = depth[parent[node]] + 1
+        if max(depth[:n]) <= _HUF_BITS:
+            break
+        weight = (weight + 1) >> 1
+    lengths = np.zeros(256, np.int64)
+    lengths[present] = depth[:n]
+    return lengths
+
+
+class _Huffman:
+    """A literals table: per byte its code and length (0 for a byte it
+    cannot code), and the tree description that introduces it."""
+
+    def __init__(self, lengths: np.ndarray, description: bytes):
+        present = np.flatnonzero(lengths)
+        weight = np.where(lengths > 0, lengths.max() + 1 - lengths, 0)
+        # the decoder's canonical order: weights ascending, then bytes
+        order = present[np.argsort(weight[present], kind="stable")]
+        span = 1 << (weight[order] - 1)
+        self.codes = np.zeros(256, np.uint64)
+        self.codes[order] = (np.cumsum(span) - span) >> (weight[order] - 1)
+        self.lengths = lengths
+        self.description = description
+
+    @classmethod
+    def build(cls, counts: np.ndarray) -> Optional["_Huffman"]:
+        """The table of byte `counts` (two bytes or more), or None where
+        its description does not fit the format."""
+        lengths = _huffman_lengths(counts)
+        longest = int(lengths.max())
+        last = int(np.flatnonzero(lengths)[-1])
+        weights = [longest + 1 - int(x) if x else 0 for x in lengths[:last]]
+        forms = []
+        fse = _fse_weights(weights)
+        if fse is not None and len(fse) < 128:
+            forms.append(bytes([len(fse)]) + fse)
+        if len(weights) <= 128:
+            padded = weights + [0]
+            forms.append(bytes([127 + len(weights)]) + bytes(
+                padded[i] << 4 | padded[i + 1]
+                for i in range(0, len(weights), 2)))
+        if not forms:
+            return None
+        return cls(lengths, min(forms, key=len))
+
+
+def _stream_split(n: int) -> List[int]:
+    """The literal counts of a section's streams: one stream below 1024
+    literals, else four, the first three of ceil(n / 4)."""
+    if n < 1024:
+        return [n]
+    seg = (n + 3) // 4
+    return [seg, seg, seg, n - 3 * seg]
+
+
+def _huffman_streams(lits: np.ndarray, table: _Huffman) -> bytes:
+    """The literals' Huffman streams, after the jump table where there are
+    four: a stream holds its literals last first from bit 0 on, so that
+    the decoder, reading down from the end mark, meets them in order."""
+    split = _stream_split(len(lits))
+    ends = np.cumsum(split)
+    cum = np.cumsum(table.lengths[lits])
+    top = cum[ends - 1]
+    total = np.diff(top, prepend=0)              # each stream's bits
+    size = total // 8 + 1
+    start = np.cumsum(size) - size
+    pos = np.repeat(8 * start + top, split) - cum
+    word = table.codes[lits] << (pos & 31).astype(np.uint64)
+    # the codes starting in each 32-bit unit, summed (they do not overlap)
+    # with what runs past it into the next
+    acc = np.zeros(int(size.sum()) // 4 + 2, np.uint64)
+    np.add.at(acc, pos >> 5, word)
+    units = acc & 0xFFFFFFFF
+    units[1:] += acc[:-1] >> 32
+    buf = units.astype("<u4").view(np.uint8)[:int(size.sum())].copy()
+    buf[start + total // 8] |= (1 << (total & 7)).astype(np.uint8)
+    jump = struct.pack("<3H", *size[:3]) if len(split) == 4 else b""
+    return jump + buf.tobytes()
+
+
+def _literals_header(kind: int, regen: int, csize: int,
+                     streams: int) -> bytes:
+    if kind in (_RAW, _RLE):
+        if regen < 32:
+            return bytes([kind | regen << 3])
+        if regen < 4096:
+            return (kind | 1 << 2 | regen << 4).to_bytes(2, "little")
+        return (kind | 3 << 2 | regen << 4).to_bytes(3, "little")
+    top = max(regen, csize)
+    size_format, bits = ((0 if streams == 1 else 1, 10) if top < 1024
+                         else (2, 14) if top < 16384 else (3, 18))
+    return (kind | size_format << 2 | regen << 4 | csize << (4 + bits)
+            ).to_bytes((4 + 2 * bits + 7) // 8, "little")
+
+
+def _literals(lits: np.ndarray, counts: np.ndarray,
+              previous: Optional[_Huffman]) -> Tuple[bytes,
+                                                     Optional[_Huffman]]:
+    """The literals section of `lits` (byte `counts`): raw, RLE, or
+    Huffman-coded, whichever is smallest, and the frame's table after it.
+    The frame's previous table is kept unless a new one (its description
+    included) takes 1 % fewer bits: each table costs the decoder about
+    half a millisecond of Python, and the blocks of one array share their
+    bytes' distribution."""
+    n = len(lits)
+    raw = _literals_header(_RAW, n, 0, 0) + lits.tobytes()
+    if n and counts.max() == n:
+        return _literals_header(_RLE, n, 0, 0) + lits[:1].tobytes(), \
+            previous
+    if n < 32:
+        return raw, previous
+    present = counts > 0
+    c = counts[present]
+    entropy = float((c * np.log2(n / c)).sum())
+    choice = None
+    if previous is not None and (previous.lengths[present] > 0).all():
+        choice = (_TREELESS, previous, int(counts @ previous.lengths))
+    # a new table is built only where it may save 1 % (a Huffman code
+    # takes at least the entropy)
+    if choice is None or choice[2] > 1.01 * (
+            entropy + 8 * len(previous.description)):
+        table = _Huffman.build(counts)
+        if table is not None:
+            new = int(counts @ table.lengths) + 8 * len(table.description)
+            if choice is None or choice[2] > 1.01 * new:
+                choice = (_COMPRESSED, table, new)
+    if choice is None or choice[2] // 8 + 10 >= len(raw):
+        return raw, previous
+    kind, table, _ = choice
+    body = (table.description if kind == _COMPRESSED else b"") \
+        + _huffman_streams(lits, table)
+    streams = len(_stream_split(n))
+    section = _literals_header(kind, n, len(body), streams) + body
+    return (section, table) if len(section) < len(raw) else (raw, previous)
+
+
+def _code(value: int, table: List[Tuple[int, int]]) -> int:
+    """The length code whose range holds `value`."""
+    return next(c for c in range(len(table) - 1, -1, -1)
+                if table[c][0] <= value)
+
+
+def _sequences(seqs: List[Tuple[int, int, int]]) -> bytes:
+    """The sequences section of (literal length, match length, offset)
+    triples under the predefined tables, every offset a new one (no
+    repeat codes)."""
+    n = len(seqs)
+    if n == 0:
+        return b"\0"
+    head = bytes([n]) if n < 128 else bytes([128 + (n >> 8), n & 255]) \
+        if n < 0x7F00 else b"\xff" + struct.pack("<H", n - 0x7F00)
+    codes = [(_code(ll, _LL), _code(ml, _ML), (off + 3).bit_length() - 1,
+              ll, ml, off + 3) for ll, ml, off in seqs]
+    kinds = ("ll", "ml", "of")
+    tables = [_PREDEFINED_TABLES[k] for k in kinds]
+    covers = [_PREDEFINED_COVER[k] for k in kinds]
+    bits = _Bits()
+
+    def extras(c):
+        lc, mc, oc, ll, ml, value = c
+        bits.add(ll - _LL[lc][0], _LL[lc][1])
+        bits.add(ml - _ML[mc][0], _ML[mc][1])
+        bits.add(value - (1 << oc), oc)
+
+    # written last sequence first; the decoder reads a sequence's offset,
+    # match and literal extra bits, then updates its literal, match and
+    # offset states, and starts from the literal, offset and match states
+    states = [cover[c][0] for cover, c in zip(covers, codes[-1])]
+    extras(codes[-1])
+    for c in reversed(codes[:-1]):
+        for k in (2, 1, 0):
+            states[k] = _fse_step(tables[k], covers[k], bits, states[k],
+                                  c[k])
+        extras(c)
+    for k in (1, 2, 0):
+        bits.add(states[k], tables[k].log)
+    return head + b"\0" + bits.close()
+
+
+def _runs(block: np.ndarray, counts: np.ndarray) -> List[Tuple[int, int,
+                                                                 int]]:
+    """The block's repeats worth a sequence each, as (start, length,
+    offset) in order: runs of at least `_MIN_RUN` bytes that repeat the 4
+    or 8 bytes before them (a repeated float32 or float64, or a pair),
+    where the literals' bits (at least one a byte, as Huffman codes take)
+    exceed the sequence's."""
+    u = block[:len(block) // 4 * 4].view("<u4")
+    found = []
+    for words in (1, 2):
+        same = u[words:] == u[:-words]
+        edges = np.flatnonzero(np.diff(same, prepend=False, append=False))
+        first, stop = edges[::2], edges[1::2]
+        long = 4 * (stop - first) >= _MIN_RUN
+        found += [(4 * (a + words), 4 * (b + words), 4 * words)
+                  for a, b in zip(first[long].tolist(), stop[long].tolist())]
+    if not found:
+        return []
+    cost = np.maximum(1, np.log2(len(block) / np.maximum(counts, 1)))
+    out, end = [], 0
+    for s, e, off in sorted(found):
+        s = max(s, end)
+        if e - s < _MIN_RUN:
+            continue
+        ll, ml = s - end, e - s
+        seq_bits = _STATE_BITS + _LL[_code(ll, _LL)][1] \
+            + _ML[_code(ml, _ML)][1] + (off + 3).bit_length() - 1
+        if cost[block[s:e]].sum() > seq_bits:
+            out.append((s, ml, off))
+            end = e
+    return out
+
+
+def _block(block: np.ndarray, previous: Optional[_Huffman]) -> Tuple[
+        int, bytes, Optional[_Huffman]]:
+    """The smallest encoding of one block: (block type, content, the
+    frame's Huffman table after it)."""
+    counts = np.bincount(block, minlength=256)
+    if counts.max() == len(block) > 1:
+        return _RLE, block[:1].tobytes(), previous
+    seqs, lits, at = [], [], 0
+    for s, n, off in _runs(block, counts):
+        seqs.append((s - at, n, off))
+        lits.append(block[at:s])
+        at = s + n
+    if seqs:
+        lits = np.concatenate(lits + [block[at:]])
+        counts = np.bincount(lits, minlength=256)
+    else:
+        lits = block
+    section, table = _literals(lits, counts, previous)
+    body = section + _sequences(seqs)
+    if len(body) < len(block):
+        return _COMPRESSED, body, table
+    return _RAW, block.tobytes(), previous
+
+
 def compress(data: bytes, checksum: bool = False) -> bytes:
-    """One zstd frame holding `data` in raw blocks of up to 128 KiB, or
-    RLE blocks where a block is one byte repeated; with its content size,
-    and its XXH64 checksum where `checksum`."""
+    """One zstd frame holding `data`, with its content size and, where
+    `checksum`, its XXH64 checksum. Each 32 KiB piece is the smallest of
+    raw, RLE (one byte repeated) and a compressed block: its literals
+    Huffman-coded, its long runs of a repeated 4 or 8 bytes as sequences
+    under the predefined tables. Neighbouring raw pieces, and RLE pieces
+    of one byte, join into blocks of up to 128 KiB."""
     data = bytes(data)
+    arr = np.frombuffer(data, np.uint8)
+    blocks: List[list] = []              # [type, size, content parts]
+    table = None
+    for at in range(0, len(data), _PIECE):
+        piece = arr[at:at + _PIECE]
+        kind, body, table = _block(piece, table)
+        last = blocks[-1] if blocks else None
+        if last and kind == last[0] != _COMPRESSED \
+                and last[1] + len(piece) <= BLOCK_MAX \
+                and (kind == _RAW or body == last[2][0]):
+            last[1] += len(piece)
+            if kind == _RAW:
+                last[2].append(body)
+        else:
+            blocks.append([kind, len(piece), [body]])
     # a 128 KiB window (exponent 7), the content size in 8 bytes
     parts = [_MAGIC_BYTES, bytes([0xC0 | (4 if checksum else 0), 7 << 3]),
              struct.pack("<Q", len(data))]
-    starts = range(0, max(len(data), 1), BLOCK_MAX)
-    for i, at in enumerate(starts):
-        block = data[at:at + BLOCK_MAX]
-        last = int(i == len(starts) - 1)
-        if len(block) > 1 and block.count(block[:1]) == len(block):
-            parts += [(len(block) << 3 | _RLE << 1 | last).to_bytes(3,
-                                                                    "little"),
-                      block[:1]]
-        else:
-            parts += [(len(block) << 3 | _RAW << 1 | last).to_bytes(3,
-                                                                    "little"),
-                      block]
+    for i, (kind, size, body) in enumerate(blocks or [[_RAW, 0, []]]):
+        body = b"".join(body)
+        if kind == _COMPRESSED:
+            size = len(body)
+        parts += [(size << 3 | kind << 1 | (i == max(len(blocks), 1) - 1)
+                   ).to_bytes(3, "little"), body]
     if checksum:
         parts.append(struct.pack("<I", xxh64(data) & 0xFFFFFFFF))
     return b"".join(parts)

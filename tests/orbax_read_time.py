@@ -5,7 +5,8 @@ Adam moments (about 14.6 MB of float32) drawn from a seed
 (`smoke_variants.orbax_fixture_state`), written by the JAX package's
 `save_train_state(backend="orbax")`, then read by the port's
 `load_train_state` (best of `--repeats`); beside it the port's own save
-of that state and its read back. Prints one JSON line.
+of that state and its read back, and the port's store's bytes over the
+JAX package's (`port_to_jax_bytes`). Prints one JSON line.
 
     JAX_PLATFORMS=cpu python tests/orbax_read_time.py [--repeats 3]
 """
@@ -71,15 +72,18 @@ def measure(arch=None, repeats: int = 3, seed: int = 0) -> dict:
             backend="orbax", **trees), repeats)
         port_read_s, _ = _best(lambda: tckpt.load_train_state(port_folder),
                                repeats)
-        return {"host": f"{platform.processor() or platform.machine()}, "
-                        f"{os.cpu_count()} cores",
-                "leaves": len(leaves),
-                "array_bytes": int(sum(np.asarray(v).nbytes
-                                       for v in leaves)),
-                "jax_files_bytes": sv._folder_files(jax_folder)[1],
-                "read_s": read_s, "port_save_s": save_s,
-                "port_files_bytes": sv._folder_files(port_folder)[1],
-                "port_read_s": port_read_s}
+        res = {"host": f"{platform.processor() or platform.machine()}, "
+                       f"{os.cpu_count()} cores",
+               "leaves": len(leaves),
+               "array_bytes": int(sum(np.asarray(v).nbytes
+                                      for v in leaves)),
+               "jax_files_bytes": sv._folder_files(jax_folder)[1],
+               "read_s": read_s, "port_save_s": save_s,
+               "port_files_bytes": sv._folder_files(port_folder)[1],
+               "port_read_s": port_read_s}
+        res["port_to_jax_bytes"] = res["port_files_bytes"] \
+            / res["jax_files_bytes"]
+        return res
     finally:
         shutil.rmtree(root)
 

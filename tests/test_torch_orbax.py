@@ -35,6 +35,7 @@ from radargnn_tpu_torch import smoke_variants as sv
 from radargnn_tpu_torch.models.detnet import DetNet
 from radargnn_tpu_torch.parallel.comm import run_ranks
 from radargnn_tpu_torch.train import checkpoint as tckpt
+from radargnn_tpu_torch.train import ocdbt, zstd
 from radargnn_tpu_torch.train.trainer import Trainer
 from tests.test_tensor_parallel import _arch as _tp_arch
 from tests.test_tensor_parallel import _samples as _tp_samples
@@ -162,9 +163,10 @@ def _port_trainer(payload, steps=1):
 
 def test_jax_restores_the_ports_checkpoint(tmp_path, monkeypatch):
     """The port's trainer after a step writes through the orbax backend
-    (RADARGNN_CKPT_BACKEND=orbax); the JAX package's load_train_state,
-    with its trainer's optimizer state as the target, restores the
-    weights, statistics and optax state bit for bit."""
+    (RADARGNN_CKPT_BACKEND=orbax), its chunks zstd frames with compressed
+    blocks; the JAX package's load_train_state, with its trainer's
+    optimizer state as the target, restores the weights, statistics and
+    optax state bit for bit."""
     _jax_restores_the_ports_checkpoint(tmp_path, monkeypatch, blocked=False)
 
 
@@ -186,6 +188,14 @@ def _jax_restores_the_ports_checkpoint(tmp_path, monkeypatch, blocked):
     assert {"_METADATA", "_CHECKPOINT_METADATA", "_sharding", "d",
             "manifest.ocdbt", "array_metadatas", "ocdbt.process_0"} <= set(
         os.listdir(os.path.join(folder, "orbax")))
+    # the chunks hold compressed blocks, their literals Huffman-coded
+    store = ocdbt.Store(os.path.join(folder, "orbax"))
+    lanes = zstd._Lanes()
+    blocks = [b for k in store.list() if not k.endswith(b".zarray")
+              for frame in zstd._parse(store.read(k), lanes)
+              for b in frame.blocks]
+    assert any(kind == zstd._COMPRESSED for kind, _ in blocks)
+    assert lanes.lanes
     model, opt_state, meta = jckpt.load_train_state(folder,
                                                     jt.state.opt_state)
     _assert_trees_equal(jax.device_get(model), trainer._variables())
@@ -301,8 +311,12 @@ def test_resume_from_a_jax_orbax_checkpoint_is_the_msgpack_resume(
 def test_read_time_script_at_a_small_size():
     """tests/orbax_read_time.py (the flagship-size host-CPU read time in
     PERF.md) at the fixture's narrow DetNet: the JAX package's checkpoint
-    read back as its state, the port's save and read timed."""
+    read back as its state, the port's save and read timed, and the
+    port's store beside the JAX package's."""
     from orbax_read_time import measure
     res = measure(sv.orbax_fixture_arch(), repeats=1)
     assert res["leaves"] > 40 and res["array_bytes"] > 30_000
     assert res["read_s"] > 0 and res["port_read_s"] > 0
+    assert res["port_save_s"] > 0
+    assert res["port_to_jax_bytes"] == (res["port_files_bytes"]
+                                        / res["jax_files_bytes"])

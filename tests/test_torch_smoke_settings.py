@@ -5,7 +5,8 @@ against the CPU, the tools as child processes, B4's bf16 landing against
 its plain version and the radius configuration under the three variant
 knobs, B1 and B2 at receiver tiles of 8 and 24 and two steps at 8, the
 orbax backend (with tensorstore and zstandard blocked: a save and restore,
-a resumed step, the JAX package's committed checkpoint), and the half's
+a resumed step, the stores' sizes against their arrays', the JAX
+package's committed checkpoint), and the half's
 entries of the kernels line. The first half
 (`routing_phase`) is tests/test_torch_smoke_variants.py's. Off the card
 the wrappers take their plain versions, so nothing is timed and nothing
@@ -83,10 +84,24 @@ def test_settings_phase_rehearses_on_cpu(monkeypatch):
     assert np.isfinite(var["r_tile_8_train"]["train_losses"]).all()
     # orbax, on the port's own code: the state restored bit for bit, a
     # fresh trainer resumed from it stepping to the uninterrupted one's
-    # losses bit for bit, and the JAX package's checkpoint read as its
-    # seed's state
+    # losses bit for bit, the stores compressed (the trainer's and the
+    # flagship state's, each beside its arrays' bytes), and the JAX
+    # package's checkpoint read as its seed's state
     orbax = var["orbax"]
     assert orbax["bitwise"] and orbax["leaves"] > 100
+    assert orbax["array_bytes"] > 10_000_000
+    assert orbax["ratio"] == orbax["bytes"] / orbax["array_bytes"]
+    assert orbax["ratio"] <= sv.ORBAX_TRAINED_RATIO
+    state = orbax["state"]
+    assert state["bitwise"] and state["array_bytes"] == orbax["array_bytes"]
+    assert state["ratio"] <= sv.ORBAX_STATE_RATIO
+    assert any(s.startswith("orbax backend on the CPU: the trainer's store "
+                            f"of {orbax['bytes']} bytes for "
+                            f"{orbax['array_bytes']} bytes of arrays: ratio")
+               for s in lines)
+    assert any(s.startswith("orbax backend on the CPU: the flagship state ")
+               and f"ratio {state['ratio']:.4f} (at most 0.75)" in s
+               for s in lines)
     assert "ocdbt.process_0/manifest.ocdbt" in orbax["files"]
     assert orbax["resume_bitwise"]
     assert orbax["resumed_losses"] == orbax["losses"]
