@@ -25,7 +25,21 @@ trains the same DetNet for a few steps through the port's Trainer (the
 flagship configuration, deterministic algorithms on), checks that every
 conv layer launched the path's kernels, that each path matches the same
 model on the plain path and that a second training run gives the same
-losses. A fourth phase holds the four kernels that no model path runs
+losses. Then the three paths run the Radar-PointGNN model: the flagship
+configuration with conv_layer_type "RadarPointGNNConv" (printed; its
+one-layer pre-MLP and max aggregation keep the fused kernels), five
+residual convs of (d_in, d_e, H) = (224, 16, 240), whose offset is the
+pre-MLP's bias broadcast over the nodes: on each path the kernels against
+their plain versions at that one shape (with the limits above, each
+printed with its time and bound, and on one line "pointgnn kernels: "),
+three requests (each forward kernel 15 launches, nothing else) and four
+training steps (launches exact) against the plain path, the pre-MLP
+biases' gradients against the plain path's within 5e-4 of the sums of
+their rows' magnitudes (the BatchNorm after each residual update cancels
+those sums), and over 8 weight seeds the median free-running loss gap of
+the kernel path to the plain path at most 2x the re-associated plain
+path's; the phase's wall is printed. A fourth phase holds the four kernels
+that no model path runs
 against their plain versions at the flagship's widths on the kNN batch (the
 v1 pair at the five layer shapes under 128 x 256 receiver-CSR tiles, its
 backward exact on dyadic inputs and bitwise repeatable; the message
@@ -101,7 +115,9 @@ the single card, each rank's launches counted (over NCCL too where the
 machine has two or four cards); then the scaling tool, the multi-rank dry
 run (dense receiver tiles of 8, the JAX dry run's) and the train CLI
 under torchrun (mesh_axes {"model": 2}) run as child processes. It prints
-the kernels' times beside their bounds. The last line is
+the kernels' times beside their bounds (the Radar-PointGNN phase's training
+launches and errors join the entries of the kernels it runs; their times
+stay the MPNN step's). The last line is
 one JSON object with "ok" and the device; any failed phase exits
 non-zero.
 """

@@ -2,7 +2,11 @@
 plain versions, and the flagship DetNet's serving path (`Predictor`) and
 training path (`Trainer`) on three paths: the kNN graph under the dense
 tiling, the radius graph under the windowed tiling, and the kNN graph
-under the CSR tiling (`fused_tiling: "csr"`). A fourth phase holds the
+under the CSR tiling (`fused_tiling: "csr"`). On the card the same three
+paths then run the Radar-PointGNN model (`smoke_pointgnn.pointgnn_phase`:
+the flagship configuration with conv_layer_type "RadarPointGNNConv", its
+kernels at the one layer shape (224, 16, 240), its requests and training
+steps against the plain path). A fourth phase holds the
 four kernels that no model path runs (fused linear, message segment-max,
 the v1 hoisted forward and backward) against their plain versions at the
 flagship's widths and drives their entry points, `benchmarks.kernel_check`
@@ -986,7 +990,8 @@ def _layer_shapes(model: DetNet) -> List[tuple]:
 
 
 def flagship_configs(graph: str = "knn", points: int = RADIUS_POINTS,
-                     tiling: Optional[str] = None):
+                     tiling: Optional[str] = None,
+                     conv: Optional[str] = None):
     """The flagship configuration's MODEL_ARCHITECTURE and GRAPH_CONSTRUCTION
     sections, its background index, and the fields replaced in code:
     `graph` "knn" reads the YAML verbatim (the dense tiling); "radius"
@@ -995,7 +1000,10 @@ def flagship_configs(graph: str = "knn", points: int = RADIUS_POINTS,
     and fused_run_cap None (the windowed tiling with contiguous runs: under
     the YAML's run cap 4 the spread tiler sends 9-11 % of the radius
     graph's edges to overflow, past the 5 % budget). `tiling` "csr" also
-    replaces fused_tiling with "csr" (the CSR path)."""
+    replaces fused_tiling with "csr" (the CSR path). `conv` (None: the
+    YAML's MPNNConv) replaces conv_layer_type where it differs: with
+    "RadarPointGNNConv" the YAML's one-layer pre-MLP and max aggregation
+    keep it on the fused path (`smoke_pointgnn`)."""
     cfg = UserConfigurationReader.read_config_file(FLAGSHIP_CONFIG)
     arch = UserConfigurationReader.get_config_object("MODEL_ARCHITECTURE", cfg)
     graph_cfg = UserConfigurationReader.get_config_object(
@@ -1020,6 +1028,12 @@ def flagship_configs(graph: str = "knn", points: int = RADIUS_POINTS,
         arch = dataclasses.replace(arch, fused_tiling="csr")
     elif tiling is not None:
         raise ValueError(f"unknown tiling {tiling!r}: None or 'csr'")
+    if conv not in (None, "MPNNConv", "RadarPointGNNConv"):
+        raise ValueError(f"unknown conv {conv!r}: 'MPNNConv' or "
+                         "'RadarPointGNNConv'")
+    if conv is not None and conv != arch.conv_layer_type:
+        replaced["conv_layer_type"] = conv
+        arch = dataclasses.replace(arch, conv_layer_type=conv)
     return arch, graph_cfg, bg_index, replaced
 
 
@@ -1029,14 +1043,16 @@ def _round_up(v: int, align: int) -> int:
 
 def flagship_serving(dev: DeviceLike, points: int, graphs: int,
                      batches: int, seed: int, graph: str = "knn",
-                     tiling: Optional[str] = None
+                     tiling: Optional[str] = None,
+                     conv: Optional[str] = None
                      ) -> Tuple[object, DetNet, List]:
     """The serving path's set-up: the configuration's DetNet with seeded
     weights on `dev`, and `batches` requests of `graphs` synthetic frames of
     `points` points each, built as `graph` ("knn" or "radius",
     `flagship_configs`) and stacked under the tiling the configuration
     selects for it (dense for kNN, windowed for radius; CSR for either with
-    `tiling` "csr"). Returns (arch config, model, loader).
+    `tiling` "csr"), the conv layers of type `conv` (None: the YAML's).
+    Returns (arch config, model, loader).
 
     kNN requests take consecutive frames of `seed`; radius request i takes
     the frames of seed + i, so that request 0 is the radius batch the
@@ -1044,7 +1060,8 @@ def flagship_serving(dev: DeviceLike, points: int, graphs: int,
     Consecutive frames of seed 0 would not do: the tenth has 6,005 window
     overflow edges, past the 3,584 that the 5 % budget allows (the JAX
     package's tiler refuses it as well)."""
-    arch, graph_cfg, bg_index, _ = flagship_configs(graph, points, tiling)
+    arch, graph_cfg, bg_index, _ = flagship_configs(graph, points, tiling,
+                                                    conv)
     tiling_spec = fused_csr_tiling(arch, k=graph_cfg.k)
     if tiling_spec is None:
         raise AssertionError("the configuration does not select the fused "
@@ -3031,7 +3048,12 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
     served, `train_steps` the train steps of each training run (the first
     is a warm-up, the rest are timed). The kNN path (dense tiling) runs
     first, then the radius path (windowed tiling), then the kNN graph
-    under the CSR tiling, then the fourth phase: the four kernels no model
+    under the CSR tiling, then, on the card, the Radar-PointGNN phase
+    (`smoke_pointgnn.pointgnn_phase`: the three paths again with
+    conv_layer_type "RadarPointGNNConv", rehearsed off the card by a test
+    of its own; its training launches and its kernels' errors join the
+    kernels line's entries of the kernels it runs), then the fourth phase:
+    the four kernels no model
     path runs, held against their plain versions at the flagship's widths
     on the kNN batch, then their entry points `kernel_check` and
     `kernel_bench` (at `bench` = (edges, nodes, d_in, H)); then the
@@ -3155,6 +3177,12 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
         "CSR", out, witness=True))
     summary["csr"] = csr
 
+    # -- Radar-PointGNN on the three paths (the conv type replaced) ----------
+    if on_card:
+        from radargnn_tpu_torch.smoke_pointgnn import pointgnn_phase
+        summary["pointgnn"] = pointgnn_phase(dev, points, graphs, batches,
+                                             seed, reps, train_steps, out=out)
+
     # -- the kernels no model path runs: fused linear, segment-max, v1 ------
     v1 = v1_tiling(loader[0])
     wide = max(shapes, key=lambda s: s[2])
@@ -3251,6 +3279,17 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
         entry("csr_bwd_v2", "csr_bwd_v2.cu", 1030, csr_l[6], c_bwd,
               c_bwd + csr["radius_per_shape_bwd"], False),
     ]
+    # the Radar-PointGNN phase's training launches and its rows' errors
+    # join the entries of the kernels it runs; the times and bounds stay
+    # the MPNN step's
+    pointgnn = summary.get("pointgnn", {"checked": {}})
+    for k in summary["kernels"]:
+        rows = pointgnn["checked"].get(k["name"], [])
+        if rows:
+            k["launches"] += pointgnn["train_launches"][
+                KERNEL_NAMES.index(k["name"])]
+            k["max_abs_err"] = max([k["max_abs_err"]]
+                                   + [r["max_abs_err"] for r in rows])
     # the fourth phase: launches from its entry points; times and bounds of
     # the fused linear at the flagship's node shape (224 -> 464 over the
     # batch's nodes), of the segment-max on the kNN batch, and of the v1
@@ -3291,5 +3330,6 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
                                  if k.startswith(("per_shape", "train_tiling"))
                                  },
                     "variants": {k: v for k, v in summary.get(
-                        "variants", {}).items() if k in VARIANT_ROWS}}))
+                        "variants", {}).items() if k in VARIANT_ROWS},
+                    "pointgnn": pointgnn["checked"]}))
     return summary

@@ -91,16 +91,18 @@ def kind_of(name: str) -> str:
 
 def trace(steps: int = 3, points: int = 2816, graphs: int = 5,
           seed: int = 0, top: int = 30, trace_file: Optional[str] = None,
-          graph: str = "knn", tiling: Optional[str] = None) -> Dict:
+          graph: str = "knn", tiling: Optional[str] = None,
+          conv: Optional[str] = None) -> Dict:
     """Profiles `steps` train steps on `graph` (under `tiling`, or the one
-    the configuration selects) after one warm-up step."""
+    the configuration selects; the conv layers of type `conv`, None: the
+    YAML's) after one warm-up step."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = resolve_device("cuda")
     cfg = UserConfigurationReader.read_config_file(FLAGSHIP_CONFIG)
     train_cfg = UserConfigurationReader.get_config_object("TRAINING", cfg)
     set_seeds(train_cfg.seed, train_cfg.deterministic)
     arch, _, loader = flagship_serving(dev, points, graphs, 1, seed,
-                                       graph=graph, tiling=tiling)
+                                       graph=graph, tiling=tiling, conv=conv)
     batch = loader[0]
     trainer = Trainer(train_cfg, DetNet(arch, device=dev, seed=seed))
 
@@ -152,9 +154,10 @@ def _spread(gaps: List[float]) -> Dict:
 
 def drift(seeds: int, steps: int = 4, points: int = 2816, graphs: int = 5,
           graph: str = "knn", tiling: Optional[str] = None,
-          device: DeviceLike = None) -> Dict:
+          device: DeviceLike = None, conv: Optional[str] = None) -> Dict:
     """For weight seeds 0..seeds-1, `steps` free-running train steps on
-    the first batch of seed 0 on three paths (`smoke.flagship_training`):
+    the first batch of seed 0 (the conv layers of type `conv`, None: the
+    YAML's) on three paths (`smoke.flagship_training`):
     the kernel path, the plain path, and the witness, the plain path with
     its float32 sums re-associated (`smoke._witness_kernels`, `witness`),
     a change of summation order only, the one way in which the kernels
@@ -172,7 +175,8 @@ def drift(seeds: int, steps: int = 4, points: int = 2816, graphs: int = 5,
     try:
         set_seeds(train_cfg.seed, train_cfg.deterministic)
         arch, _, loader = flagship_serving(dev, points, graphs, 1, 0,
-                                           graph=graph, tiling=tiling)
+                                           graph=graph, tiling=tiling,
+                                           conv=conv)
         rows, layers = [], defaultdict(list)
         for seed in range(seeds):
             def train(**path):
@@ -210,6 +214,9 @@ def main(argv=None) -> int:
     ap.add_argument("--graph", choices=("knn", "radius"), default="knn")
     ap.add_argument("--tiling", choices=("csr",), default=None,
                     help="the CSR tiling instead of the configuration's")
+    ap.add_argument("--conv", choices=("MPNNConv", "RadarPointGNNConv"),
+                    default=None, help="the conv layers' type instead of "
+                    "the configuration's")
     ap.add_argument("--trace", default=None,
                     help="also write the Chrome trace to this file")
     ap.add_argument("--drift", type=int, default=None, metavar="SEEDS",
@@ -218,10 +225,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.drift is not None:
         print(json.dumps(drift(args.drift, graph=args.graph,
-                               tiling=args.tiling)))
+                               tiling=args.tiling, conv=args.conv)))
         return 0
     print(json.dumps(trace(args.steps, trace_file=args.trace,
-                           graph=args.graph, tiling=args.tiling)))
+                           graph=args.graph, tiling=args.tiling,
+                           conv=args.conv)))
     return 0
 
 

@@ -1713,11 +1713,17 @@ def test_smoke_on_card():
     # the ninth phase: B1's and B4's bf16 test in the fused_bf16_max
     # trainings (two steps), B3 on the overflow rows in the ovf_ssum one,
     # B4's landing in the variant knobs' training, B1 and B2 in the
-    # training at r_tile 8 (two steps each)
+    # training at r_tile 8 (two steps each); the model paths' entries count
+    # each path's training twice: the MPNN run's and the Radar-PointGNN
+    # phase's (smoke_pointgnn)
     assert [k["launches"] for k in summary["kernels"]] == \
-        [3 * 5 * 2 + cli[11], 5 * 2 + cli[0], 5 * 2 + cli[1], 2 * 5 * 2,
-         5 * 2, 5 * 2, 5 * 2, 5 * 2, 1, 1 + 3 + 1, 2, 1, 5 * 2, 5 * 2,
-         5 * 2, 5 * 2, 5 * 2, 5 * 2]
+        [2 * 3 * 5 * 2 + cli[11], 2 * 5 * 2 + cli[0], 2 * 5 * 2 + cli[1],
+         2 * 2 * 5 * 2, 2 * 5 * 2, 2 * 5 * 2, 2 * 5 * 2, 2 * 5 * 2, 1,
+         1 + 3 + 1, 2, 1, 5 * 2, 5 * 2, 5 * 2, 5 * 2, 5 * 2, 5 * 2]
+    pointgnn = summary["pointgnn"]
+    for path in pointgnn["paths"].values():
+        assert path["shapes"] == [(224, 16, 240)] * 5
+        assert path["c3"]["median_ratio"] <= 2.0
     assert summary["serve_launches"] == [5 * 3] + [0] * 10 + [5 * 3, 0, 0,
                                                               0]
     assert summary["radius"]["serve_launches"] == \
@@ -2086,3 +2092,42 @@ def test_orbax_backend_resumes_on_the_card(monkeypatch):
     assert all(c.launches > b for c, b in zip(counters, before))
     assert res["fixture"]["bitwise"] and res["fixture"]["resumed"]
     assert "ocdbt.process_0/manifest.ocdbt" in res["files"]
+
+
+@pytest.mark.gpu
+def test_pointgnn_bias_check_refuses_dropped_maxima_on_the_card():
+    """The Radar-PointGNN phase's pre-MLP bias check
+    (`smoke_pointgnn.check_offset_grads`) at the smoke's size, 5 frames of
+    2816 points on the kNN path (dense tiling): the kernel path within
+    BIAS_GRAD_RTOL of the plain path's; B1 losing the VJP-mode maxima of
+    the first 64 or 704 of the 14,080 receivers (their output 0 and
+    `inner` empty, so the backward passes them no g: the fault of
+    tests/test_torch_smoke_pointgnn.py) refused. Prints each reading."""
+    _need_card()
+    from radargnn_tpu_torch import smoke_pointgnn as sp
+    arch, _, loader = smoke.flagship_serving("cuda", 2816, 5, 1, 0,
+                                             conv=sp.CONV)
+    kern = da.dense_fwd
+
+    def read(drop: int):
+        def dropped(*args, **kw):
+            res = kern(*args, **kw)
+            if not kw.get("emit_inner"):
+                return res
+            out, inner, bits = res
+            out, inner = out.clone(), inner.clone()
+            out[:drop] = 0.0
+            inner[:drop] = da._NEG
+            return out, inner, bits
+        with mock.patch.object(da, "dense_fwd", dropped), \
+                mock.patch.object(sp, "BIAS_GRAD_RTOL", float("inf")):
+            res = sp.check_offset_grads("cuda", arch, loader[0], 0,
+                                        f"{drop} receivers dropped", print)
+        return [r["rel_diff"] for r in res]
+
+    got = {drop: read(drop) for drop in (0, 64, 704)}
+    print("bias check readings: " + json.dumps(
+        {"card": smoke.card_description(), "limit": sp.BIAS_GRAD_RTOL,
+         "rel_diff_by_receivers_dropped": got}))
+    assert max(got[0]) <= sp.BIAS_GRAD_RTOL
+    assert min(got[64] + got[704]) > sp.BIAS_GRAD_RTOL

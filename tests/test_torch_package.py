@@ -16,6 +16,7 @@ import torch
 
 import radargnn_tpu_torch
 from radargnn_tpu_torch import smoke
+from radargnn_tpu_torch.models.detnet import DetNet
 from torch_threads import few_threads  # noqa: F401
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -115,7 +116,8 @@ def test_every_submodule_imports_without_jax():
         "'parallel.edge_partition', 'parallel.halo', 'parallel.halo_dense', "
         "'parallel.halo_windowed', 'parallel.tensor', 'parallel.dryrun', "
         "'benchmarks.scaling', 'benchmarks.halo_accounting', "
-        "'smoke_parallel', 'smoke_hdf5', 'train.zstd', 'train.ocdbt', "
+        "'smoke_parallel', 'smoke_hdf5', 'smoke_pointgnn', 'train.zstd', "
+        "'train.ocdbt', "
         "'train.orbax_format'):\n"
         "    assert 'radargnn_tpu_torch.' + m in names, m\n"
         "print(len(names))\n")
@@ -491,6 +493,38 @@ def test_csr_configuration_replaces_one_field():
         "fused_run_cap", "fused_tiling"}
     with pytest.raises(ValueError, match="tiling"):
         smoke.flagship_configs("knn", tiling="windowed")
+
+
+def test_pointgnn_configuration_replaces_one_field():
+    """The Radar-PointGNN phase reads the flagship YAML and replaces
+    conv_layer_type alone; the YAML's one-layer pre-MLP and max aggregation
+    keep the fused path, and each of the five convs keeps the node
+    embedding's 224 columns: (d_in, d_e, H) = (224, 16, 224 + 16). Beside
+    the radius and the CSR paths' fields it replaces that one too; the
+    default conv is the YAML's."""
+    k_arch, k_graph, _, _ = smoke.flagship_configs("knn")
+    arch, graph, _, replaced = smoke.flagship_configs(
+        conv="RadarPointGNNConv")
+    assert replaced == {"conv_layer_type": "RadarPointGNNConv"}
+    assert graph == k_graph
+    assert dataclasses.replace(arch, conv_layer_type="MPNNConv") == k_arch
+    assert (arch.conv_pre_mlp_layer_number, arch.aggregation_function,
+            arch.compute_dtype) == (1, "max", "bfloat16")
+    assert smoke.flagship_configs(conv="MPNNConv")[3] == {}
+    _, _, _, c_replaced = smoke.flagship_configs("knn", tiling="csr",
+                                                 conv="RadarPointGNNConv")
+    assert c_replaced == {"fused_tiling": "csr",
+                          "conv_layer_type": "RadarPointGNNConv"}
+    _, _, _, r_replaced = smoke.flagship_configs("radius",
+                                                 conv="RadarPointGNNConv")
+    assert set(r_replaced) == {
+        "graph_construction_algorithm", "graph_construction_settings",
+        "fused_run_cap", "conv_layer_type"}
+    model = DetNet(arch, device="cpu")
+    assert model.fused
+    assert smoke._layer_shapes(model) == [(224, 16, 240)] * 5
+    with pytest.raises(ValueError, match="conv"):
+        smoke.flagship_configs(conv="GCNConv")
 
 
 def test_csr_bounds_count_the_edge_products_in_float32():
