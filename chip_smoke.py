@@ -112,12 +112,20 @@ and train the flagship DetNet through halo x dense on the kNN batch and
 halo x windowed on the radius batch (B1, B2 and B4 per rank, the boundary
 exchange between them), each run's aggregate, steps and request held to
 the single card, each rank's launches counted (over NCCL too where the
-machine has two or four cards); then the scaling tool, the multi-rank dry
+machine has two or four cards); then, in a spawn of their own, the same
+two runs with conv_layer_type "RadarPointGNNConv" (H 240, the offset the
+pre-MLP bias broadcast over each rank's rows), the aggregate held with
+that broadcast bias, and each conv's pre-MLP bias gradient, summed over
+the ranks, held to the single card's plain path within 5e-4 of the
+offset gradient's magnitudes summed over the ranks, those magnitudes
+within 1e-2 of the single card's; the runs' wall is printed beside the
+card's name and power limit. Then the scaling tool, the multi-rank dry
 run (dense receiver tiles of 8, the JAX dry run's) and the train CLI
 under torchrun (mesh_axes {"model": 2}) run as child processes. It prints
 the kernels' times beside their bounds (the Radar-PointGNN phase's training
-launches and errors join the entries of the kernels it runs; their times
-stay the MPNN step's). The last line is
+launches and errors, and the launches of the tenth phase's Radar-PointGNN
+runs over both ranks, join the entries of the kernels they run; their
+times stay the MPNN step's). The last line is
 one JSON object with "ok" and the device; any failed phase exits
 non-zero.
 """

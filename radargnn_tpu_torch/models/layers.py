@@ -29,7 +29,10 @@ Under halo partitioning (`halo=`, a rank's `parallel.halo_windowed.
 HaloBundle`) the hoisted max runs through `halo_hoisted_max_batched`: the
 rank's node rows, one exchange of the boundary senders over the mesh's
 model axis, then the dense or the windowed aggregation per rank. It needs
-the hoisted configuration and no conv edge encoder, as in the JAX package.
+the hoisted configuration (and, for MPNNConv, no conv edge encoder), as
+in the JAX package, whose message for each conv `_check_halo` gives.
+RadarPointGNNConv's offset there is its pre-MLP bias broadcast over the
+rank's rows, as on one card.
 """
 
 from __future__ import annotations
@@ -199,10 +202,18 @@ def _fused_hoisted_max(x, w_s, w_e, offset, tiling,
 
 
 def _check_halo(conv) -> None:
-    if not conv.hoisted or getattr(conv, "edge_encoder", None) is not None:
+    """Refuses a conv the halo partition cannot take, with the JAX
+    package's message for its type (MPNNConv also names the conv edge
+    encoder, which RadarPointGNNConv does not have)."""
+    if isinstance(conv, MPNNConv):
+        if not conv.hoisted or conv.edge_encoder is not None:
+            raise ValueError("halo partitioning requires the hoisted "
+                             "configuration: single linear pre-MLP, max "
+                             "aggregation, no conv edge encoder")
+    elif not conv.hoisted:
         raise ValueError("halo partitioning requires the hoisted "
-                         "configuration: single linear pre-MLP, max "
-                         "aggregation, no conv edge encoder")
+                         "configuration: single linear pre-MLP and max "
+                         "aggregation")
 
 
 def is_hoisted(pre_layers: int, aggr: str) -> bool:
@@ -336,7 +347,12 @@ class RadarPointGNNConv(_AggregationMixin, nn.Module):
         lin = self.pre_mlp.lin_0
         w = lin.weight.t()
         w_s, w_e = w[:self.node_dim], w[self.node_dim:]
-        # no receiver term: the bias alone is the hoisted offset
+        # no receiver term: the bias alone is the hoisted offset, a
+        # stride-0 view whose gradient autograd sums over the rows into the
+        # bias (under a halo bundle, this rank's rows; the trainer sums the
+        # ranks). The aggregations copy it before a launch: the wrappers
+        # make it contiguous, and the halo paths pad it to the augmented
+        # rows (`parallel.halo_dense.augmented_rows`)
         offset = lin.bias.expand(num_nodes, -1)
         if halo is not None:
             aggr = halo_hoisted_max_batched(x, w_s, w_e, offset, halo,

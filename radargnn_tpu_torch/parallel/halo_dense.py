@@ -188,6 +188,9 @@ def augmented_rows(x: torch.Tensor, offset: torch.Tensor, bundle
     x_aug = torch.cat([x.reshape(gl, ns, d), halo.reshape(gl, mp * b, d)],
                       dim=1)
     x_aug = torch.nn.functional.pad(x_aug, (0, 0, 0, n_aug - ns - mp * b))
+    # the pad writes a new tensor, so a broadcast offset (RadarPointGNNConv's
+    # bias, a stride-0 view) reaches the kernels as contiguous rows, and its
+    # gradient comes back through the pad and the view's row sum
     off_aug = torch.nn.functional.pad(offset.reshape(gl, ns, h),
                                       (0, 0, 0, n_aug - ns))
     return x_aug.reshape(gl * n_aug, d), off_aug.reshape(gl * n_aug, h)

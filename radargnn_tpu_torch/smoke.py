@@ -37,8 +37,10 @@ compresses: the stores checked against their arrays' bytes), resumes a
 fresh trainer from it to the uninterrupted trainer's next losses bit for
 bit, and reads the JAX package's committed orbax checkpoint. A tenth (`smoke_parallel.parallel_phase`) trains across ranks:
 two gloo ranks on the card run halo x dense and halo x windowed on a
-{"model": 2} mesh against the single card, then the scaling tool, the
-multi-rank dry run and the train CLI under torchrun as child processes.
+{"model": 2} mesh against the single card, with MPNNConv and then with
+RadarPointGNNConv (its pre-MLP biases' gradients held too; those runs'
+launches join the kernels line), then the scaling tool, the multi-rank
+dry run and the train CLI under torchrun as child processes.
 
 `run(device)` is what `chip_smoke.py` calls on the card; the CPU tests call
 it at a tiny size, where the wrappers take their plain versions, nothing is
@@ -3290,6 +3292,15 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
                 KERNEL_NAMES.index(k["name"])]
             k["max_abs_err"] = max([k["max_abs_err"]]
                                    + [r["max_abs_err"] for r in rows])
+    # the tenth phase's RadarPointGNNConv halo runs (B1 and B2 on the kNN
+    # batch, B1's projection and B4 on the radius batch, on each rank):
+    # their trainings' and requests' launches over both ranks join the
+    # entries of those kernels
+    for run in summary.get("parallel", {}).get("runs", []):
+        if run["conv"] == "RadarPointGNNConv":
+            for k in summary["kernels"]:
+                k["launches"] += run["path_launches"][
+                    KERNEL_NAMES.index(k["name"])]
     # the fourth phase: launches from its entry points; times and bounds of
     # the fused linear at the flagship's node shape (224 -> 464 over the
     # batch's nodes), of the segment-max on the kNN batch, and of the v1

@@ -137,19 +137,23 @@ def c3_check(dev, points: int, graphs: int, graph: str,
 
 
 @contextmanager
-def _offset_grads(rows: List[torch.Tensor]):
-    """Each conv's hoisted offset appends to `rows`, when autograd reaches
-    it, the column sums of its gradient's magnitudes: the scale, before
-    any cancellation, of the sum autograd lands in the bias (backward
-    order: the last conv first)."""
-    fused = layers._fused_hoisted_max
+def _offset_grads(rows: List, target: str = "_fused_hoisted_max",
+                  record: Optional[Callable] = None):
+    """Each conv's hoisted offset, passed to the layers' `target`
+    (`_fused_hoisted_max`, or `halo_hoisted_max_batched` under a halo
+    bundle), appends `record` of its gradient to `rows` when autograd
+    reaches it (backward order: the last conv first). By default the
+    column sums of the gradient's magnitudes: the scale, before any
+    cancellation, of the sum autograd lands in the bias."""
+    aggregate = getattr(layers, target)
+    record = record or (lambda g: g.abs().sum(0))
 
-    def hooked(x, w_s, w_e, offset, tiling, bf16_max):
+    def hooked(x, w_s, w_e, offset, *rest):
         if offset.requires_grad:
-            offset.register_hook(lambda g: rows.append(g.abs().sum(0)))
-        return fused(x, w_s, w_e, offset, tiling, bf16_max)
+            offset.register_hook(lambda g: rows.append(record(g)))
+        return aggregate(x, w_s, w_e, offset, *rest)
 
-    with mock.patch.object(layers, "_fused_hoisted_max", hooked):
+    with mock.patch.object(layers, target, hooked):
         yield
 
 

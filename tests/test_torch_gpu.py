@@ -2035,6 +2035,32 @@ def test_halo_dense_aggregate_on_two_gloo_ranks_of_one_card():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("graph", ["knn", "radius"])
+def test_halo_broadcast_bias_aggregate_on_two_gloo_ranks_of_one_card(graph):
+    """RadarPointGNNConv's conv-0-shaped aggregate (224 -> 240 over 16 edge
+    features, the offset its pre-MLP bias broadcast over the rows, a
+    stride-0 view) through halo x dense on the kNN frames and halo x
+    windowed on the radius frames, on 2 gloo ranks that share the card
+    ({"model": 2}, 2 x 1024-point frames): the ranks' rows, back in node
+    order, within smoke_parallel.AGG_RTOL of the single card's aggregation
+    on the same inputs, and each rank launched B1's projection and the
+    family's gather-max once."""
+    _need_card()
+    from radargnn_tpu_torch import smoke_parallel as sp
+    report = sp.aggregate_check("cuda", graph, {"model": 2}, "gloo",
+                                ["cuda:0"], 1024, 2, 0,
+                                conv="RadarPointGNNConv")
+    print(f"{graph}: halo aggregate with a broadcast bias "
+          f"{report['agg_max_abs_err']} of {report['agg_scale']} (bitwise "
+          f"{report['agg_bitwise']})")
+    assert report["agg_max_abs_err"] <= sp.AGG_RTOL * report["agg_scale"]
+    fwd = "dense_fwd_v4" if graph == "knn" else "windowed_fwd_v3"
+    for launches in report["agg_launches"]:
+        assert {k: v for k, v in launches.items() if v} == {
+            "dense_proj_v4": 1, fwd: 1}
+
+
+@pytest.mark.gpu
 def test_radarscenes_sequences_without_h5py_on_the_card(tmp_path,
                                                         monkeypatch):
     """On the card's machine, which has no h5py (blocked here all the

@@ -461,13 +461,27 @@ def test_cli_trains_under_mesh_axes_on_two_gloo_ranks(tmp_path):
     flagship YAML at narrow widths, dense tiling, one epoch): halo
     partitioning from the configuration, rank 0 writes the model folder,
     the other waits. One process cannot fill that mesh and refuses."""
+    _cli_trains_under_mesh_axes(tmp_path, {})
+
+
+def test_cli_trains_radar_pointgnn_under_mesh_axes_on_two_gloo_ranks(
+        tmp_path):
+    """The same with conv_layer_type "RadarPointGNNConv" replaced in the
+    YAML: its one-layer pre-MLP and max aggregation take the halo path,
+    the offset its pre-MLP bias broadcast over each rank's rows."""
+    _cli_trains_under_mesh_axes(tmp_path,
+                                {"conv_layer_type": "RadarPointGNNConv"})
+
+
+def _cli_trains_under_mesh_axes(tmp_path, replaced):
     from radargnn_tpu_torch import smoke
 
     root = str(tmp_path / "data")
     smoke.write_processed(root, train=4, validate=2, points=64)
-    config = smoke.cli_config(str(tmp_path), replaced={
+    config = smoke.cli_config(str(tmp_path), replaced=dict({
         "epochs": 1, "batch_size": 2, "checkpoint_every_epochs": 1,
-        "mesh_axes": {"model": 2}, "conv_layer_dimensions": [16, 8]})
+        "mesh_axes": {"model": 2}, "conv_layer_dimensions": [16, 8]},
+        **replaced))
     results = tmp_path / "results"
     results.mkdir()
     data = str(tmp_path / "data" / "processed")
@@ -495,7 +509,7 @@ def test_parallel_phase_rehearses_on_cpu():
 
     lines = []
     res = sp.parallel_phase("cpu", points=96, graphs=2, run_children=False,
-                            out=lines.append)
+                            convs=("MPNNConv",), out=lines.append)
     assert [(r["graph"], r["backend"]) for r in res["runs"]] == [
         ("knn", "gloo"), ("radius", "gloo")]
     for r in res["runs"]:

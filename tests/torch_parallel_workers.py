@@ -105,7 +105,14 @@ def halo_aggregate_worker(rank, world, device, payload):
     payload gives them) over a {"data": dp, "model": mp} mesh: its output
     rows, the gradients of sum(out²) (summed over the ranks) with respect
     to its rows of x and offset, and the weights' gradients summed over
-    every rank. Also the launches of the path's kernels (0 on the CPU)."""
+    every rank. Also the launches of the path's kernels (0 on the CPU).
+
+    Optional: `x` [G, N, D] replaces the batch's node features, `proj`
+    [De, De'] projects the bundle's edge features, and `bias` [H] makes
+    the offset RadarPointGNNConv's, the bias broadcast over the rank's
+    rows (a stride-0 view): then `d_bias` is the bias's gradient, every
+    rank's row sum of the offset's gradient summed over the ranks, and
+    `d_bias_rank` this rank's own part."""
     from radargnn_tpu_torch.ops import dense_aggregate as da
     from radargnn_tpu_torch.ops import windowed_aggregate as wa
     from radargnn_tpu_torch.parallel.halo_windowed import (
@@ -126,12 +133,22 @@ def halo_aggregate_worker(rank, world, device, payload):
         return torch.from_numpy(np.ascontiguousarray(shard_major_nodes(
             a, g, n, dp, mp)[rows])).to(device).requires_grad_(True)
 
-    x = mine(batch.node_feat.numpy())
-    off = mine(payload["offset"])
+    x = mine(payload["x"] if "x" in payload else batch.node_feat.numpy())
+    bias = None
+    if "bias" in payload:
+        bias = torch.from_numpy(payload["bias"]).to(device) \
+            .requires_grad_(True)
+        off = bias.expand(x.shape[0], -1)
+    else:
+        off = mine(payload["offset"])
     w_s = torch.from_numpy(payload["w_s"]).to(device).requires_grad_(True)
     w_e = torch.from_numpy(payload["w_e"]).to(device).requires_grad_(True)
     local = shard_batch(batch, mesh)
     bundle = local.flat_halo(mesh)
+    if "proj" in payload:
+        proj = torch.from_numpy(payload["proj"]).to(device)
+        bundle = bundle.replace_edge_feat(bundle.e_t @ proj,
+                                          bundle.e_ovf @ proj)
     kernels = (da.dense_proj_cuda, da.dense_fwd_cuda, da.dense_bwd_cuda,
                wa.windowed_fwd_cuda, wa.windowed_bwd_cuda)
     before = [k.launches for k in kernels]
@@ -139,10 +156,16 @@ def halo_aggregate_worker(rank, world, device, payload):
     (out.double() ** 2).sum().float().backward()
     comm.all_reduce_(w_s.grad, mesh.world_group)
     comm.all_reduce_(w_e.grad, mesh.world_group)
-    return dict(out=out.detach().cpu().numpy(),
-                d_x=x.grad.cpu().numpy(), d_off=off.grad.cpu().numpy(),
-                d_ws=w_s.grad.cpu().numpy(), d_we=w_e.grad.cpu().numpy(),
-                launches=[k.launches - b for k, b in zip(kernels, before)])
+    res = dict(out=out.detach().cpu().numpy(), d_x=x.grad.cpu().numpy(),
+               d_ws=w_s.grad.cpu().numpy(), d_we=w_e.grad.cpu().numpy(),
+               launches=[k.launches - b for k, b in zip(kernels, before)])
+    if bias is None:
+        res["d_off"] = off.grad.cpu().numpy()
+    else:
+        res["d_bias_rank"] = bias.grad.cpu().numpy().copy()
+        comm.all_reduce_(bias.grad, mesh.world_group)
+        res["d_bias"] = bias.grad.cpu().numpy()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -175,7 +198,9 @@ def trainer_worker(rank, world, device, payload):
     rank alone) from the payload's weights, on its loader's batches
     (`epochs` passes); returns every step's (total, cls, bb), the weights
     after the steps (a state_dict of numpy arrays) and the kernels'
-    launches."""
+    launches. With `payload["record_grads"]` also `grads`: the first
+    step's gradients as Adam takes them (summed over the ranks), by
+    parameter name."""
     from radargnn_tpu_torch.ops import dense_aggregate as da
     from radargnn_tpu_torch.ops import windowed_aggregate as wa
 
@@ -196,6 +221,17 @@ def trainer_worker(rank, world, device, payload):
     kernels = (da.dense_proj_cuda, da.dense_fwd_cuda, da.dense_bwd_cuda,
                wa.windowed_fwd_cuda, wa.windowed_bwd_cuda)
     before = [k.launches for k in kernels]
+    grads: Dict[str, np.ndarray] = {}
+    if payload.get("record_grads"):
+        step = trainer.optimizer.step
+
+        def recording_step(*args, **kwargs):
+            if not grads:
+                grads.update({n: p.grad.detach().cpu().numpy().copy()
+                              for n, p in model.named_parameters()})
+            return step(*args, **kwargs)
+
+        trainer.optimizer.step = recording_step
     losses = []
     with _fault(payload.get("fault"), world):
         for _ in range(payload.get("epochs", 1)):
@@ -211,7 +247,7 @@ def trainer_worker(rank, world, device, payload):
     return dict(losses=losses,
                 state={k: v.detach().cpu().numpy()
                        for k, v in model.state_dict().items()},
-                moments=moments,
+                moments=moments, grads=grads,
                 launches=[k.launches - b for k, b in zip(kernels, before)])
 
 
