@@ -25,7 +25,11 @@ trains the same DetNet for a few steps through the port's Trainer (the
 flagship configuration, deterministic algorithms on), checks that every
 conv layer launched the path's kernels, that each path matches the same
 model on the plain path and that a second training run gives the same
-losses. Then the three paths run the Radar-PointGNN model: the flagship
+losses; on the kNN path it also holds each conv's offset bias (MPNNConv's
+x @ W_r + bias, whose gradient the BatchNorm after the conv cancels to
+rounding, below the step check's floor) to the plain path's within 5e-4
+of the sums of the offset gradient's row magnitudes. Then the three paths
+run the Radar-PointGNN model: the flagship
 configuration with conv_layer_type "RadarPointGNNConv" (printed; its
 one-layer pre-MLP and max aggregation keep the fused kernels), five
 residual convs of (d_in, d_e, H) = (224, 16, 240), whose offset is the
@@ -38,7 +42,23 @@ biases' gradients against the plain path's within 5e-4 of the sums of
 their rows' magnitudes (the BatchNorm after each residual update cancels
 those sums), and over 8 weight seeds the median free-running loss gap of
 the kernel path to the plain path at most 2x the re-associated plain
-path's; the phase's wall is printed. A fourth phase holds the four kernels
+path's; the phase's wall is printed. Then the paper's two other
+RadarScenes models run on the kNN path (dense tiling): the E(n)-invariant
+one (the flagship configuration with bb_invariance "en", node features
+rcs, velocity_vector_length, time_index, degree and the point-pair edge
+features, printed) and the non-invariant one (bb_invariance "none", the
+absolute positions among the node features, printed), each on its own
+5 x 2816-point frames: B1 and B2 against their plain versions at the five
+layer shapes (the forward on the batch's own embedded edge rows, each
+printed with its time and bound, and on one line "invariance kernels: "),
+three requests and four training steps against the plain path as above
+(launches exact, a second run bitwise equal), the offset biases as above,
+the evaluation stage on the card against the CPU as in the fifth phase
+below (oracle mAP exactly 1.0: the "en" decode's nearest-neighbour
+recompute and the "none" decode round-trip their targets), and the host's
+compiled point-pair helper, which must have built and agree with the
+numpy formula within 1e-5 of each column's scale; the phase's wall is
+printed. A fourth phase holds the four kernels
 that no model path runs
 against their plain versions at the flagship's widths on the kNN batch (the
 v1 pair at the five layer shapes under 128 x 256 receiver-CSR tiles, its
@@ -118,14 +138,15 @@ pre-MLP bias broadcast over each rank's rows), the aggregate held with
 that broadcast bias, and each conv's pre-MLP bias gradient, summed over
 the ranks, held to the single card's plain path within 5e-4 of the
 offset gradient's magnitudes summed over the ranks, those magnitudes
-within 1e-2 of the single card's; the runs' wall is printed beside the
+within 1e-2 of the single card's (the MPNNConv runs' offset biases are
+held the same way); the runs' wall is printed beside the
 card's name and power limit. Then the scaling tool, the multi-rank dry
 run (dense receiver tiles of 8, the JAX dry run's) and the train CLI
 under torchrun (mesh_axes {"model": 2}) run as child processes. It prints
-the kernels' times beside their bounds (the Radar-PointGNN phase's training
-launches and errors, and the launches of the tenth phase's Radar-PointGNN
-runs over both ranks, join the entries of the kernels they run; their
-times stay the MPNN step's). The last line is
+the kernels' times beside their bounds (the Radar-PointGNN and the
+invariance phases' training launches and errors, and the launches of the
+tenth phase's Radar-PointGNN runs over both ranks, join the entries of the
+kernels they run; their times stay the MPNN step's). The last line is
 one JSON object with "ok" and the device; any failed phase exits
 non-zero.
 """

@@ -6,7 +6,11 @@ under the CSR tiling (`fused_tiling: "csr"`). On the card the same three
 paths then run the Radar-PointGNN model (`smoke_pointgnn.pointgnn_phase`:
 the flagship configuration with conv_layer_type "RadarPointGNNConv", its
 kernels at the one layer shape (224, 16, 240), its requests and training
-steps against the plain path). A fourth phase holds the
+steps against the plain path), and the kNN path runs the paper's
+E(n)-invariant and non-invariant models (`smoke_invariance.
+invariance_phase`: the flagship configuration with the box encoding and
+the features of `INVARIANCES` replaced, its kernels, requests, steps and
+evaluation against the plain path and the CPU). A fourth phase holds the
 four kernels that no model path runs (fused linear, message segment-max,
 the v1 hoisted forward and backward) against their plain versions at the
 flagship's widths and drives their entry points, `benchmarks.kernel_check`
@@ -135,6 +139,25 @@ PEAK_HBM_BYTES = 3.35e12
 # other point counts it scales as 1/sqrt(points), which keeps the degree
 RADIUS_R = 3.0
 RADIUS_POINTS = 2816
+
+# the paper's two other RadarScenes models, by the fields each replaces in
+# the flagship configuration (`flagship_configs(invariance=)`): the box
+# encoding (DATASET_PROCESSING and POSTPROCESSING), the schema's
+# rotation-invariant node and edge features for "en", and the absolute
+# positions "none" regresses its boxes from (the JAX package's "none"
+# graph, `data/synthetic.py`; its edge features stay the YAML's)
+INVARIANCES = {
+    "en": {"bb_invariance": "en",
+           "node_features": ["rcs", "velocity_vector_length", "time_index",
+                             "degree"],
+           "node_feature_dimension": 4,
+           "edge_features": ["point_pair_features"],
+           "edge_feature_dimension": 4},
+    "none": {"bb_invariance": "none",
+             "node_features": ["rcs", "velocity_vector",
+                               "spatial_coordinates", "time_index", "degree"],
+             "node_feature_dimension": 7},
+}
 
 # forward kernel vs plain version on the same bf16 inputs: both sum exact
 # bf16 products in float32 and differ only in summation order
@@ -777,7 +800,9 @@ def _routed_of(tiling) -> _Routed:
 
 def check_routed_kernels(tiling, layer_shapes: List[tuple], seed: int,
                          reps: int, out: Callable = print,
-                         exact: bool = False
+                         exact: bool = False,
+                         edges: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None
                          ) -> Tuple[List[Dict], List[Dict], List[Dict]]:
     """Holds a bits-routed layout's kernels (dense: B1, B2; windowed: B4)
     against their plain versions at each (d_in, d_e, H) of the model, on
@@ -794,7 +819,10 @@ def check_routed_kernels(tiling, layer_shapes: List[tuple], seed: int,
     gather-max in serving and in
     VJP mode (the row's `vjp`). Each row also holds the bound of the whole
     function as the TPU kernel forms it (`function_bound_ms`, per slot).
-    Returns the rows of (projection, gather-max, backward)."""
+    `edges` (the slots' and the overflow edges' rows, [e_pad, d_e] and
+    [n_ovf, d_e]) replaces the seeded edge rows of the real-valued forward
+    with the batch's own. Returns the rows of (projection, gather-max,
+    backward)."""
     kern = _routed_of(tiling)
     sloc = tiling.win[0]
     ovf_s, ovf_r = tiling.win[3:5]
@@ -829,6 +857,8 @@ def check_routed_kernels(tiling, layer_shapes: List[tuple], seed: int,
         e_t = rand(e_pad, de).to(cd)
         w_e = rand(de, h, scale=de ** -0.5).to(cd)
         e_ovf, offset = rand(n_ovf, de).to(cd), rand(n, h)
+        if edges is not None:
+            e_t, e_ovf = (e.to(dev, cd) for e in edges)
         y_s = da.dense_proj(x, w_s)
         y_ref = da.dense_proj_plain(x, w_s)
         inner_o = da.overflow_maxima(
@@ -993,7 +1023,8 @@ def _layer_shapes(model: DetNet) -> List[tuple]:
 
 def flagship_configs(graph: str = "knn", points: int = RADIUS_POINTS,
                      tiling: Optional[str] = None,
-                     conv: Optional[str] = None):
+                     conv: Optional[str] = None,
+                     invariance: Optional[str] = None):
     """The flagship configuration's MODEL_ARCHITECTURE and GRAPH_CONSTRUCTION
     sections, its background index, and the fields replaced in code:
     `graph` "knn" reads the YAML verbatim (the dense tiling); "radius"
@@ -1005,7 +1036,11 @@ def flagship_configs(graph: str = "knn", points: int = RADIUS_POINTS,
     replaces fused_tiling with "csr" (the CSR path). `conv` (None: the
     YAML's MPNNConv) replaces conv_layer_type where it differs: with
     "RadarPointGNNConv" the YAML's one-layer pre-MLP and max aggregation
-    keep it on the fused path (`smoke_pointgnn`)."""
+    keep it on the fused path (`smoke_pointgnn`). `invariance` ("en" or
+    "none"; None: the YAML's "translation") replaces the fields of
+    INVARIANCES[invariance]: the box encoding (bb_invariance, which
+    `flagship_bb_invariance` and `flagship_postprocessing` read), the node
+    and edge features and their widths (`smoke_invariance`)."""
     cfg = UserConfigurationReader.read_config_file(FLAGSHIP_CONFIG)
     arch = UserConfigurationReader.get_config_object("MODEL_ARCHITECTURE", cfg)
     graph_cfg = UserConfigurationReader.get_config_object(
@@ -1036,7 +1071,35 @@ def flagship_configs(graph: str = "knn", points: int = RADIUS_POINTS,
     if conv is not None and conv != arch.conv_layer_type:
         replaced["conv_layer_type"] = conv
         arch = dataclasses.replace(arch, conv_layer_type=conv)
+    if invariance is not None:
+        fields = INVARIANCES[invariance]
+        replaced.update(fields)
+        graph_cfg = dataclasses.replace(graph_cfg, **{
+            k: v for k, v in fields.items()
+            if k in ("node_features", "edge_features")})
+        arch = dataclasses.replace(arch, **{
+            k: v for k, v in fields.items()
+            if k.endswith("_feature_dimension")})
     return arch, graph_cfg, bg_index, replaced
+
+
+def flagship_bb_invariance(invariance: Optional[str] = None) -> str:
+    """The box encoding of the flagship configuration's DATASET_PROCESSING
+    (and POSTPROCESSING), as `flagship_configs(invariance=)` replaces it."""
+    if invariance is not None:
+        return INVARIANCES[invariance]["bb_invariance"]
+    cfg = UserConfigurationReader.read_config_file(FLAGSHIP_CONFIG)
+    return UserConfigurationReader.get_config_object(
+        "DATASET_PROCESSING", cfg).bb_invariance
+
+
+def flagship_postprocessing(invariance: Optional[str] = None):
+    """The flagship configuration's POSTPROCESSING section, bb_invariance
+    replaced as `flagship_configs(invariance=)` replaces it."""
+    cfg = UserConfigurationReader.read_config_file(FLAGSHIP_CONFIG)
+    config = UserConfigurationReader.get_config_object("POSTPROCESSING", cfg)
+    return dataclasses.replace(
+        config, bb_invariance=flagship_bb_invariance(invariance))
 
 
 def _round_up(v: int, align: int) -> int:
@@ -1046,14 +1109,16 @@ def _round_up(v: int, align: int) -> int:
 def flagship_serving(dev: DeviceLike, points: int, graphs: int,
                      batches: int, seed: int, graph: str = "knn",
                      tiling: Optional[str] = None,
-                     conv: Optional[str] = None
+                     conv: Optional[str] = None,
+                     invariance: Optional[str] = None
                      ) -> Tuple[object, DetNet, List]:
     """The serving path's set-up: the configuration's DetNet with seeded
     weights on `dev`, and `batches` requests of `graphs` synthetic frames of
     `points` points each, built as `graph` ("knn" or "radius",
     `flagship_configs`) and stacked under the tiling the configuration
     selects for it (dense for kNN, windowed for radius; CSR for either with
-    `tiling` "csr"), the conv layers of type `conv` (None: the YAML's).
+    `tiling` "csr"), the conv layers of type `conv` (None: the YAML's),
+    the features and boxes of `invariance` (None: the YAML's).
     Returns (arch config, model, loader).
 
     kNN requests take consecutive frames of `seed`; radius request i takes
@@ -1063,12 +1128,13 @@ def flagship_serving(dev: DeviceLike, points: int, graphs: int,
     overflow edges, past the 3,584 that the 5 % budget allows (the JAX
     package's tiler refuses it as well)."""
     arch, graph_cfg, bg_index, _ = flagship_configs(graph, points, tiling,
-                                                    conv)
+                                                    conv, invariance)
     tiling_spec = fused_csr_tiling(arch, k=graph_cfg.k)
     if tiling_spec is None:
         raise AssertionError("the configuration does not select the fused "
                              "path")
-    kw = dict(num_points=points, graph_config=graph_cfg, bg_index=bg_index)
+    kw = dict(num_points=points, graph_config=graph_cfg, bg_index=bg_index,
+              bb_invariance=flagship_bb_invariance(invariance))
     if graph == "knn":
         samples = make_samples(num_frames=graphs * batches, seed=seed, **kw)
         # the dense tiling aligns nodes to its receiver tiles too
@@ -1986,13 +2052,24 @@ def kernel_entry_points(dev, bench: Tuple[int, int, int, int], reps: int,
             "kernel_bench": bench_res}
 
 
+def inverts_adaption(config) -> bool:
+    """Whether the POSTPROCESSING `config`'s box decode inverts the
+    orientation angle's sin-encoding: under adapt_orientation_angle, save
+    for "en" boxes, whose decode reads the angle in radians whatever the
+    setting (the JAX package's `decode_boxes_to_corners`, which the port
+    follows; its trainer sin-encodes the "en" targets all the same,
+    ROADMAP C11)."""
+    return bool(config.adapt_orientation_angle) \
+        and config.bb_invariance != "en"
+
+
 def oracle_predictions(ground_truth: Dict, adapt: bool,
                        num_classes: int) -> Dict:
     """Perfect predictions from served frames' ground truth, as
     tests/test_postprocess.py builds them: probability 0.9 on the true
     class (0.01 on the others), and every object point regressing its
-    object's box (the orientation sin-encoded where the configuration
-    adapts it, the background rows 0)."""
+    object's box (the orientation sin-encoded with `adapt`, where the
+    decode inverts it, `inverts_adaption`; the background rows 0)."""
     boxes, probs = [], []
     for bb, labels in zip(ground_truth["bounding_box_true"],
                           ground_truth["class_true"]):
@@ -2082,21 +2159,22 @@ def _chains_agree(card: Dict, cpu: Dict, label: str) -> Dict:
 
 
 def evaluation_phase(dev: torch.device, model: DetNet, loader: List,
-                     out: Callable = print) -> Dict:
+                     out: Callable = print,
+                     invariance: Optional[str] = None) -> Dict:
     """The fifth phase: the kNN requests through `Predictor.predict`, then
     the evaluation stage under the flagship YAML's POSTPROCESSING (rotated
     boxes, NMS at IoU 0.01, point-IoU mAP at 0.3, translation invariance,
-    the adapted orientation angle) on the real predictions and on oracle
+    the adapted orientation angle; bb_invariance replaced by `invariance`'s,
+    `flagship_postprocessing`) on the real predictions and on oracle
     predictions built from the same frames' ground truth (mAP 1.0), each on
     `dev` and on the CPU (they must agree), with the evaluator's artifacts
     saved into a temporary folder; the rotated IoU of an oracle frame's
     jittered boxes on `dev` against the CPU's."""
-    cfg = UserConfigurationReader.read_config_file(FLAGSHIP_CONFIG)
-    config = UserConfigurationReader.get_config_object("POSTPROCESSING", cfg)
+    config = flagship_postprocessing(invariance)
     num_classes = len(config.min_object_score) + 1
     predictions, ground_truth, pos, vel = Predictor(
         model, loader, verbose=False).predict()
-    oracle = oracle_predictions(ground_truth, config.adapt_orientation_angle,
+    oracle = oracle_predictions(ground_truth, inverts_adaption(config),
                                 num_classes)
     cpu = torch.device("cpu")
     # the card's kernels load at their first call: a small NMS first
@@ -2837,7 +2915,7 @@ def _nuscenes_oracle(dev: torch.device, root: str, config_path: str,
                                    for s in samples]}
     pos = [s.pos.astype(np.float64) for s in samples]
     vel = [s.vel.astype(np.float64) for s in samples]
-    preds = oracle_predictions(ground_truth, config.adapt_orientation_angle,
+    preds = oracle_predictions(ground_truth, inverts_adaption(config),
                                len(config.min_object_score) + 1)
     runs = []
     for i, d in enumerate((dev, torch.device("cpu"))):
@@ -3052,9 +3130,11 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
     first, then the radius path (windowed tiling), then the kNN graph
     under the CSR tiling, then, on the card, the Radar-PointGNN phase
     (`smoke_pointgnn.pointgnn_phase`: the three paths again with
-    conv_layer_type "RadarPointGNNConv", rehearsed off the card by a test
-    of its own; its training launches and its kernels' errors join the
-    kernels line's entries of the kernels it runs), then the fourth phase:
+    conv_layer_type "RadarPointGNNConv") and the invariance phase
+    (`smoke_invariance.invariance_phase`: the kNN path under the "en" and
+    "none" box invariances), each rehearsed off the card by a test of its
+    own, whose training launches and kernels' errors join the kernels
+    line's entries of the kernels they run, then the fourth phase:
     the four kernels no model
     path runs, held against their plain versions at the flagship's widths
     on the kNN batch, then their entry points `kernel_check` and
@@ -3095,6 +3175,11 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
         dev, arch, loader[0], seed, train_steps,
         _expect({n: layers * train_steps for n in dense + ("dense_bwd_v4",)},
                 on_card), "kNN", out, witness=True))
+    # MPNNConv's offset bias, below the step check's floor (its gradient
+    # cancels under the BatchNorm after each conv), held on its own
+    from radargnn_tpu_torch.smoke_pointgnn import check_offset_grads
+    summary["bias_grads"] = check_offset_grads(dev, arch, loader[0], seed,
+                                               "kNN", out)
 
     # -- the radius graph, windowed tiling ----------------------------------
     t0 = time.perf_counter()
@@ -3179,11 +3264,15 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
         "CSR", out, witness=True))
     summary["csr"] = csr
 
-    # -- Radar-PointGNN on the three paths (the conv type replaced) ----------
+    # -- Radar-PointGNN on the three paths (the conv type replaced); the
+    # "en" and "none" box invariances on the kNN path ----------------------
     if on_card:
         from radargnn_tpu_torch.smoke_pointgnn import pointgnn_phase
         summary["pointgnn"] = pointgnn_phase(dev, points, graphs, batches,
                                              seed, reps, train_steps, out=out)
+        from radargnn_tpu_torch.smoke_invariance import invariance_phase
+        summary["invariance"] = invariance_phase(
+            dev, points, graphs, batches, seed, reps, train_steps, out=out)
 
     # -- the kernels no model path runs: fused linear, segment-max, v1 ------
     v1 = v1_tiling(loader[0])
@@ -3281,17 +3370,18 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
         entry("csr_bwd_v2", "csr_bwd_v2.cu", 1030, csr_l[6], c_bwd,
               c_bwd + csr["radius_per_shape_bwd"], False),
     ]
-    # the Radar-PointGNN phase's training launches and its rows' errors
-    # join the entries of the kernels it runs; the times and bounds stay
-    # the MPNN step's
+    # the Radar-PointGNN and the invariance phases' training launches and
+    # their rows' errors join the entries of the kernels they run; the
+    # times and bounds stay the MPNN step's
     pointgnn = summary.get("pointgnn", {"checked": {}})
-    for k in summary["kernels"]:
-        rows = pointgnn["checked"].get(k["name"], [])
-        if rows:
-            k["launches"] += pointgnn["train_launches"][
-                KERNEL_NAMES.index(k["name"])]
-            k["max_abs_err"] = max([k["max_abs_err"]]
-                                   + [r["max_abs_err"] for r in rows])
+    for phase in (pointgnn, summary.get("invariance", {"checked": {}})):
+        for k in summary["kernels"]:
+            rows = phase["checked"].get(k["name"], [])
+            if rows:
+                k["launches"] += phase["train_launches"][
+                    KERNEL_NAMES.index(k["name"])]
+                k["max_abs_err"] = max([k["max_abs_err"]]
+                                       + [r["max_abs_err"] for r in rows])
     # the tenth phase's RadarPointGNNConv halo runs (B1 and B2 on the kNN
     # batch, B1's projection and B4 on the radius batch, on each rank):
     # their trainings' and requests' launches over both ranks join the
@@ -3342,5 +3432,7 @@ def run(device: DeviceLike = None, points: int = 2816, graphs: int = 5,
                                  },
                     "variants": {k: v for k, v in summary.get(
                         "variants", {}).items() if k in VARIANT_ROWS},
-                    "pointgnn": pointgnn["checked"]}))
+                    "pointgnn": pointgnn["checked"],
+                    "invariance": summary.get("invariance", {}).get(
+                        "checked", {})}))
     return summary

@@ -33,12 +33,14 @@ on each rank: each of the path's kernels must launch once a layer a step
 same parameters on the same frames, within the training limits of the
 smoke (`smoke.TRAIN_LOSS_RTOL`, `TRAIN_GRAD_COS`, `TRAIN_PARAM_COS`), and
 the request's class probabilities to the single card's within
-`smoke.MODEL_ATOL_PROB`. A RadarPointGNNConv run also holds each conv's
-pre-MLP bias gradient (`bias_check`): the step's cosine floor passes over
-it, since the BatchNorm after each residual update cancels it to rounding
-(`smoke_pointgnn`). Each rank records, through a hook on the layers'
-`halo_hoisted_max_batched`, the sums over its rows of its offset
-gradient (its part of the bias gradient) and of their magnitudes; the
+`smoke.MODEL_ATOL_PROB`. Every halo run also holds each conv's pre-MLP
+bias gradient (`bias_check`), the bias of the hoisted offset
+(RadarPointGNNConv's broadcast bias, MPNNConv's `x @ W_r + bias`): the
+step's cosine floor passes over it, since the BatchNorm after each conv
+cancels it to rounding (`smoke_pointgnn`). Each rank records, through a
+hook on the layers' `halo_hoisted_max_batched`, the sums over its rows of
+its offset gradient (its part of the bias gradient) and of their
+magnitudes; the
 bias gradient Adam took (summed over the ranks by the trainer) must be
 within `smoke_pointgnn.BIAS_GRAD_RTOL` of the single card's plain path's
 at the same parameters, over the magnitudes summed over the ranks, and
@@ -96,12 +98,13 @@ AGG_RTOL = 1e-5
 AGG_SHAPE = (224, 16, 464)
 AGG_SHAPES = {"MPNNConv": AGG_SHAPE, "RadarPointGNNConv": (224, 16, 240)}
 CONVS = tuple(AGG_SHAPES)
-# a RadarPointGNNConv run's offset gradient magnitudes, summed over the
-# ranks, against the single card's plain path's (each conv's column sums,
-# the norm of their difference over the norm of the single card's): the
-# same rows' gradients in another summation order (1.3e-3 at most on the
-# CPU at 2 x 512 points); a rank's rows left out of the sum read 0.63 to
-# 0.69 there, and the bias reading over the smaller sum still passes
+# a halo run's offset gradient magnitudes, summed over the ranks, against
+# the single card's plain path's (each conv's column sums, the norm of
+# their difference over the norm of the single card's): the same rows'
+# gradients in another summation order (1.3e-3 at most on the CPU at 2 x
+# 512 points with RadarPointGNNConv); a rank's rows left out of the sum
+# read 0.63 to 0.69 there, and the bias reading over the smaller sum still
+# passes
 BIAS_SCALE_RTOL = 1e-2
 # the path's kernels, by graph, and which run in a request (the forward)
 PATH_KERNELS = {"knn": ("dense_proj_v4", "dense_fwd_v4", "dense_bwd_v4"),
@@ -252,7 +255,7 @@ def rank_job(rank: int, world: int, device: torch.device, job: Dict) -> Dict:
     for c in counters:
         c.launches = 0
     losses, seconds, offset_grads = [], [], []
-    hooked = job["conv"] == "RadarPointGNNConv"
+    hooked = job["halo"]
     for _ in range(job["steps"]):
         if rank == 0:
             states.append(snapshot())
@@ -375,21 +378,20 @@ def _single_card(dev, job: Dict, res: List[Dict]) -> Dict:
                              f"single card (limit {smoke.MODEL_ATOL_PROB})")
     report.update(step_agreement=agreement, request_prob_err=prob_err,
                   losses=res[0]["losses"], step_s=res[0]["seconds"])
-    if job["conv"] == "RadarPointGNNConv":
+    if job["halo"]:
         report["bias"] = bias_check(dev, arch, batch, job, res)
     return report
 
 
 def bias_check(dev, arch, batch, job: Dict, res: List[Dict]) -> List[Dict]:
-    """A RadarPointGNNConv run's pre-MLP biases at each step (module
-    docstring): the gradient Adam took, summed over the ranks by the
-    trainer (rank 0's record), against the single card's plain path at the
-    step's parameters on the same frames, over the offset gradient's
-    magnitudes summed over the ranks (BIAS_GRAD_RTOL); those magnitudes
-    against the single card's (BIAS_SCALE_RTOL). Also reported: the sum of
-    the ranks' own parts against the trainer's sum, over the same
-    magnitudes. Raises when a limit is passed; returns a row a conv and
-    step."""
+    """A halo run's pre-MLP biases at each step (module docstring): the
+    gradient Adam took, summed over the ranks by the trainer (rank 0's
+    record), against the single card's plain path at the step's parameters
+    on the same frames, over the offset gradient's magnitudes summed over
+    the ranks (BIAS_GRAD_RTOL); those magnitudes against the single card's
+    (BIAS_SCALE_RTOL). Also reported: the sum of the ranks' own parts
+    against the trainer's sum, over the same magnitudes. Raises when a
+    limit is passed; returns a row a conv and step."""
     train_cfg = _train_config()
     rows = []
     for i, state in enumerate(res[0]["states"]):

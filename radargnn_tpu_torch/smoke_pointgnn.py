@@ -80,9 +80,10 @@ PATHS = (
 # MPNN paths, 0.92 to 1.15 on these, PERF.md)
 DRIFT_SEEDS = 8
 C3_RATIO = 2.0
-# a conv's pre-MLP bias takes the column sums of its broadcast offset's
-# gradient, and the BatchNorm after the residual update removes any
-# per-column constant from the loss: the sums cancel to rounding (3e-8 of
+# a conv's pre-MLP bias takes the column sums of its hoisted offset's
+# gradient (RadarPointGNNConv's broadcast bias; MPNNConv's x @ W_r + bias
+# alike), and the BatchNorm after the conv removes any per-column
+# constant from the loss: the sums cancel to rounding (3e-8 of
 # the sums of the rows' magnitudes in float32, 1.3e-4 to 1.7e-4 with bf16
 # compute, on the CPU at the flagship's widths), so the bias's gradient
 # cosine to the plain path's is a cosine of noise (-0.038 to 0.33 on the
@@ -92,12 +93,16 @@ C3_RATIO = 2.0
 # a forward that loses the VJP-mode maxima of 64 of the smoke's 14,080
 # receivers read 2.5e-3 to 3.1e-3, of 704 of them 1.9e-2 to 3.7e-2
 # (tests/test_torch_gpu.py), of 64 of 400 on the CPU 5e-2 to 9e-2
-# (tests/test_torch_smoke_pointgnn.py)
+# (tests/test_torch_smoke_pointgnn.py). MPNNConv's bias at the smoke's
+# size read 3.8e-5 to 4.9e-5 on the card, its gradient itself 2.8e-5 to
+# 3.6e-5 of the magnitudes
 BIAS_GRAD_RTOL = 5e-4
 
 
 def bias_names(model) -> List[str]:
-    """Each conv's pre-MLP bias, the broadcast offset's parameter."""
+    """Each conv's pre-MLP bias, the hoisted offset's parameter (the
+    offset itself broadcast over the nodes for RadarPointGNNConv, added to
+    `x @ W_r` for MPNNConv)."""
     return [f"conv_{i}.pre_mlp.lin_0.bias" for i in range(model.num_conv)]
 
 
@@ -162,7 +167,10 @@ def check_offset_grads(dev, arch, batch, seed: int, label: str,
     """Each conv's pre-MLP bias gradient at the seeded weights, the kernel
     path against the plain path: their difference over its scale before
     cancellation (BIAS_GRAD_RTOL), beside the bias gradient's own size
-    over that scale and the two gradients' cosine (reported)."""
+    over that scale and the two gradients' cosine (reported). Either conv
+    type: the bias takes the column sums of the hoisted offset's gradient
+    (RadarPointGNNConv's broadcast bias, MPNNConv's `x @ W_r + bias`), and
+    the BatchNorm after each conv cancels them alike."""
     cfg = UserConfigurationReader.read_config_file(sm.FLAGSHIP_CONFIG)
     train_cfg = UserConfigurationReader.get_config_object("TRAINING", cfg)
     trainer = Trainer(train_cfg, DetNet(arch, device=dev, seed=seed))
@@ -190,8 +198,8 @@ def check_offset_grads(dev, arch, batch, seed: int, label: str,
                     "cancelled_to": float(v.norm()) / norm,
                     "cosine": float(torch.nn.functional.cosine_similarity(
                         u, v, dim=0))})
-    out(f"{label} pre-MLP biases (the sums of the broadcast offset's "
-        "gradient), kernel vs plain path over the sum of the rows' "
+    out(f"{label} pre-MLP biases (the column sums of the hoisted offset's "
+        "gradient), kernel vs plain path over the sums of the rows' "
         "magnitudes: " + ", ".join(
             f"{r['param']} {r['rel_diff']:.2e} (the bias gradient itself "
             f"{r['cancelled_to']:.2e}, cosine {r['cosine']:.3f})"

@@ -1715,15 +1715,27 @@ def test_smoke_on_card():
     # B4's landing in the variant knobs' training, B1 and B2 in the
     # training at r_tile 8 (two steps each); the model paths' entries count
     # each path's training twice: the MPNN run's and the Radar-PointGNN
-    # phase's (smoke_pointgnn)
+    # phase's (smoke_pointgnn); the dense path's also the invariance
+    # phase's two trainings ("en" and "none", smoke_invariance); and the
+    # tenth phase's RadarPointGNNConv halo runs over both ranks (2 steps
+    # and a request of 5 layers on each: the projection 15 a rank and run,
+    # the gather-max 15, the backward 10), halo x dense and halo x windowed
+    halo = 2 * (2 + 1) * 5
     assert [k["launches"] for k in summary["kernels"]] == \
-        [2 * 3 * 5 * 2 + cli[11], 2 * 5 * 2 + cli[0], 2 * 5 * 2 + cli[1],
-         2 * 2 * 5 * 2, 2 * 5 * 2, 2 * 5 * 2, 2 * 5 * 2, 2 * 5 * 2, 1,
+        [(2 * 3 + 2) * 5 * 2 + 2 * halo + cli[11],
+         4 * 5 * 2 + halo + cli[0], 4 * 5 * 2 + 2 * 2 * 5 + cli[1],
+         2 * 2 * 5 * 2, 2 * 5 * 2 + halo, 2 * 5 * 2 + 2 * 2 * 5, 2 * 5 * 2,
+         2 * 5 * 2, 1,
          1 + 3 + 1, 2, 1, 5 * 2, 5 * 2, 5 * 2, 5 * 2, 5 * 2, 5 * 2]
     pointgnn = summary["pointgnn"]
     for path in pointgnn["paths"].values():
         assert path["shapes"] == [(224, 16, 240)] * 5
         assert path["c3"]["median_ratio"] <= 2.0
+    for cfg in summary["invariance"]["configs"].values():
+        assert cfg["shapes"] == [(224, 16, 464)] * 3 + [(128, 16, 272),
+                                                        (64, 16, 144)]
+        assert cfg["evaluation"]["oracle"]["map"] == 1.0
+    assert summary["invariance"]["configs"]["en"]["native_ppf"]["built"]
     assert summary["serve_launches"] == [5 * 3] + [0] * 10 + [5 * 3, 0, 0,
                                                               0]
     assert summary["radius"]["serve_launches"] == \
@@ -2157,3 +2169,43 @@ def test_pointgnn_bias_check_refuses_dropped_maxima_on_the_card():
          "rel_diff_by_receivers_dropped": got}))
     assert max(got[0]) <= sp.BIAS_GRAD_RTOL
     assert min(got[64] + got[704]) > sp.BIAS_GRAD_RTOL
+
+
+@pytest.mark.gpu
+def test_en_model_forward_on_the_card_matches_its_plain_path():
+    """The E(n)-invariant model (the flagship configuration with the
+    fields of `smoke.INVARIANCES["en"]` replaced: 4 node columns, the 4
+    point-pair edge columns, angles up to 180 degrees) served on the card
+    at 2 x 512 points: its forward launches B1's projection and gather-max
+    once a layer and nothing else, and its class probabilities and boxes
+    stay within the smoke's model limits of the plain path on the same
+    weights and batch (`smoke.MODEL_ATOL_PROB`, `MODEL_RTOL_BOX`)."""
+    _need_card()
+    from radargnn_tpu_torch.postprocess.inference import Predictor
+
+    arch, model, loader = smoke.flagship_serving("cuda", 512, 2, 1, 0,
+                                                 invariance="en")
+    assert (arch.node_feature_dimension, arch.edge_feature_dimension) == \
+        (4, 4)
+    batch = loader[0]
+    assert float(batch.edge_feat[batch.edge_mask][:, 1:].max()) > 90.0
+    predictor = Predictor(model, loader, verbose=False)
+    predictor.forward(batch)                    # builds the kernels
+    for c in smoke._counters():
+        c.launches = 0
+    prob, box = predictor.forward(batch)
+    launches = dict(zip(smoke.KERNEL_NAMES,
+                        [c.launches for c in smoke._counters()]))
+    assert {k: v for k, v in launches.items() if v} == {
+        "dense_proj_v4": 5, "dense_fwd_v4": 5}
+    with smoke._plain_kernels():
+        ref_prob, ref_box = predictor.forward(batch)
+    mask = batch.node_mask.reshape(-1)
+    d_prob = float((prob[mask] - ref_prob[mask]).abs().max())
+    d_box = float(((box[mask] - ref_box[mask]).abs()
+                   / (1.0 + ref_box[mask].abs())).max())
+    print(f"en model on the card vs its plain path: max |dprob| {d_prob:.3e}"
+          f", max |dbox|/(1+|box|) {d_box:.3e}; {smoke.card_description()}")
+    assert torch.isfinite(prob).all() and torch.isfinite(box).all()
+    assert d_prob <= smoke.MODEL_ATOL_PROB
+    assert d_box <= smoke.MODEL_RTOL_BOX

@@ -56,7 +56,7 @@ from tests.test_halo_dense import DENSE
 from tests.test_halo_training import CSR, HALO, _arch, _samples
 
 import torch_parallel_workers as W
-from torch_threads import few_threads  # noqa: F401
+from torch_threads import THREADS, few_threads  # noqa: F401
 
 TILINGS = {"dense": DENSE, "windowed": CSR}
 LR = 1e-3
@@ -496,27 +496,87 @@ def _cli_trains_under_mesh_axes(tmp_path, replaced):
         ttrain.main(data, str(results), config, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def mpnn_phase():
+    """The smoke's tenth phase's MPNNConv runs at 2 x 512 points (the size
+    of the RadarPointGNNConv rehearsal, tests/test_torch_smoke_parallel_
+    pointgnn.py, whose readings set the bias check's limits: at 2 x 96 one
+    conv's offset magnitudes read 1.03e-2 from the single card's, a bf16
+    rounding of a next-layer input flipped among 192 rows), with the inputs
+    each run's bias check took (on `few_threads`' thread count: a module's
+    fixture comes before a test's)."""
+    from radargnn_tpu_torch import smoke_parallel as sp
+
+    checked = []
+    real = sp.bias_check
+
+    def spy(*args):
+        checked.append(args)
+        return real(*args)
+
+    lines = []
+    was = torch.get_num_threads()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sp, "bias_check", spy)
+        mp.setenv("OMP_NUM_THREADS", str(THREADS))
+        torch.set_num_threads(THREADS)
+        try:
+            res = sp.parallel_phase("cpu", points=512, graphs=2,
+                                    run_children=False, convs=("MPNNConv",),
+                                    out=lines.append)
+        finally:
+            torch.set_num_threads(was)
+    return res, lines, checked, real
+
+
 @pytest.mark.usefixtures("few_threads")
-def test_parallel_phase_rehearses_on_cpu():
-    """The smoke's tenth phase (`smoke_parallel.parallel_phase`) at a tiny
+def test_parallel_phase_rehearses_on_cpu(mpnn_phase):
+    """The smoke's tenth phase (`smoke_parallel.parallel_phase`) at a small
     size with gloo ranks on the CPU, where the wrappers take their plain
     versions and launch nothing: halo x dense and halo x windowed on a
     {"model": 2} mesh, each rank's aggregate equal to the single device's,
     two steps within the training limits, the request within the serving
-    limit. Its child processes (the scaling tool, the dry run, the train
-    CLI under torchrun) run on the card only."""
+    limit, each conv's offset bias (MPNNConv's `x @ W_r + bias`) at each
+    step within the bias check's limits and printed. Its child processes
+    (the scaling tool, the dry run, the train CLI under torchrun) run on
+    the card only."""
     from radargnn_tpu_torch import smoke_parallel as sp
+    from radargnn_tpu_torch.smoke_pointgnn import BIAS_GRAD_RTOL
 
-    lines = []
-    res = sp.parallel_phase("cpu", points=96, graphs=2, run_children=False,
-                            convs=("MPNNConv",), out=lines.append)
+    res, lines, checked, _ = mpnn_phase
     assert [(r["graph"], r["backend"]) for r in res["runs"]] == [
         ("knn", "gloo"), ("radius", "gloo")]
     for r in res["runs"]:
         assert r["agg_bitwise"] and len(r["step_agreement"]) == 2
         assert r["launches"] == {"agg": {}, "train": {}, "request": {}}
+        assert [(b["step"], b["param"]) for b in r["bias"]] == [
+            (i, f"conv_{k}.pre_mlp.lin_0.bias")
+            for i in range(2) for k in range(5)]
+        for b in r["bias"]:
+            assert b["rel_diff"] <= BIAS_GRAD_RTOL
+            assert b["scale_rel"] <= sp.BIAS_SCALE_RTOL
+            # the trainer's sum over the ranks is the ranks' parts summed
+            assert b["parts_vs_sum"] <= 1e-6
+    assert len(checked) == 2
+    assert sum("pre-MLP biases" in line for line in lines) == 2
     assert r["geometry"][5:7] == (1, 2) and lines[-1].startswith(
         "parallel phase on cpu: 2 runs")
+
+
+@pytest.mark.usefixtures("few_threads")
+@pytest.mark.parametrize("key", ["grads", "rows"])
+def test_mpnn_bias_check_fails_without_the_sum_over_ranks(mpnn_phase, key):
+    """The MPNNConv runs' bias check on each run's own inputs, with the sum
+    over the ranks dropped from the bias gradient (rank 0's own part) or
+    from the offset gradient's magnitudes (rank 0's rows alone): it raises
+    on both runs, where the sound inputs passed."""
+    from test_torch_smoke_parallel_pointgnn import _without_rank_sum
+
+    _, _, checked, bias_check = mpnn_phase
+    for dev, arch, batch, job, res in checked:
+        assert job["conv"] == "MPNNConv"
+        with pytest.raises(AssertionError, match="pre-MLP biases"):
+            bias_check(dev, arch, batch, job, _without_rank_sum(res, key))
 
 
 @pytest.mark.parametrize("tiling", [{"mode": "dense", "node_block": 16,

@@ -218,6 +218,13 @@ def test_smoke_rehearses_on_cpu():
     assert losses.shape == (4, 3) and np.isfinite(losses).all()
     assert summary["train_max_rel_loss_diff"] == 0.0
     assert losses[-1, 0] < losses[0, 0]
+    # the kNN path's MPNNConv offset biases against the plain path (equal
+    # here), their gradients cancelled under the BatchNorm after each conv
+    assert [b["param"] for b in summary["bias_grads"]] == [
+        f"conv_{i}.pre_mlp.lin_0.bias" for i in range(5)]
+    assert all(b["rel_diff"] == 0.0 and b["cancelled_to"] < 1e-2
+               for b in summary["bias_grads"])
+    assert any(s.startswith("kNN pre-MLP biases") for s in lines)
     last = json.loads(lines[-1])
     assert last["per_shape"] == summary["per_shape"]
     radius = summary["radius"]
